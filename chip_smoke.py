@@ -1,33 +1,57 @@
-"""Drive the PyTorch/CUDA port's MQ serving path once on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's MQ serving and training paths once on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
-Phases, one line each (any failure exits non-zero at once, no CPU fallback):
-  1. device    card name, capability (must be 9.0), nvidia-smi name and
-               power limit
-  2. build     nvcc build of every kernel in vilco_tpu_torch/csrc (seconds,
-               or "cached"), registers and spills from ptxas
-  3. kernels   each hand-written kernel against its plain PyTorch version
-               at every shape the flagship calls it with, batch 16, ragged
-               masks plus one fully masked row, bf16 and f32 (TF32 off):
-               max error beside its tolerance, median ms of both
-  4. parity    flagship_config() at batch 1 in f32, the card with its
-               kernels against the CPU with the plain versions, same
-               weights and inputs: max relative error of the head outputs
-  5. serve     batch 16 in bf16, 2 warm-up and 5 timed requests through
-               forward + decode_and_nms_batch: clips/s, ms per request,
-               peak memory, detections per clip, kernel launch counts
-  6. trace     one more request with torch.profiler on:
-               forward and decode+NMS each profiled alone, each with its
-               host ms (profiled and unprofiled, this run), device kernel
-               ms and idle share (1 - device/host, both from the profiled
-               call), device ms by kernel kind and the top kernels
-Then one JSON line with the kernels, and as the last line
-{"ok": true, "device": {...}}.
+Phases, one or more lines each (any failure exits non-zero at once, no CPU
+fallback):
+  1. device        card name, capability (must be 9.0), nvidia-smi name and
+                   power limit
+  2. build         nvcc build of every kernel in vilco_tpu_torch/csrc, the
+                   files side by side (seconds), registers and spills
+  3. kernels       each serving (forward) kernel against its plain PyTorch
+                   version at every shape the flagship serves, batch 16,
+                   ragged masks plus one fully masked row, bf16 and f32
+                   (TF32 off): max error beside its tolerance, median ms of
+                   kernel, plain version and library call, and the bound
+  4. parity        flagship_config() at batch 1 in f32, forward on the card
+                   with its kernels against the CPU with the plain versions:
+                   max relative error of the head outputs, and a TF32
+                   control that must read above the limit
+  5. serve         batch 16 in bf16, 2 warm-up and 5 timed requests through
+                   forward + decode_and_nms_batch: clips/s, ms per request,
+                   peak memory, detections per clip, kernel launch counts
+  6. trace         one more request with torch.profiler: forward and
+                   decode+NMS each profiled alone, host ms (profiled and
+                   unprofiled), device ms, idle share, ms by kernel kind
+  7. train_kernels each training kernel (attention, XL and conv backward,
+                   XL forward with dropout at rate 0 and 0.1, AdamW) against
+                   its plain version at the shapes of the flagship's train
+                   step, batch 2, bf16 and f32, plus the XL backward's
+                   inverse shift at odd lengths: error, tolerance, ms, bound,
+                   library ms
+  8. train_parity  one flagship train step at batch 1 in f32 (regularisers
+                   off), the card against the CPU from the same weights and
+                   batch: loss, clipped grad norm, max relative error of the
+                   gradients, updated parameters and AdamW moments, and a
+                   TF32 control that must read above the gradient limit;
+                   the same step on the card through the plain versions
+                   splits the gap into the kernels' share and the
+                   libraries' (cuBLAS/cuDNN vs CPU) share
+  9. train         the flagship train step in bf16 with f32 masters,
+                   drop-path and XL dropout on, batch 2, T=1024, on a fixed
+                   batch: 2 warm-up and 10 timed steps, ms per step split
+                   into forward / backward / optimizer, steps/s, clips/s,
+                   peak memory, every loss, launch counts per kernel
+ 10. trace         one more train step profiled: device ms by kernel kind,
+                   the top kernels and the idle share
+Every timing line carries the card's name and power limit. Then one JSON
+line with the kernels, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
@@ -37,14 +61,35 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 B_SERVE = 16
+B_TRAIN = 2          # the flagship's loader.batch_size
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}  # atol, rtol
 # f32 on both sides reads ~6e-6 (summation order over ~30 layers); TF32 in
 # the card's GEMMs and convs reads ~1e-3, so 2e-5 tells the two apart. The
 # parity phase runs that TF32 control and fails if the check cannot see it.
 PARITY_RTOL = 2e-5
+
+
+# published dense peaks of one H100 SXM (NVIDIA's data sheet)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+CARD = ""            # nvidia-smi's name and power limit, set by phase_device
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple:
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the dtype's peak and the bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def say(line: str) -> None:
+    """Print a result line with the card's name and power limit beside it."""
+    print(line if CARD in line else f"{line} [{CARD}]")
 
 
 def fail(msg: str) -> None:
@@ -101,6 +146,8 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     print(f"[device] {name} capability {cap[0]}.{cap[1]} count "
           f"{torch.cuda.device_count()}")
     print(f"[device] nvidia-smi: {smi}")
@@ -114,15 +161,15 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = _build.load_all()
-    print(f"[build] {len(libs)} libraries ready in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    say(f"[build] {len(libs)} libraries ready in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
     for name, lib in libs.items():
         when = ("cached" if lib.build_seconds is None
                 else f"built in {lib.build_seconds:.2f} s")
-        print(f"[build] {name}.cu: {when}")
+        say(f"[build] {name}.cu: {when}")
         for ln in lib.ptxas_log.splitlines():
             if "Compiling entry" in ln or "Used" in ln or "spill" in ln:
-                print(f"[build]   {ln.split(':', 1)[-1].strip()}")
+                say(f"[build]   {ln.split(':', 1)[-1].strip()}")
 
 
 def phase_kernels(dev):
@@ -154,7 +201,7 @@ def phase_kernels(dev):
         a = rng.standard_normal(shape).astype(np.float32) * scale
         return torch.from_numpy(a).to(dev, dtype)
 
-    def run(key, label, dtype, kern, plain, shape_key):
+    def run(key, label, dtype, kern, plain, shape_key, work, library=None):
         nonlocal all_ok
         out = kern()
         ref = plain()
@@ -163,21 +210,32 @@ def phase_kernels(dev):
         if key != "dw" and out[-1].abs().max().item() != 0.0:
             fail(f"{label}: the fully masked row is not 0")
         ms, pms = median_ms(kern), median_ms(plain)
+        lms = median_ms(library) if library is not None else None
+        bms, by = bound(*work, dtype)
         all_ok &= ok
-        print(f"[kernels] {label} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-              f"({tol}) {'ok' if ok else 'OUT OF TOLERANCE'}; "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        say(f"[kernels] {label} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+            f"({tol}) {'ok' if ok else 'OUT OF TOLERANCE'}; "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+            f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
+            f"{bms:.4f} ms ({by}) [{CARD}]")
         if dtype == torch.bfloat16 and shape_key:
-            top[key] = (ms, pms)
+            top[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                            bound_ms=bms, bound_by=by)
 
     for dtype in (torch.bfloat16, torch.float32):
         # K1: stem at T0, then each branch block's strided length
         for T in [T0] + [T0 >> (i + 1) for i in range(nb)]:
             q, k, v = (randn(B_SERVE, T, C, dtype=dtype) for _ in range(3))
             m = ragged_mask(rng, B_SERVE, T, dev)
+            bh = lambda x: x.reshape(B_SERVE, T, H, D).transpose(1, 2)
+            qh, kh, vh = bh(q), bh(k), bh(v)
+            am = m[:, None, None, :]
             run("attn", f"fused_attention_blc B={B_SERVE} T={T} C={C} H={H}",
                 dtype, lambda: fused_attention_blc(q, k, v, m, H),
-                lambda: fused_attention_blc_plain(q, k, v, m, H), T == T0)
+                lambda: fused_attention_blc_plain(q, k, v, m, H), T == T0,
+                attention_work(T, m, C, dtype, backward=False),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=am))
         # K2: the XL stage at T0
         q, k, v = (randn(B_SERVE, T0, H, D, dtype=dtype) for _ in range(3))
         r = randn(2 * T0, H, D, dtype=dtype)
@@ -185,14 +243,19 @@ def phase_kernels(dev):
         m = ragged_mask(rng, B_SERVE, T0, dev)
         run("xl", f"xl_rel_attention B={B_SERVE} T={T0} H={H} D={D}", dtype,
             lambda: xl_rel_attention(q, k, v, r, rwb, rrb, m),
-            lambda: xl_rel_attention_plain(q, k, v, r, rwb, rrb, m), True)
+            lambda: xl_rel_attention_plain(q, k, v, r, rwb, rrb, m), True,
+            xl_work(T0, m, C, dtype, backward=False))
         # K3: stride 1 in the stem, stride 2 on each branch block's input
         w = randn(3, 3, C, dtype=dtype, scale=0.3)
+        wg = w.float().permute(2, 0, 1).reshape(3 * C, 1, 3).to(dtype)
         for T, s in [(T0, 1)] + [(T0 >> i, 2) for i in range(nb)]:
             x = randn(B_SERVE, T, C, dtype=dtype)
+            xt = x.transpose(1, 2)
             run("dw", f"fused_dwconv_qkv B={B_SERVE} T={T} C={C} stride={s}",
                 dtype, lambda: fused_dwconv_qkv(x, w, s),
-                lambda: fused_dwconv_qkv_plain(x, w, s), T == T0 and s == 1)
+                lambda: fused_dwconv_qkv_plain(x, w, s), T == T0 and s == 1,
+                dwconv_work(B_SERVE, T, C, s, dtype, backward=False),
+                lambda: F.conv1d(xt, wg, stride=s, padding=1, groups=C))
         del q, k, v, r, x
         torch.cuda.empty_cache()
     if not all_ok:
@@ -207,7 +270,8 @@ def phase_parity(dev):
     cfg = flagship_config().model
     rng = np.random.default_rng(SEED + 1)
     model = PointTransformer(
-        cfg, generator=torch.Generator().manual_seed(SEED)).eval()
+        cfg, generator=torch.Generator().manual_seed(SEED),
+        device="cpu").eval()
     x = torch.from_numpy(rng.standard_normal(
         (1, cfg.max_seq_len, cfg.input_dim)).astype(np.float32))
     mask = ragged_mask(rng, 2, cfg.max_seq_len, "cpu")[:1]
@@ -235,10 +299,10 @@ def phase_parity(dev):
         rel = rel_err(out[key], ref[key])
         worst = max(worst, rel)
         control = max(control, rel_err(tf32[key], ref[key]))
-        print(f"[parity] {key} {tuple(ref[key].shape)} f32 card vs CPU: max "
-              f"rel err {rel:.3e} (tol {PARITY_RTOL:g})")
-    print(f"[parity] control, TF32 allowed on the card: max rel err "
-          f"{control:.3e} (must exceed tol {PARITY_RTOL:g})")
+        say(f"[parity] {key} {tuple(ref[key].shape)} f32 card vs CPU: max "
+            f"rel err {rel:.3e} (tol {PARITY_RTOL:g})")
+    say(f"[parity] control, TF32 allowed on the card: max rel err "
+        f"{control:.3e} (must exceed tol {PARITY_RTOL:g})")
     if not torch.equal(out["fpn_mask"].cpu(), ref["fpn_mask"]):
         fail("parity fpn_mask differs")
     if worst > PARITY_RTOL:
@@ -264,8 +328,8 @@ def phase_serve(dev):
     full = flagship_config()
     cfg, t = full.model, full.test_cfg
     model = PointTransformer(
-        cfg, generator=torch.Generator().manual_seed(SEED)).eval()
-    model = model.to(dev, torch.bfloat16)
+        cfg, generator=torch.Generator().manual_seed(SEED),
+        device=dev).eval().to(torch.bfloat16)
     points = torch.from_numpy(generate_points(
         level_lengths(cfg), cfg.fpn_strides, cfg.regression_range)).to(dev)
     class_mask = torch.ones(cfg.num_classes, dtype=torch.bool, device=dev)
@@ -326,13 +390,13 @@ def phase_serve(dev):
             fail("detection scores are not sorted")
     n_valid = torch.stack([d.valid.sum(1) for d in dets]).float()
     n_req = len(dets)
-    print(f"[serve] batch {B_SERVE} bf16, {n_req} timed requests: "
-          f"{n_req * B_SERVE / wall:.3f} clips/s, {wall / n_req * 1e3:.3f} "
-          f"ms/request (forward median {statistics.median(fwd):.3f} ms, "
-          f"decode+NMS median {statistics.median(post):.3f} ms)")
-    print(f"[serve] peak memory {peak:.3f} GiB; valid detections per clip "
-          f"mean {n_valid.mean().item():.2f} min {n_valid.min().item():.0f}")
-    print(f"[serve] launches in the {len(requests)} requests: {launches}")
+    say(f"[serve] batch {B_SERVE} bf16, {n_req} timed requests: "
+        f"{n_req * B_SERVE / wall:.3f} clips/s, {wall / n_req * 1e3:.3f} "
+        f"ms/request (forward median {statistics.median(fwd):.3f} ms, "
+        f"decode+NMS median {statistics.median(post):.3f} ms) [{CARD}]")
+    say(f"[serve] peak memory {peak:.3f} GiB; valid detections per clip "
+        f"mean {n_valid.mean().item():.2f} min {n_valid.min().item():.0f}")
+    say(f"[serve] launches in the {len(requests)} requests: {launches}")
     if min(launches.values()) < 1:
         fail("a kernel of the path was never launched")
     feats, mask = requests[-1]
@@ -344,9 +408,530 @@ def phase_serve(dev):
     return launches
 
 
+def attention_work(T, m, C, dtype, backward):
+    """(flops, bytes) the attention needs: q.k and p.v for every valid key
+    (x 2.5 for the backward: s, dP, dV, dK, dQ), q/k/v/out read or written
+    once (the backward also reads out and dout and writes dq/dk/dv)."""
+    pairs = T * int(m.sum())
+    el = torch.empty((), dtype=dtype).element_size()
+    B = m.shape[0]
+    if backward:
+        return 10 * C * pairs, 8 * B * T * C * el
+    return 4 * C * pairs, 4 * B * T * C * el + m.numel()
+
+
+def xl_work(T, m, C, dtype, backward):
+    """(flops, bytes) of the XL core: content and shifted position scores
+    and p.v for every valid key (the backward: scores, dP, dv, dk, both dq
+    terms, dr), inputs read and outputs written once."""
+    pairs = T * int(m.sum())
+    el = torch.empty((), dtype=dtype).element_size()
+    B = m.shape[0]
+    if backward:
+        return 16 * C * pairs, (8 * B * T * C + 4 * T * C) * el
+    return 6 * C * pairs, (4 * B * T * C + 2 * T * C) * el + m.numel()
+
+
+def dwconv_work(B, T, C, s, dtype, backward):
+    To = (T - 1) // s + 1
+    el = torch.empty((), dtype=dtype).element_size()
+    if backward:
+        return 36 * B * To * C, (2 * B * T * C + 3 * B * To * C) * el
+    return 18 * B * To * C, (B * T * C + 3 * B * To * C) * el
+
+
+def output_errors(names, got, want, tol):
+    """One row per output: (name, max abs error, its limit tol x max(1,
+    max |reference|)). An output may be a list of tensors (AdamW's p, m or
+    v over every leaf), taken as one."""
+    rows = []
+    for name, a, b in zip(names, got, want):
+        a = a if isinstance(a, (list, tuple)) else [a]
+        b = b if isinstance(b, (list, tuple)) else [b]
+        err, ref = 0.0, 0.0
+        for x, y in zip(a, b):
+            x, y = x.float(), y.float()
+            if x.shape != y.shape or not torch.isfinite(x).all():
+                fail(f"{name}: shape {tuple(x.shape)} vs {tuple(y.shape)} "
+                     "or non-finite")
+            err = max(err, (x - y).abs().max().item())
+            ref = max(ref, y.abs().max().item())
+        rows.append((name, err, tol * max(1.0, ref)))
+    return rows
+
+
+def grads_of(fn, inputs, g):
+    xs = [x.detach().clone().requires_grad_() if x.is_floating_point()
+          else x for x in inputs]
+    out = fn(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    torch.autograd.backward(outs, g if isinstance(g, tuple) else (g,))
+    return [x.grad for x in xs if x.is_floating_point()]
+
+
+def backward_timer(fn, inputs, g):
+    """A closure running only the backward of fn at inputs (graph kept)."""
+    xs = [x.detach().clone().requires_grad_() if x.is_floating_point()
+          else x for x in inputs]
+    out = fn(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    leaves = [x for x in xs if x.is_floating_point()]
+    gs = g if isinstance(g, tuple) else (g,)
+    return lambda: torch.autograd.grad(outs, leaves, gs, retain_graph=True)
+
+
+# training-kernel tolerances, each output against tol x max(1, its own
+# largest reference value): f32 summation order and f32 atomics; bf16
+# inputs and outputs rounded and the backward reading the bf16 forward
+# output (dw and the XL bias gradients sum over batch and time and are
+# ~30-200x larger than dx or dq, so one pooled limit would hide those)
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def phase_train_kernels(dev):
+    from vilco_tpu_torch.core.config import flagship_config
+    from vilco_tpu_torch.kernels.adamw import (
+        LeafTable,
+        adamw_update_multi,
+        adamw_update_plain,
+    )
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        attention_fwd_cuda,
+        fused_attention_blc,
+        fused_attention_blc_plain,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+        fused_dwconv_qkv_plain,
+    )
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_fwd_cuda,
+        xl_rel_attention,
+        xl_rel_attention_plain,
+    )
+    from vilco_tpu_torch.models.point_transformer import PointTransformer
+
+    cfg = flagship_config().model
+    T0, C, H = cfg.max_seq_len, cfg.embd_dim, cfg.n_head
+    D = C // H
+    nb = cfg.num_branch_layers
+    B = B_TRAIN
+    rng = np.random.default_rng(SEED + 3)
+    errs = {k: [] for k in ("attn_bwd", "xl_fwd", "xl_bwd", "dw_bwd",
+                            "adamw")}
+    top = {}
+    all_ok = True
+
+    def randn(*shape, dtype, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev, dtype)
+
+    def report(key, label, dtype, names, got, want, kern, plain, work,
+               library=None, is_top=False, tol=None, reps=10):
+        """Each output against its own limit; then the times."""
+        nonlocal all_ok
+        torch.cuda.synchronize()
+        tol = TRAIN_TOL[dtype] if tol is None else tol
+        rows = output_errors(names, got, want, tol)
+        ok = all(err <= lim for _, err, lim in rows)
+        all_ok &= ok
+        errs[key].append(max(err for _, err, _ in rows))
+        ms = median_ms(kern, reps=reps)
+        pms = median_ms(plain, reps=reps)
+        lms = median_ms(library, reps=reps) if library is not None else None
+        bms, by = bound(*work, dtype)
+        say(f"[train_kernels] {label} {str(dtype)[6:]}: max_abs_err (limit "
+            f"{tol:g} x max(1, max|ref|)) "
+            + ", ".join(f"{n} {e:.3e} ({lim:.3e})" for n, e, lim in rows)
+            + f" {'ok' if ok else 'OUT OF TOLERANCE'}; kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, library "
+            f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
+            f"{bms:.4f} ms ({by}) [{CARD}]")
+        if is_top:
+            top[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                            bound_ms=bms, bound_by=by)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        # K1-bwd: the two stems at T0, then each branch block's length
+        for T in [T0] + [T0 >> (i + 1) for i in range(nb)]:
+            q, k, v, g = (randn(B, T, C, dtype=dtype) for _ in range(4))
+            m = ragged_mask(rng, B, T, dev)
+            got = grads_of(lambda *a: fused_attention_blc(*a, m, H),
+                           (q, k, v), g)
+            if any(x[-1].abs().max().item() != 0 for x in got):
+                fail(f"attention backward T={T}: fully masked row not 0")
+            want = grads_of(lambda *a: fused_attention_blc_plain(*a, m, H),
+                            (q, k, v), g)
+            out, lse = attention_fwd_cuda(q, k, v, m, H, with_lse=True)
+            bh = lambda x: x.reshape(B, T, H, D).transpose(1, 2)
+            am = m[:, None, None, :]
+            report("attn_bwd", f"attention backward B={B} T={T} C={C} H={H}",
+                   dtype, ("dq", "dk", "dv"), got, want,
+                   lambda: attention_bwd_cuda(q, k, v, m, out, lse, g, H),
+                   backward_timer(
+                       lambda *a: fused_attention_blc_plain(*a, m, H),
+                       (q, k, v), g),
+                   attention_work(T, m, C, dtype, backward=True),
+                   backward_timer(
+                       lambda a, b, c: F.scaled_dot_product_attention(
+                           bh(a), bh(b), bh(c), attn_mask=am),
+                       (q, k, v), bh(g)),
+                   is_top=dtype == torch.bfloat16 and T == T0)
+        # K2 forward with dropout and K2-bwd at rate 0 and 0.1, T0
+        q, k, v, g = (randn(B, T0, H, D, dtype=dtype) for _ in range(4))
+        r = randn(2 * T0, H, D, dtype=dtype)
+        rwb, rrb = (randn(H, D, dtype=dtype, scale=0.1) for _ in range(2))
+        m = ragged_mask(rng, B, T0, dev)
+        args = (q, k, v, r, rwb, rrb, m)
+        seed = 0x243F6A8885A308D3
+        st = torch.tensor([seed], dtype=torch.int64, device=dev)
+        for rate in (0.0, 0.1):
+            label = f"B={B} T={T0} H={H} D={D} rate {rate}"
+            out = xl_rel_attention(*args, seed, rate)
+            ref = xl_rel_attention_plain(*args, seed=seed, rate=rate)
+            if out[-1].abs().max().item() != 0:
+                fail("XL forward: fully masked row not 0")
+            report("xl_fwd", f"xl_rel_attention forward {label}", dtype,
+                   ("out",), [out], [ref],
+                   lambda: xl_fwd_cuda(args, st, rate, with_lse=False),
+                   lambda: xl_rel_attention_plain(*args, seed=seed,
+                                                  rate=rate),
+                   xl_work(T0, m, C, dtype, backward=False),
+                   is_top=dtype == torch.bfloat16 and rate > 0)
+            got = grads_of(lambda *a: xl_rel_attention(*a, seed, rate),
+                           args, g)
+            want = grads_of(lambda *a: xl_rel_attention_plain(
+                *a, seed=seed, rate=rate), args, g)
+            out, lse = xl_fwd_cuda(args, st, rate, with_lse=True)
+            report("xl_bwd", f"xl_rel_attention backward {label}", dtype,
+                   ("dq", "dk", "dv", "dr", "d_r_w_bias", "d_r_r_bias"),
+                   got, want,
+                   lambda: xl_bwd_cuda(args, out, lse, g, st, rate),
+                   backward_timer(lambda *a: xl_rel_attention_plain(
+                       *a, seed=seed, rate=rate), args, g),
+                   xl_work(T0, m, C, dtype, backward=True),
+                   is_top=dtype == torch.bfloat16 and rate > 0)
+        del q, k, v, g, r, out, lse, got, want
+        # K3-bwd: stride 1 in the stem, stride 2 on each branch's input
+        w = randn(3, 3, C, dtype=dtype, scale=0.3)
+        wg = w.float().permute(2, 0, 1).reshape(3 * C, 1, 3).to(dtype)
+        for T, s in [(T0, 1)] + [(T0 >> i, 2) for i in range(nb)]:
+            x = randn(B, T, C, dtype=dtype)
+            To = (T - 1) // s + 1
+            gs = tuple(randn(B, To, C, dtype=dtype) for _ in range(3))
+            got = grads_of(lambda a, b: fused_dwconv_qkv(a, b, s), (x, w), gs)
+            want = grads_of(lambda a, b: fused_dwconv_qkv_plain(a, b, s),
+                            (x, w), gs)
+            # the grouped conv's output interleaves q, k, v per channel
+            gcat = torch.stack(gs, -1).reshape(B, To, 3 * C).transpose(1, 2)
+            report("dw_bwd", f"dwconv backward B={B} T={T} C={C} stride={s}",
+                   dtype, ("dx", "dw"), got, want,
+                   lambda: dwconv_bwd_cuda(x, w, *gs, s),
+                   backward_timer(lambda a, b: fused_dwconv_qkv_plain(a, b, s),
+                                  (x, w), gs),
+                   dwconv_work(B, T, C, s, dtype, backward=True),
+                   backward_timer(lambda a, b: F.conv1d(
+                       a.transpose(1, 2), b, stride=s, padding=1, groups=C),
+                       (x, wg), gcat),
+                   is_top=dtype == torch.bfloat16 and T == T0 and s == 1)
+        torch.cuda.empty_cache()
+
+    # the XL backward's inverse shift (d_raw[i, T + j - i] += d_ac[i, j]) at
+    # odd lengths, one to three 64-row tiles, f32, no dropout
+    for T in (37, 101, 131):
+        q, k, v, g = (randn(2, T, 4, 64, dtype=torch.float32)
+                      for _ in range(4))
+        args = (q, k, v, randn(2 * T, 4, 64, dtype=torch.float32),
+                randn(4, 64, dtype=torch.float32, scale=0.1),
+                randn(4, 64, dtype=torch.float32, scale=0.1),
+                ragged_mask(rng, 2, T, dev))
+        got = grads_of(lambda *a: xl_rel_attention(*a), args, g)
+        want = grads_of(lambda *a: xl_rel_attention_plain(*a), args, g)
+        [(_, err, lim)] = output_errors(("dr",), got[3:4], want[3:4], 1e-4)
+        ok = err <= lim
+        all_ok &= ok
+        say(f"[train_kernels] xl backward inverse shift T={T}: dr max_abs_"
+            f"err {err:.3e} (limit {lim:.3e}) "
+            f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+
+    # K4 over the flagship's leaves (bf16 moments), one launch for all
+    model = PointTransformer(cfg, generator=torch.Generator().manual_seed(
+        SEED), device=dev)
+    ps = [p.data for p in model.parameters()]
+    gr = [torch.randn_like(p) * 1e-3 for p in ps]
+    ms = [(torch.randn_like(p) * 1e-3).to(torch.bfloat16) for p in ps]
+    vs = [(torch.randn_like(p) * 1e-3).square().to(torch.bfloat16)
+          for p in ps]
+    decays = [p.dim() >= 2 for p in ps]
+    coef = torch.tensor([1e-4, 0.271, 0.002997, 0.75], device=dev)
+    want = [adamw_update_plain(p, g, m_, v_, d, *coef)
+            for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)]
+    got = [t.clone() for t in ps], [t.clone() for t in ms], \
+        [t.clone() for t in vs]
+    table = LeafTable(got[0], gr, got[1], got[2], decays)
+    adamw_update_multi(table, coef)
+    n = sum(p.numel() for p in ps)
+    report("adamw", f"adamw_update_multi {len(ps)} leaves {n} params",
+           torch.float32, ("p", "m", "v"), list(got),
+           [list(x) for x in zip(*want)],
+           lambda: adamw_update_multi(table, coef),
+           lambda: [adamw_update_plain(p, g, m_, v_, d, *coef)
+                    for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)],
+           (16 * n, 20 * n), is_top=True, tol=0.0, reps=5)
+    del model, ps, gr, ms, vs, got, want
+    torch.cuda.empty_cache()
+    if not all_ok:
+        fail("a training kernel disagrees with its plain version")
+    return errs, top
+
+
+# f32 train step, card vs CPU: per-leaf gradient error relative to the
+# leaf's largest value (floored at 1e-4 of the largest gradient, for the
+# leaves whose exact gradient is 0); a TF32 control must read above it
+GRAD_RTOL = 2e-3
+PARAM_RTOL = 5e-3
+PARITY_STEP = 4      # the schedule step of the parity update: lr at its peak
+
+
+def rel_by_leaf(got: dict, want: dict, floor_frac: float):
+    """max over leaves of max|got - want| / max|want| per leaf, the
+    denominator floored at floor_frac of the tree's largest |want| (leaves
+    whose exact gradient is 0 hold roundoff only); returns (worst, the
+    three worst leaves)."""
+    floor = floor_frac * max(w.float().abs().max().item()
+                             for w in want.values())
+    errs = sorted((((got[n].float() - w.float()).abs().max()
+                    / max(w.float().abs().max().item(), floor, 1e-30)).item(),
+                   n) for n, w in want.items())[::-1]
+    return errs[0][0], ", ".join(f"{n} {e:.2e}" for e, n in errs[:3])
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The model's three kernel wrappers swapped for their plain versions:
+    a comparison only, which launches none of the port's kernels."""
+    from vilco_tpu_torch.kernels.attention import fused_attention_blc_plain
+    from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv_plain
+    from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention_plain
+    from vilco_tpu_torch.models import layers
+
+    swap = {"fused_attention_blc": fused_attention_blc_plain,
+            "fused_dwconv_qkv": fused_dwconv_qkv_plain,
+            "xl_rel_attention": xl_rel_attention_plain}
+    saved = {n: getattr(layers, n) for n in swap}
+    for n, f in swap.items():
+        setattr(layers, n, f)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(layers, n, f)
+
+
+WITNESS_LEAF = "backbone.embd_1.weight"   # the worst gradient leaf
+
+
+def step_gaps(r, ref):
+    """Relative gaps of one train-step result to another: loss, grad norm,
+    gradients, updated parameters, mu, nu (each (worst, three worst
+    leaves)), and the witness leaf's gradient."""
+    w = ref["grads"][WITNESS_LEAF].float()
+    return dict(
+        loss=abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+        gnorm=abs(r["gnorm"] - ref["gnorm"]) / abs(ref["gnorm"]),
+        grads=rel_by_leaf(r["grads"], ref["grads"], 1e-4),
+        params=rel_by_leaf(r["params"], ref["params"], 1e-4),
+        mu=rel_by_leaf(r["mu"], ref["mu"], 1e-4),
+        nu=rel_by_leaf(r["nu"], ref["nu"], 1e-4),
+        witness=((r["grads"][WITNESS_LEAF].float() - w).abs().max()
+                 / w.abs().max()).item())
+
+
+def phase_train_parity(dev):
+    from vilco_tpu_torch.core.config import flagship_config
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train.engine import (
+        CLBatchExtras,
+        batch_to,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = flagship_config()
+    m = cfg.model
+    pts = generate_points(level_lengths(m), m.fpn_strides, m.regression_range)
+    batch = make_batch(np.random.default_rng(SEED + 4), 1, cfg)
+
+    def run(device, tf32: bool, plain: bool = False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        model = PointTransformer(m, torch.Generator().manual_seed(SEED),
+                                 device=device)
+        st = init_train_state(model, steps_per_epoch=1, seed=SEED,
+                              device=device)
+        st.opt.count = PARITY_STEP
+        if plain:
+            st.opt._table = None        # AdamW through its plain version
+        step = make_train_step(torch.from_numpy(pts).to(device),
+                               regularize=False)
+        cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
+                                      device=device))
+        t0 = time.perf_counter()
+        with plain_versions() if plain else contextlib.nullcontext():
+            met = step(st, batch_to(batch, device), cl)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        named = list(model.named_parameters())
+        mu, nu = st.opt.moments()
+        res = dict(
+            loss=met["final_loss"].item(), gnorm=met["grad_norm"].item(),
+            grads={n: p.grad.cpu() for n, p in named},
+            params={n: p.detach().cpu() for n, p in named},
+            mu={n: t.cpu() for n, t in mu.items()},
+            nu={n: t.cpu() for n, t in nu.items()}, secs=secs)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        del model, st
+        return res
+
+    ref = run("cpu", False)
+    card = run(dev, False)
+    plain = run(dev, False, plain=True)
+    ctrl = run(dev, True)
+    torch.cuda.empty_cache()
+    say(f"[train_parity] one f32 step at batch 1, T={m.max_seq_len}, "
+        f"schedule step {PARITY_STEP}: CPU {ref['secs']:.1f} s, card "
+        f"{card['secs']:.3f} s (first call) [{CARD}]")
+    gaps = {}
+    # card kernels vs CPU plain (the check); then the witness: the same
+    # step on the card through the plain versions, which splits that gap
+    # into the kernels' share (card kernels vs card plain: same GEMMs and
+    # convs) and the libraries' share (card plain vs CPU plain)
+    for label, r, base, base_label in (
+            ("card", card, ref, "CPU"),
+            ("TF32 control", ctrl, ref, "CPU"),
+            ("kernel gap: card kernels", card, plain, "card plain"),
+            ("library gap: card plain", plain, ref, "CPU")):
+        g = gaps[label] = step_gaps(r, base)
+        say(f"[train_parity] {label} vs {base_label}: loss {r['loss']:.6f} "
+            f"({base['loss']:.6f}, rel {g['loss']:.3e}), clipped grad norm "
+            f"{r['gnorm']:.6f} ({base['gnorm']:.6f}, rel {g['gnorm']:.3e}); "
+            f"max rel err gradients {g['grads'][0]:.3e} ({g['grads'][1]}), "
+            f"{WITNESS_LEAF} {g['witness']:.3e}; updated params "
+            f"{g['params'][0]:.3e} ({g['params'][1]}), mu {g['mu'][0]:.3e} "
+            f"({g['mu'][1]}), nu {g['nu'][0]:.3e} ({g['nu'][1]})")
+    c = gaps["card"]
+    say(f"[train_parity] limits: loss and grad norm 1e-5 relative, "
+        f"gradients {GRAD_RTOL:g} (the card, and the kernel gap alone), "
+        f"updated params {PARAM_RTOL:g}, moments 2^-6; the TF32 control's "
+        f"gradients read {gaps['TF32 control']['grads'][0]:.3e}")
+    if c["params"][0] > PARAM_RTOL or max(c["mu"][0], c["nu"][0]) > 2.0 ** -6:
+        fail(f"train parity: updated parameters or moments out of "
+             f"tolerance ({PARAM_RTOL:g}; 2^-6, two bf16 steps)")
+    if max(c["loss"], c["gnorm"]) > 1e-5 or c["grads"][0] > GRAD_RTOL:
+        fail("train parity out of tolerance")
+    if gaps["kernel gap: card kernels"]["grads"][0] > GRAD_RTOL:
+        fail("train parity: the kernels alone move the gradients past the "
+             "limit")
+    if gaps["TF32 control"]["grads"][0] <= GRAD_RTOL:
+        fail("the train parity check does not see TF32: limit too loose")
+
+
+TRAIN_KERNELS = ()   # filled in main: the wrappers whose launches count
+
+
+def phase_train(dev):
+    from vilco_tpu_torch.core.config import flagship_config
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train.engine import (
+        CLBatchExtras,
+        batch_to,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = flagship_config()
+    m = cfg.model
+    model = PointTransformer(m, torch.Generator().manual_seed(SEED),
+                             device=dev)
+    st = init_train_state(model, steps_per_epoch=1, seed=SEED, device=dev)
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
+    step = make_train_step(pts, regularize=True,
+                           compute_dtype=torch.bfloat16)
+    batch = batch_to(make_batch(np.random.default_rng(SEED + 5),
+                                cfg.batch_size, cfg), dev)
+    cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
+                                  device=dev))
+    for k in TRAIN_KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, walls, parts = [], [], [], []
+    for i in range(12):
+        marks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(st, batch, cl, marks)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        losses.append(met["final_loss"].item())
+        norms.append(st.loss_normalizer.item())   # the one this loss used
+        if i >= 2:
+            walls.append(wall)
+            ev = dict(marks)
+            parts.append([ev["start"].elapsed_time(ev["forward"]),
+                          ev["forward"].elapsed_time(ev["backward"]),
+                          ev["backward"].elapsed_time(ev["optimizer"])])
+    launches = {k.__name__: k.launches for k in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    med = [statistics.median(p[j] for p in parts) for j in range(3)]
+    B = cfg.batch_size
+    secs = sum(walls) / 1e3
+    say(f"[train] flagship bf16 (f32 masters), batch {B}, T={m.max_seq_len},"
+        f" drop-path and XL dropout on, {len(walls)} timed steps: "
+        f"{statistics.median(walls):.3f} ms/step (median; forward "
+        f"{med[0]:.3f}, backward {med[1]:.3f}, optimizer {med[2]:.3f} ms "
+        f"by CUDA events), {len(walls) / secs:.3f} steps/s, "
+        f"{B * len(walls) / secs:.3f} clips/s; peak memory {peak:.3f} GiB "
+        f"[{CARD}]")
+    say("[train] losses " + ", ".join(f"{x:.6f}" for x in losses))
+    say("[train] loss x normaliser (the sum before the normaliser) "
+        + ", ".join(f"{x * n:.4f}" for x, n in zip(losses, norms)))
+    say(f"[train] launches in the {len(losses)} steps: {launches}")
+    sums = [x * n for x, n in zip(losses, norms)]
+    if not all(np.isfinite(losses)):
+        fail("a training loss is not finite")
+    say(f"[train] loss {losses[0]:.6f} -> {losses[-1]:.6f}; before the "
+        f"normaliser (an EMA from 100 toward the batch's positives) "
+        f"{sums[0]:.4f} -> {sums[-1]:.4f}")
+    if not (losses[-1] < losses[0] and sums[-1] < sums[0]):
+        fail("the training loss did not decrease")
+    if min(launches.values()) < 1:
+        fail("a kernel of the train path was never launched")
+    phase_trace("train step", lambda: step(st, batch, cl),
+                statistics.median(walls))
+    del model, st
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
-                               "dwconv_qkv")):
+                               "dwconv_qkv", "adamw_kernel")):
         return "port kernels"
     if "conv" in name or "cudnn" in name:
         return "cuDNN conv"
@@ -387,51 +972,94 @@ def phase_trace(label: str, fn, unprofiled_ms: float):
     dev_ms = sum(r[0] for r in rows)
     if dev_ms <= 0:
         fail(f"trace {label}: the profiler saw no device time")
-    print(f"[trace] {label}: host {host_ms:.3f} ms profiled, "
-          f"{unprofiled_ms:.3f} ms unprofiled (median of this run); device "
-          f"{dev_ms:.3f} ms in {sum(r[1] for r in rows)} kernels; idle "
-          f"share {1 - dev_ms / host_ms:.3f} of the profiled call")
+    say(f"[trace] {label}: host {host_ms:.3f} ms profiled, "
+        f"{unprofiled_ms:.3f} ms unprofiled (median of this run); device "
+        f"{dev_ms:.3f} ms in {sum(r[1] for r in rows)} kernels; idle "
+        f"share {1 - dev_ms / host_ms:.3f} of the profiled call [{CARD}]")
     kinds = {}
     for ms, n, key in rows:
         k = kinds.setdefault(kernel_kind(key), [0.0, 0])
         k[0] += ms
         k[1] += n
     for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
-        print(f"[trace] {label}:   {kind}: {ms:.3f} ms, {n} launches")
+        say(f"[trace] {label}:   {kind}: {ms:.3f} ms, {n} launches")
     for ms, n, key in sorted(rows, reverse=True)[:8]:
-        print(f"[trace] {label}:   {ms:.3f} ms x{n} {key[:90]}")
+        say(f"[trace] {label}:   {ms:.3f} ms x{n} {key[:90]}")
     return out
 
 
 def main():
+    global TRAIN_KERNELS
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+    )
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
+    TRAIN_KERNELS = (fused_attention_blc, attention_bwd_cuda,
+                     xl_rel_attention, xl_bwd_cuda, fused_dwconv_qkv,
+                     dwconv_bwd_cuda, adamw_update_multi)
     # f32 means f32 in every comparison: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs, top = phase_kernels(dev)
     phase_parity(dev)
-    launches = phase_serve(dev)
+    serve_launches = phase_serve(dev)
+    terrs, ttop = phase_train_kernels(dev)
+    phase_train_parity(dev)
+    train_launches = phase_train(dev)
 
     rows = [
+        # name, source, replaces, error and timing key, launches
         ("fused_attention_blc", "vilco_tpu_torch/csrc/attention_blc.cu",
-         "vilco_tpu/kernels/attention.py:359", "attn"),
+         "vilco_tpu/kernels/attention.py:359", errs["attn"], top["attn"],
+         serve_launches["fused_attention_blc"]),
+        ("attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc.cu",
+         "vilco_tpu/kernels/attention.py:383", terrs["attn_bwd"],
+         ttop["attn_bwd"], train_launches["attention_bwd_cuda"]),
         ("xl_rel_attention", "vilco_tpu_torch/csrc/xl_rel_attention.cu",
-         "vilco_tpu/kernels/xl_attention.py:260", "xl"),
+         "vilco_tpu/kernels/xl_attention.py:260",
+         errs["xl"][torch.bfloat16] + errs["xl"][torch.float32]
+         + terrs["xl_fwd"], top["xl"],
+         serve_launches["xl_rel_attention"]),
+        ("xl_bwd_cuda", "vilco_tpu_torch/csrc/xl_rel_attention.cu",
+         "vilco_tpu/kernels/xl_attention.py:286", terrs["xl_bwd"],
+         ttop["xl_bwd"], train_launches["xl_bwd_cuda"]),
         ("fused_dwconv_qkv", "vilco_tpu_torch/csrc/dwconv_qkv.cu",
-         "vilco_tpu/kernels/dwconv.py:119", "dw"),
+         "vilco_tpu/kernels/dwconv.py:119", errs["dw"], top["dw"],
+         serve_launches["fused_dwconv_qkv"]),
+        ("dwconv_bwd_cuda", "vilco_tpu_torch/csrc/dwconv_qkv.cu",
+         "vilco_tpu/kernels/dwconv.py:136", terrs["dw_bwd"], ttop["dw_bwd"],
+         train_launches["dwconv_bwd_cuda"]),
+        ("adamw_update_multi", "vilco_tpu_torch/csrc/adamw.cu",
+         "vilco_tpu/kernels/adamw.py:97", terrs["adamw"], ttop["adamw"],
+         train_launches["adamw_update_multi"]),
     ]
+    also = {"fused_dwconv_qkv": "vilco_tpu/kernels/dwconv.py:267",
+            "dwconv_bwd_cuda": "vilco_tpu/kernels/dwconv.py:283"}
     kernels = []
-    for fn, src, replaces, key in rows:
+    for fn, src, replaces, err, t, launches in rows:
+        e = err if isinstance(err, list) else (err[torch.bfloat16]
+                                                + err[torch.float32])
         entry = {"name": fn, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": launches[fn],
-                 "max_abs_err": max(errs[key][torch.bfloat16]),
-                 "max_abs_err_f32": max(errs[key][torch.float32]),
-                 "ms": top[key][0], "plain_ms": top[key][1]}
-        if key == "dw":
-            entry["also_replaces"] = "vilco_tpu/kernels/dwconv.py:267"
+                 "replaces": replaces, "launches": launches,
+                 "max_abs_err": max(e), **t}
+        if fn in serve_launches:
+            entry["launches_train"] = train_launches[fn]
+        if fn in also:
+            entry["also_replaces"] = also[fn]
         kernels.append(entry)
+    print(f"[summary] {CARD}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
-"""Each CUDA kernel of the port against its plain PyTorch version, on the
-card, at small and odd lengths. Marked `gpu`: skips where there is no card.
+"""Each CUDA kernel of the port, forward and backward, against its plain
+PyTorch version on the card, at small and odd lengths (2, 37, 70, 100, 256)
+and head dims 24, 64, 128. Marked `gpu`: skips where there is no card.
 Imports no JAX, so that it runs on a machine with only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -9,6 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from vilco_tpu_torch.kernels.adamw import (
+    LeafTable,
+    adamw_update_multi,
+    adamw_update_plain,
+)
 from vilco_tpu_torch.kernels.attention import (
     fused_attention_blc,
     fused_attention_blc_plain,
@@ -72,3 +78,90 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol, T, D):
                 torch.testing.assert_close(o.float(), p.float(), atol=tol,
                                            rtol=tol)
     torch.cuda.synchronize()
+
+
+def _grads(fn, inputs, g):
+    """Gradients of <fn(*inputs), g> w.r.t. the float inputs."""
+    xs = [x.detach().clone().requires_grad_() if x.is_floating_point()
+          else x for x in inputs]
+    out = fn(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    torch.autograd.backward(outs, g if isinstance(g, tuple) else (g,))
+    return [x.grad for x in xs if x.is_floating_point()]
+
+
+def _close(got, want, tol, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape and torch.isfinite(a).all(), (what, i)
+        err = (a - b).abs().max().item()
+        assert err <= tol * max(1.0, b.abs().max().item()), (what, i, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,D", [(2, 64), (37, 64), (256, 64), (100, 128),
+                                 (70, 24)])
+def test_backward_kernels_match_plain_on_card(cuda, dtype, tol, T, D):
+    """Tolerance relative to the largest reference gradient: f32 1e-4
+    (summation order, f32 atomics); bf16 2e-2 (inputs and outputs rounded
+    to bf16, the backward reads the bf16 forward output)."""
+    rng = np.random.default_rng(100 + T)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    B, H = 3, 4
+    C = H * D
+    q, k, v, g = rn(B, T, C), rn(B, T, C), rn(B, T, C), rn(B, T, C)
+    m = _mask(rng, B, T, cuda)
+    got = _grads(lambda *a: fused_attention_blc(*a, m, H), (q, k, v), g)
+    want = _grads(lambda *a: fused_attention_blc_plain(*a, m, H), (q, k, v),
+                  g)
+    _close(got, want, tol, "attention_blc")
+    assert all(torch.all(x[-1] == 0) for x in got)
+    q4, k4, v4, g4 = (t.reshape(B, T, H, D) for t in (q, k, v, g))
+    r, rwb, rrb = rn(2 * T, H, D), rn(H, D) * 0.1, rn(H, D) * 0.1
+    for rate in (0.0, 0.1):
+        args = (q4, k4, v4, r, rwb, rrb, m)
+        out = xl_rel_attention(*args, 1234, rate)
+        ref = xl_rel_attention_plain(*args, seed=1234, rate=rate)
+        _close([out], [ref], tol, f"xl forward rate {rate}")
+        got = _grads(lambda *a: xl_rel_attention(*a, 1234, rate), args, g4)
+        want = _grads(lambda *a: xl_rel_attention_plain(*a, seed=1234,
+                                                        rate=rate), args, g4)
+        _close(got, want, tol, f"xl backward rate {rate}")
+    if C % 8 == 0:
+        w = rn(3, 3, C) * 0.3
+        for s in (1, 2):
+            To = (T - 1) // s + 1
+            gs = tuple(rn(B, To, C) for _ in range(3))
+            got = _grads(lambda a, b: fused_dwconv_qkv(a, b, s), (q, w), gs)
+            want = _grads(lambda a, b: fused_dwconv_qkv_plain(a, b, s),
+                          (q, w), gs)
+            _close(got, want, tol, f"dwconv stride {s}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_matches_plain_on_card(cuda, mdt):
+    """Every operation of the update is one IEEE-rounded operation on both
+    sides (the kernel uses explicitly rounded intrinsics, the plain version
+    one PyTorch kernel per operation), so they agree bit for bit."""
+    rng = np.random.default_rng(1)
+    sizes = [1, 37, 4096, 5000, 70000]
+    f = lambda n: torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32)).to(cuda)
+    ps = [f(n) for n in sizes]
+    gs = [f(n) for n in sizes]
+    ms = [f(n).to(mdt) for n in sizes]
+    vs = [f(n).abs().to(mdt) for n in sizes]
+    decays = [i % 2 == 0 for i in range(len(sizes))]
+    coef = torch.tensor([1e-3, 0.271, 0.002997, 0.75], device=cuda)
+    want = [adamw_update_plain(p, g, m, v, d, *coef)
+            for p, g, m, v, d in zip(ps, gs, ms, vs, decays)]
+    adamw_update_multi(LeafTable(ps, gs, ms, vs, decays), coef)
+    torch.cuda.synchronize()
+    for got, ref in zip(zip(ps, ms, vs), want):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)

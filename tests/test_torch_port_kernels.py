@@ -95,7 +95,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         fused_attention_blc(x, x, x, torch.ones(1, 7, dtype=torch.bool), 2)
     q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         xl_rel_attention(q, q, q, torch.zeros(8, 2, 8), torch.zeros(2, 8),
                          torch.zeros(2, 8), torch.ones(1, 4, dtype=bool),
-                         rate=0.1)
+                         rate=1.0)

@@ -26,6 +26,7 @@ from vilco_tpu.models import layers as j_layers
 from vilco_tpu.models.point_transformer import PointTransformer as JPT
 from vilco_tpu.ops import decode as j_decode
 from vilco_tpu.ops import nms as j_nms
+from vilco_tpu.train import optim as j_optim
 from vilco_tpu_torch.core.config import ModelConfig, TestCfg, flagship_config
 from vilco_tpu_torch.models import backbone as t_backbone
 from vilco_tpu_torch.models import layers as t_layers
@@ -37,6 +38,8 @@ from vilco_tpu_torch.models.point_transformer import (
 )
 from vilco_tpu_torch.ops.assign import generate_points
 from vilco_tpu_torch.ops.decode import decode_and_nms_batch
+from vilco_tpu_torch.train import engine as t_engine
+from vilco_tpu_torch.train import optim as t_optim
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -88,6 +91,32 @@ def test_flagship_config_matches_jax(tiny):
     for name, v in FIXED_TEST.items():
         assert getattr(ref.test_cfg, name) == v, name
     assert port.model.fpn_strides == ref.model.fpn_strides
+    assert port.batch_size == ref.loader.batch_size
+    assert port.max_segments == ref.dataset.max_segments
+    # the training constants fixed in train/engine.py, train/optim.py and
+    # models/layers.py
+    tc, opt = ref.train_cfg, ref.opt
+    assert (tc.center_sample, tc.center_sample_radius) == (
+        "radius", t_engine.CENTER_SAMPLE_RADIUS)
+    assert tc.use_gaussian_weights and tc.al_loss_weight == 0.0
+    assert tc.label_smoothing == 0.0 and tc.dropout == 0.0
+    assert tc.loss_weight == t_engine.LOSS_WEIGHT
+    assert tc.init_loss_norm == t_engine.INIT_LOSS_NORM
+    assert tc.clip_grad_l2norm == t_engine.CLIP_GRAD_L2NORM
+    assert tc.droppath == ref.model.droppath == t_layers.DROPPATH
+    assert ref.model.xl_dropout == t_layers.XL_DROPOUT
+    assert (opt.type, opt.learning_rate, opt.weight_decay) == (
+        "adamw", t_optim.LEARNING_RATE, t_optim.WEIGHT_DECAY)
+    assert (opt.epochs, opt.warmup, opt.warmup_epochs, opt.schedule_type,
+            opt.eta_min) == (t_optim.EPOCHS, True, t_optim.WARMUP_EPOCHS,
+                             "cosine", t_optim.ETA_MIN)
+    assert (opt.mu_dtype, opt.nu_dtype) == ("bfloat16", "bfloat16")
+    assert t_optim.MOMENT_DTYPE == torch.bfloat16
+    assert opt.fused_apply and opt.accumulation_steps == 1
+    assert opt.param_compute_dtype == "float32"
+    assert (j_optim.FusedAdamW.B1, j_optim.FusedAdamW.B2,
+            j_optim.FusedAdamW.EPS) == (t_optim.B1, t_optim.B2, 1e-8)
+    assert j_optim._SMALL_LEAF_ELEMS == t_optim.SMALL_LEAF_ELEMS
 
 
 def test_port_imports_neither_jax_nor_yaml():
@@ -155,7 +184,7 @@ def tiny_models():
     params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x),
                          jnp.asarray(mask))["params"]
     params = _perturbed(params, 7, scale=0.02)
-    tmodel = PointTransformer(_port_cfg(jcfg)).eval()
+    tmodel = PointTransformer(_port_cfg(jcfg), device="cpu").eval()
     load_jax_params(tmodel, params)
     return jmodel, params, tmodel, x, mask
 

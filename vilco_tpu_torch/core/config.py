@@ -1,4 +1,5 @@
-"""The subset of vilco_tpu.core.config that the MQ inference path reads.
+"""The subset of vilco_tpu.core.config that the MQ serving and training
+paths read.
 
 Plain frozen dataclasses with no YAML dependency. `ModelConfig` holds only
 what differs between the flagship and its tiny twin (widths, depths, heads,
@@ -57,8 +58,16 @@ class TestCfg:
 
 @dataclass(frozen=True)
 class Config:
+    """`batch_size` is `loader.batch_size`, `max_segments` is
+    `dataset.max_segments` (the static GT padding per clip). The training
+    constants every MQ config shares live in train/engine.py (losses, clip,
+    loss normaliser), train/optim.py (AdamW, schedule) and models/layers.py
+    (drop-path and XL dropout rates)."""
+
     model: ModelConfig = field(default_factory=ModelConfig)
     test_cfg: TestCfg = field(default_factory=TestCfg)
+    batch_size: int = 2
+    max_segments: int = 64
 
 
 def flagship_config(tiny: bool = False) -> Config:
@@ -72,5 +81,5 @@ def flagship_config(tiny: bool = False) -> Config:
             regression_range=((0, 4), (2, 8), (4, 16), (8, 10000)),
             input_dim=32, num_classes=12, max_seq_len=64,
         )
-        return Config(model=model)
+        return Config(model=model, batch_size=8, max_segments=8)
     return Config(model=ModelConfig())

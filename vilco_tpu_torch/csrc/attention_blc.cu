@@ -1,7 +1,8 @@
-// Masked softmax attention on channels-last q/k/v, forward.
+// Masked softmax attention on channels-last q/k/v, forward and backward.
 //
 // Replaces vilco_tpu/kernels/attention.py::fused_attention_blc (the Pallas
-// _fwd_kernel_blc run by _run_fwd_blc). q (B, Tq, C), k/v (B, Tk, C) with
+// _fwd_kernel_blc run by _run_fwd_blc, and _bwd_kernel_blc run by
+// _run_bwd_blc). q (B, Tq, C), k/v (B, Tk, C) with
 // C = H * D; head h is the column range [h*D, (h+1)*D) of each row, so no
 // (B, T, H, D) relayout is made. Semantics kept from the TPU kernel:
 //   s = (q * scale * log2 e) . k + bias,  bias = 0 for valid keys, -1e9 else
@@ -23,7 +24,22 @@
 //  - float32 (the parity path; TF32 would not be f32): SIMT, one thread per
 //    query row holding q and the output in registers, key tiles of 32 read
 //    as shared-memory broadcasts. Bound by FMA issue (2 * D FMAs per score).
-// Every Tq, Tk >= 1 and D <= 128 is taken.
+// Every Tq, Tk >= 1 and D <= 128 is taken. When asked, the forward also
+// stores lse = m + log2(l + 1e-30) per (batch, head, query row), the row's
+// log-sum-exp in the log2 domain; a fully masked row gets -1e8 - 99.7, so
+// exp2(s - lse) is 0 there in the backward too.
+//
+// Backward (both dtypes, SIMT in f32): one block of 256 threads per (key
+// tile of 64, head, batch) keeps its K, V tile in shared memory and its
+// dk, dv tile in registers (16 x 16 threads, each 4 key rows by D/16
+// strided columns) and walks the query tiles of 64:
+//   P  = exp2(s * scale log2 e + bias - lse)      (recomputed, exact f32)
+//   dP = dO V^T,  delta = rowsum(dO * O),  dS = P (dP - delta)
+//   dv += P^T dO,  dk += scale dS^T Q,  dq += scale dS K
+// dq sums over key tiles, so it goes through f32 atomicAdd into an f32
+// buffer (one pass over the scores, no separate dq pass); its f32 sums are
+// order-dependent at the level of f32 rounding. Bound by shared-memory
+// operand reads (each FMA reads two operands, one a broadcast).
 
 #include <mma.h>
 
@@ -41,8 +57,8 @@ __global__ void __launch_bounds__(BQ)
 attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const uint8_t* __restrict__ mask,
-                          T* __restrict__ out, int Tq, int Tk, int C, int D,
-                          float scale_log2) {
+                          T* __restrict__ out, float* __restrict__ lse,
+                          int Tq, int Tk, int C, int D, float scale_log2) {
   __shared__ __align__(16) float ks[BK][DPAD];
   __shared__ __align__(16) float vs[BK][DPAD];
   __shared__ float bias[BK];
@@ -123,6 +139,8 @@ attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DPAD; ++d)
       if (d < D) op[d] = vilco::from_f32<T>(o[d] * inv);
+    if (lse != nullptr)
+      lse[((long long)b * gridDim.y + h) * Tq + row] = m + log2f(l + 1e-30f);
   }
 }
 
@@ -154,8 +172,9 @@ __global__ void __launch_bounds__(128)
 attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const uint8_t* __restrict__ mask,
-                        bf16* __restrict__ out, int Tq, int Tk, int C, int D,
-                        float scale_log2, bool vec) {
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        int Tq, int Tk, int C, int D, float scale_log2,
+                        bool vec) {
   using L = TcLayout<DPAD>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
@@ -270,25 +289,243 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* op = out + ((long long)b * Tq + i) * C + h * D;
     for (int d = half * (DPAD / 2); d < (half + 1) * (DPAD / 2); ++d)
       if (d < D) op[d] = __float2bfloat16(orow[d] * inv);
+    if (lse != nullptr && half == 0)
+      lse[((long long)b * gridDim.y + h) * Tq + i] = m + log2f(l + 1e-30f);
   }
+}
+
+// ---- backward -------------------------------------------------------------
+
+constexpr int BT = 64;             // key and query tile of the backward
+constexpr int BWD_THREADS = 256;   // 16 x 16
+
+template <int DPAD>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (4 * BT * (DPAD + 1) + 2 * BT * (BT + 1) + 3 * BT);
+}
+
+template <typename T, int DPAD>
+__global__ void __launch_bounds__(BWD_THREADS)
+attention_blc_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const uint8_t* __restrict__ mask,
+                         const T* __restrict__ out,
+                         const float* __restrict__ lse,
+                         const T* __restrict__ dout, float* __restrict__ dq,
+                         T* __restrict__ dk, T* __restrict__ dv, int Tq,
+                         int Tk, int H, int D, float scale_log2,
+                         float scale) {
+  constexpr int LD = DPAD + 1, LP = BT + 1, RA = BT / 16, CD = DPAD / 16;
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                  // [BT][LD]
+  float* gs = qs + BT * LD;        // dO tile
+  float* ks = gs + BT * LD;
+  float* vs = ks + BT * LD;
+  float* ps = vs + BT * LD;        // [BT][LP] P
+  float* dss = ps + BT * LP;       // [BT][LP] dS
+  float* bias = dss + BT * LP;     // [BT] per key
+  float* lses = bias + BT;         // [BT] per query row
+  float* delta = lses + BT;        // [BT]
+
+  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * BT;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int C = H * D;
+
+  for (int e = tid; e < BT * DPAD; e += BWD_THREADS) {
+    const int r = e / DPAD, d = e % DPAD, j = j0 + r;
+    float kv = 0.f, vv = 0.f;
+    if (j < Tk && d < D) {
+      const long long off = ((long long)b * Tk + j) * C + h * D + d;
+      kv = vilco::to_f32<T>(k[off]);
+      vv = vilco::to_f32<T>(v[off]);
+    }
+    ks[r * LD + d] = kv;
+    vs[r * LD + d] = vv;
+  }
+  for (int r = tid; r < BT; r += BWD_THREADS) {
+    const int j = j0 + r;
+    bias[r] = j < Tk ? (mask[(long long)b * Tk + j] ? 0.f : NEG_INF_BIAS)
+                     : -INFINITY;
+  }
+  float dk_acc[RA][CD], dv_acc[RA][CD];
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+
+  for (int i0 = 0; i0 < Tq; i0 += BT) {
+    __syncthreads();   // the previous query tile is no longer read
+    for (int e = tid; e < BT * DPAD; e += BWD_THREADS) {
+      const int r = e / DPAD, d = e % DPAD, i = i0 + r;
+      float qv = 0.f, gv = 0.f;
+      if (i < Tq && d < D) {
+        const long long off = ((long long)b * Tq + i) * C + h * D + d;
+        qv = vilco::to_f32<T>(q[off]);
+        gv = vilco::to_f32<T>(dout[off]);
+      }
+      qs[r * LD + d] = qv;
+      gs[r * LD + d] = gv;
+    }
+    {  // delta = rowsum(dO * O) and lse, four lanes per row
+      const int r = tid >> 2, part = tid & 3, i = i0 + r;
+      float acc = 0.f;
+      if (i < Tq) {
+        const long long off = ((long long)b * Tq + i) * C + h * D;
+        for (int d = part; d < D; d += 4)
+          acc += vilco::to_f32<T>(out[off + d]) *
+                 vilco::to_f32<T>(dout[off + d]);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (part == 0) {
+        delta[r] = acc;
+        // rows past Tq: lse = +inf makes their P exactly 0
+        lses[r] = i < Tq ? lse[((long long)b * H + h) * Tq + i] : INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: rows ty + 16a, keys tx + 16c
+    float s[RA][RA], dp[RA][RA];
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int c = 0; c < RA; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DPAD; ++d) {
+      float qv[RA], gv[RA], kv[RA], vv[RA];
+#pragma unroll
+      for (int a = 0; a < RA; ++a) {
+        qv[a] = qs[(ty + 16 * a) * LD + d];
+        gv[a] = gs[(ty + 16 * a) * LD + d];
+        kv[a] = ks[(tx + 16 * a) * LD + d];
+        vv[a] = vs[(tx + 16 * a) * LD + d];
+      }
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int c = 0; c < RA; ++c) {
+          s[a][c] = fmaf(qv[a], kv[c], s[a][c]);
+          dp[a][c] = fmaf(gv[a], vv[c], dp[a][c]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int c = 0; c < RA; ++c) {
+        const int i = ty + 16 * a, j = tx + 16 * c;
+        const float p = exp2f(s[a][c] * scale_log2 + bias[j] - lses[i]);
+        ps[i * LP + j] = p;
+        dss[i * LP + j] = p * (dp[a][c] - delta[i]);
+      }
+    __syncthreads();
+
+    // dv += P^T dO, dk += dS^T Q: key rows ty + 16a, columns tx + 16c
+#pragma unroll 4
+    for (int i = 0; i < BT; ++i) {
+      float pv[RA], sv[RA], gv[CD], qv[CD];
+#pragma unroll
+      for (int a = 0; a < RA; ++a) {
+        pv[a] = ps[i * LP + ty + 16 * a];
+        sv[a] = dss[i * LP + ty + 16 * a];
+      }
+#pragma unroll
+      for (int c = 0; c < CD; ++c) {
+        gv[c] = gs[i * LD + tx + 16 * c];
+        qv[c] = qs[i * LD + tx + 16 * c];
+      }
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+          dv_acc[a][c] = fmaf(pv[a], gv[c], dv_acc[a][c]);
+          dk_acc[a][c] = fmaf(sv[a], qv[c], dk_acc[a][c]);
+        }
+    }
+    // dq += scale dS K: query rows ty + 16a, columns tx + 16c
+    float dq_acc[RA][CD];
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int c = 0; c < CD; ++c) dq_acc[a][c] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < BT; ++j) {
+      float sv[RA], kv[CD];
+#pragma unroll
+      for (int a = 0; a < RA; ++a) sv[a] = dss[(ty + 16 * a) * LP + j];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) kv[c] = ks[j * LD + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int c = 0; c < CD; ++c)
+          dq_acc[a][c] = fmaf(sv[a], kv[c], dq_acc[a][c]);
+    }
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+      const int i = i0 + ty + 16 * a;
+      if (i >= Tq) continue;
+      float* dqp = dq + ((long long)b * Tq + i) * C + h * D;
+#pragma unroll
+      for (int c = 0; c < CD; ++c) {
+        const int d = tx + 16 * c;
+        if (d < D) atomicAdd(dqp + d, dq_acc[a][c] * scale);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    const int j = j0 + ty + 16 * a;
+    if (j >= Tk) continue;
+    const long long off = ((long long)b * Tk + j) * C + h * D;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) {
+        dk[off + d] = vilco::from_f32<T>(dk_acc[a][c] * scale);
+        dv[off + d] = vilco::from_f32<T>(dv_acc[a][c]);
+      }
+    }
+  }
+}
+
+template <typename T, int DPAD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* mask, const void* out, const void* lse,
+                       const void* dout, void* dq, void* dk, void* dv, int B,
+                       int Tq, int Tk, int H, int D, cudaStream_t stream) {
+  auto kern = attention_blc_bwd_kernel<T, DPAD>;
+  const size_t smem = bwd_smem_bytes<DPAD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Tk + BT - 1) / BT, H, B);
+  const float scale = 1.f / sqrtf((float)D);
+  kern<<<grid, BWD_THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)mask,
+      (const T*)out, (const float*)lse, (const T*)dout, (float*)dq, (T*)dk,
+      (T*)dv, Tq, Tk, H, D, scale * 1.4426950408889634f, scale);
+  return cudaGetLastError();
 }
 
 template <int DPAD>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        const void* mask, void* out, int B, int Tq, int Tk,
-                        int H, int D, cudaStream_t stream) {
+                        const void* mask, void* out, void* lse, int B, int Tq,
+                        int Tk, int H, int D, cudaStream_t stream) {
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   attention_blc_simt_kernel<float, DPAD><<<grid, BQ, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v,
-      (const uint8_t*)mask, (float*)out, Tq, Tk, H * D, D, scale_log2);
+      (const uint8_t*)mask, (float*)out, (float*)lse, Tq, Tk, H * D, D,
+      scale_log2);
   return cudaGetLastError();
 }
 
 template <int DPAD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const void* mask, void* out, int B, int Tq, int Tk,
-                      int H, int D, cudaStream_t stream) {
+                      const void* mask, void* out, void* lse, int B, int Tq,
+                      int Tk, int H, int D, cudaStream_t stream) {
   const bool vec = D % 8 == 0 && (H * D) % 8 == 0 &&
                    (((uintptr_t)k | (uintptr_t)v) % 16) == 0;
   using L = TcLayout<DPAD>;
@@ -300,7 +537,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   kern<<<grid, L::THREADS, L::BYTES, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const uint8_t*)mask,
-      (bf16*)out, Tq, Tk, H * D, D, scale_log2, vec);
+      (bf16*)out, (float*)lse, Tq, Tk, H * D, D, scale_log2, vec);
   return cudaGetLastError();
 }
 
@@ -308,18 +545,37 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16. q/out (B, Tq, H*D), k/v (B, Tk, H*D),
 // mask (B, Tk) one byte per key (nonzero = valid), all contiguous; D <= 128.
+// lse (B, H, Tq) f32, or null when no backward follows.
 extern "C" int attention_blc_fwd(const void* q, const void* k, const void* v,
-                                 const void* mask, void* out, int B, int Tq,
-                                 int Tk, int H, int D, int dtype,
+                                 const void* mask, void* out, void* lse, int B,
+                                 int Tq, int Tk, int H, int D, int dtype,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D < 1 || D > 128 || B < 1 || Tq < 1 || Tk < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)(D <= 64 ? launch_simt<64>(q, k, v, mask, out, B, Tq, Tk, H, D, s)
-                         : launch_simt<128>(q, k, v, mask, out, B, Tq, Tk, H, D, s));
+    return (int)(D <= 64 ? launch_simt<64>(q, k, v, mask, out, lse, B, Tq, Tk, H, D, s)
+                         : launch_simt<128>(q, k, v, mask, out, lse, B, Tq, Tk, H, D, s));
   if (dtype == 1)
-    return (int)(D <= 64 ? launch_tc<64>(q, k, v, mask, out, B, Tq, Tk, H, D, s)
-                         : launch_tc<128>(q, k, v, mask, out, B, Tq, Tk, H, D, s));
+    return (int)(D <= 64 ? launch_tc<64>(q, k, v, mask, out, lse, B, Tq, Tk, H, D, s)
+                         : launch_tc<128>(q, k, v, mask, out, lse, B, Tq, Tk, H, D, s));
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward. q/out/dout (B, Tq, H*D) and k/v/dk/dv (B, Tk, H*D) in dtype,
+// lse (B, H, Tq) from the forward, dq (B, Tq, H*D) f32 and zeroed by the
+// caller (the kernel adds into it), all contiguous; D <= 128.
+extern "C" int attention_blc_bwd(const void* q, const void* k, const void* v,
+                                 const void* mask, const void* out,
+                                 const void* lse, const void* dout, void* dq,
+                                 void* dk, void* dv, int B, int Tq, int Tk,
+                                 int H, int D, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D < 1 || D > 128 || B < 1 || Tq < 1 || Tk < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+#define VILCO_BWD(T, DP) launch_bwd<T, DP>(q, k, v, mask, out, lse, dout, dq, dk, dv, B, Tq, Tk, H, D, s)
+  if (dtype == 0) return (int)(D <= 64 ? VILCO_BWD(float, 64) : VILCO_BWD(float, 128));
+  if (dtype == 1) return (int)(D <= 64 ? VILCO_BWD(bf16, 64) : VILCO_BWD(bf16, 128));
+#undef VILCO_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -67,4 +67,39 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int rows,
   }
 }
 
+// Word 0 of Philox4x32-10 (Salmon et al., SC'11) for the counter
+// (e mod 2^32, e / 2^32, 0, 0) and the key (k0, k1): the attention-dropout
+// bits of element e. kernels/xl_attention.py::philox4x32_10 is the same
+// function in torch integer arithmetic.
+__device__ __forceinline__ uint32_t philox_word0(unsigned long long e,
+                                                 uint32_t k0, uint32_t k1) {
+  uint32_t c0 = (uint32_t)e, c1 = (uint32_t)(e >> 32), c2 = 0u, c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// Dropout of the attention probabilities: thresh = 0 keeps everything. The
+// 64-bit seed is read from device memory (the step draws it on the card),
+// its two halves the Philox key.
+struct Dropout {
+  const unsigned long long* seed;
+  uint32_t thresh;
+  float inv_keep;   // 1 / (1 - rate)
+  __device__ __forceinline__ bool keep(unsigned long long e) const {
+    if (thresh == 0u) return true;
+    const unsigned long long s = __ldg(seed);
+    return philox_word0(e, (uint32_t)s, (uint32_t)(s >> 32)) >= thresh;
+  }
+};
+
 }  // namespace vilco

@@ -105,12 +105,13 @@ def load_all() -> dict[str, Library]:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(name: str, fn: str, n_ptrs: int, n_ints: int):
+def bind(name: str, fn: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
     """The C function `fn` of library `name`, declared as taking n_ptrs
-    pointers, n_ints ints and a trailing stream, returning cudaError_t."""
+    pointers, n_ints ints, n_floats floats and a trailing stream, returning
+    cudaError_t."""
     f = getattr(load_all()[name].lib, fn)
     f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                  + [ctypes.c_void_p])
+                  + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
 
@@ -127,6 +128,12 @@ def dtype_code(t) -> int:
     if t.dtype == torch.bfloat16:
         return 1
     raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+
+
+def as_c_int(u: int) -> int:
+    """An unsigned 32-bit value as the signed int that carries its bits."""
+    u &= 0xFFFFFFFF
+    return u - (1 << 32) if u >= 1 << 31 else u
 
 
 def stream_of(t) -> int:

@@ -1,17 +1,37 @@
-"""Transformer-XL relative attention, forward (single stream, no dropout).
+"""Transformer-XL relative attention (single stream), forward with dropout
+on the attention probabilities, and backward.
 
 Replaces vilco_tpu/kernels/xl_attention.py::xl_rel_attention (the Pallas
-`_run_fwd` kernel) with csrc/xl_rel_attention.cu. One block per (query
-tile, head, batch) with an online softmax in f32; the relative shift, for
-which the TPU kernel rolled its (S, 2T) position-score tile, is a load
-offset here: query row i reads r[T + j - i], a band of BQ + BK - 1 rows of
-r per tile that the block stages in shared memory. bfloat16 runs its three
-products on the tensor cores (WMMA) through shared memory, which bounds it;
-float32, the parity path, runs SIMT and is bound by FMA issue.
+`_run_fwd` and `_run_bwd` kernels) with csrc/xl_rel_attention.cu.
 
-Dropout on the attention probabilities and the backward come with training;
-`rate > 0` raises. A CPU tensor takes `xl_rel_attention_plain`; a CUDA
-tensor launches the kernel or raises.
+Forward: one block per (query tile, head, batch) with an online softmax in
+f32; the relative shift, for which the TPU kernel rolled its (S, 2T)
+position-score tile, is a load offset here: query row i reads r[T + j - i],
+a band of BQ + BK - 1 rows of r per tile that the block stages in shared
+memory. bfloat16 runs its three products on the tensor cores (WMMA)
+through shared memory, which bounds it; float32, the parity path, runs
+SIMT and is bound by FMA issue. With a gradient to come it also stores the
+row log-sum-exp.
+
+Dropout: the TPU kernel seeded its per-program PRNG, whose bits cannot be
+matched. Here the keep bit of element (b, h, i, j) is word 0 of a
+Philox4x32-10 block keyed by the step's 64-bit seed, with the element index
+((b H + h) T + i) T + j as the counter: the mask depends on neither tile
+size nor pass, so forward, backward and `philox_keep_mask` (plain torch
+integer arithmetic) draw the same mask. keep iff bits >= rate 2^32; kept
+probabilities scale by 1 / (1 - rate).
+
+Backward: one block per (key tile, head, batch) keeps dk and dv in f32
+registers and walks the query tiles, regenerating P from the saved
+log-sum-exp and the keep bits. The inverse relative shift, a log2 T
+cascade of rolls on the TPU (to dodge a Mosaic miscompile), is an index:
+d_raw[i, T + j - i] += d_ac[i, j]. dq (both terms), dr (2T, H, D) and the
+two bias gradients sum over key tiles, batch and query tiles, so they go
+through f32 atomicAdd into f32 buffers; their sums are order-dependent at
+the level of f32 rounding.
+
+A CPU tensor takes `xl_rel_attention_plain` (autograd through it gives the
+backward); a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -21,14 +41,56 @@ import torch
 from vilco_tpu_torch.kernels import _build
 
 NEG_INF = -1e9
+MASK32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
-def xl_rel_attention_plain(q, k, v, r, r_w_bias, r_r_bias, mask):
-    """Plain version: XLRelAttention's attention core in f32, returned in
-    q.dtype. q/k/v (B, T, H, D), r (2T, H, D), biases (H, D), mask (B, T)."""
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit words of a * b for 32-bit a and int64 b < 2^32,
+    in 16-bit halves so that no int64 product overflows."""
+    p1 = a * (b & 0xFFFF)
+    t = (p1 >> 16) + a * (b >> 16)
+    return t >> 16, ((t & 0xFFFF) << 16) | (p1 & 0xFFFF)
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 on int64 tensors holding 32-bit words: ctr a tuple of
+    four tensors, key a pair of ints. Returns the four output words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key[0] & MASK32, key[1] & MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W[0]) & MASK32
+        k1 = (k1 + PHILOX_W[1]) & MASK32
+    return c0, c1, c2, c3
+
+
+def keep_threshold(rate: float) -> int:
+    return min(int(rate * (1 << 32)), (1 << 32) - 1)
+
+
+def philox_keep_mask(seed: int, B: int, H: int, T: int, rate: float,
+                     device=None) -> torch.Tensor:
+    """(B, H, T, T) bool keep mask of the attention dropout."""
+    e = torch.arange(B * H * T * T, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(e)
+    bits = philox4x32_10((e & MASK32, e >> 32, zero, zero),
+                         (seed & MASK32, (seed >> 32) & MASK32))[0]
+    return (bits >= keep_threshold(rate)).reshape(B, H, T, T)
+
+
+def xl_rel_attention_plain(q, k, v, r, r_w_bias, r_r_bias, mask,
+                           seed: int = 0, rate: float = 0.0):
+    """Plain version: XLRelAttention's attention core in f32 (f64 for f64
+    inputs), returned in q.dtype. q/k/v (B, T, H, D), r (2T, H, D), biases
+    (H, D), mask (B, T)."""
     dt = q.dtype
-    q, k, v, r = q.float(), k.float(), v.float(), r.float()
-    rwb, rrb = r_w_bias.float(), r_r_bias.float()
+    ct = torch.promote_types(dt, torch.float32)
+    q, k, v, r, rwb, rrb = (t.to(ct) for t in (q, k, v, r, r_w_bias,
+                                                r_r_bias))
     B, T, H, D = q.shape
     scale = 1.0 / D ** 0.5
     ac = torch.einsum("bqhd,bkhd->bhqk", q + rwb, k)
@@ -38,17 +100,102 @@ def xl_rel_attention_plain(q, k, v, r, r_w_bias, r_r_bias, mask):
     bd = bd.reshape(B, H, T, 2 * T - 1)[..., :T]
     att = ((ac + bd) * scale).masked_fill(~mask[:, None, None, :], NEG_INF)
     att = torch.softmax(att, dim=-1)
-    vm = v * mask[:, :, None, None].float()
+    if rate > 0.0:
+        keep = philox_keep_mask(seed, B, H, T, rate, q.device)
+        att = torch.where(keep, att / (1.0 - rate), torch.zeros_like(att))
+    vm = v * mask[:, :, None, None].to(ct)
     return torch.einsum("bhqk,bkhd->bqhd", att, vm).to(dt)
 
 
-def xl_rel_attention(q, k, v, r, r_w_bias, r_r_bias, mask,
+def _seed_tensor(seed, device) -> torch.Tensor:
+    """The seed as one int64 on the card: a tensor drawn there stays there
+    (no host sync); an int is copied."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype != torch.int64 \
+                or seed.device != device:
+            raise ValueError("seed must be one int64 on the inputs' device")
+        return seed.reshape(1).contiguous()
+    return torch.tensor([_signed64(int(seed))], dtype=torch.int64,
+                        device=device)
+
+
+def _signed64(u: int) -> int:
+    u &= (1 << 64) - 1
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def _dropout_args(rate: float):
+    """The keep threshold as a C int, and 1 / (1 - rate)."""
+    thresh = keep_threshold(rate) if rate > 0.0 else 0
+    return _build.as_c_int(thresh), 1.0 / (1.0 - rate)
+
+
+def xl_fwd_cuda(args, seed: torch.Tensor, rate: float, with_lse: bool):
+    """Launch the forward kernel: (out, lse (B, H, T) f32 or None)."""
+    q = args[0]
+    B, T, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    thresh, inv_keep = _dropout_args(rate)
+    fn = _build.bind("xl_rel_attention", "xl_rel_attention_fwd", 10, 6, 1)
+    err = fn(*(t.data_ptr() for t in args), out.data_ptr(),
+             0 if lse is None else lse.data_ptr(), seed.data_ptr(), B, T, H,
+             D, _build.dtype_code(q), thresh, inv_keep, _build.stream_of(q))
+    _build.check(err, "xl_rel_attention_fwd")
+    xl_rel_attention.launches += 1
+    return out, lse
+
+
+def xl_bwd_cuda(args, out, lse, dout, seed: torch.Tensor, rate: float):
+    """Launch the backward kernel: (dq, dk, dv, dr, d r_w_bias, d r_r_bias),
+    each in its input's dtype."""
+    q, k, v, r, rwb, rrb, mask = args
+    B, T, H, D = q.shape
+    dev, f32 = q.device, torch.float32
+    dout = dout.contiguous()
+    dq = torch.zeros(q.shape, dtype=f32, device=dev)
+    dr = torch.zeros(r.shape, dtype=f32, device=dev)
+    drwb = torch.zeros((H, D), dtype=f32, device=dev)
+    drrb = torch.zeros((H, D), dtype=f32, device=dev)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    thresh, inv_keep = _dropout_args(rate)
+    fn = _build.bind("xl_rel_attention", "xl_rel_attention_bwd", 17, 6, 1)
+    err = fn(*(t.data_ptr() for t in args), out.data_ptr(), lse.data_ptr(),
+             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             dr.data_ptr(), drwb.data_ptr(), drrb.data_ptr(), seed.data_ptr(),
+             B, T, H, D, _build.dtype_code(q), thresh, inv_keep,
+             _build.stream_of(q))
+    _build.check(err, "xl_rel_attention_bwd")
+    xl_bwd_cuda.launches += 1
+    dt = q.dtype
+    return (dq.to(dt), dk, dv, dr.to(dt), drwb.to(dt), drrb.to(dt))
+
+
+xl_bwd_cuda.launches = 0
+
+
+class _XLRelAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, r, rwb, rrb, mask, seed, rate):
+        args = (q, k, v, r, rwb, rrb, mask)
+        out, lse = xl_fwd_cuda(args, seed, rate, with_lse=True)
+        ctx.save_for_backward(*args, out, lse, seed)
+        ctx.rate = rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        *args, out, lse, seed = ctx.saved_tensors
+        grads = xl_bwd_cuda(tuple(args), out, lse, dout, seed, ctx.rate)
+        return (*grads, None, None, None)
+
+
+def xl_rel_attention(q, k, v, r, r_w_bias, r_r_bias, mask, seed=0,
                      rate: float = 0.0):
-    """Returns (B, T, H, D); invalid query rows are not zeroed."""
-    if rate > 0.0:
-        raise NotImplementedError("attention dropout (rate > 0) is not "
-                                  "ported: the port serves, it does not "
-                                  "train yet")
+    """Returns (B, T, H, D); invalid query rows are not zeroed. `seed`, a
+    64-bit int or one int64 tensor on the inputs' device, keys the dropout
+    mask when rate > 0. Differentiable in q, k, v, r and both biases."""
     B, T, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape or r.shape != (2 * T, H, D) \
             or r_w_bias.shape != (H, D) or r_r_bias.shape != (H, D) \
@@ -56,25 +203,24 @@ def xl_rel_attention(q, k, v, r, r_w_bias, r_r_bias, mask,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, r {tuple(r.shape)}, mask "
                          f"{tuple(mask.shape)}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
     args = (q, k, v, r, r_w_bias, r_r_bias, mask)
     if q.device.type == "cpu":
-        return xl_rel_attention_plain(*args)
+        return xl_rel_attention_plain(*args, seed=int(seed), rate=rate)
     if q.device.type != "cuda" or any(t.device != q.device for t in args):
         raise ValueError("all inputs must be on one CUDA device")
-    code = _build.dtype_code(q)
+    _build.dtype_code(q)
     if any(t.dtype != q.dtype for t in args[:6]) or mask.dtype != torch.bool:
         raise TypeError("q, k, v, r and biases must share a dtype, mask bool")
     if D > 128:
         raise ValueError(f"head dim {D} > 128")
     if not all(t.is_contiguous() for t in args):
         raise ValueError("all inputs must be contiguous")
-    out = torch.empty_like(q)
-    fn = _build.bind("xl_rel_attention", "xl_rel_attention_fwd", 8, 5)
-    err = fn(*(t.data_ptr() for t in args), out.data_ptr(), B, T, H, D,
-             code, _build.stream_of(q))
-    _build.check(err, "xl_rel_attention_fwd")
-    xl_rel_attention.launches += 1
-    return out
+    seed = _seed_tensor(seed, q.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:6]):
+        return _XLRelAttention.apply(*args, seed, rate)
+    return xl_fwd_cuda(args, seed, rate, with_lse=False)[0]
 
 
 xl_rel_attention.launches = 0

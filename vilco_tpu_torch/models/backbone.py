@@ -5,8 +5,9 @@
   x arch[1] -> one XLRelAttention -> branch TransformerBlock x arch[2]
   (stride 2 each)
 
-Returns the (1 + arch[2])-level feature pyramid and its masks. The text
-tower and the cross-attention come in a later slice.
+Returns the (1 + arch[2])-level feature pyramid and its masks; `rng`
+switches the blocks' regularisers on (models/layers.py). The text tower
+and the cross-attention come in a later slice.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class ConvTransformerBackbone(nn.Module):
         self.register_buffer("pe", torch.from_numpy(pe), persistent=False)
         self.n_convs, self.n_stem, self.n_branch = n_convs, n_stem, n_branch
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng=None):
         T = x.shape[1]
         if T > self.cfg.max_seq_len:
             raise ValueError(f"T={T} exceeds max_seq_len="
@@ -61,11 +62,11 @@ class ConvTransformerBackbone(nn.Module):
             x = torch.relu(getattr(self, f"embd_norm_{i}")(x))
         x = x + self.pe[None, :T].to(x.dtype) * mask[..., None].to(x.dtype)
         for i in range(self.n_stem):
-            x, mask = getattr(self, f"stem_{i}")(x, mask)
+            x, mask = getattr(self, f"stem_{i}")(x, mask, rng)
         feats, masks = [x], [mask]
-        x = self.xl_0(x, mask)
+        x = self.xl_0(x, mask, rng)
         for i in range(self.n_branch):
-            x, mask = getattr(self, f"branch_{i}")(x, mask)
+            x, mask = getattr(self, f"branch_{i}")(x, mask, rng)
             feats.append(x)
             masks.append(mask)
         return feats, masks

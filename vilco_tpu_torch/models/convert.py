@@ -1,4 +1,5 @@
-"""Load a JAX/Flax parameter tree of the MQ model into the port.
+"""Load a JAX/Flax parameter tree of the MQ model into the port, and map
+gradient trees and AdamW state the same way.
 
 The port names its parameters after the Flax paths
 (`backbone.stem_0.attn.query_conv.weight` for
@@ -30,26 +31,49 @@ def _leaves(tree: Mapping[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
+def port_name(path, ndim: int) -> str:
+    """The port's parameter name for the Flax leaf at `path` (a tuple of
+    keys) whose parameter has rank `ndim`."""
+    *mods, name = path
+    if name == "kernel" and ndim in (2, 3):
+        name = "weight"
+    elif name == "kernel":
+        raise ValueError(f"{'/'.join(path)}: kernel of rank {ndim}")
+    elif name == "scale" and ndim == 1:
+        name = "weight"
+    return ".".join([*mods, name])
+
+
+def _layout(name: str, a: np.ndarray) -> np.ndarray:
+    if name == "kernel" and a.ndim == 2:
+        return a.T
+    if name == "kernel" and a.ndim == 3:
+        return a.transpose(2, 1, 0)
+    return a
+
+
 def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax params (nested dicts of arrays, e.g. numpy) -> a state_dict
-    in the port's names and layouts. Every leaf is mapped."""
+    in the port's names and layouts, in f32. Every leaf is mapped. A tree
+    of the same structure (gradients, AdamW moments) maps the same way."""
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(flax_params):
-        a = np.asarray(leaf, dtype=np.float32)
-        *mods, name = path
-        if name == "kernel" and a.ndim == 2:
-            name, a = "weight", a.T
-        elif name == "kernel" and a.ndim == 3:
-            name, a = "weight", a.transpose(2, 1, 0)
-        elif name == "kernel":
-            raise ValueError(f"{'/'.join(path)}: kernel of rank {a.ndim}")
-        elif name == "scale" and a.ndim == 1:
-            name = "weight"
-        key = ".".join([*mods, name])
+        a = np.asarray(leaf).astype(np.float32)
+        key = port_name(path, a.ndim)
         if key in out:
             raise ValueError(f"two Flax leaves map to {key}")
-        out[key] = torch.from_numpy(np.array(a, order="C"))
+        out[key] = torch.from_numpy(np.array(_layout(path[-1], a), order="C"))
     return out
+
+
+def adam_state_from_jax(count, mu: Mapping[str, Any],
+                        nu: Mapping[str, Any]) -> Dict[str, Any]:
+    """JAX AdamW state (the step count and the canonical mu and nu trees,
+    e.g. `PackedAdamState.count/.mu/.nu` as numpy) -> {"count": int,
+    "mu": {name: f32 tensor}, "nu": {name: f32 tensor}} in the port's
+    names and layouts; bf16 moments widen to f32 exactly."""
+    return {"count": int(np.asarray(count)), "mu": params_from_jax(mu),
+            "nu": params_from_jax(nu)}
 
 
 def load_jax_params(model: nn.Module, flax_params: Mapping[str, Any]) -> None:

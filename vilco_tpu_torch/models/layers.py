@@ -1,8 +1,17 @@
 """Building blocks of the point-transformer trunk (vilco_tpu/models/layers.py).
 
-Inference only: dropout and drop-path are the identity (the JAX modules'
-`deterministic=True`). Layout is (B, T, C) with (B, T) bool masks; module
-and parameter names follow the Flax tree (see models/convert.py).
+Layout is (B, T, C) with (B, T) bool masks; module and parameter names
+follow the Flax tree (see models/convert.py). Parameters may be f32 masters
+under a bf16 forward: every module casts its parameters to the input's
+dtype on use, as the JAX modules do.
+
+Regularisers: a forward given `rng` (a torch.Generator on the input's
+device) in training mode applies the flagship's drop-path (DROPPATH, on the
+AffineDropPath residuals and the channel block's two residuals) and the XL
+stage's dropouts (XL_DROPOUT: on the attention probabilities inside the
+kernel, after the output projection, after the FF's GELU and after its
+second layer). Without `rng` they are the identity (the JAX modules'
+`deterministic=True`, or training with the rates at 0).
 
   MaskedConv, LayerNormC, Scale, AffineDropPath
   MaskedMHCA        depthwise q/k/v convs (kernels/dwconv.py) + LN + the
@@ -32,6 +41,35 @@ from vilco_tpu_torch.ops.masked import (
 )
 
 T_C_ALPHA = 0.8  # train_cfg.t_c_alpha: temporal vs channel attention blend
+DROPPATH = 0.1   # train_cfg.droppath
+XL_DROPOUT = 0.1  # model.xl_dropout (the xlnet json's dropout)
+
+
+def _drop_path(x, rate: float, rng):
+    """Stochastic depth: each batch row kept with probability 1 - rate and
+    rescaled by 1 / (1 - rate)."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=rng,
+                      device=x.device) < keep
+    return x / keep * mask.to(x.dtype)
+
+
+def _dropout(x, rate: float, rng):
+    """Elementwise dropout with rescaling by 1 / (1 - rate)."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class Linear(nn.Linear):
+    """nn.Linear that casts its parameters to the input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class MaskedConv(nn.Module):
@@ -82,14 +120,14 @@ class Scale(nn.Module):
 
 
 class AffineDropPath(nn.Module):
-    """Per-channel learnable scale (init 1e-4); drop-path is off in eval."""
+    """Per-channel learnable scale (init 1e-4), then drop-path."""
 
     def __init__(self, c: int):
         super().__init__()
         self.scale = nn.Parameter(torch.full((1, 1, c), 1e-4))
 
-    def forward(self, x):
-        return self.scale.to(x.dtype) * x
+    def forward(self, x, rng=None):
+        return _drop_path(self.scale.to(x.dtype) * x, DROPPATH, rng)
 
 
 class _DWKernel(nn.Module):
@@ -117,10 +155,10 @@ class MaskedMHCA(nn.Module):
         self.query_norm = LayerNormC(E)
         self.key_norm = LayerNormC(E)
         self.value_norm = LayerNormC(E)
-        self.query = nn.Linear(E, E)
-        self.key = nn.Linear(E, E)
-        self.value = nn.Linear(E, E)
-        self.proj = nn.Linear(E, E)
+        self.query = Linear(E, E)
+        self.key = Linear(E, E)
+        self.value = Linear(E, E)
+        self.proj = Linear(E, E)
 
     def forward(self, x, mask):
         w3 = torch.stack([self.query_conv.weight[:, 0],
@@ -147,19 +185,20 @@ class ChannelBlock(nn.Module):
         super().__init__()
         C = n_embd
         self.n_head = n_head
-        self.qkv = nn.Linear(C, 3 * C, bias=False)
-        self.proj = nn.Linear(C, C)
+        self.qkv = Linear(C, 3 * C, bias=False)
+        self.proj = Linear(C, C)
         self.norm2 = LayerNorm(C, eps=1e-6)
-        self.mlp_fc1 = nn.Linear(C, 4 * C)
-        self.mlp_fc2 = nn.Linear(4 * C, C)
+        self.mlp_fc1 = Linear(C, 4 * C)
+        self.mlp_fc2 = Linear(4 * C, C)
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         B, T, C = x.shape
         H = self.n_head
         qkv = self.qkv(x).reshape(B, T, 3, H, C // H)
-        x = x + self.proj(channel_attention(qkv, H).reshape(B, T, C))
+        cur = self.proj(channel_attention(qkv, H).reshape(B, T, C))
+        x = x + _drop_path(cur, DROPPATH, rng)
         h = self.mlp_fc2(gelu(self.mlp_fc1(self.norm2(x))))
-        return x + h
+        return x + _drop_path(h, DROPPATH, rng)
 
 
 class TransformerBlock(nn.Module):
@@ -177,12 +216,12 @@ class TransformerBlock(nn.Module):
         self.drop_path_attn = AffineDropPath(E)
         self.drop_path_mlp = AffineDropPath(E)
         self.ln2 = LayerNormC(E)
-        self.mlp_fc1 = nn.Linear(E, 4 * E)
-        self.mlp_fc2 = nn.Linear(4 * E, E)
+        self.mlp_fc1 = Linear(E, 4 * E)
+        self.mlp_fc2 = Linear(4 * E, E)
         self.channel_attn = (ChannelBlock(E, n_head) if n_ds_stride == 1
                              else None)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng=None):
         s = self.stride
         ln1 = self.ln1(x)
         out, out_mask = self.attn(ln1, mask)
@@ -191,11 +230,11 @@ class TransformerBlock(nn.Module):
             skip, _ = masked_max_pool1d(x, mask, kernel=s + 1, stride=s)
         else:
             skip = x
-        out = skip * out_mask_f + self.drop_path_attn(out)
+        out = skip * out_mask_f + self.drop_path_attn(out, rng)
         h = self.mlp_fc2(gelu(self.mlp_fc1(self.ln2(out))))
-        out = out + self.drop_path_mlp(h * out_mask_f)
+        out = out + self.drop_path_mlp(h * out_mask_f, rng)
         if self.channel_attn is not None:
-            out2 = self.channel_attn(ln1)
+            out2 = self.channel_attn(ln1, rng)
             out = T_C_ALPHA * out + (1.0 - T_C_ALPHA) * out2
         return out, out_mask
 
@@ -213,11 +252,11 @@ class XLRelAttention(nn.Module):
         self.r_w_bias = nn.Parameter(torch.zeros(H, D))
         self.r_r_bias = nn.Parameter(torch.zeros(H, D))
         self.ln_attn = LayerNorm(C, eps=1e-12)
-        self.ff1 = nn.Linear(C, d_inner)
-        self.ff2 = nn.Linear(d_inner, C)
+        self.ff1 = Linear(C, d_inner)
+        self.ff2 = Linear(d_inner, C)
         self.ln_ff = LayerNorm(C, eps=1e-12)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng=None):
         T, C = x.shape[1:]
         dt = x.dtype
         # relative positions T .. -T+1
@@ -232,13 +271,20 @@ class XLRelAttention(nn.Module):
         k = torch.einsum("btc,chd->bthd", x, w(self.k))
         v = torch.einsum("btc,chd->bthd", x, w(self.v))
         r = torch.einsum("tc,chd->thd", pos_emb, w(self.r))
+        rate, seed = 0.0, 0
+        if rng is not None:
+            # drawn on the generator's device: no host sync on the card
+            rate = XL_DROPOUT
+            seed = torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), generator=rng,
+                                 device=rng.device)
         out = xl_rel_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), r.contiguous(),
                                w(self.r_w_bias), w(self.r_r_bias),
-                               mask.contiguous())
+                               mask.contiguous(), seed, rate)
         o = torch.einsum("bqhd,chd->bqc", out, w(self.o))
-        y = self.ln_attn(x + o)
-        f = self.ff2(gelu(self.ff1(y)))
+        y = self.ln_attn(x + _dropout(o, XL_DROPOUT, rng))
+        f = _dropout(gelu(self.ff1(y)), XL_DROPOUT, rng)
+        f = _dropout(self.ff2(f), XL_DROPOUT, rng)
         return self.ln_ff(y + f) * mask[..., None].to(dt)
 
 

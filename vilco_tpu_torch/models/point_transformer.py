@@ -1,11 +1,13 @@
-"""Point-transformer meta-arch, MQ inference path
+"""Point-transformer meta-arch, MQ serving and training paths
 (vilco_tpu/models/point_transformer.py).
 
 backbone -> identity neck (per-level LayerNorm) -> shared cls head and reg
 head, each run once over all levels concatenated with zero gaps. Returns
 the same keys as the JAX model's forward: `cls_logits` (B, P, C) f32,
-`offsets` (B, P, 2) f32, `fpn_mask` (B, P), `level_lengths`, `fpn_feats`.
-The L2P prompt pool and narration-SSL extras come in a later slice.
+`offsets` (B, P, 2) f32, `fpn_mask` (B, P), `level_lengths`, `fpn_feats`,
+and `gaussians`, the six learnable per-class (C,) parameters that weight
+the training losses. The L2P prompt pool and narration-SSL extras come in
+a later slice.
 """
 
 from __future__ import annotations
@@ -120,13 +122,16 @@ class RegHead(_Head):
 
 
 class PointTransformer(nn.Module):
-    """The MQ meta-arch at inference. Parameters are created in f32 on the
-    CPU, drawn from `generator` (seed 0 if None); call `.to(device, dtype)`
-    for a bf16 model on the card, as the JAX model casts its f32 params to
-    `compute_dtype` on use."""
+    """The MQ meta-arch. Parameters are drawn in f32 from the CPU
+    `generator` (seed 0 if None), then placed on `device` (the card unless
+    the caller asks for the CPU; no card raises). The forward computes in
+    `compute_dtype` (default: the parameters' dtype), casting f32 master
+    parameters on use as the JAX model does; `.to(device, torch.bfloat16)`
+    gives the serving path's bf16 model."""
 
     def __init__(self, cfg: ModelConfig,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 device="cuda"):
         super().__init__()
         self.cfg = cfg
         n_levels = cfg.num_branch_layers + 1
@@ -144,11 +149,15 @@ class PointTransformer(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights_(self, generator)
+        self.to(device)
 
-    def forward(self, feats, mask):
-        dt = next(self.parameters()).dtype
+    def forward(self, feats, mask, rng=None, compute_dtype=None):
+        """`rng` (a torch.Generator on the card or CPU of the inputs)
+        switches on drop-path and the XL dropouts in training mode."""
+        dt = compute_dtype or next(self.parameters()).dtype
         feats = feats.to(dt)
-        bb_feats, bb_masks = self.backbone(feats, mask)
+        rng = rng if self.training else None
+        bb_feats, bb_masks = self.backbone(feats, mask, rng)
         fpn_feats, fpn_masks = self.neck(bb_feats, bb_masks)
         cls_list = self.cls_head(fpn_feats, fpn_masks)
         reg_list = self.reg_head(fpn_feats, fpn_masks)
@@ -158,6 +167,9 @@ class PointTransformer(nn.Module):
             "offsets": torch.cat([r.float() for r in reg_list], 1),
             "fpn_mask": torch.cat(fpn_masks, 1),
             "fpn_feats": fpn_feats,
+            "gaussians": (self.mu, self.sigma, self.mu_reg_left,
+                          self.sigma_reg_left, self.mu_reg_right,
+                          self.sigma_reg_right),
         }
 
 

@@ -1,0 +1,153 @@
+"""The MQ train step (vilco_tpu/train/engine.py::make_train_step), naive
+continual-learning method: no SSL, distillation, penalty or prompts, one
+micro-batch per step.
+
+    forward (training mode) -> compute_losses -> backward
+    -> global-norm clip at CLIP_GRAD_L2NORM -> FusedAdamW -> loss-normaliser EMA
+
+The constants are the flagship's `train_cfg` (vilco_tpu/core/config.py
+TrainCfg defaults): radius center sampling at 1.5, Gaussian loss weights
+on, the label-involved loss and label smoothing off, loss weight 1,
+initial loss normaliser 100, clip 1.0.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from vilco_tpu_torch.ops.assign import label_points
+from vilco_tpu_torch.ops.losses import ctr_diou_loss_1d, sigmoid_focal_loss
+from vilco_tpu_torch.train.optim import FusedAdamW
+
+CENTER_SAMPLE_RADIUS = 1.5
+INIT_LOSS_NORM = 100.0
+CLIP_GRAD_L2NORM = 1.0
+LOSS_WEIGHT = 1.0
+
+
+@dataclass
+class CLBatchExtras:
+    class_mask: torch.Tensor            # (C,) bool: the classes seen so far
+
+
+@dataclass
+class TrainState:
+    """`model` holds the f32 master parameters and `opt` the AdamW state;
+    `generator` (on the model's device) draws drop-path, dropout and the
+    XL kernel's dropout seed."""
+    model: torch.nn.Module
+    opt: FusedAdamW
+    loss_normalizer: torch.Tensor
+    generator: torch.Generator
+    step: int = 0
+
+
+def init_train_state(model: torch.nn.Module, steps_per_epoch: int,
+                     seed: int = 0, device="cuda") -> TrainState:
+    """Place `model` on `device` (the card unless the caller asks for the
+    CPU; no card raises) and start AdamW and the loss normaliser."""
+    device = torch.device(device)
+    model.to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(model=model, opt=FusedAdamW(model, steps_per_epoch),
+                      loss_normalizer=torch.tensor(INIT_LOSS_NORM,
+                                                   device=device),
+                      generator=gen)
+
+
+def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
+                   cl: CLBatchExtras, loss_normalizer: torch.Tensor):
+    """Focal classification loss with Gaussian weights on the positives and
+    Distance-IoU regression loss on the positives, both over the new
+    normaliser 0.9 old + 0.1 max(#positives, 1). Returns (loss, metrics,
+    new normaliser)."""
+    cls_logits = outputs["cls_logits"]            # (B, P, C) f32
+    valid = outputs["fpn_mask"]                   # (B, P)
+    class_mask_f = cl.class_mask.float()
+    tgt = label_points(points, batch["gt_segments"], batch["gt_labels"],
+                       batch["gt_valid"], cls_logits.shape[-1],
+                       outputs["gaussians"], CENTER_SAMPLE_RADIUS)
+    pos_mask = tgt.pos_mask & valid
+    num_pos = pos_mask.float().sum()
+    norm = 0.9 * loss_normalizer + 0.1 * torch.clamp(num_pos, min=1.0)
+
+    cls_l = sigmoid_focal_loss(cls_logits, tgt.cls)
+    cls_l = (cls_l * class_mask_f[None, None, :]).sum(-1)       # (B, P)
+    w_cls = torch.where(pos_mask, tgt.prob_cls, torch.ones_like(cls_l))
+    cls_loss = (cls_l * w_cls * valid).sum() / norm
+
+    reg_l = ctr_diou_loss_1d(outputs["offsets"], torch.clamp(tgt.reg,
+                                                            min=0.0))
+    w_reg = 0.5 * (tgt.prob_reg_left + tgt.prob_reg_right) * tgt.prob_cls
+    reg_loss = (reg_l * w_reg * pos_mask).sum() / norm
+    reg_loss = torch.where(num_pos > 0, reg_loss, torch.zeros_like(reg_loss))
+
+    final = cls_loss + reg_loss * LOSS_WEIGHT
+    metrics = {"cls_loss": cls_loss, "reg_loss": reg_loss,
+               "num_pos": num_pos, "final_loss": final}
+    return final, metrics, norm
+
+
+def global_norm_clip(grad_flat: torch.Tensor):
+    """(global L2 norm of the gradients, clip factor min(1, clip / (norm +
+    1e-9))), both 0-d f32 tensors on the gradients' device; `grad_flat`
+    holds every gradient (FusedAdamW's buffer). The sum of squares runs in
+    f64: one f32 reduction over the whole buffer drifts ~2e-5 from optax's
+    per-leaf sums."""
+    gnorm = torch.linalg.vector_norm(grad_flat, dtype=torch.float64).float()
+    return gnorm, torch.clamp(CLIP_GRAD_L2NORM / (gnorm + 1e-9), max=1.0)
+
+
+def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def make_train_step(points: torch.Tensor, *, regularize: bool = True,
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> Callable:
+    """step(state, batch, cl, marks=None) -> metrics (0-d tensors, no
+    host sync). `batch` holds tensors on the model's device. regularize:
+    drop-path and dropouts from state.generator (off: the deterministic
+    step of the parity checks). `marks`, if a list, receives (phase,
+    CUDA event or host time) at the forward / backward / optimizer
+    boundaries."""
+
+    def mark(marks, name):
+        if marks is None:
+            return
+        if points.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+        else:
+            marks.append((name, time.perf_counter()))
+
+    def step(state: TrainState, batch: dict, cl: CLBatchExtras,
+             marks: Optional[list] = None):
+        model = state.model
+        model.train()
+        mark(marks, "start")
+        out = model(batch["feats"], batch["mask"],
+                    rng=state.generator if regularize else None,
+                    compute_dtype=compute_dtype)
+        loss, metrics, new_norm = compute_losses(out, batch, points, cl,
+                                                 state.loss_normalizer)
+        mark(marks, "forward")
+        state.opt.zero_grad()
+        loss.backward()
+        mark(marks, "backward")
+        gnorm, gscale = global_norm_clip(state.opt.grad_flat)
+        state.opt.step(gscale)
+        mark(marks, "optimizer")
+        metrics["grad_norm"] = gnorm
+        state.loss_normalizer = new_norm.detach()
+        state.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
