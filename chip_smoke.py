@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's MQ serving and training paths once on one
-NVIDIA H100.
+"""Drive the PyTorch/CUDA port's MQ and NLQ serving and training paths once
+on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -12,8 +12,9 @@ fallback):
   3. kernels       each serving (forward) kernel against its plain PyTorch
                    version at every shape the flagship serves, batch 16,
                    ragged masks plus one fully masked row, bf16 and f32
-                   (TF32 off): max error beside its tolerance, median ms of
-                   kernel, plain version and library call, and the bound
+                   (TF32 off): each output's error beside its own limit,
+                   median ms of kernel, plain version and library call,
+                   and the bound
   4. parity        flagship_config() at batch 1 in f32, forward on the card
                    with its kernels against the CPU with the plain versions:
                    max relative error of the head outputs, and a TF32
@@ -45,6 +46,25 @@ fallback):
                    peak memory, every loss, launch counts per kernel
  10. trace         one more train step profiled: device ms by kernel kind,
                    the top kernels and the idle share
+ 11. nlq_kernels   the NLQ flagship's kernels against their plain versions,
+                   bf16 and f32: the banded attention forward, dq and dk/dv
+                   at batch 16 and 4 for every pyramid length 2560..40, the
+                   band wider than T (T=8) and an odd T; the dense attention
+                   at D=96 as text self-attention (T=32) and video-to-text
+                   cross-attention (2560 x 32), forward and backward; the
+                   depthwise convs and their backward at C=384; AdamW over
+                   the dual tower's 467 leaves (bit-exact). Each output's
+                   error beside its own limit, kernel, plain and library
+                   ms (SDPA with the band mask) and the bound
+ 12. nlq_parity    nlq_flagship_config() at batch 1 in f32, the card against
+                   the CPU on the head outputs, with a TF32 control
+ 13. nlq_serve     batch 16 bf16 requests (clip features + query text):
+                   forward + decode_and_nms_batch at the NLQ test_cfg,
+                   clips/s, ms split, peak memory, launches, one profiled
+                   request
+ 14. nlq_train     12 bf16 steps at batch 4 (f32 masters, drop-path 0.1,
+                   label smoothing 0.1, FusedAdamW over 467 leaves): ms
+                   split, losses, peak memory, launches, one profiled step
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
 """
@@ -66,7 +86,9 @@ import torch.nn.functional as F
 SEED = 0
 B_SERVE = 16
 B_TRAIN = 2          # the flagship's loader.batch_size
-TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}  # atol, rtol
+# forward outputs against tol x max(1, max|ref|): f32 summation order and an
+# online softmax against a two-pass one; bf16 one rounding of the output
+FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # f32 on both sides reads ~6e-6 (summation order over ~30 layers); TF32 in
 # the card's GEMMs and convs reads ~1e-3, so 2e-5 tells the two apart. The
 # parity phase runs that TF32 control and fails if the check cannot see it.
@@ -121,20 +143,10 @@ def ragged_mask(rng, B: int, T: int, dev) -> torch.Tensor:
     return torch.from_numpy(m).to(dev)
 
 
-def compare(name, out, ref, dtype, record):
-    atol, rtol = TOL[dtype]
-    outs = out if isinstance(out, tuple) else (out,)
-    refs = ref if isinstance(ref, tuple) else (ref,)
-    err, ok = 0.0, True
-    for o, r in zip(outs, refs):
-        o, r = o.float(), r.float()
-        if o.shape != r.shape or not torch.isfinite(o).all():
-            fail(f"{name}: shape {tuple(o.shape)} vs {tuple(r.shape)} "
-                 "or non-finite output")
-        err = max(err, (o - r).abs().max().item())
-        ok &= bool(torch.allclose(o, r, atol=atol, rtol=rtol))
-    record.append(err)
-    return err, ok, f"atol {atol:g} rtol {rtol:g}"
+def zero_row(label, outs):
+    """The last batch row (fully masked by ragged_mask) must be exactly 0."""
+    if any(x[-1].abs().max().item() != 0 for x in outs):
+        fail(f"{label}: the fully masked row is not 0")
 
 
 def phase_device():
@@ -192,37 +204,16 @@ def phase_kernels(dev):
     D = C // H
     nb = cfg.num_branch_layers
     rng = np.random.default_rng(SEED)
-    errs = {k: {torch.bfloat16: [], torch.float32: []}
-            for k in ("attn", "xl", "dw")}
-    top = {}
-    all_ok = True
+    chk = KernelChecks("kernels", ("attn", "xl", "dw"))
+    out_err = lambda names, got, want, dtype: output_errors(
+        names, got, want, FWD_TOL[dtype])
 
     def randn(*shape, dtype, scale=1.0):
         a = rng.standard_normal(shape).astype(np.float32) * scale
         return torch.from_numpy(a).to(dev, dtype)
 
-    def run(key, label, dtype, kern, plain, shape_key, work, library=None):
-        nonlocal all_ok
-        out = kern()
-        ref = plain()
-        torch.cuda.synchronize()
-        err, ok, tol = compare(label, out, ref, dtype, errs[key][dtype])
-        if key != "dw" and out[-1].abs().max().item() != 0.0:
-            fail(f"{label}: the fully masked row is not 0")
-        ms, pms = median_ms(kern), median_ms(plain)
-        lms = median_ms(library) if library is not None else None
-        bms, by = bound(*work, dtype)
-        all_ok &= ok
-        say(f"[kernels] {label} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-            f"({tol}) {'ok' if ok else 'OUT OF TOLERANCE'}; "
-            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
-            f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
-            f"{bms:.4f} ms ({by}) [{CARD}]")
-        if dtype == torch.bfloat16 and shape_key:
-            top[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
-                            bound_ms=bms, bound_by=by)
-
     for dtype in (torch.bfloat16, torch.float32):
+        top = dtype == torch.bfloat16
         # K1: stem at T0, then each branch block's strided length
         for T in [T0] + [T0 >> (i + 1) for i in range(nb)]:
             q, k, v = (randn(B_SERVE, T, C, dtype=dtype) for _ in range(3))
@@ -230,60 +221,77 @@ def phase_kernels(dev):
             bh = lambda x: x.reshape(B_SERVE, T, H, D).transpose(1, 2)
             qh, kh, vh = bh(q), bh(k), bh(v)
             am = m[:, None, None, :]
-            run("attn", f"fused_attention_blc B={B_SERVE} T={T} C={C} H={H}",
-                dtype, lambda: fused_attention_blc(q, k, v, m, H),
-                lambda: fused_attention_blc_plain(q, k, v, m, H), T == T0,
-                attention_work(T, m, C, dtype, backward=False),
-                lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                       attn_mask=am))
+            label = f"fused_attention_blc B={B_SERVE} T={T} C={C} H={H}"
+            out = fused_attention_blc(q, k, v, m, H)
+            zero_row(label, [out])
+            chk.report("attn", label, dtype,
+                       out_err(("out",), [out],
+                               [fused_attention_blc_plain(q, k, v, m, H)],
+                               dtype),
+                       lambda: fused_attention_blc(q, k, v, m, H),
+                       lambda: fused_attention_blc_plain(q, k, v, m, H),
+                       attention_work(T, m, C, dtype, backward=False),
+                       lambda: F.scaled_dot_product_attention(
+                           qh, kh, vh, attn_mask=am),
+                       is_top=top and T == T0)
         # K2: the XL stage at T0
         q, k, v = (randn(B_SERVE, T0, H, D, dtype=dtype) for _ in range(3))
         r = randn(2 * T0, H, D, dtype=dtype)
         rwb, rrb = (randn(H, D, dtype=dtype, scale=0.1) for _ in range(2))
         m = ragged_mask(rng, B_SERVE, T0, dev)
-        run("xl", f"xl_rel_attention B={B_SERVE} T={T0} H={H} D={D}", dtype,
-            lambda: xl_rel_attention(q, k, v, r, rwb, rrb, m),
-            lambda: xl_rel_attention_plain(q, k, v, r, rwb, rrb, m), True,
-            xl_work(T0, m, C, dtype, backward=False))
+        label = f"xl_rel_attention B={B_SERVE} T={T0} H={H} D={D}"
+        out = xl_rel_attention(q, k, v, r, rwb, rrb, m)
+        zero_row(label, [out])
+        chk.report("xl", label, dtype,
+                   out_err(("out",), [out],
+                           [xl_rel_attention_plain(q, k, v, r, rwb, rrb, m)],
+                           dtype),
+                   lambda: xl_rel_attention(q, k, v, r, rwb, rrb, m),
+                   lambda: xl_rel_attention_plain(q, k, v, r, rwb, rrb, m),
+                   xl_work(T0, m, C, dtype, backward=False), is_top=top)
         # K3: stride 1 in the stem, stride 2 on each branch block's input
         w = randn(3, 3, C, dtype=dtype, scale=0.3)
         wg = w.float().permute(2, 0, 1).reshape(3 * C, 1, 3).to(dtype)
         for T, s in [(T0, 1)] + [(T0 >> i, 2) for i in range(nb)]:
             x = randn(B_SERVE, T, C, dtype=dtype)
             xt = x.transpose(1, 2)
-            run("dw", f"fused_dwconv_qkv B={B_SERVE} T={T} C={C} stride={s}",
-                dtype, lambda: fused_dwconv_qkv(x, w, s),
-                lambda: fused_dwconv_qkv_plain(x, w, s), T == T0 and s == 1,
-                dwconv_work(B_SERVE, T, C, s, dtype, backward=False),
-                lambda: F.conv1d(xt, wg, stride=s, padding=1, groups=C))
-        del q, k, v, r, x
+            chk.report("dw", f"fused_dwconv_qkv B={B_SERVE} T={T} C={C} "
+                       f"stride={s}", dtype,
+                       out_err(("q", "k", "v"), fused_dwconv_qkv(x, w, s),
+                               fused_dwconv_qkv_plain(x, w, s), dtype),
+                       lambda: fused_dwconv_qkv(x, w, s),
+                       lambda: fused_dwconv_qkv_plain(x, w, s),
+                       dwconv_work(B_SERVE, T, C, s, dtype, backward=False),
+                       lambda: F.conv1d(xt, wg, stride=s, padding=1,
+                                        groups=C),
+                       is_top=top and T == T0 and s == 1)
+        del q, k, v, r, x, out
         torch.cuda.empty_cache()
-    if not all_ok:
+    if not chk.ok:
         fail("a kernel disagrees with its plain version")
-    return errs, top
+    return chk.errs, chk.top
 
 
-def phase_parity(dev):
-    from vilco_tpu_torch.core.config import flagship_config
+def phase_parity(dev, tag: str, cfg, inputs):
+    """`cfg` (a ModelConfig) at batch 1 in f32: the forward on the card
+    with its kernels against the CPU with the plain versions, on the same
+    CPU `inputs` (model(*inputs)): max relative error of the head outputs,
+    and a TF32 control that must read above the limit."""
     from vilco_tpu_torch.models.point_transformer import PointTransformer
 
-    cfg = flagship_config().model
-    rng = np.random.default_rng(SEED + 1)
     model = PointTransformer(
         cfg, generator=torch.Generator().manual_seed(SEED),
         device="cpu").eval()
-    x = torch.from_numpy(rng.standard_normal(
-        (1, cfg.max_seq_len, cfg.input_dim)).astype(np.float32))
-    mask = ragged_mask(rng, 2, cfg.max_seq_len, "cpu")[:1]
+    card = [a.to(dev) for a in inputs]
     with torch.no_grad():
-        ref = model(x, mask)
+        ref = model(*inputs)
         gpu = copy.deepcopy(model).to(dev)
-        out = gpu(x.to(dev), mask.to(dev))
+        out = gpu(*card)
         # control: the same forward with TF32 allowed must read above the
         # tolerance, or the check could not catch a precision fault
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
-        tf32 = gpu(x.to(dev), mask.to(dev))
+        tf32 = gpu(*card)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     torch.cuda.synchronize()
@@ -291,7 +299,7 @@ def phase_parity(dev):
     def rel_err(o, r):
         o = o.cpu()
         if o.shape != r.shape or not torch.isfinite(o).all():
-            fail(f"parity: shape {tuple(o.shape)} or non-finite values")
+            fail(f"{tag}: shape {tuple(o.shape)} or non-finite values")
         return ((o - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
 
     worst, control = 0.0, 0.0
@@ -299,25 +307,26 @@ def phase_parity(dev):
         rel = rel_err(out[key], ref[key])
         worst = max(worst, rel)
         control = max(control, rel_err(tf32[key], ref[key]))
-        say(f"[parity] {key} {tuple(ref[key].shape)} f32 card vs CPU: max "
+        say(f"[{tag}] {key} {tuple(ref[key].shape)} f32 card vs CPU: max "
             f"rel err {rel:.3e} (tol {PARITY_RTOL:g})")
-    say(f"[parity] control, TF32 allowed on the card: max rel err "
+    say(f"[{tag}] control, TF32 allowed on the card: max rel err "
         f"{control:.3e} (must exceed tol {PARITY_RTOL:g})")
     if not torch.equal(out["fpn_mask"].cpu(), ref["fpn_mask"]):
-        fail("parity fpn_mask differs")
+        fail(f"{tag}: fpn_mask differs")
     if worst > PARITY_RTOL:
-        fail("full-width parity out of tolerance")
+        fail(f"{tag}: full-width parity out of tolerance")
     if control <= PARITY_RTOL:
-        fail("the parity check does not see TF32: tolerance too loose")
+        fail(f"{tag}: the check does not see TF32: tolerance too loose")
     del gpu
     torch.cuda.empty_cache()
 
 
-def phase_serve(dev):
-    from vilco_tpu_torch.core.config import flagship_config
-    from vilco_tpu_torch.kernels.attention import fused_attention_blc
-    from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv
-    from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention
+def phase_serve(dev, tag: str, full, requests, kernels):
+    """The bf16 model of `full` (a Config) serving `requests` (tuples of
+    card tensors for model(*request)): 2 warm-up and the rest timed through
+    forward + decode_and_nms_batch at full.test_cfg; clips/s, ms per
+    request split, peak memory, detections, the launch counts of
+    `kernels` (set to 0 just before), then one more request profiled."""
     from vilco_tpu_torch.models.point_transformer import (
         PointTransformer,
         level_lengths,
@@ -325,7 +334,6 @@ def phase_serve(dev):
     from vilco_tpu_torch.ops.assign import generate_points
     from vilco_tpu_torch.ops.decode import decode_and_nms_batch
 
-    full = flagship_config()
     cfg, t = full.model, full.test_cfg
     model = PointTransformer(
         cfg, generator=torch.Generator().manual_seed(SEED),
@@ -333,16 +341,7 @@ def phase_serve(dev):
     points = torch.from_numpy(generate_points(
         level_lengths(cfg), cfg.fpn_strides, cfg.regression_range)).to(dev)
     class_mask = torch.ones(cfg.num_classes, dtype=torch.bool, device=dev)
-    rng = np.random.default_rng(SEED + 2)
-    requests = []
-    for _ in range(7):
-        feats = rng.standard_normal(
-            (B_SERVE, cfg.max_seq_len, cfg.input_dim)).astype(np.float32)
-        lens = rng.integers(cfg.max_seq_len // 2, cfg.max_seq_len + 1,
-                            size=B_SERVE)
-        mask = np.arange(cfg.max_seq_len)[None, :] < lens[:, None]
-        requests.append((torch.from_numpy(feats).to(dev, torch.bfloat16),
-                         torch.from_numpy(mask).to(dev)))
+    B = requests[0][0].shape[0]
 
     def postprocess(out):
         return decode_and_nms_batch(
@@ -353,71 +352,75 @@ def phase_serve(dev):
             min_score=t.min_score, nms_sigma=t.nms_sigma,
             voting_thresh=t.voting_thresh)
 
-    def serve(feats, mask):
+    def serve(req):
         t0 = time.perf_counter()
-        out = model(feats, mask)
+        out = model(*req)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         det = postprocess(out)
         torch.cuda.synchronize()
         return det, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
 
-    kernels = (fused_attention_blc, xl_rel_attention, fused_dwconv_qkv)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     with torch.no_grad():
-        for feats, mask in requests[:2]:
-            serve(feats, mask)
+        for req in requests[:2]:
+            serve(req)
         fwd, post, dets = [], [], []
         t0 = time.perf_counter()
-        for feats, mask in requests[2:]:
-            det, f_ms, p_ms = serve(feats, mask)
+        for req in requests[2:]:
+            det, f_ms, p_ms = serve(req)
             fwd.append(f_ms)
             post.append(p_ms)
             dets.append(det)
         wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    K = t.max_seg_num
     for det in dets:
-        K = t.max_seg_num
-        if det.segs.shape != (B_SERVE, K, 2) or det.scores.shape != (B_SERVE, K):
-            fail(f"detections have shape {tuple(det.segs.shape)}")
-        if not (torch.isfinite(det.segs).all() and torch.isfinite(det.scores).all()):
-            fail("non-finite detections")
+        if det.segs.shape != (B, K, 2) or det.scores.shape != (B, K):
+            fail(f"{tag}: detections have shape {tuple(det.segs.shape)}")
+        if not (torch.isfinite(det.segs).all()
+                and torch.isfinite(det.scores).all()):
+            fail(f"{tag}: non-finite detections")
         s = torch.where(det.valid, det.scores, -1.0)
         if (s[:, 1:] > s[:, :-1]).any():
-            fail("detection scores are not sorted")
+            fail(f"{tag}: detection scores are not sorted")
     n_valid = torch.stack([d.valid.sum(1) for d in dets]).float()
     n_req = len(dets)
-    say(f"[serve] batch {B_SERVE} bf16, {n_req} timed requests: "
-        f"{n_req * B_SERVE / wall:.3f} clips/s, {wall / n_req * 1e3:.3f} "
-        f"ms/request (forward median {statistics.median(fwd):.3f} ms, "
-        f"decode+NMS median {statistics.median(post):.3f} ms) [{CARD}]")
-    say(f"[serve] peak memory {peak:.3f} GiB; valid detections per clip "
+    say(f"[{tag}] {cfg.variant.upper()} batch {B} bf16, T={cfg.max_seq_len},"
+        f" {n_req} timed requests: {n_req * B / wall:.3f} clips/s, "
+        f"{wall / n_req * 1e3:.3f} ms/request (forward median "
+        f"{statistics.median(fwd):.3f} ms, decode+NMS median "
+        f"{statistics.median(post):.3f} ms) [{CARD}]")
+    say(f"[{tag}] peak memory {peak:.3f} GiB; valid detections per clip "
         f"mean {n_valid.mean().item():.2f} min {n_valid.min().item():.0f}")
-    say(f"[serve] launches in the {len(requests)} requests: {launches}")
+    say(f"[{tag}] launches in the {len(requests)} requests: {launches}")
     if min(launches.values()) < 1:
-        fail("a kernel of the path was never launched")
-    feats, mask = requests[-1]
+        fail(f"{tag}: a kernel of the path was never launched")
+    req = requests[-1]
     with torch.no_grad():
-        out = phase_trace("forward", lambda: model(feats, mask),
+        out = phase_trace(f"{tag} forward", lambda: model(*req),
                           statistics.median(fwd))
-        phase_trace("decode+NMS", lambda: postprocess(out),
+        phase_trace(f"{tag} decode+NMS", lambda: postprocess(out),
                     statistics.median(post))
+    del model
+    torch.cuda.empty_cache()
     return launches
 
 
 def attention_work(T, m, C, dtype, backward):
-    """(flops, bytes) the attention needs: q.k and p.v for every valid key
-    (x 2.5 for the backward: s, dP, dV, dK, dQ), q/k/v/out read or written
-    once (the backward also reads out and dout and writes dq/dk/dv)."""
+    """(flops, bytes) the attention needs for T queries over the keys of
+    the mask m (B, Tk): q.k and p.v for every valid key (x 2.5 for the
+    backward: s, dP, dV, dK, dQ), q/k/v/out read or written once (the
+    backward also reads out and dout and writes dq/dk/dv)."""
     pairs = T * int(m.sum())
     el = torch.empty((), dtype=dtype).element_size()
-    B = m.shape[0]
+    B, Tk = m.shape
     if backward:
-        return 10 * C * pairs, 8 * B * T * C * el
-    return 4 * C * pairs, 4 * B * T * C * el + m.numel()
+        return 10 * C * pairs, 4 * B * (T + Tk) * C * el
+    return 4 * C * pairs, 2 * B * (T + Tk) * C * el + m.numel()
 
 
 def xl_work(T, m, C, dtype, backward):
@@ -460,6 +463,36 @@ def output_errors(names, got, want, tol):
     return rows
 
 
+class KernelChecks:
+    """One phase's kernel checks: each output against its own limit (rows
+    from output_errors), then the median ms of the kernel, its plain
+    version and the library call, and the bound. `errs[key]` collects each
+    check's worst error, `top[key]` the timings at the headline shape, `ok`
+    whether every output was inside its limit."""
+
+    def __init__(self, tag: str, keys):
+        self.tag, self.errs, self.top, self.ok = tag, {k: [] for k in keys}, \
+            {}, True
+
+    def report(self, key, label, dtype, rows, kern, plain, work,
+               library=None, is_top=False, reps=10):
+        ok = all(err <= lim for _, err, lim in rows)
+        self.ok &= ok
+        self.errs[key].append(max(err for _, err, _ in rows))
+        ms, pms = median_ms(kern, reps=reps), median_ms(plain, reps=reps)
+        lms = median_ms(library, reps=reps) if library is not None else None
+        bms, by = bound(*work, dtype)
+        say(f"[{self.tag}] {label} {str(dtype)[6:]}: max_abs_err (limit) "
+            + ", ".join(f"{n} {e:.3e} ({lim:.3e})" for n, e, lim in rows)
+            + f" {'ok' if ok else 'OUT OF TOLERANCE'}; kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, library "
+            f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
+            f"{bms:.4f} ms ({by}) [{CARD}]")
+        if is_top:
+            self.top[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                                 bound_ms=bms, bound_by=by)
+
+
 def grads_of(fn, inputs, g):
     xs = [x.detach().clone().requires_grad_() if x.is_floating_point()
           else x for x in inputs]
@@ -488,13 +521,47 @@ def backward_timer(fn, inputs, g):
 TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def phase_train_kernels(dev):
-    from vilco_tpu_torch.core.config import flagship_config
+def check_adamw(chk, cfg, dev):
+    """K4 over every leaf of the model of `cfg` (a ModelConfig) in one
+    launch, bf16 moments, bit-exact against the plain version leaf by
+    leaf."""
     from vilco_tpu_torch.kernels.adamw import (
         LeafTable,
         adamw_update_multi,
         adamw_update_plain,
     )
+    from vilco_tpu_torch.models.point_transformer import PointTransformer
+
+    model = PointTransformer(cfg, generator=torch.Generator().manual_seed(
+        SEED), device=dev)
+    ps = [p.data for p in model.parameters()]
+    gr = [torch.randn_like(p) * 1e-3 for p in ps]
+    ms = [(torch.randn_like(p) * 1e-3).to(torch.bfloat16) for p in ps]
+    vs = [(torch.randn_like(p) * 1e-3).square().to(torch.bfloat16)
+          for p in ps]
+    decays = [p.dim() >= 2 for p in ps]
+    coef = torch.tensor([1e-4, 0.271, 0.002997, 0.75], device=dev)
+    want = [adamw_update_plain(p, g, m_, v_, d, *coef)
+            for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)]
+    got = [t.clone() for t in ps], [t.clone() for t in ms], \
+        [t.clone() for t in vs]
+    table = LeafTable(got[0], gr, got[1], got[2], decays)
+    adamw_update_multi(table, coef)
+    n = sum(p.numel() for p in ps)
+    chk.report("adamw", f"adamw_update_multi {cfg.variant.upper()} "
+               f"{len(ps)} leaves {n} params", torch.float32,
+               output_errors(("p", "m", "v"), list(got),
+                             [list(x) for x in zip(*want)], 0.0),
+               lambda: adamw_update_multi(table, coef),
+               lambda: [adamw_update_plain(p, g, m_, v_, d, *coef)
+                        for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)],
+               (16 * n, 20 * n), is_top=True, reps=5)
+    del model, ps, gr, ms, vs, got, want, table
+    torch.cuda.empty_cache()
+
+
+def phase_train_kernels(dev):
+    from vilco_tpu_torch.core.config import flagship_config
     from vilco_tpu_torch.kernels.attention import (
         attention_bwd_cuda,
         attention_fwd_cuda,
@@ -512,7 +579,6 @@ def phase_train_kernels(dev):
         xl_rel_attention,
         xl_rel_attention_plain,
     )
-    from vilco_tpu_torch.models.point_transformer import PointTransformer
 
     cfg = flagship_config().model
     T0, C, H = cfg.max_seq_len, cfg.embd_dim, cfg.n_head
@@ -520,39 +586,14 @@ def phase_train_kernels(dev):
     nb = cfg.num_branch_layers
     B = B_TRAIN
     rng = np.random.default_rng(SEED + 3)
-    errs = {k: [] for k in ("attn_bwd", "xl_fwd", "xl_bwd", "dw_bwd",
-                            "adamw")}
-    top = {}
-    all_ok = True
+    chk = KernelChecks("train_kernels", ("attn_bwd", "xl_fwd", "xl_bwd",
+                                         "dw_bwd", "adamw"))
+    out_err = lambda names, got, want, dtype: output_errors(
+        names, got, want, TRAIN_TOL[dtype])
 
     def randn(*shape, dtype, scale=1.0):
         a = rng.standard_normal(shape).astype(np.float32) * scale
         return torch.from_numpy(a).to(dev, dtype)
-
-    def report(key, label, dtype, names, got, want, kern, plain, work,
-               library=None, is_top=False, tol=None, reps=10):
-        """Each output against its own limit; then the times."""
-        nonlocal all_ok
-        torch.cuda.synchronize()
-        tol = TRAIN_TOL[dtype] if tol is None else tol
-        rows = output_errors(names, got, want, tol)
-        ok = all(err <= lim for _, err, lim in rows)
-        all_ok &= ok
-        errs[key].append(max(err for _, err, _ in rows))
-        ms = median_ms(kern, reps=reps)
-        pms = median_ms(plain, reps=reps)
-        lms = median_ms(library, reps=reps) if library is not None else None
-        bms, by = bound(*work, dtype)
-        say(f"[train_kernels] {label} {str(dtype)[6:]}: max_abs_err (limit "
-            f"{tol:g} x max(1, max|ref|)) "
-            + ", ".join(f"{n} {e:.3e} ({lim:.3e})" for n, e, lim in rows)
-            + f" {'ok' if ok else 'OUT OF TOLERANCE'}; kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms, library "
-            f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
-            f"{bms:.4f} ms ({by}) [{CARD}]")
-        if is_top:
-            top[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
-                            bound_ms=bms, bound_by=by)
 
     for dtype in (torch.bfloat16, torch.float32):
         # K1-bwd: the two stems at T0, then each branch block's length
@@ -568,18 +609,19 @@ def phase_train_kernels(dev):
             out, lse = attention_fwd_cuda(q, k, v, m, H, with_lse=True)
             bh = lambda x: x.reshape(B, T, H, D).transpose(1, 2)
             am = m[:, None, None, :]
-            report("attn_bwd", f"attention backward B={B} T={T} C={C} H={H}",
-                   dtype, ("dq", "dk", "dv"), got, want,
-                   lambda: attention_bwd_cuda(q, k, v, m, out, lse, g, H),
-                   backward_timer(
-                       lambda *a: fused_attention_blc_plain(*a, m, H),
-                       (q, k, v), g),
-                   attention_work(T, m, C, dtype, backward=True),
-                   backward_timer(
-                       lambda a, b, c: F.scaled_dot_product_attention(
-                           bh(a), bh(b), bh(c), attn_mask=am),
-                       (q, k, v), bh(g)),
-                   is_top=dtype == torch.bfloat16 and T == T0)
+            chk.report("attn_bwd", f"attention backward B={B} T={T} C={C} "
+                       f"H={H}", dtype,
+                       out_err(("dq", "dk", "dv"), got, want, dtype),
+                       lambda: attention_bwd_cuda(q, k, v, m, out, lse, g, H),
+                       backward_timer(
+                           lambda *a: fused_attention_blc_plain(*a, m, H),
+                           (q, k, v), g),
+                       attention_work(T, m, C, dtype, backward=True),
+                       backward_timer(
+                           lambda a, b, c: F.scaled_dot_product_attention(
+                               bh(a), bh(b), bh(c), attn_mask=am),
+                           (q, k, v), bh(g)),
+                       is_top=dtype == torch.bfloat16 and T == T0)
         # K2 forward with dropout and K2-bwd at rate 0 and 0.1, T0
         q, k, v, g = (randn(B, T0, H, D, dtype=dtype) for _ in range(4))
         r = randn(2 * T0, H, D, dtype=dtype)
@@ -594,26 +636,26 @@ def phase_train_kernels(dev):
             ref = xl_rel_attention_plain(*args, seed=seed, rate=rate)
             if out[-1].abs().max().item() != 0:
                 fail("XL forward: fully masked row not 0")
-            report("xl_fwd", f"xl_rel_attention forward {label}", dtype,
-                   ("out",), [out], [ref],
-                   lambda: xl_fwd_cuda(args, st, rate, with_lse=False),
-                   lambda: xl_rel_attention_plain(*args, seed=seed,
-                                                  rate=rate),
-                   xl_work(T0, m, C, dtype, backward=False),
-                   is_top=dtype == torch.bfloat16 and rate > 0)
+            chk.report("xl_fwd", f"xl_rel_attention forward {label}", dtype,
+                       out_err(("out",), [out], [ref], dtype),
+                       lambda: xl_fwd_cuda(args, st, rate, with_lse=False),
+                       lambda: xl_rel_attention_plain(*args, seed=seed,
+                                                      rate=rate),
+                       xl_work(T0, m, C, dtype, backward=False),
+                       is_top=dtype == torch.bfloat16 and rate > 0)
             got = grads_of(lambda *a: xl_rel_attention(*a, seed, rate),
                            args, g)
             want = grads_of(lambda *a: xl_rel_attention_plain(
                 *a, seed=seed, rate=rate), args, g)
             out, lse = xl_fwd_cuda(args, st, rate, with_lse=True)
-            report("xl_bwd", f"xl_rel_attention backward {label}", dtype,
-                   ("dq", "dk", "dv", "dr", "d_r_w_bias", "d_r_r_bias"),
-                   got, want,
-                   lambda: xl_bwd_cuda(args, out, lse, g, st, rate),
-                   backward_timer(lambda *a: xl_rel_attention_plain(
-                       *a, seed=seed, rate=rate), args, g),
-                   xl_work(T0, m, C, dtype, backward=True),
-                   is_top=dtype == torch.bfloat16 and rate > 0)
+            chk.report("xl_bwd", f"xl_rel_attention backward {label}", dtype,
+                       out_err(("dq", "dk", "dv", "dr", "d_r_w_bias",
+                                "d_r_r_bias"), got, want, dtype),
+                       lambda: xl_bwd_cuda(args, out, lse, g, st, rate),
+                       backward_timer(lambda *a: xl_rel_attention_plain(
+                           *a, seed=seed, rate=rate), args, g),
+                       xl_work(T0, m, C, dtype, backward=True),
+                       is_top=dtype == torch.bfloat16 and rate > 0)
         del q, k, v, g, r, out, lse, got, want
         # K3-bwd: stride 1 in the stem, stride 2 on each branch's input
         w = randn(3, 3, C, dtype=dtype, scale=0.3)
@@ -627,16 +669,18 @@ def phase_train_kernels(dev):
                             (x, w), gs)
             # the grouped conv's output interleaves q, k, v per channel
             gcat = torch.stack(gs, -1).reshape(B, To, 3 * C).transpose(1, 2)
-            report("dw_bwd", f"dwconv backward B={B} T={T} C={C} stride={s}",
-                   dtype, ("dx", "dw"), got, want,
-                   lambda: dwconv_bwd_cuda(x, w, *gs, s),
-                   backward_timer(lambda a, b: fused_dwconv_qkv_plain(a, b, s),
-                                  (x, w), gs),
-                   dwconv_work(B, T, C, s, dtype, backward=True),
-                   backward_timer(lambda a, b: F.conv1d(
-                       a.transpose(1, 2), b, stride=s, padding=1, groups=C),
-                       (x, wg), gcat),
-                   is_top=dtype == torch.bfloat16 and T == T0 and s == 1)
+            chk.report("dw_bwd", f"dwconv backward B={B} T={T} C={C} "
+                       f"stride={s}", dtype,
+                       out_err(("dx", "dw"), got, want, dtype),
+                       lambda: dwconv_bwd_cuda(x, w, *gs, s),
+                       backward_timer(
+                           lambda a, b: fused_dwconv_qkv_plain(a, b, s),
+                           (x, w), gs),
+                       dwconv_work(B, T, C, s, dtype, backward=True),
+                       backward_timer(lambda a, b: F.conv1d(
+                           a.transpose(1, 2), b, stride=s, padding=1,
+                           groups=C), (x, wg), gcat),
+                       is_top=dtype == torch.bfloat16 and T == T0 and s == 1)
         torch.cuda.empty_cache()
 
     # the XL backward's inverse shift (d_raw[i, T + j - i] += d_ac[i, j]) at
@@ -652,40 +696,15 @@ def phase_train_kernels(dev):
         want = grads_of(lambda *a: xl_rel_attention_plain(*a), args, g)
         [(_, err, lim)] = output_errors(("dr",), got[3:4], want[3:4], 1e-4)
         ok = err <= lim
-        all_ok &= ok
+        chk.ok &= ok
         say(f"[train_kernels] xl backward inverse shift T={T}: dr max_abs_"
             f"err {err:.3e} (limit {lim:.3e}) "
             f"{'ok' if ok else 'OUT OF TOLERANCE'}")
 
-    # K4 over the flagship's leaves (bf16 moments), one launch for all
-    model = PointTransformer(cfg, generator=torch.Generator().manual_seed(
-        SEED), device=dev)
-    ps = [p.data for p in model.parameters()]
-    gr = [torch.randn_like(p) * 1e-3 for p in ps]
-    ms = [(torch.randn_like(p) * 1e-3).to(torch.bfloat16) for p in ps]
-    vs = [(torch.randn_like(p) * 1e-3).square().to(torch.bfloat16)
-          for p in ps]
-    decays = [p.dim() >= 2 for p in ps]
-    coef = torch.tensor([1e-4, 0.271, 0.002997, 0.75], device=dev)
-    want = [adamw_update_plain(p, g, m_, v_, d, *coef)
-            for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)]
-    got = [t.clone() for t in ps], [t.clone() for t in ms], \
-        [t.clone() for t in vs]
-    table = LeafTable(got[0], gr, got[1], got[2], decays)
-    adamw_update_multi(table, coef)
-    n = sum(p.numel() for p in ps)
-    report("adamw", f"adamw_update_multi {len(ps)} leaves {n} params",
-           torch.float32, ("p", "m", "v"), list(got),
-           [list(x) for x in zip(*want)],
-           lambda: adamw_update_multi(table, coef),
-           lambda: [adamw_update_plain(p, g, m_, v_, d, *coef)
-                    for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)],
-           (16 * n, 20 * n), is_top=True, tol=0.0, reps=5)
-    del model, ps, gr, ms, vs, got, want
-    torch.cuda.empty_cache()
-    if not all_ok:
+    check_adamw(chk, cfg, dev)
+    if not chk.ok:
         fail("a training kernel disagrees with its plain version")
-    return errs, top
+    return chk.errs, chk.top
 
 
 # f32 train step, card vs CPU: per-leaf gradient error relative to the
@@ -714,11 +733,15 @@ def plain_versions():
     """The model's three kernel wrappers swapped for their plain versions:
     a comparison only, which launches none of the port's kernels."""
     from vilco_tpu_torch.kernels.attention import fused_attention_blc_plain
+    from vilco_tpu_torch.kernels.banded_attention import (
+        banded_attention_blc_plain,
+    )
     from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv_plain
     from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention_plain
     from vilco_tpu_torch.models import layers
 
     swap = {"fused_attention_blc": fused_attention_blc_plain,
+            "banded_attention_blc": banded_attention_blc_plain,
             "fused_dwconv_qkv": fused_dwconv_qkv_plain,
             "xl_rel_attention": xl_rel_attention_plain}
     saved = {n: getattr(layers, n) for n in swap}
@@ -775,13 +798,13 @@ def phase_train_parity(dev):
         torch.backends.cudnn.allow_tf32 = tf32
         model = PointTransformer(m, torch.Generator().manual_seed(SEED),
                                  device=device)
-        st = init_train_state(model, steps_per_epoch=1, seed=SEED,
+        st = init_train_state(model, cfg, steps_per_epoch=1, seed=SEED,
                               device=device)
         st.opt.count = PARITY_STEP
         if plain:
             st.opt._table = None        # AdamW through its plain version
         step = make_train_step(torch.from_numpy(pts).to(device),
-                               regularize=False)
+                               cfg.train_cfg, regularize=False)
         cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
                                       device=device))
         t0 = time.perf_counter()
@@ -846,11 +869,17 @@ def phase_train_parity(dev):
         fail("the train parity check does not see TF32: limit too loose")
 
 
-TRAIN_KERNELS = ()   # filled in main: the wrappers whose launches count
-
-
-def phase_train(dev):
-    from vilco_tpu_torch.core.config import flagship_config
+def phase_train(dev, tag: str, cfg, kernels, seed: int,
+                normalised_must_fall: bool):
+    """The train step of `cfg` (a Config) in bf16 with f32 masters and the
+    regularisers on, at cfg.batch_size on one fixed synthetic batch: 2
+    warm-up and 10 timed steps, ms per step split into forward / backward /
+    optimizer, every loss, peak memory, the launch counts of `kernels` (set
+    to 0 just before), then one more step profiled. The losses must be
+    finite and the loss before the normaliser (the sum the step's gradient
+    follows) must fall; with `normalised_must_fall` the normalised loss
+    too (the normaliser is an EMA from init_loss_norm toward the batch's
+    positives, which can fall as fast as the loss)."""
     from vilco_tpu_torch.data.synthetic import make_batch
     from vilco_tpu_torch.models.point_transformer import (
         PointTransformer,
@@ -864,20 +893,20 @@ def phase_train(dev):
         make_train_step,
     )
 
-    cfg = flagship_config()
     m = cfg.model
     model = PointTransformer(m, torch.Generator().manual_seed(SEED),
                              device=dev)
-    st = init_train_state(model, steps_per_epoch=1, seed=SEED, device=dev)
+    st = init_train_state(model, cfg, steps_per_epoch=1, seed=SEED,
+                          device=dev)
     pts = torch.from_numpy(generate_points(
         level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
-    step = make_train_step(pts, regularize=True,
+    step = make_train_step(pts, cfg.train_cfg, regularize=True,
                            compute_dtype=torch.bfloat16)
-    batch = batch_to(make_batch(np.random.default_rng(SEED + 5),
+    batch = batch_to(make_batch(np.random.default_rng(seed),
                                 cfg.batch_size, cfg), dev)
     cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
                                   device=dev))
-    for k in TRAIN_KERNELS:
+    for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     losses, norms, walls, parts = [], [], [], []
@@ -896,42 +925,284 @@ def phase_train(dev):
             parts.append([ev["start"].elapsed_time(ev["forward"]),
                           ev["forward"].elapsed_time(ev["backward"]),
                           ev["backward"].elapsed_time(ev["optimizer"])])
-    launches = {k.__name__: k.launches for k in TRAIN_KERNELS}
+    launches = {k.__name__: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     med = [statistics.median(p[j] for p in parts) for j in range(3)]
     B = cfg.batch_size
     secs = sum(walls) / 1e3
-    say(f"[train] flagship bf16 (f32 masters), batch {B}, T={m.max_seq_len},"
-        f" drop-path and XL dropout on, {len(walls)} timed steps: "
-        f"{statistics.median(walls):.3f} ms/step (median; forward "
-        f"{med[0]:.3f}, backward {med[1]:.3f}, optimizer {med[2]:.3f} ms "
-        f"by CUDA events), {len(walls) / secs:.3f} steps/s, "
-        f"{B * len(walls) / secs:.3f} clips/s; peak memory {peak:.3f} GiB "
-        f"[{CARD}]")
-    say("[train] losses " + ", ".join(f"{x:.6f}" for x in losses))
-    say("[train] loss x normaliser (the sum before the normaliser) "
-        + ", ".join(f"{x * n:.4f}" for x, n in zip(losses, norms)))
-    say(f"[train] launches in the {len(losses)} steps: {launches}")
+    regs = (f"drop-path {m.droppath}"
+            + (", XL dropout on" if m.variant == "mq" else "")
+            + f", label smoothing {cfg.train_cfg.label_smoothing}")
+    say(f"[{tag}] {m.variant.upper()} flagship bf16 (f32 masters), batch "
+        f"{B}, T={m.max_seq_len}, {regs}, {len(list(model.parameters()))} "
+        f"leaves, {len(walls)} timed steps: {statistics.median(walls):.3f} "
+        f"ms/step (median; forward {med[0]:.3f}, backward {med[1]:.3f}, "
+        f"optimizer {med[2]:.3f} ms by CUDA events), "
+        f"{len(walls) / secs:.3f} steps/s, {B * len(walls) / secs:.3f} "
+        f"clips/s; peak memory {peak:.3f} GiB [{CARD}]")
     sums = [x * n for x, n in zip(losses, norms)]
+    say(f"[{tag}] losses " + ", ".join(f"{x:.6f}" for x in losses))
+    say(f"[{tag}] loss x normaliser (the sum before the normaliser) "
+        + ", ".join(f"{x:.4f}" for x in sums))
+    say(f"[{tag}] launches in the {len(losses)} steps: {launches}")
     if not all(np.isfinite(losses)):
-        fail("a training loss is not finite")
-    say(f"[train] loss {losses[0]:.6f} -> {losses[-1]:.6f}; before the "
-        f"normaliser (an EMA from 100 toward the batch's positives) "
-        f"{sums[0]:.4f} -> {sums[-1]:.4f}")
-    if not (losses[-1] < losses[0] and sums[-1] < sums[0]):
-        fail("the training loss did not decrease")
+        fail(f"{tag}: a training loss is not finite")
+    say(f"[{tag}] loss {losses[0]:.6f} -> {losses[-1]:.6f}; before the "
+        f"normaliser (an EMA from {cfg.train_cfg.init_loss_norm:g} toward "
+        f"the batch's positives) {sums[0]:.4f} -> {sums[-1]:.4f}")
+    if not sums[-1] < sums[0] or (normalised_must_fall
+                                  and not losses[-1] < losses[0]):
+        fail(f"{tag}: the training loss did not decrease")
     if min(launches.values()) < 1:
-        fail("a kernel of the train path was never launched")
-    phase_trace("train step", lambda: step(st, batch, cl),
+        fail(f"{tag}: a kernel of the train path was never launched")
+    phase_trace(f"{tag} step", lambda: step(st, batch, cl),
                 statistics.median(walls))
     del model, st
     torch.cuda.empty_cache()
     return launches
 
 
+# ---- NLQ: the dual tower with banded attention (K5) -----------------------
+
+B_NLQ_SERVE = 16     # serving batch; training takes the yaml's loader.batch_size
+
+
+def band_pairs(m, w: int) -> int:
+    """Valid (query, key) pairs with |i - j| <= w in [0, T): the band work
+    this run's masks need."""
+    ones = torch.ones(1, 1, 2 * w + 1, device=m.device)
+    seen = F.conv1d(m.float()[:, None], ones, padding=w)[:, 0]
+    return int((seen * m.float()).sum().item())
+
+
+def banded_work(m, C, H, w, dtype, which):
+    """(flops, bytes) of K5 on this run's mask: 2 C operations per band
+    pair for each product (forward q.k, p.v; dq adds dO.v, ds.k; dk/dv
+    q.k, dO.v, p.dO, ds.q) and 2 C per valid query for delta. Bytes: the
+    mask, the rows the function needs read once (q, k, v of the valid rows
+    only, a masked query or key needing none; the backward also out, dout
+    and lse of the valid rows) and each output written in full (a masked
+    row is written as 0)."""
+    pairs, nq = band_pairs(m, w), int(m.sum())
+    el = torch.empty((), dtype=dtype).element_size()
+    B, T = m.shape
+    rows, full, lse = nq * C * el, B * T * C * el, 4 * H * nq
+    if which == "fwd":
+        return 4 * C * pairs, 3 * rows + full + B * T
+    if which == "dq":
+        return 6 * C * pairs + 2 * C * nq, 5 * rows + full + lse + B * T
+    return 8 * C * pairs + 2 * C * nq, 5 * rows + 2 * full + lse + B * T
+
+
+def band_mask(m, w: int):
+    """(B, 1, T, T) bool, the band and the key mask: SDPA's mask for the
+    same function."""
+    i = torch.arange(m.shape[1], device=m.device)
+    band = (i[:, None] - i[None, :]).abs() <= w
+    return (band[None] & m[:, None, :])[:, None]
+
+
+def nlq_inputs(rng, B, full, dev, dtype):
+    """A batch of NLQ inputs: clip features with ragged lengths, query text
+    of 4..L tokens."""
+    m = full.model
+    T, L = m.max_seq_len, full.max_text_len
+    feats = rng.standard_normal((B, T, m.input_dim)).astype(np.float32)
+    lens = rng.integers(T // 2, T + 1, size=B)
+    mask = np.arange(T)[None, :] < lens[:, None]
+    text = rng.standard_normal((B, L, m.n_txt_in)).astype(np.float32)
+    tl = rng.integers(4, L + 1, size=B)
+    tmask = np.arange(L)[None, :] < tl[:, None]
+    to = lambda a, dt=None: torch.from_numpy(a).to(dev, dt)
+    return to(feats, dtype), to(mask), to(text, dtype), to(tmask)
+
+
+def phase_nlq_kernels(dev):
+    from vilco_tpu_torch.core.config import nlq_flagship_config
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        attention_fwd_cuda,
+        fused_attention_blc,
+        fused_attention_blc_plain,
+    )
+    from vilco_tpu_torch.kernels.banded_attention import (
+        banded_attention_blc,
+        banded_attention_blc_plain,
+        banded_dkv_cuda,
+        banded_dq_cuda,
+        banded_fwd_cuda,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+        fused_dwconv_qkv_plain,
+    )
+
+    full = nlq_flagship_config()
+    cfg = full.model
+    T0, C, H, w = cfg.max_seq_len, cfg.embd_dim, cfg.n_head, cfg.window
+    D, L, nb, B_TR = C // H, full.max_text_len, cfg.num_branch_layers, \
+        full.batch_size
+    rng = np.random.default_rng(SEED + 6)
+    chk = KernelChecks("nlq_kernels", ("band_fwd", "band_dq", "band_dkv",
+                                       "attn", "attn_bwd", "dw", "dw_bwd",
+                                       "adamw"))
+    report = chk.report
+
+    def randn(*shape, dtype, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev, dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # K5 at every pyramid length, serving and training batch, the band
+    # wider than T (T=8) and an odd T
+    cases = ([(B, T0 >> i) for B in (B_NLQ_SERVE, B_TR)
+              for i in range(nb + 1)] + [(B_TR, 8), (B_TR, 37)])
+    for dtype in (bf16, f32):
+        for B, T in cases:
+            q, k, v, g = (randn(B, T, C, dtype=dtype) for _ in range(4))
+            m = ragged_mask(rng, B, T, dev)
+            with torch.no_grad():
+                out = banded_attention_blc(q, k, v, m, H, w)
+                ref = banded_attention_blc_plain(q, k, v, m, H, w)
+            got = grads_of(lambda *a: banded_attention_blc(*a, m, H, w),
+                           (q, k, v), g)
+            want = grads_of(
+                lambda *a: banded_attention_blc_plain(*a, m, H, w),
+                (q, k, v), g)
+            torch.cuda.synchronize()
+            label = f"B={B} T={T} C={C} H={H} w={w}"
+            zero_row(f"banded {label}", [out] + got)
+            bm = band_mask(m, w)
+            bh = lambda x: x.reshape(B, T, H, D).transpose(1, 2)
+            sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+                bh(a), bh(b), bh(c), attn_mask=bm)
+            report("band_fwd", f"banded forward {label}", dtype,
+                   output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+                   lambda: banded_fwd_cuda(q, k, v, m, H, w, False),
+                   lambda: banded_attention_blc_plain(q, k, v, m, H, w),
+                   banded_work(m, C, H, w, dtype, "fwd"),
+                   lambda: sdpa(q, k, v),
+                   is_top=dtype == bf16 and (B, T) == (B_NLQ_SERVE, T0))
+            o, lse = banded_fwd_cuda(q, k, v, m, H, w, True)
+            plain_bwd = backward_timer(
+                lambda *a: banded_attention_blc_plain(*a, m, H, w),
+                (q, k, v), g)
+            lib_bwd = backward_timer(sdpa, (q, k, v), bh(g))
+            train_top = dtype == bf16 and (B, T) == (B_TR, T0)
+            # plain and library: the whole backward (dq, dk, dv together)
+            report("band_dq", f"banded dq {label} (plain/library: whole "
+                   "backward)", dtype,
+                   output_errors(("dq",), got[:1], want[:1],
+                                 TRAIN_TOL[dtype]),
+                   lambda: banded_dq_cuda(q, k, v, m, o, lse, g, H, w),
+                   plain_bwd, banded_work(m, C, H, w, dtype, "dq"), lib_bwd,
+                   is_top=train_top)
+            report("band_dkv", f"banded dk/dv {label} (plain/library: whole "
+                   "backward)", dtype,
+                   output_errors(("dk", "dv"), got[1:], want[1:],
+                                 TRAIN_TOL[dtype]),
+                   lambda: banded_dkv_cuda(q, k, v, m, o, lse, g, H, w),
+                   plain_bwd, banded_work(m, C, H, w, dtype, "dkv"),
+                   lib_bwd, is_top=train_top)
+            del q, k, v, g, out, ref, got, want, o, lse, bm
+            del plain_bwd, lib_bwd
+        torch.cuda.empty_cache()
+
+        # K1 at D=96: text self-attention (T=L) and video-to-text
+        # cross-attention (Tq=T0, Tk=L), forward and backward
+        for B in (B_NLQ_SERVE, B_TR):
+            for Tq, what in ((L, "text self-attention"),
+                             (T0, "cross-attention")):
+                q, g = randn(B, Tq, C, dtype=dtype), randn(B, Tq, C,
+                                                           dtype=dtype)
+                k, v = (randn(B, L, C, dtype=dtype) for _ in range(2))
+                m = ragged_mask(rng, B, L, dev)
+                with torch.no_grad():
+                    out = fused_attention_blc(q, k, v, m, H)
+                    ref = fused_attention_blc_plain(q, k, v, m, H)
+                got = grads_of(lambda *a: fused_attention_blc(*a, m, H),
+                               (q, k, v), g)
+                want = grads_of(
+                    lambda *a: fused_attention_blc_plain(*a, m, H),
+                    (q, k, v), g)
+                torch.cuda.synchronize()
+                label = f"{what} B={B} Tq={Tq} Tk={L} C={C} H={H}"
+                zero_row(f"attention {label}", [out] + got)
+                bhq = lambda x: x.reshape(B, -1, H, D).transpose(1, 2)
+                am = m[:, None, None, :]
+                sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+                    bhq(a), bhq(b), bhq(c), attn_mask=am)
+                report("attn", f"attention forward {label}", dtype,
+                       output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+                       lambda: attention_fwd_cuda(q, k, v, m, H, False),
+                       lambda: fused_attention_blc_plain(q, k, v, m, H),
+                       attention_work(Tq, m, C, dtype, backward=False),
+                       lambda: sdpa(q, k, v))
+                o, lse = attention_fwd_cuda(q, k, v, m, H, with_lse=True)
+                report("attn_bwd", f"attention backward {label}", dtype,
+                       output_errors(("dq", "dk", "dv"), got, want,
+                                     TRAIN_TOL[dtype]),
+                       lambda: attention_bwd_cuda(q, k, v, m, o, lse, g, H),
+                       backward_timer(
+                           lambda *a: fused_attention_blc_plain(*a, m, H),
+                           (q, k, v), g),
+                       attention_work(Tq, m, C, dtype, backward=True),
+                       backward_timer(sdpa, (q, k, v), bhq(g)))
+
+        # K3 at C=384: stride 1 in the text and video stems, stride 2 on
+        # each branch block's input; forward at the serving batch, backward
+        # at the training batch
+        wt = randn(3, 3, C, dtype=dtype, scale=0.3)
+        wg = wt.float().permute(2, 0, 1).reshape(3 * C, 1, 3).to(dtype)
+        for T, s in [(T0, 1), (L, 1)] + [(T0 >> i, 2) for i in range(nb)]:
+            To = (T - 1) // s + 1
+            for B in (B_NLQ_SERVE, B_TR):
+                x = randn(B, T, C, dtype=dtype)
+                xt = x.transpose(1, 2)
+                label = f"B={B} T={T} C={C} stride={s}"
+                if B == B_NLQ_SERVE:
+                    with torch.no_grad():
+                        outs = fused_dwconv_qkv(x, wt, s)
+                        refs = fused_dwconv_qkv_plain(x, wt, s)
+                    report("dw", f"dwconv forward {label}", dtype,
+                           output_errors(("q", "k", "v"), outs, refs,
+                                         FWD_TOL[dtype]),
+                           lambda: fused_dwconv_qkv(x, wt, s),
+                           lambda: fused_dwconv_qkv_plain(x, wt, s),
+                           dwconv_work(B, T, C, s, dtype, backward=False),
+                           lambda: F.conv1d(xt, wg, stride=s, padding=1,
+                                            groups=C))
+                    continue
+                gs = tuple(randn(B, To, C, dtype=dtype) for _ in range(3))
+                got = grads_of(lambda a, b: fused_dwconv_qkv(a, b, s),
+                               (x, wt), gs)
+                want = grads_of(lambda a, b: fused_dwconv_qkv_plain(a, b, s),
+                                (x, wt), gs)
+                gcat = torch.stack(gs, -1).reshape(B, To, 3 * C).transpose(
+                    1, 2)
+                report("dw_bwd", f"dwconv backward {label}", dtype,
+                       output_errors(("dx", "dw"), got, want,
+                                     TRAIN_TOL[dtype]),
+                       lambda: dwconv_bwd_cuda(x, wt, *gs, s),
+                       backward_timer(
+                           lambda a, b: fused_dwconv_qkv_plain(a, b, s),
+                           (x, wt), gs),
+                       dwconv_work(B, T, C, s, dtype, backward=True),
+                       backward_timer(lambda a, b: F.conv1d(
+                           a.transpose(1, 2), b, stride=s, padding=1,
+                           groups=C), (x, wg), gcat))
+        torch.cuda.empty_cache()
+    # K4 over the dual tower's 467 leaves (no Gaussian parameters)
+    check_adamw(chk, cfg, dev)
+    if not chk.ok:
+        fail("an NLQ kernel disagrees with its plain version")
+    return chk.errs, chk.top
+
+
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
-                               "dwconv_qkv", "adamw_kernel")):
+                               "dwconv_qkv", "adamw_kernel", "banded_")):
         return "port kernels"
     if "conv" in name or "cudnn" in name:
         return "cuDNN conv"
@@ -989,14 +1260,20 @@ def phase_trace(label: str, fn, unprofiled_ms: float):
 
 
 def main():
-    global TRAIN_KERNELS
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    from vilco_tpu_torch.core.config import flagship_config, \
+        nlq_flagship_config
     from vilco_tpu_torch.kernels.adamw import adamw_update_multi
     from vilco_tpu_torch.kernels.attention import (
         attention_bwd_cuda,
         fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.banded_attention import (
+        banded_attention_blc,
+        banded_dkv_cuda,
+        banded_dq_cuda,
     )
     from vilco_tpu_torch.kernels.dwconv import (
         dwconv_bwd_cuda,
@@ -1006,58 +1283,113 @@ def main():
         xl_bwd_cuda,
         xl_rel_attention,
     )
-    TRAIN_KERNELS = (fused_attention_blc, attention_bwd_cuda,
-                     xl_rel_attention, xl_bwd_cuda, fused_dwconv_qkv,
-                     dwconv_bwd_cuda, adamw_update_multi)
     # f32 means f32 in every comparison: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mq, nlq = flagship_config(), nlq_flagship_config()
+
+    # MQ: the serving kernels, parity, serving, the training kernels, the
+    # f32 step's parity, training
     errs, top = phase_kernels(dev)
-    phase_parity(dev)
-    serve_launches = phase_serve(dev)
+    rng = np.random.default_rng(SEED + 1)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, mq.model.max_seq_len, mq.model.input_dim)).astype(np.float32))
+    phase_parity(dev, "parity", mq.model,
+                 (x, ragged_mask(rng, 2, mq.model.max_seq_len, "cpu")[:1]))
+    rng = np.random.default_rng(SEED + 2)
+    requests = []
+    for _ in range(7):
+        T = mq.model.max_seq_len
+        feats = rng.standard_normal((B_SERVE, T, mq.model.input_dim))
+        lens = rng.integers(T // 2, T + 1, size=B_SERVE)
+        mask = np.arange(T)[None, :] < lens[:, None]
+        requests.append((torch.from_numpy(feats.astype(np.float32)).to(
+            dev, torch.bfloat16), torch.from_numpy(mask).to(dev)))
+    serve_launches = phase_serve(
+        dev, "serve", mq, requests,
+        (fused_attention_blc, xl_rel_attention, fused_dwconv_qkv))
+    del requests
     terrs, ttop = phase_train_kernels(dev)
     phase_train_parity(dev)
-    train_launches = phase_train(dev)
+    train_launches = phase_train(
+        dev, "train", mq, (fused_attention_blc, attention_bwd_cuda,
+                           xl_rel_attention, xl_bwd_cuda, fused_dwconv_qkv,
+                           dwconv_bwd_cuda, adamw_update_multi),
+        SEED + 5, normalised_must_fall=True)
+
+    # NLQ: the same at the dual tower's shapes
+    nerrs, ntop = phase_nlq_kernels(dev)
+    phase_parity(dev, "nlq_parity", nlq.model,
+                 nlq_inputs(np.random.default_rng(SEED + 7), 1, nlq, "cpu",
+                            torch.float32))
+    rng = np.random.default_rng(SEED + 8)
+    nlq_serve = phase_serve(
+        dev, "nlq_serve", nlq,
+        [nlq_inputs(rng, B_NLQ_SERVE, nlq, dev, torch.bfloat16)
+         for _ in range(7)],
+        (fused_attention_blc, banded_attention_blc, fused_dwconv_qkv))
+    nlq_train = phase_train(
+        dev, "nlq_train", nlq, (banded_attention_blc, banded_dq_cuda,
+                                banded_dkv_cuda, fused_attention_blc,
+                                attention_bwd_cuda, fused_dwconv_qkv,
+                                dwconv_bwd_cuda, adamw_update_multi),
+        SEED + 9, normalised_must_fall=False)
 
     rows = [
-        # name, source, replaces, error and timing key, launches
+        # name, source, replaces, errors, timing, launches (MQ path; the
+        # banded kernels: NLQ path)
         ("fused_attention_blc", "vilco_tpu_torch/csrc/attention_blc.cu",
-         "vilco_tpu/kernels/attention.py:359", errs["attn"], top["attn"],
-         serve_launches["fused_attention_blc"]),
+         "vilco_tpu/kernels/attention.py:359", errs["attn"]
+         + nerrs["attn"], top["attn"], serve_launches["fused_attention_blc"]),
         ("attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc.cu",
-         "vilco_tpu/kernels/attention.py:383", terrs["attn_bwd"],
-         ttop["attn_bwd"], train_launches["attention_bwd_cuda"]),
+         "vilco_tpu/kernels/attention.py:383",
+         terrs["attn_bwd"] + nerrs["attn_bwd"], ttop["attn_bwd"],
+         train_launches["attention_bwd_cuda"]),
         ("xl_rel_attention", "vilco_tpu_torch/csrc/xl_rel_attention.cu",
          "vilco_tpu/kernels/xl_attention.py:260",
-         errs["xl"][torch.bfloat16] + errs["xl"][torch.float32]
-         + terrs["xl_fwd"], top["xl"],
+         errs["xl"] + terrs["xl_fwd"], top["xl"],
          serve_launches["xl_rel_attention"]),
         ("xl_bwd_cuda", "vilco_tpu_torch/csrc/xl_rel_attention.cu",
          "vilco_tpu/kernels/xl_attention.py:286", terrs["xl_bwd"],
          ttop["xl_bwd"], train_launches["xl_bwd_cuda"]),
         ("fused_dwconv_qkv", "vilco_tpu_torch/csrc/dwconv_qkv.cu",
-         "vilco_tpu/kernels/dwconv.py:119", errs["dw"], top["dw"],
-         serve_launches["fused_dwconv_qkv"]),
+         "vilco_tpu/kernels/dwconv.py:119", errs["dw"] + nerrs["dw"],
+         top["dw"], serve_launches["fused_dwconv_qkv"]),
         ("dwconv_bwd_cuda", "vilco_tpu_torch/csrc/dwconv_qkv.cu",
-         "vilco_tpu/kernels/dwconv.py:136", terrs["dw_bwd"], ttop["dw_bwd"],
+         "vilco_tpu/kernels/dwconv.py:136", terrs["dw_bwd"]
+         + nerrs["dw_bwd"], ttop["dw_bwd"],
          train_launches["dwconv_bwd_cuda"]),
         ("adamw_update_multi", "vilco_tpu_torch/csrc/adamw.cu",
-         "vilco_tpu/kernels/adamw.py:97", terrs["adamw"], ttop["adamw"],
+         "vilco_tpu/kernels/adamw.py:97", terrs["adamw"] + nerrs["adamw"],
+         ttop["adamw"],
          train_launches["adamw_update_multi"]),
+        ("banded_attention_blc", "vilco_tpu_torch/csrc/banded_attention.cu",
+         "vilco_tpu/kernels/banded_attention.py:153", nerrs["band_fwd"],
+         ntop["band_fwd"], nlq_serve["banded_attention_blc"]),
+        ("banded_dq_cuda", "vilco_tpu_torch/csrc/banded_attention.cu",
+         "vilco_tpu/kernels/banded_attention.py:308", nerrs["band_dq"],
+         ntop["band_dq"], nlq_train["banded_dq_cuda"]),
+        ("banded_dkv_cuda", "vilco_tpu_torch/csrc/banded_attention.cu",
+         "vilco_tpu/kernels/banded_attention.py:318", nerrs["band_dkv"],
+         ntop["band_dkv"], nlq_train["banded_dkv_cuda"]),
     ]
     also = {"fused_dwconv_qkv": "vilco_tpu/kernels/dwconv.py:267",
             "dwconv_bwd_cuda": "vilco_tpu/kernels/dwconv.py:283"}
     kernels = []
     for fn, src, replaces, err, t, launches in rows:
-        e = err if isinstance(err, list) else (err[torch.bfloat16]
-                                                + err[torch.float32])
         entry = {"name": fn, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches,
-                 "max_abs_err": max(e), **t}
+                 "max_abs_err": max(err), **t}
         if fn in serve_launches:
             entry["launches_train"] = train_launches[fn]
+        if fn in nlq_serve:
+            entry["launches_nlq_serve"] = nlq_serve[fn]
+        if fn in nlq_train:
+            entry["launches_nlq_train"] = nlq_train[fn]
         if fn in also:
             entry["also_replaces"] = also[fn]
+        if fn == "adamw_update_multi":     # the same kernel over NLQ's leaves
+            entry["nlq"] = ntop["adamw"]
         kernels.append(entry)
     print(f"[summary] {CARD}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
 """Each CUDA kernel of the port, forward and backward, against its plain
 PyTorch version on the card, at small and odd lengths (2, 37, 70, 100, 256)
-and head dims 24, 64, 128. Marked `gpu`: skips where there is no card.
-Imports no JAX, so that it runs on a machine with only PyTorch:
+and head dims 24, 64, 128; the banded kernels also at the NLQ head dim 96,
+the band wider than T and windows wider than one staged chunk. Marked
+`gpu`: skips where there is no card. Imports no JAX, so that it runs on a
+machine with only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 """
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import vilco_tpu_torch.kernels.banded_attention as banded
 from vilco_tpu_torch.kernels.adamw import (
     LeafTable,
     adamw_update_multi,
@@ -140,6 +143,63 @@ def test_backward_kernels_match_plain_on_card(cuda, dtype, tol, T, D):
                           (q, w), gs)
             _close(got, want, tol, f"dwconv stride {s}")
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,w,D", [(8, 4, 96), (37, 4, 96), (160, 4, 96),
+                                   (300, 1, 24), (100, 70, 64),
+                                   (64, 64, 128), (2, 5, 32)])
+def test_banded_kernels_match_plain_on_card(cuda, dtype, tol, T, w, D):
+    """K5 forward, dq and dk/dv against the plain version with ragged
+    masks and one fully masked row. Tolerance relative to each output's
+    largest reference value: f32 1e-4 (summation order, an online softmax
+    against a two-pass one); bf16 2e-2 (inputs and outputs rounded, the
+    backward reading the bf16 forward output)."""
+    rng = np.random.default_rng(200 + T + w)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    B, H = 3, 2
+    C = H * D
+    q, k, v, g = rn(B, T, C), rn(B, T, C), rn(B, T, C), rn(B, T, C)
+    m = _mask(rng, B, T, cuda)
+    with torch.no_grad():
+        out = banded.banded_attention_blc(q, k, v, m, H, w)
+    ref = banded.banded_attention_blc_plain(q, k, v, m, H, w)
+    _close([out], [ref], tol, "banded forward")
+    assert torch.all(out[-1] == 0)
+    got = _grads(lambda *a: banded.banded_attention_blc(*a, m, H, w),
+                 (q, k, v), g)
+    want = _grads(lambda *a: banded.banded_attention_blc_plain(*a, m, H, w),
+                  (q, k, v), g)
+    _close(got, want, tol, "banded backward")
+    assert all(torch.all(x[-1] == 0) for x in got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_banded_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
+    """On the card the wrapper launches its kernels (the counts rise) and
+    the plain version is never called."""
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(banded, "banded_attention_blc_plain", refuse)
+    monkeypatch.setattr(banded, "banded_attention", refuse)
+    x = torch.randn(2, 40, 192, device=cuda, requires_grad=True)
+    m = torch.ones(2, 40, dtype=torch.bool, device=cuda)
+    counts = (banded.banded_attention_blc.launches,
+              banded.banded_dq_cuda.launches,
+              banded.banded_dkv_cuda.launches)
+    banded.banded_attention_blc(x, x, x, m, 2, 4).sum().backward()
+    torch.cuda.synchronize()
+    assert (banded.banded_attention_blc.launches,
+            banded.banded_dq_cuda.launches,
+            banded.banded_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    assert torch.isfinite(x.grad).all()
+    with pytest.raises(TypeError):
+        banded.banded_attention_blc(x.half(), x.half(), x.half(), m, 2, 4)
 
 
 @pytest.mark.gpu

@@ -75,41 +75,43 @@ FIXED_MODEL = dict(
 FIXED_TEST = dict(nms_method="soft", multiclass_nms=True)
 
 
+def assert_port_config_equals(port, ref):
+    """Every field of the port's Config (model, test_cfg, train_cfg, opt
+    and the loader/dataset scalars) equals the JAX Config's."""
+    for sub in ("model", "test_cfg", "train_cfg", "opt"):
+        for f in dataclasses.fields(getattr(port, sub)):
+            assert getattr(getattr(port, sub), f.name) == getattr(
+                getattr(ref, sub), f.name), f"{sub}.{f.name}"
+    assert port.batch_size == ref.loader.batch_size
+    assert port.max_segments == ref.dataset.max_segments
+    assert port.max_text_len == ref.dataset.max_text_len
+
+
 @pytest.mark.parametrize("tiny", [False, True])
 def test_flagship_config_matches_jax(tiny):
     ref = _flagship_cfg(tiny=tiny)
-    ref_model = ref.model.updated(use_xl=True) if tiny else ref.model
+    ref = ref.updated(model=ref.model.updated(use_xl=True)) if tiny else ref
     port = flagship_config(tiny=tiny)
-    for f in dataclasses.fields(ModelConfig):
-        assert getattr(port.model, f.name) == getattr(ref_model, f.name), \
-            f.name
+    assert_port_config_equals(port, ref)
     for name, v in FIXED_MODEL.items():
-        assert getattr(ref_model, name) == v, name
-    for f in dataclasses.fields(TestCfg):
-        assert getattr(port.test_cfg, f.name) == getattr(ref.test_cfg,
-                                                         f.name), f.name
+        assert getattr(ref.model, name) == v, name
     for name, v in FIXED_TEST.items():
         assert getattr(ref.test_cfg, name) == v, name
     assert port.model.fpn_strides == ref.model.fpn_strides
-    assert port.batch_size == ref.loader.batch_size
-    assert port.max_segments == ref.dataset.max_segments
+    assert port.model.num_branch_layers == ref.model.num_branch_layers
     # the training constants fixed in train/engine.py, train/optim.py and
     # models/layers.py
     tc, opt = ref.train_cfg, ref.opt
     assert (tc.center_sample, tc.center_sample_radius) == (
         "radius", t_engine.CENTER_SAMPLE_RADIUS)
-    assert tc.use_gaussian_weights and tc.al_loss_weight == 0.0
-    assert tc.label_smoothing == 0.0 and tc.dropout == 0.0
+    assert tc.al_loss_weight == 0.0 and tc.dropout == 0.0
     assert tc.loss_weight == t_engine.LOSS_WEIGHT
-    assert tc.init_loss_norm == t_engine.INIT_LOSS_NORM
     assert tc.clip_grad_l2norm == t_engine.CLIP_GRAD_L2NORM
-    assert tc.droppath == ref.model.droppath == t_layers.DROPPATH
+    assert tc.droppath == ref.model.droppath
     assert ref.model.xl_dropout == t_layers.XL_DROPOUT
-    assert (opt.type, opt.learning_rate, opt.weight_decay) == (
-        "adamw", t_optim.LEARNING_RATE, t_optim.WEIGHT_DECAY)
-    assert (opt.epochs, opt.warmup, opt.warmup_epochs, opt.schedule_type,
-            opt.eta_min) == (t_optim.EPOCHS, True, t_optim.WARMUP_EPOCHS,
-                             "cosine", t_optim.ETA_MIN)
+    assert (opt.type, opt.weight_decay) == ("adamw", t_optim.WEIGHT_DECAY)
+    assert (opt.warmup, opt.schedule_type, opt.eta_min) == (
+        True, "cosine", t_optim.ETA_MIN)
     assert (opt.mu_dtype, opt.nu_dtype) == ("bfloat16", "bfloat16")
     assert t_optim.MOMENT_DTYPE == torch.bfloat16
     assert opt.fused_apply and opt.accumulation_steps == 1
@@ -148,7 +150,8 @@ def test_transformer_block_matches_jax(rng, stride):
     params = _perturbed(params, stride)
     ref, ref_m = jblock.apply({"params": params}, jnp.asarray(x),
                               jnp.asarray(mask))
-    tblock = t_layers.TransformerBlock(E, H, n_ds_stride=stride)
+    tblock = t_layers.TransformerBlock(E, H, n_ds_stride=stride,
+                                       path_drop=0.1)
     load_jax_params(tblock, params)
     with torch.no_grad():
         out, out_m = tblock(torch.from_numpy(x), torch.from_numpy(mask))

@@ -157,7 +157,7 @@ def test_weight_decay_mask_matches_jax(tiny):
 
 def test_schedule_matches_jax():
     jsched = j_optim.make_schedule(_flagship_cfg().opt, 7)
-    sched = t_optim.make_schedule(7)
+    sched = t_optim.make_schedule(flagship_config().opt, 7)
     for s in (0, 1, 5, 17, 34, 35, 36, 60, 90, 104, 105):
         np.testing.assert_allclose(sched(s), float(jsched(s)), rtol=1e-6,
                                    err_msg=str(s))
@@ -190,7 +190,8 @@ def test_loss_and_gradients_match_jax(tiny, monkeypatch):
     out = model(tb["feats"], tb["mask"])
     cl = t_engine.CLBatchExtras(torch.ones(12, dtype=torch.bool))
     loss, _, _ = t_engine.compute_losses(out, tb, pts, cl,
-                                         torch.tensor(100.0))
+                                         torch.tensor(100.0),
+                                         flagship_config().train_cfg)
     loss.backward()
     assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
     want = params_from_jax(jax.tree.map(np.asarray, jgrads))
@@ -235,9 +236,11 @@ def test_three_step_trajectory_matches_jax(tiny, monkeypatch):
     jcl = j_engine.CLBatchExtras(
         class_mask=jnp.ones((jcfg.model.num_classes,), bool))
 
-    tstate = t_engine.init_train_state(_port_model(params), SPE,
+    cfg = flagship_config(tiny=True)
+    tstate = t_engine.init_train_state(_port_model(params), cfg, SPE,
                                        device="cpu")
-    tstep = t_engine.make_train_step(torch.from_numpy(pts), regularize=False)
+    tstep = t_engine.make_train_step(torch.from_numpy(pts), cfg.train_cfg,
+                                     regularize=False)
     tcl = t_engine.CLBatchExtras(torch.ones(12, dtype=torch.bool))
     for batch in batches:
         state, jm, _ = jstep(state, {k: jnp.asarray(v)
@@ -270,13 +273,14 @@ def test_three_step_trajectory_matches_jax(tiny, monkeypatch):
 
 def test_regularised_step_is_seeded_and_finite(tiny):
     _, _, params, batches = tiny
-    pts = torch.from_numpy(_points(flagship_config(tiny=True).model))
-    step = t_engine.make_train_step(pts, regularize=True)
+    cfg = flagship_config(tiny=True)
+    pts = torch.from_numpy(_points(cfg.model))
+    step = t_engine.make_train_step(pts, cfg.train_cfg, regularize=True)
     cl = t_engine.CLBatchExtras(torch.ones(12, dtype=torch.bool))
     runs = []
     for seed in (5, 5, 6):
-        st = t_engine.init_train_state(_port_model(params), SPE, seed=seed,
-                                       device="cpu")
+        st = t_engine.init_train_state(_port_model(params), cfg, SPE,
+                                       seed=seed, device="cpu")
         b = t_engine.batch_to(batches[0], "cpu")
         losses = [step(st, b, cl)["final_loss"].item() for _ in range(2)]
         runs.append((losses, [p.detach().clone()
@@ -290,14 +294,16 @@ def test_regularised_step_is_seeded_and_finite(tiny):
 def test_entry_points_default_to_the_card():
     """PointTransformer and the train state go to the card unless asked
     for the CPU; with no card they raise instead of falling back."""
-    cfg = flagship_config(tiny=True).model
+    full = flagship_config(tiny=True)
+    cfg = full.model
     if torch.cuda.is_available():
         model = PointTransformer(cfg)
         assert next(model.parameters()).is_cuda
-        st = t_engine.init_train_state(model, SPE)
+        st = t_engine.init_train_state(model, full, SPE)
         assert st.loss_normalizer.is_cuda
         return
     with pytest.raises((RuntimeError, AssertionError)):
         PointTransformer(cfg)
     with pytest.raises((RuntimeError, AssertionError)):
-        t_engine.init_train_state(PointTransformer(cfg, device="cpu"), SPE)
+        t_engine.init_train_state(PointTransformer(cfg, device="cpu"), full,
+                                  SPE)

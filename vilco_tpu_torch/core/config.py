@@ -1,16 +1,20 @@
-"""The subset of vilco_tpu.core.config that the MQ serving and training
-paths read.
+"""The subset of vilco_tpu.core.config that the MQ and NLQ serving and
+training paths read.
 
-Plain frozen dataclasses with no YAML dependency. `ModelConfig` holds only
-what differs between the flagship and its tiny twin (widths, depths, heads,
-classes, lengths, regression ranges), with the dataset dims already
-propagated (what `Config.derived()` does there). What every MQ config
-shares is fixed in the module that reads it: the identity neck and the
-channel LayerNorms of the embedding, neck and heads, the absolute position
-encoding, one XL stage (models/backbone.py), 3-tap convs and 3-layer heads
-(models/point_transformer.py), drop-path scales and the 0.8 channel blend
-(models/layers.py), stride-2 branch blocks (`fpn_strides`), multiclass
-soft-NMS (ops/nms.py).
+Plain frozen dataclasses with no YAML dependency; fields carry their JAX
+names. `ModelConfig` holds only what differs between the flagships and
+their tiny twins (variant, widths, depths, heads, window, classes, lengths,
+regression ranges, drop-path), with the dataset dims already propagated
+(what `Config.derived()` does there); `TrainCfg`, `OptCfg` and `TestCfg`
+hold the `train_cfg`, `opt` and `test_cfg` values the two differ in. What
+every config shares is fixed in the module that reads it: the identity
+neck and the channel LayerNorms of the embedding, neck and heads, the
+absolute position encoding, the MQ variant's one XL stage
+(models/backbone.py), 3-tap convs and 3-layer heads
+(models/point_transformer.py), the 0.8 channel blend (models/layers.py),
+stride-2 branch blocks (`fpn_strides`), multiclass soft-NMS (ops/nms.py),
+radius center sampling, loss weight 1 and clip 1.0 (train/engine.py),
+AdamW's betas, decay and eta_min (train/optim.py).
 """
 
 from __future__ import annotations
@@ -21,22 +25,37 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
+    """`variant` "mq": backbone_arch (convs, stem, branch), one XL stage;
+    "nlq": (convs, txt_stem, vid_stem, cross_branch, plain_branch), the
+    dual tower. `n_mha_win_size` is the total attention window (the half
+    window w = size // 2), -1 for dense attention."""
+    variant: str = "mq"
     backbone_arch: Tuple[int, ...] = (2, 2, 9)
     regression_range: Tuple[Tuple[float, float], ...] = (
         (0, 4), (2, 8), (4, 16), (8, 32), (16, 64), (32, 128),
         (64, 256), (128, 512), (256, 1024), (512, 10000),
     )
     n_head: int = 16
+    n_mha_win_size: int = -1
     embd_dim: int = 1024
     fpn_dim: int = 1024
     head_dim: int = 1024
+    n_txt_in: int = 768
     input_dim: int = 4096
     num_classes: int = 110
     max_seq_len: int = 1024
+    droppath: float = 0.1
 
     @property
     def num_branch_layers(self) -> int:
+        if len(self.backbone_arch) == 5:
+            return self.backbone_arch[3] + self.backbone_arch[4]
         return self.backbone_arch[-1]
+
+    @property
+    def window(self) -> int:
+        """Half window of the banded attention, -1 for dense."""
+        return self.n_mha_win_size // 2 if self.n_mha_win_size > 1 else -1
 
     @property
     def fpn_strides(self) -> Tuple[int, ...]:
@@ -57,17 +76,34 @@ class TestCfg:
 
 
 @dataclass(frozen=True)
+class TrainCfg:
+    """MQ weights its losses by the learned per-class Gaussians; NLQ does
+    not, and smooths its labels."""
+    label_smoothing: float = 0.0
+    use_gaussian_weights: bool = True
+    init_loss_norm: float = 100.0
+
+
+@dataclass(frozen=True)
+class OptCfg:
+    learning_rate: float = 1e-4
+    epochs: int = 10
+    warmup_epochs: int = 5
+
+
+@dataclass(frozen=True)
 class Config:
-    """`batch_size` is `loader.batch_size`, `max_segments` is
-    `dataset.max_segments` (the static GT padding per clip). The training
-    constants every MQ config shares live in train/engine.py (losses, clip,
-    loss normaliser), train/optim.py (AdamW, schedule) and models/layers.py
-    (drop-path and XL dropout rates)."""
+    """`batch_size` is `loader.batch_size`; `max_segments` and
+    `max_text_len` are `dataset.max_segments` (the static GT padding per
+    clip) and `dataset.max_text_len` (text tokens per query, NLQ)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     test_cfg: TestCfg = field(default_factory=TestCfg)
+    train_cfg: TrainCfg = field(default_factory=TrainCfg)
+    opt: OptCfg = field(default_factory=OptCfg)
     batch_size: int = 2
     max_segments: int = 64
+    max_text_len: int = 128
 
 
 def flagship_config(tiny: bool = False) -> Config:
@@ -83,3 +119,41 @@ def flagship_config(tiny: bool = False) -> Config:
         )
         return Config(model=model, batch_size=8, max_segments=8)
     return Config(model=ModelConfig())
+
+
+def nlq_flagship_config(tiny: bool = False) -> Config:
+    """The NLQ ViLCo flagship (configs/nlq_vilco.yaml): the dual tower at
+    T=2560 with 9-wide banded attention, 4 heads of 96, one class, text of
+    32 tokens x 512. The tiny twin is vilco_tpu/tasks/nlq.py::
+    nlq_tiny_config() (E=32, T=64, arch (2, 1, 1, 0, 3), no drop-path)."""
+    if tiny:
+        model = ModelConfig(
+            variant="nlq", backbone_arch=(2, 1, 1, 0, 3), n_mha_win_size=9,
+            embd_dim=32, fpn_dim=32, head_dim=32, n_head=4, n_txt_in=12,
+            regression_range=((0, 4), (2, 8), (4, 16), (8, 10000)),
+            input_dim=16, num_classes=1, max_seq_len=64, droppath=0.0,
+        )
+        return Config(
+            model=model,
+            test_cfg=TestCfg(pre_nms_topk=128, max_seg_num=5,
+                             duration_thresh=0.001),
+            train_cfg=TrainCfg(label_smoothing=0.1,
+                               use_gaussian_weights=False,
+                               init_loss_norm=20.0),
+            opt=OptCfg(learning_rate=3e-3, epochs=6, warmup_epochs=1),
+            batch_size=4, max_segments=4, max_text_len=8)
+    model = ModelConfig(
+        variant="nlq", backbone_arch=(2, 4, 4, 0, 6), n_mha_win_size=9,
+        embd_dim=384, fpn_dim=384, head_dim=384, n_head=4, n_txt_in=512,
+        regression_range=((0, 4), (2, 8), (4, 16), (8, 32), (16, 64),
+                          (32, 128), (64, 10000)),
+        input_dim=256, num_classes=1, max_seq_len=2560,
+    )
+    return Config(
+        model=model,
+        test_cfg=TestCfg(max_seg_num=5, duration_thresh=0.001,
+                         voting_thresh=0.9),
+        train_cfg=TrainCfg(label_smoothing=0.1, use_gaussian_weights=False,
+                           init_loss_norm=200.0),
+        opt=OptCfg(epochs=8, warmup_epochs=5),
+        batch_size=4, max_segments=64, max_text_len=32)

@@ -6,18 +6,22 @@ under a bf16 forward: every module casts its parameters to the input's
 dtype on use, as the JAX modules do.
 
 Regularisers: a forward given `rng` (a torch.Generator on the input's
-device) in training mode applies the flagship's drop-path (DROPPATH, on the
-AffineDropPath residuals and the channel block's two residuals) and the XL
-stage's dropouts (XL_DROPOUT: on the attention probabilities inside the
-kernel, after the output projection, after the FF's GELU and after its
+device) in training mode applies the drop-path of the blocks built with a
+rate > 0 (AffineDropPath residuals, the channel block's two residuals) and
+the XL stage's dropouts (XL_DROPOUT: on the attention probabilities inside
+the kernel, after the output projection, after the FF's GELU and after its
 second layer). Without `rng` they are the identity (the JAX modules'
 `deterministic=True`, or training with the rates at 0).
 
   MaskedConv, LayerNormC, Scale, AffineDropPath
-  MaskedMHCA        depthwise q/k/v convs (kernels/dwconv.py) + LN + the
-                    attention kernel (kernels/attention.py)
+  MaskedMHCA        depthwise q/k/v convs (kernels/dwconv.py) + LN + dense
+                    attention (kernels/attention.py) or, with a window,
+                    banded attention (kernels/banded_attention.py)
+  MaskedMHA         1x1 projections + dense attention; self- or
+                    cross-attention (kernels/attention.py, Tq != Tk)
   ChannelBlock      channel attention + MLP
-  TransformerBlock  self-attention only (no cross-modal path, no adapter)
+  TransformerBlock  self-attention, the optional text cross-attention and
+                    channel-attention blend (no adapter)
   XLRelAttention    single stream: no mems, no g stream, no segments
 """
 
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vilco_tpu_torch.kernels.attention import fused_attention_blc
+from vilco_tpu_torch.kernels.banded_attention import banded_attention_blc
 from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv
 from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention
 from vilco_tpu_torch.ops.activations import gelu
@@ -41,7 +46,6 @@ from vilco_tpu_torch.ops.masked import (
 )
 
 T_C_ALPHA = 0.8  # train_cfg.t_c_alpha: temporal vs channel attention blend
-DROPPATH = 0.1   # train_cfg.droppath
 XL_DROPOUT = 0.1  # model.xl_dropout (the xlnet json's dropout)
 
 
@@ -120,14 +124,15 @@ class Scale(nn.Module):
 
 
 class AffineDropPath(nn.Module):
-    """Per-channel learnable scale (init 1e-4), then drop-path."""
+    """Per-channel learnable scale (init 1e-4), then drop-path at `rate`."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, rate: float):
         super().__init__()
+        self.rate = rate
         self.scale = nn.Parameter(torch.full((1, 1, c), 1e-4))
 
     def forward(self, x, rng=None):
-        return _drop_path(self.scale.to(x.dtype) * x, DROPPATH, rng)
+        return _drop_path(self.scale.to(x.dtype) * x, self.rate, rng)
 
 
 class _DWKernel(nn.Module):
@@ -140,14 +145,16 @@ class _DWKernel(nn.Module):
 
 class MaskedMHCA(nn.Module):
     """Multi-head conv attention: the three depthwise q/k/v convs (stride 1
-    or 2) in one kernel launch, LN, projections, then the attention kernel
-    on the channels-last q/k/v."""
+    or 2) in one kernel launch, LN, projections, then on the channels-last
+    q/k/v the dense attention kernel or, with `window` > 0 (the half
+    window), the banded one (LocalMaskedMHCA)."""
 
-    def __init__(self, n_embd: int, n_head: int, stride: int = 1):
+    def __init__(self, n_embd: int, n_head: int, stride: int = 1,
+                 window: int = -1):
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride {stride}: the fused convs take 1 or 2")
-        self.n_head, self.stride = n_head, stride
+        self.n_head, self.stride, self.window = n_head, stride, window
         E = n_embd
         self.query_conv = _DWKernel(E, 3)
         self.key_conv = _DWKernel(E, 3)
@@ -172,19 +179,48 @@ class MaskedMHCA(nn.Module):
         k = self.key_norm(k * mm)
         v = self.value_norm(v * mm)
         q, k, v = self.query(q), self.key(k), self.value(v)
-        out = fused_attention_blc(q, k, v, q_mask.contiguous(), self.n_head)
+        if self.window > 0:
+            out = banded_attention_blc(q, k, v, q_mask.contiguous(),
+                                       self.n_head, self.window)
+        else:
+            out = fused_attention_blc(q, k, v, q_mask.contiguous(),
+                                      self.n_head)
         out = self.proj(out)
         return out * mm, q_mask
 
 
-class ChannelBlock(nn.Module):
-    """Channel-attention block: qkv -> channel attention -> proj ->
-    residual; LayerNorm (eps 1e-6) -> MLP -> residual."""
+class MaskedMHA(nn.Module):
+    """Dense masked attention with 1x1 projections: self-attention, or
+    cross-attention of x's queries to `enc`'s keys and values (Tq != Tk)
+    through the attention kernel; the output is zeroed at x's invalid
+    positions."""
 
     def __init__(self, n_embd: int, n_head: int):
         super().__init__()
-        C = n_embd
+        E = n_embd
         self.n_head = n_head
+        self.query = Linear(E, E)
+        self.key = Linear(E, E)
+        self.value = Linear(E, E)
+        self.proj = Linear(E, E)
+
+    def forward(self, x, mask, enc=None, enc_mask=None):
+        src, kv_mask = (x, mask) if enc is None else (enc, enc_mask)
+        q, k, v = self.query(x), self.key(src), self.value(src)
+        out = self.proj(fused_attention_blc(q, k, v, kv_mask.contiguous(),
+                                            self.n_head))
+        return out * mask[..., None].to(out.dtype), mask
+
+
+class ChannelBlock(nn.Module):
+    """Channel-attention block: qkv -> channel attention -> proj ->
+    residual; LayerNorm (eps 1e-6) -> MLP -> residual; drop-path at
+    `drop_path` on both residuals."""
+
+    def __init__(self, n_embd: int, n_head: int, drop_path: float):
+        super().__init__()
+        C = n_embd
+        self.n_head, self.drop_path = n_head, drop_path
         self.qkv = Linear(C, 3 * C, bias=False)
         self.proj = Linear(C, C)
         self.norm2 = LayerNorm(C, eps=1e-6)
@@ -196,32 +232,50 @@ class ChannelBlock(nn.Module):
         H = self.n_head
         qkv = self.qkv(x).reshape(B, T, 3, H, C // H)
         cur = self.proj(channel_attention(qkv, H).reshape(B, T, C))
-        x = x + _drop_path(cur, DROPPATH, rng)
+        x = x + _drop_path(cur, self.drop_path, rng)
         h = self.mlp_fc2(gelu(self.mlp_fc1(self.norm2(x))))
-        return x + _drop_path(h, DROPPATH, rng)
+        return x + _drop_path(h, self.drop_path, rng)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: MaskedMHCA (+ max-pool skip when strided), MLP, and on
-    stride-1 blocks the channel-attention blend by T_C_ALPHA. Both residuals
-    carry AffineDropPath scales, as in JAX whenever droppath > 0 (0.1 in
-    every MQ config)."""
+    """Pre-LN block: MaskedMHCA (+ max-pool skip when strided; banded with
+    `window` > 0), with `use_cross_modal` the text cross-attention
+    (LayerNorm ln3 on both streams, MaskedMHA, sharing the attention
+    residual's drop-path), MLP, and with `use_channel_attn` on stride-1
+    blocks the channel-attention blend by T_C_ALPHA. With `path_drop` > 0
+    both residuals carry AffineDropPath scales, as in JAX; at 0 there are
+    none (the reference's nn.Identity)."""
 
-    def __init__(self, n_embd: int, n_head: int, n_ds_stride: int = 1):
+    def __init__(self, n_embd: int, n_head: int, n_ds_stride: int = 1,
+                 path_drop: float = 0.0, window: int = -1,
+                 use_cross_modal: bool = False,
+                 use_channel_attn: bool = True):
         super().__init__()
         E = n_embd
         self.stride = n_ds_stride
         self.ln1 = LayerNormC(E)
-        self.attn = MaskedMHCA(E, n_head, stride=n_ds_stride)
-        self.drop_path_attn = AffineDropPath(E)
-        self.drop_path_mlp = AffineDropPath(E)
+        self.attn = MaskedMHCA(E, n_head, stride=n_ds_stride, window=window)
+        self.drop_path_attn = (AffineDropPath(E, path_drop) if path_drop > 0
+                               else None)
+        self.drop_path_mlp = (AffineDropPath(E, path_drop) if path_drop > 0
+                              else None)
+        if use_cross_modal:
+            self.ln3 = LayerNormC(E)
+            self.cross_attn = MaskedMHA(E, n_head)
+        else:
+            self.ln3 = self.cross_attn = None
         self.ln2 = LayerNormC(E)
         self.mlp_fc1 = Linear(E, 4 * E)
         self.mlp_fc2 = Linear(4 * E, E)
-        self.channel_attn = (ChannelBlock(E, n_head) if n_ds_stride == 1
+        self.channel_attn = (ChannelBlock(E, n_head, path_drop)
+                             if use_channel_attn and n_ds_stride == 1
                              else None)
 
-    def forward(self, x, mask, rng=None):
+    @staticmethod
+    def _residual(dp, x, rng):
+        return x if dp is None else dp(x, rng)
+
+    def forward(self, x, mask, rng=None, cross_y=None, cross_y_mask=None):
         s = self.stride
         ln1 = self.ln1(x)
         out, out_mask = self.attn(ln1, mask)
@@ -230,9 +284,17 @@ class TransformerBlock(nn.Module):
             skip, _ = masked_max_pool1d(x, mask, kernel=s + 1, stride=s)
         else:
             skip = x
-        out = skip * out_mask_f + self.drop_path_attn(out, rng)
+        out = skip * out_mask_f + self._residual(self.drop_path_attn, out,
+                                                 rng)
+        if self.cross_attn is not None:
+            if cross_y is None:
+                raise ValueError("a cross-modal block needs cross_y")
+            cross_out, _ = self.cross_attn(self.ln3(out), out_mask,
+                                           self.ln3(cross_y), cross_y_mask)
+            out = out * out_mask_f + self._residual(self.drop_path_attn,
+                                                    cross_out, rng)
         h = self.mlp_fc2(gelu(self.mlp_fc1(self.ln2(out))))
-        out = out + self.drop_path_mlp(h * out_mask_f, rng)
+        out = out + self._residual(self.drop_path_mlp, h * out_mask_f, rng)
         if self.channel_attn is not None:
             out2 = self.channel_attn(ln1, rng)
             out = T_C_ALPHA * out + (1.0 - T_C_ALPHA) * out2

@@ -1,13 +1,15 @@
-"""Point-transformer meta-arch, MQ serving and training paths
+"""Point-transformer meta-arch, MQ and NLQ serving and training paths
 (vilco_tpu/models/point_transformer.py).
 
-backbone -> identity neck (per-level LayerNorm) -> shared cls head and reg
-head, each run once over all levels concatenated with zero gaps. Returns
-the same keys as the JAX model's forward: `cls_logits` (B, P, C) f32,
-`offsets` (B, P, 2) f32, `fpn_mask` (B, P), `level_lengths`, `fpn_feats`,
-and `gaussians`, the six learnable per-class (C,) parameters that weight
-the training losses. The L2P prompt pool and narration-SSL extras come in
-a later slice.
+backbone (MQ: ConvTransformerBackbone; NLQ: DualTowerBackbone, which takes
+the query text) -> identity neck (per-level LayerNorm) -> shared cls head
+and reg head, each run once over all levels concatenated with zero gaps.
+Returns the same keys as the JAX model's forward: `cls_logits` (B, P, C)
+f32, `offsets` (B, P, 2) f32, `fpn_mask` (B, P), `level_lengths`,
+`fpn_feats`, and `gaussians`: for MQ the six learnable per-class (C,)
+parameters that weight the training losses, for NLQ None (the NLQ model
+has no such parameters). The L2P prompt pool and narration-SSL extras come
+in a later slice.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ import torch
 from torch import nn
 
 from vilco_tpu_torch.core.config import ModelConfig
-from vilco_tpu_torch.models.backbone import ConvTransformerBackbone
+from vilco_tpu_torch.models.backbone import (
+    ConvTransformerBackbone,
+    DualTowerBackbone,
+)
 from vilco_tpu_torch.models.layers import (
     LayerNormC,
     MaskedConv,
@@ -122,42 +127,58 @@ class RegHead(_Head):
 
 
 class PointTransformer(nn.Module):
-    """The MQ meta-arch. Parameters are drawn in f32 from the CPU
-    `generator` (seed 0 if None), then placed on `device` (the card unless
-    the caller asks for the CPU; no card raises). The forward computes in
-    `compute_dtype` (default: the parameters' dtype), casting f32 master
-    parameters on use as the JAX model does; `.to(device, torch.bfloat16)`
-    gives the serving path's bf16 model."""
+    """The meta-arch, variant `cfg.variant` ("mq" or "nlq"). Parameters are
+    drawn in f32 from the CPU `generator` (seed 0 if None), then placed on
+    `device` (the card unless the caller asks for the CPU; no card raises).
+    The forward computes in `compute_dtype` (default: the parameters'
+    dtype), casting f32 master parameters on use as the JAX model does;
+    `.to(device, torch.bfloat16)` gives the serving path's bf16 model."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: torch.Generator | None = None,
                  device="cuda"):
         super().__init__()
+        if cfg.variant not in ("mq", "nlq"):
+            raise ValueError(f"variant {cfg.variant!r}: 'mq' or 'nlq'")
         self.cfg = cfg
         n_levels = cfg.num_branch_layers + 1
-        self.backbone = ConvTransformerBackbone(cfg)
+        self.backbone = (DualTowerBackbone(cfg) if cfg.variant == "nlq"
+                         else ConvTransformerBackbone(cfg))
         self.neck = FPNIdentity(cfg.fpn_dim, n_levels)
         self.cls_head = ClsHead(cfg.fpn_dim, cfg.head_dim, cfg.num_classes)
         self.reg_head = RegHead(cfg.fpn_dim, cfg.head_dim, n_levels)
-        # learnable per-class Gaussians for label weighting in training;
-        # carried so that the JAX parameter tree loads one to one
-        C = cfg.num_classes
-        for name, v in (("mu", 0.0), ("sigma", 1.0), ("mu_reg_left", -0.5),
-                        ("sigma_reg_left", 1.0), ("mu_reg_right", 0.5),
-                        ("sigma_reg_right", 1.0)):
-            self.register_parameter(name, nn.Parameter(torch.full((C,), v)))
+        if cfg.variant == "mq":
+            # learnable per-class Gaussians for label weighting in training
+            C = cfg.num_classes
+            for name, v in (("mu", 0.0), ("sigma", 1.0),
+                            ("mu_reg_left", -0.5), ("sigma_reg_left", 1.0),
+                            ("mu_reg_right", 0.5), ("sigma_reg_right", 1.0)):
+                self.register_parameter(name,
+                                        nn.Parameter(torch.full((C,), v)))
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights_(self, generator)
         self.to(device)
 
-    def forward(self, feats, mask, rng=None, compute_dtype=None):
-        """`rng` (a torch.Generator on the card or CPU of the inputs)
-        switches on drop-path and the XL dropouts in training mode."""
+    def forward(self, feats, mask, text=None, text_mask=None, rng=None,
+                compute_dtype=None):
+        """`text` (B, L, n_txt_in) and `text_mask` (B, L), the NLQ query;
+        `rng` (a torch.Generator on the card or CPU of the inputs) switches
+        on drop-path and the XL dropouts in training mode."""
         dt = compute_dtype or next(self.parameters()).dtype
         feats = feats.to(dt)
         rng = rng if self.training else None
-        bb_feats, bb_masks = self.backbone(feats, mask, rng)
+        if self.cfg.variant == "nlq":
+            if text is None or text_mask is None:
+                raise ValueError("the NLQ model needs text and text_mask")
+            bb_feats, bb_masks = self.backbone(feats, mask, text.to(dt),
+                                               text_mask, rng)
+            gaussians = None
+        else:
+            bb_feats, bb_masks = self.backbone(feats, mask, rng)
+            gaussians = (self.mu, self.sigma, self.mu_reg_left,
+                         self.sigma_reg_left, self.mu_reg_right,
+                         self.sigma_reg_right)
         fpn_feats, fpn_masks = self.neck(bb_feats, bb_masks)
         cls_list = self.cls_head(fpn_feats, fpn_masks)
         reg_list = self.reg_head(fpn_feats, fpn_masks)
@@ -167,9 +188,7 @@ class PointTransformer(nn.Module):
             "offsets": torch.cat([r.float() for r in reg_list], 1),
             "fpn_mask": torch.cat(fpn_masks, 1),
             "fpn_feats": fpn_feats,
-            "gaussians": (self.mu, self.sigma, self.mu_reg_left,
-                          self.sigma_reg_left, self.mu_reg_right,
-                          self.sigma_reg_right),
+            "gaussians": gaussians,
         }
 
 

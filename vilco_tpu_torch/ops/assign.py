@@ -53,7 +53,14 @@ def label_points(points, gt_segments, gt_labels, gt_valid, num_classes: int,
     with their max regression distance in the level's range; a point takes
     the shortest candidate segment, its cls target the multi-hot of the
     segments within 1e-3 of that length. Gradients flow into `gaussians`
-    (mu, sigma, mu_l, sigma_l, mu_r, sigma_r, each (C,))."""
+    (mu, sigma, mu_l, sigma_l, mu_r, sigma_r, each (C,)); None (the NLQ
+    model, which has none) takes the neutral constants (0, 1, -0.5, 1,
+    0.5, 1), whose prob_* outputs the NLQ losses do not read."""
+    if gaussians is None:
+        C, dev = num_classes, points.device
+        full = lambda v: torch.full((C,), v, dtype=torch.float32, device=dev)
+        gaussians = (full(0.0), full(1.0), full(-0.5), full(1.0), full(0.5),
+                     full(1.0))
     mu, sigma, mu_l, sig_l, mu_r, sig_r = gaussians
     t, reg_lo, reg_hi, stride = (points[:, i][None, :, None]
                                  for i in range(4))          # (1, P, 1)

@@ -1,10 +1,13 @@
 """AdamW with the reference's decay split, and the warmup + cosine schedule
 (vilco_tpu/train/optim.py: weight_decay_mask, make_schedule, FusedAdamW).
 
-The constants are the flagship's `opt` section (vilco_tpu/core/config.py
-OptCfg defaults, which configs/mq_vilco.yaml keeps): AdamW, lr 1e-4,
-weight decay 0.05, betas (0.9, 0.999), eps 1e-8, bf16 first and second
-moments, 5 warmup epochs then cosine over 10 epochs to 1e-8.
+The constants are what the flagships' `opt` sections share
+(vilco_tpu/core/config.py OptCfg defaults, which configs/mq_vilco.yaml and
+configs/nlq_vilco.yaml keep): AdamW, weight decay 0.05, betas (0.9,
+0.999), eps 1e-8, bf16 first and second moments, cosine to 1e-8. The peak
+lr, the epochs and the warmup epochs come from the config's `opt`
+(core/config.py::OptCfg: MQ 10 epochs, NLQ 8, both 5 of warmup and lr
+1e-4).
 
 `FusedAdamW` keeps the JAX optimizer's state layout: moments of the big
 leaves (>= 2^18 elements) one tensor each, those of the small leaves packed
@@ -23,6 +26,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from vilco_tpu_torch.core.config import OptCfg
 from vilco_tpu_torch.kernels.adamw import (  # noqa: F401 (re-exported)
     B1,
     B2,
@@ -32,9 +36,6 @@ from vilco_tpu_torch.kernels.adamw import (  # noqa: F401 (re-exported)
     adamw_update_plain,
 )
 
-LEARNING_RATE = 1e-4
-EPOCHS = 10
-WARMUP_EPOCHS = 5
 ETA_MIN = 1e-8
 MOMENT_DTYPE = torch.bfloat16      # opt.mu_dtype = opt.nu_dtype = bfloat16
 SMALL_LEAF_ELEMS = 1 << 18
@@ -67,21 +68,23 @@ def weight_decay_mask(named_params) -> Dict[str, bool]:
     return {n: decays(n, p.dim()) for n, p in named_params}
 
 
-def make_schedule(steps_per_epoch: int):
-    """step -> lr (numpy f32): linear warmup reaching the peak at step
-    warmup - 1, then cosine from the peak to ETA_MIN over the EPOCHS
-    epochs, in the f32 arithmetic of the JAX schedule."""
+def make_schedule(opt: OptCfg, steps_per_epoch: int):
+    """step -> lr (numpy f32): linear warmup over opt.warmup_epochs
+    reaching opt.learning_rate at step warmup - 1, then cosine from the
+    peak to ETA_MIN over opt.epochs, in the f32 arithmetic of the JAX
+    schedule."""
     f = np.float32
-    warmup = WARMUP_EPOCHS * steps_per_epoch
-    max_steps = EPOCHS * steps_per_epoch + warmup
+    peak = opt.learning_rate
+    warmup = opt.warmup_epochs * steps_per_epoch
+    max_steps = opt.epochs * steps_per_epoch + warmup
 
     def sched(step: int) -> np.float32:
         s = f(step)
         if s < warmup:
-            return f(LEARNING_RATE) * s / f(max(warmup - 1, 1))
+            return f(peak) * s / f(max(warmup - 1, 1))
         t = (s - f(warmup)) / f(max(max_steps - warmup, 1))
         cos = f(1.0) + np.cos(f(math.pi) * t, dtype=f)
-        return f(ETA_MIN) + f(0.5 * (LEARNING_RATE - ETA_MIN)) * cos
+        return f(ETA_MIN) + f(0.5 * (peak - ETA_MIN)) * cos
 
     return sched
 
@@ -94,13 +97,14 @@ class FusedAdamW:
     (`grad_flat`, each parameter's .grad a view of it; `zero_grad` clears
     it), so the kernel's leaf table is built once."""
 
-    def __init__(self, model: torch.nn.Module, steps_per_epoch: int):
+    def __init__(self, model: torch.nn.Module, steps_per_epoch: int,
+                 opt: OptCfg):
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [decays(n, p.dim()) for n, p in named]
         self.small = [p.numel() < SMALL_LEAF_ELEMS for p in self.params]
-        self.sched = make_schedule(steps_per_epoch)
+        self.sched = make_schedule(opt, steps_per_epoch)
         self.count = 0
         dev = self.params[0].device
         z = lambda n: torch.zeros(n, dtype=MOMENT_DTYPE, device=dev)
