@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's MQ and NLQ serving and training paths once
-on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's MQ, NLQ and VQ serving and training paths
+once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -65,6 +65,39 @@ fallback):
  14. nlq_train     12 bf16 steps at batch 4 (f32 masters, drop-path 0.1,
                    label smoothing 0.1, FusedAdamW over 467 leaves): ms
                    split, losses, peak memory, launches, one profiled step
+ 15. vq_kernels    the VQ flagship's kernels against their plain versions,
+                   bf16 and f32: the frame-banded attention forward at
+                   batch 8 and 16 and its dq and dk/dv at batch 16 (30
+                   frames of 64 tokens, 8 heads of 32, +-2 frames; SDPA
+                   with the (L, L) band mask as the library call), and at
+                   the edges (the band wider than the clip, odd fr, one
+                   frame, a frame longer than a tile); the fused MLP at a
+                   request's two ViT calls (240 clip frames and 8 query
+                   copies of 1025 tokens, C 768, hidden 3072) in bf16 and
+                   the query call in f32 (library: two F.linear and the
+                   tanh GELU); the dense attention at the ViT shape (1025
+                   tokens, 12 heads of 64: both request calls in bf16, the
+                   parity's 30 frames in f32) and in the query/frame
+                   decoder (1024 tokens, 4 heads of 64: forward at 240 and
+                   480 frames, backward at 480, bf16 and f32) beside SDPA;
+                   AdamW with f32 moments over the VQ optimizer's 113
+                   trainable leaves (bit-exact)
+ 16. vq_parity     vq_flagship_config() at batch 1, 30 frames, f32, the
+                   card against the CPU on the box deltas and the logits
+                   (output convs redrawn at a normal scale), with a TF32
+                   control
+ 17. vq_serve      requests of one 240-frame 448-square bf16 clip + query
+                   on the card through tasks/vq.py::predict_track (8
+                   windows of 30 in one chunk): 2 warm-up and 5 timed,
+                   frames/s, ms split into ViT / matcher / top anchor /
+                   peak finding, peak memory, launches against the model's
+                   structure, one profiled request, then one request with
+                   the ViT MLP on the fused kernel
+ 18. vq_train      12 bf16 HNM steps at batch 4 (16 pairs, f32 masters,
+                   head dropout 0.2, AdamW over the trainable leaves with
+                   the frozen ViT outside it): ms split, every loss (finite
+                   and falling), peak memory, launches, the backbone
+                   bit-identical, one profiled step
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
 """
@@ -89,9 +122,10 @@ B_TRAIN = 2          # the flagship's loader.batch_size
 # forward outputs against tol x max(1, max|ref|): f32 summation order and an
 # online softmax against a two-pass one; bf16 one rounding of the output
 FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-# f32 on both sides reads ~6e-6 (summation order over ~30 layers); TF32 in
-# the card's GEMMs and convs reads ~1e-3, so 2e-5 tells the two apart. The
-# parity phase runs that TF32 control and fails if the check cannot see it.
+# f32 on both sides reads ~6e-6 (summation order over ~30 layers; the VQ
+# ClipMatcher 4.8e-6); TF32 in the card's GEMMs and convs reads ~1e-3, so
+# 2e-5 tells the two apart. The parity phases run that TF32 control and
+# fail if the check cannot see it.
 PARITY_RTOL = 2e-5
 
 
@@ -521,42 +555,49 @@ def backward_timer(fn, inputs, g):
 TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def check_adamw(chk, cfg, dev):
-    """K4 over every leaf of the model of `cfg` (a ModelConfig) in one
-    launch, bf16 moments, bit-exact against the plain version leaf by
-    leaf."""
-    from vilco_tpu_torch.kernels.adamw import (
-        LeafTable,
-        adamw_update_multi,
-        adamw_update_plain,
-    )
+def point_transformer_leaves(cfg, dev):
+    """(label, leaves, decay flags) of the model of `cfg` (a ModelConfig),
+    decay on the matrices as the MQ/NLQ optimizer's mask."""
     from vilco_tpu_torch.models.point_transformer import PointTransformer
 
     model = PointTransformer(cfg, generator=torch.Generator().manual_seed(
         SEED), device=dev)
     ps = [p.data for p in model.parameters()]
+    return cfg.variant.upper(), ps, [p.dim() >= 2 for p in ps]
+
+
+def check_adamw(chk, label, ps, decays, mdt, wd=None):
+    """K4 over the f32 leaves `ps` in one launch, moments in `mdt`, weight
+    decay `wd` (the kernel's default if None), bit-exact against the plain
+    version leaf by leaf."""
+    from vilco_tpu_torch.kernels.adamw import (
+        LeafTable,
+        adamw_update_multi,
+        adamw_update_plain,
+    )
+
+    kw = {} if wd is None else {"wd": wd}
     gr = [torch.randn_like(p) * 1e-3 for p in ps]
-    ms = [(torch.randn_like(p) * 1e-3).to(torch.bfloat16) for p in ps]
-    vs = [(torch.randn_like(p) * 1e-3).square().to(torch.bfloat16)
-          for p in ps]
-    decays = [p.dim() >= 2 for p in ps]
-    coef = torch.tensor([1e-4, 0.271, 0.002997, 0.75], device=dev)
-    want = [adamw_update_plain(p, g, m_, v_, d, *coef)
+    ms = [(torch.randn_like(p) * 1e-3).to(mdt) for p in ps]
+    vs = [(torch.randn_like(p) * 1e-3).square().to(mdt) for p in ps]
+    coef = torch.tensor([1e-4, 0.271, 0.002997, 0.75], device=ps[0].device)
+    want = [adamw_update_plain(p, g, m_, v_, d, *coef, **kw)
             for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)]
     got = [t.clone() for t in ps], [t.clone() for t in ms], \
         [t.clone() for t in vs]
     table = LeafTable(got[0], gr, got[1], got[2], decays)
-    adamw_update_multi(table, coef)
+    adamw_update_multi(table, coef, **kw)
     n = sum(p.numel() for p in ps)
-    chk.report("adamw", f"adamw_update_multi {cfg.variant.upper()} "
-               f"{len(ps)} leaves {n} params", torch.float32,
+    el = torch.empty((), dtype=mdt).element_size()
+    chk.report("adamw", f"adamw_update_multi {label} {len(ps)} leaves {n} "
+               f"params, {str(mdt)[6:]} moments", torch.float32,
                output_errors(("p", "m", "v"), list(got),
                              [list(x) for x in zip(*want)], 0.0),
-               lambda: adamw_update_multi(table, coef),
-               lambda: [adamw_update_plain(p, g, m_, v_, d, *coef)
+               lambda: adamw_update_multi(table, coef, **kw),
+               lambda: [adamw_update_plain(p, g, m_, v_, d, *coef, **kw)
                         for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)],
-               (16 * n, 20 * n), is_top=True, reps=5)
-    del model, ps, gr, ms, vs, got, want, table
+               (16 * n, (12 + 4 * el) * n), is_top=True, reps=5)
+    del gr, ms, vs, got, want, table
     torch.cuda.empty_cache()
 
 
@@ -701,7 +742,7 @@ def phase_train_kernels(dev):
             f"err {err:.3e} (limit {lim:.3e}) "
             f"{'ok' if ok else 'OUT OF TOLERANCE'}")
 
-    check_adamw(chk, cfg, dev)
+    check_adamw(chk, *point_transformer_leaves(cfg, dev), torch.bfloat16)
     if not chk.ok:
         fail("a training kernel disagrees with its plain version")
     return chk.errs, chk.top
@@ -1194,15 +1235,528 @@ def phase_nlq_kernels(dev):
                            groups=C), (x, wg), gcat))
         torch.cuda.empty_cache()
     # K4 over the dual tower's 467 leaves (no Gaussian parameters)
-    check_adamw(chk, cfg, dev)
+    check_adamw(chk, *point_transformer_leaves(cfg, dev), torch.bfloat16)
     if not chk.ok:
         fail("an NLQ kernel disagrees with its plain version")
     return chk.errs, chk.top
 
 
+# ---- VQ: the ClipMatcher with frame-banded attention (K6) and the fused
+# ViT MLP (K7) ----------------------------------------------------------------
+
+VQ_K6_BATCHES = (8, 16)   # the serving chunk (8 windows) and the HNM pairs
+
+
+def frame_band_pairs(L: int, fr: int, w: int) -> int:
+    """In-band (query, key) pairs of one sequence and head: fr queries a
+    frame, each seeing the fr keys of every frame within +-w."""
+    nf = L // fr
+    return sum(fr * fr * (min(nf - 1, f + w) - max(0, f - w) + 1)
+               for f in range(nf))
+
+
+def frame_band_work(B, L, C, H, fr, w, dtype, which):
+    """(flops, bytes) of K6 on B sequences: 2 C operations per band pair
+    for each product (forward q.k, p.v; dq adds dO.v, ds.k; dk/dv q.k,
+    dO.v, p.dO, ds.q). Bytes: q, k, v (and dO) read once, each output
+    written once, lse and delta (f32 per row and head) read by the
+    backward."""
+    pairs = B * frame_band_pairs(L, fr, w)
+    el = torch.empty((), dtype=dtype).element_size()
+    rows, stats = B * L * C * el, 8 * B * H * L
+    if which == "fwd":
+        return 4 * C * pairs, 4 * rows
+    if which == "dq":
+        return 6 * C * pairs, 5 * rows + stats
+    return 8 * C * pairs, 6 * rows + stats
+
+
+def frame_band_mask(L: int, fr: int, w: int, dev):
+    """(L, L) bool, True in the band: SDPA's mask for the same function."""
+    f = torch.arange(L, device=dev) // fr
+    return (f[:, None] - f[None, :]).abs() <= w
+
+
+def mlp_work(N, C, Hd, dtype):
+    el = torch.empty((), dtype=dtype).element_size()
+    return 4 * N * C * Hd, (2 * N * C + 2 * C * Hd + Hd + C) * el
+
+
+def phase_vq_kernels(dev):
+    from vilco_tpu_torch.core.config import vq_flagship_config
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        attention_fwd_cuda,
+        fused_attention_blc,
+        fused_attention_blc_plain,
+    )
+    from vilco_tpu_torch.kernels.frame_band import (
+        frame_band_attention,
+        frame_band_attention_plain,
+        frame_band_delta,
+        frame_band_dkv_cuda,
+        frame_band_dq_cuda,
+        frame_band_fwd_cuda,
+    )
+    from vilco_tpu_torch.kernels.mlp import (
+        fused_mlp,
+        fused_mlp_cuda,
+        fused_mlp_plain,
+    )
+    from vilco_tpu_torch.models.clip_matcher import CQ_HEADS, ClipMatcher
+    from vilco_tpu_torch.train.vq_engine import make_vq_optimizer
+
+    cfg = vq_flagship_config()
+    R, C, H = cfg.resolution_transformer, cfg.dim, 8
+    fr, w, T = R * R, cfg.window_transformer // 2, cfg.num_frames
+    rng = np.random.default_rng(SEED + 10)
+    chk = KernelChecks("vq_kernels", ("fb_fwd", "fb_dq", "fb_dkv", "mlp",
+                                      "attn", "attn_cq", "attn_bwd",
+                                      "adamw"))
+    report = chk.report
+
+    def randn(*shape, dtype, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev, dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # K6 at the flagship (T frames of R*R tokens, 8 heads of 32, +-2
+    # frames) at both batches, then the edges: the band wider than the
+    # clip (3 frames), an odd frame length, one frame, a frame longer than
+    # a tile; every shape holds its first and last frames
+    cases = ([(B, T, fr, w, H, C // H) for B in VQ_K6_BATCHES]
+             + [(2, 3, fr, w, H, C // H), (2, 9, 7, w, 3, 24),
+                (2, 1, fr, w, H, C // H), (2, 4, 100, 1, 2, 128)])
+    for dtype in (bf16, f32):
+        for B, nf, f_, w_, H_, D_ in cases:
+            L, C_ = nf * f_, H_ * D_
+            q, k, v, g = (randn(B, L, C_, dtype=dtype) for _ in range(4))
+            with torch.no_grad():
+                out = frame_band_attention(q, k, v, H_, f_, w_)
+                ref = frame_band_attention_plain(q, k, v, H_, f_, w_)
+            got = grads_of(lambda *a: frame_band_attention(*a, H_, f_, w_),
+                           (q, k, v), g)
+            want = grads_of(
+                lambda *a: frame_band_attention_plain(*a, H_, f_, w_),
+                (q, k, v), g)
+            torch.cuda.synchronize()
+            label = f"B={B} frames={nf} fr={f_} w={w_} H={H_} D={D_}"
+            bm = frame_band_mask(L, f_, w_, dev)
+            bh = lambda x: x.reshape(B, L, H_, D_).transpose(1, 2)
+            sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+                bh(a), bh(b), bh(c), attn_mask=bm)
+            flagship = (nf, f_) == (T, fr)
+            report("fb_fwd", f"frame_band forward {label}", dtype,
+                   output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+                   lambda: frame_band_fwd_cuda(q, k, v, H_, f_, w_, False),
+                   lambda: frame_band_attention_plain(q, k, v, H_, f_, w_),
+                   frame_band_work(B, L, C_, H_, f_, w_, dtype, "fwd"),
+                   lambda: sdpa(q, k, v),
+                   is_top=dtype == bf16 and flagship and B == 8)
+            if flagship and B != max(VQ_K6_BATCHES):
+                continue          # the backward at the HNM batch only
+            o, lse = frame_band_fwd_cuda(q, k, v, H_, f_, w_, True)
+            delta = frame_band_delta(o, g, H_)
+            plain_bwd = backward_timer(
+                lambda *a: frame_band_attention_plain(*a, H_, f_, w_),
+                (q, k, v), g)
+            lib_bwd = backward_timer(sdpa, (q, k, v), bh(g))
+            top = dtype == bf16 and flagship
+            report("fb_dq", f"frame_band dq {label} (plain/library: whole "
+                   "backward)", dtype,
+                   output_errors(("dq",), got[:1], want[:1],
+                                 TRAIN_TOL[dtype]),
+                   lambda: frame_band_dq_cuda(q, k, v, lse, delta, g, H_,
+                                              f_, w_),
+                   plain_bwd,
+                   frame_band_work(B, L, C_, H_, f_, w_, dtype, "dq"),
+                   lib_bwd, is_top=top)
+            report("fb_dkv", f"frame_band dk/dv {label} (plain/library: "
+                   "whole backward)", dtype,
+                   output_errors(("dk", "dv"), got[1:], want[1:],
+                                 TRAIN_TOL[dtype]),
+                   lambda: frame_band_dkv_cuda(q, k, v, lse, delta, g, H_,
+                                               f_, w_),
+                   plain_bwd,
+                   frame_band_work(B, L, C_, H_, f_, w_, dtype, "dkv"),
+                   lib_bwd, is_top=top)
+            del q, k, v, g, out, ref, got, want, o, lse, delta
+            del plain_bwd, lib_bwd, bm
+        torch.cuda.empty_cache()
+
+    # K7 at the ViT-B MLP: the two ViT calls of a serving request (the
+    # eval_windows x num_frames clip frames and the eval_windows query
+    # copies, 1025 tokens each) in bf16, the query call in f32
+    Cv, Hd, Lv = cfg.vit_dim, 4 * cfg.vit_dim, \
+        (cfg.clip_size // cfg.patch_size) ** 2 + 1
+    n_clip, n_query = cfg.eval_windows * T * Lv, cfg.eval_windows * Lv
+    w1, b1 = randn(Cv, Hd, dtype=f32, scale=Cv ** -0.5), randn(
+        Hd, dtype=f32, scale=0.1)
+    w2, b2 = randn(Hd, Cv, dtype=f32, scale=Hd ** -0.5), randn(
+        Cv, dtype=f32, scale=0.1)
+    for dtype, N in ((bf16, n_clip), (bf16, n_query), (f32, n_query)):
+        x = randn(N, Cv, dtype=dtype)
+        with torch.no_grad():
+            out = fused_mlp(x, w1, b1, w2, b2)
+            ref = fused_mlp_plain(x, w1, b1, w2, b2)
+        wl = [t.to(dtype) for t in (w1, b1, w2, b2)]
+        report("mlp", f"fused_mlp N={N} C={Cv} hidden={Hd}", dtype,
+               output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+               lambda: fused_mlp_cuda(x, w1, b1, w2, b2),
+               lambda: fused_mlp_plain(x, w1, b1, w2, b2),
+               mlp_work(N, Cv, Hd, dtype),
+               lambda: F.linear(F.gelu(F.linear(x, wl[0].t(), wl[1]),
+                                       approximate="tanh"), wl[2].t(), wl[3]),
+               is_top=(dtype, N) == (bf16, n_clip), reps=5)
+        del x, out, ref, wl
+        torch.cuda.empty_cache()
+
+    # K1 in the ViT (1025 tokens, 12 heads of 64, every key valid): the
+    # serving request's clip and query calls in bf16, the f32 parity
+    # forward's 30 frames
+    Hv = cfg.vit_heads
+    for dtype, B in ((bf16, cfg.eval_windows * T), (bf16, cfg.eval_windows),
+                     (f32, T)):
+        q, k, v = (randn(B, Lv, Cv, dtype=dtype) for _ in range(3))
+        m = torch.ones(B, Lv, dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            out = fused_attention_blc(q, k, v, m, Hv)
+            ref = fused_attention_blc_plain(q, k, v, m, Hv)
+        bh = lambda x: x.reshape(B, Lv, Hv, Cv // Hv).transpose(1, 2)
+        report("attn", f"attention forward (ViT) B={B} T={Lv} C={Cv} H={Hv}",
+               dtype, output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+               lambda: attention_fwd_cuda(q, k, v, m, Hv, False),
+               lambda: fused_attention_blc_plain(q, k, v, m, Hv),
+               attention_work(Lv, m, Cv, dtype, backward=False),
+               lambda: F.scaled_dot_product_attention(bh(q), bh(k), bh(v)),
+               is_top=(dtype, B) == (bf16, cfg.eval_windows * T), reps=5)
+        del q, k, v, m, out, ref
+        torch.cuda.empty_cache()
+
+    # K1 in the query/frame decoder (cq_corr: the 32 x 32 patch grid as
+    # 1024 tokens, C 256, 4 heads of 64; its self- and cross-attention have
+    # the same shape, every key valid): the forward at the serving chunk
+    # (240 frames) and the HNM step (16 pairs x 30 frames = 480), the
+    # backward at 480
+    Lc, Cc = (cfg.clip_size // cfg.patch_size) ** 2, cfg.dim
+    Dc = Cc // CQ_HEADS
+    b_serve, b_train = cfg.eval_windows * T, cfg.batch_size ** 2 * T
+    for dtype in (bf16, f32):
+        for B in (b_serve, b_train):
+            q, k, v = (randn(B, Lc, Cc, dtype=dtype) for _ in range(3))
+            m = torch.ones(B, Lc, dtype=torch.bool, device=dev)
+            with torch.no_grad():
+                out = fused_attention_blc(q, k, v, m, CQ_HEADS)
+                ref = fused_attention_blc_plain(q, k, v, m, CQ_HEADS)
+            bh = lambda x: x.reshape(B, Lc, CQ_HEADS, Dc).transpose(1, 2)
+            sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+                bh(a), bh(b), bh(c))
+            label = f"(cq_corr) B={B} T={Lc} C={Cc} H={CQ_HEADS}"
+            report("attn_cq", f"attention forward {label}", dtype,
+                   output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+                   lambda: attention_fwd_cuda(q, k, v, m, CQ_HEADS, False),
+                   lambda: fused_attention_blc_plain(q, k, v, m, CQ_HEADS),
+                   attention_work(Lc, m, Cc, dtype, backward=False),
+                   lambda: sdpa(q, k, v),
+                   is_top=(dtype, B) == (bf16, b_serve), reps=5)
+            del out, ref
+            if B == b_train:
+                g = randn(B, Lc, Cc, dtype=dtype)
+                got = grads_of(
+                    lambda *a: fused_attention_blc(*a, m, CQ_HEADS),
+                    (q, k, v), g)
+                want = grads_of(
+                    lambda *a: fused_attention_blc_plain(*a, m, CQ_HEADS),
+                    (q, k, v), g)
+                o, lse = attention_fwd_cuda(q, k, v, m, CQ_HEADS,
+                                            with_lse=True)
+                rows = output_errors(("dq", "dk", "dv"), got, want,
+                                     TRAIN_TOL[dtype])
+                del got, want
+                report("attn_bwd", f"attention backward {label}", dtype,
+                       rows,
+                       lambda: attention_bwd_cuda(q, k, v, m, o, lse, g,
+                                                  CQ_HEADS),
+                       backward_timer(
+                           lambda *a: fused_attention_blc_plain(
+                               *a, m, CQ_HEADS), (q, k, v), g),
+                       attention_work(Lc, m, Cc, dtype, backward=True),
+                       backward_timer(sdpa, (q, k, v), bh(g)),
+                       is_top=dtype == bf16, reps=5)
+                del g, o, lse
+            del q, k, v, m
+            torch.cuda.empty_cache()
+
+    # K4 with f32 moments over the VQ optimizer's trainable leaves (the
+    # frozen ViT outside it), every leaf decayed at the VQ weight decay
+    model = ClipMatcher(cfg, generator=torch.Generator().manual_seed(SEED),
+                        device=dev)
+    ps = [p.data for p in make_vq_optimizer(model, cfg).params]
+    del model
+    check_adamw(chk, "VQ", ps, [True] * len(ps), f32, cfg.weight_decay)
+    del ps
+    if not chk.ok:
+        fail("a VQ kernel disagrees with its plain version")
+    return chk.errs, chk.top
+
+
+def redraw_heads(model, seed: int):
+    """The two output convs drawn at a normal scale (their N(0, 1e-6) init
+    makes every output equal its bias), from a CPU generator."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in (model.head.reg_head, model.head.cls_head):
+            w = torch.randn(m.weight.shape, generator=gen) \
+                * m.weight[0].numel() ** -0.5
+            m.weight.copy_(w)
+            m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+
+
+def phase_vq_parity(dev):
+    """vq_flagship_config() at batch 1 with 30 frames in f32: the card with
+    its kernels against the CPU with the plain versions, on the deltas and
+    the logits, and a TF32 control that must read above the limit (the
+    MQ/NLQ limit holds: f32 reads ~5e-6 here, TF32 ~1.5e-3)."""
+    from vilco_tpu_torch.core.config import vq_flagship_config
+    from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+
+    cfg = vq_flagship_config()
+    model = ClipMatcher(cfg, generator=torch.Generator().manual_seed(SEED),
+                        device="cpu", compute_dtype=torch.float32).eval()
+    redraw_heads(model, SEED + 13)
+    rng = np.random.default_rng(SEED + 14)
+    S = cfg.clip_size
+    clip = torch.from_numpy(rng.random((1, cfg.num_frames, S, S, 3),
+                                       np.float32))
+    query = torch.from_numpy(rng.random((1, S, S, 3), np.float32))
+
+    def deltas(out):
+        refine = torch.cat([out["center"], 2 * out["hw"]], -1).cpu()
+        return {"deltas": refine - model.anchors_xyhw,
+                "logits": out["prob"].cpu()}
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = deltas(model(clip, query))
+        cpu_s = time.perf_counter() - t0
+        gpu = copy.deepcopy(model).to(dev)
+        out = deltas(gpu(clip.to(dev), query.to(dev)))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = deltas(gpu(clip.to(dev), query.to(dev)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    worst, control = 0.0, 0.0
+    for key, r in ref.items():
+        for o in (out[key], tf32[key]):
+            if o.shape != r.shape or not torch.isfinite(o).all():
+                fail(f"vq_parity: {key} shape {tuple(o.shape)} or non-finite")
+        rel = lambda o: ((o - r).abs().max() / r.abs().max()).item()
+        worst, control = max(worst, rel(out[key])), max(control,
+                                                        rel(tf32[key]))
+        say(f"[vq_parity] {key} {tuple(r.shape)} f32 card vs CPU: max rel "
+            f"err {rel(out[key]):.3e} (tol {PARITY_RTOL:g}); TF32 "
+            f"{rel(tf32[key]):.3e}; max |ref| {r.abs().max().item():.4f}")
+    say(f"[vq_parity] CPU forward {cpu_s:.1f} s; control, TF32 allowed on "
+        f"the card: max rel err {control:.3e} (must exceed tol "
+        f"{PARITY_RTOL:g})")
+    if worst > PARITY_RTOL:
+        fail("vq_parity: full-width parity out of tolerance")
+    if control <= PARITY_RTOL:
+        fail("vq_parity: the check does not see TF32: tolerance too loose")
+    del gpu, model
+    torch.cuda.empty_cache()
+
+
+def vq_request_parts(marks):
+    """ms of (ViT, matcher, top anchor, peak finding) from one request's
+    marks."""
+    ev = [e for e in marks if e[0] != "peaks_ms"]
+    parts = [0.0, 0.0, 0.0]
+    for i in range(0, len(ev), 4):
+        chunk = dict(ev[i:i + 4])
+        parts[0] += chunk["start"].elapsed_time(chunk["vit"])
+        parts[1] += chunk["vit"].elapsed_time(chunk["matcher"])
+        parts[2] += chunk["matcher"].elapsed_time(chunk["top"])
+    return parts + [dict(marks)["peaks_ms"]]
+
+
+def phase_vq_serve(dev, kernels, mlp_kernel):
+    """Requests of one clip of eval_windows x num_frames frames plus a
+    query, 448-square bf16 frames on the card, through predict_track: 2
+    warm-up and 5 timed; frames/s, ms per request split into ViT / matcher
+    / top anchor / peak finding, peak memory, launches (set to 0 just
+    before), one profiled request, then one request with the ViT's MLP on
+    the fused kernel."""
+    from vilco_tpu_torch.core.config import vq_flagship_config
+    from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+    from vilco_tpu_torch.tasks.vq import predict_track
+
+    cfg = vq_flagship_config()
+
+    def build(use_fused_mlp):
+        model = ClipMatcher(cfg, use_fused_mlp,
+                            torch.Generator().manual_seed(SEED), dev)
+        redraw_heads(model, SEED + 15)
+        return model
+
+    model = build(False)
+    S, T = cfg.clip_size, cfg.eval_windows * cfg.num_frames
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    requests = [(torch.rand((T, S, S, 3), generator=gen, device=dev,
+                            dtype=torch.bfloat16),
+                 torch.rand((S, S, 3), generator=gen, device=dev,
+                            dtype=torch.bfloat16)) for _ in range(7)]
+    qf = T - cfg.num_frames // 2
+
+    def serve(req, marks=None):
+        t0 = time.perf_counter()
+        track = predict_track(model, *req, qf, marks=marks)
+        torch.cuda.synchronize()
+        return track, (time.perf_counter() - t0) * 1e3
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    for req in requests[:2]:
+        serve(req)
+    walls, parts, tracks = [], [], []
+    for req in requests[2:]:
+        marks = []
+        track, ms = serve(req, marks)
+        walls.append(ms)
+        parts.append(vq_request_parts(marks))
+        tracks.append(track)
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    for track in tracks:
+        if not track.bboxes or not all(
+                0 <= b.fno < T and np.isfinite([b.x1, b.y1, b.x2, b.y2]).all()
+                for b in track.bboxes):
+            fail("vq_serve: an empty or non-finite response track")
+    med = [statistics.median(p[j] for p in parts) for j in range(4)]
+    n_req = len(walls)
+    say(f"[vq_serve] VQ flagship bf16 (f32 masters), one {T}-frame "
+        f"{S}x{S} clip + query per request ({cfg.eval_windows} windows of "
+        f"{cfg.num_frames}), {n_req} timed requests: "
+        f"{T * n_req / (sum(walls) / 1e3):.3f} frames/s, "
+        f"{statistics.median(walls):.3f} ms/request (median; ViT "
+        f"{med[0]:.3f}, matcher {med[1]:.3f}, top anchor {med[2]:.3f} ms "
+        f"by CUDA events, peak finding {med[3]:.3f} ms host); peak memory "
+        f"{peak:.3f} GiB [{CARD}]")
+    say(f"[vq_serve] track lengths {[t.length for t in tracks]}; launches "
+        f"in the {len(requests)} requests: {launches}")
+    want = {"fused_attention_blc": 2 * cfg.vit_depth + 2,
+            "frame_band_attention": cfg.num_transformer}
+    for name, per in want.items():
+        if launches.get(name) != per * len(requests):
+            fail(f"vq_serve: {name} launched {launches.get(name)} times, "
+                 f"{per} per request expected")
+    phase_trace("vq_serve request", lambda: serve(requests[-1]),
+                statistics.median(walls))
+
+    del model
+    model = build(True)            # the same weights, the MLP on K7
+    for k in kernels + (mlp_kernel,):
+        k.launches = 0
+    track, ms = serve(requests[-1])
+    mlp_launches = {k.__name__: k.launches for k in kernels + (mlp_kernel,)}
+    say(f"[vq_serve] one request with the ViT MLP on fused_mlp: "
+        f"{ms:.3f} ms (the default path's median {statistics.median(walls):.3f}"
+        f" ms; this one includes no warm-up); launches {mlp_launches}; track "
+        f"frames {track.temporal_extent} vs {tracks[-1].temporal_extent} "
+        f"[{CARD}]")
+    if mlp_launches[mlp_kernel.__name__] != 2 * cfg.vit_depth:
+        fail("vq_serve: fused_mlp was not launched once per ViT block")
+    del model, requests
+    torch.cuda.empty_cache()
+    return launches, mlp_launches
+
+
+def phase_vq_train(dev, kernels):
+    """The VQ train step in bf16 with f32 masters, HNM on (batch 4 -> 16
+    pairs), head dropout 0.2, on one fixed batch: 2 warm-up and 10 timed
+    steps, ms split into forward / backward / optimizer, every loss, peak
+    memory, launches (set to 0 just before), the frozen backbone
+    bit-identical after the steps, then one step profiled."""
+    from vilco_tpu_torch.core.config import vq_flagship_config
+    from vilco_tpu_torch.data.synthetic import make_vq_batch
+    from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+    from vilco_tpu_torch.train.engine import batch_to
+    from vilco_tpu_torch.train.vq_engine import (
+        init_vq_train_state,
+        make_vq_train_step,
+    )
+
+    cfg = vq_flagship_config()
+    model = ClipMatcher(cfg, generator=torch.Generator().manual_seed(SEED),
+                        device=dev)
+    st = init_vq_train_state(model, cfg, seed=SEED, device=dev)
+    step = make_vq_train_step(cfg)
+    batch = batch_to(make_vq_batch(np.random.default_rng(SEED + 17),
+                                   cfg.batch_size, cfg), dev)
+    backbone0 = [p.detach().clone() for p in model.backbone.parameters()]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls, parts = [], [], []
+    for i in range(12):
+        marks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(st, batch, marks)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        losses.append({k: v.item() for k, v in met.items()})
+        if i >= 2:
+            walls.append(wall)
+            ev = dict(marks)
+            parts.append([ev["start"].elapsed_time(ev["forward"]),
+                          ev["forward"].elapsed_time(ev["backward"]),
+                          ev["backward"].elapsed_time(ev["optimizer"])])
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    med = [statistics.median(p[j] for p in parts) for j in range(3)]
+    B = cfg.batch_size
+    secs = sum(walls) / 1e3
+    n_train = sum(p.numel() for p in st.opt.params)
+    say(f"[vq_train] VQ flagship bf16 (f32 masters), batch {B} x "
+        f"{cfg.num_frames} frames, HNM ({B * B} pairs), head dropout "
+        f"{cfg.dropout}, {len(st.opt.params)} trainable leaves ({n_train} "
+        f"parameters), {len(walls)} timed steps: "
+        f"{statistics.median(walls):.3f} ms/step (median; forward "
+        f"{med[0]:.3f}, backward {med[1]:.3f}, optimizer {med[2]:.3f} ms by "
+        f"CUDA events), {len(walls) / secs:.3f} steps/s, "
+        f"{B * len(walls) / secs:.3f} clips/s; peak memory {peak:.3f} GiB "
+        f"[{CARD}]")
+    for key in ("final_loss", "loss_center", "loss_hw", "loss_giou",
+                "loss_prob", "num_pos", "grad_norm"):
+        say(f"[vq_train] {key} " + ", ".join(f"{m[key]:.6f}" for m in losses))
+    say(f"[vq_train] launches in the {len(losses)} steps: {launches}")
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        fail("vq_train: a loss is not finite")
+    if not losses[-1]["final_loss"] < losses[0]["final_loss"]:
+        fail("vq_train: the training loss did not decrease")
+    if min(launches.values()) < 1:
+        fail("vq_train: a kernel of the train path was never launched")
+    if not all(torch.equal(a, b)
+               for a, b in zip(backbone0, model.backbone.parameters())):
+        fail("vq_train: the frozen backbone changed")
+    say("[vq_train] the backbone's "
+        f"{sum(p.numel() for p in backbone0)} parameters are bit-identical "
+        "after the steps")
+    phase_trace("vq_train step", lambda: step(st, batch),
+                statistics.median(walls))
+    del model, st, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
-                               "dwconv_qkv", "adamw_kernel", "banded_")):
+                               "dwconv_qkv", "adamw_kernel", "banded_", "fb_",
+                               "mlp_tc", "mlp_simt")):
         return "port kernels"
     if "conv" in name or "cudnn" in name:
         return "cuDNN conv"
@@ -1279,6 +1833,12 @@ def main():
         dwconv_bwd_cuda,
         fused_dwconv_qkv,
     )
+    from vilco_tpu_torch.kernels.frame_band import (
+        frame_band_attention,
+        frame_band_dkv_cuda,
+        frame_band_dq_cuda,
+    )
+    from vilco_tpu_torch.kernels.mlp import fused_mlp
     from vilco_tpu_torch.kernels.xl_attention import (
         xl_bwd_cuda,
         xl_rel_attention,
@@ -1335,15 +1895,27 @@ def main():
                                 dwconv_bwd_cuda, adamw_update_multi),
         SEED + 9, normalised_must_fall=False)
 
+    # VQ: the frame-banded and fused-MLP kernels, parity, sliding-window
+    # serving (K7 on one extra request), the HNM train step
+    verrs, vtop = phase_vq_kernels(dev)
+    phase_vq_parity(dev)
+    vq_serve, vq_mlp = phase_vq_serve(
+        dev, (fused_attention_blc, frame_band_attention), fused_mlp)
+    vq_train = phase_vq_train(
+        dev, (fused_attention_blc, attention_bwd_cuda, frame_band_attention,
+              frame_band_dq_cuda, frame_band_dkv_cuda, adamw_update_multi))
+
     rows = [
         # name, source, replaces, errors, timing, launches (MQ path; the
         # banded kernels: NLQ path)
         ("fused_attention_blc", "vilco_tpu_torch/csrc/attention_blc.cu",
          "vilco_tpu/kernels/attention.py:359", errs["attn"]
-         + nerrs["attn"], top["attn"], serve_launches["fused_attention_blc"]),
+         + nerrs["attn"] + verrs["attn"] + verrs["attn_cq"], top["attn"],
+         serve_launches["fused_attention_blc"]),
         ("attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc.cu",
          "vilco_tpu/kernels/attention.py:383",
-         terrs["attn_bwd"] + nerrs["attn_bwd"], ttop["attn_bwd"],
+         terrs["attn_bwd"] + nerrs["attn_bwd"] + verrs["attn_bwd"],
+         ttop["attn_bwd"],
          train_launches["attention_bwd_cuda"]),
         ("xl_rel_attention", "vilco_tpu_torch/csrc/xl_rel_attention.cu",
          "vilco_tpu/kernels/xl_attention.py:260",
@@ -1360,8 +1932,8 @@ def main():
          + nerrs["dw_bwd"], ttop["dw_bwd"],
          train_launches["dwconv_bwd_cuda"]),
         ("adamw_update_multi", "vilco_tpu_torch/csrc/adamw.cu",
-         "vilco_tpu/kernels/adamw.py:97", terrs["adamw"] + nerrs["adamw"],
-         ttop["adamw"],
+         "vilco_tpu/kernels/adamw.py:97", terrs["adamw"] + nerrs["adamw"]
+         + verrs["adamw"], ttop["adamw"],
          train_launches["adamw_update_multi"]),
         ("banded_attention_blc", "vilco_tpu_torch/csrc/banded_attention.cu",
          "vilco_tpu/kernels/banded_attention.py:153", nerrs["band_fwd"],
@@ -1372,6 +1944,18 @@ def main():
         ("banded_dkv_cuda", "vilco_tpu_torch/csrc/banded_attention.cu",
          "vilco_tpu/kernels/banded_attention.py:318", nerrs["band_dkv"],
          ntop["band_dkv"], nlq_train["banded_dkv_cuda"]),
+        ("frame_band_attention", "vilco_tpu_torch/csrc/frame_band.cu",
+         "vilco_tpu/kernels/frame_band.py:248", verrs["fb_fwd"],
+         vtop["fb_fwd"], vq_serve["frame_band_attention"]),
+        ("frame_band_dq_cuda", "vilco_tpu_torch/csrc/frame_band.cu",
+         "vilco_tpu/kernels/frame_band.py:287", verrs["fb_dq"],
+         vtop["fb_dq"], vq_train["frame_band_dq_cuda"]),
+        ("frame_band_dkv_cuda", "vilco_tpu_torch/csrc/frame_band.cu",
+         "vilco_tpu/kernels/frame_band.py:307", verrs["fb_dkv"],
+         vtop["fb_dkv"], vq_train["frame_band_dkv_cuda"]),
+        ("fused_mlp", "vilco_tpu_torch/csrc/fused_mlp.cu",
+         "vilco_tpu/kernels/mlp.py:79", verrs["mlp"], vtop["mlp"],
+         vq_mlp["fused_mlp"]),
     ]
     also = {"fused_dwconv_qkv": "vilco_tpu/kernels/dwconv.py:267",
             "dwconv_bwd_cuda": "vilco_tpu/kernels/dwconv.py:283"}
@@ -1386,10 +1970,21 @@ def main():
             entry["launches_nlq_serve"] = nlq_serve[fn]
         if fn in nlq_train:
             entry["launches_nlq_train"] = nlq_train[fn]
+        if fn in vq_serve or fn in vq_mlp:
+            entry["launches_vq_serve"] = vq_mlp[fn] if fn == "fused_mlp" \
+                else vq_serve[fn]
+        if fn in vq_train:
+            entry["launches_vq_train"] = vq_train[fn]
         if fn in also:
             entry["also_replaces"] = also[fn]
-        if fn == "adamw_update_multi":     # the same kernel over NLQ's leaves
-            entry["nlq"] = ntop["adamw"]
+        if fn == "adamw_update_multi":     # the same kernel over NLQ's and
+            entry["nlq"] = ntop["adamw"]   # VQ's leaves
+            entry["vq"] = vtop["adamw"]
+        if fn == "fused_attention_blc":    # at the ViT's and cq_corr's shapes
+            entry["vq_vit"] = vtop["attn"]
+            entry["vq_cq_corr"] = vtop["attn_cq"]
+        if fn == "attention_bwd_cuda":
+            entry["vq_cq_corr"] = vtop["attn_bwd"]
         kernels.append(entry)
     print(f"[summary] {CARD}")
     print(json.dumps({"kernels": kernels}))

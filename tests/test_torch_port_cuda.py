@@ -1,7 +1,10 @@
 """Each CUDA kernel of the port, forward and backward, against its plain
 PyTorch version on the card, at small and odd lengths (2, 37, 70, 100, 256)
 and head dims 24, 64, 128; the banded kernels also at the NLQ head dim 96,
-the band wider than T and windows wider than one staged chunk. Marked
+the band wider than T and windows wider than one staged chunk; the
+frame-banded kernels at the VQ shape (fr 64, w 2, 8 heads of 32), odd fr,
+frames longer than a tile and bands wider than the clip; the fused MLP at
+the tiny twin's, a middle and the ViT-B width. Marked
 `gpu`: skips where there is no card. Imports no JAX, so that it runs on a
 machine with only PyTorch:
 
@@ -13,6 +16,8 @@ import pytest
 import torch
 
 import vilco_tpu_torch.kernels.banded_attention as banded
+import vilco_tpu_torch.kernels.frame_band as fb
+import vilco_tpu_torch.kernels.mlp as mlp
 from vilco_tpu_torch.kernels.adamw import (
     LeafTable,
     adamw_update_multi,
@@ -225,3 +230,80 @@ def test_adamw_kernel_matches_plain_on_card(cuda, mdt):
     for got, ref in zip(zip(ps, ms, vs), want):
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n_frames,fr,w,H,D", [
+    (30, 64, 2, 8, 32), (3, 8, 2, 2, 32), (5, 7, 2, 3, 24), (4, 5, 0, 2, 16),
+    (3, 100, 1, 2, 128), (6, 8, 1, 2, 64), (1, 64, 2, 8, 8)])
+def test_frame_band_kernels_match_plain_on_card(cuda, dtype, tol, n_frames,
+                                                fr, w, H, D):
+    """K6 forward, dq and dk/dv against the plain version. Tolerance
+    relative to each output's largest reference value: f32 1e-4 (summation
+    order, an online softmax against a two-pass one); bf16 2e-2 (inputs
+    and outputs rounded, P rounded before P V, the backward reading the
+    bf16 forward output)."""
+    rng = np.random.default_rng(300 + n_frames * fr + w)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    B, L = 2, n_frames * fr
+    q, k, v, g = (rn(B, L, H * D) for _ in range(4))
+    with torch.no_grad():
+        out = fb.frame_band_attention(q, k, v, H, fr, w)
+    _close([out], [fb.frame_band_attention_plain(q, k, v, H, fr, w)], tol,
+           "frame band forward")
+    got = _grads(lambda *a: fb.frame_band_attention(*a, H, fr, w), (q, k, v),
+                 g)
+    want = _grads(lambda *a: fb.frame_band_attention_plain(*a, H, fr, w),
+                  (q, k, v), g)
+    _close(got, want, tol, "frame band backward")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_frame_band_cuda_tensor_never_takes_the_plain_path(cuda,
+                                                           monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fb, "frame_band_attention_plain", refuse)
+    x = torch.randn(2, 6 * 16, 64, device=cuda, requires_grad=True)
+    counts = (fb.frame_band_attention.launches, fb.frame_band_dq_cuda.launches,
+              fb.frame_band_dkv_cuda.launches)
+    fb.frame_band_attention(x, x, x, 2, 16, 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (fb.frame_band_attention.launches, fb.frame_band_dq_cuda.launches,
+            fb.frame_band_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    assert torch.isfinite(x.grad).all()
+    with pytest.raises(TypeError):
+        fb.frame_band_attention(x.half(), x.half(), x.half(), 2, 16, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N,C,Hd", [(1, 48, 192), (37, 48, 192),
+                                    (600, 128, 512), (100, 768, 3072)])
+def test_fused_mlp_matches_plain_on_card(cuda, dtype, tol, N, C, Hd):
+    """K7 against the plain version, and its recomputed input gradient.
+    Tolerance relative to the output's largest value: f32 1e-4 (summation
+    order); bf16 2e-2 (the GELU output rounded to bf16, and the biases
+    rounded to bf16 in the kernel only)."""
+    rng = np.random.default_rng(N + C)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).to(cuda)
+    x = f(N, C).to(dtype)
+    w1, b1 = f(C, Hd, sc=C ** -0.5), f(Hd, sc=0.1)
+    w2, b2 = f(Hd, C, sc=Hd ** -0.5), f(C, sc=0.1)
+    count = mlp.fused_mlp.launches
+    with torch.no_grad():
+        out = mlp.fused_mlp(x, w1, b1, w2, b2)
+    assert mlp.fused_mlp.launches == count + 1
+    _close([out], [mlp.fused_mlp_plain(x, w1, b1, w2, b2)], tol, "fused mlp")
+    g = f(N, C).to(dtype)
+    got = _grads(lambda a: mlp.fused_mlp(a, w1, b1, w2, b2), (x,), g)
+    want = _grads(lambda a: mlp.fused_mlp_plain(a, w1, b1, w2, b2), (x,), g)
+    _close(got, want, tol, "fused mlp input gradient")
+    torch.cuda.synchronize()

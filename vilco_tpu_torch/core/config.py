@@ -1,4 +1,4 @@
-"""The subset of vilco_tpu.core.config that the MQ and NLQ serving and
+"""The subset of vilco_tpu.core.config that the MQ, NLQ and VQ serving and
 training paths read.
 
 Plain frozen dataclasses with no YAML dependency; fields carry their JAX
@@ -157,3 +157,54 @@ def nlq_flagship_config(tiny: bool = False) -> Config:
                            init_loss_norm=200.0),
         opt=OptCfg(epochs=8, warmup_epochs=5),
         batch_size=4, max_segments=64, max_text_len=32)
+
+
+@dataclass(frozen=True)
+class VQConfig:
+    """The `vq` section (vilco_tpu/core/config.py::VQCfg) fields the VQ
+    serving path and train step read, with their JAX names, plus what the
+    VQ episode runner fixes: `eval_windows` (windows per inference chunk),
+    the head's dropout and the optimizer's clip norm and MultiStepLR
+    milestones and factor. One optimizer step is one batch (the yaml's
+    accumulation_steps 1); the query crop has the clips' size."""
+    dim: int = 256
+    clip_size: int = 448
+    patch_size: int = 14
+    vit_dim: int = 768
+    vit_depth: int = 12
+    vit_heads: int = 12
+    resolution_transformer: int = 8
+    resolution_anchor_feat: int = 16
+    num_transformer: int = 3
+    window_transformer: int = 5
+    num_frames: int = 30
+    freeze_backbone: bool = True
+    batch_size: int = 4
+    lr: float = 3e-4
+    weight_decay: float = 5e-3
+    use_hnm: bool = True
+    positive_threshold: float = 0.2
+    positive_topk: int = 5
+    eval_windows: int = 8
+    dropout: float = 0.2
+    grad_max: float = 20.0
+    lr_milestones: Tuple[int, ...] = (7000, 14000, 20000, 25000)
+    lr_gamma: float = 0.3
+
+
+def vq_flagship_config(tiny: bool = False) -> VQConfig:
+    """The VQ ViLCo flagship (configs/vq_vilco.yaml): a frozen ViT-B/14 on
+    448-square frames (32 x 32 patches + CLS = 1025 tokens), a dim-256
+    matcher over 30-frame windows, 3 spatio-temporal layers of 8 heads over
+    R = 8 (64 tokens a frame) with a +-2-frame band, anchors on a 16 x 16
+    grid. The tiny twin keeps every structure the flagship runs (the toy
+    geometry of vilco_tpu/tasks/vq.py skips two): 8 x 8 patches, one
+    stride-2 down head (8 -> R = 4) and one transposed-conv up step
+    (R = 4 -> anchor grid 8); chunks of 4 windows."""
+    if tiny:
+        return VQConfig(dim=64, clip_size=64, patch_size=8,
+                        vit_dim=48, vit_depth=2, vit_heads=4,
+                        resolution_transformer=4, resolution_anchor_feat=8,
+                        num_transformer=1, window_transformer=5,
+                        num_frames=6, batch_size=2, eval_windows=4)
+    return VQConfig()

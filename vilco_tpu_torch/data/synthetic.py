@@ -1,7 +1,9 @@
 """Synthetic MQ and NLQ batches (vilco_tpu/data/synthetic.py::make_batch
 without the narration extras), so the card's machine draws batches with no
 JAX present. The same numpy generator gives the same batch as the JAX
-package's function."""
+package's function. `make_vq_batch` draws a VQ training batch in the layout
+of vilco_tpu/train/vq_engine.py (the JAX package draws its VQ bench batch
+inline, bench.py)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ from typing import Dict
 
 import numpy as np
 
-from vilco_tpu_torch.core.config import Config
+from vilco_tpu_torch.core.config import Config, VQConfig
 
 
 def make_batch(rng: np.random.Generator, batch_size: int, cfg: Config,
@@ -50,3 +52,30 @@ def make_batch(rng: np.random.Generator, batch_size: int, cfg: Config,
         tl = rng.integers(4, L + 1, size=B)
         batch["text_mask"] = np.arange(L)[None, :] < tl[:, None]
     return batch
+
+
+def make_vq_batch(rng: np.random.Generator, batch_size: int,
+                  cfg: VQConfig) -> Dict[str, np.ndarray]:
+    """A VQ batch of cfg.num_frames-frame windows: clip (B, T, S, S, 3) and
+    query (B, S, S, 3) frames in [0, 1), f32; per clip a track of frames
+    [t0, t1) holding the object (clip_with_bbox 1, clip_bbox a normalized
+    xyxy box of side 0.1-0.5 drifting across the track, zeros elsewhere)
+    and a query frame after t0 (before_query 1 for the frames before it)."""
+    B, T, S = batch_size, cfg.num_frames, cfg.clip_size
+    clip = rng.random((B, T, S, S, 3), np.float32)
+    query = rng.random((B, S, S, 3), np.float32)
+    bbox = np.zeros((B, T, 4), np.float32)
+    with_box = np.zeros((B, T), np.float32)
+    before = np.zeros((B, T), np.float32)
+    for b in range(B):
+        t0 = int(rng.integers(0, T // 2))
+        t1 = int(rng.integers(t0 + 1, T + 1))
+        side = rng.uniform(0.1, 0.5, size=2)
+        c0, c1 = (rng.uniform(side / 2, 1 - side / 2) for _ in range(2))
+        for t in range(t0, t1):
+            c = c0 + (c1 - c0) * (t - t0) / max(t1 - t0 - 1, 1)
+            bbox[b, t] = np.concatenate([c - side / 2, c + side / 2])
+            with_box[b, t] = 1.0
+        before[b, :int(rng.integers(t0 + 1, T + 1))] = 1.0
+    return {"clip": clip, "query": query, "clip_bbox": bbox,
+            "clip_with_bbox": with_box, "before_query": before}

@@ -1,5 +1,5 @@
-"""Load a JAX/Flax parameter tree of the MQ model into the port, and map
-gradient trees and AdamW state the same way.
+"""Load a JAX/Flax parameter tree of the MQ, NLQ or VQ model into the port,
+and map gradient trees and AdamW state the same way.
 
 The port names its parameters after the Flax paths
 (`backbone.stem_0.attn.query_conv.weight` for
@@ -8,10 +8,18 @@ is a rename of the leaf plus a layout change:
 
   Dense kernel (Cin, Cout)            -> Linear weight (Cout, Cin)
   MaskedConv kernel (K, Cin/g, Cout)  -> Conv1d weight (Cout, Cin/g, K)
-  nn.LayerNorm scale (C,)             -> LayerNorm weight (C,)
+  nn.Conv kernel (kh, kw, Cin, Cout)  -> Conv2d weight (Cout, Cin, kh, kw)
+  nn.ConvTranspose kernel (kh, kw, Cin, Cout), a module named up_<i>
+                                      -> ConvTranspose2d weight (Cin, Cout,
+                                         kh, kw), flipped in both spatial
+                                         axes (Flax's transposed conv
+                                         correlates with the kernel as it
+                                         is, PyTorch's with it flipped)
+  nn.LayerNorm / nn.GroupNorm scale (C,) -> weight (C,)
   everything else (LayerNormC weight/bias, biases, the XL q/k/v/r/o
   (C, H, D) and r_w/r_r biases, AffineDropPath and Scale `scale`, the
-  class Gaussians)                    -> kept as it is
+  class Gaussians, the ViT's cls_token and pos_embed, the ClipMatcher's
+  pe_3d)                              -> kept as it is
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ def port_name(path, ndim: int) -> str:
     """The port's parameter name for the Flax leaf at `path` (a tuple of
     keys) whose parameter has rank `ndim`."""
     *mods, name = path
-    if name == "kernel" and ndim in (2, 3):
+    if name == "kernel" and ndim in (2, 3, 4):
         name = "weight"
     elif name == "kernel":
         raise ValueError(f"{'/'.join(path)}: kernel of rank {ndim}")
@@ -44,11 +52,21 @@ def port_name(path, ndim: int) -> str:
     return ".".join([*mods, name])
 
 
-def _layout(name: str, a: np.ndarray) -> np.ndarray:
-    if name == "kernel" and a.ndim == 2:
+def _transposed_conv(path) -> bool:
+    return len(path) >= 2 and path[-2].startswith("up_")
+
+
+def _layout(path, a: np.ndarray) -> np.ndarray:
+    if path[-1] != "kernel":
+        return a
+    if a.ndim == 2:
         return a.T
-    if name == "kernel" and a.ndim == 3:
+    if a.ndim == 3:
         return a.transpose(2, 1, 0)
+    if a.ndim == 4 and _transposed_conv(path):
+        return a[::-1, ::-1].transpose(2, 3, 0, 1)
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
     return a
 
 
@@ -62,7 +80,7 @@ def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         key = port_name(path, a.ndim)
         if key in out:
             raise ValueError(f"two Flax leaves map to {key}")
-        out[key] = torch.from_numpy(np.array(_layout(path[-1], a), order="C"))
+        out[key] = torch.from_numpy(np.array(_layout(path, a), order="C"))
     return out
 
 

@@ -1,0 +1,113 @@
+"""The VQ tracker's Vision Transformer (vilco_tpu/models/vit.py): a pre-LN
+ViT with DINO's parameter layout, returning the patch-token grid with the
+CLS token dropped and the final LayerNorm applied.
+
+Attention runs through the fused channels-last kernel (kernels/attention.py)
+with every key valid. The JAX model pads the token axis to a multiple of 128
+for its TPU grid; the port's kernel takes any length, and a masked pad would
+change nothing, so there is none. `use_fused_mlp` runs each block's MLP
+through kernels/mlp.py; otherwise it is Linear, tanh GELU, Linear in the
+compute dtype. Images and grids are channels-last (B, H, W, C), as in JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vilco_tpu_torch.kernels.attention import fused_attention_blc
+from vilco_tpu_torch.kernels.mlp import fused_mlp
+from vilco_tpu_torch.models.layers import LayerNorm, Linear
+from vilco_tpu_torch.ops import activations
+
+LN_EPS = 1e-6        # Flax's LayerNorm and GroupNorm epsilon
+
+
+def same_padding(n: int, k: int, s: int):
+    """Flax/XLA 'SAME' padding (low, high) of one spatial axis: the output
+    is ceil(n / s) and the low side gets the smaller half."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2dSame(nn.Conv2d):
+    """Conv2d on NCHW inputs with Flax's 'SAME' padding (a stride-2 3x3 conv
+    of an even input pads (0, 1), not (1, 1)); the parameters are cast to
+    the input's dtype."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1):
+        super().__init__(cin, cout, kernel_size, stride)
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        ph = same_padding(x.shape[2], kh, sh)
+        pw = same_padding(x.shape[3], kw, sw)
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        self.stride)
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 use_fused_mlp: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.use_fused_mlp = use_fused_mlp
+        hidden = int(dim * mlp_ratio)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
+
+    def forward(self, x, kv_mask):
+        C = x.shape[-1]
+        h = self.norm1(x)
+        w, b = self.qkv.weight.to(h.dtype), self.qkv.bias.to(h.dtype)
+        q, k, v = (F.linear(h, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C])
+                   for i in range(3))
+        x = x + self.proj(fused_attention_blc(q, k, v, kv_mask,
+                                              self.num_heads))
+        h = self.norm2(x)
+        if self.use_fused_mlp and not activations._EXACT:
+            h = fused_mlp(h, self.fc1.weight.t(), self.fc1.bias,
+                          self.fc2.weight.t(), self.fc2.bias)
+        else:
+            h = self.fc2(activations.gelu(self.fc1(h)))
+        return x + h
+
+
+class ViT(nn.Module):
+    """images (B, H, W, 3) of side `image_size` -> patch tokens (B, H/p,
+    W/p, dim); pos_embed holds (H/p)^2 + 1 positions, as the JAX model
+    builds it from its init image."""
+
+    def __init__(self, patch_size: int = 14, dim: int = 768, depth: int = 12,
+                 num_heads: int = 12, image_size: int = 448,
+                 use_fused_mlp: bool = False):
+        super().__init__()
+        self.dim = dim
+        self.patch_embed = Conv2dSame(3, dim, patch_size, patch_size)
+        grid = -(-image_size // patch_size)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, grid * grid + 1, dim))
+        for i in range(depth):
+            self.add_module(f"block_{i}", ViTBlock(
+                dim, num_heads, use_fused_mlp=use_fused_mlp))
+        self.depth = depth
+        self.norm = LayerNorm(dim, eps=LN_EPS)
+
+    def forward(self, images):
+        B = images.shape[0]
+        x = self.patch_embed(images.permute(0, 3, 1, 2))
+        hh, ww = x.shape[2], x.shape[3]
+        x = x.flatten(2).transpose(1, 2)                      # (B, hh*ww, C)
+        cls = self.cls_token.to(x.dtype).expand(B, 1, self.dim)
+        x = torch.cat([cls, x], 1) + self.pos_embed.to(x.dtype)
+        kv_mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x, kv_mask)
+        x = self.norm(x)
+        return x[:, 1:].reshape(B, hh, ww, self.dim)

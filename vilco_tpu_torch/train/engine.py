@@ -14,7 +14,6 @@ loss normaliser (MQ 100, NLQ 200).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -22,6 +21,7 @@ import numpy as np
 import torch
 
 from vilco_tpu_torch.core.config import Config, TrainCfg
+from vilco_tpu_torch.core.marks import mark
 from vilco_tpu_torch.ops.assign import label_points
 from vilco_tpu_torch.ops.losses import ctr_diou_loss_1d, sigmoid_focal_loss
 from vilco_tpu_torch.train.optim import FusedAdamW
@@ -131,34 +131,24 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
     (phase, CUDA event or host time) at the forward / backward / optimizer
     boundaries."""
 
-    def mark(marks, name):
-        if marks is None:
-            return
-        if points.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
-        else:
-            marks.append((name, time.perf_counter()))
-
     def step(state: TrainState, batch: dict, cl: CLBatchExtras,
              marks: Optional[list] = None):
         model = state.model
         model.train()
-        mark(marks, "start")
+        mark(marks, "start", points.device)
         out = model(batch["feats"], batch["mask"], batch.get("text"),
                     batch.get("text_mask"),
                     rng=state.generator if regularize else None,
                     compute_dtype=compute_dtype)
         loss, metrics, new_norm = compute_losses(out, batch, points, cl,
                                                  state.loss_normalizer, tc)
-        mark(marks, "forward")
+        mark(marks, "forward", points.device)
         state.opt.zero_grad()
         loss.backward()
-        mark(marks, "backward")
+        mark(marks, "backward", points.device)
         gnorm, gscale = global_norm_clip(state.opt.grad_flat)
         state.opt.step(gscale)
-        mark(marks, "optimizer")
+        mark(marks, "optimizer", points.device)
         metrics["grad_norm"] = gnorm
         state.loss_normalizer = new_norm.detach()
         state.step += 1
