@@ -98,6 +98,29 @@ fallback):
                    the frozen ViT outside it): ms split, every loss (finite
                    and falling), peak memory, launches, the backbone
                    bit-identical, one profiled step
+ 19. attn_impl_kernels  the head-major attention (K1n, forward and backward)
+                   and the flash attention (K1f: forward, dq, dk/dv)
+                   against their plain versions at the MQ levels that reach
+                   them (T 1024, 512, 256, 128; 16 heads of 64), forward at
+                   batch 16, backward at batch 2, bf16 and f32, ragged
+                   masks and one fully masked row (K1n: 0, K1f: the mean of
+                   v); K1f also at the ViT's two request calls (240 and 8
+                   frames of 1025 tokens, 12 x 64, bf16) and 30 frames in
+                   f32. Library: SDPA with the boolean mask on the rows
+                   that have a valid key
+ 20. vq_attn_probe the VQ attention probe's four variants (P2: K1's forward
+                   with bound_shift and mxu_sum) at the probe's shape (120 x
+                   1152 tokens, 1025 valid, 12 x 64, N(0, 2^2) bf16), each
+                   against its plain version, then the probe's JSON lines
+ 21. mq_flash_parity, mq_naive_parity   phase 4 with attention_impl "flash"
+                   and "pallas_naive"
+ 22. mq_flash_serve, mq_naive_serve     phase 5 under each impl, the launches
+                   per request checked (K1f or K1n 5, K1 6)
+ 23. mq_flash_train, mq_naive_train     phase 9 under each impl, the launches
+                   per step checked (K1f dq and dk/dv 5 each or K1n-bwd 5,
+                   K1-bwd 6)
+ 24. vq_flash_serve phase 17 with vit_attn_impl "flash" (K1f 24, K1 2, K6 3
+                   a request), without the fused-MLP request
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
 """
@@ -106,6 +129,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -355,6 +379,28 @@ def phase_parity(dev, tag: str, cfg, inputs):
     torch.cuda.empty_cache()
 
 
+def mq_parity_inputs(cfg):
+    """The MQ parity's CPU inputs at batch 1: features and a ragged mask."""
+    rng = np.random.default_rng(SEED + 1)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, cfg.max_seq_len, cfg.input_dim)).astype(np.float32))
+    return x, ragged_mask(rng, 2, cfg.max_seq_len, "cpu")[:1]
+
+
+def mq_requests(cfg, dev, n: int = 7):
+    """`n` MQ serving requests at batch 16 on the card: bf16 features and
+    masks with lengths drawn from [T/2, T]."""
+    rng = np.random.default_rng(SEED + 2)
+    T, requests = cfg.max_seq_len, []
+    for _ in range(n):
+        feats = rng.standard_normal((B_SERVE, T, cfg.input_dim))
+        lens = rng.integers(T // 2, T + 1, size=B_SERVE)
+        mask = np.arange(T)[None, :] < lens[:, None]
+        requests.append((torch.from_numpy(feats.astype(np.float32)).to(
+            dev, torch.bfloat16), torch.from_numpy(mask).to(dev)))
+    return requests
+
+
 def phase_serve(dev, tag: str, full, requests, kernels):
     """The bf16 model of `full` (a Config) serving `requests` (tuples of
     card tensors for model(*request)): 2 warm-up and the rest timed through
@@ -442,6 +488,18 @@ def phase_serve(dev, tag: str, full, requests, kernels):
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+def check_launches(tag: str, launches: dict, want: dict, n: int,
+                   unit: str) -> None:
+    """Each kernel of `want` (launches per `unit`) must have been launched
+    exactly want x n times."""
+    for name, per in want.items():
+        if launches.get(name) != per * n:
+            fail(f"{tag}: {name} launched {launches.get(name)} times in "
+                 f"{n} {unit}s, {per} a {unit} expected")
+    say(f"[{tag}] launches a {unit} as the model's structure gives them: "
+        + ", ".join(f"{k} {v}" for k, v in want.items()))
 
 
 def attention_work(T, m, C, dtype, backward):
@@ -1582,18 +1640,21 @@ def vq_request_parts(marks):
     return parts + [dict(marks)["peaks_ms"]]
 
 
-def phase_vq_serve(dev, kernels, mlp_kernel):
+def phase_vq_serve(dev, kernels, mlp_kernel, cfg=None, tag="vq_serve",
+                   want=None):
     """Requests of one clip of eval_windows x num_frames frames plus a
     query, 448-square bf16 frames on the card, through predict_track: 2
     warm-up and 5 timed; frames/s, ms per request split into ViT / matcher
     / top anchor / peak finding, peak memory, launches (set to 0 just
-    before), one profiled request, then one request with the ViT's MLP on
-    the fused kernel."""
+    before) against `want` (launches per request by kernel name; the
+    default path's when None), one profiled request, then, given
+    `mlp_kernel`, one request with the ViT's MLP on the fused kernel.
+    `cfg` defaults to vq_flagship_config()."""
     from vilco_tpu_torch.core.config import vq_flagship_config
     from vilco_tpu_torch.models.clip_matcher import ClipMatcher
     from vilco_tpu_torch.tasks.vq import predict_track
 
-    cfg = vq_flagship_config()
+    cfg = cfg or vq_flagship_config()
 
     def build(use_fused_mlp):
         model = ClipMatcher(cfg, use_fused_mlp,
@@ -1634,10 +1695,11 @@ def phase_vq_serve(dev, kernels, mlp_kernel):
         if not track.bboxes or not all(
                 0 <= b.fno < T and np.isfinite([b.x1, b.y1, b.x2, b.y2]).all()
                 for b in track.bboxes):
-            fail("vq_serve: an empty or non-finite response track")
+            fail(f"{tag}: an empty or non-finite response track")
     med = [statistics.median(p[j] for p in parts) for j in range(4)]
     n_req = len(walls)
-    say(f"[vq_serve] VQ flagship bf16 (f32 masters), one {T}-frame "
+    say(f"[{tag}] VQ flagship bf16 (f32 masters), ViT attention "
+        f"{cfg.vit_attn_impl!r}, one {T}-frame "
         f"{S}x{S} clip + query per request ({cfg.eval_windows} windows of "
         f"{cfg.num_frames}), {n_req} timed requests: "
         f"{T * n_req / (sum(walls) / 1e3):.3f} frames/s, "
@@ -1645,18 +1707,19 @@ def phase_vq_serve(dev, kernels, mlp_kernel):
         f"{med[0]:.3f}, matcher {med[1]:.3f}, top anchor {med[2]:.3f} ms "
         f"by CUDA events, peak finding {med[3]:.3f} ms host); peak memory "
         f"{peak:.3f} GiB [{CARD}]")
-    say(f"[vq_serve] track lengths {[t.length for t in tracks]}; launches "
+    say(f"[{tag}] track lengths {[t.length for t in tracks]}; launches "
         f"in the {len(requests)} requests: {launches}")
-    want = {"fused_attention_blc": 2 * cfg.vit_depth + 2,
-            "frame_band_attention": cfg.num_transformer}
-    for name, per in want.items():
-        if launches.get(name) != per * len(requests):
-            fail(f"vq_serve: {name} launched {launches.get(name)} times, "
-                 f"{per} per request expected")
-    phase_trace("vq_serve request", lambda: serve(requests[-1]),
+    want = want or {"fused_attention_blc": 2 * cfg.vit_depth + 2,
+                    "frame_band_attention": cfg.num_transformer}
+    check_launches(tag, launches, want, len(requests), "request")
+    phase_trace(f"{tag} request", lambda: serve(requests[-1]),
                 statistics.median(walls))
 
     del model
+    if mlp_kernel is None:
+        del requests
+        torch.cuda.empty_cache()
+        return launches, None
     model = build(True)            # the same weights, the MLP on K7
     for k in kernels + (mlp_kernel,):
         k.launches = 0
@@ -1753,10 +1816,337 @@ def phase_vq_train(dev, kernels):
     return launches
 
 
+# ---- the attention ablations: head-major (K1n) and flash (K1f) attention,
+# and the VQ attention probe (P2) ---------------------------------------------
+
+
+def flash_pairs(T: int, m) -> int:
+    """(query, key) pairs K1f weighs for T queries over the mask m (B, T):
+    each row's valid keys, or all T keys of a fully masked row (which
+    averages v)."""
+    n = m.sum(1)
+    return T * int(torch.where(n > 0, n, m.shape[1]).sum())
+
+
+def flash_work(T, m, C, H, dtype, which):
+    """(flops, bytes) of K1f: 2 C operations per weighed pair for each
+    product (forward q.k, p.v; dq q.k, dO.v, dS.k; dk/dv q.k, dO.v, p.dO,
+    dS.q) and 2 C per row for delta. Bytes: the mask, q, k, v (and out,
+    dout) read once, each output written once, m and l (f32 per row and
+    head) read by the backward."""
+    pairs = flash_pairs(T, m)
+    el = torch.empty((), dtype=dtype).element_size()
+    B = m.shape[0]
+    rows, stats = B * T * C * el, 8 * B * H * T
+    if which == "fwd":
+        return 4 * C * pairs, 4 * rows + m.numel()
+    if which == "dq":
+        return 6 * C * pairs + 2 * B * T * C, 6 * rows + stats + m.numel()
+    return 8 * C * pairs + 2 * B * T * C, 7 * rows + stats + m.numel()
+
+
+def sdpa_on_valid_rows(m):
+    """(SDPA with the boolean key mask m (B, T) on (B', H, T, D) heads,
+    the selection of the B' batch rows that have a valid key (SDPA gives
+    NaN on the others) from (B, T, H, D) heads). The selection copies, so
+    it is made once, outside the timed call."""
+    keep = m.any(1)
+    am = m[keep][:, None, None, :]
+    return (lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, attn_mask=am)), lambda x: x[keep].transpose(1, 2)
+
+
+def check_masked_row(label, impl, outs, v, tol):
+    """The fully masked last row: 0 for K1n (and its gradients), the mean of
+    v over every key for K1f's output."""
+    if impl == "pallas_naive":
+        zero_row(label, outs)
+        return
+    want = v[-1].float().mean(0, keepdim=True).expand_as(outs[0][-1])
+    err = (outs[0][-1].float() - want).abs().max().item()
+    if err > tol * max(1.0, want.abs().max().item()):
+        fail(f"{label}: the fully masked row is {err:.3e} off the mean of v")
+
+
+def phase_attn_impl_kernels(dev):
+    from vilco_tpu_torch.core.config import (
+        flagship_config,
+        vq_flagship_config,
+    )
+    from vilco_tpu_torch.kernels.attention import (
+        KERNEL_MIN_T,
+        flash_attention,
+        flash_attention_plain,
+        flash_dkv_cuda,
+        flash_dq_cuda,
+        flash_fwd_cuda,
+        fused_attention,
+        fused_attention_bwd_cuda,
+        fused_attention_fwd_cuda,
+        fused_attention_plain,
+    )
+
+    cfg = flagship_config().model
+    T0, C, H = cfg.max_seq_len, cfg.embd_dim, cfg.n_head
+    D, nb = C // H, cfg.num_branch_layers
+    levels = [T for T in [T0] + [T0 >> (i + 1) for i in range(nb)]
+              if T >= KERNEL_MIN_T]
+    rng = np.random.default_rng(SEED + 18)
+    chk = KernelChecks("attn_impl_kernels", ("naive_fwd", "naive_bwd",
+                                             "flash_fwd", "flash_dq",
+                                             "flash_dkv", "flash_vit"))
+    report = chk.report
+    fold = lambda x: x.permute(2, 0, 1, 3).contiguous()
+    impls = {"pallas_naive": (fused_attention, fused_attention_plain),
+             "flash": (flash_attention, flash_attention_plain)}
+
+    def randn(*shape, dtype):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, f32):
+        for T in levels:
+            # forward at the serving batch
+            q, k, v = (randn(B_SERVE, T, H, D, dtype=dtype) for _ in range(3))
+            m = ragged_mask(rng, B_SERVE, T, dev)
+            sdpa, rows = sdpa_on_valid_rows(m)
+            qh, kh, vh = rows(q), rows(k), rows(v)
+            qf, kf, vf = fold(q), fold(k), fold(v)
+            label = f"B={B_SERVE} T={T} H={H} D={D}"
+            top = dtype == bf16 and T == T0
+            for impl, (fn, plain) in impls.items():
+                with torch.no_grad():
+                    out = fn(q, k, v, m)
+                    ref = plain(q, k, v, m)
+                check_masked_row(f"{impl} forward {label}", impl, [out], v,
+                                 FWD_TOL[dtype])
+                naive = impl == "pallas_naive"
+                report("naive_fwd" if naive else "flash_fwd",
+                       f"{'K1n' if naive else 'K1f'} forward {label}", dtype,
+                       output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+                       (lambda: fused_attention_fwd_cuda(qf, kf, vf, m, False))
+                       if naive else (lambda: flash_fwd_cuda(q, k, v, m,
+                                                             False)),
+                       lambda: plain(q, k, v, m),
+                       attention_work(T, m, C, dtype, backward=False) if naive
+                       else flash_work(T, m, C, H, dtype, "fwd"),
+                       lambda: sdpa(qh, kh, vh), is_top=top)
+                del out, ref
+            del q, k, v, qf, kf, vf, qh, kh, vh
+
+            # backward at the training batch
+            q, k, v, g = (randn(B_TRAIN, T, H, D, dtype=dtype)
+                          for _ in range(4))
+            m = ragged_mask(rng, B_TRAIN, T, dev)
+            sdpa, rows = sdpa_on_valid_rows(m)
+            lib_bwd = backward_timer(sdpa, (rows(q), rows(k), rows(v)),
+                                     rows(g))
+            label = f"B={B_TRAIN} T={T} H={H} D={D}"
+            top = dtype == bf16 and T == T0
+            for impl, (fn, plain) in impls.items():
+                got = grads_of(lambda *a: fn(*a, m), (q, k, v), g)
+                want = grads_of(lambda *a: plain(*a, m), (q, k, v), g)
+                torch.cuda.synchronize()
+                if impl == "pallas_naive":
+                    zero_row(f"K1n backward {label}", got)
+                plain_bwd = backward_timer(lambda *a: plain(*a, m),
+                                           (q, k, v), g)
+                if impl == "pallas_naive":
+                    qf, kf, vf, gf = fold(q), fold(k), fold(v), fold(g)
+                    o, lse = fused_attention_fwd_cuda(qf, kf, vf, m, True)
+                    report("naive_bwd", f"K1n backward {label}", dtype,
+                           output_errors(("dq", "dk", "dv"), got, want,
+                                         TRAIN_TOL[dtype]),
+                           lambda: fused_attention_bwd_cuda(
+                               qf, kf, vf, m, o, lse, gf),
+                           plain_bwd,
+                           attention_work(T, m, C, dtype, backward=True),
+                           lib_bwd, is_top=top)
+                    del qf, kf, vf, gf, o, lse
+                else:
+                    o, mx, l = flash_fwd_cuda(q, k, v, m, True)
+                    args = (q, k, v, m, o, mx, l, g)
+                    report("flash_dq", f"K1f dq {label} (plain/library: "
+                           "whole backward)", dtype,
+                           output_errors(("dq",), got[:1], want[:1],
+                                         TRAIN_TOL[dtype]),
+                           lambda: flash_dq_cuda(*args), plain_bwd,
+                           flash_work(T, m, C, H, dtype, "dq"), lib_bwd,
+                           is_top=top)
+                    report("flash_dkv", f"K1f dk/dv {label} (plain/library: "
+                           "whole backward)", dtype,
+                           output_errors(("dk", "dv"), got[1:], want[1:],
+                                         TRAIN_TOL[dtype]),
+                           lambda: flash_dkv_cuda(*args), plain_bwd,
+                           flash_work(T, m, C, H, dtype, "dkv"), lib_bwd,
+                           is_top=top)
+                    del o, mx, l, args
+                del got, want, plain_bwd
+            del q, k, v, g, lib_bwd
+            torch.cuda.empty_cache()
+
+    # K1f in the ViT (1025 tokens, 12 heads of 64, every key valid): the
+    # serving request's clip and query calls in bf16, the f32 parity
+    # forward's 30 frames
+    vq = vq_flagship_config()
+    Lv, Cv, Hv = (vq.clip_size // vq.patch_size) ** 2 + 1, vq.vit_dim, \
+        vq.vit_heads
+    for dtype, B in ((bf16, vq.eval_windows * vq.num_frames),
+                     (bf16, vq.eval_windows), (f32, vq.num_frames)):
+        q, k, v = (randn(B, Lv, Hv, Cv // Hv, dtype=dtype) for _ in range(3))
+        m = torch.ones(B, Lv, dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            out = flash_attention(q, k, v, m)
+            ref = flash_attention_plain(q, k, v, m)
+        report("flash_vit", f"K1f forward (ViT) B={B} T={Lv} H={Hv} "
+               f"D={Cv // Hv}", dtype,
+               output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+               lambda: flash_fwd_cuda(q, k, v, m, False),
+               lambda: flash_attention_plain(q, k, v, m),
+               flash_work(Lv, m, Cv, Hv, dtype, "fwd"),
+               lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+               is_top=(dtype, B) == (bf16, vq.eval_windows * vq.num_frames),
+               reps=5)
+        del q, k, v, m, out, ref
+        torch.cuda.empty_cache()
+    if not chk.ok:
+        fail("a K1n or K1f kernel disagrees with its plain version")
+    return chk.errs, chk.top
+
+
+def phase_vq_attn_probe(dev):
+    """P2: each variant at the probe's shape against its plain version
+    (kernel, plain and SDPA ms, the bound), then the probe itself with its
+    launches counted: one JSON line per variant."""
+    from vilco_tpu_torch.kernels.attention import (
+        probe_variant,
+        probe_variant_plain,
+    )
+    from vilco_tpu_torch.tools import probe_vq_attn as probe
+
+    bf16 = torch.bfloat16
+    probe_variant.launches = 0
+    rows = probe.run(SEED + 19, dev)
+    launches = probe_variant.launches
+    chk = KernelChecks("vq_attn_probe", [r["variant"] for r in rows])
+    q, k, v, m = probe.make_inputs(SEED + 19, dev)
+    sdpa, select = sdpa_on_valid_rows(m)
+    qh, kh, vh = (select(x.view(probe.B, probe.L, probe.H, probe.D))
+                  for x in (q, k, v))
+    for row, (name, bs, ms) in zip(rows, probe.VARIANTS):
+        print(json.dumps(row))
+        chk.report(name, f"probe_variant {name} B={probe.B} T={probe.L} "
+                   f"({probe.VALID} valid) C={probe.C} H={probe.H}", bf16,
+                   [("out", row["max_abs_err_plain"],
+                     FWD_TOL[bf16] * max(1.0, row["max_abs_plain"]))],
+                   lambda: probe_variant(q, k, v, m, probe.H, bs, ms),
+                   lambda: probe_variant_plain(q, k, v, m, probe.H, bs, ms),
+                   attention_work(probe.L, m, probe.C, bf16, backward=False),
+                   lambda: sdpa(qh, kh, vh), is_top=True, reps=5)
+    say(f"[vq_attn_probe] launches in the probe's run: {launches} "
+        f"(each variant: one warm-up, 10 timed, one checked)")
+    if launches < len(rows):
+        fail("vq_attn_probe: the probe did not launch its kernel")
+    if not chk.ok:
+        fail("a probe variant disagrees with its plain version")
+    del q, k, v, m, qh, kh, vh
+    torch.cuda.empty_cache()
+    return chk.errs, chk.top, launches
+
+
+def impl_config(full, impl: str):
+    """`full` (a Config) with the model's attention_impl set to `impl`."""
+    return dataclasses.replace(full, model=dataclasses.replace(
+        full.model, attention_impl=impl))
+
+
+def attention_ablations(dev, mq):
+    """The attention ablations: K1n and K1f against their plain versions,
+    the VQ attention probe (P2), then the MQ flagship `mq` under each
+    attention_impl (parity, serving, training, each request's and step's
+    launches checked) and the VQ flagship with the flash ViT. Returns the
+    errors, timings and launch counts for the kernels line."""
+    from vilco_tpu_torch.core.config import vq_flagship_config
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        KERNEL_MIN_T,
+        attention_bwd_cuda,
+        flash_attention,
+        flash_dkv_cuda,
+        flash_dq_cuda,
+        fused_attention,
+        fused_attention_blc,
+        fused_attention_bwd_cuda,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+    )
+    from vilco_tpu_torch.kernels.frame_band import frame_band_attention
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
+
+    aerrs, atop = phase_attn_impl_kernels(dev)
+    perrs, ptop, probe_launches = phase_vq_attn_probe(dev)
+    # the attention lengths of the stem blocks and the stride-2 branch
+    # blocks; from KERNEL_MIN_T on they take the impl's kernel, K1 below
+    T0 = mq.model.max_seq_len
+    lengths = [T0] * mq.model.backbone_arch[1] + [
+        T0 >> (i + 1) for i in range(mq.model.num_branch_layers)]
+    n_kernel = sum(T >= KERNEL_MIN_T for T in lengths)
+    n_k1 = len(lengths) - n_kernel
+    per_impl = {
+        "flash": (flash_attention, (flash_dq_cuda, flash_dkv_cuda)),
+        "pallas_naive": (fused_attention, (fused_attention_bwd_cuda,))}
+    impl_serve, impl_train = {}, {}
+    for impl, (fwd, bwds) in per_impl.items():
+        tag = "mq_flash" if impl == "flash" else "mq_naive"
+        full = impl_config(mq, impl)
+        phase_parity(dev, f"{tag}_parity", full.model,
+                     mq_parity_inputs(mq.model))
+        requests = mq_requests(mq.model, dev)
+        launches = impl_serve[impl] = phase_serve(
+            dev, f"{tag}_serve", full, requests,
+            (fwd, fused_attention_blc, xl_rel_attention, fused_dwconv_qkv))
+        check_launches(f"{tag}_serve", launches,
+                       {fwd.__name__: n_kernel, "fused_attention_blc": n_k1},
+                       len(requests), "request")
+        del requests
+        launches = impl_train[impl] = phase_train(
+            dev, f"{tag}_train", full,
+            (fwd, *bwds, fused_attention_blc, attention_bwd_cuda,
+             xl_rel_attention, xl_bwd_cuda, fused_dwconv_qkv,
+             dwconv_bwd_cuda, adamw_update_multi),
+            SEED + 5, normalised_must_fall=True)
+        check_launches(f"{tag}_train", launches,
+                       {fwd.__name__: n_kernel,
+                        **{b.__name__: n_kernel for b in bwds},
+                        "fused_attention_blc": n_k1,
+                        "attention_bwd_cuda": n_k1},
+                       12, "step")
+    vq = vq_flagship_config()
+    vq_flash, _ = phase_vq_serve(
+        dev, (flash_attention, fused_attention_blc, frame_band_attention),
+        None, dataclasses.replace(vq, vit_attn_impl="flash"),
+        "vq_flash_serve",
+        {"flash_attention": 2 * vq.vit_depth, "fused_attention_blc": 2,
+         "frame_band_attention": vq.num_transformer})
+
+    return dict(errs=aerrs, top=atop, probe_errs=perrs, probe_top=ptop,
+                probe_launches=probe_launches, serve=impl_serve,
+                train=impl_train, vq_flash=vq_flash)
+
+
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
                                "dwconv_qkv", "adamw_kernel", "banded_", "fb_",
-                               "mlp_tc", "mlp_simt")):
+                               "mlp_tc", "mlp_simt", "flash_fwd_simt",
+                               "flash_fwd_tc", "flash_dq_kernel",
+                               "flash_dkv_kernel")):
         return "port kernels"
     if "conv" in name or "cudnn" in name:
         return "cuDNN conv"
@@ -1851,24 +2241,10 @@ def main():
     # MQ: the serving kernels, parity, serving, the training kernels, the
     # f32 step's parity, training
     errs, top = phase_kernels(dev)
-    rng = np.random.default_rng(SEED + 1)
-    x = torch.from_numpy(rng.standard_normal(
-        (1, mq.model.max_seq_len, mq.model.input_dim)).astype(np.float32))
-    phase_parity(dev, "parity", mq.model,
-                 (x, ragged_mask(rng, 2, mq.model.max_seq_len, "cpu")[:1]))
-    rng = np.random.default_rng(SEED + 2)
-    requests = []
-    for _ in range(7):
-        T = mq.model.max_seq_len
-        feats = rng.standard_normal((B_SERVE, T, mq.model.input_dim))
-        lens = rng.integers(T // 2, T + 1, size=B_SERVE)
-        mask = np.arange(T)[None, :] < lens[:, None]
-        requests.append((torch.from_numpy(feats.astype(np.float32)).to(
-            dev, torch.bfloat16), torch.from_numpy(mask).to(dev)))
+    phase_parity(dev, "parity", mq.model, mq_parity_inputs(mq.model))
     serve_launches = phase_serve(
-        dev, "serve", mq, requests,
+        dev, "serve", mq, mq_requests(mq.model, dev),
         (fused_attention_blc, xl_rel_attention, fused_dwconv_qkv))
-    del requests
     terrs, ttop = phase_train_kernels(dev)
     phase_train_parity(dev)
     train_launches = phase_train(
@@ -1904,6 +2280,8 @@ def main():
     vq_train = phase_vq_train(
         dev, (fused_attention_blc, attention_bwd_cuda, frame_band_attention,
               frame_band_dq_cuda, frame_band_dkv_cuda, adamw_update_multi))
+
+    ab = attention_ablations(dev, mq)
 
     rows = [
         # name, source, replaces, errors, timing, launches (MQ path; the
@@ -1956,6 +2334,29 @@ def main():
         ("fused_mlp", "vilco_tpu_torch/csrc/fused_mlp.cu",
          "vilco_tpu/kernels/mlp.py:79", verrs["mlp"], vtop["mlp"],
          vq_mlp["fused_mlp"]),
+        # the ablations (launches: the MQ request or step under the impl)
+        ("fused_attention", "vilco_tpu_torch/csrc/attention_blc.cu",
+         "vilco_tpu/kernels/attention.py:183", ab["errs"]["naive_fwd"],
+         ab["top"]["naive_fwd"],
+         ab["serve"]["pallas_naive"]["fused_attention"]),
+        ("fused_attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc.cu",
+         "vilco_tpu/kernels/attention.py:207", ab["errs"]["naive_bwd"],
+         ab["top"]["naive_bwd"],
+         ab["train"]["pallas_naive"]["fused_attention_bwd_cuda"]),
+        ("flash_attention", "vilco_tpu_torch/csrc/flash_attention.cu",
+         "vilco_tpu/kernels/attention.py:478",
+         ab["errs"]["flash_fwd"] + ab["errs"]["flash_vit"],
+         ab["top"]["flash_fwd"],
+         ab["serve"]["flash"]["flash_attention"]),
+        ("flash_dq_cuda", "vilco_tpu_torch/csrc/flash_attention.cu",
+         "vilco_tpu/kernels/attention.py:478", ab["errs"]["flash_dq"],
+         ab["top"]["flash_dq"], ab["train"]["flash"]["flash_dq_cuda"]),
+        ("flash_dkv_cuda", "vilco_tpu_torch/csrc/flash_attention.cu",
+         "vilco_tpu/kernels/attention.py:478", ab["errs"]["flash_dkv"],
+         ab["top"]["flash_dkv"], ab["train"]["flash"]["flash_dkv_cuda"]),
+        ("probe_variant", "vilco_tpu_torch/csrc/attention_blc.cu",
+         "tools/probe_vq_attn.py:106", sum(ab["probe_errs"].values(), []),
+         ab["probe_top"]["D_both"], ab["probe_launches"]),
     ]
     also = {"fused_dwconv_qkv": "vilco_tpu/kernels/dwconv.py:267",
             "dwconv_bwd_cuda": "vilco_tpu/kernels/dwconv.py:283"}
@@ -1985,6 +2386,14 @@ def main():
             entry["vq_cq_corr"] = vtop["attn_cq"]
         if fn == "attention_bwd_cuda":
             entry["vq_cq_corr"] = vtop["attn_bwd"]
+        if fn == "fused_attention":
+            entry["launches_train"] = ab["train"]["pallas_naive"][fn]
+        if fn == "flash_attention":        # the MQ step; the flash ViT
+            entry["launches_train"] = ab["train"]["flash"][fn]
+            entry["launches_vq_serve"] = ab["vq_flash"][fn]
+            entry["vq_vit"] = ab["top"]["flash_vit"]
+        if fn == "probe_variant":          # variant D; A to C beside it
+            entry["variants"] = ab["probe_top"]
         kernels.append(entry)
     print(f"[summary] {CARD}")
     print(json.dumps({"kernels": kernels}))

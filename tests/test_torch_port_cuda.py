@@ -1,6 +1,8 @@
 """Each CUDA kernel of the port, forward and backward, against its plain
 PyTorch version on the card, at small and odd lengths (2, 37, 70, 100, 256)
-and head dims 24, 64, 128; the banded kernels also at the NLQ head dim 96,
+and head dims 24, 64, 128; the head-major (K1n) and flash (K1f) attention
+and the probe's K1 variants (P2) from T=128 up to the ViT's 1025 tokens,
+with a fully masked row; the banded kernels also at the NLQ head dim 96,
 the band wider than T and windows wider than one staged chunk; the
 frame-banded kernels at the VQ shape (fr 64, w 2, 8 heads of 32), odd fr,
 frames longer than a tile and bands wider than the clip; the fused MLP at
@@ -23,6 +25,7 @@ from vilco_tpu_torch.kernels.adamw import (
     adamw_update_multi,
     adamw_update_plain,
 )
+import vilco_tpu_torch.kernels.attention as attn
 from vilco_tpu_torch.kernels.attention import (
     fused_attention_blc,
     fused_attention_blc_plain,
@@ -307,3 +310,134 @@ def test_fused_mlp_matches_plain_on_card(cuda, dtype, tol, N, C, Hd):
     want = _grads(lambda a: mlp.fused_mlp_plain(a, w1, b1, w2, b2), (x,), g)
     _close(got, want, tol, "fused mlp input gradient")
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,D", [(128, 64), (200, 32), (256, 128), (130, 24),
+                                 (1025, 64)])
+def test_flash_and_head_major_kernels_match_plain_on_card(cuda, dtype, tol,
+                                                          T, D):
+    """K1f (forward, dq, dk/dv) and K1n (forward, backward) against their
+    plain versions, ragged masks and one fully masked row, where K1f
+    averages v (the library's -0.7 * FLT_MAX) and K1n gives 0. Tolerance
+    relative to each output's largest reference value: f32 1e-4 (summation
+    order, an online softmax against a two-pass one); bf16 2e-2 (inputs
+    and outputs rounded, P rounded before P V, the backward reading the
+    bf16 forward output)."""
+    rng = np.random.default_rng(400 + T + D)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    B, H = 3, 2
+    q, k, v, g = (rn(B, T, H, D) for _ in range(4))
+    m = _mask(rng, B, T, cuda)
+    for fn, plain, counters in (
+            (attn.flash_attention, attn.flash_attention_plain,
+             (attn.flash_attention, attn.flash_dq_cuda, attn.flash_dkv_cuda)),
+            (attn.fused_attention, attn.fused_attention_plain,
+             (attn.fused_attention, attn.fused_attention_bwd_cuda))):
+        before = [c.launches for c in counters]
+        with torch.no_grad():
+            out = fn(q, k, v, m)
+        ref = plain(q, k, v, m)
+        _close([out], [ref], tol, f"{fn.__name__} forward")
+        got = _grads(lambda *a: fn(*a, m), (q, k, v), g)
+        want = _grads(lambda *a: plain(*a, m), (q, k, v), g)
+        _close(got, want, tol, f"{fn.__name__} backward")
+        assert [c.launches for c in counters] == [
+            n + (2 if c is counters[0] else 1)
+            for n, c in zip(before, counters)]
+        if fn is attn.flash_attention:
+            mean_v = v[-1].float().mean(0, keepdim=True).expand(T, H, D)
+            _close([out[-1]], [mean_v], tol, "flash fully masked row")
+        else:
+            assert torch.all(out[-1] == 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_major_cross_attention_on_card(cuda, dtype):
+    """K1n with Tq != Tk (both >= 128), and with Tk < 128, which takes K1
+    on the channels-last view (JAX's XLA fallback)."""
+    rng = np.random.default_rng(7)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for Tk, kernel in ((300, attn.fused_attention), (64, fused_attention_blc)):
+        q, g = rn(2, 160, 4, 32), rn(2, 160, 4, 32)
+        k, v = rn(2, Tk, 4, 32), rn(2, Tk, 4, 32)
+        m = _mask(rng, 2, Tk, cuda)
+        n = kernel.launches
+        got = _grads(lambda *a: attn.fused_attention(*a, m), (q, k, v), g)
+        want = _grads(lambda *a: attn.fused_attention_plain(*a, m),
+                      (q, k, v), g)
+        _close(got, want, tol, f"head-major Tk={Tk}")
+        assert kernel.launches == n + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("bound_shift,mxu_sum", [(False, False), (True, False),
+                                                 (False, True), (True, True)])
+def test_probe_variants_match_plain_on_card(cuda, dtype, tol, bound_shift,
+                                            mxu_sum):
+    """P2: K1's forward with the probe's switches against the plain
+    version, inputs N(0, 2^2) as the probe draws them, at two heads of 64
+    and at the ViT's head layout; both switches off is K1 bit for bit.
+    Tolerance: f32 1e-4; bf16 1e-2 (one rounding of the output and of e)."""
+    rng = np.random.default_rng(11)
+    for B, T, H in ((3, 300, 2), (2, 1025, 12)):
+        q, k, v = (torch.from_numpy(
+            (rng.standard_normal((B, T, H * 64)) * 2.0).astype(
+                np.float32)).to(cuda, dtype) for _ in range(3))
+        m = _mask(rng, B, T, cuda)
+        n = attn.probe_variant.launches
+        out = attn.probe_variant(q, k, v, m, H, bound_shift, mxu_sum)
+        assert attn.probe_variant.launches == n + 1
+        ref = attn.probe_variant_plain(q, k, v, m, H, bound_shift, mxu_sum)
+        _close([out], [ref], tol, "probe variant")
+        assert torch.all(out[-1] == 0)
+        if not (bound_shift or mxu_sum):
+            with torch.no_grad():
+                assert torch.equal(out, fused_attention_blc(q, k, v, m, H))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_attention_impls_never_take_the_plain_path_on_card(cuda,
+                                                           monkeypatch):
+    """On the card the K1f, K1n and P2 wrappers launch their kernels (the
+    counts rise) and never call a plain version; shapes and types the
+    kernels do not take raise."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for name in ("flash_attention_plain", "fused_attention_plain",
+                 "fused_attention_blc_plain", "probe_variant_plain",
+                 "masked_attention"):
+        monkeypatch.setattr(attn, name, refuse)
+    x = torch.randn(2, 130, 2, 32, device=cuda, requires_grad=True)
+    m = torch.ones(2, 130, dtype=torch.bool, device=cuda)
+    for fn in (attn.flash_attention, attn.fused_attention):
+        x.grad = None
+        fn(x, x, x, m).sum().backward()
+        assert torch.isfinite(x.grad).all()
+    attn.probe_variant(x.detach().reshape(2, 130, 64), *(
+        x.detach().reshape(2, 130, 64),) * 2, m, 2, True, True)
+    torch.cuda.synchronize()
+    wide = torch.randn(1, 128, 1, 160, device=cuda)
+    m1 = torch.ones(1, 128, dtype=torch.bool, device=cuda)
+    for fn in (attn.flash_attention, attn.fused_attention):
+        with pytest.raises(ValueError):
+            fn(wide, wide, wide, m1)
+        with pytest.raises(TypeError):
+            fn(x.half(), x.half(), x.half(), m)
+    with pytest.raises(ValueError):
+        attn.flash_attention(x, x[:, :128], x[:, :128], m[:, :128])
+    with pytest.raises(ValueError):
+        attn.probe_variant(*(wide.reshape(1, 128, 160),) * 3, m1, 1, True,
+                           False)

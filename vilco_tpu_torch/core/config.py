@@ -22,13 +22,19 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Tuple
 
+ATTENTION_IMPLS = ("xla", "flash", "pallas_naive")
+VIT_ATTN_IMPLS = ("pallas", "flash")
+
 
 @dataclass(frozen=True)
 class ModelConfig:
     """`variant` "mq": backbone_arch (convs, stem, branch), one XL stage;
     "nlq": (convs, txt_stem, vid_stem, cross_branch, plain_branch), the
     dual tower. `n_mha_win_size` is the total attention window (the half
-    window w = size // 2), -1 for dense attention."""
+    window w = size // 2), -1 for dense attention. `attention_impl` picks
+    the dense self-attention of the MQ stem and branch blocks: "xla" (K1,
+    the kernel JAX's default runs on a TPU), "flash" (K1f) or
+    "pallas_naive" (K1n)."""
     variant: str = "mq"
     backbone_arch: Tuple[int, ...] = (2, 2, 9)
     regression_range: Tuple[Tuple[float, float], ...] = (
@@ -45,6 +51,12 @@ class ModelConfig:
     num_classes: int = 110
     max_seq_len: int = 1024
     droppath: float = 0.1
+    attention_impl: str = "xla"
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {self.attention_impl!r}: one "
+                             f"of {ATTENTION_IMPLS}")
 
     @property
     def num_branch_layers(self) -> int:
@@ -166,7 +178,9 @@ class VQConfig:
     VQ episode runner fixes: `eval_windows` (windows per inference chunk),
     the head's dropout and the optimizer's clip norm and MultiStepLR
     milestones and factor. One optimizer step is one batch (the yaml's
-    accumulation_steps 1); the query crop has the clips' size."""
+    accumulation_steps 1); the query crop has the clips' size.
+    `vit_attn_impl` picks the ViT's attention: "pallas" (K1) or "flash"
+    (K1f)."""
     dim: int = 256
     clip_size: int = 448
     patch_size: int = 14
@@ -190,6 +204,12 @@ class VQConfig:
     grad_max: float = 20.0
     lr_milestones: Tuple[int, ...] = (7000, 14000, 20000, 25000)
     lr_gamma: float = 0.3
+    vit_attn_impl: str = "pallas"
+
+    def __post_init__(self):
+        if self.vit_attn_impl not in VIT_ATTN_IMPLS:
+            raise ValueError(f"vit_attn_impl {self.vit_attn_impl!r}: one of "
+                             f"{VIT_ATTN_IMPLS}")
 
 
 def vq_flagship_config(tiny: bool = False) -> VQConfig:

@@ -1,8 +1,9 @@
-"""Masked softmax attention on channels-last q/k/v, forward and backward.
+"""Dense masked attention, forward and backward: the channels-last kernel
+(K1), the head-major one (K1n), flash attention (K1f) and the VQ attention
+probe's variants (P2).
 
-Replaces vilco_tpu/kernels/attention.py::fused_attention_blc (the Pallas
+K1 replaces vilco_tpu/kernels/attention.py::fused_attention_blc (the Pallas
 `_run_fwd_blc` and `_run_bwd_blc` kernels) with csrc/attention_blc.cu.
-
 Forward: one block per (query tile, head, batch) reads its head's D columns
 straight out of the (B, T, C) tensors and walks the keys with an online
 softmax in f32, keeping the TPU kernel's -1e9 key bias and -1e8 row-max
@@ -12,7 +13,6 @@ tensor cores (WMMA) through shared memory, which bounds it; float32, the
 parity path, runs SIMT and is bound by FMA issue. When a gradient is
 needed the forward also stores each row's log-sum-exp (log2 domain, one f32
 per row and head), so the backward does not recompute row max and sum.
-
 Backward: one block per (key tile, head, batch) holds its dk and dv in f32
 registers and walks the query tiles: P = exp2(s - lse), dP = dO V^T,
 dS = P (dP - rowsum(dO O)), dv += P^T dO, dk += dS^T Q, and dq += dS K by
@@ -20,8 +20,30 @@ f32 atomics into an f32 buffer (no second pass over the scores). SIMT in
 f32 for both dtypes, bound by shared-memory operand traffic. A fully
 masked row has P = 0 everywhere, so its gradients are exactly 0.
 
-A CPU tensor takes `fused_attention_blc_plain` (autograd through it gives
-the backward); a CUDA tensor launches the kernels or raises.
+K1n replaces `fused_attention` (the Pallas `_run_fwd` and `_run_bwd`, the
+`attention_impl="pallas_naive"` ablation): the same function on (B, T, H, D)
+heads, which the TPU kernel folds to (H, B, T, D). The port folds as JAX
+does and runs the K1 kernels on that head-major layout (a stride argument,
+as K3 takes its stride); where JAX's `_use_kernel` says no (Tq or Tk < 128)
+it takes K1 on the channels-last tensors, the same function as JAX's XLA
+form.
+
+K1f replaces `flash_attention_jax` (JAX's TPU flash-attention kernels,
+`attention_impl="flash"` and the ViT's `attn_impl="flash"`) with
+csrc/flash_attention.cu: the library's semantics (the scale on the f32
+product, -0.7 * FLT_MAX on masked keys, natural exp, so a fully masked row
+gives the mean of v), an online softmax over key tiles that reads the
+channels-last rows in place, m and l saved per row, and a backward of two
+kernels with no atomics (dq over query tiles, dk/dv over key tiles).
+Self-attention only; T < 128 takes K1, as JAX takes XLA.
+
+P2 replaces tools/probe_vq_attn.py::run_variant: K1's forward with the
+probe's two switches, `bound_shift` (the row max replaced by |q_scaled| *
+max_j |k_j|) and `mxu_sum` (the row sum of the bf16-rounded e as a product
+with ones), compile-time options of the K1 kernel.
+
+A CPU tensor takes the plain version (autograd through it gives the
+backward); a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -29,7 +51,15 @@ from __future__ import annotations
 import torch
 
 from vilco_tpu_torch.kernels import _build
-from vilco_tpu_torch.ops.attention import masked_attention
+from vilco_tpu_torch.ops.attention import NEG_INF, masked_attention
+
+LOG2E = 1.4426950408889634
+ROWMAX_FLOOR = -1e8
+# JAX's flash kernel runs from this length; shorter levels take XLA there,
+# K1 here. K1n takes the same rule (`_use_kernel`: Tq and Tk >= 128).
+KERNEL_MIN_T = 128
+# the library's DEFAULT_MASK_VALUE, added to a masked key's score
+FLASH_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def fused_attention_blc_plain(q, k, v, kv_mask, num_heads: int):
@@ -37,9 +67,61 @@ def fused_attention_blc_plain(q, k, v, kv_mask, num_heads: int):
     returned in q.dtype."""
     B, Tq, C = q.shape
     D = C // num_heads
+    split = lambda x: x.reshape(x.shape[0], x.shape[1], num_heads, D)
+    return fused_attention_plain(split(q), split(k), split(v),
+                                 kv_mask).reshape(B, Tq, C)
+
+
+def fused_attention_plain(q, k, v, kv_mask):
+    """Plain version of K1n (and of K1 on (B, T, H, D) heads):
+    `masked_attention` in f32, returned in q.dtype."""
+    return masked_attention(q.float(), k.float(), v.float(),
+                            kv_mask).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, kv_mask):
+    """Plain version of K1f with the library's semantics: s = (q k^T in
+    f32) / sqrt(D), -0.7 * FLT_MAX added at masked keys, softmax in natural
+    exp (a fully masked row: the mean of every v), in f32, returned in
+    q.dtype; T < 128 gives `masked_attention`, as JAX's wrapper does.
+    q/k/v (B, T, H, D), kv_mask (B, T) bool."""
+    B, T, H, D = q.shape
+    if T < KERNEL_MIN_T:
+        return fused_attention_plain(q, k, v, kv_mask)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = s * (1.0 / D ** 0.5)
+    s = s + torch.where(kv_mask, 0.0, FLASH_MASK_VALUE)[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def probe_variant_plain(q, k, v, kv_mask, num_heads: int, bound_shift: bool,
+                        mxu_sum: bool):
+    """Plain version of P2 (tools/probe_vq_attn.py::_e_variant and
+    `_fwd_kernel_v`) on channels-last q/k/v: s = (q * scale * log2 e) . k
+    - 1e9 at masked keys; the shift is |q * scale * log2 e| * max_j |k_j|
+    (every key of the head) with `bound_shift`, else the row max floored at
+    -1e8; e = exp2(s - shift); the row sum over e rounded to q's dtype with
+    `mxu_sum`, else over e; out = (e in v's dtype) . v / (sum + 1e-30).
+    In f32, except those roundings (q * scale is not rounded, as K1 does
+    not round it), returned in q.dtype."""
+    B, Tq, C = q.shape
+    D = C // num_heads
     split = lambda x: x.float().reshape(x.shape[0], x.shape[1], num_heads, D)
-    out = masked_attention(split(q), split(k), split(v), kv_mask)
-    return out.reshape(B, Tq, C).to(q.dtype)
+    qs, kk = split(q) * (LOG2E / D ** 0.5), split(k)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kk)
+    s = s + torch.where(kv_mask, 0.0, NEG_INF)[:, None, None, :]
+    if bound_shift:
+        qn = qs.square().sum(-1).sqrt().transpose(1, 2)      # (B, H, Tq)
+        kn = kk.square().sum(-1).amax(1).sqrt()              # (B, H)
+        shift = (qn * kn[:, :, None])[..., None]
+    else:
+        shift = s.amax(-1, keepdim=True).clamp(min=ROWMAX_FLOOR)
+    e = torch.exp2(s - shift)
+    total = (e.to(q.dtype).float() if mxu_sum else e).sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", e.to(v.dtype).float(), split(v))
+    o = o * (1.0 / (total + 1e-30)).transpose(1, 2)
+    return o.reshape(B, Tq, C).to(q.dtype)
 
 
 def _check(q, k, v, kv_mask, num_heads):
@@ -51,53 +133,100 @@ def _check(q, k, v, kv_mask, num_heads):
         raise ValueError(f"C={q.shape[2]} not divisible by {num_heads} heads")
 
 
-def _check_cuda(q, k, v, kv_mask, num_heads):
+def _check_heads(q, k, v, kv_mask):
+    """(B, Tq, H, D) q against (B, Tk, H, D) k/v and a (B, Tk) mask."""
+    if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2:] != q.shape[2:] or kv_mask.shape != k.shape[:2]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, mask {tuple(kv_mask.shape)}")
+
+
+def _check_cuda(q, k, v, kv_mask, head_dim):
     if q.device.type != "cuda" or any(t.device != q.device
                                       for t in (k, v, kv_mask)):
         raise ValueError("q, k, v and kv_mask must be on one CUDA device")
     _build.dtype_code(q)
     if k.dtype != q.dtype or v.dtype != q.dtype or kv_mask.dtype != torch.bool:
         raise TypeError("q, k, v must share a dtype and kv_mask be bool")
-    if q.shape[2] // num_heads > 128:
-        raise ValueError(f"head dim {q.shape[2] // num_heads} > 128")
+    if head_dim > 128:
+        raise ValueError(f"head dim {head_dim} > 128")
     if not all(t.is_contiguous() for t in (q, k, v, kv_mask)):
         raise ValueError("q, k, v and kv_mask must be contiguous")
 
 
-def attention_fwd_cuda(q, k, v, kv_mask, num_heads: int, with_lse: bool):
-    """Launch the forward kernel: (out, lse or None); lse (B, H, Tq) f32."""
-    B, Tq, C = q.shape
-    lse = (torch.empty((B, num_heads, Tq), dtype=torch.float32,
-                       device=q.device) if with_lse else None)
+def _fwd(q, k, v, kv_mask, B, Tq, Tk, H, D, with_lse, head_major=False,
+         bound_shift=False, mxu_sum=False):
+    """One launch of the K1 forward on contiguous tensors of either layout:
+    (out, lse or None); lse (B, H, Tq) f32."""
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     out = torch.empty_like(q)
-    fn = _build.bind("attention_blc", "attention_blc_fwd", 6, 6)
+    fn = _build.bind("attention_blc", "attention_blc_fwd", 6, 8)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-             out.data_ptr(), 0 if lse is None else lse.data_ptr(), B, Tq,
-             k.shape[1], num_heads, C // num_heads, _build.dtype_code(q),
-             _build.stream_of(q))
+             out.data_ptr(), 0 if lse is None else lse.data_ptr(), B, Tq, Tk,
+             H, D, _build.dtype_code(q), int(head_major),
+             int(bound_shift) | 2 * int(mxu_sum), _build.stream_of(q))
     _build.check(err, "attention_blc_fwd")
-    fused_attention_blc.launches += 1
     return out, lse
 
 
-def attention_bwd_cuda(q, k, v, kv_mask, out, lse, dout, num_heads: int):
-    """Launch the backward kernel: (dq, dk, dv) in q.dtype."""
-    B, Tq, C = q.shape
+def _bwd(q, k, v, kv_mask, out, lse, dout, B, Tq, Tk, H, D,
+         head_major=False):
+    """One launch of the K1 backward: (dq, dk, dv) in q.dtype."""
     dout = dout.contiguous()
-    f32 = q.dtype == torch.float32
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.bind("attention_blc", "attention_blc_bwd", 10, 6)
+    fn = _build.bind("attention_blc", "attention_blc_bwd", 10, 7)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
              out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), B, Tq, k.shape[1], num_heads,
-             C // num_heads, _build.dtype_code(q), _build.stream_of(q))
+             dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, D,
+             _build.dtype_code(q), int(head_major), _build.stream_of(q))
     _build.check(err, "attention_blc_bwd")
+    return dq.to(q.dtype), dk, dv
+
+
+def attention_fwd_cuda(q, k, v, kv_mask, num_heads: int, with_lse: bool):
+    """Launch K1's forward on channels-last q (B, Tq, C), k/v (B, Tk, C):
+    (out, lse or None); lse (B, H, Tq) f32."""
+    B, Tq, C = q.shape
+    res = _fwd(q, k, v, kv_mask, B, Tq, k.shape[1], num_heads,
+               C // num_heads, with_lse)
+    fused_attention_blc.launches += 1
+    return res
+
+
+def attention_bwd_cuda(q, k, v, kv_mask, out, lse, dout, num_heads: int):
+    """Launch K1's backward: (dq, dk, dv) in q.dtype."""
+    B, Tq, C = q.shape
+    res = _bwd(q, k, v, kv_mask, out, lse, dout, B, Tq, k.shape[1],
+               num_heads, C // num_heads)
     attention_bwd_cuda.launches += 1
-    return (dq if f32 else dq.to(q.dtype)), dk, dv
+    return res
 
 
 attention_bwd_cuda.launches = 0
+
+
+def fused_attention_fwd_cuda(q, k, v, kv_mask, with_lse: bool):
+    """Launch K1n's forward on head-major q (H, B, Tq, D), k/v (H, B, Tk,
+    D): (out (H, B, Tq, D), lse (B, H, Tq) or None)."""
+    H, B, Tq, D = q.shape
+    res = _fwd(q, k, v, kv_mask, B, Tq, k.shape[2], H, D, with_lse,
+               head_major=True)
+    fused_attention.launches += 1
+    return res
+
+
+def fused_attention_bwd_cuda(q, k, v, kv_mask, out, lse, dout):
+    """Launch K1n's backward on the head-major tensors: (dq, dk, dv)."""
+    H, B, Tq, D = q.shape
+    res = _bwd(q, k, v, kv_mask, out, lse, dout, B, Tq, k.shape[2], H, D,
+               head_major=True)
+    fused_attention_bwd_cuda.launches += 1
+    return res
+
+
+fused_attention_bwd_cuda.launches = 0
 
 
 class _FusedAttentionBLC(torch.autograd.Function):
@@ -117,17 +246,169 @@ class _FusedAttentionBLC(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def fused_attention_blc(q, k, v, kv_mask, num_heads: int):
-    """q (B, Tq, C), k/v (B, Tk, C), kv_mask (B, Tk) bool, C = H * D with
-    D <= 128. Returns (B, Tq, C); invalid query rows are not zeroed.
+    """K1. q (B, Tq, C), k/v (B, Tk, C), kv_mask (B, Tk) bool, C = H * D
+    with D <= 128. Returns (B, Tq, C); invalid query rows are not zeroed.
     Differentiable in q, k, v."""
     _check(q, k, v, kv_mask, num_heads)
     if q.device.type == "cpu":
         return fused_attention_blc_plain(q, k, v, kv_mask, num_heads)
-    _check_cuda(q, k, v, kv_mask, num_heads)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    _check_cuda(q, k, v, kv_mask, q.shape[2] // num_heads)
+    if _wants_grad(q, k, v):
         return _FusedAttentionBLC.apply(q, k, v, kv_mask, num_heads)
     return attention_fwd_cuda(q, k, v, kv_mask, num_heads, False)[0]
 
 
 fused_attention_blc.launches = 0
+
+
+def _heads_via_blc(q, k, v, kv_mask):
+    """(B, T, H, D) heads through K1 on their channels-last view."""
+    B, Tq, H, D = q.shape
+    flat = lambda x: x.reshape(x.shape[0], x.shape[1], H * D)
+    return fused_attention_blc(flat(q), flat(k), flat(v), kv_mask,
+                               H).reshape(B, Tq, H, D)
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        out, lse = fused_attention_fwd_cuda(q, k, v, kv_mask, with_lse=True)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = fused_attention_bwd_cuda(*ctx.saved_tensors, dout)
+        return dq, dk, dv, None
+
+
+def fused_attention(q, k, v, kv_mask):
+    """K1n. q (B, Tq, H, D), k/v (B, Tk, H, D), kv_mask (B, Tk) bool,
+    D <= 128: folded to (H, B, T, D), attended there, unfolded. Tq or Tk
+    < 128 takes K1 on the channels-last view. Invalid query rows are not
+    zeroed. Differentiable in q, k, v."""
+    _check_heads(q, k, v, kv_mask)
+    if min(q.shape[1], k.shape[1]) < KERNEL_MIN_T:
+        return _heads_via_blc(q, k, v, kv_mask)
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, kv_mask)
+    fold = lambda x: x.permute(2, 0, 1, 3).contiguous()
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    _check_cuda(qf, kf, vf, kv_mask, q.shape[3])
+    if _wants_grad(q, k, v):
+        out = _FusedAttention.apply(qf, kf, vf, kv_mask)
+    else:
+        out = fused_attention_fwd_cuda(qf, kf, vf, kv_mask, False)[0]
+    return out.permute(1, 2, 0, 3)
+
+
+fused_attention.launches = 0
+
+
+def flash_fwd_cuda(q, k, v, kv_mask, with_stats: bool):
+    """Launch K1f's forward on (B, T, H, D) q/k/v: (out, m, l), m and l
+    (B, H, T) f32 or None."""
+    B, T, H, D = q.shape
+    stats = [torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+             for _ in range(2)] if with_stats else [None, None]
+    out = torch.empty_like(q)
+    fn = _build.bind("flash_attention", "flash_fwd", 7, 5)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+             out.data_ptr(), *(0 if t is None else t.data_ptr()
+                               for t in stats),
+             B, T, H, D, _build.dtype_code(q), _build.stream_of(q))
+    _build.check(err, "flash_fwd")
+    flash_attention.launches += 1
+    return out, *stats
+
+
+def flash_dq_cuda(q, k, v, kv_mask, out, m, l, dout):
+    """Launch K1f's dq kernel: dq in q.dtype."""
+    B, T, H, D = q.shape
+    dq = torch.empty_like(q)
+    fn = _build.bind("flash_attention", "flash_dq", 9, 5)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+             out.data_ptr(), m.data_ptr(), l.data_ptr(), dout.data_ptr(),
+             dq.data_ptr(), B, T, H, D, _build.dtype_code(q),
+             _build.stream_of(q))
+    _build.check(err, "flash_dq")
+    flash_dq_cuda.launches += 1
+    return dq
+
+
+def flash_dkv_cuda(q, k, v, kv_mask, out, m, l, dout):
+    """Launch K1f's dk/dv kernel: (dk, dv) in k.dtype."""
+    B, T, H, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.bind("flash_attention", "flash_dkv", 10, 5)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+             out.data_ptr(), m.data_ptr(), l.data_ptr(), dout.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B, T, H, D, _build.dtype_code(q),
+             _build.stream_of(q))
+    _build.check(err, "flash_dkv")
+    flash_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_dq_cuda.launches = 0
+flash_dkv_cuda.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        out, m, l = flash_fwd_cuda(q, k, v, kv_mask, with_stats=True)
+        ctx.save_for_backward(q, k, v, kv_mask, out, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        args = (*ctx.saved_tensors, dout.contiguous())
+        return flash_dq_cuda(*args), *flash_dkv_cuda(*args), None
+
+
+def flash_attention(q, k, v, kv_mask):
+    """K1f. Self-attention on q/k/v (B, T, H, D) with D <= 128 (read in
+    place as the channels-last (B, T, H * D) rows), kv_mask (B, T) bool.
+    T < 128 takes K1. Invalid query rows are not zeroed. Differentiable in
+    q, k, v."""
+    _check_heads(q, k, v, kv_mask)
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"flash attention is self-attention: Tq "
+                         f"{q.shape[1]} != Tk {k.shape[1]}")
+    if q.shape[1] < KERNEL_MIN_T:
+        return _heads_via_blc(q, k, v, kv_mask)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_mask)
+    _check_cuda(q, k, v, kv_mask, q.shape[3])
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, kv_mask)
+    return flash_fwd_cuda(q, k, v, kv_mask, False)[0]
+
+
+flash_attention.launches = 0
+
+
+def probe_variant(q, k, v, kv_mask, num_heads: int, bound_shift: bool,
+                  mxu_sum: bool):
+    """P2: K1's forward on channels-last q/k/v with the probe's switches
+    (both off: K1 itself). Forward only."""
+    _check(q, k, v, kv_mask, num_heads)
+    if q.device.type == "cpu":
+        return probe_variant_plain(q, k, v, kv_mask, num_heads, bound_shift,
+                                   mxu_sum)
+    _check_cuda(q, k, v, kv_mask, q.shape[2] // num_heads)
+    B, Tq, C = q.shape
+    out, _ = _fwd(q, k, v, kv_mask, B, Tq, k.shape[1], num_heads,
+                  C // num_heads, False, bound_shift=bound_shift,
+                  mxu_sum=mxu_sum)
+    probe_variant.launches += 1
+    return out
+
+
+probe_variant.launches = 0

@@ -4,7 +4,8 @@ ConvTransformerBackbone, the MQ variant with the XL stage:
 
   (conv embed + LN + ReLU) x arch[0] -> + abs PE -> stem TransformerBlock
   x arch[1] -> one XLRelAttention -> branch TransformerBlock x arch[2]
-  (stride 2 each)
+  (stride 2 each); the stem and branch blocks attend through
+  `cfg.attention_impl` (K1, K1f or K1n; models/layers.py::MaskedMHCA)
 
 DualTowerBackbone, the NLQ variant, arch (convs, txt_stem, vid_stem,
 cross_branch, plain_branch):
@@ -78,11 +79,13 @@ class ConvTransformerBackbone(nn.Module):
         _add_embed(self, "embd", n_convs, cfg.input_dim, E, EMBD_KERNEL_SIZE)
         for i in range(n_stem):
             self.add_module(f"stem_{i}", TransformerBlock(
-                E, cfg.n_head, path_drop=cfg.droppath))
+                E, cfg.n_head, path_drop=cfg.droppath,
+                attention_impl=cfg.attention_impl))
         self.xl_0 = XLRelAttention(E, cfg.n_head, XL_D_INNER)
         for i in range(n_branch):
             self.add_module(f"branch_{i}", TransformerBlock(
-                E, cfg.n_head, n_ds_stride=2, path_drop=cfg.droppath))
+                E, cfg.n_head, n_ds_stride=2, path_drop=cfg.droppath,
+                attention_impl=cfg.attention_impl))
         self.register_buffer("pe", _pe_table(cfg), persistent=False)
         self.n_convs, self.n_stem, self.n_branch = n_convs, n_stem, n_branch
 

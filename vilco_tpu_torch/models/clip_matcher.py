@@ -8,7 +8,8 @@ Layouts follow the JAX model at the module boundaries (channels-last frames
 and grids, (B, L, C) tokens); the conv stack runs NCHW inside. The forward
 computes in `compute_dtype` (bf16 on the serving and training paths) with
 f32 master parameters, GroupNorm statistics in f32, and f32 outputs. The
-dense attentions (ViT, query/frame) run through kernels/attention.py, the
+dense attentions (ViT, query/frame) run through kernels/attention.py (the
+ViT on K1, or on K1f with `cfg.vit_attn_impl="flash"`), the
 frame-banded one through kernels/frame_band.py, the ViT's MLP optionally
 through kernels/mlp.py. Parameter names follow the Flax tree
 (models/convert.py maps it). The query-ROI resample, the frozen-BN norm and
@@ -213,7 +214,8 @@ class ClipMatcher(nn.Module):
         self.compute_dtype = compute_dtype
         dim, R = cfg.dim, cfg.resolution_transformer
         self.backbone = ViT(cfg.patch_size, cfg.vit_dim, cfg.vit_depth,
-                            cfg.vit_heads, cfg.clip_size, use_fused_mlp)
+                            cfg.vit_heads, cfg.clip_size, use_fused_mlp,
+                            cfg.vit_attn_impl)
         self.reduce1 = ConvBlock2D(cfg.vit_dim, dim)
         self.reduce2 = ConvBlock2D(dim, dim)
         self.cq_corr = DecoderLayer(dim, CQ_HEADS, 4 * dim)

@@ -15,8 +15,9 @@ second layer). Without `rng` they are the identity (the JAX modules'
 
   MaskedConv, LayerNormC, Scale, AffineDropPath
   MaskedMHCA        depthwise q/k/v convs (kernels/dwconv.py) + LN + dense
-                    attention (kernels/attention.py) or, with a window,
-                    banded attention (kernels/banded_attention.py)
+                    attention (kernels/attention.py: K1, or K1f / K1n by
+                    `attention_impl`) or, with a window, banded attention
+                    (kernels/banded_attention.py)
   MaskedMHA         1x1 projections + dense attention; self- or
                     cross-attention (kernels/attention.py, Tq != Tk)
   ChannelBlock      channel attention + MLP
@@ -33,7 +34,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vilco_tpu_torch.kernels.attention import fused_attention_blc
+from vilco_tpu_torch.kernels.attention import (
+    flash_attention,
+    fused_attention,
+    fused_attention_blc,
+)
 from vilco_tpu_torch.kernels.banded_attention import banded_attention_blc
 from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv
 from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention
@@ -145,16 +150,19 @@ class _DWKernel(nn.Module):
 
 class MaskedMHCA(nn.Module):
     """Multi-head conv attention: the three depthwise q/k/v convs (stride 1
-    or 2) in one kernel launch, LN, projections, then on the channels-last
-    q/k/v the dense attention kernel or, with `window` > 0 (the half
-    window), the banded one (LocalMaskedMHCA)."""
+    or 2) in one kernel launch, LN, projections, then attention, dispatched
+    as JAX's MaskedMHCA does: with `window` > 0 (the half window) the
+    banded kernel (LocalMaskedMHCA); else by `attention_impl`, "flash" the
+    flash kernel (self-attention: Tq == Tk), "pallas_naive" the head-major
+    one, and otherwise the channels-last dense kernel."""
 
     def __init__(self, n_embd: int, n_head: int, stride: int = 1,
-                 window: int = -1):
+                 window: int = -1, attention_impl: str = "xla"):
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride {stride}: the fused convs take 1 or 2")
         self.n_head, self.stride, self.window = n_head, stride, window
+        self.attention_impl = attention_impl
         E = n_embd
         self.query_conv = _DWKernel(E, 3)
         self.key_conv = _DWKernel(E, 3)
@@ -179,12 +187,20 @@ class MaskedMHCA(nn.Module):
         k = self.key_norm(k * mm)
         v = self.value_norm(v * mm)
         q, k, v = self.query(q), self.key(k), self.value(v)
+        kv_mask = q_mask.contiguous()
+        B, T, E = q.shape
+        heads = lambda x: x.view(B, T, self.n_head, E // self.n_head)
         if self.window > 0:
-            out = banded_attention_blc(q, k, v, q_mask.contiguous(),
-                                       self.n_head, self.window)
+            out = banded_attention_blc(q, k, v, kv_mask, self.n_head,
+                                       self.window)
+        elif self.attention_impl == "flash":
+            out = flash_attention(heads(q), heads(k), heads(v),
+                                  kv_mask).reshape(B, T, E)
+        elif self.attention_impl == "pallas_naive":
+            out = fused_attention(heads(q), heads(k), heads(v),
+                                  kv_mask).reshape(B, T, E)
         else:
-            out = fused_attention_blc(q, k, v, q_mask.contiguous(),
-                                      self.n_head)
+            out = fused_attention_blc(q, k, v, kv_mask, self.n_head)
         out = self.proj(out)
         return out * mm, q_mask
 
@@ -249,12 +265,13 @@ class TransformerBlock(nn.Module):
     def __init__(self, n_embd: int, n_head: int, n_ds_stride: int = 1,
                  path_drop: float = 0.0, window: int = -1,
                  use_cross_modal: bool = False,
-                 use_channel_attn: bool = True):
+                 use_channel_attn: bool = True, attention_impl: str = "xla"):
         super().__init__()
         E = n_embd
         self.stride = n_ds_stride
         self.ln1 = LayerNormC(E)
-        self.attn = MaskedMHCA(E, n_head, stride=n_ds_stride, window=window)
+        self.attn = MaskedMHCA(E, n_head, stride=n_ds_stride, window=window,
+                               attention_impl=attention_impl)
         self.drop_path_attn = (AffineDropPath(E, path_drop) if path_drop > 0
                                else None)
         self.drop_path_mlp = (AffineDropPath(E, path_drop) if path_drop > 0

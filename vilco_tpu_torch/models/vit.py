@@ -2,12 +2,14 @@
 ViT with DINO's parameter layout, returning the patch-token grid with the
 CLS token dropped and the final LayerNorm applied.
 
-Attention runs through the fused channels-last kernel (kernels/attention.py)
-with every key valid. The JAX model pads the token axis to a multiple of 128
-for its TPU grid; the port's kernel takes any length, and a masked pad would
-change nothing, so there is none. `use_fused_mlp` runs each block's MLP
-through kernels/mlp.py; otherwise it is Linear, tanh GELU, Linear in the
-compute dtype. Images and grids are channels-last (B, H, W, C), as in JAX.
+Attention runs through kernels/attention.py with every key valid: the
+channels-last kernel K1 (`attn_impl="pallas"`) or the flash kernel K1f
+(`"flash"`). The JAX model pads the token axis to a multiple of 128 for its
+TPU grid and masks the pad keys; the port's kernels take any length, and on
+the valid tokens that is the same function, so there is no pad.
+`use_fused_mlp` runs each block's MLP through kernels/mlp.py; otherwise it
+is Linear, tanh GELU, Linear in the compute dtype. Images and grids are
+channels-last (B, H, W, C), as in JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +18,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vilco_tpu_torch.kernels.attention import fused_attention_blc
+from vilco_tpu_torch.core.config import VIT_ATTN_IMPLS
+from vilco_tpu_torch.kernels.attention import (
+    flash_attention,
+    fused_attention_blc,
+)
 from vilco_tpu_torch.kernels.mlp import fused_mlp
 from vilco_tpu_torch.models.layers import LayerNorm, Linear
 from vilco_tpu_torch.ops import activations
@@ -50,10 +56,14 @@ class Conv2dSame(nn.Conv2d):
 
 class ViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 use_fused_mlp: bool = False):
+                 use_fused_mlp: bool = False, attn_impl: str = "pallas"):
         super().__init__()
+        if attn_impl not in VIT_ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r}: one of "
+                             f"{VIT_ATTN_IMPLS}")
         self.num_heads = num_heads
         self.use_fused_mlp = use_fused_mlp
+        self.attn_impl = attn_impl
         hidden = int(dim * mlp_ratio)
         self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.qkv = Linear(dim, 3 * dim)
@@ -63,13 +73,18 @@ class ViTBlock(nn.Module):
         self.fc2 = Linear(hidden, dim)
 
     def forward(self, x, kv_mask):
-        C = x.shape[-1]
+        B, L, C = x.shape
         h = self.norm1(x)
         w, b = self.qkv.weight.to(h.dtype), self.qkv.bias.to(h.dtype)
         q, k, v = (F.linear(h, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C])
                    for i in range(3))
-        x = x + self.proj(fused_attention_blc(q, k, v, kv_mask,
-                                              self.num_heads))
+        if self.attn_impl == "flash":
+            heads = lambda t: t.view(B, L, self.num_heads, -1)
+            out = flash_attention(heads(q), heads(k), heads(v),
+                                  kv_mask).reshape(B, L, C)
+        else:
+            out = fused_attention_blc(q, k, v, kv_mask, self.num_heads)
+        x = x + self.proj(out)
         h = self.norm2(x)
         if self.use_fused_mlp and not activations._EXACT:
             h = fused_mlp(h, self.fc1.weight.t(), self.fc1.bias,
@@ -82,11 +97,12 @@ class ViTBlock(nn.Module):
 class ViT(nn.Module):
     """images (B, H, W, 3) of side `image_size` -> patch tokens (B, H/p,
     W/p, dim); pos_embed holds (H/p)^2 + 1 positions, as the JAX model
-    builds it from its init image."""
+    builds it from its init image. `attn_impl` "pallas" (K1) or "flash"
+    (K1f)."""
 
     def __init__(self, patch_size: int = 14, dim: int = 768, depth: int = 12,
                  num_heads: int = 12, image_size: int = 448,
-                 use_fused_mlp: bool = False):
+                 use_fused_mlp: bool = False, attn_impl: str = "pallas"):
         super().__init__()
         self.dim = dim
         self.patch_embed = Conv2dSame(3, dim, patch_size, patch_size)
@@ -95,7 +111,8 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, grid * grid + 1, dim))
         for i in range(depth):
             self.add_module(f"block_{i}", ViTBlock(
-                dim, num_heads, use_fused_mlp=use_fused_mlp))
+                dim, num_heads, use_fused_mlp=use_fused_mlp,
+                attn_impl=attn_impl))
         self.depth = depth
         self.norm = LayerNorm(dim, eps=LN_EPS)
 
