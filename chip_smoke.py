@@ -2,6 +2,10 @@
 once on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --vq-train-parity SEED [SEED ...]
+
+The second form builds the kernels and runs only the VQ train-step parity
+(phase 18), once per seed of weights and batch.
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -58,14 +62,15 @@ fallback):
                    ms (SDPA with the band mask) and the bound
  12. nlq_parity    nlq_flagship_config() at batch 1 in f32, the card against
                    the CPU on the head outputs, with a TF32 control
- 13. nlq_serve     batch 16 bf16 requests (clip features + query text):
+ 13. nlq_train_parity  phase 8 on nlq_flagship_config()
+ 14. nlq_serve     batch 16 bf16 requests (clip features + query text):
                    forward + decode_and_nms_batch at the NLQ test_cfg,
                    clips/s, ms split, peak memory, launches, one profiled
                    request
- 14. nlq_train     12 bf16 steps at batch 4 (f32 masters, drop-path 0.1,
+ 15. nlq_train     12 bf16 steps at batch 4 (f32 masters, drop-path 0.1,
                    label smoothing 0.1, FusedAdamW over 467 leaves): ms
                    split, losses, peak memory, launches, one profiled step
- 15. vq_kernels    the VQ flagship's kernels against their plain versions,
+ 16. vq_kernels    the VQ flagship's kernels against their plain versions,
                    bf16 and f32: the frame-banded attention forward at
                    batch 8 and 16 and its dq and dk/dv at batch 16 (30
                    frames of 64 tokens, 8 heads of 32, +-2 frames; SDPA
@@ -82,23 +87,28 @@ fallback):
                    480 frames, backward at 480, bf16 and f32) beside SDPA;
                    AdamW with f32 moments over the VQ optimizer's 113
                    trainable leaves (bit-exact)
- 16. vq_parity     vq_flagship_config() at batch 1, 30 frames, f32, the
+ 17. vq_parity     vq_flagship_config() at batch 1, 30 frames, f32, the
                    card against the CPU on the box deltas and the logits
                    (output convs redrawn at a normal scale), with a TF32
                    control
- 17. vq_serve      requests of one 240-frame 448-square bf16 clip + query
+ 18. vq_train_parity  one VQ HNM step at batch 2 x 30 frames in f32, the
+                   card against the CPU as phase 8, every trainable leaf's
+                   gradient; the position table's held to its summation
+                   scale (its gradient sums the pairs' gradients at its
+                   add) with the per-pair gradient beside it
+ 19. vq_serve      requests of one 240-frame 448-square bf16 clip + query
                    on the card through tasks/vq.py::predict_track (8
                    windows of 30 in one chunk): 2 warm-up and 5 timed,
                    frames/s, ms split into ViT / matcher / top anchor /
                    peak finding, peak memory, launches against the model's
                    structure, one profiled request, then one request with
                    the ViT MLP on the fused kernel
- 18. vq_train      12 bf16 HNM steps at batch 4 (16 pairs, f32 masters,
+ 20. vq_train      12 bf16 HNM steps at batch 4 (16 pairs, f32 masters,
                    head dropout 0.2, AdamW over the trainable leaves with
                    the frozen ViT outside it): ms split, every loss (finite
                    and falling), peak memory, launches, the backbone
                    bit-identical, one profiled step
- 19. attn_impl_kernels  the head-major attention (K1n, forward and backward)
+ 21. attn_impl_kernels  the head-major attention (K1n, forward and backward)
                    and the flash attention (K1f: forward, dq, dk/dv)
                    against their plain versions at the MQ levels that reach
                    them (T 1024, 512, 256, 128; 16 heads of 64), forward at
@@ -108,18 +118,18 @@ fallback):
                    frames of 1025 tokens, 12 x 64, bf16) and 30 frames in
                    f32. Library: SDPA with the boolean mask on the rows
                    that have a valid key
- 20. vq_attn_probe the VQ attention probe's four variants (P2: K1's forward
+ 22. vq_attn_probe the VQ attention probe's four variants (P2: K1's forward
                    with bound_shift and mxu_sum) at the probe's shape (120 x
                    1152 tokens, 1025 valid, 12 x 64, N(0, 2^2) bf16), each
                    against its plain version, then the probe's JSON lines
- 21. mq_flash_parity, mq_naive_parity   phase 4 with attention_impl "flash"
+ 23. mq_flash_parity, mq_naive_parity   phase 4 with attention_impl "flash"
                    and "pallas_naive"
- 22. mq_flash_serve, mq_naive_serve     phase 5 under each impl, the launches
+ 24. mq_flash_serve, mq_naive_serve     phase 5 under each impl, the launches
                    per request checked (K1f or K1n 5, K1 6)
- 23. mq_flash_train, mq_naive_train     phase 9 under each impl, the launches
+ 25. mq_flash_train, mq_naive_train     phase 9 under each impl, the launches
                    per step checked (K1f dq and dk/dv 5 each or K1n-bwd 5,
                    K1-bwd 6)
- 24. vq_flash_serve phase 17 with vit_attn_impl "flash" (K1f 24, K1 2, K6 3
+ 26. vq_flash_serve phase 19 with vit_attn_impl "flash" (K1f 24, K1 2, K6 3
                    a request), without the fused-MLP request
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
@@ -605,6 +615,15 @@ def backward_timer(fn, inputs, g):
     return lambda: torch.autograd.grad(outs, leaves, gs, retain_graph=True)
 
 
+def check_repeatable(tag: str, label: str, fn) -> None:
+    """Two calls of `fn` (a backward kernel's wrapper) give equal bits:
+    the kernel sums in a fixed order, with no atomics."""
+    first, second = fn(), fn()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"{tag}: {label}: two calls differ in their bits")
+    say(f"[{tag}] {label}: two calls bitwise equal")
+
+
 # training-kernel tolerances, each output against tol x max(1, its own
 # largest reference value): f32 summation order and f32 atomics; bf16
 # inputs and outputs rounded and the backward reading the bf16 forward
@@ -706,6 +725,11 @@ def phase_train_kernels(dev):
             want = grads_of(lambda *a: fused_attention_blc_plain(*a, m, H),
                             (q, k, v), g)
             out, lse = attention_fwd_cuda(q, k, v, m, H, with_lse=True)
+            if T in (T0, T0 >> 1):     # one query slice, and two
+                check_repeatable("train_kernels", f"attention backward B={B} "
+                                 f"T={T} {str(dtype)[6:]}",
+                                 lambda: attention_bwd_cuda(q, k, v, m, out,
+                                                            lse, g, H))
             bh = lambda x: x.reshape(B, T, H, D).transpose(1, 2)
             am = m[:, None, None, :]
             chk.report("attn_bwd", f"attention backward B={B} T={T} C={C} "
@@ -829,38 +853,44 @@ def rel_by_leaf(got: dict, want: dict, floor_frac: float):
 
 @contextlib.contextmanager
 def plain_versions():
-    """The model's three kernel wrappers swapped for their plain versions:
-    a comparison only, which launches none of the port's kernels."""
+    """The models' kernel wrappers swapped for their plain versions, where
+    each model module imported them (MQ and NLQ blocks, the VQ ClipMatcher
+    and ViT): a comparison only, which launches none of the port's
+    kernels."""
     from vilco_tpu_torch.kernels.attention import fused_attention_blc_plain
     from vilco_tpu_torch.kernels.banded_attention import (
         banded_attention_blc_plain,
     )
     from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv_plain
+    from vilco_tpu_torch.kernels.frame_band import frame_band_attention_plain
     from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention_plain
-    from vilco_tpu_torch.models import layers
+    from vilco_tpu_torch.models import clip_matcher, layers, vit
 
     swap = {"fused_attention_blc": fused_attention_blc_plain,
             "banded_attention_blc": banded_attention_blc_plain,
             "fused_dwconv_qkv": fused_dwconv_qkv_plain,
-            "xl_rel_attention": xl_rel_attention_plain}
-    saved = {n: getattr(layers, n) for n in swap}
-    for n, f in swap.items():
-        setattr(layers, n, f)
+            "xl_rel_attention": xl_rel_attention_plain,
+            "frame_band_attention": frame_band_attention_plain}
+    saved = [(mod, n, getattr(mod, n)) for mod in (layers, clip_matcher, vit)
+             for n in swap if hasattr(mod, n)]
+    for mod, n, _ in saved:
+        setattr(mod, n, swap[n])
     try:
         yield
     finally:
-        for n, f in saved.items():
-            setattr(layers, n, f)
+        for mod, n, f in saved:
+            setattr(mod, n, f)
 
 
-WITNESS_LEAF = "backbone.embd_1.weight"   # the worst gradient leaf
+WITNESS_LEAF = "backbone.embd_1.weight"   # MQ's worst gradient leaf
 
 
 def step_gaps(r, ref):
     """Relative gaps of one train-step result to another: loss, grad norm,
     gradients, updated parameters, mu, nu (each (worst, three worst
-    leaves)), and the witness leaf's gradient."""
-    w = ref["grads"][WITNESS_LEAF].float()
+    leaves)), and the witness leaf's gradient (None where the model has no
+    such leaf)."""
+    w = ref["grads"].get(WITNESS_LEAF)
     return dict(
         loss=abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
         gnorm=abs(r["gnorm"] - ref["gnorm"]) / abs(ref["gnorm"]),
@@ -868,11 +898,28 @@ def step_gaps(r, ref):
         params=rel_by_leaf(r["params"], ref["params"], 1e-4),
         mu=rel_by_leaf(r["mu"], ref["mu"], 1e-4),
         nu=rel_by_leaf(r["nu"], ref["nu"], 1e-4),
-        witness=((r["grads"][WITNESS_LEAF].float() - w).abs().max()
-                 / w.abs().max()).item())
+        witness=None if w is None else
+        ((r["grads"][WITNESS_LEAF].float() - w.float()).abs().max()
+         / w.float().abs().max()).item())
 
 
-def phase_train_parity(dev):
+def say_gaps(tag, label, r, base, base_label, g):
+    witness = ("" if g["witness"] is None
+               else f", {WITNESS_LEAF} {g['witness']:.3e}")
+    say(f"[{tag}] {label} vs {base_label}: loss {r['loss']:.6f} "
+        f"({base['loss']:.6f}, rel {g['loss']:.3e}), clipped grad norm "
+        f"{r['gnorm']:.6f} ({base['gnorm']:.6f}, rel {g['gnorm']:.3e}); "
+        f"max rel err gradients {g['grads'][0]:.3e} ({g['grads'][1]})"
+        f"{witness}; updated params {g['params'][0]:.3e} "
+        f"({g['params'][1]}), mu {g['mu'][0]:.3e} ({g['mu'][1]}), nu "
+        f"{g['nu'][0]:.3e} ({g['nu'][1]})")
+
+
+def phase_train_parity(dev, tag="train_parity", full=None):
+    """One train step of `full` (a Config; the MQ flagship when None) at
+    batch 1 in f32, regularisers off: the card against the CPU, the TF32
+    control, and the card through the plain versions (the kernels' share
+    and the libraries' share of the gap)."""
     from vilco_tpu_torch.core.config import flagship_config
     from vilco_tpu_torch.data.synthetic import make_batch
     from vilco_tpu_torch.models.point_transformer import (
@@ -887,7 +934,7 @@ def phase_train_parity(dev):
         make_train_step,
     )
 
-    cfg = flagship_config()
+    cfg = full or flagship_config()
     m = cfg.model
     pts = generate_points(level_lengths(m), m.fpn_strides, m.regression_range)
     batch = make_batch(np.random.default_rng(SEED + 4), 1, cfg)
@@ -930,9 +977,10 @@ def phase_train_parity(dev):
     plain = run(dev, False, plain=True)
     ctrl = run(dev, True)
     torch.cuda.empty_cache()
-    say(f"[train_parity] one f32 step at batch 1, T={m.max_seq_len}, "
-        f"schedule step {PARITY_STEP}: CPU {ref['secs']:.1f} s, card "
-        f"{card['secs']:.3f} s (first call) [{CARD}]")
+    say(f"[{tag}] {m.variant.upper()}: one f32 step at batch 1, "
+        f"T={m.max_seq_len}, schedule step {PARITY_STEP}: CPU "
+        f"{ref['secs']:.1f} s, card {card['secs']:.3f} s (first call) "
+        f"[{CARD}]")
     gaps = {}
     # card kernels vs CPU plain (the check); then the witness: the same
     # step on the card through the plain versions, which splits that gap
@@ -944,28 +992,21 @@ def phase_train_parity(dev):
             ("kernel gap: card kernels", card, plain, "card plain"),
             ("library gap: card plain", plain, ref, "CPU")):
         g = gaps[label] = step_gaps(r, base)
-        say(f"[train_parity] {label} vs {base_label}: loss {r['loss']:.6f} "
-            f"({base['loss']:.6f}, rel {g['loss']:.3e}), clipped grad norm "
-            f"{r['gnorm']:.6f} ({base['gnorm']:.6f}, rel {g['gnorm']:.3e}); "
-            f"max rel err gradients {g['grads'][0]:.3e} ({g['grads'][1]}), "
-            f"{WITNESS_LEAF} {g['witness']:.3e}; updated params "
-            f"{g['params'][0]:.3e} ({g['params'][1]}), mu {g['mu'][0]:.3e} "
-            f"({g['mu'][1]}), nu {g['nu'][0]:.3e} ({g['nu'][1]})")
+        say_gaps(tag, label, r, base, base_label, g)
     c = gaps["card"]
-    say(f"[train_parity] limits: loss and grad norm 1e-5 relative, "
+    say(f"[{tag}] limits: loss and grad norm 1e-5 relative, "
         f"gradients {GRAD_RTOL:g} (the card, and the kernel gap alone), "
         f"updated params {PARAM_RTOL:g}, moments 2^-6; the TF32 control's "
         f"gradients read {gaps['TF32 control']['grads'][0]:.3e}")
     if c["params"][0] > PARAM_RTOL or max(c["mu"][0], c["nu"][0]) > 2.0 ** -6:
-        fail(f"train parity: updated parameters or moments out of "
+        fail(f"{tag}: updated parameters or moments out of "
              f"tolerance ({PARAM_RTOL:g}; 2^-6, two bf16 steps)")
     if max(c["loss"], c["gnorm"]) > 1e-5 or c["grads"][0] > GRAD_RTOL:
-        fail("train parity out of tolerance")
+        fail(f"{tag}: out of tolerance")
     if gaps["kernel gap: card kernels"]["grads"][0] > GRAD_RTOL:
-        fail("train parity: the kernels alone move the gradients past the "
-             "limit")
+        fail(f"{tag}: the kernels alone move the gradients past the limit")
     if gaps["TF32 control"]["grads"][0] <= GRAD_RTOL:
-        fail("the train parity check does not see TF32: limit too loose")
+        fail(f"{tag}: the check does not see TF32: limit too loose")
 
 
 def phase_train(dev, tag: str, cfg, kernels, seed: int,
@@ -1121,6 +1162,7 @@ def phase_nlq_kernels(dev):
     from vilco_tpu_torch.kernels.attention import (
         attention_bwd_cuda,
         attention_fwd_cuda,
+        dkv_splits,
         fused_attention_blc,
         fused_attention_blc_plain,
     )
@@ -1232,13 +1274,21 @@ def phase_nlq_kernels(dev):
                 am = m[:, None, None, :]
                 sdpa = lambda a, b, c: F.scaled_dot_product_attention(
                     bhq(a), bhq(b), bhq(c), attn_mask=am)
+                cross = dtype == bf16 and Tq == T0
                 report("attn", f"attention forward {label}", dtype,
                        output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
                        lambda: attention_fwd_cuda(q, k, v, m, H, False),
                        lambda: fused_attention_blc_plain(q, k, v, m, H),
                        attention_work(Tq, m, C, dtype, backward=False),
-                       lambda: sdpa(q, k, v))
+                       lambda: sdpa(q, k, v),
+                       is_top=cross and B == B_NLQ_SERVE)
                 o, lse = attention_fwd_cuda(q, k, v, m, H, with_lse=True)
+                if B == B_TR and Tq == T0:   # the sliced dk/dv pass
+                    check_repeatable(
+                        "nlq_kernels", f"attention backward {label} "
+                        f"{str(dtype)[6:]} ({dkv_splits(B, H, Tq, L)} query "
+                        "slices)",
+                        lambda: attention_bwd_cuda(q, k, v, m, o, lse, g, H))
                 report("attn_bwd", f"attention backward {label}", dtype,
                        output_errors(("dq", "dk", "dv"), got, want,
                                      TRAIN_TOL[dtype]),
@@ -1247,7 +1297,8 @@ def phase_nlq_kernels(dev):
                            lambda *a: fused_attention_blc_plain(*a, m, H),
                            (q, k, v), g),
                        attention_work(Tq, m, C, dtype, backward=True),
-                       backward_timer(sdpa, (q, k, v), bhq(g)))
+                       backward_timer(sdpa, (q, k, v), bhq(g)),
+                       is_top=cross and B == B_TR)
 
         # K3 at C=384: stride 1 in the text and video stems, stride 2 on
         # each branch block's input; forward at the serving batch, backward
@@ -1531,6 +1582,11 @@ def phase_vq_kernels(dev):
                 rows = output_errors(("dq", "dk", "dv"), got, want,
                                      TRAIN_TOL[dtype])
                 del got, want
+                check_repeatable(
+                    "vq_kernels", f"attention backward {label} "
+                    f"{str(dtype)[6:]}",
+                    lambda: attention_bwd_cuda(q, k, v, m, o, lse, g,
+                                               CQ_HEADS))
                 report("attn_bwd", f"attention backward {label}", dtype,
                        rows,
                        lambda: attention_bwd_cuda(q, k, v, m, o, lse, g,
@@ -1625,6 +1681,141 @@ def phase_vq_parity(dev):
         fail("vq_parity: the check does not see TF32: tolerance too loose")
     del gpu, model
     torch.cuda.empty_cache()
+
+
+VQ_PARITY_BATCH = 2    # 4 HNM pairs: every clip also against a foreign query
+VQ_PE_LEAF = "pe_3d"
+# Activation gradients, unlike a weight's gradient not a sum over every
+# position: the 3-D position table's (the sum over the pairs of the
+# gradient at its add; the pairs do not cancel at its largest element, the
+# cancellation ratio reads 1) and that per-pair gradient. Card vs CPU they
+# read 2.2e-3 to 5.6e-3 over seeds 0-2, the card through the plain
+# versions (cuBLAS/cuDNN, no kernel of the port) 2.4e-3 to 5.7e-3 as well,
+# TF32 5.3e-2 to 1.6e-1 (H100 80GB HBM3, 700 W).
+ACT_GRAD_RTOL = 1e-2
+
+
+def vq_grad_gaps(r, base):
+    """Gaps of one VQ step result to another: the worst relative gradient
+    gap of the leaves but the position table; the position table's,
+    relative to its largest |gradient|; the per-pair gradient's at the
+    table's add, relative to its largest."""
+    pick = lambda x, keep: {n: g for n, g in x["grads"].items()
+                            if (n == VQ_PE_LEAF) == keep}
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    return (rel_by_leaf(pick(r, False), pick(base, False), 1e-4)[0],
+            rel(r["grads"][VQ_PE_LEAF], base["grads"][VQ_PE_LEAF]),
+            rel(r["pe_pairs"], base["pe_pairs"]))
+
+
+def phase_vq_train_parity(dev, seed: int = SEED):
+    """One VQ HNM train step of vq_flagship_config() in f32 (head dropout
+    off) at batch VQ_PARITY_BATCH x 30 frames, full width: the card against
+    the CPU from the same weights and batch (drawn from `seed`; output
+    convs redrawn at a normal scale), on the loss, the grad norm and every
+    trainable leaf's gradient, with the TF32 control and the card through
+    the plain versions (the kernels' share of the gap). The limits are the
+    MQ step's (torch against torch in f32; the CPU tests hold the port to
+    JAX in f64 only because JAX's own f32 GroupNorm gradient is 6.6e-4
+    off). The position table's gradient and the per-pair gradient it sums
+    (caught by a hook on st_0's input) are activation gradients, held at
+    ACT_GRAD_RTOL; the cancellation ratio of that sum (largest |sum| over
+    largest sum of |terms|) is printed. Updated parameters and
+    moments are printed, not held: the first Adam step moves each weight
+    by about lr * sign(g), so a near-zero gradient whose sign differs
+    moves a zero-initialised bias by 2 lr against its max of lr."""
+    from vilco_tpu_torch.core.config import vq_flagship_config
+    from vilco_tpu_torch.data.synthetic import make_vq_batch
+    from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+    from vilco_tpu_torch.train.engine import batch_to
+    from vilco_tpu_torch.train.vq_engine import (
+        init_vq_train_state,
+        make_vq_train_step,
+    )
+
+    tag = "vq_train_parity"
+    cfg = dataclasses.replace(vq_flagship_config(), batch_size=VQ_PARITY_BATCH)
+    batch = make_vq_batch(np.random.default_rng(seed + 18), cfg.batch_size,
+                          cfg)
+
+    def run(device, tf32: bool, plain: bool = False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        model = ClipMatcher(cfg, generator=torch.Generator().manual_seed(
+            seed), device="cpu", compute_dtype=torch.float32)
+        redraw_heads(model, seed + 13)
+        st = init_vq_train_state(model, cfg, seed=seed, device=device)
+        if plain:
+            st.opt._table = None        # AdamW through its plain version
+        pairs = []                      # d loss / d (tokens + pe_3d)
+
+        def catch(mod, args):
+            args[0].register_hook(pairs.append)
+        model.st_0.register_forward_pre_hook(catch)
+        step = make_vq_train_step(cfg, deterministic=True)
+        t0 = time.perf_counter()
+        with plain_versions() if plain else contextlib.nullcontext():
+            met = step(st, batch_to(batch, device))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        o = st.opt
+        res = dict(
+            loss=met["final_loss"].item(), gnorm=met["grad_norm"].item(),
+            grads={n: p.grad.cpu() for n, p in zip(o.names, o.params)},
+            params={n: p.detach().cpu() for n, p in zip(o.names, o.params)},
+            mu={n: t.cpu() for n, t in zip(o.names, o.mu)},
+            nu={n: t.cpu() for n, t in zip(o.names, o.nu)}, secs=secs,
+            pe_pairs=pairs[0].cpu())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        del model, st
+        return res
+
+    ref = run("cpu", False)
+    card = run(dev, False)
+    plain = run(dev, False, plain=True)
+    ctrl = run(dev, True)
+    torch.cuda.empty_cache()
+    say(f"[{tag}] VQ, seed {seed}: one f32 HNM step at batch "
+        f"{cfg.batch_size} ({cfg.batch_size ** 2} pairs) x {cfg.num_frames} "
+        f"frames, {len(ref['grads'])} trainable leaves: CPU "
+        f"{ref['secs']:.1f} s, card {card['secs']:.3f} s (first call) "
+        f"[{CARD}]")
+    gaps = {}
+    for label, r, base, base_label in (
+            ("card", card, ref, "CPU"),
+            ("TF32 control", ctrl, ref, "CPU"),
+            ("kernel gap: card kernels", card, plain, "card plain"),
+            ("library gap: card plain", plain, ref, "CPU")):
+        g = gaps[label] = step_gaps(r, base)
+        say_gaps(tag, label, r, base, base_label, g)
+    c = gaps["card"]
+    pe_max = ref["grads"][VQ_PE_LEAF].abs().max().item()
+    pe_terms = ref["pe_pairs"].abs().sum(0).max().item()
+    say(f"[{tag}] {VQ_PE_LEAF}: the sum over {ref['pe_pairs'].shape[0]} "
+        f"pairs of the gradient at its add; on the CPU max |sum| "
+        f"{pe_max:.6e}, max sum |terms| {pe_terms:.6e}, cancellation ratio "
+        f"{pe_max / pe_terms:.4f}")
+    vg = {}
+    for label, r, base in (("card", card, ref), ("kernel gap", card, plain),
+                           ("library gap", plain, ref),
+                           ("TF32 control", ctrl, ref)):
+        g = vg[label] = vq_grad_gaps(r, base)
+        say(f"[{tag}] {label}: other leaves {g[0]:.3e}; {VQ_PE_LEAF} "
+            f"{g[1]:.3e}; the per-pair gradient at its add {g[2]:.3e}")
+    say(f"[{tag}] limits: loss and grad norm 1e-5 relative; gradients "
+        f"{GRAD_RTOL:g}, {VQ_PE_LEAF} and the per-pair gradient "
+        f"{ACT_GRAD_RTOL:g}; the card and the kernel gap alone; the TF32 "
+        f"control must read above each [{CARD}]")
+    lims = (GRAD_RTOL, ACT_GRAD_RTOL, ACT_GRAD_RTOL)
+    within = lambda g: all(x <= lim for x, lim in zip(g, lims))
+    if max(c["loss"], c["gnorm"]) > 1e-5 or not within(vg["card"]):
+        fail(f"{tag}: out of tolerance")
+    if not within(vg["kernel gap"]):
+        fail(f"{tag}: the kernels alone move the gradients past the limit")
+    if any(x <= lim for x, lim in zip(vg["TF32 control"], lims)):
+        fail(f"{tag}: the check does not see TF32: limit too loose")
 
 
 def vq_request_parts(marks):
@@ -2258,6 +2449,7 @@ def main():
     phase_parity(dev, "nlq_parity", nlq.model,
                  nlq_inputs(np.random.default_rng(SEED + 7), 1, nlq, "cpu",
                             torch.float32))
+    phase_train_parity(dev, "nlq_train_parity", nlq)
     rng = np.random.default_rng(SEED + 8)
     nlq_serve = phase_serve(
         dev, "nlq_serve", nlq,
@@ -2275,6 +2467,7 @@ def main():
     # serving (K7 on one extra request), the HNM train step
     verrs, vtop = phase_vq_kernels(dev)
     phase_vq_parity(dev)
+    phase_vq_train_parity(dev)
     vq_serve, vq_mlp = phase_vq_serve(
         dev, (fused_attention_blc, frame_band_attention), fused_mlp)
     vq_train = phase_vq_train(
@@ -2290,7 +2483,7 @@ def main():
          "vilco_tpu/kernels/attention.py:359", errs["attn"]
          + nerrs["attn"] + verrs["attn"] + verrs["attn_cq"], top["attn"],
          serve_launches["fused_attention_blc"]),
-        ("attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc.cu",
+        ("attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc_bwd.cu",
          "vilco_tpu/kernels/attention.py:383",
          terrs["attn_bwd"] + nerrs["attn_bwd"] + verrs["attn_bwd"],
          ttop["attn_bwd"],
@@ -2339,7 +2532,8 @@ def main():
          "vilco_tpu/kernels/attention.py:183", ab["errs"]["naive_fwd"],
          ab["top"]["naive_fwd"],
          ab["serve"]["pallas_naive"]["fused_attention"]),
-        ("fused_attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc.cu",
+        ("fused_attention_bwd_cuda",
+         "vilco_tpu_torch/csrc/attention_blc_bwd.cu",
          "vilco_tpu/kernels/attention.py:207", ab["errs"]["naive_bwd"],
          ab["top"]["naive_bwd"],
          ab["train"]["pallas_naive"]["fused_attention_bwd_cuda"]),
@@ -2384,8 +2578,10 @@ def main():
         if fn == "fused_attention_blc":    # at the ViT's and cq_corr's shapes
             entry["vq_vit"] = vtop["attn"]
             entry["vq_cq_corr"] = vtop["attn_cq"]
-        if fn == "attention_bwd_cuda":
-            entry["vq_cq_corr"] = vtop["attn_bwd"]
+            entry["nlq_cross"] = ntop["attn"]
+        if fn == "attention_bwd_cuda":     # the VQ decoder; NLQ's video-
+            entry["vq_cq_corr"] = vtop["attn_bwd"]   # to-text cross-attention
+            entry["nlq_cross"] = ntop["attn_bwd"]
         if fn == "fused_attention":
             entry["launches_train"] = ab["train"]["pallas_naive"][fn]
         if fn == "flash_attention":        # the MQ step; the flash ViT
@@ -2403,5 +2599,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--vq-train-parity"]:
+        phase_device()
+        phase_build()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for s in sys.argv[2:]:
+            phase_vq_train_parity(torch.device("cuda", 0), int(s))
+    else:
+        main()
     sys.exit(0)

@@ -116,8 +116,9 @@ def _close(got, want, tol, what):
                                  (70, 24)])
 def test_backward_kernels_match_plain_on_card(cuda, dtype, tol, T, D):
     """Tolerance relative to the largest reference gradient: f32 1e-4
-    (summation order, f32 atomics); bf16 2e-2 (inputs and outputs rounded
-    to bf16, the backward reads the bf16 forward output)."""
+    (summation order); bf16 2e-2 (inputs and outputs rounded to bf16, P and
+    dS rounded before their products, the backward reads the bf16 forward
+    output)."""
     rng = np.random.default_rng(100 + T)
     rn = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
@@ -150,6 +151,84 @@ def test_backward_kernels_match_plain_on_card(cuda, dtype, tol, T, D):
             want = _grads(lambda a, b: fused_dwconv_qkv_plain(a, b, s),
                           (q, w), gs)
             _close(got, want, tol, f"dwconv stride {s}")
+    torch.cuda.synchronize()
+
+
+# (B, Tq, Tk, H, D): the NLQ head width, its video-to-text cross-attention
+# (one key tile, a sliced dk/dv pass), the ViT's ragged 1025, Tq != Tk both
+# ways, head widths below 32 (20 is no multiple of 8: rows are staged
+# element by element, not by 16-byte copies)
+K1_SHAPES = [(2, 200, 200, 4, 96), (4, 2560, 32, 4, 96),
+             (2, 1025, 1025, 2, 64), (3, 300, 77, 2, 64),
+             (2, 70, 130, 4, 24), (2, 130, 70, 4, 20)]
+
+
+def _k1_inputs(rng, dev, dtype, B, Tq, Tk, H, D):
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+    C = H * D
+    return (rn(B, Tq, C), rn(B, Tk, C), rn(B, Tk, C), rn(B, Tq, C),
+            _mask(rng, B, Tk, dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ftol,btol", [(torch.float32, 1e-4, 1e-4),
+                                             (torch.bfloat16, 1e-2, 2e-2)])
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_k1_matches_plain_at_path_shapes_on_card(cuda, dtype, ftol, btol,
+                                                 shape):
+    """K1's forward and three-pass backward against the plain versions
+    (autograd through the plain forward, and the plain three passes on
+    the kernel's own out and lse); one wrapper call counts one launch.
+    Tolerances as in the tests above: f32 1e-4 (summation order); bf16
+    1e-2 forward (one rounding of the output and of P), 2e-2 backward (P
+    and dS rounded before their products)."""
+    B, Tq, Tk, H, D = shape
+    q, k, v, g, m = _k1_inputs(np.random.default_rng(Tq + D), cuda, dtype,
+                               *shape)
+    n_fwd, n_bwd = fused_attention_blc.launches, attn.attention_bwd_cuda.launches
+    with torch.no_grad():
+        out = fused_attention_blc(q, k, v, m, H)
+    _close([out], [fused_attention_blc_plain(q, k, v, m, H)], ftol,
+           "K1 forward")
+    got = _grads(lambda *a: fused_attention_blc(*a, m, H), (q, k, v), g)
+    assert fused_attention_blc.launches == n_fwd + 2
+    assert attn.attention_bwd_cuda.launches == n_bwd + 1
+    want = _grads(lambda *a: fused_attention_blc_plain(*a, m, H), (q, k, v),
+                  g)
+    _close(got, want, btol, "K1 backward")
+    o, lse = attn.attention_fwd_cuda(q, k, v, m, H, with_lse=True)
+    # the fully masked row's lse is -1e8 - 99.7: compared apart
+    _close([lse[:-1]], [attn.attention_lse_plain(q, k, m, H)[:-1]], 1e-4,
+           "K1 lse")
+    _close(attn.attention_bwd_cuda(q, k, v, m, o, lse, g, H),
+           attn.attention_bwd_plain(q, k, v, m, o, lse, g, H), btol,
+           "K1 backward against the plain three passes")
+    assert all(torch.all(x[-1] == 0) for x in [out] + got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_backward_is_bitwise_repeatable_on_card(cuda, dtype):
+    """No atomics: two calls of the K1 backward give equal dq, dk and dv,
+    with one query slice and with several (the NLQ cross-attention), on
+    both layouts (K1n's backward is the same kernels)."""
+    rng = np.random.default_rng(5)
+    for shape in ((4, 2560, 32, 4, 96), (2, 1025, 1025, 2, 64)):
+        B, Tq, Tk, H, D = shape
+        q, k, v, g, m = _k1_inputs(rng, cuda, dtype, *shape)
+        o, lse = attn.attention_fwd_cuda(q, k, v, m, H, with_lse=True)
+        first = attn.attention_bwd_cuda(q, k, v, m, o, lse, g, H)
+        second = attn.attention_bwd_cuda(q, k, v, m, o, lse, g, H)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        fold = lambda x: x.reshape(B, -1, H, D).permute(2, 0, 1, 3) \
+            .contiguous()
+        args = (fold(q), fold(k), fold(v), m)
+        o, lse = attn.fused_attention_fwd_cuda(*args, with_lse=True)
+        first = attn.fused_attention_bwd_cuda(*args, o, lse, fold(g))
+        second = attn.fused_attention_bwd_cuda(*args, o, lse, fold(g))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
     torch.cuda.synchronize()
 
 

@@ -119,9 +119,13 @@ class Config:
 
 
 def flagship_config(tiny: bool = False) -> Config:
-    """The MQ ViLCo flagship (configs/mq_vilco.yaml), equal field by field
-    to `__graft_entry__._flagship_cfg(tiny)`; the tiny twin with its XL
-    stage on, as the port always runs it."""
+    """The MQ ViLCo flagship as `__graft_entry__._flagship_cfg(tiny)`
+    builds it, equal to it field by field; the tiny twin with its XL stage
+    on, as the port always runs it. configs/mq_vilco.yaml differs from it:
+    `model.use_cross_modal` True, `model.dropout` and `train_cfg.dropout`
+    0.1, `train_cfg.al_loss_weight` 0.2, and in `test_cfg`
+    `pre_nms_topk` 5000, `min_score` 1e-4, `nms_sigma` 0.99,
+    `duration_thresh` 0.01 and `voting_thresh` 0.9."""
     if tiny:
         model = ModelConfig(
             backbone_arch=(2, 1, 3), embd_dim=64, fpn_dim=64, head_dim=64,

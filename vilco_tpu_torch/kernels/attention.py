@@ -3,22 +3,27 @@
 probe's variants (P2).
 
 K1 replaces vilco_tpu/kernels/attention.py::fused_attention_blc (the Pallas
-`_run_fwd_blc` and `_run_bwd_blc` kernels) with csrc/attention_blc.cu.
+`_run_fwd_blc` and `_run_bwd_blc` kernels) with csrc/attention_blc.cu and
+csrc/attention_blc_bwd.cu.
 Forward: one block per (query tile, head, batch) reads its head's D columns
 straight out of the (B, T, C) tensors and walks the keys with an online
 softmax in f32, keeping the TPU kernel's -1e9 key bias and -1e8 row-max
 floor, so a fully masked row gives 0. Every pyramid length is taken (the
-JAX version gave T < 128 to XLA). bfloat16 runs its two products on the
-tensor cores (WMMA) through shared memory, which bounds it; float32, the
+JAX version gave T < 128 to XLA). bfloat16 runs FlashAttention-2's design
+on mma.sync: Q as register fragments, K/V through a cp.async ring, S, P
+and O in registers, the tensor cores' issue rate its bound; float32, the
 parity path, runs SIMT and is bound by FMA issue. When a gradient is
 needed the forward also stores each row's log-sum-exp (log2 domain, one f32
 per row and head), so the backward does not recompute row max and sum.
-Backward: one block per (key tile, head, batch) holds its dk and dv in f32
-registers and walks the query tiles: P = exp2(s - lse), dP = dO V^T,
-dS = P (dP - rowsum(dO O)), dv += P^T dO, dk += dS^T Q, and dq += dS K by
-f32 atomics into an f32 buffer (no second pass over the scores). SIMT in
-f32 for both dtypes, bound by shared-memory operand traffic. A fully
-masked row has P = 0 everywhere, so its gradients are exactly 0.
+Backward, three passes with no atomics (bitwise repeatable): delta =
+rowsum(dO O); dk/dv by key tile, walking the query tiles (P = exp2(s -
+lse), dP = dO V^T, dS = P (dP - delta), dv += P^T dO, dk += dS^T Q), the
+query range cut into `dkv_splits` slices whose f32 partials are summed in
+slice order where the grid is small; dq by query tile, walking the key
+tiles (dq += dS K), written once in q's dtype. bfloat16 on mma.sync,
+float32 SIMT. A fully masked row has P = 0 everywhere, so its gradients
+are exactly 0. `attention_bwd_plain` is the same three passes in plain
+PyTorch.
 
 K1n replaces `fused_attention` (the Pallas `_run_fwd` and `_run_bwd`, the
 `attention_impl="pallas_naive"` ablation): the same function on (B, T, H, D)
@@ -60,6 +65,10 @@ ROWMAX_FLOOR = -1e8
 KERNEL_MIN_T = 128
 # the library's DEFAULT_MASK_VALUE, added to a masked key's score
 FLASH_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# K1's backward: keys of a dk/dv block, queries of a dq block and the unit
+# of a dk/dv query slice
+BWD_TILE = 64
+SMS = 132            # streaming multiprocessors of one H100 SXM
 
 
 def fused_attention_blc_plain(q, k, v, kv_mask, num_heads: int):
@@ -77,6 +86,83 @@ def fused_attention_plain(q, k, v, kv_mask):
     `masked_attention` in f32, returned in q.dtype."""
     return masked_attention(q.float(), k.float(), v.float(),
                             kv_mask).to(q.dtype)
+
+
+def dkv_splits(B: int, H: int, Tq: int, Tk: int) -> int:
+    """Query slices of K1's dk/dv pass: 1 where its grid of (key tile,
+    head, batch) blocks has two blocks per SM; else enough slices of whole
+    BWD_TILE-row query tiles to reach two blocks per SM, at most one slice
+    per tile. A function of the shape alone, so the partials' order, and
+    the result's bits, are fixed."""
+    cdiv = lambda a, b: -(-a // b)
+    blocks = cdiv(Tk, BWD_TILE) * H * B
+    if blocks >= 2 * SMS:
+        return 1
+    tiles = cdiv(Tq, BWD_TILE)
+    per = cdiv(tiles, min(cdiv(2 * SMS, blocks), tiles))
+    return cdiv(tiles, per)
+
+
+def _heads_f32(x, H):
+    """(B, T, H * D) -> (B, H, T, D) in f32."""
+    B, T, C = x.shape
+    return x.float().reshape(B, T, H, C // H).transpose(1, 2)
+
+
+def attention_lse_plain(q, k, kv_mask, num_heads: int):
+    """The K1 forward's lse (B, H, Tq) in f32: m + log2(l + 1e-30), m the
+    row max of s = (q * scale * log2 e) . k + bias floored at -1e8."""
+    qh, kh = _heads_f32(q, num_heads), _heads_f32(k, num_heads)
+    sl2 = LOG2E / qh.shape[-1] ** 0.5
+    s = (qh * sl2) @ kh.transpose(-1, -2) \
+        + torch.where(kv_mask, 0.0, NEG_INF)[:, None, None, :]
+    m = s.amax(-1).clamp(min=ROWMAX_FLOOR)
+    return m + torch.log2(torch.exp2(s - m[..., None]).sum(-1) + 1e-30)
+
+
+def attention_bwd_plain(q, k, v, kv_mask, out, lse, dout, num_heads: int,
+                        splits: int | None = None):
+    """Plain version of K1's backward, the kernels' three passes in f32 on
+    channels-last tensors: (a) delta = rowsum(dO * O); (b) dk, dv over the
+    query range cut into `splits` slices (default `dkv_splits`) of whole
+    BWD_TILE-row tiles, the tiles of a slice in order, each slice's
+    partial (dk scaled) summed in slice order; (c) dq over the key tiles
+    of BWD_TILE in order, scaled at the end. lse (B, H, Tq) as the forward
+    stores it. Returns (dq, dk, dv) in q.dtype."""
+    B, Tq, C = q.shape
+    Tk, H, T = k.shape[1], num_heads, BWD_TILE
+    D = C // H
+    qh, kh, vh, oh, gh = (_heads_f32(x, H) for x in (q, k, v, out, dout))
+    scale = 1.0 / D ** 0.5
+    bias = torch.where(kv_mask, 0.0, NEG_INF)[:, None, None, :]
+    delta = (gh * oh).sum(-1)                                  # (B, H, Tq)
+
+    def p_ds(i0, i1, j0, j1):
+        s = qh[:, :, i0:i1] @ kh[:, :, j0:j1].transpose(-1, -2)
+        p = torch.exp2(s * (scale * LOG2E) + bias[..., j0:j1]
+                       - lse[:, :, i0:i1, None])
+        dp = gh[:, :, i0:i1] @ vh[:, :, j0:j1].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, i0:i1, None])
+
+    splits = dkv_splits(B, H, Tq, Tk) if splits is None else splits
+    tiles = -(-Tq // T)
+    rows = -(-tiles // splits) * T                    # rows of a slice
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for sl in range(splits):
+        pk, pv = torch.zeros_like(kh), torch.zeros_like(vh)
+        end = min(Tq, (sl + 1) * rows)
+        for i0 in range(sl * rows, end, T):
+            i1 = min(i0 + T, end)
+            p, ds = p_ds(i0, i1, 0, Tk)
+            pv = pv + p.transpose(-1, -2) @ gh[:, :, i0:i1]
+            pk = pk + ds.transpose(-1, -2) @ qh[:, :, i0:i1]
+        dk, dv = dk + pk * scale, dv + pv
+    dq = torch.zeros_like(qh)
+    for j0 in range(0, Tk, T):
+        j1 = min(j0 + T, Tk)
+        dq = dq + p_ds(0, Tq, j0, j1)[1] @ kh[:, :, j0:j1]
+    back = lambda x: x.transpose(1, 2).reshape(B, x.shape[2], C).to(q.dtype)
+    return back(dq * scale), back(dk), back(dv)
 
 
 def flash_attention_plain(q, k, v, kv_mask):
@@ -172,17 +258,23 @@ def _fwd(q, k, v, kv_mask, B, Tq, Tk, H, D, with_lse, head_major=False,
 
 def _bwd(q, k, v, kv_mask, out, lse, dout, B, Tq, Tk, H, D,
          head_major=False):
-    """One launch of the K1 backward: (dq, dk, dv) in q.dtype."""
+    """One call of the K1 backward (delta, dk/dv, the partials' sum where
+    the query range is sliced, dq): (dq, dk, dv) in q.dtype."""
     dout = dout.contiguous()
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.bind("attention_blc", "attention_blc_bwd", 10, 7)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    splits = dkv_splits(B, H, Tq, Tk)
+    partial = (torch.empty((2, splits, *k.shape), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
+    fn = _build.bind("attention_blc_bwd", "attention_blc_bwd", 12, 8)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
              out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, D,
-             _build.dtype_code(q), int(head_major), _build.stream_of(q))
+             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+             0 if partial is None else partial.data_ptr(), B, Tq, Tk, H, D,
+             _build.dtype_code(q), int(head_major), splits,
+             _build.stream_of(q))
     _build.check(err, "attention_blc_bwd")
-    return dq.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 def attention_fwd_cuda(q, k, v, kv_mask, num_heads: int, with_lse: bool):
