@@ -80,11 +80,13 @@ fallback):
                    request's two ViT calls (240 clip frames and 8 query
                    copies of 1025 tokens, C 768, hidden 3072) in bf16 and
                    the query call in f32 (library: two F.linear and the
-                   tanh GELU); the dense attention at the ViT shape (1025
-                   tokens, 12 heads of 64: both request calls in bf16, the
-                   parity's 30 frames in f32) and in the query/frame
-                   decoder (1024 tokens, 4 heads of 64: forward at 240 and
-                   480 frames, backward at 480, bf16 and f32) beside SDPA;
+                   tanh GELU; in bf16 both also split by kernel, K7's two
+                   GEMMs, by the profiler); the dense attention at the ViT
+                   shape (1025 tokens, 12 heads of 64: both request calls
+                   in bf16, the parity's 30 frames in f32) and in the
+                   query/frame decoder (1024 tokens, 4 heads of 64:
+                   forward at 240 and 480 frames, backward at 480, bf16
+                   and f32) beside SDPA;
                    AdamW with f32 moments over the VQ optimizer's 113
                    trainable leaves (bit-exact)
  17. vq_parity     vq_flagship_config() at batch 1, 30 frames, f32, the
@@ -102,22 +104,26 @@ fallback):
                    frames/s, ms split into ViT / matcher / top anchor /
                    peak finding, peak memory, launches against the model's
                    structure, one profiled request, then one request with
-                   the ViT MLP on the fused kernel
+                   the ViT MLP on the fused kernel (K7's two GEMMs) after a
+                   warm-up, and one more profiled
  20. vq_train      12 bf16 HNM steps at batch 4 (16 pairs, f32 masters,
                    head dropout 0.2, AdamW over the trainable leaves with
                    the frozen ViT outside it): ms split, every loss (finite
                    and falling), peak memory, launches, the backbone
                    bit-identical, one profiled step
  21. attn_impl_kernels  the head-major attention (K1n, forward and backward)
-                   and the flash attention (K1f: forward, dq, dk/dv)
-                   against their plain versions at the MQ levels that reach
-                   them (T 1024, 512, 256, 128; 16 heads of 64), forward at
-                   batch 16, backward at batch 2, bf16 and f32, ragged
-                   masks and one fully masked row (K1n: 0, K1f: the mean of
-                   v); K1f also at the ViT's two request calls (240 and 8
-                   frames of 1025 tokens, 12 x 64, bf16) and 30 frames in
-                   f32. Library: SDPA with the boolean mask on the rows
-                   that have a valid key
+                   and the flash attention (K1f: K1's forward and three-pass
+                   backward in flash mode) against their plain versions at
+                   the MQ levels that reach them (T 1024, 512, 256, 128; 16
+                   heads of 64), forward at batch 16, backward at batch 2,
+                   bf16 and f32, ragged masks and one fully masked row (K1n:
+                   0, K1f: the mean of v), each backward called twice for
+                   equal bits; K1f also at the ViT's two request calls (240
+                   and 8 frames of 1025 tokens, 12 x 64, bf16), 30 frames in
+                   f32, and its backward at 8 frames. Library: SDPA with
+                   the boolean mask on the rows that have a valid key; each
+                   backward call queued behind a device sleep (`queued_ms`:
+                   through autograd, host-timed, it is the host's)
  22. vq_attn_probe the VQ attention probe's four variants (P2: K1's forward
                    with bound_shift and mxu_sum) at the probe's shape (120 x
                    1152 tokens, 1025 valid, 12 x 64, N(0, 2^2) bf16), each
@@ -127,8 +133,7 @@ fallback):
  24. mq_flash_serve, mq_naive_serve     phase 5 under each impl, the launches
                    per request checked (K1f or K1n 5, K1 6)
  25. mq_flash_train, mq_naive_train     phase 9 under each impl, the launches
-                   per step checked (K1f dq and dk/dv 5 each or K1n-bwd 5,
-                   K1-bwd 6)
+                   per step checked (K1f-bwd or K1n-bwd 5, K1-bwd 6)
  26. vq_flash_serve phase 19 with vit_attn_impl "flash" (K1f 24, K1 2, K6 3
                    a request), without the fused-MLP request
 Every timing line carries the card's name and power limit. Then one JSON
@@ -201,6 +206,58 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, reps: int = 20, warmup: int = 3) -> dict:
+    """The device ms of one call of `fn` by kernel name: each kernel's own
+    time in a torch.profiler trace of `reps` calls, over `reps`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            t = getattr(e, "self_device_time_total", None)
+            ms[e.key] = (e.self_cuda_time_total if t is None else t) / 1e3 \
+                / reps
+    if sum(ms.values()) <= 0:
+        fail("device_ms_by_kernel: the profiler saw no device time")
+    return ms
+
+
+def short_name(kernel: str) -> str:
+    """A profiler kernel name without its return type, anonymous namespace
+    and arguments."""
+    k = kernel.replace("(anonymous namespace)::", "")
+    return k.removeprefix("void ").split("(")[0]
+
+
+def queued_ms(fn, reps: int = 10, warmup: int = 3) -> float:
+    """The device ms of one call of `fn` with its host overhead hidden:
+    the reps are queued behind a ~0.1 s device-side sleep
+    (torch.cuda._sleep), so the card runs them back to back and the events
+    around them time the device alone. For calls whose host time exceeds
+    their device time, as autograd's backward at small shapes."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)       # cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def ragged_mask(rng, B: int, T: int, dev) -> torch.Tensor:
@@ -577,18 +634,23 @@ class KernelChecks:
             {}, True
 
     def report(self, key, label, dtype, rows, kern, plain, work,
-               library=None, is_top=False, reps=10):
+               library=None, is_top=False, reps=10, queued=False):
+        """`queued`: time the kernel, the plain version and the library
+        call by `queued_ms`, where a host-timed figure would be the host's
+        (autograd's backward at small shapes)."""
         ok = all(err <= lim for _, err, lim in rows)
         self.ok &= ok
         self.errs[key].append(max(err for _, err, _ in rows))
-        ms, pms = median_ms(kern, reps=reps), median_ms(plain, reps=reps)
-        lms = median_ms(library, reps=reps) if library is not None else None
+        timer = queued_ms if queued else median_ms
+        ms, pms = timer(kern, reps=reps), timer(plain, reps=reps)
+        lms = timer(library, reps=reps) if library is not None else None
         bms, by = bound(*work, dtype)
         say(f"[{self.tag}] {label} {str(dtype)[6:]}: max_abs_err (limit) "
             + ", ".join(f"{n} {e:.3e} ({lim:.3e})" for n, e, lim in rows)
             + f" {'ok' if ok else 'OUT OF TOLERANCE'}; kernel {ms:.4f} ms, "
             f"plain {pms:.4f} ms, library "
-            f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
+            f"{'none' if lms is None else f'{lms:.4f} ms'}"
+            f"{' (each queued behind a sleep)' if queued else ''}, bound "
             f"{bms:.4f} ms ({by}) [{CARD}]")
         if is_top:
             self.top[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
@@ -1509,14 +1571,21 @@ def phase_vq_kernels(dev):
             out = fused_mlp(x, w1, b1, w2, b2)
             ref = fused_mlp_plain(x, w1, b1, w2, b2)
         wl = [t.to(dtype) for t in (w1, b1, w2, b2)]
+        kern = lambda: fused_mlp_cuda(x, w1, b1, w2, b2)
+        lib = lambda: F.linear(F.gelu(F.linear(x, wl[0].t(), wl[1]),
+                                      approximate="tanh"), wl[2].t(), wl[3])
         report("mlp", f"fused_mlp N={N} C={Cv} hidden={Hd}", dtype,
-               output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
-               lambda: fused_mlp_cuda(x, w1, b1, w2, b2),
+               output_errors(("out",), [out], [ref], FWD_TOL[dtype]), kern,
                lambda: fused_mlp_plain(x, w1, b1, w2, b2),
-               mlp_work(N, Cv, Hd, dtype),
-               lambda: F.linear(F.gelu(F.linear(x, wl[0].t(), wl[1]),
-                                       approximate="tanh"), wl[2].t(), wl[3]),
+               mlp_work(N, Cv, Hd, dtype), lib,
                is_top=(dtype, N) == (bf16, n_clip), reps=5)
+        if dtype == bf16:          # K7's two GEMMs and the library's line
+            for what, fn in (("kernel", kern), ("library", lib)):
+                split = device_ms_by_kernel(fn, reps=5)
+                say(f"[vq_kernels] fused_mlp N={N} {what}, device ms by "
+                    "kernel (profiler): " + ", ".join(
+                        f"{short_name(k)} {v:.4f}" for k, v in split.items())
+                    + f" [{CARD}]")
         del x, out, ref, wl
         torch.cuda.empty_cache()
 
@@ -1912,17 +1981,20 @@ def phase_vq_serve(dev, kernels, mlp_kernel, cfg=None, tag="vq_serve",
         torch.cuda.empty_cache()
         return launches, None
     model = build(True)            # the same weights, the MLP on K7
+    serve(requests[0])             # warm-up
     for k in kernels + (mlp_kernel,):
         k.launches = 0
     track, ms = serve(requests[-1])
     mlp_launches = {k.__name__: k.launches for k in kernels + (mlp_kernel,)}
-    say(f"[vq_serve] one request with the ViT MLP on fused_mlp: "
-        f"{ms:.3f} ms (the default path's median {statistics.median(walls):.3f}"
-        f" ms; this one includes no warm-up); launches {mlp_launches}; track "
+    say(f"[vq_serve] one request with the ViT MLP on fused_mlp, after one "
+        f"warm-up: {ms:.3f} ms (the default path's median "
+        f"{statistics.median(walls):.3f} ms); launches {mlp_launches}; track "
         f"frames {track.temporal_extent} vs {tracks[-1].temporal_extent} "
         f"[{CARD}]")
     if mlp_launches[mlp_kernel.__name__] != 2 * cfg.vit_depth:
         fail("vq_serve: fused_mlp was not launched once per ViT block")
+    phase_trace("vq_serve fused-MLP request", lambda: serve(requests[-1]),
+                ms)
     del model, requests
     torch.cuda.empty_cache()
     return launches, mlp_launches
@@ -2021,19 +2093,17 @@ def flash_pairs(T: int, m) -> int:
 
 def flash_work(T, m, C, H, dtype, which):
     """(flops, bytes) of K1f: 2 C operations per weighed pair for each
-    product (forward q.k, p.v; dq q.k, dO.v, dS.k; dk/dv q.k, dO.v, p.dO,
-    dS.q) and 2 C per row for delta. Bytes: the mask, q, k, v (and out,
-    dout) read once, each output written once, m and l (f32 per row and
-    head) read by the backward."""
+    product the function needs (forward q.k, p.v; backward q.k, dO.v,
+    p^T dO, dS^T q, dS k) and 2 C per row for delta. Bytes: the mask, q,
+    k, v (and out, dout) read once, each output written once, m and l (f32
+    per row and head) read by the backward."""
     pairs = flash_pairs(T, m)
     el = torch.empty((), dtype=dtype).element_size()
     B = m.shape[0]
     rows, stats = B * T * C * el, 8 * B * H * T
     if which == "fwd":
         return 4 * C * pairs, 4 * rows + m.numel()
-    if which == "dq":
-        return 6 * C * pairs + 2 * B * T * C, 6 * rows + stats + m.numel()
-    return 8 * C * pairs + 2 * B * T * C, 7 * rows + stats + m.numel()
+    return 10 * C * pairs + 2 * B * T * C, 8 * rows + stats + m.numel()
 
 
 def sdpa_on_valid_rows(m):
@@ -2068,8 +2138,7 @@ def phase_attn_impl_kernels(dev):
         KERNEL_MIN_T,
         flash_attention,
         flash_attention_plain,
-        flash_dkv_cuda,
-        flash_dq_cuda,
+        flash_bwd_cuda,
         flash_fwd_cuda,
         fused_attention,
         fused_attention_bwd_cuda,
@@ -2084,8 +2153,8 @@ def phase_attn_impl_kernels(dev):
               if T >= KERNEL_MIN_T]
     rng = np.random.default_rng(SEED + 18)
     chk = KernelChecks("attn_impl_kernels", ("naive_fwd", "naive_bwd",
-                                             "flash_fwd", "flash_dq",
-                                             "flash_dkv", "flash_vit"))
+                                             "flash_fwd", "flash_bwd",
+                                             "flash_vit", "flash_vit_bwd"))
     report = chk.report
     fold = lambda x: x.permute(2, 0, 1, 3).contiguous()
     impls = {"pallas_naive": (fused_attention, fused_attention_plain),
@@ -2158,20 +2227,18 @@ def phase_attn_impl_kernels(dev):
                 else:
                     o, mx, l = flash_fwd_cuda(q, k, v, m, True)
                     args = (q, k, v, m, o, mx, l, g)
-                    report("flash_dq", f"K1f dq {label} (plain/library: "
-                           "whole backward)", dtype,
-                           output_errors(("dq",), got[:1], want[:1],
+                    check_repeatable(
+                        "attn_impl_kernels", f"K1f backward {label} "
+                        f"{str(dtype)[6:]}", lambda: flash_bwd_cuda(*args))
+                    # SDPA's backward through autograd is the host's at
+                    # these shapes: each call queued behind a sleep
+                    report("flash_bwd", f"K1f backward (delta, dk/dv, dq) "
+                           f"{label}", dtype,
+                           output_errors(("dq", "dk", "dv"), got, want,
                                          TRAIN_TOL[dtype]),
-                           lambda: flash_dq_cuda(*args), plain_bwd,
-                           flash_work(T, m, C, H, dtype, "dq"), lib_bwd,
-                           is_top=top)
-                    report("flash_dkv", f"K1f dk/dv {label} (plain/library: "
-                           "whole backward)", dtype,
-                           output_errors(("dk", "dv"), got[1:], want[1:],
-                                         TRAIN_TOL[dtype]),
-                           lambda: flash_dkv_cuda(*args), plain_bwd,
-                           flash_work(T, m, C, H, dtype, "dkv"), lib_bwd,
-                           is_top=top)
+                           lambda: flash_bwd_cuda(*args), plain_bwd,
+                           flash_work(T, m, C, H, dtype, "bwd"), lib_bwd,
+                           is_top=top, queued=True)
                     del o, mx, l, args
                 del got, want, plain_bwd
             del q, k, v, g, lib_bwd
@@ -2179,7 +2246,8 @@ def phase_attn_impl_kernels(dev):
 
     # K1f in the ViT (1025 tokens, 12 heads of 64, every key valid): the
     # serving request's clip and query calls in bf16, the f32 parity
-    # forward's 30 frames
+    # forward's 30 frames; the backward at the query call's 8 frames (the
+    # ViT is frozen on the VQ path: no step runs it)
     vq = vq_flagship_config()
     Lv, Cv, Hv = (vq.clip_size // vq.patch_size) ** 2 + 1, vq.vit_dim, \
         vq.vit_heads
@@ -2200,6 +2268,29 @@ def phase_attn_impl_kernels(dev):
                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
                is_top=(dtype, B) == (bf16, vq.eval_windows * vq.num_frames),
                reps=5)
+        if (dtype, B) == (bf16, vq.eval_windows):
+            g = randn(B, Lv, Hv, Cv // Hv, dtype=dtype)
+            got = grads_of(lambda *a: flash_attention(*a, m), (q, k, v), g)
+            want = grads_of(lambda *a: flash_attention_plain(*a, m),
+                            (q, k, v), g)
+            o, mx, l = flash_fwd_cuda(q, k, v, m, True)
+            args = (q, k, v, m, o, mx, l, g)
+            label = f"(ViT) B={B} T={Lv} H={Hv} D={Cv // Hv}"
+            check_repeatable("attn_impl_kernels", f"K1f backward {label} "
+                             "bfloat16", lambda: flash_bwd_cuda(*args))
+            th = lambda x: x.transpose(1, 2)
+            report("flash_vit_bwd", f"K1f backward {label}", dtype,
+                   output_errors(("dq", "dk", "dv"), got, want,
+                                 TRAIN_TOL[dtype]),
+                   lambda: flash_bwd_cuda(*args),
+                   backward_timer(lambda *a: flash_attention_plain(*a, m),
+                                  (q, k, v), g),
+                   flash_work(Lv, m, Cv, Hv, dtype, "bwd"),
+                   backward_timer(
+                       lambda a, b, c: F.scaled_dot_product_attention(
+                           th(a), th(b), th(c)), (q, k, v), th(g)),
+                   is_top=True, reps=5, queued=True)
+            del g, got, want, o, mx, l, args
         del q, k, v, m, out, ref
         torch.cuda.empty_cache()
     if not chk.ok:
@@ -2265,8 +2356,7 @@ def attention_ablations(dev, mq):
         KERNEL_MIN_T,
         attention_bwd_cuda,
         flash_attention,
-        flash_dkv_cuda,
-        flash_dq_cuda,
+        flash_bwd_cuda,
         fused_attention,
         fused_attention_blc,
         fused_attention_bwd_cuda,
@@ -2291,7 +2381,7 @@ def attention_ablations(dev, mq):
     n_kernel = sum(T >= KERNEL_MIN_T for T in lengths)
     n_k1 = len(lengths) - n_kernel
     per_impl = {
-        "flash": (flash_attention, (flash_dq_cuda, flash_dkv_cuda)),
+        "flash": (flash_attention, (flash_bwd_cuda,)),
         "pallas_naive": (fused_attention, (fused_attention_bwd_cuda,))}
     impl_serve, impl_train = {}, {}
     for impl, (fwd, bwds) in per_impl.items():
@@ -2335,9 +2425,7 @@ def attention_ablations(dev, mq):
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
                                "dwconv_qkv", "adamw_kernel", "banded_", "fb_",
-                               "mlp_tc", "mlp_simt", "flash_fwd_simt",
-                               "flash_fwd_tc", "flash_dq_kernel",
-                               "flash_dkv_kernel")):
+                               "mlp_wgmma", "mlp_simt")):
         return "port kernels"
     if "conv" in name or "cudnn" in name:
         return "cuDNN conv"
@@ -2537,17 +2625,15 @@ def main():
          "vilco_tpu/kernels/attention.py:207", ab["errs"]["naive_bwd"],
          ab["top"]["naive_bwd"],
          ab["train"]["pallas_naive"]["fused_attention_bwd_cuda"]),
-        ("flash_attention", "vilco_tpu_torch/csrc/flash_attention.cu",
+        ("flash_attention", "vilco_tpu_torch/csrc/attention_blc.cu",
          "vilco_tpu/kernels/attention.py:478",
          ab["errs"]["flash_fwd"] + ab["errs"]["flash_vit"],
          ab["top"]["flash_fwd"],
          ab["serve"]["flash"]["flash_attention"]),
-        ("flash_dq_cuda", "vilco_tpu_torch/csrc/flash_attention.cu",
-         "vilco_tpu/kernels/attention.py:478", ab["errs"]["flash_dq"],
-         ab["top"]["flash_dq"], ab["train"]["flash"]["flash_dq_cuda"]),
-        ("flash_dkv_cuda", "vilco_tpu_torch/csrc/flash_attention.cu",
-         "vilco_tpu/kernels/attention.py:478", ab["errs"]["flash_dkv"],
-         ab["top"]["flash_dkv"], ab["train"]["flash"]["flash_dkv_cuda"]),
+        ("flash_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc_bwd.cu",
+         "vilco_tpu/kernels/attention.py:478",
+         ab["errs"]["flash_bwd"] + ab["errs"]["flash_vit_bwd"],
+         ab["top"]["flash_bwd"], ab["train"]["flash"]["flash_bwd_cuda"]),
         ("probe_variant", "vilco_tpu_torch/csrc/attention_blc.cu",
          "tools/probe_vq_attn.py:106", sum(ab["probe_errs"].values(), []),
          ab["probe_top"]["D_both"], ab["probe_launches"]),
@@ -2588,6 +2674,8 @@ def main():
             entry["launches_train"] = ab["train"]["flash"][fn]
             entry["launches_vq_serve"] = ab["vq_flash"][fn]
             entry["vq_vit"] = ab["top"]["flash_vit"]
+        if fn == "flash_bwd_cuda":         # at the ViT's query call
+            entry["vq_vit"] = ab["top"]["flash_vit_bwd"]
         if fn == "probe_variant":          # variant D; A to C beside it
             entry["variants"] = ab["probe_top"]
         kernels.append(entry)

@@ -6,7 +6,8 @@ with a fully masked row; the banded kernels also at the NLQ head dim 96,
 the band wider than T and windows wider than one staged chunk; the
 frame-banded kernels at the VQ shape (fr 64, w 2, 8 heads of 32), odd fr,
 frames longer than a tile and bands wider than the clip; the fused MLP at
-the tiny twin's, a middle and the ViT-B width. Marked
+the tiny twin's, a middle and the ViT-B width, up to the ViT's query call;
+two K1f backward calls bitwise equal. Marked
 `gpu`: skips where there is no card. Imports no JAX, so that it runs on a
 machine with only PyTorch:
 
@@ -367,12 +368,15 @@ def test_frame_band_cuda_tensor_never_takes_the_plain_path(cuda,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("N,C,Hd", [(1, 48, 192), (37, 48, 192),
-                                    (600, 128, 512), (100, 768, 3072)])
+                                    (600, 128, 512), (100, 768, 3072),
+                                    (1000, 768, 3072), (8200, 768, 3072)])
 def test_fused_mlp_matches_plain_on_card(cuda, dtype, tol, N, C, Hd):
-    """K7 against the plain version, and its recomputed input gradient.
-    Tolerance relative to the output's largest value: f32 1e-4 (summation
-    order); bf16 2e-2 (the GELU output rounded to bf16, and the biases
-    rounded to bf16 in the kernel only)."""
+    """K7 against the plain version, and its recomputed input gradient, at
+    widths below one GEMM tile, a ragged N of a few 128-row tiles (1000)
+    and the ViT's query call (8200 tokens). Tolerance relative to the
+    output's largest value: f32 1e-4 (summation order); bf16 2e-2 (the
+    GELU output rounded to bf16, and the biases rounded to bf16 in the
+    kernel only)."""
     rng = np.random.default_rng(N + C)
     f = lambda *s, sc=1.0: torch.from_numpy(
         (rng.standard_normal(s) * sc).astype(np.float32)).to(cuda)
@@ -413,7 +417,7 @@ def test_flash_and_head_major_kernels_match_plain_on_card(cuda, dtype, tol,
     m = _mask(rng, B, T, cuda)
     for fn, plain, counters in (
             (attn.flash_attention, attn.flash_attention_plain,
-             (attn.flash_attention, attn.flash_dq_cuda, attn.flash_dkv_cuda)),
+             (attn.flash_attention, attn.flash_bwd_cuda)),
             (attn.fused_attention, attn.fused_attention_plain,
              (attn.fused_attention, attn.fused_attention_bwd_cuda))):
         before = [c.launches for c in counters]
@@ -430,8 +434,38 @@ def test_flash_and_head_major_kernels_match_plain_on_card(cuda, dtype, tol,
         if fn is attn.flash_attention:
             mean_v = v[-1].float().mean(0, keepdim=True).expand(T, H, D)
             _close([out[-1]], [mean_v], tol, "flash fully masked row")
+            # the kernels' m and l, and their three passes against the
+            # plain three passes from those m and l
+            o, m_, l_ = attn.flash_fwd_cuda(q, k, v, m, with_stats=True)
+            pm, pl = attn.flash_stats_plain(q, k, m)
+            _close([m_[:-1], l_], [pm[:-1], pl], 1e-4, "flash m and l")
+            assert torch.all(m_[-1] == pm[-1]) and torch.all(l_[-1] == T)
+            _close(attn.flash_bwd_cuda(q, k, v, m, o, m_, l_, g),
+                   attn.flash_attention_bwd_plain(q, k, v, m, o, m_, l_, g),
+                   tol, "K1f backward against the plain three passes")
         else:
             assert torch.all(out[-1] == 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1f_backward_is_bitwise_repeatable_on_card(cuda, dtype):
+    """No atomics in flash mode either: two calls of the K1f backward give
+    equal dq, dk and dv, with several query slices (the MQ stem at batch
+    2) and with one (the ViT's 1025 tokens at batch 30), a fully masked
+    row in each."""
+    rng = np.random.default_rng(9)
+    for B, T, H, D in ((2, 1024, 16, 64), (30, 1025, 12, 64)):
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(
+            (B, T, H, D)).astype(np.float32)).to(cuda, dtype)
+            for _ in range(4))
+        m = _mask(rng, B, T, cuda)
+        o, mx, l = attn.flash_fwd_cuda(q, k, v, m, with_stats=True)
+        first = attn.flash_bwd_cuda(q, k, v, m, o, mx, l, g)
+        second = attn.flash_bwd_cuda(q, k, v, m, o, mx, l, g)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        assert all(torch.isfinite(x).all() for x in first)
     torch.cuda.synchronize()
 
 

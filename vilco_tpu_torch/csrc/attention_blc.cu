@@ -15,6 +15,21 @@
 // The floor makes every weight of a fully masked row exp2(-9e8) = 0, so such
 // a row gives 0, not NaN, and masked keys need no v multiply.
 //
+// Flash mode (a template switch, variant 4) is K1f: it replaces
+// vilco_tpu/kernels/attention.py::flash_attention_jax's forward (JAX's TPU
+// flash-attention kernel) with the library's semantics on the same tiles:
+//   s = (q . k in f32) * scale * log2 e + bias,  bias = 0 for valid keys,
+//       FLASH_MASK = -0.7 * FLT_MAX (added as it is) for masked ones, -inf
+//       at or past Tk (skipped);
+//   m = row max of s from -inf, no floor;  o = sum_j exp2(s_j - m) v_j / l,
+//       l = sum_j exp2(s_j - m) >= 1, no 1e-30.
+// A fully masked row has every score equal to FLASH_MASK (it absorbs every
+// finite score), so it averages v over all Tk keys, as the library does.
+// exp2 of the log2-scaled score is the library's natural exp up to the f32
+// rounding of the scale product. When asked it stores m and l apart (not
+// lse: m + log2 l rounds to m at m = FLASH_MASK, losing the 1 / Tk the
+// backward needs).
+//
 // The forward also carries the two switches of the VQ attention probe
 // (tools/probe_vq_attn.py::run_variant, P2), as template parameters whose
 // defaults compile to the plain K1 forward:
@@ -101,14 +116,14 @@ __device__ float key_norm2_max(const T* __restrict__ k, Strides sk, int b,
   return all;
 }
 
-template <typename T, int DPAD, bool BOUND_SHIFT>
+template <typename T, int DPAD, bool BOUND_SHIFT, bool FLASH>
 __global__ void __launch_bounds__(BQ)
 attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const uint8_t* __restrict__ mask,
                           T* __restrict__ out, float* __restrict__ lse,
-                          int Tq, int Tk, int D, Strides sq, Strides sk,
-                          float scale_log2) {
+                          float* __restrict__ lsum, int Tq, int Tk, int D,
+                          Strides sq, Strides sk, float scale_log2) {
   __shared__ __align__(16) float ks[BK][DPAD];
   __shared__ __align__(16) float vs[BK][DPAD];
   __shared__ float bias[BK];
@@ -125,7 +140,7 @@ attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qr[d] = (active && d < D) ? vilco::to_f32<T>(qp[d]) * scale_log2 : 0.f;
     o[d] = 0.f;
   }
-  float m = ROWMAX_FLOOR, l = 0.f;
+  float m = FLASH ? -INFINITY : ROWMAX_FLOOR, l = 0.f;
   if constexpr (BOUND_SHIFT) {
     float qn2 = 0.f;
 #pragma unroll
@@ -146,10 +161,8 @@ attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ks[jj][d] = kv;
       vs[jj][d] = vv;
     }
-    for (int jj = threadIdx.x; jj < BK; jj += BQ) {
-      const int j = j0 + jj;
-      bias[jj] = j < Tk ? (mp[j] ? 0.f : NEG_INF_BIAS) : -INFINITY;
-    }
+    for (int jj = threadIdx.x; jj < BK; jj += BQ)
+      bias[jj] = key_bias<FLASH>(mp, j0 + jj, Tk);
     __syncthreads();
 
     float s[BK];
@@ -169,6 +182,8 @@ attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tmax = fmaxf(tmax, s[jj]);
     }
     if constexpr (!BOUND_SHIFT) {   // with the fixed shift, nothing rescales
+      // (flash: m_new is finite, the tile having a key < Tk; alpha is 0 on
+      // the first tile)
       const float m_new = fmaxf(m, tmax);
       const float alpha = exp2f(m - m_new);
       l *= alpha;
@@ -193,13 +208,21 @@ attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (active) {
-    const float inv = 1.f / (l + 1e-30f);
+    // flash: l >= 1 (the max term is exp2(0)), so no 1e-30
+    const float inv = 1.f / (FLASH ? l : l + 1e-30f);
     T* op = out + sq.at(b, row, h);
 #pragma unroll
     for (int d = 0; d < DPAD; ++d)
       if (d < D) op[d] = vilco::from_f32<T>(o[d] * inv);
-    if (lse != nullptr)
-      lse[((long long)b * gridDim.y + h) * Tq + row] = m + log2f(l + 1e-30f);
+    if (lse != nullptr) {
+      const long long r = ((long long)b * gridDim.y + h) * Tq + row;
+      if constexpr (FLASH) {
+        lse[r] = m;
+        lsum[r] = l;
+      } else {
+        lse[r] = m + log2f(l + 1e-30f);
+      }
+    }
   }
 }
 
@@ -220,14 +243,14 @@ struct FwdLayout {
   static constexpr int BYTES = B_OFF + 2 * BK * 4;
 };
 
-template <int DPAD, bool BOUND_SHIFT, bool MXU_SUM>
+template <int DPAD, bool BOUND_SHIFT, bool MXU_SUM, bool FLASH>
 __global__ void __launch_bounds__(128)
 attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const uint8_t* __restrict__ mask,
                         bf16* __restrict__ out, float* __restrict__ lse,
-                        int Tq, int Tk, int D, Strides sq, Strides sk,
-                        float scale_log2, bool vec) {
+                        float* __restrict__ lsum, int Tq, int Tk, int D,
+                        Strides sq, Strides sk, float scale_log2, bool vec) {
   using L = FwdLayout<DPAD>;
   constexpr int MS = L::MS;
   constexpr int NS = L::BK / 8;   // n8 tiles of S (keys)
@@ -253,8 +276,7 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     stage_tile<L::BK, DPAD, L::LD, L::THREADS>(
         vs + s * L::TILE, v + sk.at(b, j0, h), sk.st, nk, D, vec);
     for (int jj = tid; jj < L::BK; jj += L::THREADS)
-      bias[s * L::BK + jj] =
-          jj < nk ? (mp[j0 + jj] ? 0.f : NEG_INF_BIAS) : -INFINITY;
+      bias[s * L::BK + jj] = key_bias<FLASH>(mp, j0 + jj, Tk);
     cp_async_commit();
   };
 
@@ -267,7 +289,8 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int ms = 0; ms < MS; ++ms)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) m[ms][r] = ROWMAX_FLOOR, l[ms][r] = 0.f;
+    for (int r = 0; r < 2; ++r)
+      m[ms][r] = FLASH ? -INFINITY : ROWMAX_FLOOR, l[ms][r] = 0.f;
   float kn2 = 0.f;
   if constexpr (BOUND_SHIFT) {
     __shared__ float red[L::THREADS / 32];
@@ -429,16 +452,23 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l[ms][r] += __shfl_xor_sync(0xffffffffu, l[ms][r], 2);
       }
     }
-    store_rows<NO>(o[ms], 1.f / (l[ms][0] + 1e-30f),
-                   1.f / (l[ms][1] + 1e-30f), w0 + 16 * ms, nrows, D, vec,
+    // flash: l >= 1, so no 1e-30
+    const float eps = FLASH ? 0.f : 1e-30f;
+    store_rows<NO>(o[ms], 1.f / (l[ms][0] + eps), 1.f / (l[ms][1] + eps),
+                   w0 + 16 * ms, nrows, D, vec,
                    [&](int i) { return out + sq.at(b, q0 + i, h); }, lane);
     if (lse != nullptr && t4 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = q0 + w0 + 16 * ms + g + 8 * r;
-        if (i < Tq)
-          lse[((long long)b * gridDim.y + h) * Tq + i] =
-              m[ms][r] + log2f(l[ms][r] + 1e-30f);
+        if (i >= Tq) continue;
+        const long long at = ((long long)b * gridDim.y + h) * Tq + i;
+        if constexpr (FLASH) {
+          lse[at] = m[ms][r];
+          lsum[at] = l[ms][r];
+        } else {
+          lse[at] = m[ms][r] + log2f(l[ms][r] + 1e-30f);
+        }
       }
     }
   }
@@ -446,61 +476,65 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---- launchers --------------------------------------------------------------
 
-template <int DPAD, bool BS>
+template <int DPAD, bool BS, bool FL>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        const void* mask, void* out, void* lse, int B, int Tq,
-                        int Tk, int H, int D, bool head_major,
+                        const void* mask, void* out, void* lse, void* lsum,
+                        int B, int Tq, int Tk, int H, int D, bool head_major,
                         cudaStream_t stream) {
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  attention_blc_simt_kernel<float, DPAD, BS><<<grid, BQ, 0, stream>>>(
+  attention_blc_simt_kernel<float, DPAD, BS, FL><<<grid, BQ, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v,
-      (const uint8_t*)mask, (float*)out, (float*)lse, Tq, Tk, D,
-      strides_of(head_major, B, Tq, H, D),
+      (const uint8_t*)mask, (float*)out, (float*)lse, (float*)lsum, Tq, Tk,
+      D, strides_of(head_major, B, Tq, H, D),
       strides_of(head_major, B, Tk, H, D), scale_log2);
   return cudaGetLastError();
 }
 
-template <int DPAD, bool BS, bool MS>
+template <int DPAD, bool BS, bool MS, bool FL>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const void* mask, void* out, void* lse, int B, int Tq,
-                      int Tk, int H, int D, bool head_major,
+                      const void* mask, void* out, void* lse, void* lsum,
+                      int B, int Tq, int Tk, int H, int D, bool head_major,
                       cudaStream_t stream) {
   const Strides sq = strides_of(head_major, B, Tq, H, D);
   const Strides sk = strides_of(head_major, B, Tk, H, D);
   const bool vec = vec_ok(D, sq, sk, {q, k, v, out});
   using L = FwdLayout<DPAD>;
-  auto kern = attention_blc_tc_kernel<DPAD, BS, MS>;
+  auto kern = attention_blc_tc_kernel<DPAD, BS, MS, FL>;
   cudaError_t e = set_smem(kern, L::BYTES);
   if (e != cudaSuccess) return e;
   const dim3 grid((Tq + L::BQ - 1) / L::BQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   kern<<<grid, L::THREADS, L::BYTES, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const uint8_t*)mask,
-      (bf16*)out, (float*)lse, Tq, Tk, D, sq, sk, scale_log2, vec);
+      (bf16*)out, (float*)lse, (float*)lsum, Tq, Tk, D, sq, sk, scale_log2,
+      vec);
   return cudaGetLastError();
 }
 
 // The forward of one head width, with the probe's switches (variant bit 0:
-// bound_shift, bit 1: mxu_sum; f32 has no use for mxu_sum). f32 pads D to
-// 64 or 128, bf16 to 32, 64, 96 or 128.
+// bound_shift, bit 1: mxu_sum; f32 has no use for mxu_sum) or in flash
+// mode (variant 4, K1f). f32 pads D to 64 or 128, bf16 to 32, 64, 96 or
+// 128 (flash mode to 64 or 128, which halves its instantiations).
 template <int DPAD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       const void* mask, void* out, void* lse, int B, int Tq,
-                       int Tk, int H, int D, int dtype, bool head_major,
-                       int variant, cudaStream_t s) {
-#define VILCO_FWD(F) F(q, k, v, mask, out, lse, B, Tq, Tk, H, D, head_major, s)
+                       const void* mask, void* out, void* lse, void* lsum,
+                       int B, int Tq, int Tk, int H, int D, int dtype,
+                       bool head_major, int variant, cudaStream_t s) {
+#define VILCO_FWD(F) F(q, k, v, mask, out, lse, lsum, B, Tq, Tk, H, D, head_major, s)
+  constexpr int FP = DPAD <= 64 ? 64 : 128;
+  if (variant == 4)
+    return dtype == 0 ? VILCO_FWD((launch_simt<FP, false, true>))
+                      : VILCO_FWD((launch_tc<FP, false, false, true>));
   const bool bs = variant & 1, ms = variant & 2;
-  if (dtype == 0) {
-    constexpr int FP = DPAD <= 64 ? 64 : 128;
-    return bs ? VILCO_FWD((launch_simt<FP, true>))
-              : VILCO_FWD((launch_simt<FP, false>));
-  }
+  if (dtype == 0)
+    return bs ? VILCO_FWD((launch_simt<FP, true, false>))
+              : VILCO_FWD((launch_simt<FP, false, false>));
   if (bs)
-    return ms ? VILCO_FWD((launch_tc<DPAD, true, true>))
-              : VILCO_FWD((launch_tc<DPAD, true, false>));
-  return ms ? VILCO_FWD((launch_tc<DPAD, false, true>))
-            : VILCO_FWD((launch_tc<DPAD, false, false>));
+    return ms ? VILCO_FWD((launch_tc<DPAD, true, true, false>))
+              : VILCO_FWD((launch_tc<DPAD, true, false, false>));
+  return ms ? VILCO_FWD((launch_tc<DPAD, false, true, false>))
+            : VILCO_FWD((launch_tc<DPAD, false, false, false>));
 #undef VILCO_FWD
 }
 
@@ -509,18 +543,23 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. layout 0: q/out (B, Tq, H*D), k/v
 // (B, Tk, H*D); layout 1 (head-major): q/out (H, B, Tq, D), k/v
 // (H, B, Tk, D). mask (B, Tk) one byte per key (nonzero = valid), all
-// contiguous; D <= 128. lse (B, H, Tq) f32, or null when no backward
-// follows. variant: 0 for K1; bit 0 bound_shift, bit 1 mxu_sum (the probe).
+// contiguous; D <= 128. variant: 0 for K1; bit 0 bound_shift, bit 1
+// mxu_sum (the probe); 4 flash mode (K1f). lse (B, H, Tq) f32, or null
+// when no backward follows: K1 stores the row's log-sum-exp there (log2
+// domain); flash mode stores the row max m there (log2 domain) and the
+// row sum l in lsum (B, H, Tq) f32 (null with lse null, ignored by K1).
 extern "C" int attention_blc_fwd(const void* q, const void* k, const void* v,
-                                 const void* mask, void* out, void* lse, int B,
-                                 int Tq, int Tk, int H, int D, int dtype,
-                                 int layout, int variant, void* stream) {
+                                 const void* mask, void* out, void* lse,
+                                 void* lsum, int B, int Tq, int Tk, int H,
+                                 int D, int dtype, int layout, int variant,
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D < 1 || D > 128 || B < 1 || Tq < 1 || Tk < 1 || H < 1 ||
       (dtype != 0 && dtype != 1) || layout < 0 || layout > 1 ||
-      variant < 0 || variant > 3)
+      variant < 0 || variant > 4 ||
+      (variant == 4 && (lse == nullptr) != (lsum == nullptr)))
     return (int)cudaErrorInvalidValue;
-#define VILCO_FWD(DP) launch_fwd<DP>(q, k, v, mask, out, lse, B, Tq, Tk, H, D, dtype, layout == 1, variant, s)
+#define VILCO_FWD(DP) launch_fwd<DP>(q, k, v, mask, out, lse, lsum, B, Tq, Tk, H, D, dtype, layout == 1, variant, s)
   return (int)(D <= 32 ? VILCO_FWD(32) : D <= 64 ? VILCO_FWD(64)
                : D <= 96 ? VILCO_FWD(96) : VILCO_FWD(128));
 #undef VILCO_FWD

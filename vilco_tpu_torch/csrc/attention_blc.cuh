@@ -1,8 +1,9 @@
 // Shared by csrc/attention_blc.cu (K1's forward) and
 // csrc/attention_blc_bwd.cu (its backward): the row strides of the two
-// layouts, the -1e9 key bias and -1e8 row-max floor, and the mma.sync,
-// ldmatrix and cp.async helpers of the bf16 kernels. Two files, so that
-// nvcc builds the forward and the backward side by side.
+// layouts, the -1e9 key bias and -1e8 row-max floor, flash mode's
+// masked-key value, and the mma.sync, ldmatrix and cp.async helpers of the
+// bf16 kernels. Two files, so that nvcc builds the forward and the
+// backward side by side.
 #pragma once
 
 #include <algorithm>
@@ -14,6 +15,20 @@ namespace {
 
 constexpr float NEG_INF_BIAS = -1e9f;
 constexpr float ROWMAX_FLOOR = -1e8f;
+// K1f (flash mode): the flash-attention library's DEFAULT_MASK_VALUE,
+// -0.7 * FLT_MAX rounded once to f32, added to a masked key's score. It is
+// added as it is in the log2 domain too: times log2 e it would overflow to
+// -inf (and a fully masked row to NaN). Every finite score is absorbed by
+// it, so a fully masked row has all its scores equal and averages v.
+constexpr float FLASH_MASK = (float)(-0.7 * 3.4028234663852886e38);
+
+// The bias of key j (mp: its batch row's mask): 0 if valid, the mode's
+// masked-key value if masked, -inf at or past Tk (skipped in both modes).
+template <bool FLASH>
+__device__ __forceinline__ float key_bias(const uint8_t* mp, int j, int Tk) {
+  return j < Tk ? (mp[j] ? 0.f : (FLASH ? FLASH_MASK : NEG_INF_BIAS))
+                : -INFINITY;
+}
 
 // Element strides of a row's batch, token and head: (B, T, H * D)
 // channels-last or (H, B, T, D) head-major; column d of head h of token t

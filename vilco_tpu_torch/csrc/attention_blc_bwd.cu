@@ -32,6 +32,13 @@
 //    dS of the tile through shared memory. Bound by shared-memory operand
 //    reads (each FMA reads two operands, one a broadcast).
 // A fully masked row has P = 0 everywhere, so its gradients are exactly 0.
+// Flash mode (a template switch; K1f: the backward of
+// vilco_tpu/kernels/attention.py::flash_attention_jax, JAX's TPU flash
+// dq and dkv kernels) reads the forward's m and l (csrc/attention_blc.cu)
+// and recomputes P = exp2(s * scale log2 e + bias - m) / l with the
+// library's masked-key value; a fully masked row then has P = 1 / Tk at
+// every key and its gradients are not 0. The passes, tiles and the slice
+// sums are K1's, so two calls give equal bits there too.
 
 #include "attention_blc.cuh"
 
@@ -114,18 +121,20 @@ struct DkvLayout {
   static constexpr int G_OFF = Q_OFF + 2 * QT * 2;
   static constexpr int L_OFF = G_OFF + 2 * QT * 2;
   static constexpr int D_OFF = L_OFF + 2 * BQ * 4;
-  static constexpr int BYTES = D_OFF + 2 * BQ * 4;
+  static constexpr int I_OFF = D_OFF + 2 * BQ * 4;   // 1 / l (flash mode)
+  static constexpr int BYTES = I_OFF + 2 * BQ * 4;
 };
 
 // (b), bfloat16. Grid (key tiles, H, B * splits); slice s of batch b takes
 // query rows [s * rows_per_split, (s + 1) * rows_per_split).
-template <int DPAD>
+template <int DPAD, bool FLASH>
 __global__ void __launch_bounds__(128)
 attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
                             const uint8_t* __restrict__ mask,
                             const float* __restrict__ lse,
+                            const float* __restrict__ lsum,
                             const float* __restrict__ delta,
                             const bf16* __restrict__ dout, DkvOut<bf16> dst,
                             int Tq, int Tk, int D, Strides sq, Strides sk,
@@ -142,6 +151,7 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
   bf16* gs = reinterpret_cast<bf16*>(smem + L::G_OFF);
   float* lses = reinterpret_cast<float*>(smem + L::L_OFF);
   float* dels = reinterpret_cast<float*>(smem + L::D_OFF);
+  float* linv = reinterpret_cast<float*>(smem + L::I_OFF);
 
   const int H = gridDim.y, h = blockIdx.y;
   const int b = blockIdx.z / dst.splits, split = blockIdx.z % dst.splits;
@@ -153,6 +163,7 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
   const int nsteps = i_end > i_begin ? (i_end - i_begin + L::BQ - 1) / L::BQ
                                      : 0;
   const float* lrow = lse + ((long long)b * H + h) * Tq;
+  const float* srow = FLASH ? lsum + ((long long)b * H + h) * Tq : nullptr;
   const float* drow = delta + ((long long)b * H + h) * Tq;
 
   const int nk = min(L::BK, Tk - j0);
@@ -167,10 +178,12 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
         qs + s * L::QT, q + sq.at(b, i0, h), sq.st, nq, D, vec);
     stage_tile<L::BQ, DPAD, L::LD, L::THREADS>(
         gs + s * L::QT, dout + sq.at(b, i0, h), sq.st, nq, D, vec);
-    // rows past the slice: lse = +inf makes their P exactly 0
+    // rows past the slice: lse (flash: m) = +inf makes their P exactly 0
     for (int r = tid; r < L::BQ; r += L::THREADS) {
       lses[s * L::BQ + r] = r < nq ? lrow[i0 + r] : INFINITY;
       dels[s * L::BQ + r] = r < nq ? drow[i0 + r] : 0.f;
+      if constexpr (FLASH)
+        linv[s * L::BQ + r] = r < nq ? 1.f / srow[i0 + r] : 0.f;
     }
     cp_async_commit();
   };
@@ -179,11 +192,9 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
   // this lane's two key rows: warp * 16 + g and + 8
   float kbias[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = j0 + warp * 16 + g + 8 * r;
-    kbias[r] = j < Tk ? (mask[(long long)b * Tk + j] ? 0.f : NEG_INF_BIAS)
-                      : -INFINITY;
-  }
+  for (int r = 0; r < 2; ++r)
+    kbias[r] = key_bias<FLASH>(mask + (long long)b * Tk,
+                               j0 + warp * 16 + g + 8 * r, Tk);
   float dk[NO][4], dv[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -202,6 +213,7 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
     const bf16* gt = gs + (t & 1) * L::QT;
     const float* lt = lses + (t & 1) * L::BQ;
     const float* dt = dels + (t & 1) * L::BQ;
+    const float* it = linv + (t & 1) * L::BQ;
 
     // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
     float st[NQ][4], dpt[NQ][4];
@@ -231,10 +243,14 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
     for (int n = 0; n < NQ; ++n) {
       const float2 ls = *reinterpret_cast<const float2*>(lt + n * 8 + 2 * t4);
       const float2 dl = *reinterpret_cast<const float2*>(dt + n * 8 + 2 * t4);
-      const float p0 = exp2f(st[n][0] * scale_log2 + kbias[0] - ls.x);
-      const float p1 = exp2f(st[n][1] * scale_log2 + kbias[0] - ls.y);
-      const float p2 = exp2f(st[n][2] * scale_log2 + kbias[1] - ls.x);
-      const float p3 = exp2f(st[n][3] * scale_log2 + kbias[1] - ls.y);
+      float p0 = exp2f(st[n][0] * scale_log2 + kbias[0] - ls.x);
+      float p1 = exp2f(st[n][1] * scale_log2 + kbias[0] - ls.y);
+      float p2 = exp2f(st[n][2] * scale_log2 + kbias[1] - ls.x);
+      float p3 = exp2f(st[n][3] * scale_log2 + kbias[1] - ls.y);
+      if constexpr (FLASH) {   // P = exp2(s - m) / l
+        const float2 li = *reinterpret_cast<const float2*>(it + n * 8 + 2 * t4);
+        p0 *= li.x, p1 *= li.y, p2 *= li.x, p3 *= li.y;
+      }
       pa[n / 2][(n & 1) * 2] = pack2(p0, p1);
       pa[n / 2][(n & 1) * 2 + 1] = pack2(p2, p3);
       sa[n / 2][(n & 1) * 2] =
@@ -290,13 +306,14 @@ struct DqLayout {
 };
 
 // (c), bfloat16. Grid (query tiles, H, B).
-template <int DPAD>
+template <int DPAD, bool FLASH>
 __global__ void __launch_bounds__(128)
 attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v,
                            const uint8_t* __restrict__ mask,
                            const float* __restrict__ lse,
+                           const float* __restrict__ lsum,
                            const float* __restrict__ delta,
                            const bf16* __restrict__ dout,
                            bf16* __restrict__ dq, int Tq, int Tk, int D,
@@ -332,19 +349,20 @@ attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
     stage_tile<L::BK, DPAD, L::LD, L::THREADS>(
         vs + s * L::KT, v + sk.at(b, j0, h), sk.st, nk, D, vec);
     for (int jj = tid; jj < L::BK; jj += L::THREADS)
-      bias[s * L::BK + jj] =
-          jj < nk ? (mp[j0 + jj] ? 0.f : NEG_INF_BIAS) : -INFINITY;
+      bias[s * L::BK + jj] = key_bias<FLASH>(mp, j0 + jj, Tk);
     cp_async_commit();
   };
   stage_kv(0);
-  // this lane's two query rows: warp * 16 + g and + 8
-  float rl[2], rd[2];
+  // this lane's two query rows: warp * 16 + g and + 8 (rl: lse, or m in
+  // flash mode; ri: 1 / l in flash mode)
+  float rl[2], rd[2], ri[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + warp * 16 + g + 8 * r;
     const long long at = ((long long)b * H + h) * Tq + i;
     rl[r] = i < Tq ? lse[at] : INFINITY;
     rd[r] = i < Tq ? delta[at] : 0.f;
+    ri[r] = FLASH && i < Tq ? 1.f / lsum[at] : 0.f;
   }
   float acc[NO][4];
 #pragma unroll
@@ -390,10 +408,12 @@ attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       const float2 bb = *reinterpret_cast<const float2*>(bt + n * 8 + 2 * t4);
-      const float p0 = exp2f(s[n][0] * scale_log2 + bb.x - rl[0]);
-      const float p1 = exp2f(s[n][1] * scale_log2 + bb.y - rl[0]);
-      const float p2 = exp2f(s[n][2] * scale_log2 + bb.x - rl[1]);
-      const float p3 = exp2f(s[n][3] * scale_log2 + bb.y - rl[1]);
+      float p0 = exp2f(s[n][0] * scale_log2 + bb.x - rl[0]);
+      float p1 = exp2f(s[n][1] * scale_log2 + bb.y - rl[0]);
+      float p2 = exp2f(s[n][2] * scale_log2 + bb.x - rl[1]);
+      float p3 = exp2f(s[n][3] * scale_log2 + bb.y - rl[1]);
+      if constexpr (FLASH)   // P = exp2(s - m) / l
+        p0 *= ri[0], p1 *= ri[0], p2 *= ri[1], p3 *= ri[1];
       sa[n / 2][(n & 1) * 2] =
           pack2(p0 * (dp[n][0] - rd[0]), p1 * (dp[n][1] - rd[0]));
       sa[n / 2][(n & 1) * 2 + 1] =
@@ -422,18 +442,35 @@ constexpr int BWD_THREADS = 256;   // 16 x 16
 
 template <int DPAD>
 constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (4 * BT * (DPAD + 1) + 2 * BT * (BT + 1) + 3 * BT);
+  return sizeof(float) * (4 * BT * (DPAD + 1) + 2 * BT * (BT + 1) + 4 * BT);
 }
 
+// linv: 1 / l of each query row in flash mode (lses then holds m)
 template <int DPAD>
 struct SimtTiles {
   static constexpr int LD = DPAD + 1, LP = BT + 1;
-  float *qs, *gs, *ks, *vs, *ps, *dss, *bias, *lses, *delta;
+  float *qs, *gs, *ks, *vs, *ps, *dss, *bias, *lses, *delta, *linv;
   __device__ explicit SimtTiles(float* sm)
       : qs(sm), gs(qs + BT * LD), ks(gs + BT * LD), vs(ks + BT * LD),
         ps(vs + BT * LD), dss(ps + BT * LP), bias(dss + BT * LP),
-        lses(bias + BT), delta(lses + BT) {}
+        lses(bias + BT), delta(lses + BT), linv(delta + BT) {}
 };
+
+// lse (flash: m), delta and 1 / l of the query rows [i0, i0 + nq) of a
+// head; rows past them get lse = +inf, so their P is exactly 0
+template <int DPAD, bool FLASH>
+__device__ __forceinline__ void simt_rowstats(const SimtTiles<DPAD>& sm,
+                                              const float* lse,
+                                              const float* lsum,
+                                              const float* delta,
+                                              long long at0, int nq) {
+  for (int r = threadIdx.x; r < BT; r += BWD_THREADS) {
+    const long long at = at0 + r;
+    sm.lses[r] = r < nq ? lse[at] : INFINITY;
+    sm.delta[r] = r < nq ? delta[at] : 0.f;
+    sm.linv[r] = FLASH && r < nq ? 1.f / lsum[at] : 0.f;
+  }
+}
 
 // rows [r0, r0 + valid) of a head into a [BT][LD] f32 tile, zero elsewhere
 template <int DPAD>
@@ -450,7 +487,7 @@ __device__ __forceinline__ void simt_stage(float* dst, const float* src,
 // P and dS of the staged query tile (qs, gs, lses, delta) against the
 // staged key tile (ks, vs, bias), into ps and dss: thread (ty, tx) takes
 // query rows ty + 16a and keys tx + 16c.
-template <int DPAD>
+template <int DPAD, bool FLASH>
 __device__ __forceinline__ void simt_p_ds(const SimtTiles<DPAD>& sm,
                                           float scale_log2, int tx, int ty) {
   constexpr int LD = SimtTiles<DPAD>::LD, LP = SimtTiles<DPAD>::LP;
@@ -483,20 +520,22 @@ __device__ __forceinline__ void simt_p_ds(const SimtTiles<DPAD>& sm,
 #pragma unroll
     for (int c = 0; c < RA; ++c) {
       const int i = ty + 16 * a, j = tx + 16 * c;
-      const float p = exp2f(s[a][c] * scale_log2 + sm.bias[j] - sm.lses[i]);
+      float p = exp2f(s[a][c] * scale_log2 + sm.bias[j] - sm.lses[i]);
+      if constexpr (FLASH) p *= sm.linv[i];   // P = exp2(s - m) / l
       sm.ps[i * LP + j] = p;
       sm.dss[i * LP + j] = p * (dp[a][c] - sm.delta[i]);
     }
 }
 
 // (b), float32. Grid (key tiles, H, B * splits).
-template <int DPAD>
+template <int DPAD, bool FLASH>
 __global__ void __launch_bounds__(BWD_THREADS)
 attention_blc_dkv_simt_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
                               const uint8_t* __restrict__ mask,
                               const float* __restrict__ lse,
+                              const float* __restrict__ lsum,
                               const float* __restrict__ delta,
                               const float* __restrict__ dout,
                               DkvOut<float> dst, int Tq, int Tk, int D,
@@ -515,11 +554,8 @@ attention_blc_dkv_simt_kernel(const float* __restrict__ q,
 
   simt_stage<DPAD>(sm.ks, k, sk, b, h, j0, min(BT, Tk - j0), D);
   simt_stage<DPAD>(sm.vs, v, sk, b, h, j0, min(BT, Tk - j0), D);
-  for (int r = tid; r < BT; r += BWD_THREADS) {
-    const int j = j0 + r;
-    sm.bias[r] = j < Tk ? (mask[(long long)b * Tk + j] ? 0.f : NEG_INF_BIAS)
-                        : -INFINITY;
-  }
+  for (int r = tid; r < BT; r += BWD_THREADS)
+    sm.bias[r] = key_bias<FLASH>(mask + (long long)b * Tk, j0 + r, Tk);
   float dk_acc[RA][CD], dv_acc[RA][CD];
 #pragma unroll
   for (int a = 0; a < RA; ++a)
@@ -531,14 +567,10 @@ attention_blc_dkv_simt_kernel(const float* __restrict__ q,
     const int nq = min(BT, i_end - i0);
     simt_stage<DPAD>(sm.qs, q, sq, b, h, i0, nq, D);
     simt_stage<DPAD>(sm.gs, dout, sq, b, h, i0, nq, D);
-    for (int r = tid; r < BT; r += BWD_THREADS) {
-      const long long at = ((long long)b * H + h) * Tq + i0 + r;
-      // rows past the slice: lse = +inf makes their P exactly 0
-      sm.lses[r] = r < nq ? lse[at] : INFINITY;
-      sm.delta[r] = r < nq ? delta[at] : 0.f;
-    }
+    simt_rowstats<DPAD, FLASH>(sm, lse, lsum, delta,
+                               ((long long)b * H + h) * Tq + i0, nq);
     __syncthreads();
-    simt_p_ds<DPAD>(sm, scale_log2, tx, ty);
+    simt_p_ds<DPAD, FLASH>(sm, scale_log2, tx, ty);
     __syncthreads();
     // dv += P^T dO, dk += dS^T Q: key rows ty + 16a, columns tx + 16c
 #pragma unroll 4
@@ -578,13 +610,14 @@ attention_blc_dkv_simt_kernel(const float* __restrict__ q,
 }
 
 // (c), float32. Grid (query tiles, H, B).
-template <int DPAD>
+template <int DPAD, bool FLASH>
 __global__ void __launch_bounds__(BWD_THREADS)
 attention_blc_dq_simt_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
                              const uint8_t* __restrict__ mask,
                              const float* __restrict__ lse,
+                             const float* __restrict__ lsum,
                              const float* __restrict__ delta,
                              const float* __restrict__ dout,
                              float* __restrict__ dq, int Tq, int Tk, int D,
@@ -601,11 +634,8 @@ attention_blc_dq_simt_kernel(const float* __restrict__ q,
 
   simt_stage<DPAD>(sm.qs, q, sq, b, h, i0, nq, D);
   simt_stage<DPAD>(sm.gs, dout, sq, b, h, i0, nq, D);
-  for (int r = tid; r < BT; r += BWD_THREADS) {
-    const long long at = ((long long)b * H + h) * Tq + i0 + r;
-    sm.lses[r] = r < nq ? lse[at] : INFINITY;
-    sm.delta[r] = r < nq ? delta[at] : 0.f;
-  }
+  simt_rowstats<DPAD, FLASH>(sm, lse, lsum, delta,
+                             ((long long)b * H + h) * Tq + i0, nq);
   float dq_acc[RA][CD];
 #pragma unroll
   for (int a = 0; a < RA; ++a)
@@ -618,11 +648,9 @@ attention_blc_dq_simt_kernel(const float* __restrict__ q,
     simt_stage<DPAD>(sm.ks, k, sk, b, h, j0, nk, D);
     simt_stage<DPAD>(sm.vs, v, sk, b, h, j0, nk, D);
     for (int r = tid; r < BT; r += BWD_THREADS)
-      sm.bias[r] = r < nk ? (mask[(long long)b * Tk + j0 + r] ? 0.f
-                                                              : NEG_INF_BIAS)
-                          : -INFINITY;
+      sm.bias[r] = key_bias<FLASH>(mask + (long long)b * Tk, j0 + r, Tk);
     __syncthreads();
-    simt_p_ds<DPAD>(sm, scale_log2, tx, ty);
+    simt_p_ds<DPAD, FLASH>(sm, scale_log2, tx, ty);
     __syncthreads();
     // dq += dS K: query rows ty + 16a, columns tx + 16c
 #pragma unroll 4
@@ -655,7 +683,7 @@ attention_blc_dq_simt_kernel(const float* __restrict__ q,
 // ---- launchers --------------------------------------------------------------
 
 struct BwdArgs {
-  const void *q, *k, *v, *mask, *out, *lse, *dout;
+  const void *q, *k, *v, *mask, *out, *lse, *lsum, *dout;
   void *dq, *dk, *dv, *delta, *partial;
   int B, Tq, Tk, H, D, splits;
   Strides sq, sk;
@@ -691,55 +719,56 @@ DkvOut<T> dkv_out(const BwdArgs& a) {
                    (long long)a.B * a.Tk * a.H * a.D, a.splits};
 }
 
-template <int DPAD>
+template <int DPAD, bool FL>
 cudaError_t launch_bwd_tc(const BwdArgs& a, cudaStream_t s) {
   cudaError_t e = launch_delta<bf16>(a, s);
   if (e != cudaSuccess) return e;
   const bool vec = vec_ok(a.D, a.sq, a.sk, {a.q, a.k, a.v, a.dout, a.dq});
   using KL = DkvLayout<DPAD>;
-  auto kd = attention_blc_dkv_tc_kernel<DPAD>;
+  auto kd = attention_blc_dkv_tc_kernel<DPAD, FL>;
   if ((e = set_smem(kd, KL::BYTES)) != cudaSuccess) return e;
   kd<<<dim3((a.Tk + KL::BK - 1) / KL::BK, a.H, a.B * a.splits), KL::THREADS,
        KL::BYTES, s>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-      (const uint8_t*)a.mask, (const float*)a.lse, (const float*)a.delta,
-      (const bf16*)a.dout, dkv_out<bf16>(a), a.Tq, a.Tk, a.D, a.sq, a.sk,
-      a.scale_log2, a.scale, a.rows_per_split, vec);
+      (const uint8_t*)a.mask, (const float*)a.lse, (const float*)a.lsum,
+      (const float*)a.delta, (const bf16*)a.dout, dkv_out<bf16>(a), a.Tq,
+      a.Tk, a.D, a.sq, a.sk, a.scale_log2, a.scale, a.rows_per_split, vec);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = launch_sum<bf16>(a, s)) != cudaSuccess) return e;
   using QL = DqLayout<DPAD>;
-  auto kq = attention_blc_dq_tc_kernel<DPAD>;
+  auto kq = attention_blc_dq_tc_kernel<DPAD, FL>;
   if ((e = set_smem(kq, QL::BYTES)) != cudaSuccess) return e;
   kq<<<dim3((a.Tq + QL::BQ - 1) / QL::BQ, a.H, a.B), QL::THREADS, QL::BYTES,
        s>>>((const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
             (const uint8_t*)a.mask, (const float*)a.lse,
-            (const float*)a.delta, (const bf16*)a.dout, (bf16*)a.dq, a.Tq,
-            a.Tk, a.D, a.sq, a.sk, a.scale_log2, a.scale, vec);
+            (const float*)a.lsum, (const float*)a.delta,
+            (const bf16*)a.dout, (bf16*)a.dq, a.Tq, a.Tk, a.D, a.sq, a.sk,
+            a.scale_log2, a.scale, vec);
   return cudaGetLastError();
 }
 
-template <int DPAD>
+template <int DPAD, bool FL>
 cudaError_t launch_bwd_simt(const BwdArgs& a, cudaStream_t s) {
   cudaError_t e = launch_delta<float>(a, s);
   if (e != cudaSuccess) return e;
   const int smem = (int)bwd_smem_bytes<DPAD>();
-  auto kd = attention_blc_dkv_simt_kernel<DPAD>;
+  auto kd = attention_blc_dkv_simt_kernel<DPAD, FL>;
   if ((e = set_smem(kd, smem)) != cudaSuccess) return e;
   kd<<<dim3((a.Tk + BT - 1) / BT, a.H, a.B * a.splits), BWD_THREADS, smem,
        s>>>((const float*)a.q, (const float*)a.k, (const float*)a.v,
             (const uint8_t*)a.mask, (const float*)a.lse,
-            (const float*)a.delta, (const float*)a.dout, dkv_out<float>(a),
-            a.Tq, a.Tk, a.D, a.sq, a.sk, a.scale_log2, a.scale,
-            a.rows_per_split);
+            (const float*)a.lsum, (const float*)a.delta,
+            (const float*)a.dout, dkv_out<float>(a), a.Tq, a.Tk, a.D, a.sq,
+            a.sk, a.scale_log2, a.scale, a.rows_per_split);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = launch_sum<float>(a, s)) != cudaSuccess) return e;
-  auto kq = attention_blc_dq_simt_kernel<DPAD>;
+  auto kq = attention_blc_dq_simt_kernel<DPAD, FL>;
   if ((e = set_smem(kq, smem)) != cudaSuccess) return e;
   kq<<<dim3((a.Tq + BT - 1) / BT, a.H, a.B), BWD_THREADS, smem, s>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const uint8_t*)a.mask, (const float*)a.lse, (const float*)a.delta,
-      (const float*)a.dout, (float*)a.dq, a.Tq, a.Tk, a.D, a.sq, a.sk,
-      a.scale_log2, a.scale);
+      (const uint8_t*)a.mask, (const float*)a.lse, (const float*)a.lsum,
+      (const float*)a.delta, (const float*)a.dout, (float*)a.dq, a.Tq, a.Tk,
+      a.D, a.sq, a.sk, a.scale_log2, a.scale);
   return cudaGetLastError();
 }
 
@@ -750,34 +779,45 @@ cudaError_t launch_bwd_simt(const BwdArgs& a, cudaStream_t s) {
 // forward's layout, lse (B, H, Tq) from the forward, delta (B, H, Tq) f32
 // scratch, partial 2 * splits * numel(k) f32 scratch (null for one slice),
 // all contiguous; D <= 128. splits (>= 1) cuts the query range of the
-// dk/dv pass into slices of whole 64-row tiles.
+// dk/dv pass into slices of whole 64-row tiles. lsum non-null selects
+// flash mode (K1f): lse then holds the forward's row max m and lsum its
+// row sum l (both (B, H, Tq) f32), P = exp2(s - m) / l and masked keys
+// score the library's -0.7 * FLT_MAX; flash mode pads D to 64 or 128.
 extern "C" int attention_blc_bwd(const void* q, const void* k, const void* v,
                                  const void* mask, const void* out,
-                                 const void* lse, const void* dout, void* dq,
-                                 void* dk, void* dv, void* delta,
-                                 void* partial, int B, int Tq, int Tk, int H,
-                                 int D, int dtype, int layout, int splits,
-                                 void* stream) {
+                                 const void* lse, const void* lsum,
+                                 const void* dout, void* dq, void* dk,
+                                 void* dv, void* delta, void* partial, int B,
+                                 int Tq, int Tk, int H, int D, int dtype,
+                                 int layout, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D < 1 || D > 128 || B < 1 || Tq < 1 || Tk < 1 || H < 1 ||
       layout < 0 || layout > 1 || splits < 1 ||
       (long long)B * splits > 65535 || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool hm = layout == 1;
+  const bool hm = layout == 1, flash = lsum != nullptr;
   const float scale = 1.f / sqrtf((float)D);
   const int tiles = (Tq + BT - 1) / BT;
-  const BwdArgs a{q, k, v, mask, out, lse, dout, dq, dk, dv, delta, partial,
-                  B, Tq, Tk, H, D, splits,
+  const BwdArgs a{q, k, v, mask, out, lse, lsum, dout, dq, dk, dv, delta,
+                  partial, B, Tq, Tk, H, D, splits,
                   strides_of(hm, B, Tq, H, D), strides_of(hm, B, Tk, H, D),
                   scale * 1.4426950408889634f, scale,
                   ((tiles + splits - 1) / splits) * BT};
-  if (dtype == 0)
-    return (int)(D <= 64 ? launch_bwd_simt<64>(a, s)
-                         : launch_bwd_simt<128>(a, s));
-  if (dtype == 1)
-    return (int)(D <= 32 ? launch_bwd_tc<32>(a, s)
-                 : D <= 64 ? launch_bwd_tc<64>(a, s)
-                 : D <= 96 ? launch_bwd_tc<96>(a, s)
-                           : launch_bwd_tc<128>(a, s));
+  if (dtype == 0) {
+    if (flash)
+      return (int)(D <= 64 ? launch_bwd_simt<64, true>(a, s)
+                           : launch_bwd_simt<128, true>(a, s));
+    return (int)(D <= 64 ? launch_bwd_simt<64, false>(a, s)
+                         : launch_bwd_simt<128, false>(a, s));
+  }
+  if (dtype == 1) {
+    if (flash)
+      return (int)(D <= 64 ? launch_bwd_tc<64, true>(a, s)
+                           : launch_bwd_tc<128, true>(a, s));
+    return (int)(D <= 32 ? launch_bwd_tc<32, false>(a, s)
+                 : D <= 64 ? launch_bwd_tc<64, false>(a, s)
+                 : D <= 96 ? launch_bwd_tc<96, false>(a, s)
+                           : launch_bwd_tc<128, false>(a, s));
+  }
   return (int)cudaErrorInvalidValue;
 }

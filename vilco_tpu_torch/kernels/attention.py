@@ -34,13 +34,17 @@ it takes K1 on the channels-last tensors, the same function as JAX's XLA
 form.
 
 K1f replaces `flash_attention_jax` (JAX's TPU flash-attention kernels,
-`attention_impl="flash"` and the ViT's `attn_impl="flash"`) with
-csrc/flash_attention.cu: the library's semantics (the scale on the f32
-product, -0.7 * FLT_MAX on masked keys, natural exp, so a fully masked row
-gives the mean of v), an online softmax over key tiles that reads the
-channels-last rows in place, m and l saved per row, and a backward of two
-kernels with no atomics (dq over query tiles, dk/dv over key tiles).
-Self-attention only; T < 128 takes K1, as JAX takes XLA.
+`attention_impl="flash"` and the ViT's `attn_impl="flash"`) with K1's
+forward and three-pass backward in flash mode, a compile-time switch of
+the same kernels that keeps the library's semantics: the scale on the f32
+product, -0.7 * FLT_MAX added to a masked key's score (as it is, in the
+log2 domain too), no row-max floor and no 1e-30, so a fully masked row
+gives the mean of v, and its gradients P = 1 / T at every key. The
+(B, T, H, D) inputs are read in place as channels-last rows. The forward
+stores the row max m (log2 domain) and the row sum l apart, the backward
+recomputes P = exp2(s - m) / l; `flash_stats_plain` and
+`flash_attention_bwd_plain` are the same in plain PyTorch. Self-attention
+only; T < 128 takes K1, as JAX takes XLA.
 
 P2 replaces tools/probe_vq_attn.py::run_variant: K1's forward with the
 probe's two switches, `bound_shift` (the row max replaced by |q_scaled| *
@@ -103,6 +107,11 @@ def dkv_splits(B: int, H: int, Tq: int, Tk: int) -> int:
     return cdiv(tiles, per)
 
 
+def _wide(x):
+    """x in f32, or f64 where it is f64 (the plain versions' f64 tests)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _heads_f32(x, H):
     """(B, T, H * D) -> (B, H, T, D) in f32."""
     B, T, C = x.shape
@@ -129,18 +138,29 @@ def attention_bwd_plain(q, k, v, kv_mask, out, lse, dout, num_heads: int,
     partial (dk scaled) summed in slice order; (c) dq over the key tiles
     of BWD_TILE in order, scaled at the end. lse (B, H, Tq) as the forward
     stores it. Returns (dq, dk, dv) in q.dtype."""
+    score = _scores(_heads_f32(q, num_heads), _heads_f32(k, num_heads),
+                    torch.where(kv_mask, 0.0, NEG_INF))
+    return _three_pass_bwd(q, k, v, out, dout, num_heads, score, lse, None,
+                           splits)
+
+
+def _three_pass_bwd(q, k, v, out, dout, num_heads, score, shift, inv,
+                    splits):
+    """K1's three backward passes on channels-last tensors, from the
+    log2-domain scores (`_scores`): P = exp2(score - shift) (times inv,
+    where given), shift and inv per (B, H, Tq) row."""
     B, Tq, C = q.shape
     Tk, H, T = k.shape[1], num_heads, BWD_TILE
     D = C // H
-    qh, kh, vh, oh, gh = (_heads_f32(x, H) for x in (q, k, v, out, dout))
+    qh, kh, vh, oh, gh = (_wide(x).reshape(x.shape[0], x.shape[1], H, D)
+                          .transpose(1, 2) for x in (q, k, v, out, dout))
     scale = 1.0 / D ** 0.5
-    bias = torch.where(kv_mask, 0.0, NEG_INF)[:, None, None, :]
     delta = (gh * oh).sum(-1)                                  # (B, H, Tq)
 
     def p_ds(i0, i1, j0, j1):
-        s = qh[:, :, i0:i1] @ kh[:, :, j0:j1].transpose(-1, -2)
-        p = torch.exp2(s * (scale * LOG2E) + bias[..., j0:j1]
-                       - lse[:, :, i0:i1, None])
+        p = torch.exp2(score(i0, i1, j0, j1) - shift[:, :, i0:i1, None])
+        if inv is not None:
+            p = p * inv[:, :, i0:i1, None]
         dp = gh[:, :, i0:i1] @ vh[:, :, j0:j1].transpose(-1, -2)
         return p, p * (dp - delta[:, :, i0:i1, None])
 
@@ -168,17 +188,62 @@ def attention_bwd_plain(q, k, v, kv_mask, out, lse, dout, num_heads: int,
 def flash_attention_plain(q, k, v, kv_mask):
     """Plain version of K1f with the library's semantics: s = (q k^T in
     f32) / sqrt(D), -0.7 * FLT_MAX added at masked keys, softmax in natural
-    exp (a fully masked row: the mean of every v), in f32, returned in
-    q.dtype; T < 128 gives `masked_attention`, as JAX's wrapper does.
-    q/k/v (B, T, H, D), kv_mask (B, T) bool."""
+    exp (a fully masked row: the mean of every v), in f32 (f64 for f64
+    inputs), returned in q.dtype; T < 128 gives `masked_attention`, as
+    JAX's wrapper does. q/k/v (B, T, H, D), kv_mask (B, T) bool."""
     B, T, H, D = q.shape
     if T < KERNEL_MIN_T:
         return fused_attention_plain(q, k, v, kv_mask)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k))
     s = s * (1.0 / D ** 0.5)
-    s = s + torch.where(kv_mask, 0.0, FLASH_MASK_VALUE)[:, None, None, :]
+    s = s + torch.where(kv_mask, 0.0, FLASH_MASK_VALUE).to(
+        s.dtype)[:, None, None, :]
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, _wide(v)).to(q.dtype)
+
+
+def _scores(qh, kh, bias):
+    """The log2-domain scores of (B, H, T, D) heads as K1 and K1f form
+    them, tile by tile: score(i0, i1, j0, j1) = (q k^T) * scale * log2 e
+    + bias (B, Tk) over query rows i0:i1 and keys j0:j1."""
+    sl2 = (1.0 / qh.shape[-1] ** 0.5) * LOG2E
+    b = bias.to(qh.dtype)[:, None, None, :]
+    return lambda i0, i1, j0, j1: (
+        qh[:, :, i0:i1] @ kh[:, :, j0:j1].transpose(-1, -2)) * sl2 \
+        + b[..., j0:j1]
+
+
+def _flash_scores(q, k, kv_mask):
+    """K1f's scores of (B, T, H, D) q/k: the library's -0.7 * FLT_MAX at
+    masked keys, in f32 (f64 for f64 q)."""
+    return _scores(_wide(q).transpose(1, 2), _wide(k).transpose(1, 2),
+                   torch.where(kv_mask, 0.0, FLASH_MASK_VALUE))
+
+
+def flash_stats_plain(q, k, kv_mask):
+    """The K1f forward's row statistics on (B, T, H, D) q/k, each (B, H, T):
+    m, the row max of the log2-domain scores (no floor), and l = sum_j
+    exp2(s_j - m) (>= 1)."""
+    T = k.shape[1]
+    s = _flash_scores(q, k, kv_mask)(0, q.shape[1], 0, T)
+    m = s.amax(-1)
+    return m, torch.exp2(s - m[..., None]).sum(-1)
+
+
+def flash_attention_bwd_plain(q, k, v, kv_mask, out, m, l, dout,
+                              splits: int | None = None):
+    """Plain version of K1f's backward as the kernels compute it: K1's
+    three passes (`attention_bwd_plain`: delta, dk/dv over `splits` query
+    slices, dq over key tiles) with P = exp2(s - m) / l from the forward's
+    m and l (B, H, T) and the library's masked-key value, so a fully
+    masked row has P = 1 / T at every key. q/k/v/out/dout (B, T, H, D);
+    returns (dq, dk, dv) in q.dtype (f32 arithmetic, f64 for f64 inputs)."""
+    B, T, H, D = q.shape
+    flat = lambda x: x.reshape(B, T, H * D)
+    dq, dk, dv = _three_pass_bwd(
+        flat(q), flat(k), flat(v), flat(out), flat(dout), H,
+        _flash_scores(q, k, kv_mask), m, 1.0 / l, splits)
+    return tuple(x.reshape(B, T, H, D) for x in (dq, dk, dv))
 
 
 def probe_variant_plain(q, k, v, kv_mask, num_heads: int, bound_shift: bool,
@@ -241,35 +306,43 @@ def _check_cuda(q, k, v, kv_mask, head_dim):
 
 
 def _fwd(q, k, v, kv_mask, B, Tq, Tk, H, D, with_lse, head_major=False,
-         bound_shift=False, mxu_sum=False):
+         bound_shift=False, mxu_sum=False, flash=False):
     """One launch of the K1 forward on contiguous tensors of either layout:
-    (out, lse or None); lse (B, H, Tq) f32."""
-    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    (out, lse, lsum), each statistic (B, H, Tq) f32 or None. K1 stores
+    lse; flash mode (K1f) the row max m in lse's place and the row sum l
+    in lsum."""
+    stat = lambda: torch.empty((B, H, Tq), dtype=torch.float32,
+                               device=q.device)
+    lse = stat() if with_lse else None
+    lsum = stat() if with_lse and flash else None
     out = torch.empty_like(q)
-    fn = _build.bind("attention_blc", "attention_blc_fwd", 6, 8)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    fn = _build.bind("attention_blc", "attention_blc_fwd", 7, 8)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-             out.data_ptr(), 0 if lse is None else lse.data_ptr(), B, Tq, Tk,
-             H, D, _build.dtype_code(q), int(head_major),
-             int(bound_shift) | 2 * int(mxu_sum), _build.stream_of(q))
+             out.data_ptr(), ptr(lse), ptr(lsum), B, Tq, Tk, H, D,
+             _build.dtype_code(q), int(head_major),
+             4 if flash else int(bound_shift) | 2 * int(mxu_sum),
+             _build.stream_of(q))
     _build.check(err, "attention_blc_fwd")
-    return out, lse
+    return out, lse, lsum
 
 
 def _bwd(q, k, v, kv_mask, out, lse, dout, B, Tq, Tk, H, D,
-         head_major=False):
+         head_major=False, lsum=None):
     """One call of the K1 backward (delta, dk/dv, the partials' sum where
-    the query range is sliced, dq): (dq, dk, dv) in q.dtype."""
+    the query range is sliced, dq): (dq, dk, dv) in q.dtype. Given `lsum`,
+    flash mode (K1f): lse is then the forward's m."""
     dout = dout.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     splits = dkv_splits(B, H, Tq, Tk)
     partial = (torch.empty((2, splits, *k.shape), dtype=torch.float32,
                            device=q.device) if splits > 1 else None)
-    fn = _build.bind("attention_blc_bwd", "attention_blc_bwd", 12, 8)
+    fn = _build.bind("attention_blc_bwd", "attention_blc_bwd", 13, 8)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-             out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+             out.data_ptr(), lse.data_ptr(),
+             0 if lsum is None else lsum.data_ptr(), dout.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
              0 if partial is None else partial.data_ptr(), B, Tq, Tk, H, D,
              _build.dtype_code(q), int(head_major), splits,
              _build.stream_of(q))
@@ -282,7 +355,7 @@ def attention_fwd_cuda(q, k, v, kv_mask, num_heads: int, with_lse: bool):
     (out, lse or None); lse (B, H, Tq) f32."""
     B, Tq, C = q.shape
     res = _fwd(q, k, v, kv_mask, B, Tq, k.shape[1], num_heads,
-               C // num_heads, with_lse)
+               C // num_heads, with_lse)[:2]
     fused_attention_blc.launches += 1
     return res
 
@@ -304,7 +377,7 @@ def fused_attention_fwd_cuda(q, k, v, kv_mask, with_lse: bool):
     D): (out (H, B, Tq, D), lse (B, H, Tq) or None)."""
     H, B, Tq, D = q.shape
     res = _fwd(q, k, v, kv_mask, B, Tq, k.shape[2], H, D, with_lse,
-               head_major=True)
+               head_major=True)[:2]
     fused_attention.launches += 1
     return res
 
@@ -403,52 +476,24 @@ fused_attention.launches = 0
 
 
 def flash_fwd_cuda(q, k, v, kv_mask, with_stats: bool):
-    """Launch K1f's forward on (B, T, H, D) q/k/v: (out, m, l), m and l
-    (B, H, T) f32 or None."""
+    """Launch K1f's forward (K1's in flash mode) on (B, T, H, D) q/k/v:
+    (out, m, l), m and l (B, H, T) f32 or None."""
     B, T, H, D = q.shape
-    stats = [torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-             for _ in range(2)] if with_stats else [None, None]
-    out = torch.empty_like(q)
-    fn = _build.bind("flash_attention", "flash_fwd", 7, 5)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-             out.data_ptr(), *(0 if t is None else t.data_ptr()
-                               for t in stats),
-             B, T, H, D, _build.dtype_code(q), _build.stream_of(q))
-    _build.check(err, "flash_fwd")
+    res = _fwd(q, k, v, kv_mask, B, T, T, H, D, with_stats, flash=True)
     flash_attention.launches += 1
-    return out, *stats
+    return res
 
 
-def flash_dq_cuda(q, k, v, kv_mask, out, m, l, dout):
-    """Launch K1f's dq kernel: dq in q.dtype."""
+def flash_bwd_cuda(q, k, v, kv_mask, out, m, l, dout):
+    """Launch K1f's backward (K1's three passes in flash mode) from the
+    forward's out, m and l: (dq, dk, dv) in q.dtype."""
     B, T, H, D = q.shape
-    dq = torch.empty_like(q)
-    fn = _build.bind("flash_attention", "flash_dq", 9, 5)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-             out.data_ptr(), m.data_ptr(), l.data_ptr(), dout.data_ptr(),
-             dq.data_ptr(), B, T, H, D, _build.dtype_code(q),
-             _build.stream_of(q))
-    _build.check(err, "flash_dq")
-    flash_dq_cuda.launches += 1
-    return dq
+    res = _bwd(q, k, v, kv_mask, out, m, dout, B, T, T, H, D, lsum=l)
+    flash_bwd_cuda.launches += 1
+    return res
 
 
-def flash_dkv_cuda(q, k, v, kv_mask, out, m, l, dout):
-    """Launch K1f's dk/dv kernel: (dk, dv) in k.dtype."""
-    B, T, H, D = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.bind("flash_attention", "flash_dkv", 10, 5)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-             out.data_ptr(), m.data_ptr(), l.data_ptr(), dout.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), B, T, H, D, _build.dtype_code(q),
-             _build.stream_of(q))
-    _build.check(err, "flash_dkv")
-    flash_dkv_cuda.launches += 1
-    return dk, dv
-
-
-flash_dq_cuda.launches = 0
-flash_dkv_cuda.launches = 0
+flash_bwd_cuda.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -460,8 +505,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        args = (*ctx.saved_tensors, dout.contiguous())
-        return flash_dq_cuda(*args), *flash_dkv_cuda(*args), None
+        return *flash_bwd_cuda(*ctx.saved_tensors, dout), None
 
 
 def flash_attention(q, k, v, kv_mask):
@@ -496,9 +540,9 @@ def probe_variant(q, k, v, kv_mask, num_heads: int, bound_shift: bool,
                                    mxu_sum)
     _check_cuda(q, k, v, kv_mask, q.shape[2] // num_heads)
     B, Tq, C = q.shape
-    out, _ = _fwd(q, k, v, kv_mask, B, Tq, k.shape[1], num_heads,
-                  C // num_heads, False, bound_shift=bound_shift,
-                  mxu_sum=mxu_sum)
+    out = _fwd(q, k, v, kv_mask, B, Tq, k.shape[1], num_heads,
+               C // num_heads, False, bound_shift=bound_shift,
+               mxu_sum=mxu_sum)[0]
     probe_variant.launches += 1
     return out
 

@@ -1,15 +1,18 @@
-"""Fused transformer MLP (fc1 -> tanh GELU -> fc2), forward.
+"""Transformer MLP (fc1 -> tanh GELU -> fc2), forward.
 
 Replaces vilco_tpu/kernels/mlp.py::fused_mlp (the Pallas `_run`) with
-csrc/fused_mlp.cu: a block owns a tile of token rows and walks the hidden
-units in chunks, so the (N, 4C) intermediate stays in shared memory and
-never reaches device memory; both products run on the tensor cores (WMMA)
-in bf16, SIMT in f32. The weights and biases are rounded to x's dtype, as
-the Pallas call rounds them. Its backward recomputes through the plain form
-(the JAX custom_vjp does the same: the VQ ViT is frozen, so no gradient
-flows there on the flagship path).
+csrc/fused_mlp.cu. bfloat16: two launches of one Hopper GEMM (wgmma fed by
+a TMA ring, warp-specialised, persistent), H = bf16(gelu(x W1 + b1)) into a
+scratch tensor and out = bf16(H W2 + b2), each epilogue adding its bias in
+f32: the TPU kernel keeps H in VMEM, which Hopper has no room for (the
+source says why). H is rounded where the TPU kernel rounds it, so the
+function is the Pallas kernel's. float32 (the parity path): one SIMT
+kernel. The weights and biases are rounded to x's dtype, as the Pallas
+call rounds them. Its backward recomputes through the plain form (the JAX
+custom_vjp does the same: the VQ ViT is frozen, so no gradient flows there
+on the flagship path).
 
-A CPU tensor takes `fused_mlp_plain`; a CUDA tensor launches the kernel or
+A CPU tensor takes `fused_mlp_plain`; a CUDA tensor launches the kernels or
 raises.
 """
 
@@ -33,7 +36,8 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
 
 
 def fused_mlp_cuda(x, w1, b1, w2, b2):
-    """Launch the kernel on x (N, C): out (N, C) in x.dtype."""
+    """Launch the kernels on x (N, C) (bf16: the two GEMMs, one wrapper
+    call): out (N, C) in x.dtype."""
     if x.device.type != "cuda" or any(t.device != x.device
                                       for t in (w1, b1, w2, b2)):
         raise ValueError("x and the weights must be on one CUDA device")
@@ -50,10 +54,14 @@ def fused_mlp_cuda(x, w1, b1, w2, b2):
     x = x.contiguous()
     w1, b1, w2, b2 = (t.to(x.dtype).contiguous() for t in (w1, b1, w2, b2))
     out = torch.empty_like(x)
-    fn = _build.bind("fused_mlp", "fused_mlp_fwd", 6, 4)
+    # bf16: the GELU output between the two GEMMs (N x Hd, 1.51 GB at the
+    # VQ clip call), written once and read once
+    h = torch.empty((N, Hd), dtype=x.dtype, device=x.device) \
+        if code == 1 else None
+    fn = _build.bind("fused_mlp", "fused_mlp_fwd", 7, 4)
     err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-             b2.data_ptr(), out.data_ptr(), N, C, Hd, code,
-             _build.stream_of(x))
+             b2.data_ptr(), 0 if h is None else h.data_ptr(), out.data_ptr(),
+             N, C, Hd, code, _build.stream_of(x))
     _build.check(err, "fused_mlp_fwd")
     fused_mlp.launches += 1
     return out
