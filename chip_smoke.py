@@ -2,10 +2,12 @@
 once on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mq-train
     python3 chip_smoke.py --vq-train-parity SEED [SEED ...]
 
-The second form builds the kernels and runs only the VQ train-step parity
-(phase 18), once per seed of weights and batch.
+The second form builds the kernels and runs only the MQ training phases
+(7-10); the third only the VQ train-step parity (phase 18), once per seed
+of weights and batch.
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -33,8 +35,10 @@ fallback):
                    XL forward with dropout at rate 0 and 0.1, AdamW) against
                    its plain version at the shapes of the flagship's train
                    step, batch 2, bf16 and f32, plus the XL backward's
-                   inverse shift at odd lengths: error, tolerance, ms, bound,
-                   library ms
+                   inverse shift at odd lengths (37, 101, 131; both dtypes
+                   and rates): error, tolerance, ms, bound, library ms
+                   (AdamW: torch._fused_adamw_); the attention and XL
+                   backwards called twice for equal bits
   8. train_parity  one flagship train step at batch 1 in f32 (regularisers
                    off), the card against the CPU from the same weights and
                    batch: loss, clipped grad norm, max relative error of the
@@ -42,7 +46,13 @@ fallback):
                    TF32 control that must read above the gradient limit;
                    the same step on the card through the plain versions
                    splits the gap into the kernels' share and the
-                   libraries' (cuBLAS/cuDNN vs CPU) share
+                   libraries' (cuBLAS/cuDNN vs CPU) share; then pairs of
+                   steps with the regularisers on from the same state, rng
+                   and batch, reported (not checked): equal bits in every
+                   updated parameter, or the first leaf that differs, by
+                   default, with cudnn.deterministic, and under
+                   torch.use_deterministic_algorithms too (the ops it
+                   names)
   9. train         the flagship train step in bf16 with f32 masters,
                    drop-path and XL dropout on, batch 2, T=1024, on a fixed
                    batch: 2 warm-up and 10 timed steps, ms per step split
@@ -692,6 +702,7 @@ def check_repeatable(tag: str, label: str, fn) -> None:
 # output (dw and the XL bias gradients sum over batch and time and are
 # ~30-200x larger than dx or dq, so one pooled limit would hide those)
 TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+XL_GRADS = ("dq", "dk", "dv", "dr", "d_r_w_bias", "d_r_r_bias")
 
 
 def point_transformer_leaves(cfg, dev):
@@ -708,8 +719,12 @@ def point_transformer_leaves(cfg, dev):
 def check_adamw(chk, label, ps, decays, mdt, wd=None):
     """K4 over the f32 leaves `ps` in one launch, moments in `mdt`, weight
     decay `wd` (the kernel's default if None), bit-exact against the plain
-    version leaf by leaf."""
+    version leaf by leaf; PyTorch's fused AdamW timed beside it."""
     from vilco_tpu_torch.kernels.adamw import (
+        B1,
+        B2,
+        EPS,
+        WEIGHT_DECAY,
         LeafTable,
         adamw_update_multi,
         adamw_update_plain,
@@ -728,15 +743,35 @@ def check_adamw(chk, label, ps, decays, mdt, wd=None):
     adamw_update_multi(table, coef, **kw)
     n = sum(p.numel() for p in ps)
     el = torch.empty((), dtype=mdt).element_size()
+    # the library: PyTorch's fused AdamW over copies of the same leaves, one
+    # call per weight-decay group as AdamW(fused=True) steps them; its
+    # moments are f32 (it takes one dtype for all its lists) and it rounds
+    # b1 m otherwise (ROADMAP §3), so it is timed and not compared
+    lib = [[t.clone() for t in ps], gr, [t.float() for t in ms],
+           [t.float() for t in vs]]
+    steps = [torch.ones((), device=ps[0].device) for _ in ps]
+    groups = [(idx, decay) for idx, decay in (
+        ([i for i, d in enumerate(decays) if d],
+         WEIGHT_DECAY if wd is None else wd),
+        ([i for i, d in enumerate(decays) if not d], 0.0)) if idx]
+
+    def library():
+        for idx, decay in groups:
+            torch._fused_adamw_(
+                *([x[i] for i in idx] for x in lib), [],
+                [steps[i] for i in idx], lr=1e-4, beta1=B1, beta2=B2,
+                weight_decay=decay, eps=EPS, amsgrad=False, maximize=False)
+
     chk.report("adamw", f"adamw_update_multi {label} {len(ps)} leaves {n} "
-               f"params, {str(mdt)[6:]} moments", torch.float32,
+               f"params, {str(mdt)[6:]} moments (library: "
+               "torch._fused_adamw_, f32 moments)", torch.float32,
                output_errors(("p", "m", "v"), list(got),
                              [list(x) for x in zip(*want)], 0.0),
                lambda: adamw_update_multi(table, coef, **kw),
                lambda: [adamw_update_plain(p, g, m_, v_, d, *coef, **kw)
                         for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)],
-               (16 * n, (12 + 4 * el) * n), is_top=True, reps=5)
-    del gr, ms, vs, got, want, table
+               (16 * n, (12 + 4 * el) * n), library, is_top=True, reps=5)
+    del gr, ms, vs, got, want, table, lib
     torch.cuda.empty_cache()
 
 
@@ -833,14 +868,22 @@ def phase_train_kernels(dev):
             want = grads_of(lambda *a: xl_rel_attention_plain(
                 *a, seed=seed, rate=rate), args, g)
             out, lse = xl_fwd_cuda(args, st, rate, with_lse=True)
+            check_repeatable("train_kernels", f"xl_rel_attention backward "
+                             f"{label} {str(dtype)[6:]}",
+                             lambda: xl_bwd_cuda(args, out, lse, g, st, rate))
             chk.report("xl_bwd", f"xl_rel_attention backward {label}", dtype,
-                       out_err(("dq", "dk", "dv", "dr", "d_r_w_bias",
-                                "d_r_r_bias"), got, want, dtype),
+                       out_err(XL_GRADS, got, want, dtype),
                        lambda: xl_bwd_cuda(args, out, lse, g, st, rate),
                        backward_timer(lambda *a: xl_rel_attention_plain(
                            *a, seed=seed, rate=rate), args, g),
                        xl_work(T0, m, C, dtype, backward=True),
                        is_top=dtype == torch.bfloat16 and rate > 0)
+            split = device_ms_by_kernel(
+                lambda: xl_bwd_cuda(args, out, lse, g, st, rate), reps=10)
+            say(f"[train_kernels] xl_rel_attention backward {label} "
+                f"{str(dtype)[6:]} by kernel, device ms a call: "
+                + ", ".join(f"{short_name(k)} {v:.4f}"
+                            for k, v in split.items()))
         del q, k, v, g, r, out, lse, got, want
         # K3-bwd: stride 1 in the stem, stride 2 on each branch's input
         w = randn(3, 3, C, dtype=dtype, scale=0.3)
@@ -869,22 +912,33 @@ def phase_train_kernels(dev):
         torch.cuda.empty_cache()
 
     # the XL backward's inverse shift (d_raw[i, T + j - i] += d_ac[i, j]) at
-    # odd lengths, one to three 64-row tiles, f32, no dropout
+    # odd lengths, one to three 64-row tiles: every output against its
+    # limit, both dtypes and rates, and two calls bitwise equal
     for T in (37, 101, 131):
-        q, k, v, g = (randn(2, T, 4, 64, dtype=torch.float32)
-                      for _ in range(4))
-        args = (q, k, v, randn(2 * T, 4, 64, dtype=torch.float32),
-                randn(4, 64, dtype=torch.float32, scale=0.1),
-                randn(4, 64, dtype=torch.float32, scale=0.1),
-                ragged_mask(rng, 2, T, dev))
-        got = grads_of(lambda *a: xl_rel_attention(*a), args, g)
-        want = grads_of(lambda *a: xl_rel_attention_plain(*a), args, g)
-        [(_, err, lim)] = output_errors(("dr",), got[3:4], want[3:4], 1e-4)
-        ok = err <= lim
-        chk.ok &= ok
-        say(f"[train_kernels] xl backward inverse shift T={T}: dr max_abs_"
-            f"err {err:.3e} (limit {lim:.3e}) "
-            f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (randn(2, T, 4, 64, dtype=dtype) for _ in range(4))
+            args = (q, k, v, randn(2 * T, 4, 64, dtype=dtype),
+                    randn(4, 64, dtype=dtype, scale=0.1),
+                    randn(4, 64, dtype=dtype, scale=0.1),
+                    ragged_mask(rng, 2, T, dev))
+            for rate in (0.0, 0.1):
+                label = (f"xl backward inverse shift T={T} "
+                         f"{str(dtype)[6:]} rate {rate}")
+                got = grads_of(lambda *a: xl_rel_attention(*a, seed, rate),
+                               args, g)
+                want = grads_of(lambda *a: xl_rel_attention_plain(
+                    *a, seed=seed, rate=rate), args, g)
+                rows = out_err(XL_GRADS, got, want, dtype)
+                ok = all(err <= lim for _, err, lim in rows)
+                chk.ok &= ok
+                say(f"[train_kernels] {label}: max_abs_err (limit) "
+                    + ", ".join(f"{n} {e:.3e} ({lim:.3e})"
+                                for n, e, lim in rows)
+                    + f" {'ok' if ok else 'OUT OF TOLERANCE'}")
+                out, lse = xl_fwd_cuda(args, st, rate, with_lse=True)
+                check_repeatable(
+                    "train_kernels", label,
+                    lambda: xl_bwd_cuda(args, out, lse, g, st, rate))
 
     check_adamw(chk, *point_transformer_leaves(cfg, dev), torch.bfloat16)
     if not chk.ok:
@@ -1001,7 +1055,8 @@ def phase_train_parity(dev, tag="train_parity", full=None):
     pts = generate_points(level_lengths(m), m.fpn_strides, m.regression_range)
     batch = make_batch(np.random.default_rng(SEED + 4), 1, cfg)
 
-    def run(device, tf32: bool, plain: bool = False):
+    def run(device, tf32: bool, plain: bool = False,
+            regularize: bool = False):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
         model = PointTransformer(m, torch.Generator().manual_seed(SEED),
@@ -1012,7 +1067,7 @@ def phase_train_parity(dev, tag="train_parity", full=None):
         if plain:
             st.opt._table = None        # AdamW through its plain version
         step = make_train_step(torch.from_numpy(pts).to(device),
-                               cfg.train_cfg, regularize=False)
+                               cfg.train_cfg, regularize=regularize)
         cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
                                       device=device))
         t0 = time.perf_counter()
@@ -1069,6 +1124,56 @@ def phase_train_parity(dev, tag="train_parity", full=None):
         fail(f"{tag}: the kernels alone move the gradients past the limit")
     if gaps["TF32 control"]["grads"][0] <= GRAD_RTOL:
         fail(f"{tag}: the check does not see TF32: limit too loose")
+    say_repeatable(tag, m, "", run(dev, False, regularize=True),
+                   run(dev, False, regularize=True))
+    for algorithms in (False, True):
+        with deterministic_algorithms(algorithms) as ops:
+            pair = run(dev, False, regularize=True), \
+                run(dev, False, regularize=True)
+        how = (" under torch.use_deterministic_algorithms (warn only; ops "
+               f"it names: {'; '.join(ops) if ops else 'none'}) and"
+               if algorithms else "")
+        say_repeatable(tag, m, f"{how} with cudnn.deterministic", *pair)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(algorithms: bool):
+    """cuDNN's deterministic mode and, with `algorithms`, PyTorch's
+    deterministic algorithms, where an op with no deterministic CUDA kernel
+    warns instead of raising; the list yielded collects those ops' names."""
+    import warnings
+
+    was = torch.are_deterministic_algorithms_enabled(), \
+        torch.backends.cudnn.deterministic
+    ops = []
+    torch.use_deterministic_algorithms(algorithms, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield ops
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.deterministic = was[1]
+    ops += sorted({("cuBLAS without CUBLAS_WORKSPACE_CONFIG"
+                    if "CuBLAS" in str(w.message)
+                    else str(w.message).split(" does not have")[0])
+                   for w in caught if "determinis" in str(w.message)})
+
+
+def say_repeatable(tag, m, how, first, second):
+    """Report (not check) whether two f32 steps from the same state, rng
+    and batch updated every parameter to the same bits (ROADMAP §3, F3)."""
+    a, b = first["params"], second["params"]
+    diff = [n for n in a if not torch.equal(a[n], b[n])]
+    what = "bitwise equal in every leaf"
+    if diff:
+        gap = (a[diff[0]] - b[diff[0]]).abs().max().item()
+        what = (f"differ in {len(diff)} leaves, first {diff[0]} (max abs "
+                f"{gap:.3e})")
+    say(f"[{tag}] repeatability: two f32 {m.variant.upper()} steps with the "
+        f"regularisers on, from the same state, rng and batch{how}: updated "
+        f"parameters {what} ({len(a)} leaves)")
 
 
 def phase_train(dev, tag: str, cfg, kernels, seed: int,
@@ -2482,6 +2587,34 @@ def phase_trace(label: str, fn, unprofiled_ms: float):
     return out
 
 
+def mq_training(dev, mq):
+    """The MQ flagship's training phases: train_kernels, train_parity and
+    train; returns the kernel errors, their timings and the step's
+    launches."""
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+    )
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
+
+    terrs, ttop = phase_train_kernels(dev)
+    phase_train_parity(dev)
+    launches = phase_train(
+        dev, "train", mq, (fused_attention_blc, attention_bwd_cuda,
+                           xl_rel_attention, xl_bwd_cuda, fused_dwconv_qkv,
+                           dwconv_bwd_cuda, adamw_update_multi),
+        SEED + 5, normalised_must_fall=True)
+    return terrs, ttop, launches
+
+
 def main():
     name = phase_device()
     dev = torch.device("cuda", 0)
@@ -2508,10 +2641,7 @@ def main():
         frame_band_dq_cuda,
     )
     from vilco_tpu_torch.kernels.mlp import fused_mlp
-    from vilco_tpu_torch.kernels.xl_attention import (
-        xl_bwd_cuda,
-        xl_rel_attention,
-    )
+    from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention
     # f32 means f32 in every comparison: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2524,13 +2654,7 @@ def main():
     serve_launches = phase_serve(
         dev, "serve", mq, mq_requests(mq.model, dev),
         (fused_attention_blc, xl_rel_attention, fused_dwconv_qkv))
-    terrs, ttop = phase_train_kernels(dev)
-    phase_train_parity(dev)
-    train_launches = phase_train(
-        dev, "train", mq, (fused_attention_blc, attention_bwd_cuda,
-                           xl_rel_attention, xl_bwd_cuda, fused_dwconv_qkv,
-                           dwconv_bwd_cuda, adamw_update_multi),
-        SEED + 5, normalised_must_fall=True)
+    terrs, ttop, train_launches = mq_training(dev, mq)
 
     # NLQ: the same at the dual tower's shapes
     nerrs, ntop = phase_nlq_kernels(dev)
@@ -2687,11 +2811,15 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--vq-train-parity"]:
+    if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if sys.argv[1] == "--mq-train":
+            from vilco_tpu_torch.core.config import flagship_config
+
+            mq_training(torch.device("cuda", 0), flagship_config())
         for s in sys.argv[2:]:
             phase_vq_train_parity(torch.device("cuda", 0), int(s))
     else:

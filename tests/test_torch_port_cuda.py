@@ -7,7 +7,8 @@ the band wider than T and windows wider than one staged chunk; the
 frame-banded kernels at the VQ shape (fr 64, w 2, 8 heads of 32), odd fr,
 frames longer than a tile and bands wider than the clip; the fused MLP at
 the tiny twin's, a middle and the ViT-B width, up to the ViT's query call;
-two K1f backward calls bitwise equal. Marked
+two K1f backward calls bitwise equal; K2-bwd's passes against their plain
+version, two calls bitwise equal at dropout rate 0 and 0.1. Marked
 `gpu`: skips where there is no card. Imports no JAX, so that it runs on a
 machine with only PyTorch:
 
@@ -36,6 +37,9 @@ from vilco_tpu_torch.kernels.dwconv import (
     fused_dwconv_qkv_plain,
 )
 from vilco_tpu_torch.kernels.xl_attention import (
+    xl_bwd_cuda,
+    xl_bwd_plain,
+    xl_fwd_cuda,
     xl_rel_attention,
     xl_rel_attention_plain,
 )
@@ -152,6 +156,37 @@ def test_backward_kernels_match_plain_on_card(cuda, dtype, tol, T, D):
             want = _grads(lambda a, b: fused_dwconv_qkv_plain(a, b, s),
                           (q, w), gs)
             _close(got, want, tol, f"dwconv stride {s}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,H,D", [(37, 4, 64), (131, 4, 64), (70, 4, 20),
+                                   (100, 2, 128)])
+def test_xl_backward_passes_on_card(cuda, dtype, tol, T, H, D):
+    """K2-bwd has no atomics: two calls give equal bits at rate 0 and 0.1,
+    and each output is within tol x max(1, max |ref|) of `xl_bwd_plain`
+    (the same passes in plain PyTorch) on the same forward output and lse;
+    the fully masked row's dq, dk and dv are 0. D 20 stages rows element by
+    element, D 128 pads to 128."""
+    rng = np.random.default_rng(T + D)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    B = 2
+    args = (rn(B, T, H, D), rn(B, T, H, D), rn(B, T, H, D), rn(2 * T, H, D),
+            rn(H, D) * 0.1, rn(H, D) * 0.1, _mask(rng, B, T, cuda))
+    g = rn(B, T, H, D)
+    seed = 0x243F6A8885A308D3
+    st = torch.tensor([seed], dtype=torch.int64, device=cuda)
+    for rate in (0.0, 0.1):
+        out, lse = xl_fwd_cuda(args, st, rate, with_lse=True)
+        first = xl_bwd_cuda(args, out, lse, g, st, rate)
+        second = xl_bwd_cuda(args, out, lse, g, st, rate)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), rate
+        _close(first, xl_bwd_plain(args, out, lse, g, seed, rate), tol,
+               f"xl backward passes rate {rate}")
+        assert all(torch.all(x[-1] == 0) for x in first[:3])
     torch.cuda.synchronize()
 
 

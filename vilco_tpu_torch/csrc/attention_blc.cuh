@@ -1,9 +1,10 @@
 // Shared by csrc/attention_blc.cu (K1's forward) and
 // csrc/attention_blc_bwd.cu (its backward): the row strides of the two
 // layouts, the -1e9 key bias and -1e8 row-max floor, flash mode's
-// masked-key value, and the mma.sync, ldmatrix and cp.async helpers of the
-// bf16 kernels. Two files, so that nvcc builds the forward and the
-// backward side by side.
+// masked-key value, the backward's delta pass, and the mma.sync, ldmatrix
+// and cp.async helpers of the bf16 kernels. Two files, so that nvcc builds
+// the forward and the backward side by side. csrc/xl_rel_attention.cu (K2)
+// takes the delta pass and the mma.sync helpers from here too.
 #pragma once
 
 #include <algorithm>
@@ -43,6 +44,30 @@ struct Strides {
 Strides strides_of(bool head_major, int B, int T, int H, int D) {
   return head_major ? Strides{(long long)T * D, D, (long long)B * T * D}
                     : Strides{(long long)T * H * D, (long long)H * D, D};
+}
+
+// The backward's first pass (K1's (a), K2-bwd's 1): delta = rowsum(dO * O)
+// per (batch, head, query row) at ((b * H) + h) * Tq + i, in f32; one warp
+// a row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+attention_blc_delta_kernel(const T* __restrict__ out,
+                           const T* __restrict__ dout,
+                           float* __restrict__ delta, long long rows, int Tq,
+                           int H, int D, Strides sq) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int i = (int)(row % Tq), h = (int)((row / Tq) % H);
+  const int b = (int)(row / ((long long)Tq * H));
+  const long long off = sq.at(b, i, h);
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(vilco::to_f32<T>(out[off + d]), vilco::to_f32<T>(dout[off + d]),
+               acc);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) delta[row] = acc;
 }
 
 // ---- bfloat16: mma.sync fragments held in registers ----------------------
@@ -153,6 +178,14 @@ __device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* t,
                                         int LD, int n0, int c0, int lane) {
   ldsm4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
                ((lane >> 3) & 1) * 8);
+}
+
+// A fragment of the transpose of a row-major tile: A rows r0 .. r0 + 15 are
+// the tile's cols, A cols c0 .. c0 + 15 its rows (ldmatrix.trans).
+__device__ __forceinline__ void load_at(uint32_t (&a)[4], const bf16* t,
+                                        int LD, int r0, int c0, int lane) {
+  ldsm4t(a, t + (c0 + (lane & 7) + ((lane >> 4) << 3)) * LD + r0 +
+                ((lane >> 3) & 1) * 8);
 }
 
 // B fragments of two n8 tiles for a product with a row-major tile itself:

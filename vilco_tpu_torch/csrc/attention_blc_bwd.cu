@@ -46,29 +46,6 @@ namespace {
 
 // ---- backward -------------------------------------------------------------
 
-// (a) delta = rowsum(dO * O) per (batch, head, query row) at
-// ((b * H) + h) * Tq + i, in f32; one warp a row.
-template <typename T>
-__global__ void __launch_bounds__(256)
-attention_blc_delta_kernel(const T* __restrict__ out,
-                           const T* __restrict__ dout,
-                           float* __restrict__ delta, long long rows, int Tq,
-                           int H, int D, Strides sq) {
-  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int i = (int)(row % Tq), h = (int)((row / Tq) % H);
-  const int b = (int)(row / ((long long)Tq * H));
-  const long long off = sq.at(b, i, h);
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(vilco::to_f32<T>(out[off + d]), vilco::to_f32<T>(dout[off + d]),
-               acc);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0) delta[row] = acc;
-}
-
 // dk/dv partials of the query slices, summed in slice order:
 // partial[(w * splits + s) * n + e] is slice s's dk (w = 0, scaled) or dv
 // (w = 1) at element e of k's layout.

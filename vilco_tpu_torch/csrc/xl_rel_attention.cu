@@ -32,25 +32,47 @@
 //    by FMA issue (3 * D FMAs per score).
 // With `lse` set, the forward stores m + log2(l) per (batch, head, row).
 //
-// Backward (both dtypes, SIMT in f32): one block of 256 threads per (key
-// tile, head, batch), tiles of 64 rows (32 at D > 64, to fit shared
-// memory), keeps its K, V tile in shared memory and dk, dv in registers,
-// and walks the query tiles, staging each tile's band of r:
-//   P = exp2(x - lse) with x as in the forward;  Pd = drop(P)
-//   dv += Pd^T dO (zeroed at masked keys);  dPd = dO (v mask)^T
-//   dP = drop(dPd);  dS = P (dP - rowsum(dO O));  d_ac = scale dS
-//   dk += d_ac^T (q + r_w_bias)
-//   dq += d_ac K + d_raw r,  d_raw[i, T + j - i] = d_ac[i, j]  (the inverse
-//         shift is the band index j - i + BQ - 1, no roll)
-//   dr[T + j - i] += d_ac[i, j] (q_i + r_r_bias)   (per band row)
-//   d r_w_bias += colsum(d_ac K), d r_r_bias += colsum(d_raw r)
-// dq, dr and the bias grads sum over key tiles and batch: f32 atomicAdd
-// into f32 buffers (order-dependent at f32 rounding). Bound by shared-memory
-// operand reads; registers stay near 128 a thread (2 x 16 f32 dk/dv
-// accumulators, 2 x 16 score/dP values).
+// Backward: five passes, each output element written once by one thread
+// and every sum taken in a fixed order, so two calls give equal bits
+// (kernels/xl_attention.py::xl_bwd_plain is the same passes in plain
+// PyTorch), on csrc/attention_blc_bwd.cu's model (K1's backward). With P = exp2(x - lse) (x as in the forward, lse the
+// forward's m + log2 l), Pd = drop(P), dP = drop(dO (v mask)^T) and
+// dS = P (dP - delta):
+//  1. delta = rowsum(dO O) per (batch, head, row) (attention_blc.cuh);
+//  2. dk/dv: one block per (key tile, head, batch) walks the query tiles:
+//     dv += Pd^T dO (zero at masked keys), dk += scale dS^T (q + r_w_bias);
+//  3. dq: one block per (query tile, head, batch) walks the key tiles:
+//     dq = scale (dS K + dS_sh r), dS_sh[i, T + j - i] = dS[i, j] (the
+//     inverse shift is a band index, no roll); the tile's column sums of
+//     the two terms are its partials of d r_w_bias and d r_r_bias;
+//  4. dr: one block per (tile of r's positions, head) walks the batch and
+//     then the query tiles: position p and query i meet key p - T + i, so
+//     a tile pair needs a band of 127 keys; dr += scale dS^T (q + r_r_bias).
+//     Keys outside [0, T) contribute 0, and so r's row 0 gets 0;
+//  5. the partials summed over (batch, query tile) in order.
+//  - bfloat16 (the training path): every product on mma.sync (bf16 in, f32
+//    accumulate), 4 warps of 16 query rows, tiles of 64. Scores: q + r_w_bias
+//    and q + r_r_bias rounded to bf16 as the forward rounds them. A warp's
+//    16 rows reach 80 rows of the 128-row band (of r in passes 2 and 3, of
+//    keys in pass 4): it computes its 16 x 80 raw tile, stores it to its own
+//    f32 tile in shared memory and reads it back sheared. Pass 3 writes dS
+//    sheared into a bf16 tile, the A operand of dS_sh r. Passes 2 and 4
+//    turn P and dS around through shared memory (bf16, ldmatrix.trans) to
+//    accumulate by key or position rows. P and dS are rounded to bf16
+//    before their products, as the TPU kernel rounds them. Each pass
+//    recomputes the scores of its tiles; pass 2 draws the keep bits (Philox
+//    per element) and stores them, 64 keys a word, for passes 3 and 4.
+//    Tiles are staged by cp.async; pass 4 starts the position tiles that
+//    meet the most query tiles first. Not bound by the tensor cores: the
+//    staging latency between products and the per-element exp2 and Philox
+//    work bound it, with 2 blocks of 4 warps an SM (~100 KB of shared
+//    memory each).
+//  - float32 (the parity path): the same passes in SIMT, 256 threads of
+//    16 x 16, tiles of 64 (32 at D > 64), operands from shared memory, the
+//    keep bits drawn in each pass.
 #include <mma.h>
 
-#include "common.cuh"
+#include "attention_blc.cuh"
 
 namespace {
 
@@ -200,7 +222,6 @@ xl_rel_attention_simt_kernel(const T* __restrict__ q,
 // ---- bfloat16: tensor cores through WMMA ---------------------------------
 
 namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
 
 template <int DPAD>
 struct TcLayout {
@@ -444,287 +465,1133 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 }
 
 // ---- backward -------------------------------------------------------------
+//
+// Five passes (the header): 1 delta, attention_blc.cuh's kernel; 2 dk/dv,
+// 3 dq and the bias partials, 4 dr, in bf16 on mma.sync or in SIMT; 5 the
+// partials' sum. Each output element is written once.
+
+struct XlBwd {
+  const void *q, *k, *v, *r, *rwb, *rrb, *mask, *lse, *dout;
+  void *dq, *dk, *dv, *dr, *drwb, *drrb;
+  const float* delta;
+  float* partial;   // [2][B * query tiles][H * D]: r_w_bias's, r_r_bias's
+  // bf16 with dropout: the keep bits, (B, H, T) rows of ceil(T / 64) words
+  // (bit j % 64 of word j / 64: key j), drawn by pass 2 for passes 3 and 4
+  unsigned long long* bits;
+  int B, T, H, D;
+  float scale, scale_log2;
+  vilco::Dropout drop;
+};
+
+// key j of a batch row's mask mp: 1 valid, 0 masked, -1 outside [0, T)
+__device__ __forceinline__ float key_flag(const uint8_t* mp, int j, int T) {
+  return j >= 0 && j < T ? (mp[j] ? 1.f : 0.f) : -1.f;
+}
+
+// the log2-domain score x of a key of flag fl (masked: -1e9 log2 e,
+// outside: -inf, so that P is 0 there)
+__device__ __forceinline__ float flagged(float fl, float x) {
+  return fl > 0.f ? x : (fl == 0.f ? MASKED : -INFINITY);
+}
+
+// ---- backward, SIMT (float32) ---------------------------------------------
 
 constexpr int BWD_THREADS = 256;   // 16 x 16
 
 template <int DPAD> __host__ __device__ constexpr int bwd_tile() { return DPAD <= 64 ? 64 : 32; }
 
+// Shared memory of the SIMT passes, f32 rows of DPAD + 1: q (no bias) and
+// dO of a query tile, K and V (a key tile, or pass 4's 2 BT - 1 band
+// keys), a band of r (2 BT - 1 rows; pass 4: its position tile), P and dS
+// (rows of BT + 1), the key flags, lse, delta, the two biases.
 template <int DPAD>
-constexpr size_t bwd_smem_bytes() {
-  constexpr int BT = bwd_tile<DPAD>(), LD = DPAD + 1, LP = BT + 1;
-  return sizeof(float) *
-         ((size_t)6 * BT * LD + 2 * BT * LP + 3 * BT + 2 * DPAD);
+struct SimtSmem {
+  static constexpr int BT = bwd_tile<DPAD>(), LD = DPAD + 1, LP = BT + 1;
+  static constexpr int NB = 2 * BT;
+  float *qs, *gs, *ks, *vs, *rs, *ps, *dss, *keep, *lses, *delta, *rw, *rr;
+  __device__ explicit SimtSmem(float* sm)
+      : qs(sm), gs(qs + BT * LD), ks(gs + BT * LD), vs(ks + NB * LD),
+        rs(vs + NB * LD), ps(rs + NB * LD), dss(ps + BT * LP),
+        keep(dss + BT * LP), lses(keep + NB), delta(lses + BT),
+        rw(delta + BT), rr(rw + DPAD) {}
+  static constexpr size_t bytes() {
+    return sizeof(float) * ((size_t)(2 * BT + 3 * NB) * LD + 2 * BT * LP +
+                            NB + 2 * BT + 2 * DPAD);
+  }
+};
+
+// rows of a head into f32 rows of DPAD + 1: src(row) its first element, or
+// null for a zero row; zero past D
+template <typename T, int DPAD, typename RowSrc>
+__device__ __forceinline__ void simt_stage(float* dst, int rows, int D,
+                                           RowSrc src) {
+  for (int e = threadIdx.x; e < rows * DPAD; e += BWD_THREADS) {
+    const int rr = e / DPAD, d = e % DPAD;
+    const T* g = src(rr);
+    dst[rr * (DPAD + 1) + d] =
+        (g != nullptr && d < D) ? vilco::to_f32<T>(g[d]) : 0.f;
+  }
 }
 
+// The biases of head h, lse and delta of query rows i0 .. i0 + BT - 1 of
+// (b, h) (rows past T: lse +inf, so their P is 0), q and dO of those rows.
 template <typename T, int DPAD>
-__global__ void __launch_bounds__(BWD_THREADS)
-xl_rel_attention_bwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ r,
-    const T* __restrict__ rwb, const T* __restrict__ rrb,
-    const uint8_t* __restrict__ mask, const T* __restrict__ out,
-    const float* __restrict__ lse, const T* __restrict__ dout,
-    float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-    float* __restrict__ dr, float* __restrict__ drwb,
-    float* __restrict__ drrb, int T_len, int H, int D, float scale_log2,
-    float scale, vilco::Dropout drop) {
-  constexpr int BT = bwd_tile<DPAD>(), LD = DPAD + 1, LP = BT + 1;
-  constexpr int RA = BT / 16, CD = DPAD / 16, NB = 2 * BT;   // band rows
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                  // [BT][LD] q (no bias)
-  float* gs = qs + BT * LD;        // [BT][LD] dO
-  float* ks = gs + BT * LD;        // [BT][LD]
-  float* vs = ks + BT * LD;        // [BT][LD] v, zero at masked keys
-  float* rs = vs + BT * LD;        // [NB][LD] band of r (2 * BT - 1 used)
-  float* ps = rs + NB * LD;        // [BT][LP] drop(P)
-  float* dss = ps + BT * LP;       // [BT][LP] dS
-  float* keep = dss + BT * LP;     // [BT] 1 valid, 0 masked, -1 past T
-  float* lses = keep + BT;         // [BT]
-  float* delta = lses + BT;        // [BT]
-  float* rw = delta + BT;          // [DPAD] r_w_bias
-  float* rr = rw + DPAD;           // [DPAD] r_r_bias
-
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int C = H * D;
-  const uint8_t* mp = mask + (long long)b * T_len;
-
-  for (int d = tid; d < DPAD; d += BWD_THREADS) {
-    rw[d] = d < D ? vilco::to_f32<T>(rwb[h * D + d]) : 0.f;
-    rr[d] = d < D ? vilco::to_f32<T>(rrb[h * D + d]) : 0.f;
+__device__ __forceinline__ void simt_stage_queries(const SimtSmem<DPAD>& sm,
+                                                   const XlBwd& a, int b,
+                                                   int h, int i0) {
+  constexpr int BT = SimtSmem<DPAD>::BT;
+  const long long C = (long long)a.H * a.D, hd = (long long)h * a.D;
+  const int nq = min(BT, a.T - i0);
+  const T* q0 = (const T*)a.q + ((long long)b * a.T + i0) * C + hd;
+  const T* g0 = (const T*)a.dout + ((long long)b * a.T + i0) * C + hd;
+  simt_stage<T, DPAD>(sm.qs, BT, a.D,
+                      [&](int rr) { return rr < nq ? q0 + rr * C : nullptr; });
+  simt_stage<T, DPAD>(sm.gs, BT, a.D,
+                      [&](int rr) { return rr < nq ? g0 + rr * C : nullptr; });
+  const long long at = ((long long)b * a.H + h) * a.T + i0;
+  for (int rr = threadIdx.x; rr < BT; rr += BWD_THREADS) {
+    sm.lses[rr] = rr < nq ? ((const float*)a.lse)[at + rr] : INFINITY;
+    sm.delta[rr] = rr < nq ? a.delta[at + rr] : 0.f;
   }
-  for (int e = tid; e < BT * DPAD; e += BWD_THREADS) {
-    const int rrow = e / DPAD, d = e % DPAD, j = j0 + rrow;
-    float kv = 0.f, vv = 0.f;
-    if (j < T_len && d < D) {
-      const long long off = ((long long)b * T_len + j) * C + h * D + d;
-      kv = vilco::to_f32<T>(k[off]);
-      vv = mp[j] ? vilco::to_f32<T>(v[off]) : 0.f;
-    }
-    ks[rrow * LD + d] = kv;
-    vs[rrow * LD + d] = vv;
+  for (int d = threadIdx.x; d < DPAD; d += BWD_THREADS) {
+    sm.rw[d] = d < a.D ? vilco::to_f32<T>(((const T*)a.rwb)[hd + d]) : 0.f;
+    sm.rr[d] = d < a.D ? vilco::to_f32<T>(((const T*)a.rrb)[hd + d]) : 0.f;
   }
-  for (int jj = tid; jj < BT; jj += BWD_THREADS) {
-    const int j = j0 + jj;
-    keep[jj] = j < T_len ? (mp[j] ? 1.f : 0.f) : -1.f;
-  }
-  float dk_acc[RA][CD], dv_acc[RA][CD], cw[CD], cr[CD];
-#pragma unroll
-  for (int c = 0; c < CD; ++c) {
-    cw[c] = cr[c] = 0.f;
-#pragma unroll
-    for (int a = 0; a < RA; ++a) dk_acc[a][c] = dv_acc[a][c] = 0.f;
-  }
+}
 
-  for (int i0 = 0; i0 < T_len; i0 += BT) {
-    __syncthreads();   // the previous query tile is no longer read
-    for (int e = tid; e < BT * DPAD; e += BWD_THREADS) {
-      const int rrow = e / DPAD, d = e % DPAD, i = i0 + rrow;
-      float qv = 0.f, gv = 0.f;
-      if (i < T_len && d < D) {
-        const long long off = ((long long)b * T_len + i) * C + h * D + d;
-        qv = vilco::to_f32<T>(q[off]);
-        gv = vilco::to_f32<T>(dout[off]);
-      }
-      qs[rrow * LD + d] = qv;
-      gs[rrow * LD + d] = gv;
-    }
-    // band row mm holds r[T + j0 - i0 - (BT - 1) + mm]
-    const int base = T_len + j0 - i0 - (BT - 1);
-    for (int e = tid; e < NB * DPAD; e += BWD_THREADS) {
-      const int mm = e / DPAD, d = e % DPAD, src = base + mm;
-      rs[mm * LD + d] = (src >= 0 && src < 2 * T_len && d < D)
-          ? vilco::to_f32<T>(r[(long long)src * C + h * D + d]) : 0.f;
-    }
-    for (int rrow = tid >> 2; rrow < BT; rrow += BWD_THREADS / 4) {
-      const int part = tid & 3, i = i0 + rrow;
-      float acc = 0.f;
-      if (i < T_len) {
-        const long long off = ((long long)b * T_len + i) * C + h * D;
-        for (int d = part; d < D; d += 4)
-          acc += vilco::to_f32<T>(out[off + d]) *
-                 vilco::to_f32<T>(dout[off + d]);
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (part == 0) {
-        delta[rrow] = acc;
-        lses[rrow] = i < T_len ? lse[((long long)b * H + h) * T_len + i]
-                               : INFINITY;
-      }
-    }
-    __syncthreads();
+// `rows` keys from j0 of batch b into ks, vs (v zero at masked keys) and
+// their flags
+template <typename T, int DPAD>
+__device__ __forceinline__ void simt_stage_keys(const SimtSmem<DPAD>& sm,
+                                                const XlBwd& a, int b, int h,
+                                                int j0, int rows) {
+  const long long C = (long long)a.H * a.D;
+  const uint8_t* mp = (const uint8_t*)a.mask + (long long)b * a.T;
+  const T* k0 = (const T*)a.k + (long long)b * a.T * C + (long long)h * a.D;
+  const T* v0 = (const T*)a.v + (long long)b * a.T * C + (long long)h * a.D;
+  simt_stage<T, DPAD>(sm.ks, rows, a.D, [&](int rr) {
+    const int j = j0 + rr;
+    return j >= 0 && j < a.T ? k0 + j * C : nullptr;
+  });
+  simt_stage<T, DPAD>(sm.vs, rows, a.D, [&](int rr) {
+    const int j = j0 + rr;
+    return j >= 0 && j < a.T && mp[j] ? v0 + j * C : nullptr;
+  });
+  for (int rr = threadIdx.x; rr < rows; rr += BWD_THREADS)
+    sm.keep[rr] = key_flag(mp, j0 + rr, a.T);
+}
 
-    // scores and dPd: query rows ty + 16a, keys tx + 16c
-    float s[RA][RA], dp[RA][RA];
+// `rows` rows of r from p0 (zero outside [0, 2T)) into rs
+template <typename T, int DPAD>
+__device__ __forceinline__ void simt_stage_r(const SimtSmem<DPAD>& sm,
+                                             const XlBwd& a, int h, int p0,
+                                             int rows) {
+  const long long C = (long long)a.H * a.D;
+  const T* r0 = (const T*)a.r + (long long)h * a.D;
+  simt_stage<T, DPAD>(sm.rs, rows, a.D, [&](int rr) {
+    const int p = p0 + rr;
+    return p >= 0 && p < 2 * a.T ? r0 + p * C : nullptr;
+  });
+}
+
+// P (dropped, into ps with `with_p`) and dS (into dss) of the staged query
+// tile (rows i0 + il of batch b) against the staged columns: thread (ty,
+// tx) takes rows ty + 16a and columns tx + 16c. A column is
+//  - (BY_POS false) key j0 + jl: K, V and flag row jl, r band row
+//    jl - il + BT - 1 (r[T + j - i]);
+//  - (BY_POS true) position p0 + pl: r row pl, and key j0 + pl + il at K,
+//    V and flag row pl + il (pass 4; j0 = p0 - T + i0).
+template <int DPAD, bool BY_POS>
+__device__ __forceinline__ void simt_p_ds(const SimtSmem<DPAD>& sm,
+                                          const XlBwd& a, int b, int h,
+                                          int i0, int j0, bool with_p,
+                                          int tx, int ty) {
+  constexpr int BT = SimtSmem<DPAD>::BT, LD = SimtSmem<DPAD>::LD;
+  constexpr int LP = SimtSmem<DPAD>::LP, RA = BT / 16;
+  float s[RA][RA], dp[RA][RA];
 #pragma unroll
-    for (int a = 0; a < RA; ++a)
+  for (int x = 0; x < RA; ++x)
 #pragma unroll
-      for (int c = 0; c < RA; ++c) s[a][c] = dp[a][c] = 0.f;
+    for (int c = 0; c < RA; ++c) s[x][c] = dp[x][c] = 0.f;
 #pragma unroll 2
-    for (int d = 0; d < DPAD; ++d) {
-      float qv[RA], gv[RA], kv[RA], vv[RA];
+  for (int d = 0; d < DPAD; ++d) {
+    const float wd = sm.rw[d], rd = sm.rr[d];
+    float qv[RA], gv[RA];
 #pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        qv[a] = qs[(ty + 16 * a) * LD + d];
-        gv[a] = gs[(ty + 16 * a) * LD + d];
-        kv[a] = ks[(tx + 16 * a) * LD + d];
-        vv[a] = vs[(tx + 16 * a) * LD + d];
+    for (int x = 0; x < RA; ++x) {
+      qv[x] = sm.qs[(ty + 16 * x) * LD + d];
+      gv[x] = sm.gs[(ty + 16 * x) * LD + d];
+    }
+    if constexpr (BY_POS) {
+      float rv[RA];
+#pragma unroll
+      for (int c = 0; c < RA; ++c) rv[c] = sm.rs[(tx + 16 * c) * LD + d];
+#pragma unroll
+      for (int x = 0; x < RA; ++x)
+#pragma unroll
+        for (int c = 0; c < RA; ++c) {
+          const int kr = (tx + 16 * c + ty + 16 * x) * LD + d;
+          s[x][c] = fmaf(qv[x] + wd, sm.ks[kr], s[x][c]);
+          s[x][c] = fmaf(qv[x] + rd, rv[c], s[x][c]);
+          dp[x][c] = fmaf(gv[x], sm.vs[kr], dp[x][c]);
+        }
+    } else {
+      float kv[RA], vv[RA];
+#pragma unroll
+      for (int c = 0; c < RA; ++c) {
+        kv[c] = sm.ks[(tx + 16 * c) * LD + d];
+        vv[c] = sm.vs[(tx + 16 * c) * LD + d];
       }
-      const float wd = rw[d], rd = rr[d];
 #pragma unroll
-      for (int a = 0; a < RA; ++a)
+      for (int x = 0; x < RA; ++x)
 #pragma unroll
         for (int c = 0; c < RA; ++c) {
           const float band =
-              rs[(tx + 16 * c - ty - 16 * a + BT - 1) * LD + d];
-          s[a][c] = fmaf(qv[a] + wd, kv[c], s[a][c]);
-          s[a][c] = fmaf(qv[a] + rd, band, s[a][c]);
-          dp[a][c] = fmaf(gv[a], vv[c], dp[a][c]);
+              sm.rs[(tx + 16 * c - ty - 16 * x + BT - 1) * LD + d];
+          s[x][c] = fmaf(qv[x] + wd, kv[c], s[x][c]);
+          s[x][c] = fmaf(qv[x] + rd, band, s[x][c]);
+          dp[x][c] = fmaf(gv[x], vv[c], dp[x][c]);
         }
     }
+  }
 #pragma unroll
-    for (int a = 0; a < RA; ++a)
+  for (int x = 0; x < RA; ++x)
 #pragma unroll
-      for (int c = 0; c < RA; ++c) {
-        const int il = ty + 16 * a, jl = tx + 16 * c;
-        const float kp = keep[jl];
-        const float x = kp > 0.f ? s[a][c] * scale_log2
-                                 : (kp == 0.f ? MASKED : -INFINITY);
-        const float p = exp2f(x - lses[il]);
-        const bool kept = drop.keep(
-            (((unsigned long long)b * H + h) * T_len + i0 + il) * T_len +
-            j0 + jl);
-        ps[il * LP + jl] = kept ? p * drop.inv_keep : 0.f;
-        const float dpk = kept ? dp[a][c] * drop.inv_keep : 0.f;
-        dss[il * LP + jl] = p * (dpk - delta[il]);
-      }
-    __syncthreads();
+    for (int c = 0; c < RA; ++c) {
+      const int il = ty + 16 * x, cl = tx + 16 * c;
+      const int kr = BY_POS ? cl + il : cl;
+      const float fl = sm.keep[kr];
+      const float p = exp2f(flagged(fl, s[x][c] * a.scale_log2) - sm.lses[il]);
+      const unsigned long long e =
+          (((unsigned long long)b * a.H + h) * a.T + i0 + il) * a.T + j0 + kr;
+      const float mul = fl >= 0.f && a.drop.keep(e) ? a.drop.inv_keep : 0.f;
+      if (with_p) sm.ps[il * LP + cl] = p * mul;
+      sm.dss[il * LP + cl] = p * (dp[x][c] * mul - sm.delta[il]);
+    }
+}
 
-    // dv += Pd^T dO, dk += dS^T (q + r_w_bias): key rows ty + 16a
+// Pass 2: one block per (key tile, head, batch) walks the query tiles:
+// dv += Pd^T dO, dk += dS^T (q + r_w_bias), key rows ty + 16a.
+template <typename T, int DPAD>
+__global__ void __launch_bounds__(BWD_THREADS)
+xl_bwd_dkv_simt_kernel(XlBwd a) {
+  using S = SimtSmem<DPAD>;
+  constexpr int BT = S::BT, LD = S::LD, LP = S::LP;
+  constexpr int RA = BT / 16, CD = DPAD / 16;
+  extern __shared__ __align__(16) float smf[];
+  const S sm(smf);
+  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * BT;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  simt_stage_keys<T, DPAD>(sm, a, b, h, j0, BT);
+  float dk_acc[RA][CD], dv_acc[RA][CD];
+#pragma unroll
+  for (int x = 0; x < RA; ++x)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) dk_acc[x][c] = dv_acc[x][c] = 0.f;
+
+  for (int i0 = 0; i0 < a.T; i0 += BT) {
+    __syncthreads();   // the previous query tile is no longer read
+    simt_stage_queries<T, DPAD>(sm, a, b, h, i0);
+    simt_stage_r<T, DPAD>(sm, a, h, a.T + j0 - i0 - (BT - 1), S::NB);
+    __syncthreads();
+    simt_p_ds<DPAD, false>(sm, a, b, h, i0, j0, true, tx, ty);
+    __syncthreads();
 #pragma unroll 2
     for (int il = 0; il < BT; ++il) {
       float pv[RA], sv[RA], gv[CD], qv[CD];
 #pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        pv[a] = ps[il * LP + ty + 16 * a];
-        sv[a] = dss[il * LP + ty + 16 * a];
+      for (int x = 0; x < RA; ++x) {
+        pv[x] = sm.ps[il * LP + ty + 16 * x];
+        sv[x] = sm.dss[il * LP + ty + 16 * x];
       }
 #pragma unroll
       for (int c = 0; c < CD; ++c) {
-        gv[c] = gs[il * LD + tx + 16 * c];
-        qv[c] = qs[il * LD + tx + 16 * c] + rw[tx + 16 * c];
+        gv[c] = sm.gs[il * LD + tx + 16 * c];
+        qv[c] = sm.qs[il * LD + tx + 16 * c] + sm.rw[tx + 16 * c];
       }
 #pragma unroll
-      for (int a = 0; a < RA; ++a)
+      for (int x = 0; x < RA; ++x)
 #pragma unroll
         for (int c = 0; c < CD; ++c) {
-          dv_acc[a][c] = fmaf(pv[a], gv[c], dv_acc[a][c]);
-          dk_acc[a][c] = fmaf(sv[a], qv[c], dk_acc[a][c]);
+          dv_acc[x][c] = fmaf(pv[x], gv[c], dv_acc[x][c]);
+          dk_acc[x][c] = fmaf(sv[x], qv[c], dk_acc[x][c]);
         }
-    }
-    // dq = scale (dS K + dS_shifted r): query rows ty + 16a
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      const int il = ty + 16 * a, i = i0 + il;
-      float tw[CD], tr[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) tw[c] = tr[c] = 0.f;
-      for (int jl = 0; jl < BT; ++jl) {
-        const float sv = dss[il * LP + jl];
-        const float* kr = ks + jl * LD + tx;
-        const float* br = rs + (jl - il + BT - 1) * LD + tx;
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          tw[c] = fmaf(sv, kr[16 * c], tw[c]);
-          tr[c] = fmaf(sv, br[16 * c], tr[c]);
-        }
-      }
-      if (i < T_len) {
-        float* dqp = dq + ((long long)b * T_len + i) * C + h * D;
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          const int d = tx + 16 * c;
-          cw[c] += tw[c];
-          cr[c] += tr[c];
-          if (d < D) atomicAdd(dqp + d, (tw[c] + tr[c]) * scale);
-        }
-      }
-    }
-    // dr: band row mm gets sum over the tile's (i, j = mm + i - BT + 1) of
-    // dS[i, j] (q_i + r_r_bias)
-    for (int mm = ty; mm < NB - 1; mm += 16) {
-      const int src = base + mm;
-      if (src < 0 || src >= 2 * T_len) continue;
-      const int lo = max(0, BT - 1 - mm), hi = min(BT, 2 * BT - 1 - mm);
-      float acc[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[c] = 0.f;
-      for (int il = lo; il < hi; ++il) {
-        const float sv = dss[il * LP + mm + il - BT + 1];
-        const float* qr = qs + il * LD + tx;
-#pragma unroll
-        for (int c = 0; c < CD; ++c)
-          acc[c] = fmaf(sv, qr[16 * c] + rr[tx + 16 * c], acc[c]);
-      }
-      float* drp = dr + (long long)src * C + h * D;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) atomicAdd(drp + d, acc[c] * scale);
-      }
     }
   }
-
+  const long long C = (long long)a.H * a.D;
 #pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int j = j0 + ty + 16 * a;
-    if (j >= T_len) continue;
-    const long long off = ((long long)b * T_len + j) * C + h * D;
-    const float vm = mp[j] ? 1.f : 0.f;
+  for (int x = 0; x < RA; ++x) {
+    const int jl = ty + 16 * x, j = j0 + jl;
+    if (j >= a.T) continue;
+    const long long off = ((long long)b * a.T + j) * C + (long long)h * a.D;
+    const float vm = sm.keep[jl] > 0.f ? 1.f : 0.f;
 #pragma unroll
     for (int c = 0; c < CD; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) {
-        dk[off + d] = vilco::from_f32<T>(dk_acc[a][c] * scale);
-        dv[off + d] = vilco::from_f32<T>(dv_acc[a][c] * vm);
+      if (d < a.D) {
+        ((T*)a.dk)[off + d] = vilco::from_f32<T>(dk_acc[x][c] * a.scale);
+        ((T*)a.dv)[off + d] = vilco::from_f32<T>(dv_acc[x][c] * vm);
       }
     }
   }
-  // bias grads: column sums over this block's rows, reduced over ty
+}
+
+// Pass 3: one block per (query tile, head, batch) walks the key tiles:
+// dq = scale (dS K + dS_sh r), query rows ty + 16a, written once; the
+// column sums of the two terms over the tile's rows are its bias partials.
+template <typename T, int DPAD>
+__global__ void __launch_bounds__(BWD_THREADS)
+xl_bwd_dq_simt_kernel(XlBwd a) {
+  using S = SimtSmem<DPAD>;
+  constexpr int BT = S::BT, LD = S::LD, LP = S::LP;
+  constexpr int RA = BT / 16, CD = DPAD / 16;
+  extern __shared__ __align__(16) float smf[];
+  const S sm(smf);
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BT;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  simt_stage_queries<T, DPAD>(sm, a, b, h, i0);
+  float tw[RA][CD], tr[RA][CD];
+#pragma unroll
+  for (int x = 0; x < RA; ++x)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) tw[x][c] = tr[x][c] = 0.f;
+
+  for (int j0 = 0; j0 < a.T; j0 += BT) {
+    __syncthreads();   // the previous key tile is no longer read
+    simt_stage_keys<T, DPAD>(sm, a, b, h, j0, BT);
+    simt_stage_r<T, DPAD>(sm, a, h, a.T + j0 - i0 - (BT - 1), S::NB);
+    __syncthreads();
+    simt_p_ds<DPAD, false>(sm, a, b, h, i0, j0, false, tx, ty);
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < RA; ++x) {
+      const int il = ty + 16 * x;
+      for (int jl = 0; jl < BT; ++jl) {
+        const float sv = sm.dss[il * LP + jl];
+        const float* kr = sm.ks + jl * LD + tx;
+        const float* br = sm.rs + (jl - il + BT - 1) * LD + tx;
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+          tw[x][c] = fmaf(sv, kr[16 * c], tw[x][c]);
+          tr[x][c] = fmaf(sv, br[16 * c], tr[x][c]);
+        }
+      }
+    }
+  }
+  const long long C = (long long)a.H * a.D;
+  float cw[CD], cr[CD];
+#pragma unroll
+  for (int c = 0; c < CD; ++c) cw[c] = cr[c] = 0.f;
+#pragma unroll
+  for (int x = 0; x < RA; ++x) {
+    const int i = i0 + ty + 16 * x;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      cw[c] += tw[x][c];
+      cr[c] += tr[x][c];
+      const int d = tx + 16 * c;
+      if (i < a.T && d < a.D)
+        ((T*)a.dq)[((long long)b * a.T + i) * C + (long long)h * a.D + d] =
+            vilco::from_f32<T>((tw[x][c] + tr[x][c]) * a.scale);
+    }
+  }
+  // bias partials: the 16 thread rows' column sums, added in row order
   __syncthreads();
-  float* red = qs;   // [16][2 * DPAD], in the q/dO/K/V tiles
+  float* red = sm.qs;   // [16][2 DPAD], in the q and dO tiles
 #pragma unroll
   for (int c = 0; c < CD; ++c) {
     red[ty * 2 * DPAD + tx + 16 * c] = cw[c];
     red[ty * 2 * DPAD + DPAD + tx + 16 * c] = cr[c];
   }
   __syncthreads();
+  const long long n = (long long)a.B * gridDim.x * C;
   for (int e = tid; e < 2 * DPAD; e += BWD_THREADS) {
     float acc = 0.f;
     for (int t = 0; t < 16; ++t) acc += red[t * 2 * DPAD + e];
     const int d = e % DPAD;
-    if (d < D) atomicAdd((e < DPAD ? drwb : drrb) + h * D + d, acc * scale);
+    if (d < a.D)
+      a.partial[(e < DPAD ? 0 : n) +
+                ((long long)b * gridDim.x + blockIdx.x) * C +
+                (long long)h * a.D + d] = acc * a.scale;
   }
 }
 
+// Pass 4: one block per (position tile, head) walks the batch and then the
+// query tiles whose band of keys j = p - T + i meets [0, T): dr += dS^T (q
+// + r_r_bias), position rows ty + 16a, written once.
 template <typename T, int DPAD>
-cudaError_t launch_bwd(const void* const* p, int B, int T_len, int H, int D,
-                       vilco::Dropout drop, cudaStream_t stream) {
-  auto kern = xl_rel_attention_bwd_kernel<T, DPAD>;
-  const size_t smem = bwd_smem_bytes<DPAD>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
+__global__ void __launch_bounds__(BWD_THREADS)
+xl_bwd_dr_simt_kernel(XlBwd a) {
+  using S = SimtSmem<DPAD>;
+  constexpr int BT = S::BT, LD = S::LD, LP = S::LP;
+  constexpr int RA = BT / 16, CD = DPAD / 16;
+  extern __shared__ __align__(16) float smf[];
+  const S sm(smf);
+  const int h = blockIdx.y, p0 = blockIdx.x * BT;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  simt_stage_r<T, DPAD>(sm, a, h, p0, BT);
+  float acc[RA][CD];
+#pragma unroll
+  for (int x = 0; x < RA; ++x)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[x][c] = 0.f;
+
+  for (int b = 0; b < a.B; ++b)
+    for (int i0 = 0; i0 < a.T; i0 += BT) {
+      const int jb = p0 - a.T + i0;   // key of position p0, query i0
+      if (jb + 2 * BT - 2 < 0 || jb >= a.T) continue;
+      __syncthreads();   // the previous query tile is no longer read
+      simt_stage_queries<T, DPAD>(sm, a, b, h, i0);
+      simt_stage_keys<T, DPAD>(sm, a, b, h, jb, S::NB);
+      __syncthreads();
+      simt_p_ds<DPAD, true>(sm, a, b, h, i0, jb, false, tx, ty);
+      __syncthreads();
+#pragma unroll 2
+      for (int il = 0; il < BT; ++il) {
+        float sv[RA], qv[CD];
+#pragma unroll
+        for (int x = 0; x < RA; ++x) sv[x] = sm.dss[il * LP + ty + 16 * x];
+#pragma unroll
+        for (int c = 0; c < CD; ++c)
+          qv[c] = sm.qs[il * LD + tx + 16 * c] + sm.rr[tx + 16 * c];
+#pragma unroll
+        for (int x = 0; x < RA; ++x)
+#pragma unroll
+          for (int c = 0; c < CD; ++c)
+            acc[x][c] = fmaf(sv[x], qv[c], acc[x][c]);
+      }
+    }
+  const long long C = (long long)a.H * a.D;
+#pragma unroll
+  for (int x = 0; x < RA; ++x) {
+    const int p = p0 + ty + 16 * x;
+    if (p >= 2 * a.T) continue;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      const int d = tx + 16 * c;
+      if (d < a.D)
+        ((T*)a.dr)[(long long)p * C + (long long)h * a.D + d] =
+            vilco::from_f32<T>(acc[x][c] * a.scale);
+    }
+  }
+}
+
+// ---- backward, bfloat16 on mma.sync --------------------------------------
+//
+// 4 warps of 16 rows, tiles of 64. A warp's 16 query rows reach 80 rows of
+// a 128-row band (of r in passes 2 and 3, of keys in pass 4): it computes
+// its 16 x 80 raw tile on the tensor cores into its own f32 tile in shared
+// memory and reads it back sheared.
+
+template <int DPAD>
+struct TcBwd {
+  static constexpr int THREADS = 128, BT = 64, NBAND = 128, WBAND = 80;
+  static constexpr int LD = DPAD + 8;      // bf16 rows: q + biases, dO, K, V, r
+  static constexpr int LDR = WBAND + 4;    // f32 rows of a warp's raw tile
+  static constexpr int LDP = BT + 8;       // bf16 rows of P, dS
+  static constexpr int LDH = WBAND + 8;    // bf16 rows of a warp's sheared dS
+  static constexpr int TILE = BT * LD * 2, BAND = NBAND * LD * 2;   // bytes
+  static constexpr int RAW = 4 * 16 * LDR * 4, PT = BT * LDP * 2;
+  static constexpr int SH = 4 * 16 * LDH * 2, ROW = BT * 4, BIAS = DPAD * 4;
+};
+
+// The biases of head h as f32, zero past D
+template <int DPAD>
+__device__ __forceinline__ void tc_biases(float* bw, float* br, const XlBwd& a,
+                                          int h) {
+  const bf16* w = (const bf16*)a.rwb + (long long)h * a.D;
+  const bf16* rr = (const bf16*)a.rrb + (long long)h * a.D;
+  for (int d = threadIdx.x; d < DPAD; d += TcBwd<DPAD>::THREADS) {
+    bw[d] = d < a.D ? __bfloat162float(w[d]) : 0.f;
+    br[d] = d < a.D ? __bfloat162float(rr[d]) : 0.f;
+  }
+}
+
+// Rows of a head into bf16 shared rows of LD: src(row) its first element,
+// or null for a zero row; zero past D. 16-byte cp.async where vec (a row
+// that reads nothing is zero-filled, `any` a valid global address for it),
+// else plain stores: visible after cp_async_wait and a barrier.
+template <int DPAD, typename RowSrc>
+__device__ __forceinline__ void tc_stage(bf16* dst, int rows, int D, bool vec,
+                                         const bf16* any, RowSrc src) {
+  using L = TcBwd<DPAD>;
+  if (vec) {
+    constexpr int CH = DPAD / 8;
+    for (int e = threadIdx.x; e < rows * CH; e += L::THREADS) {
+      const int rr = e / CH, c = (e % CH) * 8;
+      const bf16* g = src(rr);
+      const bool ok = g != nullptr && c < D;
+      cp_async16(dst + rr * L::LD + c, ok ? g + c : any, ok);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int e = threadIdx.x; e < rows * DPAD; e += L::THREADS) {
+      const int rr = e / DPAD, c = e % DPAD;
+      const bf16* g = src(rr);
+      dst[rr * L::LD + c] = (g != nullptr && c < D) ? g[c] : zero;
+    }
+  }
+}
+
+// Query rows i0 .. i0 + 63 of batch b: q into qw (tc_add_biases turns it
+// into q + r_w_bias and q + r_r_bias), dO, and with lses, their lse and
+// delta (rows past T: lse +inf, so their P is 0)
+template <int DPAD>
+__device__ __forceinline__ void tc_stage_queries(bf16* qw, bf16* gs,
+                                                 float* lses, float* dels,
+                                                 const XlBwd& a, int b, int h,
+                                                 int i0, bool vec) {
+  using L = TcBwd<DPAD>;
+  const long long C = (long long)a.H * a.D;
+  const long long off = ((long long)b * a.T + i0) * C + (long long)h * a.D;
+  const bf16* q0 = (const bf16*)a.q + off;
+  const bf16* g0 = (const bf16*)a.dout + off;
+  const int nq = min(L::BT, a.T - i0);
+  tc_stage<DPAD>(qw, L::BT, a.D, vec, q0,
+                 [=](int rr) { return rr < nq ? q0 + rr * C : nullptr; });
+  tc_stage<DPAD>(gs, L::BT, a.D, vec, g0,
+                 [=](int rr) { return rr < nq ? g0 + rr * C : nullptr; });
+  if (lses == nullptr) return;
+  const long long at = ((long long)b * a.H + h) * a.T + i0;
+  for (int rr = threadIdx.x; rr < L::BT; rr += L::THREADS) {
+    lses[rr] = rr < nq ? ((const float*)a.lse)[at + rr] : INFINITY;
+    dels[rr] = rr < nq ? a.delta[at + rr] : 0.f;
+  }
+}
+
+// The staged q rows (in qw) as bf16(q + r_w_bias) into qw and bf16(q +
+// r_r_bias) into qr, as the TPU kernel's dots take them; rows from nq stay
+// zero (bw, br are zero past D)
+template <int DPAD>
+__device__ __forceinline__ void tc_add_biases(bf16* qw, bf16* qr,
+                                              const float* bw,
+                                              const float* br, int nq) {
+  using L = TcBwd<DPAD>;
+  constexpr int HALF = DPAD / 2;
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+  for (int e = threadIdx.x; e < L::BT * HALF; e += L::THREADS) {
+    const int rr = e / HALF, c = (e % HALF) * 2;
+    auto* w = reinterpret_cast<__nv_bfloat162*>(qw + rr * L::LD + c);
+    auto* p = reinterpret_cast<__nv_bfloat162*>(qr + rr * L::LD + c);
+    const float2 x = __bfloat1622float2(*w);
+    const bool ok = rr < nq;
+    *p = ok ? __floats2bfloat162_rn(x.x + br[c], x.y + br[c + 1]) : zero;
+    *w = ok ? __floats2bfloat162_rn(x.x + bw[c], x.y + bw[c + 1]) : zero;
+  }
+}
+
+// `rows` keys from j0 of batch b into ks, vs (v zero at masked keys) and
+// their flags
+template <int DPAD>
+__device__ __forceinline__ void tc_stage_keys(bf16* ks, bf16* vs, float* keep,
+                                              const XlBwd& a, int b, int h,
+                                              int j0, int rows, bool vec) {
+  using L = TcBwd<DPAD>;
+  const long long C = (long long)a.H * a.D;
+  const long long off = (long long)b * a.T * C + (long long)h * a.D;
+  const bf16* k0 = (const bf16*)a.k + off;
+  const bf16* v0 = (const bf16*)a.v + off;
+  const uint8_t* mp = (const uint8_t*)a.mask + (long long)b * a.T;
+  const int T_len = a.T;
+  tc_stage<DPAD>(ks, rows, a.D, vec, k0, [=](int rr) {
+    const int j = j0 + rr;
+    return j >= 0 && j < T_len ? k0 + j * C : nullptr;
+  });
+  tc_stage<DPAD>(vs, rows, a.D, vec, v0, [=](int rr) {
+    const int j = j0 + rr;
+    return j >= 0 && j < T_len && mp[j] ? v0 + j * C : nullptr;
+  });
+  for (int rr = threadIdx.x; rr < rows; rr += L::THREADS)
+    keep[rr] = key_flag(mp, j0 + rr, T_len);
+}
+
+// `rows` rows of r from p0 (zero outside [0, 2T)) into rs
+template <int DPAD>
+__device__ __forceinline__ void tc_stage_r(bf16* rs, const XlBwd& a, int h,
+                                           int p0, int rows, bool vec) {
+  const long long C = (long long)a.H * a.D;
+  const bf16* r0 = (const bf16*)a.r + (long long)h * a.D;
+  const int n = 2 * a.T;
+  tc_stage<DPAD>(rs, rows, a.D, vec, r0, [=](int rr) {
+    const int p = p0 + rr;
+    return p >= 0 && p < n ? r0 + p * C : nullptr;
+  });
+}
+
+// cp.async copies issued since the last wait, then a barrier
+__device__ __forceinline__ void tc_landed() {
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// x = A B^T over the warp's 16 rows of A (from r0) and NT n8 tiles of B's
+// rows from n0 (both row-major, k over DPAD), into acc (zeroed here)
+template <int DPAD, int NT>
+__device__ __forceinline__ void tc_abt(float (&acc)[NT][4], const bf16* A,
+                                       int r0, const bf16* Bt, int n0,
+                                       int lane) {
+  constexpr int LD = TcBwd<DPAD>::LD;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DPAD / 16; ++kk) {
+    uint32_t fa[4];
+    load_a(fa, A, LD, r0, kk * 16, lane);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t fb[4];
+      load_bt(fb, Bt, LD, n0 + np * 16, kk * 16, lane);
+      mma16816(acc[2 * np], fa, fb[0], fb[1]);
+      mma16816(acc[2 * np + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// A warp's raw tile (16 rows x 80) to its f32 tile in shared memory
+__device__ __forceinline__ void tc_put_raw(float* raw_w, const float (&x)[10][4],
+                                           int lane) {
+  constexpr int LDR = TcBwd<64>::LDR;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 10; ++n) {
+    *reinterpret_cast<float2*>(raw_w + g * LDR + n * 8 + 2 * t4) =
+        make_float2(x[n][0], x[n][1]);
+    *reinterpret_cast<float2*>(raw_w + (g + 8) * LDR + n * 8 + 2 * t4) =
+        make_float2(x[n][2], x[n][3]);
+  }
+}
+
+// Passes 2 and 3: this warp's 16 query rows (from r0) against the 64 keys
+// of the K, V tiles: s = qw K^T plus the position scores qr r[T + j - i],
+// dp = dO V^T. The position scores of the 80 band rows from c0 (those the
+// 16 rows reach) go through raw_w and come back at row il, column
+// jl - il + 15 (band row jl - i + 63 of the block's band).
+template <int DPAD>
+__device__ __forceinline__ void tc_scores(float (&s)[8][4], float (&dp)[8][4],
+                                          const bf16* qw, const bf16* qr,
+                                          const bf16* gs, const bf16* ks,
+                                          const bf16* vs, const bf16* rs,
+                                          float* raw_w, int r0, int c0,
+                                          int lane) {
+  constexpr int LDR = TcBwd<DPAD>::LDR;
+  const int g = lane >> 2, t4 = lane & 3;
+  {
+    float pr[10][4];
+    tc_abt<DPAD, 10>(pr, qr, r0, rs, c0, lane);
+    tc_put_raw(raw_w, pr, lane);
+  }
+  tc_abt<DPAD, 8>(s, qw, r0, ks, 0, lane);
+  tc_abt<DPAD, 8>(dp, gs, r0, vs, 0, lane);
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int il = g + 8 * rr, jl = n * 8 + 2 * t4 + e;
+        s[n][2 * rr + e] += raw_w[il * LDR + jl - il + 15];
+      }
+}
+
+// Pass 2, bf16. Grid (key tiles, H, B): P and dS of each query tile by
+// query rows (tc_scores), through shared memory as bf16, then dv += Pd^T dO
+// and dk += dS^T qw by key rows, P^T and dS^T by ldmatrix.trans.
+template <int DPAD>
+__global__ void __launch_bounds__(128)
+xl_bwd_dkv_tc_kernel(XlBwd a, bool vec) {
+  using L = TcBwd<DPAD>;
+  constexpr int NO = DPAD / 8;
+  constexpr int QW = 0, QR = QW + L::TILE, G = QR + L::TILE, K = G + L::TILE;
+  constexpr int V = K + L::TILE, R = V + L::TILE, RAW = R + L::BAND;
+  constexpr int P = RAW + L::RAW, DS = P + L::PT, LS = DS + L::PT;
+  constexpr int DL = LS + L::ROW, KP = DL + L::ROW, BW = KP + L::ROW;
+  constexpr int BR = BW + L::BIAS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qw = reinterpret_cast<bf16*>(smem + QW);
+  bf16* qr = reinterpret_cast<bf16*>(smem + QR);
+  bf16* gs = reinterpret_cast<bf16*>(smem + G);
+  bf16* ks = reinterpret_cast<bf16*>(smem + K);
+  bf16* vs = reinterpret_cast<bf16*>(smem + V);
+  bf16* rs = reinterpret_cast<bf16*>(smem + R);
+  float* raw = reinterpret_cast<float*>(smem + RAW);
+  bf16* ps = reinterpret_cast<bf16*>(smem + P);
+  bf16* dss = reinterpret_cast<bf16*>(smem + DS);
+  float* lses = reinterpret_cast<float*>(smem + LS);
+  float* dels = reinterpret_cast<float*>(smem + DL);
+  float* keep = reinterpret_cast<float*>(smem + KP);
+  float* bw = reinterpret_cast<float*>(smem + BW);
+  float* br = reinterpret_cast<float*>(smem + BR);
+
+  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * L::BT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int T_len = a.T;
+  const long long C = (long long)a.H * a.D, hd = (long long)h * a.D;
+  const int nk = min(L::BT, T_len - j0);
+  tc_biases<DPAD>(bw, br, a, h);
+  tc_stage_keys<DPAD>(ks, vs, keep, a, b, h, j0, L::BT, vec);
+  float* raw_w = raw + warp * 16 * L::LDR;
+  const int c0 = L::NBAND - L::WBAND - 16 * warp;
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int i0 = 0; i0 < T_len; i0 += L::BT) {
+    __syncthreads();   // the previous query tile is no longer read
+    tc_stage_queries<DPAD>(qw, gs, lses, dels, a, b, h, i0, vec);
+    tc_stage_r<DPAD>(rs, a, h, T_len + j0 - i0 - (L::BT - 1), L::NBAND, vec);
+    tc_landed();
+    tc_add_biases<DPAD>(qw, qr, bw, br, min(L::BT, T_len - i0));
+    __syncthreads();
+    const long long at = ((long long)b * a.H + h) * T_len + i0;
+    float s[8][4], dp[8][4];
+    tc_scores<DPAD>(s, dp, qw, qr, gs, ks, vs, rs, raw_w, warp * 16, c0,
+                    lane);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int il = warp * 16 + g + 8 * rr;
+      const float ls = lses[il], dl = dels[il];
+      const unsigned long long e0 =
+          ((unsigned long long)at + il) * T_len + j0;
+      const bool row_in = i0 + il < T_len;
+      unsigned long long word = 0ull;   // the row's keep bits of the tile
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float pv[2], sv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jl = n * 8 + 2 * t4 + e;
+          const float p = exp2f(
+              flagged(keep[jl], s[n][2 * rr + e] * a.scale_log2) - ls);
+          const bool kept = row_in && jl < nk && a.drop.keep(e0 + jl);
+          word |= (unsigned long long)kept << jl;
+          const float mul = kept ? a.drop.inv_keep : 0.f;
+          pv[e] = p * mul;
+          sv[e] = p * (dp[n][2 * rr + e] * mul - dl);
+        }
+        const int at2 = il * L::LDP + n * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(ps + at2) = pack2(pv[0], pv[1]);
+        *reinterpret_cast<uint32_t*>(dss + at2) = pack2(sv[0], sv[1]);
+      }
+      if (a.bits != nullptr) {   // the row's four lanes' bits, one store
+        word |= __shfl_xor_sync(0xffffffffu, word, 1);
+        word |= __shfl_xor_sync(0xffffffffu, word, 2);
+        if (t4 == 0 && row_in)
+          a.bits[((long long)at + il) * ((T_len + 63) / 64) + blockIdx.x] =
+              word;
+      }
+    }
+    __syncthreads();
+    // dv += Pd^T dO, dk += dS^T qw: this warp's 16 keys
+#pragma unroll
+    for (int kk = 0; kk < L::BT / 16; ++kk) {
+      uint32_t pa[4], sa[4];
+      load_at(pa, ps, L::LDP, warp * 16, kk * 16, lane);
+      load_at(sa, dss, L::LDP, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int dpi = 0; dpi < NO / 2; ++dpi) {
+        uint32_t gb[4], qb[4];
+        load_b(gb, gs, L::LD, kk * 16, dpi * 16, lane);
+        load_b(qb, qw, L::LD, kk * 16, dpi * 16, lane);
+        mma16816(dv[2 * dpi], pa, gb[0], gb[1]);
+        mma16816(dv[2 * dpi + 1], pa, gb[2], gb[3]);
+        mma16816(dk[2 * dpi], sa, qb[0], qb[1]);
+        mma16816(dk[2 * dpi + 1], sa, qb[2], qb[3]);
+      }
+    }
+  }
+  const int k0 = warp * 16 + g;
+  const float vm0 = keep[k0] > 0.f ? 1.f : 0.f;
+  const float vm1 = keep[k0 + 8] > 0.f ? 1.f : 0.f;
+  bf16* dkp = (bf16*)a.dk + ((long long)b * T_len + j0) * C + hd;
+  bf16* dvp = (bf16*)a.dv + ((long long)b * T_len + j0) * C + hd;
+  store_rows<NO>(dk, a.scale, a.scale, warp * 16, nk, a.D, vec,
+                 [&](int jl) { return dkp + jl * C; }, lane);
+  store_rows<NO>(dv, vm0, vm1, warp * 16, nk, a.D, vec,
+                 [&](int jl) { return dvp + jl * C; }, lane);
+}
+
+// Pass 3, bf16. Grid (query tiles, H, B): dS of each key tile by query rows
+// (tc_scores), as bf16 A fragments in registers for dq += dS K, and
+// sheared through the warp's bf16 tile (row il, column j - i + 15 of its 80
+// band rows; the 16 other columns of a row stay 0) for dq += dS_sh r.
+template <int DPAD>
+__global__ void __launch_bounds__(128)
+xl_bwd_dq_tc_kernel(XlBwd a, bool vec) {
+  using L = TcBwd<DPAD>;
+  constexpr int NO = DPAD / 8;
+  constexpr int QW = 0, QR = QW + L::TILE, G = QR + L::TILE, K = G + L::TILE;
+  constexpr int V = K + L::TILE, R = V + L::TILE, RAW = R + L::BAND;
+  constexpr int SH = RAW + L::RAW, KP = SH + L::SH, BW = KP + L::ROW;
+  constexpr int BR = BW + L::BIAS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qw = reinterpret_cast<bf16*>(smem + QW);
+  bf16* qr = reinterpret_cast<bf16*>(smem + QR);
+  bf16* gs = reinterpret_cast<bf16*>(smem + G);
+  bf16* ks = reinterpret_cast<bf16*>(smem + K);
+  bf16* vs = reinterpret_cast<bf16*>(smem + V);
+  bf16* rs = reinterpret_cast<bf16*>(smem + R);
+  float* raw = reinterpret_cast<float*>(smem + RAW);
+  bf16* sh = reinterpret_cast<bf16*>(smem + SH);
+  float* keep = reinterpret_cast<float*>(smem + KP);
+  float* bw = reinterpret_cast<float*>(smem + BW);
+  float* br = reinterpret_cast<float*>(smem + BR);
+
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * L::BT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int T_len = a.T;
+  const long long C = (long long)a.H * a.D, hd = (long long)h * a.D;
+  tc_biases<DPAD>(bw, br, a, h);
+  tc_stage_queries<DPAD>(qw, gs, nullptr, nullptr, a, b, h, i0, vec);
+  tc_landed();
+  tc_add_biases<DPAD>(qw, qr, bw, br, min(L::BT, T_len - i0));
+  float* raw_w = raw + warp * 16 * L::LDR;
+  bf16* sh_w = sh + warp * 16 * L::LDH;
+  for (int e = lane; e < 16 * L::LDH; e += 32) sh_w[e] = __float2bfloat16(0.f);
+  const int c0 = L::NBAND - L::WBAND - 16 * warp;
+  float rl[2], rd[2];
+  const unsigned long long* wrow[2];   // the rows' keep words
+  const int nw = (T_len + 63) / 64;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = i0 + warp * 16 + g + 8 * rr;
+    const long long at = ((long long)b * a.H + h) * T_len + i;
+    const bool in = i < T_len;
+    rl[rr] = in ? ((const float*)a.lse)[at] : INFINITY;
+    rd[rr] = in ? a.delta[at] : 0.f;
+    wrow[rr] = in && a.bits != nullptr ? a.bits + at * nw : nullptr;
+  }
+  float tw[NO][4], tr[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tw[n][e] = tr[n][e] = 0.f;
+
+  for (int j0 = 0; j0 < T_len; j0 += L::BT) {
+    __syncthreads();   // the previous key tile is no longer read
+    tc_stage_keys<DPAD>(ks, vs, keep, a, b, h, j0, L::BT, vec);
+    tc_stage_r<DPAD>(rs, a, h, T_len + j0 - i0 - (L::BT - 1), L::NBAND, vec);
+    tc_landed();
+    float s[8][4], dp[8][4];
+    tc_scores<DPAD>(s, dp, qw, qr, gs, ks, vs, rs, raw_w, warp * 16, c0,
+                    lane);
+    unsigned long long kw[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      kw[rr] = a.bits == nullptr ? ~0ull
+                                 : wrow[rr] ? wrow[rr][j0 / 64] : 0ull;
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float d4[4];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jl = n * 8 + 2 * t4 + e, il = g + 8 * rr;
+          const float p = exp2f(
+              flagged(keep[jl], s[n][2 * rr + e] * a.scale_log2) - rl[rr]);
+          const float mul = (kw[rr] >> jl) & 1ull ? a.drop.inv_keep : 0.f;
+          d4[2 * rr + e] = p * (dp[n][2 * rr + e] * mul - rd[rr]);
+          sh_w[il * L::LDH + jl - il + 15] = __float2bfloat16(d4[2 * rr + e]);
+        }
+      sa[n / 2][(n & 1) * 2] = pack2(d4[0], d4[1]);
+      sa[n / 2][(n & 1) * 2 + 1] = pack2(d4[2], d4[3]);
+    }
+    __syncwarp();
+    // dq content term: dS K, K through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < L::BT / 16; ++kk)
+#pragma unroll
+      for (int dpi = 0; dpi < NO / 2; ++dpi) {
+        uint32_t kb[4];
+        load_b(kb, ks, L::LD, kk * 16, dpi * 16, lane);
+        mma16816(tw[2 * dpi], sa[kk], kb[0], kb[1]);
+        mma16816(tw[2 * dpi + 1], sa[kk], kb[2], kb[3]);
+      }
+    // dq position term: dS_sh r over the warp's 80 band rows
+#pragma unroll
+    for (int kk = 0; kk < L::WBAND / 16; ++kk) {
+      uint32_t ha[4];
+      load_a(ha, sh_w, L::LDH, 0, kk * 16, lane);
+#pragma unroll
+      for (int dpi = 0; dpi < NO / 2; ++dpi) {
+        uint32_t rb[4];
+        load_b(rb, rs, L::LD, c0 + kk * 16, dpi * 16, lane);
+        mma16816(tr[2 * dpi], ha, rb[0], rb[1]);
+        mma16816(tr[2 * dpi + 1], ha, rb[2], rb[3]);
+      }
+    }
+  }
+  // bias partials: column sums of the two terms over the tile's rows, the
+  // lanes' rows by a fixed shuffle tree, then the warps in order
+  __syncthreads();   // raw is no longer read: it holds the warps' sums
+  float* red = raw;  // [4 warps][2][DPAD]
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float cw = tw[n][e] + tw[n][2 + e], cr = tr[n][e] + tr[n][2 + e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        cw += __shfl_xor_sync(0xffffffffu, cw, o);
+        cr += __shfl_xor_sync(0xffffffffu, cr, o);
+      }
+      if (g == 0) {
+        red[(warp * 2) * DPAD + n * 8 + 2 * t4 + e] = cw;
+        red[(warp * 2 + 1) * DPAD + n * 8 + 2 * t4 + e] = cr;
+      }
+    }
+  __syncthreads();
+  const long long np = (long long)a.B * gridDim.x * C;
+  for (int e = tid; e < 2 * DPAD; e += L::THREADS) {
+    const int w = e / DPAD, d = e % DPAD;
+    const float acc = ((red[w * DPAD + d] + red[(2 + w) * DPAD + d]) +
+                       red[(4 + w) * DPAD + d]) + red[(6 + w) * DPAD + d];
+    if (d < a.D)
+      a.partial[w * np + ((long long)b * gridDim.x + blockIdx.x) * C + hd +
+                d] = acc * a.scale;
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tw[n][e] += tr[n][e];
+  bf16* dqp = (bf16*)a.dq + ((long long)b * T_len + i0) * C + hd;
+  store_rows<NO>(tw, a.scale, a.scale, warp * 16, min(L::BT, T_len - i0),
+                 a.D, vec, [&](int il) { return dqp + il * C; }, lane);
+}
+
+// Pass 4, bf16. Grid (position tiles, H): for each batch and each query
+// tile whose band of keys j = p - T + i (128 from jb = p0 - T + i0) meets
+// [0, T), the scores by query rows: the position term qr R_tile^T, a plain
+// tile product; the content term qw K_band^T and dO V_band^T over the 80
+// band keys the warp's rows reach, sheared through raw_w (row il, column
+// pl + il). dS goes through shared memory as bf16, and dr += dS^T qr by
+// position rows.
+template <int DPAD>
+__global__ void __launch_bounds__(128)
+xl_bwd_dr_tc_kernel(XlBwd a, bool vec) {
+  using L = TcBwd<DPAD>;
+  constexpr int NO = DPAD / 8;
+  constexpr int BAND_ROW = 2 * L::ROW;   // the key flags: 128 floats
+  constexpr int QW = 0, QR = QW + L::TILE, G = QR + L::TILE, K = G + L::TILE;
+  constexpr int V = K + L::BAND, RT = V + L::BAND, RAW = RT + L::TILE;
+  constexpr int DS = RAW + L::RAW, LS = DS + L::PT, DL = LS + L::ROW;
+  constexpr int KP = DL + L::ROW, BW = KP + BAND_ROW, BR = BW + L::BIAS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qw = reinterpret_cast<bf16*>(smem + QW);
+  bf16* qr = reinterpret_cast<bf16*>(smem + QR);
+  bf16* gs = reinterpret_cast<bf16*>(smem + G);
+  bf16* ks = reinterpret_cast<bf16*>(smem + K);
+  bf16* vs = reinterpret_cast<bf16*>(smem + V);
+  bf16* rt = reinterpret_cast<bf16*>(smem + RT);
+  float* raw = reinterpret_cast<float*>(smem + RAW);
+  bf16* dss = reinterpret_cast<bf16*>(smem + DS);
+  float* lses = reinterpret_cast<float*>(smem + LS);
+  float* dels = reinterpret_cast<float*>(smem + DL);
+  float* keep = reinterpret_cast<float*>(smem + KP);
+  float* bw = reinterpret_cast<float*>(smem + BW);
+  float* br = reinterpret_cast<float*>(smem + BR);
+
+  // heads fastest, position tiles from the middle out (the tiles that meet
+  // the most query tiles start first)
+  const int h = blockIdx.x, mid = ((int)gridDim.y - 1) / 2, y = blockIdx.y;
+  const int p0 = (mid + ((y & 1) ? (y + 1) / 2 : -(y / 2))) * L::BT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int T_len = a.T;
+  const long long C = (long long)a.H * a.D, hd = (long long)h * a.D;
+  tc_biases<DPAD>(bw, br, a, h);
+  tc_stage_r<DPAD>(rt, a, h, p0, L::BT, vec);
+  float* raw_w = raw + warp * 16 * L::LDR;
+  const int c0 = 16 * warp;   // the warp's first band key
+  float dr[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dr[n][e] = 0.f;
+
+  for (int b = 0; b < a.B; ++b)
+    for (int i0 = 0; i0 < T_len; i0 += L::BT) {
+      const int jb = p0 - T_len + i0;   // key of position p0, query i0
+      if (jb + L::NBAND - 2 < 0 || jb >= T_len) continue;
+      __syncthreads();   // the previous query tile is no longer read
+      tc_stage_queries<DPAD>(qw, gs, lses, dels, a, b, h, i0, vec);
+      tc_stage_keys<DPAD>(ks, vs, keep, a, b, h, jb, L::NBAND, vec);
+      tc_landed();
+      tc_add_biases<DPAD>(qw, qr, bw, br, min(L::BT, T_len - i0));
+      __syncthreads();
+      const long long at = ((long long)b * a.H + h) * T_len + i0;
+      float pos[8][4];
+      tc_abt<DPAD, 8>(pos, qr, warp * 16, rt, 0, lane);
+      {
+        float x[10][4];
+        tc_abt<DPAD, 10>(x, qw, warp * 16, ks, c0, lane);
+        tc_put_raw(raw_w, x, lane);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int il = g + 8 * rr, pl = n * 8 + 2 * t4 + e;
+            pos[n][2 * rr + e] += raw_w[il * L::LDR + pl + il];
+          }
+      __syncwarp();   // raw_w is rewritten with dO V_band^T
+      {
+        float x[10][4];
+        tc_abt<DPAD, 10>(x, gs, warp * 16, vs, c0, lane);
+        tc_put_raw(raw_w, x, lane);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int il = warp * 16 + g + 8 * rr;
+        const float ls = lses[il], dl = dels[il];
+        // the row's keep words over its keys jb + il .. + 63: fw, fw + 1
+        const int nw = (T_len + 63) / 64, fw = (jb + il) >> 6;
+        const bool row_in = i0 + il < T_len;
+        auto word = [&](int w) {
+          return a.bits == nullptr ? ~0ull
+                 : row_in && w >= 0 && w < nw
+                     ? a.bits[((long long)at + il) * nw + w] : 0ull;
+        };
+        const unsigned long long w0 = word(fw), w1 = word(fw + 1);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          float sv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int pl = n * 8 + 2 * t4 + e, c = pl + il;
+            const float fl = keep[c];
+            const float p = exp2f(
+                flagged(fl, pos[n][2 * rr + e] * a.scale_log2) - ls);
+            const int j = jb + c;
+            const unsigned long long w = (j >> 6) > fw ? w1 : w0;
+            const float mul =
+                fl >= 0.f && ((w >> (j & 63)) & 1ull) ? a.drop.inv_keep : 0.f;
+            const float dpv = raw_w[(g + 8 * rr) * L::LDR + c - c0];
+            sv[e] = p * (dpv * mul - dl);
+          }
+          *reinterpret_cast<uint32_t*>(dss + il * L::LDP + n * 8 + 2 * t4) =
+              pack2(sv[0], sv[1]);
+        }
+      }
+      __syncthreads();
+      // dr += dS^T qr: this warp's 16 positions
+#pragma unroll
+      for (int kk = 0; kk < L::BT / 16; ++kk) {
+        uint32_t sa[4];
+        load_at(sa, dss, L::LDP, warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int dpi = 0; dpi < NO / 2; ++dpi) {
+          uint32_t qb[4];
+          load_b(qb, qr, L::LD, kk * 16, dpi * 16, lane);
+          mma16816(dr[2 * dpi], sa, qb[0], qb[1]);
+          mma16816(dr[2 * dpi + 1], sa, qb[2], qb[3]);
+        }
+      }
+    }
+  cp_async_wait<0>();   // a block that met no query tile never waited
+  bf16* drp = (bf16*)a.dr + (long long)p0 * C + hd;
+  store_rows<NO>(dr, a.scale, a.scale, warp * 16, min(L::BT, 2 * T_len - p0),
+                 a.D, vec, [&](int pl) { return drp + pl * C; }, lane);
+}
+
+template <int DPAD>
+constexpr int tc_dkv_bytes() {
+  using L = TcBwd<DPAD>;
+  return 5 * L::TILE + L::BAND + L::RAW + 2 * L::PT + 3 * L::ROW + 2 * L::BIAS;
+}
+template <int DPAD>
+constexpr int tc_dq_bytes() {
+  using L = TcBwd<DPAD>;
+  return 5 * L::TILE + L::BAND + L::RAW + L::SH + L::ROW + 2 * L::BIAS;
+}
+template <int DPAD>
+constexpr int tc_dr_bytes() {
+  using L = TcBwd<DPAD>;
+  return 4 * L::TILE + 2 * L::BAND + L::RAW + L::PT + 4 * L::ROW + 2 * L::BIAS;
+}
+
+// Pass 5: the bias partials (`rows` of H D per bias) summed in row order
+template <typename T>
+__global__ void __launch_bounds__(256)
+xl_bwd_bias_sum_kernel(const float* __restrict__ partial, T* __restrict__ drwb,
+                       T* __restrict__ drrb, int rows, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float w = 0.f, p = 0.f;
+  for (int t = 0; t < rows; ++t) {
+    w += partial[(long long)t * n + e];
+    p += partial[(long long)(rows + t) * n + e];
+  }
+  drwb[e] = vilco::from_f32<T>(w);
+  drrb[e] = vilco::from_f32<T>(p);
+}
+
+// passes 2-4
+template <int DPAD>
+cudaError_t launch_bwd_tc(const XlBwd& a, bool vec, cudaStream_t s) {
+  cudaError_t e;
+  const int nt = (a.T + 63) / 64, np = (2 * a.T + 63) / 64;
+  auto kd = xl_bwd_dkv_tc_kernel<DPAD>;
+  auto kq = xl_bwd_dq_tc_kernel<DPAD>;
+  auto kr = xl_bwd_dr_tc_kernel<DPAD>;
+  if ((e = set_smem(kd, tc_dkv_bytes<DPAD>())) != cudaSuccess) return e;
+  if ((e = set_smem(kq, tc_dq_bytes<DPAD>())) != cudaSuccess) return e;
+  if ((e = set_smem(kr, tc_dr_bytes<DPAD>())) != cudaSuccess) return e;
+  kd<<<dim3(nt, a.H, a.B), 128, tc_dkv_bytes<DPAD>(), s>>>(a, vec);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  kq<<<dim3(nt, a.H, a.B), 128, tc_dq_bytes<DPAD>(), s>>>(a, vec);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  kr<<<dim3(a.H, np), 128, tc_dr_bytes<DPAD>(), s>>>(a, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int DPAD>
+cudaError_t launch_bwd_simt(const XlBwd& a, cudaStream_t s) {
+  cudaError_t e;
   constexpr int BT = bwd_tile<DPAD>();
-  const dim3 grid((T_len + BT - 1) / BT, H, B);
-  const float scale = 1.f / sqrtf((float)D);
-  kern<<<grid, BWD_THREADS, smem, stream>>>(
-      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-      (const T*)p[4], (const T*)p[5], (const uint8_t*)p[6],
-      (const T*)p[7], (const float*)p[8], (const T*)p[9], (float*)p[10],
-      (T*)p[11], (T*)p[12], (float*)p[13], (float*)p[14], (float*)p[15],
-      T_len, H, D, scale * LOG2E, scale, drop);
+  const int smem = (int)SimtSmem<DPAD>::bytes();
+  const int nt = (a.T + BT - 1) / BT, np = (2 * a.T + BT - 1) / BT;
+  auto kd = xl_bwd_dkv_simt_kernel<T, DPAD>;
+  auto kq = xl_bwd_dq_simt_kernel<T, DPAD>;
+  auto kr = xl_bwd_dr_simt_kernel<T, DPAD>;
+  if ((e = set_smem(kd, smem)) != cudaSuccess) return e;
+  if ((e = set_smem(kq, smem)) != cudaSuccess) return e;
+  if ((e = set_smem(kr, smem)) != cudaSuccess) return e;
+  kd<<<dim3(nt, a.H, a.B), BWD_THREADS, smem, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  kq<<<dim3(nt, a.H, a.B), BWD_THREADS, smem, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  kr<<<dim3(np, a.H), BWD_THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// passes 1 and 5 around the dtype's passes 2-4; `tile`: the query tile of
+// pass 3, which sets the number of bias partials
+template <typename T, typename Passes>
+cudaError_t launch_bwd(const XlBwd& a, const void* out, int tile,
+                       cudaStream_t s, Passes passes) {
+  const long long rows = (long long)a.B * a.H * a.T;
+  attention_blc_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      (const T*)out, (const T*)a.dout, (float*)a.delta, rows, a.T, a.H, a.D,
+      strides_of(false, a.B, a.T, a.H, a.D));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || (e = passes()) != cudaSuccess) return e;
+  const int n = a.H * a.D;
+  xl_bwd_bias_sum_kernel<T><<<(n + 255) / 256, 256, 0, s>>>(
+      a.partial, (T*)a.drwb, (T*)a.drrb, a.B * ((a.T + tile - 1) / tile),
+      n);
   return cudaGetLastError();
 }
 
@@ -764,26 +1631,42 @@ extern "C" int xl_rel_attention_fwd(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward. Inputs as the forward's, plus out and lse from it and dout
-// (B, T, H, D); dq (B, T, H, D), dr (2T, H, D), drwb and drrb (H, D) are
-// f32 and zeroed by the caller (the kernel adds into them); dk, dv in dtype.
+// Backward in five passes (the header): two calls give equal bits. Inputs as the forward's, plus out and lse from it and dout
+// (B, T, H, D); dq, dk, dv (B, T, H, D), dr (2T, H, D), drwb and drrb (H,
+// D) in dtype, each written once; delta (B, H, T) and partial (2 B
+// ceil(T / 32) H D) f32 scratch; bits (B, H, T, ceil(T / 64)) 64-bit
+// words of scratch for the keep bits in bf16 with dropout, else null.
 extern "C" int xl_rel_attention_bwd(
     const void* q, const void* k, const void* v, const void* r,
     const void* rwb, const void* rrb, const void* mask, const void* out,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* dr, void* drwb, void* drrb, const void* seed, int B, int T_len,
-    int H, int D, int dtype, int thresh, float inv_keep, void* stream) {
+    void* dr, void* drwb, void* drrb, void* delta, void* partial, void* bits,
+    const void* seed, int B, int T_len, int H, int D, int dtype, int thresh,
+    float inv_keep, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D < 1 || D > 128 || B < 1 || T_len < 1 || H < 1)
+  if (D < 1 || D > 128 || B < 1 || T_len < 1 || H < 1 || B > 65535 ||
+      (dtype == 1 && thresh != 0) != (bits != nullptr))
     return (int)cudaErrorInvalidValue;
-  const vilco::Dropout drop = make_dropout(seed, thresh, inv_keep);
-  const void* p[16] = {q, k, v, r, rwb, rrb, mask, out, lse, dout,
-                       dq, dk, dv, dr, drwb, drrb};
+  const float scale = 1.f / sqrtf((float)D);
+  const XlBwd a{q, k, v, r, rwb, rrb, mask, lse, dout, dq, dk, dv, dr,
+                drwb, drrb, (const float*)delta, (float*)partial,
+                (unsigned long long*)bits, B, T_len, H, D, scale,
+                scale * LOG2E,
+                make_dropout(seed, thresh, inv_keep)};
   if (dtype == 0)
-    return (int)(D <= 64 ? launch_bwd<float, 64>(p, B, T_len, H, D, drop, s)
-                         : launch_bwd<float, 128>(p, B, T_len, H, D, drop, s));
-  if (dtype == 1)
-    return (int)(D <= 64 ? launch_bwd<bf16, 64>(p, B, T_len, H, D, drop, s)
-                         : launch_bwd<bf16, 128>(p, B, T_len, H, D, drop, s));
+    return (int)launch_bwd<float>(a, out, D <= 64 ? 64 : 32, s, [&] {
+      return D <= 64 ? launch_bwd_simt<float, 64>(a, s)
+                     : launch_bwd_simt<float, 128>(a, s);
+    });
+  if (dtype == 1) {
+    bool vec = D % 8 == 0;
+    for (const void* p : {q, k, v, r, dout, (const void*)dq, (const void*)dk,
+                          (const void*)dv, (const void*)dr})
+      vec = vec && (uintptr_t)p % 16 == 0;
+    return (int)launch_bwd<bf16>(a, out, 64, s, [&] {
+      return D <= 64 ? launch_bwd_tc<64>(a, vec, s)
+                     : launch_bwd_tc<128>(a, vec, s);
+    });
+  }
   return (int)cudaErrorInvalidValue;
 }

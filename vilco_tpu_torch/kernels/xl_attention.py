@@ -21,14 +21,19 @@ size nor pass, so forward, backward and `philox_keep_mask` (plain torch
 integer arithmetic) draw the same mask. keep iff bits >= rate 2^32; kept
 probabilities scale by 1 / (1 - rate).
 
-Backward: one block per (key tile, head, batch) keeps dk and dv in f32
-registers and walks the query tiles, regenerating P from the saved
-log-sum-exp and the keep bits. The inverse relative shift, a log2 T
-cascade of rolls on the TPU (to dodge a Mosaic miscompile), is an index:
-d_raw[i, T + j - i] += d_ac[i, j]. dq (both terms), dr (2T, H, D) and the
-two bias gradients sum over key tiles, batch and query tiles, so they go
-through f32 atomicAdd into f32 buffers; their sums are order-dependent at
-the level of f32 rounding.
+Backward: five passes that write each output once and sum in a fixed
+order, so two calls give equal bits (`xl_bwd_plain` is the same passes in
+plain PyTorch): 1. delta = rowsum(dO O); 2. dk, dv by key tile over the
+query tiles; 3. dq by query tile over the key tiles, and the column sums
+of its two terms as partials of the bias gradients; 4. dr by tile of r's
+positions over the batch and the query tiles; 5. the partials summed in
+order. Each pass regenerates P from the saved log-sum-exp; in bf16 pass 2
+draws the keep bits and stores them for passes 3 and 4. The inverse
+relative shift, a log2 T cascade of rolls on the TPU (to dodge a Mosaic
+miscompile), is an index: query row i and key j meet position T + j - i,
+a band row that the passes read and write through shared memory.
+bfloat16 runs every product on the tensor cores (mma.sync); float32 runs
+SIMT.
 
 A CPU tensor takes `xl_rel_attention_plain` (autograd through it gives the
 backward); a CUDA tensor launches the kernels or raises.
@@ -41,6 +46,9 @@ import torch
 from vilco_tpu_torch.kernels import _build
 
 NEG_INF = -1e9
+LOG2E = 1.4426950408889634
+MASKED = NEG_INF * LOG2E         # a masked key's score in the log2 domain
+BWD_TILE = 64                    # query, key and position tile of K2-bwd
 MASK32 = 0xFFFFFFFF
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -107,6 +115,112 @@ def xl_rel_attention_plain(q, k, v, r, r_w_bias, r_r_bias, mask,
     return torch.einsum("bhqk,bkhd->bqhd", att, vm).to(dt)
 
 
+def _xl_scores(q, k, r, r_w_bias, r_r_bias, mask):
+    """The log2-domain scores (B, H, T, T) as the kernels form them:
+    ((q + r_w_bias) k_j + (q + r_r_bias) r[T + j - i]) * scale * log2 e,
+    -1e9 * log2 e at masked keys; also (q + r_w_bias) and (q + r_r_bias)
+    as (B, H, T, D). In f32 (f64 for f64 inputs)."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    B, T, H, D = q.shape
+    qh, kh = (x.to(ct).transpose(1, 2) for x in (q, k))
+    qw = qh + r_w_bias.to(ct)[None, :, None, :]
+    qr = qh + r_r_bias.to(ct)[None, :, None, :]
+    raw = qr @ r.to(ct).permute(1, 2, 0)                   # (B, H, T, 2T)
+    bd = raw.gather(-1, _shift_index(T, q.device).expand(B, H, T, T))
+    s = (qw @ kh.transpose(-1, -2) + bd) * (LOG2E / D ** 0.5)
+    return torch.where(mask[:, None, None, :], s, MASKED), qw, qr
+
+
+def _shift_index(T: int, device=None) -> torch.Tensor:
+    """(T, T) band row T + j - i of query i and key j."""
+    i = torch.arange(T, device=device)
+    return T + i[None, :] - i[:, None]
+
+
+def xl_lse_plain(args) -> torch.Tensor:
+    """The forward's row statistic (B, H, T) of args = (q, k, v, r,
+    r_w_bias, r_r_bias, mask) in f32 (f64 for f64 inputs): lse = m +
+    log2(l) of the log2-domain scores (`_xl_scores`)."""
+    q, k, _, r, rwb, rrb, mask = args
+    s = _xl_scores(q, k, r, rwb, rrb, mask)[0]
+    m = s.amax(-1)
+    return m + torch.log2(torch.exp2(s - m[..., None]).sum(-1))
+
+
+def xl_bwd_plain(args, out, lse, dout, seed: int = 0, rate: float = 0.0):
+    """Plain version of K2-bwd, the kernels' five passes in f32 (f64 for
+    f64 inputs) with their tiles and summation order, from the forward's
+    out and lse (B, H, T):
+      1. delta = rowsum(dO O);
+      2. dk, dv over the query tiles of BWD_TILE rows, in order;
+      3. dq over the key tiles in order, its content term (dS K) and
+         position term (the sheared dS against r) apart, and each query
+         tile's column sums of the two as the bias partials;
+      4. dr by position tile, over the batch and then the query tiles;
+      5. the bias partials summed over (batch, query tile) in order.
+    P = exp2(s - lse), Pd = drop(P), dS = P (drop(dO v^T) - delta).
+    Returns (dq, dk, dv, dr, d r_w_bias, d r_r_bias) in the inputs'
+    dtype."""
+    q, k, v, r, rwb, rrb, mask = args
+    B, T, H, D = q.shape
+    ct = torch.promote_types(q.dtype, torch.float32)
+    tl = BWD_TILE
+    s, qw, qr = _xl_scores(q, k, r, rwb, rrb, mask)
+    kh, oh, gh = (x.to(ct).transpose(1, 2) for x in (k, out, dout))
+    vh = (v.to(ct) * mask[:, :, None, None]).transpose(1, 2)
+    rh = r.to(ct).transpose(0, 1)                          # (H, 2T, D)
+    scale = 1.0 / D ** 0.5
+    p = torch.exp2(s - lse.to(ct)[..., None])
+    dp = gh @ vh.transpose(-1, -2)
+    pd = p
+    if rate > 0.0:
+        keep = philox_keep_mask(seed, B, H, T, rate, q.device)
+        pd = torch.where(keep, p / (1.0 - rate), 0.0)
+        dp = torch.where(keep, dp / (1.0 - rate), 0.0)
+    delta = (gh * oh).sum(-1)                               # pass 1
+    ds = p * (dp - delta[..., None])
+
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)     # pass 2
+    for i0 in range(0, T, tl):
+        i1 = min(i0 + tl, T)
+        dv = dv + pd[..., i0:i1, :].transpose(-1, -2) @ gh[:, :, i0:i1]
+        dk = dk + ds[..., i0:i1, :].transpose(-1, -2) @ qw[:, :, i0:i1]
+    dk = dk * scale
+    dv = dv * mask[:, None, :, None]
+
+    idx = _shift_index(T, q.device)                         # pass 3
+    tw, tr = torch.zeros_like(qw), torch.zeros_like(qw)
+    for j0 in range(0, T, tl):
+        j1 = min(j0 + tl, T)
+        tw = tw + ds[..., j0:j1] @ kh[:, :, j0:j1]
+        tr = tr + torch.einsum("bhij,hijd->bhid", ds[..., j0:j1],
+                               rh[:, idx[:, j0:j1]])
+    dq = (tw + tr) * scale
+    parts = [torch.stack([t[:, :, i0:i0 + tl].sum(2) * scale
+                          for i0 in range(0, T, tl)], 1)    # (B, nq, H, D)
+             for t in (tw, tr)]
+
+    d_raw = torch.zeros(B, H, T, 2 * T, dtype=ct, device=q.device)
+    d_raw.scatter_(-1, idx.expand(B, H, T, T), ds)          # pass 4
+    dr = torch.zeros_like(rh)
+    for p0 in range(0, 2 * T, tl):
+        acc = torch.zeros_like(rh[:, p0:p0 + tl])
+        for b in range(B):
+            for i0 in range(0, T, tl):
+                acc = acc + d_raw[b, :, i0:i0 + tl, p0:p0 + tl] \
+                    .transpose(-1, -2) @ qr[b, :, i0:i0 + tl]
+        dr[:, p0:p0 + tl] = acc * scale
+
+    drwb, drrb = (torch.zeros_like(t[0, 0]) for t in parts)  # pass 5
+    for b in range(B):
+        for t in range(parts[0].shape[1]):
+            drwb = drwb + parts[0][b, t]
+            drrb = drrb + parts[1][b, t]
+    back = lambda x, like: x.transpose(1, 2).to(like.dtype)
+    return (back(dq, q), back(dk, k), back(dv, v),
+            dr.transpose(0, 1).to(r.dtype), drwb.to(rwb.dtype), drrb.to(rrb.dtype))
+
+
 def _seed_tensor(seed, device) -> torch.Tensor:
     """The seed as one int64 on the card: a tensor drawn there stays there
     (no host sync); an int is copied."""
@@ -148,28 +262,32 @@ def xl_fwd_cuda(args, seed: torch.Tensor, rate: float, with_lse: bool):
 
 
 def xl_bwd_cuda(args, out, lse, dout, seed: torch.Tensor, rate: float):
-    """Launch the backward kernel: (dq, dk, dv, dr, d r_w_bias, d r_r_bias),
-    each in its input's dtype."""
+    """Launch the backward's five kernels: (dq, dk, dv, dr, d r_w_bias,
+    d r_r_bias), each in its input's dtype and written once."""
     q, k, v, r, rwb, rrb, mask = args
     B, T, H, D = q.shape
     dev, f32 = q.device, torch.float32
     dout = dout.contiguous()
-    dq = torch.zeros(q.shape, dtype=f32, device=dev)
-    dr = torch.zeros(r.shape, dtype=f32, device=dev)
-    drwb = torch.zeros((H, D), dtype=f32, device=dev)
-    drrb = torch.zeros((H, D), dtype=f32, device=dev)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    grads = [torch.empty_like(t) for t in args[:6]]
+    delta = torch.empty((B, H, T), dtype=f32, device=dev)
+    # the bias partials of the dq pass's query tiles (32 rows at the least)
+    partial = torch.empty((2, B * -(-T // 32), H, D), dtype=f32, device=dev)
     thresh, inv_keep = _dropout_args(rate)
-    fn = _build.bind("xl_rel_attention", "xl_rel_attention_bwd", 17, 6, 1)
+    # bf16: the keep bits, drawn once by the dk/dv pass for the dq and dr
+    # passes, 64 keys a word
+    bits = (torch.empty((B, H, T, -(-T // 64)), dtype=torch.int64,
+                        device=dev)
+            if thresh and q.dtype == torch.bfloat16 else None)
+    fn = _build.bind("xl_rel_attention", "xl_rel_attention_bwd", 20, 6, 1)
     err = fn(*(t.data_ptr() for t in args), out.data_ptr(), lse.data_ptr(),
-             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             dr.data_ptr(), drwb.data_ptr(), drrb.data_ptr(), seed.data_ptr(),
-             B, T, H, D, _build.dtype_code(q), thresh, inv_keep,
+             dout.data_ptr(), *(t.data_ptr() for t in grads),
+             delta.data_ptr(), partial.data_ptr(),
+             0 if bits is None else bits.data_ptr(), seed.data_ptr(), B, T,
+             H, D, _build.dtype_code(q), thresh, inv_keep,
              _build.stream_of(q))
     _build.check(err, "xl_rel_attention_bwd")
     xl_bwd_cuda.launches += 1
-    dt = q.dtype
-    return (dq.to(dt), dk, dv, dr.to(dt), drwb.to(dt), drrb.to(dt))
+    return tuple(grads)
 
 
 xl_bwd_cuda.launches = 0
