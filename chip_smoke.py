@@ -3,11 +3,13 @@ once on one NVIDIA H100.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mq-train
+    python3 chip_smoke.py --vq-train
     python3 chip_smoke.py --vq-train-parity SEED [SEED ...]
 
 The second form builds the kernels and runs only the MQ training phases
-(7-10); the third only the VQ train-step parity (phase 18), once per seed
-of weights and batch.
+(7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
+train step (phases 16, 18 and 20); the fourth only the VQ train-step
+parity (phase 18), once per seed of weights and batch.
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -82,11 +84,17 @@ fallback):
                    split, losses, peak memory, launches, one profiled step
  16. vq_kernels    the VQ flagship's kernels against their plain versions,
                    bf16 and f32: the frame-banded attention forward at
-                   batch 8 and 16 and its dq and dk/dv at batch 16 (30
-                   frames of 64 tokens, 8 heads of 32, +-2 frames; SDPA
-                   with the (L, L) band mask as the library call), and at
-                   the edges (the band wider than the clip, odd fr, one
-                   frame, a frame longer than a tile); the fused MLP at a
+                   batch 8 and 16 and its backward (delta, dk/dv and dq,
+                   K1's passes in band mode) at batch 16 (30 frames of 64
+                   tokens, 8 heads of 32, +-2 frames; SDPA with the (L, L)
+                   band mask as the library call), and at the edges (the
+                   band wider than the clip, odd fr, one frame, a frame
+                   longer than a tile); the backward against its plain
+                   passes and autograd through the plain forward, called
+                   twice for equal bits, timed queued behind a device
+                   sleep (its three launches take longer on the host than
+                   on the card), its passes' device ms by the profiler;
+                   the fused MLP at a
                    request's two ViT calls (240 clip frames and 8 query
                    copies of 1025 tokens, C 768, hidden 3072) in bf16 and
                    the query call in f32 (library: two F.linear and the
@@ -119,7 +127,8 @@ fallback):
  20. vq_train      12 bf16 HNM steps at batch 4 (16 pairs, f32 masters,
                    head dropout 0.2, AdamW over the trainable leaves with
                    the frozen ViT outside it): ms split, every loss (finite
-                   and falling), peak memory, launches, the backbone
+                   and falling), peak memory, launches (K6's backward once
+                   per spatio-temporal layer a step), the backbone
                    bit-identical, one profiled step
  21. attn_impl_kernels  the head-major attention (K1n, forward and backward)
                    and the flash attention (K1f: K1's forward and three-pass
@@ -1533,18 +1542,16 @@ def frame_band_pairs(L: int, fr: int, w: int) -> int:
 
 def frame_band_work(B, L, C, H, fr, w, dtype, which):
     """(flops, bytes) of K6 on B sequences: 2 C operations per band pair
-    for each product (forward q.k, p.v; dq adds dO.v, ds.k; dk/dv q.k,
-    dO.v, p.dO, ds.q). Bytes: q, k, v (and dO) read once, each output
-    written once, lse and delta (f32 per row and head) read by the
-    backward."""
+    for each product the function needs (forward q.k, p.v; backward q.k,
+    dO.v, p^T dO, dS^T q, dS k) and 2 C per row for delta. Bytes: q, k, v
+    (backward: and out, dO) read once, each output written once, lse (f32
+    per row and head) read by the backward."""
     pairs = B * frame_band_pairs(L, fr, w)
     el = torch.empty((), dtype=dtype).element_size()
-    rows, stats = B * L * C * el, 8 * B * H * L
+    rows = B * L * C * el
     if which == "fwd":
         return 4 * C * pairs, 4 * rows
-    if which == "dq":
-        return 6 * C * pairs, 5 * rows + stats
-    return 8 * C * pairs, 6 * rows + stats
+    return 10 * C * pairs + 2 * B * L * C, 8 * rows + 4 * B * H * L
 
 
 def frame_band_mask(L: int, fr: int, w: int, dev):
@@ -1569,9 +1576,8 @@ def phase_vq_kernels(dev):
     from vilco_tpu_torch.kernels.frame_band import (
         frame_band_attention,
         frame_band_attention_plain,
-        frame_band_delta,
-        frame_band_dkv_cuda,
-        frame_band_dq_cuda,
+        frame_band_bwd_cuda,
+        frame_band_bwd_plain,
         frame_band_fwd_cuda,
     )
     from vilco_tpu_torch.kernels.mlp import (
@@ -1586,9 +1592,8 @@ def phase_vq_kernels(dev):
     R, C, H = cfg.resolution_transformer, cfg.dim, 8
     fr, w, T = R * R, cfg.window_transformer // 2, cfg.num_frames
     rng = np.random.default_rng(SEED + 10)
-    chk = KernelChecks("vq_kernels", ("fb_fwd", "fb_dq", "fb_dkv", "mlp",
-                                      "attn", "attn_cq", "attn_bwd",
-                                      "adamw"))
+    chk = KernelChecks("vq_kernels", ("fb_fwd", "fb_bwd", "mlp", "attn",
+                                      "attn_cq", "attn_bwd", "adamw"))
     report = chk.report
 
     def randn(*shape, dtype, scale=1.0):
@@ -1631,33 +1636,31 @@ def phase_vq_kernels(dev):
                    is_top=dtype == bf16 and flagship and B == 8)
             if flagship and B != max(VQ_K6_BATCHES):
                 continue          # the backward at the HNM batch only
+            # the backward's three passes (delta, dk/dv, dq) on the
+            # forward's out and lse, against their plain version and
+            # against autograd through the plain forward
             o, lse = frame_band_fwd_cuda(q, k, v, H_, f_, w_, True)
-            delta = frame_band_delta(o, g, H_)
-            plain_bwd = backward_timer(
-                lambda *a: frame_band_attention_plain(*a, H_, f_, w_),
-                (q, k, v), g)
-            lib_bwd = backward_timer(sdpa, (q, k, v), bh(g))
-            top = dtype == bf16 and flagship
-            report("fb_dq", f"frame_band dq {label} (plain/library: whole "
-                   "backward)", dtype,
-                   output_errors(("dq",), got[:1], want[:1],
-                                 TRAIN_TOL[dtype]),
-                   lambda: frame_band_dq_cuda(q, k, v, lse, delta, g, H_,
-                                              f_, w_),
-                   plain_bwd,
-                   frame_band_work(B, L, C_, H_, f_, w_, dtype, "dq"),
-                   lib_bwd, is_top=top)
-            report("fb_dkv", f"frame_band dk/dv {label} (plain/library: "
-                   "whole backward)", dtype,
-                   output_errors(("dk", "dv"), got[1:], want[1:],
-                                 TRAIN_TOL[dtype]),
-                   lambda: frame_band_dkv_cuda(q, k, v, lse, delta, g, H_,
-                                               f_, w_),
-                   plain_bwd,
-                   frame_band_work(B, L, C_, H_, f_, w_, dtype, "dkv"),
-                   lib_bwd, is_top=top)
-            del q, k, v, g, out, ref, got, want, o, lse, delta
-            del plain_bwd, lib_bwd, bm
+            kern = lambda: frame_band_bwd_cuda(q, k, v, o, lse, g, H_, f_,
+                                               w_)
+            plain = lambda: frame_band_bwd_plain(q, k, v, o, lse, g, H_, f_,
+                                                 w_)
+            rows = output_errors(("dq", "dk", "dv"), kern(), plain(),
+                                 TRAIN_TOL[dtype]) + output_errors(
+                ("dq (autograd)", "dk (autograd)", "dv (autograd)"), got,
+                want, TRAIN_TOL[dtype])
+            check_repeatable("vq_kernels", f"frame_band backward {label} "
+                             f"{str(dtype)[6:]}", kern)
+            report("fb_bwd", f"frame_band backward {label} (library: SDPA's "
+                   "backward with the band mask)", dtype, rows, kern, plain,
+                   frame_band_work(B, L, C_, H_, f_, w_, dtype, "bwd"),
+                   backward_timer(sdpa, (q, k, v), bh(g)),
+                   is_top=dtype == bf16 and flagship, queued=True)
+            passes = device_ms_by_kernel(kern, reps=10)
+            say(f"[vq_kernels] frame_band backward {label} "
+                f"{str(dtype)[6:]}, device ms by pass (profiler): "
+                + ", ".join(f"{short_name(n)} {t:.4f}"
+                            for n, t in passes.items()) + f" [{CARD}]")
+            del q, k, v, g, out, ref, got, want, o, lse, bm
         torch.cuda.empty_cache()
 
     # K7 at the ViT-B MLP: the two ViT calls of a serving request (the
@@ -2171,6 +2174,10 @@ def phase_vq_train(dev, kernels):
         fail("vq_train: the training loss did not decrease")
     if min(launches.values()) < 1:
         fail("vq_train: a kernel of the train path was never launched")
+    if launches.get("frame_band_bwd_cuda") != cfg.num_transformer * len(
+            losses):
+        fail("vq_train: frame_band_bwd_cuda was not launched once per "
+             "spatio-temporal layer a step")
     if not all(torch.equal(a, b)
                for a, b in zip(backbone0, model.backbone.parameters())):
         fail("vq_train: the frozen backbone changed")
@@ -2587,6 +2594,22 @@ def phase_trace(label: str, fn, unprofiled_ms: float):
     return out
 
 
+def vq_train_kernels():
+    """The kernels of the VQ HNM step whose launches phase_vq_train counts."""
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.frame_band import (
+        frame_band_attention,
+        frame_band_bwd_cuda,
+    )
+
+    return (fused_attention_blc, attention_bwd_cuda, frame_band_attention,
+            frame_band_bwd_cuda, adamw_update_multi)
+
+
 def mq_training(dev, mq):
     """The MQ flagship's training phases: train_kernels, train_parity and
     train; returns the kernel errors, their timings and the step's
@@ -2635,11 +2658,7 @@ def main():
         dwconv_bwd_cuda,
         fused_dwconv_qkv,
     )
-    from vilco_tpu_torch.kernels.frame_band import (
-        frame_band_attention,
-        frame_band_dkv_cuda,
-        frame_band_dq_cuda,
-    )
+    from vilco_tpu_torch.kernels.frame_band import frame_band_attention
     from vilco_tpu_torch.kernels.mlp import fused_mlp
     from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention
     # f32 means f32 in every comparison: no TF32 in matmuls or convs
@@ -2682,9 +2701,7 @@ def main():
     phase_vq_train_parity(dev)
     vq_serve, vq_mlp = phase_vq_serve(
         dev, (fused_attention_blc, frame_band_attention), fused_mlp)
-    vq_train = phase_vq_train(
-        dev, (fused_attention_blc, attention_bwd_cuda, frame_band_attention,
-              frame_band_dq_cuda, frame_band_dkv_cuda, adamw_update_multi))
+    vq_train = phase_vq_train(dev, vq_train_kernels())
 
     ab = attention_ablations(dev, mq)
 
@@ -2730,12 +2747,9 @@ def main():
         ("frame_band_attention", "vilco_tpu_torch/csrc/frame_band.cu",
          "vilco_tpu/kernels/frame_band.py:248", verrs["fb_fwd"],
          vtop["fb_fwd"], vq_serve["frame_band_attention"]),
-        ("frame_band_dq_cuda", "vilco_tpu_torch/csrc/frame_band.cu",
-         "vilco_tpu/kernels/frame_band.py:287", verrs["fb_dq"],
-         vtop["fb_dq"], vq_train["frame_band_dq_cuda"]),
-        ("frame_band_dkv_cuda", "vilco_tpu_torch/csrc/frame_band.cu",
-         "vilco_tpu/kernels/frame_band.py:307", verrs["fb_dkv"],
-         vtop["fb_dkv"], vq_train["frame_band_dkv_cuda"]),
+        ("frame_band_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc_bwd.cu",
+         "vilco_tpu/kernels/frame_band.py:287", verrs["fb_bwd"],
+         vtop["fb_bwd"], vq_train["frame_band_bwd_cuda"]),
         ("fused_mlp", "vilco_tpu_torch/csrc/fused_mlp.cu",
          "vilco_tpu/kernels/mlp.py:79", verrs["mlp"], vtop["mlp"],
          vq_mlp["fused_mlp"]),
@@ -2763,7 +2777,8 @@ def main():
          ab["probe_top"]["D_both"], ab["probe_launches"]),
     ]
     also = {"fused_dwconv_qkv": "vilco_tpu/kernels/dwconv.py:267",
-            "dwconv_bwd_cuda": "vilco_tpu/kernels/dwconv.py:283"}
+            "dwconv_bwd_cuda": "vilco_tpu/kernels/dwconv.py:283",
+            "frame_band_bwd_cuda": "vilco_tpu/kernels/frame_band.py:307"}
     kernels = []
     for fn, src, replaces, err, t, launches in rows:
         entry = {"name": fn, "route": "cuda", "source": src,
@@ -2811,17 +2826,23 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"]):
+    if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
+                         ["--vq-train"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
         if sys.argv[1] == "--mq-train":
             from vilco_tpu_torch.core.config import flagship_config
 
-            mq_training(torch.device("cuda", 0), flagship_config())
+            mq_training(dev, flagship_config())
+        if sys.argv[1] == "--vq-train":
+            phase_vq_kernels(dev)
+            phase_vq_train_parity(dev)
+            phase_vq_train(dev, vq_train_kernels())
         for s in sys.argv[2:]:
-            phase_vq_train_parity(torch.device("cuda", 0), int(s))
+            phase_vq_train_parity(dev, int(s))
     else:
         main()
     sys.exit(0)

@@ -5,7 +5,8 @@ and the probe's K1 variants (P2) from T=128 up to the ViT's 1025 tokens,
 with a fully masked row; the banded kernels also at the NLQ head dim 96,
 the band wider than T and windows wider than one staged chunk; the
 frame-banded kernels at the VQ shape (fr 64, w 2, 8 heads of 32), odd fr,
-frames longer than a tile and bands wider than the clip; the fused MLP at
+frames longer than a tile and bands wider than the clip, the backward's
+passes against their plain version, two calls bitwise equal; the fused MLP at
 the tiny twin's, a middle and the ViT-B width, up to the ViT's query call;
 two K1f backward calls bitwise equal; K2-bwd's passes against their plain
 version, two calls bitwise equal at dropout rate 0 and 0.1. Marked
@@ -358,11 +359,13 @@ def test_adamw_kernel_matches_plain_on_card(cuda, mdt):
     (3, 100, 1, 2, 128), (6, 8, 1, 2, 64), (1, 64, 2, 8, 8)])
 def test_frame_band_kernels_match_plain_on_card(cuda, dtype, tol, n_frames,
                                                 fr, w, H, D):
-    """K6 forward, dq and dk/dv against the plain version. Tolerance
+    """K6 forward and backward against the plain versions (autograd through
+    the plain forward, and the plain backward passes on the kernel's own
+    out and lse); two backward calls give equal bits (no atomics). Tolerance
     relative to each output's largest reference value: f32 1e-4 (summation
     order, an online softmax against a two-pass one); bf16 2e-2 (inputs
-    and outputs rounded, P rounded before P V, the backward reading the
-    bf16 forward output)."""
+    and outputs rounded, P rounded before P V, P and dS before their
+    products, the backward reading the bf16 forward output)."""
     rng = np.random.default_rng(300 + n_frames * fr + w)
     rn = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
@@ -377,6 +380,12 @@ def test_frame_band_kernels_match_plain_on_card(cuda, dtype, tol, n_frames,
     want = _grads(lambda *a: fb.frame_band_attention_plain(*a, H, fr, w),
                   (q, k, v), g)
     _close(got, want, tol, "frame band backward")
+    o, lse = fb.frame_band_fwd_cuda(q, k, v, H, fr, w, True)
+    first = fb.frame_band_bwd_cuda(q, k, v, o, lse, g, H, fr, w)
+    second = fb.frame_band_bwd_cuda(q, k, v, o, lse, g, H, fr, w)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _close(first, fb.frame_band_bwd_plain(q, k, v, o, lse, g, H, fr, w), tol,
+           "frame band backward against the plain passes")
     torch.cuda.synchronize()
 
 
@@ -387,13 +396,14 @@ def test_frame_band_cuda_tensor_never_takes_the_plain_path(cuda,
         raise AssertionError("the plain version ran on a CUDA tensor")
 
     monkeypatch.setattr(fb, "frame_band_attention_plain", refuse)
+    monkeypatch.setattr(fb, "frame_band_bwd_plain", refuse)
     x = torch.randn(2, 6 * 16, 64, device=cuda, requires_grad=True)
-    counts = (fb.frame_band_attention.launches, fb.frame_band_dq_cuda.launches,
-              fb.frame_band_dkv_cuda.launches)
+    counts = (fb.frame_band_attention.launches,
+              fb.frame_band_bwd_cuda.launches)
     fb.frame_band_attention(x, x, x, 2, 16, 2).sum().backward()
     torch.cuda.synchronize()
-    assert (fb.frame_band_attention.launches, fb.frame_band_dq_cuda.launches,
-            fb.frame_band_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    assert (fb.frame_band_attention.launches,
+            fb.frame_band_bwd_cuda.launches) == tuple(c + 1 for c in counts)
     assert torch.isfinite(x.grad).all()
     with pytest.raises(TypeError):
         fb.frame_band_attention(x.half(), x.half(), x.half(), 2, 16, 2)

@@ -1,10 +1,11 @@
 // Shared by csrc/attention_blc.cu (K1's forward) and
 // csrc/attention_blc_bwd.cu (its backward): the row strides of the two
 // layouts, the -1e9 key bias and -1e8 row-max floor, flash mode's
-// masked-key value, the backward's delta pass, and the mma.sync, ldmatrix
-// and cp.async helpers of the bf16 kernels. Two files, so that nvcc builds
-// the forward and the backward side by side. csrc/xl_rel_attention.cu (K2)
-// takes the delta pass and the mma.sync helpers from here too.
+// masked-key value, K6's frame band, the backward's delta pass, and the
+// mma.sync, ldmatrix and cp.async helpers of the bf16 kernels. Two files,
+// so that nvcc builds the forward and the backward side by side.
+// csrc/xl_rel_attention.cu (K2) takes the delta pass and the mma.sync
+// helpers from here too, csrc/frame_band.cu (K6's forward) the band.
 #pragma once
 
 #include <algorithm>
@@ -44,6 +45,39 @@ struct Strides {
 Strides strides_of(bool head_major, int B, int T, int H, int D) {
   return head_major ? Strides{(long long)T * D, D, (long long)B * T * D}
                     : Strides{(long long)T * H * D, (long long)H * D, D};
+}
+
+// K6's frame band (csrc/frame_band.cu's forward, the backward's band mode):
+// L tokens in frames of fr; a token sees every token of the frames within
+// +-w of its own, inside [0, n_frames). The band is symmetric, so the keys
+// a query row sees and the queries a key row is seen by are the same range.
+constexpr int FAR = 1 << 20;     // frame of a padding row: outside any band
+
+struct Band {
+  int L, fr, w, n_frames;
+  // the token range [lo, hi) that rows r0 .. r1 reach together
+  __device__ __forceinline__ void window(int r0, int r1, int& lo,
+                                         int& hi) const {
+    lo = max(0, r0 / fr - w) * fr;
+    hi = min(n_frames - 1, r1 / fr + w) * fr + fr;
+  }
+  // the tokens [x, y) that row r sees (none at or past L)
+  __device__ __forceinline__ int2 range(int r) const {
+    int lo = 0, hi = 0;
+    if (r < L) window(r, r, lo, hi);
+    return make_int2(lo, hi);
+  }
+  // every row of r0 .. r1 sees every token of [c0, c1)
+  __device__ __forceinline__ bool covers(int r0, int r1, int c0,
+                                         int c1) const {
+    return max(0, r1 / fr - w) * fr <= c0 &&
+           min(n_frames - 1, r0 / fr + w) * fr + fr >= c1;
+  }
+};
+
+// p where token i lies in the range `win`, else 0
+__device__ __forceinline__ float keep_in(int2 win, int i, float p) {
+  return i >= win.x && i < win.y ? p : 0.f;
 }
 
 // The backward's first pass (K1's (a), K2-bwd's 1): delta = rowsum(dO * O)

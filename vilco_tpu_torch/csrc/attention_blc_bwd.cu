@@ -39,10 +39,25 @@
 // library's masked-key value; a fully masked row then has P = 1 / Tk at
 // every key and its gradients are not 0. The passes, tiles and the slice
 // sums are K1's, so two calls give equal bits there too.
+// Band mode (a template switch; K6: the backward of
+// vilco_tpu/kernels/frame_band.py::frame_band_attention, the Pallas
+// _dq_kernel and _dkv_kernel) reads csrc/frame_band.cu's lse (K1's, m +
+// log2 l) on the channels-last layout, with no mask and one query slice:
+// (b) walks only the query tiles of its key tile's window (the band is
+// symmetric: Band::window), (c) only the key tiles of its query tile's
+// window, so each pass visits at most 2w + 1 frames' worth of tiles (at the
+// VQ flagship a 64-row tile is one frame: 5 tiles, not L / 64 = 30). A
+// pair whose frames are more than w apart gets P = 0, tested element by
+// element (each row's in-band range, Band::range) only where a frame edge
+// crosses the tile pair (Band::covers); at fr = 64 no tile pair needs it.
 
 #include "attention_blc.cuh"
 
 namespace {
+
+// What an instance of the passes computes: K1 (and K1n), K1f's flash mode
+// or K6's band mode.
+enum class Mode { K1, Flash, FrameBand };
 
 // ---- backward -------------------------------------------------------------
 
@@ -103,8 +118,9 @@ struct DkvLayout {
 };
 
 // (b), bfloat16. Grid (key tiles, H, B * splits); slice s of batch b takes
-// query rows [s * rows_per_split, (s + 1) * rows_per_split).
-template <int DPAD, bool FLASH>
+// query rows [s * rows_per_split, (s + 1) * rows_per_split), or in band
+// mode (one slice) the key tile's window.
+template <int DPAD, Mode M>
 __global__ void __launch_bounds__(128)
 attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
@@ -116,7 +132,8 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ dout, DkvOut<bf16> dst,
                             int Tq, int Tk, int D, Strides sq, Strides sk,
                             float scale_log2, float scale, int rows_per_split,
-                            bool vec) {
+                            Band band, bool vec) {
+  constexpr bool FLASH = M == Mode::Flash, BAND = M == Mode::FrameBand;
   using L = DkvLayout<DPAD>;
   constexpr int NQ = L::BQ / 8;   // n8 tiles of S^T (queries)
   constexpr int NO = DPAD / 8;    // n8 tiles of dk, dv (columns)
@@ -135,15 +152,16 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
   const int j0 = blockIdx.x * L::BK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int i_begin = split * rows_per_split;
-  const int i_end = min(Tq, i_begin + rows_per_split);
+  const int nk = min(L::BK, Tk - j0);
+  int i_begin = split * rows_per_split;
+  int i_end = min(Tq, i_begin + rows_per_split);
+  if constexpr (BAND) band.window(j0, j0 + nk - 1, i_begin, i_end);
   const int nsteps = i_end > i_begin ? (i_end - i_begin + L::BQ - 1) / L::BQ
                                      : 0;
   const float* lrow = lse + ((long long)b * H + h) * Tq;
   const float* srow = FLASH ? lsum + ((long long)b * H + h) * Tq : nullptr;
   const float* drow = delta + ((long long)b * H + h) * Tq;
 
-  const int nk = min(L::BK, Tk - j0);
   stage_tile<L::BK, DPAD, L::LD, L::THREADS>(ks, k + sk.at(b, j0, h), sk.st,
                                              nk, D, vec);
   stage_tile<L::BK, DPAD, L::LD, L::THREADS>(vs, v + sk.at(b, j0, h), sk.st,
@@ -166,12 +184,20 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
   };
   if (nsteps > 0) stage_q(0);
   else cp_async_commit();
-  // this lane's two key rows: warp * 16 + g and + 8
+  // this lane's two key rows: warp * 16 + g and + 8 (band mode: no bias,
+  // and the query rows each one sees)
   float kbias[2];
+  int2 qwin[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    kbias[r] = key_bias<FLASH>(mask + (long long)b * Tk,
-                               j0 + warp * 16 + g + 8 * r, Tk);
+  for (int r = 0; r < 2; ++r) {
+    const int j = j0 + warp * 16 + g + 8 * r;
+    if constexpr (BAND) {
+      kbias[r] = 0.f;
+      qwin[r] = band.range(j);
+    } else {
+      kbias[r] = key_bias<FLASH>(mask + (long long)b * Tk, j, Tk);
+    }
+  }
   float dk[NO][4], dv[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -191,6 +217,11 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
     const float* lt = lses + (t & 1) * L::BQ;
     const float* dt = dels + (t & 1) * L::BQ;
     const float* it = linv + (t & 1) * L::BQ;
+    // band mode: the frame test where an edge crosses the tile pair (rows
+    // past i_end have P = 0 from their lse already)
+    const int i0 = i_begin + t * L::BQ;
+    const bool test =
+        BAND && !band.covers(j0, j0 + nk - 1, i0, min(i0 + L::BQ, i_end));
 
     // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
     float st[NQ][4], dpt[NQ][4];
@@ -227,6 +258,13 @@ attention_blc_dkv_tc_kernel(const bf16* __restrict__ q,
       if constexpr (FLASH) {   // P = exp2(s - m) / l
         const float2 li = *reinterpret_cast<const float2*>(it + n * 8 + 2 * t4);
         p0 *= li.x, p1 *= li.y, p2 *= li.x, p3 *= li.y;
+      }
+      if constexpr (BAND) {
+        if (test) {   // P^T: keys are rows, queries columns
+          const int i = i0 + n * 8 + 2 * t4;
+          p0 = keep_in(qwin[0], i, p0), p1 = keep_in(qwin[0], i + 1, p1);
+          p2 = keep_in(qwin[1], i, p2), p3 = keep_in(qwin[1], i + 1, p3);
+        }
       }
       pa[n / 2][(n & 1) * 2] = pack2(p0, p1);
       pa[n / 2][(n & 1) * 2 + 1] = pack2(p2, p3);
@@ -282,8 +320,9 @@ struct DqLayout {
   static constexpr int BYTES = B_OFF + 2 * BK * 4;
 };
 
-// (c), bfloat16. Grid (query tiles, H, B).
-template <int DPAD, bool FLASH>
+// (c), bfloat16. Grid (query tiles, H, B); band mode walks the query
+// tile's window.
+template <int DPAD, Mode M>
 __global__ void __launch_bounds__(128)
 attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
@@ -295,7 +334,8 @@ attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ dout,
                            bf16* __restrict__ dq, int Tq, int Tk, int D,
                            Strides sq, Strides sk, float scale_log2,
-                           float scale, bool vec) {
+                           float scale, Band band, bool vec) {
+  constexpr bool FLASH = M == Mode::Flash, BAND = M == Mode::FrameBand;
   using L = DqLayout<DPAD>;
   constexpr int NS = L::BK / 8;   // n8 tiles of S (keys)
   constexpr int NO = DPAD / 8;
@@ -311,28 +351,33 @@ attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
   const int i0 = blockIdx.x * L::BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const uint8_t* mp = mask + (long long)b * Tk;
-  const int ntiles = (Tk + L::BK - 1) / L::BK;
+  const uint8_t* mp = BAND ? nullptr : mask + (long long)b * Tk;
   const int nq = min(L::BQ, Tq - i0);
+  int j_begin = 0, j_end = Tk;
+  if constexpr (BAND) band.window(i0, i0 + nq - 1, j_begin, j_end);
+  const int ntiles = (j_end - j_begin + L::BK - 1) / L::BK;
 
   stage_tile<L::BQ, DPAD, L::LD, L::THREADS>(qs, q + sq.at(b, i0, h), sq.st,
                                              nq, D, vec);
   stage_tile<L::BQ, DPAD, L::LD, L::THREADS>(gs, dout + sq.at(b, i0, h),
                                              sq.st, nq, D, vec);
   auto stage_kv = [&](int t) {
-    const int j0 = t * L::BK, s = t & 1, nk = min(L::BK, Tk - j0);
+    const int j0 = j_begin + t * L::BK, s = t & 1;
+    const int nk = min(L::BK, j_end - j0);
     stage_tile<L::BK, DPAD, L::LD, L::THREADS>(
         ks + s * L::KT, k + sk.at(b, j0, h), sk.st, nk, D, vec);
     stage_tile<L::BK, DPAD, L::LD, L::THREADS>(
         vs + s * L::KT, v + sk.at(b, j0, h), sk.st, nk, D, vec);
     for (int jj = tid; jj < L::BK; jj += L::THREADS)
-      bias[s * L::BK + jj] = key_bias<FLASH>(mp, j0 + jj, Tk);
+      bias[s * L::BK + jj] = BAND ? 0.f : key_bias<FLASH>(mp, j0 + jj, Tk);
     cp_async_commit();
   };
   stage_kv(0);
   // this lane's two query rows: warp * 16 + g and + 8 (rl: lse, or m in
-  // flash mode; ri: 1 / l in flash mode)
+  // flash mode; ri: 1 / l in flash mode; kwin: the keys each sees in band
+  // mode)
   float rl[2], rd[2], ri[2];
+  int2 kwin[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + warp * 16 + g + 8 * r;
@@ -340,6 +385,7 @@ attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
     rl[r] = i < Tq ? lse[at] : INFINITY;
     rd[r] = i < Tq ? delta[at] : 0.f;
     ri[r] = FLASH && i < Tq ? 1.f / lsum[at] : 0.f;
+    if constexpr (BAND) kwin[r] = band.range(i);
   }
   float acc[NO][4];
 #pragma unroll
@@ -357,6 +403,11 @@ attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
     const bf16* kt = ks + (t & 1) * L::KT;
     const bf16* vt = vs + (t & 1) * L::KT;
     const float* bt = bias + (t & 1) * L::BK;
+    // band mode: the frame test where an edge crosses the tile pair (keys
+    // past j_end were staged as zeros and need it too)
+    const int j0 = j_begin + t * L::BK;
+    const bool test =
+        BAND && !band.covers(i0, i0 + nq - 1, j0, j0 + L::BK);
 
     // S = Q K^T and dP = dO V^T: this warp's 16 rows x BK keys
     float s[NS][4], dp[NS][4];
@@ -391,6 +442,13 @@ attention_blc_dq_tc_kernel(const bf16* __restrict__ q,
       float p3 = exp2f(s[n][3] * scale_log2 + bb.y - rl[1]);
       if constexpr (FLASH)   // P = exp2(s - m) / l
         p0 *= ri[0], p1 *= ri[0], p2 *= ri[1], p3 *= ri[1];
+      if constexpr (BAND) {
+        if (test) {
+          const int j = j0 + n * 8 + 2 * t4;
+          p0 = keep_in(kwin[0], j, p0), p1 = keep_in(kwin[0], j + 1, p1);
+          p2 = keep_in(kwin[1], j, p2), p3 = keep_in(kwin[1], j + 1, p3);
+        }
+      }
       sa[n / 2][(n & 1) * 2] =
           pack2(p0 * (dp[n][0] - rd[0]), p1 * (dp[n][1] - rd[0]));
       sa[n / 2][(n & 1) * 2 + 1] =
@@ -419,19 +477,30 @@ constexpr int BWD_THREADS = 256;   // 16 x 16
 
 template <int DPAD>
 constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (4 * BT * (DPAD + 1) + 2 * BT * (BT + 1) + 4 * BT);
+  return sizeof(float) * (4 * BT * (DPAD + 1) + 2 * BT * (BT + 1) + 6 * BT);
 }
 
-// linv: 1 / l of each query row in flash mode (lses then holds m)
+// linv: 1 / l of each query row in flash mode (lses then holds m); qf, kf:
+// the frames of the query and key rows in band mode
 template <int DPAD>
 struct SimtTiles {
   static constexpr int LD = DPAD + 1, LP = BT + 1;
   float *qs, *gs, *ks, *vs, *ps, *dss, *bias, *lses, *delta, *linv;
+  int *qf, *kf;
   __device__ explicit SimtTiles(float* sm)
       : qs(sm), gs(qs + BT * LD), ks(gs + BT * LD), vs(ks + BT * LD),
         ps(vs + BT * LD), dss(ps + BT * LP), bias(dss + BT * LP),
-        lses(bias + BT), delta(lses + BT), linv(delta + BT) {}
+        lses(bias + BT), delta(lses + BT), linv(delta + BT),
+        qf(reinterpret_cast<int*>(linv + BT)), kf(qf + BT) {}
 };
+
+// band mode: the frames of rows [r0, r0 + valid), `pad` past them (a query
+// pad and a key pad are further than any w apart)
+__device__ __forceinline__ void simt_frames(int* f, int r0, int valid,
+                                            int fr, int pad) {
+  for (int r = threadIdx.x; r < BT; r += BWD_THREADS)
+    f[r] = r < valid ? (r0 + r) / fr : pad;
+}
 
 // lse (flash: m), delta and 1 / l of the query rows [i0, i0 + nq) of a
 // head; rows past them get lse = +inf, so their P is exactly 0
@@ -463,10 +532,12 @@ __device__ __forceinline__ void simt_stage(float* dst, const float* src,
 
 // P and dS of the staged query tile (qs, gs, lses, delta) against the
 // staged key tile (ks, vs, bias), into ps and dss: thread (ty, tx) takes
-// query rows ty + 16a and keys tx + 16c.
-template <int DPAD, bool FLASH>
+// query rows ty + 16a and keys tx + 16c. Band mode: P = 0 where the rows'
+// frames (qf, kf) are more than w apart.
+template <int DPAD, Mode M>
 __device__ __forceinline__ void simt_p_ds(const SimtTiles<DPAD>& sm,
-                                          float scale_log2, int tx, int ty) {
+                                          float scale_log2, int tx, int ty,
+                                          int w) {
   constexpr int LD = SimtTiles<DPAD>::LD, LP = SimtTiles<DPAD>::LP;
   constexpr int RA = BT / 16;
   float s[RA][RA], dp[RA][RA];
@@ -498,14 +569,17 @@ __device__ __forceinline__ void simt_p_ds(const SimtTiles<DPAD>& sm,
     for (int c = 0; c < RA; ++c) {
       const int i = ty + 16 * a, j = tx + 16 * c;
       float p = exp2f(s[a][c] * scale_log2 + sm.bias[j] - sm.lses[i]);
-      if constexpr (FLASH) p *= sm.linv[i];   // P = exp2(s - m) / l
+      if constexpr (M == Mode::Flash) p *= sm.linv[i];   // exp2(s - m) / l
+      if constexpr (M == Mode::FrameBand)
+        p = abs(sm.qf[i] - sm.kf[j]) <= w ? p : 0.f;
       sm.ps[i * LP + j] = p;
       sm.dss[i * LP + j] = p * (dp[a][c] - sm.delta[i]);
     }
 }
 
-// (b), float32. Grid (key tiles, H, B * splits).
-template <int DPAD, bool FLASH>
+// (b), float32. Grid (key tiles, H, B * splits); band mode walks the key
+// tile's window.
+template <int DPAD, Mode M>
 __global__ void __launch_bounds__(BWD_THREADS)
 attention_blc_dkv_simt_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
@@ -517,7 +591,8 @@ attention_blc_dkv_simt_kernel(const float* __restrict__ q,
                               const float* __restrict__ dout,
                               DkvOut<float> dst, int Tq, int Tk, int D,
                               Strides sq, Strides sk, float scale_log2,
-                              float scale, int rows_per_split) {
+                              float scale, int rows_per_split, Band band) {
+  constexpr bool FLASH = M == Mode::Flash, BAND = M == Mode::FrameBand;
   constexpr int LD = SimtTiles<DPAD>::LD, LP = SimtTiles<DPAD>::LP;
   constexpr int RA = BT / 16, CD = DPAD / 16;
   extern __shared__ __align__(16) float smf[];
@@ -526,13 +601,17 @@ attention_blc_dkv_simt_kernel(const float* __restrict__ q,
   const int b = blockIdx.z / dst.splits, split = blockIdx.z % dst.splits;
   const int j0 = blockIdx.x * BT;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int i_begin = split * rows_per_split;
-  const int i_end = min(Tq, i_begin + rows_per_split);
+  const int nk = min(BT, Tk - j0);
+  int i_begin = split * rows_per_split;
+  int i_end = min(Tq, i_begin + rows_per_split);
+  if constexpr (BAND) band.window(j0, j0 + nk - 1, i_begin, i_end);
 
-  simt_stage<DPAD>(sm.ks, k, sk, b, h, j0, min(BT, Tk - j0), D);
-  simt_stage<DPAD>(sm.vs, v, sk, b, h, j0, min(BT, Tk - j0), D);
+  simt_stage<DPAD>(sm.ks, k, sk, b, h, j0, nk, D);
+  simt_stage<DPAD>(sm.vs, v, sk, b, h, j0, nk, D);
   for (int r = tid; r < BT; r += BWD_THREADS)
-    sm.bias[r] = key_bias<FLASH>(mask + (long long)b * Tk, j0 + r, Tk);
+    sm.bias[r] = BAND ? 0.f
+                      : key_bias<FLASH>(mask + (long long)b * Tk, j0 + r, Tk);
+  if constexpr (BAND) simt_frames(sm.kf, j0, nk, band.fr, FAR);
   float dk_acc[RA][CD], dv_acc[RA][CD];
 #pragma unroll
   for (int a = 0; a < RA; ++a)
@@ -546,8 +625,9 @@ attention_blc_dkv_simt_kernel(const float* __restrict__ q,
     simt_stage<DPAD>(sm.gs, dout, sq, b, h, i0, nq, D);
     simt_rowstats<DPAD, FLASH>(sm, lse, lsum, delta,
                                ((long long)b * H + h) * Tq + i0, nq);
+    if constexpr (BAND) simt_frames(sm.qf, i0, nq, band.fr, -FAR);
     __syncthreads();
-    simt_p_ds<DPAD, FLASH>(sm, scale_log2, tx, ty);
+    simt_p_ds<DPAD, M>(sm, scale_log2, tx, ty, band.w);
     __syncthreads();
     // dv += P^T dO, dk += dS^T Q: key rows ty + 16a, columns tx + 16c
 #pragma unroll 4
@@ -586,8 +666,9 @@ attention_blc_dkv_simt_kernel(const float* __restrict__ q,
   }
 }
 
-// (c), float32. Grid (query tiles, H, B).
-template <int DPAD, bool FLASH>
+// (c), float32. Grid (query tiles, H, B); band mode walks the query tile's
+// window.
+template <int DPAD, Mode M>
 __global__ void __launch_bounds__(BWD_THREADS)
 attention_blc_dq_simt_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -599,7 +680,8 @@ attention_blc_dq_simt_kernel(const float* __restrict__ q,
                              const float* __restrict__ dout,
                              float* __restrict__ dq, int Tq, int Tk, int D,
                              Strides sq, Strides sk, float scale_log2,
-                             float scale) {
+                             float scale, Band band) {
+  constexpr bool FLASH = M == Mode::Flash, BAND = M == Mode::FrameBand;
   constexpr int LD = SimtTiles<DPAD>::LD, LP = SimtTiles<DPAD>::LP;
   constexpr int RA = BT / 16, CD = DPAD / 16;
   extern __shared__ __align__(16) float smf[];
@@ -613,21 +695,28 @@ attention_blc_dq_simt_kernel(const float* __restrict__ q,
   simt_stage<DPAD>(sm.gs, dout, sq, b, h, i0, nq, D);
   simt_rowstats<DPAD, FLASH>(sm, lse, lsum, delta,
                              ((long long)b * H + h) * Tq + i0, nq);
+  int j_begin = 0, j_end = Tk;
+  if constexpr (BAND) {
+    band.window(i0, i0 + nq - 1, j_begin, j_end);
+    simt_frames(sm.qf, i0, nq, band.fr, -FAR);
+  }
   float dq_acc[RA][CD];
 #pragma unroll
   for (int a = 0; a < RA; ++a)
 #pragma unroll
     for (int c = 0; c < CD; ++c) dq_acc[a][c] = 0.f;
 
-  for (int j0 = 0; j0 < Tk; j0 += BT) {
+  for (int j0 = j_begin; j0 < j_end; j0 += BT) {
     __syncthreads();   // the previous key tile is no longer read
-    const int nk = min(BT, Tk - j0);
+    const int nk = min(BT, j_end - j0);
     simt_stage<DPAD>(sm.ks, k, sk, b, h, j0, nk, D);
     simt_stage<DPAD>(sm.vs, v, sk, b, h, j0, nk, D);
     for (int r = tid; r < BT; r += BWD_THREADS)
-      sm.bias[r] = key_bias<FLASH>(mask + (long long)b * Tk, j0 + r, Tk);
+      sm.bias[r] = BAND ? 0.f : key_bias<FLASH>(mask + (long long)b * Tk,
+                                                j0 + r, Tk);
+    if constexpr (BAND) simt_frames(sm.kf, j0, nk, band.fr, FAR);
     __syncthreads();
-    simt_p_ds<DPAD, FLASH>(sm, scale_log2, tx, ty);
+    simt_p_ds<DPAD, M>(sm, scale_log2, tx, ty, band.w);
     __syncthreads();
     // dq += dS K: query rows ty + 16a, columns tx + 16c
 #pragma unroll 4
@@ -666,6 +755,7 @@ struct BwdArgs {
   Strides sq, sk;
   float scale_log2, scale;
   int rows_per_split;   // a multiple of 64
+  Band band;            // band mode only
 };
 
 template <typename T>
@@ -696,58 +786,84 @@ DkvOut<T> dkv_out(const BwdArgs& a) {
                    (long long)a.B * a.Tk * a.H * a.D, a.splits};
 }
 
-template <int DPAD, bool FL>
+template <int DPAD, Mode M>
 cudaError_t launch_bwd_tc(const BwdArgs& a, cudaStream_t s) {
   cudaError_t e = launch_delta<bf16>(a, s);
   if (e != cudaSuccess) return e;
   const bool vec = vec_ok(a.D, a.sq, a.sk, {a.q, a.k, a.v, a.dout, a.dq});
   using KL = DkvLayout<DPAD>;
-  auto kd = attention_blc_dkv_tc_kernel<DPAD, FL>;
+  auto kd = attention_blc_dkv_tc_kernel<DPAD, M>;
   if ((e = set_smem(kd, KL::BYTES)) != cudaSuccess) return e;
   kd<<<dim3((a.Tk + KL::BK - 1) / KL::BK, a.H, a.B * a.splits), KL::THREADS,
        KL::BYTES, s>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
       (const uint8_t*)a.mask, (const float*)a.lse, (const float*)a.lsum,
       (const float*)a.delta, (const bf16*)a.dout, dkv_out<bf16>(a), a.Tq,
-      a.Tk, a.D, a.sq, a.sk, a.scale_log2, a.scale, a.rows_per_split, vec);
+      a.Tk, a.D, a.sq, a.sk, a.scale_log2, a.scale, a.rows_per_split,
+      a.band, vec);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = launch_sum<bf16>(a, s)) != cudaSuccess) return e;
   using QL = DqLayout<DPAD>;
-  auto kq = attention_blc_dq_tc_kernel<DPAD, FL>;
+  auto kq = attention_blc_dq_tc_kernel<DPAD, M>;
   if ((e = set_smem(kq, QL::BYTES)) != cudaSuccess) return e;
   kq<<<dim3((a.Tq + QL::BQ - 1) / QL::BQ, a.H, a.B), QL::THREADS, QL::BYTES,
        s>>>((const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
             (const uint8_t*)a.mask, (const float*)a.lse,
             (const float*)a.lsum, (const float*)a.delta,
             (const bf16*)a.dout, (bf16*)a.dq, a.Tq, a.Tk, a.D, a.sq, a.sk,
-            a.scale_log2, a.scale, vec);
+            a.scale_log2, a.scale, a.band, vec);
   return cudaGetLastError();
 }
 
-template <int DPAD, bool FL>
+template <int DPAD, Mode M>
 cudaError_t launch_bwd_simt(const BwdArgs& a, cudaStream_t s) {
   cudaError_t e = launch_delta<float>(a, s);
   if (e != cudaSuccess) return e;
   const int smem = (int)bwd_smem_bytes<DPAD>();
-  auto kd = attention_blc_dkv_simt_kernel<DPAD, FL>;
+  auto kd = attention_blc_dkv_simt_kernel<DPAD, M>;
   if ((e = set_smem(kd, smem)) != cudaSuccess) return e;
   kd<<<dim3((a.Tk + BT - 1) / BT, a.H, a.B * a.splits), BWD_THREADS, smem,
        s>>>((const float*)a.q, (const float*)a.k, (const float*)a.v,
             (const uint8_t*)a.mask, (const float*)a.lse,
             (const float*)a.lsum, (const float*)a.delta,
             (const float*)a.dout, dkv_out<float>(a), a.Tq, a.Tk, a.D, a.sq,
-            a.sk, a.scale_log2, a.scale, a.rows_per_split);
+            a.sk, a.scale_log2, a.scale, a.rows_per_split, a.band);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = launch_sum<float>(a, s)) != cudaSuccess) return e;
-  auto kq = attention_blc_dq_simt_kernel<DPAD, FL>;
+  auto kq = attention_blc_dq_simt_kernel<DPAD, M>;
   if ((e = set_smem(kq, smem)) != cudaSuccess) return e;
   kq<<<dim3((a.Tq + BT - 1) / BT, a.H, a.B), BWD_THREADS, smem, s>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
       (const uint8_t*)a.mask, (const float*)a.lse, (const float*)a.lsum,
       (const float*)a.delta, (const float*)a.dout, (float*)a.dq, a.Tq, a.Tk,
-      a.D, a.sq, a.sk, a.scale_log2, a.scale);
+      a.D, a.sq, a.sk, a.scale_log2, a.scale, a.band);
   return cudaGetLastError();
 }
+
+// The passes of mode M at the padded width for D: f32 SIMT at 64 or 128
+// (band mode also at 32, the VQ encoder's head width, where 64 would
+// double the work), bf16 on mma.sync at 32, 64, 96 or 128 (flash mode at
+// 64 or 128).
+template <Mode M>
+cudaError_t dispatch(const BwdArgs& a, int dtype, cudaStream_t s) {
+  const int D = a.D;
+  if (dtype == 0) {
+    if constexpr (M == Mode::FrameBand)
+      if (D <= 32) return launch_bwd_simt<32, M>(a, s);
+    return D <= 64 ? launch_bwd_simt<64, M>(a, s)
+                   : launch_bwd_simt<128, M>(a, s);
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (M == Mode::Flash)
+    return D <= 64 ? launch_bwd_tc<64, M>(a, s) : launch_bwd_tc<128, M>(a, s);
+  else
+    return D <= 32   ? launch_bwd_tc<32, M>(a, s)
+           : D <= 64 ? launch_bwd_tc<64, M>(a, s)
+           : D <= 96 ? launch_bwd_tc<96, M>(a, s)
+                     : launch_bwd_tc<128, M>(a, s);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 }  // namespace
 
@@ -772,29 +888,37 @@ extern "C" int attention_blc_bwd(const void* q, const void* k, const void* v,
       layout < 0 || layout > 1 || splits < 1 ||
       (long long)B * splits > 65535 || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool hm = layout == 1, flash = lsum != nullptr;
+  const bool hm = layout == 1;
   const float scale = 1.f / sqrtf((float)D);
   const int tiles = (Tq + BT - 1) / BT;
   const BwdArgs a{q, k, v, mask, out, lse, lsum, dout, dq, dk, dv, delta,
                   partial, B, Tq, Tk, H, D, splits,
                   strides_of(hm, B, Tq, H, D), strides_of(hm, B, Tk, H, D),
-                  scale * 1.4426950408889634f, scale,
-                  ((tiles + splits - 1) / splits) * BT};
-  if (dtype == 0) {
-    if (flash)
-      return (int)(D <= 64 ? launch_bwd_simt<64, true>(a, s)
-                           : launch_bwd_simt<128, true>(a, s));
-    return (int)(D <= 64 ? launch_bwd_simt<64, false>(a, s)
-                         : launch_bwd_simt<128, false>(a, s));
-  }
-  if (dtype == 1) {
-    if (flash)
-      return (int)(D <= 64 ? launch_bwd_tc<64, true>(a, s)
-                           : launch_bwd_tc<128, true>(a, s));
-    return (int)(D <= 32 ? launch_bwd_tc<32, false>(a, s)
-                 : D <= 64 ? launch_bwd_tc<64, false>(a, s)
-                 : D <= 96 ? launch_bwd_tc<96, false>(a, s)
-                           : launch_bwd_tc<128, false>(a, s));
-  }
-  return (int)cudaErrorInvalidValue;
+                  scale * LOG2E, scale, ((tiles + splits - 1) / splits) * BT,
+                  Band{}};
+  return (int)(lsum != nullptr ? dispatch<Mode::Flash>(a, dtype, s)
+                               : dispatch<Mode::K1>(a, dtype, s));
+}
+
+// K6's backward, the passes in band mode: (a) delta, (b) dk/dv over each
+// key tile's window, (c) dq over each query tile's window; no atomics.
+// q/k/v/out/dout/dq/dk/dv (B, L, H * D) channels-last in dtype, L =
+// n_frames * fr, D <= 128, w >= 0; lse (B, H, L) f32 from
+// csrc/frame_band.cu's forward; delta (B, H, L) f32 scratch; all
+// contiguous.
+extern "C" int frame_band_bwd(const void* q, const void* k, const void* v,
+                              const void* out, const void* lse,
+                              const void* dout, void* dq, void* dk, void* dv,
+                              void* delta, int B, int L, int H, int D, int fr,
+                              int w, int dtype, void* stream) {
+  if (D < 1 || D > 128 || B < 1 || L < 1 || L >= FAR / 2 || H < 1 ||
+      fr < 1 || w < 0 || w >= FAR / 2 || L % fr != 0 || B > 65535 ||
+      H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf((float)D);
+  const Strides st = strides_of(false, B, L, H, D);
+  const BwdArgs a{q, k, v, nullptr, out, lse, nullptr, dout, dq, dk, dv,
+                  delta, nullptr, B, L, L, H, D, 1, st, st, scale * LOG2E,
+                  scale, (L + BT - 1) / BT * BT, Band{L, fr, w, L / fr}};
+  return (int)dispatch<Mode::FrameBand>(a, dtype, (cudaStream_t)stream);
 }

@@ -2,18 +2,22 @@
 VQ spatio-temporal encoder's attention, where token i (frame i // fr) sees
 every token of the frames within +-w of its own.
 
-Replaces vilco_tpu/kernels/frame_band.py::frame_band_attention (the Pallas
-`_forward`, and the dq and dk/dv calls of `_backward`) with
-csrc/frame_band.cu. The band is by frame, so the attention is block-dense:
-one block per query tile of 64 rows (one VQ frame) stages only its window's
-K and V (at most 2w + 1 frames) and runs an f32 online softmax, on the
-tensor cores in bf16; keys outside the window are never visited. The
-backward is blocked over queries (dq) and over keys (dk/dv, over the
-transposed band), with delta = rowsum(dO * O) computed once beside them:
-no atomics and no accumulator over the full length. Every n_frames >= 1,
-fr >= 1, w >= 0 and head dim <= 128 is taken on the card (the JAX version
-gave shapes whose band covers the clip, or whose C is no multiple of 128,
-to XLA).
+Replaces vilco_tpu/kernels/frame_band.py::frame_band_attention. The Pallas
+`_forward` becomes csrc/frame_band.cu: the band is by frame, so the
+attention is block-dense, and one block per query tile of 64 rows (one VQ
+frame) stages only its window's K and V (at most 2w + 1 frames) and runs
+an f32 online softmax, on the tensor cores in bf16; keys outside the window
+are never visited. The forward stores each row's log-sum-exp (log2 domain,
+K1's m + log2 l). The Pallas `_backward` (the dq and dk/dv kernels) becomes
+the band mode of K1's three backward passes (csrc/attention_blc_bwd.cu):
+delta = rowsum(dO * O), dk/dv by key tile over the query tiles of its
+window, dq by query tile over the key tiles of its window, P = 0 where a
+pair's frames are more than w apart; bf16 on mma.sync with P and dS
+rounded to bf16 before their products (as the TPU kernel rounds them), f32
+in SIMT; no atomics, so two calls give equal bits. `frame_band_bwd_plain`
+is the same passes in plain PyTorch. Every n_frames >= 1, fr >= 1, w >= 0
+and head dim <= 128 is taken on the card (the JAX version gave shapes whose
+band covers the clip, or whose C is no multiple of 128, to XLA).
 
 A CPU tensor takes `frame_band_attention_plain` (autograd through it gives
 the backward); a CUDA tensor launches the kernels or raises.
@@ -26,6 +30,9 @@ import torch
 from vilco_tpu_torch.kernels import _build
 
 NEG_INF = -1e9
+LOG2E = 1.4426950408889634
+ROWMAX_FLOOR = -1e8
+BWD_TILE = 64        # the query and key tile of the backward's passes
 
 
 def frame_band_attention_plain(q, k, v, num_heads: int, fr: int, w: int):
@@ -84,49 +91,107 @@ def frame_band_fwd_cuda(q, k, v, num_heads: int, fr: int, w: int,
     return out, lse
 
 
-def frame_band_delta(out, dout, num_heads: int):
-    """delta = rowsum(dO * O) per (batch, head, row), (B, H, L) f32: what
-    both backward kernels read beside lse."""
-    B, L, C = out.shape
-    prod = dout.float() * out.float()
-    return prod.reshape(B, L, num_heads, C // num_heads).sum(-1) \
-        .transpose(1, 2).contiguous()
-
-
-def frame_band_dq_cuda(q, k, v, lse, delta, dout, num_heads: int, fr: int,
-                       w: int):
-    """Launch the dq kernel: dq in q.dtype."""
-    B, L, C = q.shape
-    dout = dout.contiguous()
-    dq = torch.empty_like(q)
-    fn = _build.bind("frame_band", "frame_band_dq", 7, 7)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, L,
-             num_heads, C // num_heads, fr, w, _build.dtype_code(q),
-             _build.stream_of(q))
-    _build.check(err, "frame_band_dq")
-    frame_band_dq_cuda.launches += 1
-    return dq
-
-
-def frame_band_dkv_cuda(q, k, v, lse, delta, dout, num_heads: int, fr: int,
+def frame_band_bwd_cuda(q, k, v, out, lse, dout, num_heads: int, fr: int,
                         w: int):
-    """Launch the dk/dv kernel: (dk, dv) in q.dtype."""
+    """Launch K6's backward, K1's three passes in band mode (delta, dk/dv,
+    dq), from the forward's out and lse (B, H, L) f32: (dq, dk, dv) in
+    q.dtype."""
     B, L, C = q.shape
     dout = dout.contiguous()
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.bind("frame_band", "frame_band_dkv", 8, 7)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             B, L, num_heads, C // num_heads, fr, w, _build.dtype_code(q),
-             _build.stream_of(q))
-    _build.check(err, "frame_band_dkv")
-    frame_band_dkv_cuda.launches += 1
-    return dk, dv
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, num_heads, L), dtype=torch.float32,
+                        device=q.device)
+    fn = _build.bind("attention_blc_bwd", "frame_band_bwd", 10, 7)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), delta.data_ptr(), B, L, num_heads,
+             C // num_heads, fr, w, _build.dtype_code(q), _build.stream_of(q))
+    _build.check(err, "frame_band_bwd")
+    frame_band_bwd_cuda.launches += 1
+    return dq, dk, dv
 
 
-frame_band_dq_cuda.launches = 0
-frame_band_dkv_cuda.launches = 0
+frame_band_bwd_cuda.launches = 0
+
+
+def _heads(x, H):
+    """(B, L, H * D) -> (B, H, L, D) in f32 (f64 for f64 x)."""
+    B, L, C = x.shape
+    wide = x.to(torch.promote_types(x.dtype, torch.float32))
+    return wide.reshape(B, L, H, C // H).transpose(1, 2)
+
+
+def _window(r0: int, r1: int, L: int, fr: int, w: int):
+    """The token range [lo, hi) that rows r0 .. r1 reach together (the
+    kernels' Band::window)."""
+    return max(0, r0 // fr - w) * fr, min(L // fr - 1, r1 // fr + w) * fr + fr
+
+
+def _band_scores(qh, kh, fr: int, w: int):
+    """score(i0, i1, j0, j1): the log2-domain scores (q * scale * log2 e) . k
+    of query rows i0:i1 and keys j0:j1, -inf where the frames are more than
+    w apart."""
+    sl2 = LOG2E / qh.shape[-1] ** 0.5
+    f = torch.arange(qh.shape[2], device=qh.device) // fr
+
+    def score(i0, i1, j0, j1):
+        s = (qh[:, :, i0:i1] @ kh[:, :, j0:j1].transpose(-1, -2)) * sl2
+        band = (f[i0:i1, None] - f[None, j0:j1]).abs() <= w
+        return s.masked_fill(~band, float("-inf"))
+    return score
+
+
+def frame_band_lse_plain(q, k, num_heads: int, fr: int, w: int):
+    """The forward's lse (B, H, L) in f32 (f64 for f64 inputs): m +
+    log2(l), m the row max of the in-band log2-domain scores floored at
+    -1e8."""
+    L = q.shape[1]
+    s = _band_scores(_heads(q, num_heads), _heads(k, num_heads), fr,
+                     w)(0, L, 0, L)
+    m = s.amax(-1).clamp(min=ROWMAX_FLOOR)
+    return m + torch.log2(torch.exp2(s - m[..., None]).sum(-1))
+
+
+def frame_band_delta_plain(out, dout, num_heads: int):
+    """Pass (a): delta = rowsum(dO * O) per (batch, head, row), (B, H, L)
+    in f32 (f64 for f64 inputs)."""
+    return (_heads(dout, num_heads) * _heads(out, num_heads)).sum(-1)
+
+
+def frame_band_bwd_plain(q, k, v, out, lse, dout, num_heads: int, fr: int,
+                         w: int):
+    """Plain version of K6's backward, the kernels' three passes in f32 (f64
+    for f64 inputs) on channels-last tensors: (a) delta; (b) dk, dv by key
+    tile of BWD_TILE rows over the query rows of its window, in one product;
+    (c) dq by query tile over the key rows of its window, scaled at the end.
+    P = exp2(s - lse), 0 where the frames are more than w apart; lse (B, H,
+    L) as the forward stores it. Returns (dq, dk, dv) in q.dtype."""
+    B, L, C = q.shape
+    H, T = num_heads, BWD_TILE
+    qh, kh, vh, gh = (_heads(x, H) for x in (q, k, v, dout))
+    lse = lse.to(qh.dtype)
+    delta = frame_band_delta_plain(out, dout, H)
+    score = _band_scores(qh, kh, fr, w)
+    scale = 1.0 / qh.shape[-1] ** 0.5
+
+    def p_ds(i0, i1, j0, j1):
+        p = torch.exp2(score(i0, i1, j0, j1) - lse[:, :, i0:i1, None])
+        dp = gh[:, :, i0:i1] @ vh[:, :, j0:j1].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, i0:i1, None])
+
+    dq, dk, dv = (torch.zeros_like(x) for x in (qh, kh, vh))
+    for j0 in range(0, L, T):
+        j1 = min(j0 + T, L)
+        i0, i1 = _window(j0, j1 - 1, L, fr, w)
+        p, ds = p_ds(i0, i1, j0, j1)
+        dv[:, :, j0:j1] = p.transpose(-1, -2) @ gh[:, :, i0:i1]
+        dk[:, :, j0:j1] = ds.transpose(-1, -2) @ qh[:, :, i0:i1] * scale
+    for i0 in range(0, L, T):
+        i1 = min(i0 + T, L)
+        j0, j1 = _window(i0, i1 - 1, L, fr, w)
+        dq[:, :, i0:i1] = p_ds(i0, i1, j0, j1)[1] @ kh[:, :, j0:j1] * scale
+    back = lambda x: x.transpose(1, 2).reshape(B, L, C).to(q.dtype)
+    return back(dq), back(dk), back(dv)
 
 
 class _FrameBandAttention(torch.autograd.Function):
@@ -140,11 +205,8 @@ class _FrameBandAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        delta = frame_band_delta(out, dout, ctx.args[0])
-        dq = frame_band_dq_cuda(q, k, v, lse, delta, dout, *ctx.args)
-        dk, dv = frame_band_dkv_cuda(q, k, v, lse, delta, dout, *ctx.args)
-        return dq, dk, dv, None, None, None
+        return *frame_band_bwd_cuda(*ctx.saved_tensors, dout, *ctx.args), \
+            None, None, None
 
 
 def frame_band_attention(q, k, v, num_heads: int, fr: int, w: int):
