@@ -22,7 +22,8 @@ fallback):
                    ragged masks plus one fully masked row, bf16 and f32
                    (TF32 off): each output's error beside its own limit,
                    median ms of kernel, plain version and library call,
-                   and the bound
+                   and the bound; K2's forward also queued behind a device
+                   sleep (`queued_ms`) and called twice for equal bits
   4. parity        flagship_config() at batch 1 in f32, forward on the card
                    with its kernels against the CPU with the plain versions:
                    max relative error of the head outputs, and a TF32
@@ -40,7 +41,8 @@ fallback):
                    inverse shift at odd lengths (37, 101, 131; both dtypes
                    and rates): error, tolerance, ms, bound, library ms
                    (AdamW: torch._fused_adamw_); the attention and XL
-                   backwards called twice for equal bits
+                   backwards and the XL forward called twice for equal
+                   bits, the XL forward also timed queued
   8. train_parity  one flagship train step at batch 1 in f32 (regularisers
                    off), the card against the CPU from the same weights and
                    batch: loss, clipped grad norm, max relative error of the
@@ -229,27 +231,32 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_ms_by_kernel(fn, reps: int = 20, warmup: int = 3) -> dict:
     """The device ms of one call of `fn` by kernel name: each kernel's own
-    time in a torch.profiler trace of `reps` calls, over `reps`."""
+    time in a torch.profiler trace of `reps` calls, over `reps`. A trace
+    with no device time at all is taken once more: the profiler has been
+    seen to drop every device record of a trace of microsecond kernels
+    that ran and checked out."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ms = {}
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            t = getattr(e, "self_device_time_total", None)
-            ms[e.key] = (e.self_cuda_time_total if t is None else t) / 1e3 \
-                / reps
-    if sum(ms.values()) <= 0:
-        fail("device_ms_by_kernel: the profiler saw no device time")
-    return ms
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = {}
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                t = getattr(e, "self_device_time_total", None)
+                ms[e.key] = (e.self_cuda_time_total if t is None else t) \
+                    / 1e3 / reps
+        if sum(ms.values()) > 0:
+            return ms
+        say("[profiler] a trace held no device time; taking it again")
+    fail("device_ms_by_kernel: the profiler saw no device time, twice")
 
 
 def short_name(kernel: str) -> str:
@@ -392,7 +399,13 @@ def phase_kernels(dev):
                            dtype),
                    lambda: xl_rel_attention(q, k, v, r, rwb, rrb, m),
                    lambda: xl_rel_attention_plain(q, k, v, r, rwb, rrb, m),
-                   xl_work(T0, m, C, dtype, backward=False), is_top=top)
+                   xl_work(T0, m, C, dtype, backward=False), is_top=top,
+                   also_queued=True)
+        check_repeatable("kernels", f"{label} {str(dtype)[6:]}",
+                         lambda: [xl_rel_attention(q, k, v, r, rwb, rrb, m)])
+        tiles = F.pad(m, (0, -T0 % 64)).reshape(B_SERVE, -1, 64).any(-1)
+        say(f"[kernels] {label}: {int((~tiles).sum())} of {tiles.numel()} "
+            "key tiles of 64 hold no valid key (every block walks them)")
         # K3: stride 1 in the stem, stride 2 on each branch block's input
         w = randn(3, 3, C, dtype=dtype, scale=0.3)
         wg = w.float().permute(2, 0, 1).reshape(3 * C, 1, 3).to(dtype)
@@ -653,20 +666,24 @@ class KernelChecks:
             {}, True
 
     def report(self, key, label, dtype, rows, kern, plain, work,
-               library=None, is_top=False, reps=10, queued=False):
+               library=None, is_top=False, reps=10, queued=False,
+               also_queued=False):
         """`queued`: time the kernel, the plain version and the library
         call by `queued_ms`, where a host-timed figure would be the host's
-        (autograd's backward at small shapes)."""
+        (autograd's backward at small shapes). `also_queued`: time the
+        kernel by `queued_ms` too, beside its time by events."""
         ok = all(err <= lim for _, err, lim in rows)
         self.ok &= ok
         self.errs[key].append(max(err for _, err, _ in rows))
         timer = queued_ms if queued else median_ms
         ms, pms = timer(kern, reps=reps), timer(plain, reps=reps)
         lms = timer(library, reps=reps) if library is not None else None
+        qms = queued_ms(kern, reps=reps) if also_queued else None
         bms, by = bound(*work, dtype)
         say(f"[{self.tag}] {label} {str(dtype)[6:]}: max_abs_err (limit) "
             + ", ".join(f"{n} {e:.3e} ({lim:.3e})" for n, e, lim in rows)
-            + f" {'ok' if ok else 'OUT OF TOLERANCE'}; kernel {ms:.4f} ms, "
+            + f" {'ok' if ok else 'OUT OF TOLERANCE'}; kernel {ms:.4f} ms"
+            f"{'' if qms is None else f' ({qms:.4f} ms queued)'}, "
             f"plain {pms:.4f} ms, library "
             f"{'none' if lms is None else f'{lms:.4f} ms'}"
             f"{' (each queued behind a sleep)' if queued else ''}, bound "
@@ -674,6 +691,8 @@ class KernelChecks:
         if is_top:
             self.top[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
                                  bound_ms=bms, bound_by=by)
+            if qms is not None:
+                self.top[key]["queued_ms"] = qms
 
 
 def grads_of(fn, inputs, g):
@@ -697,8 +716,9 @@ def backward_timer(fn, inputs, g):
 
 
 def check_repeatable(tag: str, label: str, fn) -> None:
-    """Two calls of `fn` (a backward kernel's wrapper) give equal bits:
-    the kernel sums in a fixed order, with no atomics."""
+    """Two calls of `fn` (a kernel's wrapper, returning its outputs as a
+    sequence) give equal bits: the kernel sums in a fixed order, with no
+    atomics."""
     first, second = fn(), fn()
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         fail(f"{tag}: {label}: two calls differ in their bits")
@@ -871,7 +891,12 @@ def phase_train_kernels(dev):
                        lambda: xl_rel_attention_plain(*args, seed=seed,
                                                       rate=rate),
                        xl_work(T0, m, C, dtype, backward=False),
-                       is_top=dtype == torch.bfloat16 and rate > 0)
+                       is_top=dtype == torch.bfloat16 and rate > 0,
+                       also_queued=True)
+            check_repeatable("train_kernels", f"xl_rel_attention forward "
+                             f"{label} {str(dtype)[6:]}",
+                             lambda: xl_fwd_cuda(args, st, rate,
+                                                 with_lse=True))
             got = grads_of(lambda *a: xl_rel_attention(*a, seed, rate),
                            args, g)
             want = grads_of(lambda *a: xl_rel_attention_plain(

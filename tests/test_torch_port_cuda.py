@@ -9,7 +9,9 @@ frames longer than a tile and bands wider than the clip, the backward's
 passes against their plain version, two calls bitwise equal; the fused MLP at
 the tiny twin's, a middle and the ViT-B width, up to the ViT's query call;
 two K1f backward calls bitwise equal; K2-bwd's passes against their plain
-version, two calls bitwise equal at dropout rate 0 and 0.1. Marked
+version, two calls bitwise equal at dropout rate 0 and 0.1; K2's forward
+at the edges of its tiles and band chunks (T 1 to 1024, D 32 to 128),
+its lse, two calls bitwise equal, K2-bwd from its output. Marked
 `gpu`: skips where there is no card. Imports no JAX, so that it runs on a
 machine with only PyTorch:
 
@@ -41,9 +43,16 @@ from vilco_tpu_torch.kernels.xl_attention import (
     xl_bwd_cuda,
     xl_bwd_plain,
     xl_fwd_cuda,
+    xl_lse_plain,
     xl_rel_attention,
     xl_rel_attention_plain,
 )
+
+# chip_smoke.py's limits, each against tol x max(1, max |ref|): forward
+# outputs (bf16: one rounding of the output, and of P before P V) and the
+# training kernels' outputs
+FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -188,6 +197,44 @@ def test_xl_backward_passes_on_card(cuda, dtype, tol, T, H, D):
         _close(first, xl_bwd_plain(args, out, lse, g, seed, rate), tol,
                f"xl backward passes rate {rate}")
         assert all(torch.all(x[-1] == 0) for x in first[:3])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 131, 1024])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_xl_forward_edges_on_card(cuda, dtype, T, D):
+    """K2's forward at lengths around its 64-row tiles and the band ring's
+    64-row chunks (1, 63, 64, 65, 131, 1024) and head widths 32 to 128, at
+    dropout rate 0 and 0.1: out within FWD_TOL of
+    `xl_rel_attention_plain`; lse within FWD_TOL of `xl_lse_plain` on
+    the batch rows with a valid key, and within 1e-6 of it relative on
+    the fully masked one (-1e9 log2 e);
+    two calls bitwise equal; the fully masked row exactly 0; K2-bwd from
+    this (out, lse) within TRAIN_TOL of `xl_bwd_plain`."""
+    rng = np.random.default_rng(T * 1000 + D)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    B, H = 2, 2
+    args = (rn(B, T, H, D), rn(B, T, H, D), rn(B, T, H, D), rn(2 * T, H, D),
+            rn(H, D) * 0.1, rn(H, D) * 0.1, _mask(rng, B, T, cuda))
+    g = rn(B, T, H, D)
+    seed = 0x13198A2E03707344
+    st = torch.tensor([seed], dtype=torch.int64, device=cuda)
+    for rate in (0.0, 0.1):
+        out, lse = xl_fwd_cuda(args, st, rate, with_lse=True)
+        again, lse2 = xl_fwd_cuda(args, st, rate, with_lse=True)
+        assert torch.equal(out, again) and torch.equal(lse, lse2), rate
+        assert torch.all(out[-1] == 0), rate
+        _close([out], [xl_rel_attention_plain(*args, seed=seed, rate=rate)],
+               FWD_TOL[dtype], f"xl forward rate {rate}")
+        want = xl_lse_plain(args)
+        _close([lse[:-1]], [want[:-1]], FWD_TOL[dtype], f"xl lse rate {rate}")
+        torch.testing.assert_close(lse[-1], want[-1], rtol=1e-6, atol=0)
+        _close(xl_bwd_cuda(args, out, lse, g, st, rate),
+               xl_bwd_plain(args, out, lse, g, seed, rate), TRAIN_TOL[dtype],
+               f"xl backward from the forward rate {rate}")
     torch.cuda.synchronize()
 
 

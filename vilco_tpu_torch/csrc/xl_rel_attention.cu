@@ -17,19 +17,34 @@
 // Design, both paths: one block per (query tile of 64 rows, head, batch),
 // online softmax over key tiles. The TPU kernel needed a strided roll of the
 // (S, 2T) position-score tile for the shift; here the shift is an index. For
-// a tile of rows i0.. and keys j0.. the block stages the band
-// r[T + j0 - i0 - 63 ..] (63 + BK rows) in shared memory, and row i, key j
-// reads band row j - i + 63.
-//  - bfloat16 (the serving path): 4 warps of 16 rows, key tiles of 64.
-//    (q + r_w_bias) K^T, (q + r_r_bias) band^T (each warp only the 80 band
-//    rows its 16 rows reach) and P V run on the tensor cores (WMMA
-//    16x16x16, bf16 in, f32 accumulate), through shared memory, where two
-//    lanes per row add the shifted position scores and do the softmax.
-//    q + bias and P are rounded to bf16, as the TPU kernel's dots take them.
-//  - float32 (the parity path): SIMT, one thread per row, key tiles of 32;
-//    band rows padded by 4 floats so that eight neighbouring threads'
-//    16-byte reads, on eight neighbouring rows, hit distinct banks. Bound
-//    by FMA issue (3 * D FMAs per score).
+// a tile of rows i0.. and keys j0.. row i and key j read band row
+// j - i + 63 of r[T + j0 - i0 - 63 ..].
+//  - bfloat16 (the serving path): FlashAttention-2 on mma.sync (bf16 in,
+//    f32 accumulate), on K1's model (csrc/attention_blc.cu): 4 warps, each
+//    owning two strips of 16 query rows (one where D > 64), key tiles of
+//    64. Each warp keeps bf16(q + r_w_bias) as A fragments in registers
+//    (q + bias rounded as the TPU kernel's dots take them), and S, P and O
+//    in its accumulators. The position term of a key tile is, per strip,
+//    the 16 x 80 raw tile (q + r_r_bias) band^T over the 80 band rows the
+//    strip reaches, put in the warp's own f32 tile in shared memory and
+//    read back sheared into S. Then scale, key flags and the online
+//    softmax, with quad shuffles; P is rounded to bf16 A fragments straight
+//    from the accumulators (zero where dropped or at a masked key, every P
+//    into l), and O += P V reads V by ldmatrix.trans. K and V tiles and
+//    the band stream through cp.async rings (two stages; the band MS + 2
+//    chunks of 64 rows, each tile staging one), so tile t+1 loads while
+//    tile t is in the tensor cores: 112 KB of shared memory at D 64, two
+//    blocks an SM. The keep bits are drawn in a loop kept rolled: Philox
+//    inlined per element made the kernel body too large to run fast, with
+//    dropout or without. What bounds it: not the tensor cores but issue
+//    and latency with 8 warps an SM (104 mma a key tile and strip, where
+//    K1 does 64, the raw tile's round trip, the exp2 per score), and with
+//    dropout the Philox bits (10 rounds per element).
+//  - float32 (the parity path): SIMT, one thread per row, key tiles of 32,
+//    the band (63 + 32 rows) staged per tile; band rows padded by 4 floats
+//    so that eight neighbouring threads' 16-byte reads, on eight
+//    neighbouring rows, hit distinct banks. Bound by FMA issue (3 * D FMAs
+//    per score).
 // With `lse` set, the forward stores m + log2(l) per (batch, head, row).
 //
 // Backward: five passes, each output element written once by one thread
@@ -70,8 +85,6 @@
 //  - float32 (the parity path): the same passes in SIMT, 256 threads of
 //    16 x 16, tiles of 64 (32 at D > 64), operands from shared memory, the
 //    keep bits drawn in each pass.
-#include <mma.h>
-
 #include "attention_blc.cuh"
 
 namespace {
@@ -219,209 +232,6 @@ xl_rel_attention_simt_kernel(const T* __restrict__ q,
   }
 }
 
-// ---- bfloat16: tensor cores through WMMA ---------------------------------
-
-namespace wmma = nvcuda::wmma;
-
-template <int DPAD>
-struct TcLayout {
-  static constexpr int BQ = 64, BK = 64, THREADS = 128;
-  static constexpr int NBAND = BQ + BK;     // band rows staged (127 used)
-  static constexpr int WBAND = 16 + BK;     // band rows one warp reaches
-  static constexpr int LDQ = DPAD + 8;      // bf16 rows of Q, K, V, band
-  static constexpr int LDS = BK + 4;        // f32 rows of S
-  static constexpr int LDR = WBAND + 4;     // f32 rows of the position scores
-  static constexpr int LDP = BK + 8;        // bf16 rows of P
-  static constexpr int LDO = DPAD + 4;      // f32 rows of O
-  // byte offsets, each a multiple of 128 (WMMA wants 32-byte alignment)
-  static constexpr int QW_OFF = 0;
-  static constexpr int QR_OFF = QW_OFF + BQ * LDQ * 2;
-  static constexpr int K_OFF = QR_OFF + BQ * LDQ * 2;
-  static constexpr int V_OFF = K_OFF + BK * LDQ * 2;
-  static constexpr int R_OFF = V_OFF + BK * LDQ * 2;
-  static constexpr int S_OFF = R_OFF + NBAND * LDQ * 2;
-  static constexpr int RAW_OFF = S_OFF + BQ * LDS * 4;
-  static constexpr int P_OFF = RAW_OFF + BQ * LDR * 4;
-  static constexpr int O_OFF = P_OFF + BQ * LDP * 2;
-  static constexpr int KEEP_OFF = O_OFF + BQ * LDO * 4;
-  static constexpr int BYTES = KEEP_OFF + BK * 4;
-};
-
-template <int DPAD>
-__global__ void __launch_bounds__(128)
-xl_rel_attention_tc_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
-                           const bf16* __restrict__ r,
-                           const bf16* __restrict__ rwb,
-                           const bf16* __restrict__ rrb,
-                           const uint8_t* __restrict__ mask,
-                           bf16* __restrict__ out, float* __restrict__ lse,
-                           int T_len, int H, int D, float scale_log2,
-                           bool vec, vilco::Dropout drop) {
-  using L = TcLayout<DPAD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qw = reinterpret_cast<bf16*>(smem + L::QW_OFF);
-  bf16* qr = reinterpret_cast<bf16*>(smem + L::QR_OFF);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
-  bf16* rs = reinterpret_cast<bf16*>(smem + L::R_OFF);
-  float* ss = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* raw = reinterpret_cast<float*>(smem + L::RAW_OFF);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  float* os = reinterpret_cast<float*>(smem + L::O_OFF);
-  float* keep = reinterpret_cast<float*>(smem + L::KEEP_OFF);
-
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * L::BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int C = H * D;
-  const bf16 zero = __float2bfloat16(0.f);
-
-  for (int e = tid; e < L::BQ * DPAD; e += L::THREADS) {
-    const int rr = e / DPAD, d = e % DPAD, i = i0 + rr;
-    bf16 a = zero, c = zero;
-    if (i < T_len && d < D) {
-      const float x = __bfloat162float(q[((long long)b * T_len + i) * C + h * D + d]);
-      a = __float2bfloat16(x + __bfloat162float(rwb[h * D + d]));
-      c = __float2bfloat16(x + __bfloat162float(rrb[h * D + d]));
-    }
-    qw[rr * L::LDQ + d] = a;
-    qr[rr * L::LDQ + d] = c;
-    os[rr * L::LDO + d] = 0.f;
-  }
-  const int row = warp * 16 + (lane >> 1), half = lane & 1;
-  // first band row this warp's 16 rows reach, relative to the block's band
-  const int c0 = L::BQ - 16 - warp * 16;
-  float m = -INFINITY, l = 0.f;
-  const uint8_t* mp = mask + (long long)b * T_len;
-
-  for (int j0 = 0; j0 < T_len; j0 += L::BK) {
-    __syncthreads();
-    const int nk = min(L::BK, T_len - j0);
-    const bf16* kb = k + ((long long)b * T_len + j0) * C + h * D;
-    const bf16* vb = v + ((long long)b * T_len + j0) * C + h * D;
-    const uint8_t* mj = mp + j0;
-    vilco::stage_rows<DPAD, L::LDQ, L::THREADS>(ks, L::BK, D, vec,
-        [=](int rr) { return rr < nk ? kb + (long long)rr * C : nullptr; });
-    // v is zeroed at masked keys
-    vilco::stage_rows<DPAD, L::LDQ, L::THREADS>(vs, L::BK, D, vec,
-        [=](int rr) {
-          return rr < nk && mj[rr] ? vb + (long long)rr * C : nullptr;
-        });
-    const int base = T_len + j0 - i0 - (L::BQ - 1);
-    const bf16* rb = r + h * D;
-    vilco::stage_rows<DPAD, L::LDQ, L::THREADS>(rs, L::NBAND, D, vec,
-        [=](int rr) {
-          const int src = base + rr;
-          return src >= 0 && src < 2 * T_len ? rb + (long long)src * C
-                                             : nullptr;
-        });
-    for (int jj = tid; jj < L::BK; jj += L::THREADS) {
-      const int j = j0 + jj;
-      keep[jj] = j < T_len ? (mp[j] ? 1.f : 0.f) : -1.f;
-    }
-    __syncthreads();
-
-    // content scores: (q + r_w_bias) K^T
-#pragma unroll
-    for (int nb = 0; nb < L::BK / 16; ++nb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DPAD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, qw + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-        wmma::load_matrix_sync(bt, ks + nb * 16 * L::LDQ + kk * 16, L::LDQ);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(ss + warp * 16 * L::LDS + nb * 16, acc, L::LDS,
-                              wmma::mem_row_major);
-    }
-    // position scores against the band rows c0 .. c0 + WBAND - 1
-#pragma unroll
-    for (int nb = 0; nb < L::WBAND / 16; ++nb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DPAD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, qr + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-        wmma::load_matrix_sync(
-            bt, rs + (c0 + nb * 16) * L::LDQ + kk * 16, L::LDQ);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(raw + warp * 16 * L::LDR + nb * 16, acc, L::LDR,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // row `row`, key jj: band row jj - row + BQ - 1, local column minus c0
-    float* srow = ss + row * L::LDS;
-    const float* rrow = raw + row * L::LDR + (L::BQ - 1 - row - c0);
-    float tmax = -INFINITY;
-#pragma unroll 8
-    for (int c = 0; c < L::BK / 2; ++c) {
-      const int jj = 2 * c + half;    // interleaved: fewer bank conflicts
-      const float kp = keep[jj];
-      const float x = kp > 0.f ? (srow[jj] + rrow[jj]) * scale_log2
-                               : (kp == 0.f ? MASKED : -INFINITY);
-      srow[jj] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = exp2f(m - m_new);
-    float psum = 0.f;
-    const unsigned long long e0 =
-        (((unsigned long long)b * H + h) * T_len + i0 + row) * T_len + j0;
-#pragma unroll 8
-    for (int c = 0; c < L::BK / 2; ++c) {
-      const int jj = 2 * c + half;
-      const float p = exp2f(srow[jj] - m_new);
-      psum += p;
-      ps[row * L::LDP + jj] = __float2bfloat16(drop.keep(e0 + jj) ? p : 0.f);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    float* orow = os + row * L::LDO;
-    for (int d = half * (DPAD / 2); d < (half + 1) * (DPAD / 2); ++d)
-      orow[d] *= alpha;
-    __syncwarp();
-
-#pragma unroll
-    for (int db = 0; db < DPAD / 16; ++db) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, os + warp * 16 * L::LDO + db * 16, L::LDO,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < L::BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, ps + warp * 16 * L::LDP + kk * 16, L::LDP);
-        wmma::load_matrix_sync(bv, vs + kk * 16 * L::LDQ + db * 16, L::LDQ);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(os + warp * 16 * L::LDO + db * 16, acc, L::LDO,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  const int i = i0 + row;
-  if (i < T_len) {
-    const float inv = drop.inv_keep / l;
-    const float* orow = os + row * L::LDO;
-    bf16* op = out + ((long long)b * T_len + i) * C + h * D;
-    for (int d = half * (DPAD / 2); d < (half + 1) * (DPAD / 2); ++d)
-      if (d < D) op[d] = __float2bfloat16(orow[d] * inv);
-    if (lse != nullptr && half == 0)
-      lse[((long long)b * H + h) * T_len + i] = m + log2f(l);
-  }
-}
-
 template <int DPAD>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         const void* r, const void* rwb, const void* rrb,
@@ -443,34 +253,15 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int DPAD>
-cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const void* r, const void* rwb, const void* rrb,
-                      const void* mask, void* out, void* lse, int B,
-                      int T_len, int H, int D, vilco::Dropout drop,
-                      cudaStream_t stream) {
-  using L = TcLayout<DPAD>;
-  auto kern = xl_rel_attention_tc_kernel<DPAD>;
-  const bool vec = D % 8 == 0 && (H * D) % 8 == 0 &&
-                   (((uintptr_t)k | (uintptr_t)v | (uintptr_t)r) % 16) == 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T_len + L::BQ - 1) / L::BQ, H, B);
-  kern<<<grid, L::THREADS, L::BYTES, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)r,
-      (const bf16*)rwb, (const bf16*)rrb, (const uint8_t*)mask, (bf16*)out,
-      (float*)lse, T_len, H, D, LOG2E / sqrtf((float)D), vec, drop);
-  return cudaGetLastError();
-}
-
-// ---- backward -------------------------------------------------------------
+// ---- backward, and the bf16 forward's arguments ---------------------------
 //
 // Five passes (the header): 1 delta, attention_blc.cuh's kernel; 2 dk/dv,
 // 3 dq and the bias partials, 4 dr, in bf16 on mma.sync or in SIMT; 5 the
 // partials' sum. Each output element is written once.
 
-struct XlBwd {
+// The inputs (the forward reads these and null lse, dout) and the
+// backward's outputs and scratch
+struct XlArgs {
   const void *q, *k, *v, *r, *rwb, *rrb, *mask, *lse, *dout;
   void *dq, *dk, *dv, *dr, *drwb, *drrb;
   const float* delta;
@@ -537,7 +328,7 @@ __device__ __forceinline__ void simt_stage(float* dst, int rows, int D,
 // (b, h) (rows past T: lse +inf, so their P is 0), q and dO of those rows.
 template <typename T, int DPAD>
 __device__ __forceinline__ void simt_stage_queries(const SimtSmem<DPAD>& sm,
-                                                   const XlBwd& a, int b,
+                                                   const XlArgs& a, int b,
                                                    int h, int i0) {
   constexpr int BT = SimtSmem<DPAD>::BT;
   const long long C = (long long)a.H * a.D, hd = (long long)h * a.D;
@@ -563,7 +354,7 @@ __device__ __forceinline__ void simt_stage_queries(const SimtSmem<DPAD>& sm,
 // their flags
 template <typename T, int DPAD>
 __device__ __forceinline__ void simt_stage_keys(const SimtSmem<DPAD>& sm,
-                                                const XlBwd& a, int b, int h,
+                                                const XlArgs& a, int b, int h,
                                                 int j0, int rows) {
   const long long C = (long long)a.H * a.D;
   const uint8_t* mp = (const uint8_t*)a.mask + (long long)b * a.T;
@@ -584,7 +375,7 @@ __device__ __forceinline__ void simt_stage_keys(const SimtSmem<DPAD>& sm,
 // `rows` rows of r from p0 (zero outside [0, 2T)) into rs
 template <typename T, int DPAD>
 __device__ __forceinline__ void simt_stage_r(const SimtSmem<DPAD>& sm,
-                                             const XlBwd& a, int h, int p0,
+                                             const XlArgs& a, int h, int p0,
                                              int rows) {
   const long long C = (long long)a.H * a.D;
   const T* r0 = (const T*)a.r + (long long)h * a.D;
@@ -603,7 +394,7 @@ __device__ __forceinline__ void simt_stage_r(const SimtSmem<DPAD>& sm,
 //    V and flag row pl + il (pass 4; j0 = p0 - T + i0).
 template <int DPAD, bool BY_POS>
 __device__ __forceinline__ void simt_p_ds(const SimtSmem<DPAD>& sm,
-                                          const XlBwd& a, int b, int h,
+                                          const XlArgs& a, int b, int h,
                                           int i0, int j0, bool with_p,
                                           int tx, int ty) {
   constexpr int BT = SimtSmem<DPAD>::BT, LD = SimtSmem<DPAD>::LD;
@@ -674,7 +465,7 @@ __device__ __forceinline__ void simt_p_ds(const SimtSmem<DPAD>& sm,
 // dv += Pd^T dO, dk += dS^T (q + r_w_bias), key rows ty + 16a.
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(BWD_THREADS)
-xl_bwd_dkv_simt_kernel(XlBwd a) {
+xl_bwd_dkv_simt_kernel(XlArgs a) {
   using S = SimtSmem<DPAD>;
   constexpr int BT = S::BT, LD = S::LD, LP = S::LP;
   constexpr int RA = BT / 16, CD = DPAD / 16;
@@ -741,7 +532,7 @@ xl_bwd_dkv_simt_kernel(XlBwd a) {
 // column sums of the two terms over the tile's rows are its bias partials.
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(BWD_THREADS)
-xl_bwd_dq_simt_kernel(XlBwd a) {
+xl_bwd_dq_simt_kernel(XlArgs a) {
   using S = SimtSmem<DPAD>;
   constexpr int BT = S::BT, LD = S::LD, LP = S::LP;
   constexpr int RA = BT / 16, CD = DPAD / 16;
@@ -821,7 +612,7 @@ xl_bwd_dq_simt_kernel(XlBwd a) {
 // + r_r_bias), position rows ty + 16a, written once.
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(BWD_THREADS)
-xl_bwd_dr_simt_kernel(XlBwd a) {
+xl_bwd_dr_simt_kernel(XlArgs a) {
   using S = SimtSmem<DPAD>;
   constexpr int BT = S::BT, LD = S::LD, LP = S::LP;
   constexpr int RA = BT / 16, CD = DPAD / 16;
@@ -876,15 +667,16 @@ xl_bwd_dr_simt_kernel(XlBwd a) {
   }
 }
 
-// ---- backward, bfloat16 on mma.sync --------------------------------------
+// ---- bfloat16 on mma.sync: the forward and the backward's passes ---------
 //
-// 4 warps of 16 rows, tiles of 64. A warp's 16 query rows reach 80 rows of
-// a 128-row band (of r in passes 2 and 3, of keys in pass 4): it computes
-// its 16 x 80 raw tile on the tensor cores into its own f32 tile in shared
-// memory and reads it back sheared.
+// 4 warps, tiles of 64. 16 query rows (a warp's, or a strip of them in the
+// forward) reach 80 rows of the band (of r in the forward and passes 2 and
+// 3, of keys in pass 4): the warp computes their 16 x 80 raw tile on the
+// tensor cores into its own f32 tile in shared memory and reads it back
+// sheared.
 
 template <int DPAD>
-struct TcBwd {
+struct XlTile {
   static constexpr int THREADS = 128, BT = 64, NBAND = 128, WBAND = 80;
   static constexpr int LD = DPAD + 8;      // bf16 rows: q + biases, dO, K, V, r
   static constexpr int LDR = WBAND + 4;    // f32 rows of a warp's raw tile
@@ -897,11 +689,11 @@ struct TcBwd {
 
 // The biases of head h as f32, zero past D
 template <int DPAD>
-__device__ __forceinline__ void tc_biases(float* bw, float* br, const XlBwd& a,
+__device__ __forceinline__ void tc_biases(float* bw, float* br, const XlArgs& a,
                                           int h) {
   const bf16* w = (const bf16*)a.rwb + (long long)h * a.D;
   const bf16* rr = (const bf16*)a.rrb + (long long)h * a.D;
-  for (int d = threadIdx.x; d < DPAD; d += TcBwd<DPAD>::THREADS) {
+  for (int d = threadIdx.x; d < DPAD; d += XlTile<DPAD>::THREADS) {
     bw[d] = d < a.D ? __bfloat162float(w[d]) : 0.f;
     br[d] = d < a.D ? __bfloat162float(rr[d]) : 0.f;
   }
@@ -914,7 +706,7 @@ __device__ __forceinline__ void tc_biases(float* bw, float* br, const XlBwd& a,
 template <int DPAD, typename RowSrc>
 __device__ __forceinline__ void tc_stage(bf16* dst, int rows, int D, bool vec,
                                          const bf16* any, RowSrc src) {
-  using L = TcBwd<DPAD>;
+  using L = XlTile<DPAD>;
   if (vec) {
     constexpr int CH = DPAD / 8;
     for (int e = threadIdx.x; e < rows * CH; e += L::THREADS) {
@@ -939,9 +731,9 @@ __device__ __forceinline__ void tc_stage(bf16* dst, int rows, int D, bool vec,
 template <int DPAD>
 __device__ __forceinline__ void tc_stage_queries(bf16* qw, bf16* gs,
                                                  float* lses, float* dels,
-                                                 const XlBwd& a, int b, int h,
+                                                 const XlArgs& a, int b, int h,
                                                  int i0, bool vec) {
-  using L = TcBwd<DPAD>;
+  using L = XlTile<DPAD>;
   const long long C = (long long)a.H * a.D;
   const long long off = ((long long)b * a.T + i0) * C + (long long)h * a.D;
   const bf16* q0 = (const bf16*)a.q + off;
@@ -966,7 +758,7 @@ template <int DPAD>
 __device__ __forceinline__ void tc_add_biases(bf16* qw, bf16* qr,
                                               const float* bw,
                                               const float* br, int nq) {
-  using L = TcBwd<DPAD>;
+  using L = XlTile<DPAD>;
   constexpr int HALF = DPAD / 2;
   const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
   for (int e = threadIdx.x; e < L::BT * HALF; e += L::THREADS) {
@@ -984,9 +776,9 @@ __device__ __forceinline__ void tc_add_biases(bf16* qw, bf16* qr,
 // their flags
 template <int DPAD>
 __device__ __forceinline__ void tc_stage_keys(bf16* ks, bf16* vs, float* keep,
-                                              const XlBwd& a, int b, int h,
+                                              const XlArgs& a, int b, int h,
                                               int j0, int rows, bool vec) {
-  using L = TcBwd<DPAD>;
+  using L = XlTile<DPAD>;
   const long long C = (long long)a.H * a.D;
   const long long off = (long long)b * a.T * C + (long long)h * a.D;
   const bf16* k0 = (const bf16*)a.k + off;
@@ -1007,7 +799,7 @@ __device__ __forceinline__ void tc_stage_keys(bf16* ks, bf16* vs, float* keep,
 
 // `rows` rows of r from p0 (zero outside [0, 2T)) into rs
 template <int DPAD>
-__device__ __forceinline__ void tc_stage_r(bf16* rs, const XlBwd& a, int h,
+__device__ __forceinline__ void tc_stage_r(bf16* rs, const XlArgs& a, int h,
                                            int p0, int rows, bool vec) {
   const long long C = (long long)a.H * a.D;
   const bf16* r0 = (const bf16*)a.r + (long long)h * a.D;
@@ -1031,7 +823,7 @@ template <int DPAD, int NT>
 __device__ __forceinline__ void tc_abt(float (&acc)[NT][4], const bf16* A,
                                        int r0, const bf16* Bt, int n0,
                                        int lane) {
-  constexpr int LD = TcBwd<DPAD>::LD;
+  constexpr int LD = XlTile<DPAD>::LD;
 #pragma unroll
   for (int n = 0; n < NT; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -1052,7 +844,7 @@ __device__ __forceinline__ void tc_abt(float (&acc)[NT][4], const bf16* A,
 // A warp's raw tile (16 rows x 80) to its f32 tile in shared memory
 __device__ __forceinline__ void tc_put_raw(float* raw_w, const float (&x)[10][4],
                                            int lane) {
-  constexpr int LDR = TcBwd<64>::LDR;
+  constexpr int LDR = XlTile<64>::LDR;
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int n = 0; n < 10; ++n) {
@@ -1061,6 +853,24 @@ __device__ __forceinline__ void tc_put_raw(float* raw_w, const float (&x)[10][4]
     *reinterpret_cast<float2*>(raw_w + (g + 8) * LDR + n * 8 + 2 * t4) =
         make_float2(x[n][2], x[n][3]);
   }
+}
+
+// s += the warp's raw tile read back sheared: row il, key jl at column
+// jl - il + 15 (band row jl - i + 63 of the block's band, the raw tile's
+// 80 rows starting at c0 = 48 - 16 warp)
+__device__ __forceinline__ void tc_add_sheared(float (&s)[8][4],
+                                               const float* raw_w, int lane) {
+  constexpr int LDR = XlTile<64>::LDR;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int il = g + 8 * rr, jl = n * 8 + 2 * t4 + e;
+        s[n][2 * rr + e] += raw_w[il * LDR + jl - il + 15];
+      }
 }
 
 // Passes 2 and 3: this warp's 16 query rows (from r0) against the 64 keys
@@ -1075,8 +885,6 @@ __device__ __forceinline__ void tc_scores(float (&s)[8][4], float (&dp)[8][4],
                                           const bf16* vs, const bf16* rs,
                                           float* raw_w, int r0, int c0,
                                           int lane) {
-  constexpr int LDR = TcBwd<DPAD>::LDR;
-  const int g = lane >> 2, t4 = lane & 3;
   {
     float pr[10][4];
     tc_abt<DPAD, 10>(pr, qr, r0, rs, c0, lane);
@@ -1085,15 +893,317 @@ __device__ __forceinline__ void tc_scores(float (&s)[8][4], float (&dp)[8][4],
   tc_abt<DPAD, 8>(s, qw, r0, ks, 0, lane);
   tc_abt<DPAD, 8>(dp, gs, r0, vs, 0, lane);
   __syncwarp();
+  tc_add_sheared(s, raw_w, lane);
+}
+
+// x = A B^T over the warp's 16 rows of A, held as fragments fa (k over
+// DPAD), and NT n8 tiles of B's rows from n0, 16 at a time: rows(x) is row
+// x of B (row-major, LD), its 16 rows from x contiguous; acc zeroed here
+template <int DPAD, int NT, typename Rows>
+__device__ __forceinline__ void tc_abt_frag(float (&acc)[NT][4],
+                                            const uint32_t (&fa)[DPAD / 16][4],
+                                            Rows rows, int n0, int lane) {
+  constexpr int LD = XlTile<DPAD>::LD;
+  const bf16* bp[NT / 2];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int np = 0; np < NT / 2; ++np) bp[np] = rows(n0 + np * 16);
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int il = g + 8 * rr, jl = n * 8 + 2 * t4 + e;
-        s[n][2 * rr + e] += raw_w[il * LDR + jl - il + 15];
+  for (int kk = 0; kk < DPAD / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t fb[4];
+      load_bt(fb, bp[np], LD, 0, kk * 16, lane);
+      mma16816(acc[2 * np], fa[kk], fb[0], fb[1]);
+      mma16816(acc[2 * np + 1], fa[kk], fb[2], fb[3]);
+    }
+}
+
+// Shared memory of the forward, byte offsets (each a multiple of 128). MS
+// strips of 16 query rows a warp, as K1's forward: two where the head is
+// at most 64 wide (each K and V fragment read from shared memory then
+// feeds two products), one above. K and V tiles and their key flags in a
+// two-stage ring; the band of r as a ring of MS + 2 chunks of 64 rows
+// (key tile t reads chunks t .. t + MS and chunk t + MS + 1 loads while it
+// runs, so each tile stages 64 rows of r, not BQ + 63); q + r_r_bias,
+// read by each tile; q + r_w_bias, read once into registers, whose room
+// then holds the warps' raw tiles; the biases. 112 KB at DPAD 64, so two
+// blocks share an SM.
+template <int DPAD>
+struct TcFwd {
+  using L = XlTile<DPAD>;
+  static constexpr int MS = DPAD <= 64 ? 2 : 1, BQ = 64 * MS, NCH = MS + 2;
+  static constexpr int TE = L::BT * L::LD;   // elements of a 64-row tile
+  static constexpr int K = 0, V = K + 2 * L::TILE, BAND = V + 2 * L::TILE;
+  static constexpr int QR = BAND + NCH * L::TILE, QW = QR + MS * L::TILE;
+  static constexpr int FLAGS =
+      QW + (MS * L::TILE > L::RAW ? MS * L::TILE : L::RAW);
+  static constexpr int BW = FLAGS + 2 * L::ROW, BR = BW + L::BIAS;
+  static constexpr int BYTES = BR + L::BIAS;
+};
+
+// The forward, bf16. Grid (query tiles of BQ, H, B): FlashAttention-2 over
+// the key tiles on K1's model (csrc/attention_blc.cu), each warp's
+// q + r_w_bias fragments, S, P and O in registers. Each key tile: S =
+// qw K^T for every strip; the position term of each strip, qr band^T over
+// its 80 band rows, through the warp's raw tile, added by tc_add_sheared;
+// scale, key flags, online softmax with quad shuffles; P packed to bf16 A
+// fragments (zero where dropped or at a masked key; every P into l);
+// O += P V. Out = O inv_keep / l, and with lse, m + log2 l.
+template <int DPAD>
+__global__ void __launch_bounds__(128)
+xl_fwd_tc_kernel(XlArgs a, bf16* __restrict__ out, float* __restrict__ lse,
+                 bool vec) {
+  using L = XlTile<DPAD>;
+  using F = TcFwd<DPAD>;
+  constexpr int MS = F::MS, KD = DPAD / 16, NO = DPAD / 8, TE = F::TE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem + F::K);
+  bf16* vs = reinterpret_cast<bf16*>(smem + F::V);
+  bf16* band = reinterpret_cast<bf16*>(smem + F::BAND);
+  bf16* qr = reinterpret_cast<bf16*>(smem + F::QR);
+  bf16* qw = reinterpret_cast<bf16*>(smem + F::QW);
+  float* flags = reinterpret_cast<float*>(smem + F::FLAGS);
+  float* bw = reinterpret_cast<float*>(smem + F::BW);
+  float* br = reinterpret_cast<float*>(smem + F::BR);
+
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * F::BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int w0 = warp * 16 * MS;   // this warp's first row in the tile
+  const int T_len = a.T, nq = min(F::BQ, T_len - i0);
+  const int ntiles = (T_len + L::BT - 1) / L::BT;
+  const long long C = (long long)a.H * a.D, hd = (long long)h * a.D;
+  const bf16* k0 = (const bf16*)a.k + (long long)b * T_len * C + hd;
+  const bf16* v0 = (const bf16*)a.v + (long long)b * T_len * C + hd;
+  const uint8_t* mp = (const uint8_t*)a.mask + (long long)b * T_len;
+  // chunk c of the band is r's rows p0 + 64 c ..: key tile t's band row x
+  // (key j0 + jl, row i0 + il: x = jl - il + BQ - 1) is row x % 64 of
+  // chunk t + x / 64
+  const int p0 = T_len - i0 - (F::BQ - 1);
+  auto stage = [&](int t) {   // key tile t and band chunk t + MS
+    const int j0 = t * L::BT, sl = t & 1, nk = min(L::BT, T_len - j0);
+    stage_tile<L::BT, DPAD, L::LD, L::THREADS>(ks + sl * TE, k0 + j0 * C, C,
+                                               nk, a.D, vec);
+    stage_tile<L::BT, DPAD, L::LD, L::THREADS>(vs + sl * TE, v0 + j0 * C, C,
+                                               nk, a.D, vec);
+    for (int jj = tid; jj < L::BT; jj += L::THREADS)
+      flags[sl * L::BT + jj] = key_flag(mp, j0 + jj, T_len);
+    tc_stage_r<DPAD>(band + ((t + MS) % F::NCH) * TE, a, h,
+                     p0 + (t + MS) * L::BT, L::BT, vec);
+    cp_async_commit();
+  };
+
+  tc_biases<DPAD>(bw, br, a, h);
+  const bf16* q0 = (const bf16*)a.q + ((long long)b * T_len + i0) * C + hd;
+  tc_stage<DPAD>(qw, F::BQ, a.D, vec, q0,
+                 [=](int rr) { return rr < nq ? q0 + rr * C : nullptr; });
+  for (int c = 0; c < MS; ++c)   // chunks 0 .. MS - 1
+    tc_stage_r<DPAD>(band + c * TE, a, h, p0 + c * L::BT, L::BT, vec);
+  cp_async_commit();
+  stage(0);
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int c = 0; c < MS; ++c)
+    tc_add_biases<DPAD>(qw + c * TE, qr + c * TE, bw, br, nq - c * L::BT);
+  __syncthreads();
+  uint32_t fw[MS][KD][4];
+#pragma unroll
+  for (int ms = 0; ms < MS; ++ms)
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      load_a(fw[ms][kk], qw, L::LD, w0 + 16 * ms, kk * 16, lane);
+  // the loop's first barrier orders these reads before the raw tiles'
+  // writes, which reuse their room
+  float* raw_w = reinterpret_cast<float*>(smem + F::QW) + warp * 16 * L::LDR;
+  // [strip][r]: rows w0 + 16 strip + g (r = 0) and + 8 (r = 1): running
+  // max, this lane's share of the sum; the Philox counter of row w0 + g,
+  // key 0
+  float m[MS][2], l[MS][2], o[MS][NO][4];
+  const unsigned long long e_row =
+      (((unsigned long long)b * a.H + h) * T_len + i0 + w0 + g) * T_len;
+#pragma unroll
+  for (int ms = 0; ms < MS; ++ms) {
+    m[ms][0] = m[ms][1] = -INFINITY;
+    l[ms][0] = l[ms][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      o[ms][n][0] = o[ms][n][1] = o[ms][n][2] = o[ms][n][3] = 0.f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      stage(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = t * L::BT, sl = t & 1;
+    const bf16* kt = ks + sl * TE;
+    const bf16* vt = vs + sl * TE;
+    const float* ft = flags + sl * L::BT;
+
+    // S = qw K^T, each K fragment feeding every strip
+    float s[MS][8][4];
+#pragma unroll
+    for (int ms = 0; ms < MS; ++ms)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        s[ms][n][0] = s[ms][n][1] = s[ms][n][2] = s[ms][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4];
+        load_bt(kb, kt, L::LD, np * 16, kk * 16, lane);
+#pragma unroll
+        for (int ms = 0; ms < MS; ++ms) {
+          mma16816(s[ms][2 * np], fw[ms][kk], kb[0], kb[1]);
+          mma16816(s[ms][2 * np + 1], fw[ms][kk], kb[2], kb[3]);
+        }
       }
+    // the position term, strip by strip through the warp's raw tile
+#pragma unroll
+    for (int ms = 0; ms < MS; ++ms) {
+      const int r0 = w0 + 16 * ms, c0 = F::BQ - 16 - r0;
+      uint32_t fr[KD][4];
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        load_a(fr[kk], qr, L::LD, r0, kk * 16, lane);
+      float pr[10][4];
+      tc_abt_frag<DPAD, 10>(pr, fr, [&](int x) {
+        return band + ((t + (x >> 6)) % F::NCH) * TE + (x & 63) * L::LD;
+      }, c0, lane);
+      if (ms > 0) __syncwarp();   // the last strip's raw tile is read
+      tc_put_raw(raw_w, pr, lane);
+      __syncwarp();
+      tc_add_sheared(s[ms], raw_w, lane);
+    }
+
+    uint32_t pf[MS][4][4];
+#pragma unroll
+    for (int ms = 0; ms < MS; ++ms) {
+      // scale, key flags, the quad's row max
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 fl =
+            *reinterpret_cast<const float2*>(ft + n * 8 + 2 * t4);
+        float* x = s[ms][n];
+        x[0] = flagged(fl.x, x[0] * a.scale_log2);
+        x[1] = flagged(fl.y, x[1] * a.scale_log2);
+        x[2] = flagged(fl.x, x[2] * a.scale_log2);
+        x[3] = flagged(fl.y, x[3] * a.scale_log2);
+        tmax[0] = fmaxf(tmax[0], fmaxf(x[0], x[1]));
+        tmax[1] = fmaxf(tmax[1], fmaxf(x[2], x[3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        tmax[rr] = fmaxf(tmax[rr], __shfl_xor_sync(0xffffffffu, tmax[rr], 1));
+        tmax[rr] = fmaxf(tmax[rr], __shfl_xor_sync(0xffffffffu, tmax[rr], 2));
+        const float m_new = fmaxf(m[ms][rr], tmax[rr]);
+        alpha[rr] = exp2f(m[ms][rr] - m_new);
+        m[ms][rr] = m_new;
+      }
+      // the keep bits of this lane's 32 elements (bit 4 n + 2 rr + e), drawn
+      // in a loop kept rolled, so that the Philox code stays out of the
+      // unrolled tile and a call without dropout skips it whole
+      uint32_t kept = ~0u;
+      if (a.drop.thresh != 0u) {
+        kept = 0u;
+#pragma unroll 1
+        for (int q = 0; q < 32; ++q) {
+          const int n = q >> 2, rr = (q >> 1) & 1, e = q & 1;
+          kept |= (uint32_t)a.drop.keep(
+                      e_row + ((16 * ms + 8 * rr) * T_len + j0 + n * 8 +
+                               2 * t4 + e))
+                  << q;
+        }
+      }
+      // P from the f32 values into l; into the A fragments only where kept
+      // at a valid key (v mask is P mask), rounded to bf16
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 fl =
+            *reinterpret_cast<const float2*>(ft + n * 8 + 2 * t4);
+        float p[4];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = exp2f(s[ms][n][2 * rr + e] - m[ms][rr]);
+            psum[rr] += x;
+            const bool keep = (kept >> (4 * n + 2 * rr + e)) & 1u;
+            p[2 * rr + e] = (e ? fl.y : fl.x) > 0.f && keep ? x : 0.f;
+          }
+        pf[ms][n / 2][(n & 1) * 2] = pack2(p[0], p[1]);
+        pf[ms][n / 2][(n & 1) * 2 + 1] = pack2(p[2], p[3]);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        l[ms][rr] = l[ms][rr] * alpha[rr] + psum[rr];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[ms][n][0] *= alpha[0];
+        o[ms][n][1] *= alpha[0];
+        o[ms][n][2] *= alpha[1];
+        o[ms][n][3] *= alpha[1];
+      }
+    }
+    // O += P V, V through ldmatrix.trans; each V fragment feeds every strip
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t vb[4];
+        load_b(vb, vt, L::LD, kk * 16, dp * 16, lane);
+#pragma unroll
+        for (int ms = 0; ms < MS; ++ms) {
+          mma16816(o[ms][2 * dp], pf[ms][kk], vb[0], vb[1]);
+          mma16816(o[ms][2 * dp + 1], pf[ms][kk], vb[2], vb[3]);
+        }
+      }
+    __syncthreads();   // the stages are refilled from the next tile on
+  }
+
+  bf16* op = out + ((long long)b * T_len + i0) * C + hd;
+#pragma unroll
+  for (int ms = 0; ms < MS; ++ms) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[ms][rr] += __shfl_xor_sync(0xffffffffu, l[ms][rr], 1);
+      l[ms][rr] += __shfl_xor_sync(0xffffffffu, l[ms][rr], 2);
+    }
+    store_rows<NO>(o[ms], a.drop.inv_keep / l[ms][0],
+                   a.drop.inv_keep / l[ms][1], w0 + 16 * ms, nq, a.D, vec,
+                   [&](int il) { return op + il * C; }, lane);
+    if (lse != nullptr && t4 == 0) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int il = w0 + 16 * ms + g + 8 * rr;
+        if (il < nq)
+          lse[((long long)b * a.H + h) * T_len + i0 + il] =
+              m[ms][rr] + log2f(l[ms][rr]);
+      }
+    }
+  }
+}
+
+template <int DPAD>
+cudaError_t launch_fwd_tc(const XlArgs& a, void* out, void* lse, bool vec,
+                          cudaStream_t s) {
+  using F = TcFwd<DPAD>;
+  auto kern = xl_fwd_tc_kernel<DPAD>;
+  cudaError_t e = set_smem(kern, F::BYTES);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((a.T + F::BQ - 1) / F::BQ, a.H, a.B), 128, F::BYTES, s>>>(
+      a, (bf16*)out, (float*)lse, vec);
+  return cudaGetLastError();
 }
 
 // Pass 2, bf16. Grid (key tiles, H, B): P and dS of each query tile by
@@ -1101,8 +1211,8 @@ __device__ __forceinline__ void tc_scores(float (&s)[8][4], float (&dp)[8][4],
 // and dk += dS^T qw by key rows, P^T and dS^T by ldmatrix.trans.
 template <int DPAD>
 __global__ void __launch_bounds__(128)
-xl_bwd_dkv_tc_kernel(XlBwd a, bool vec) {
-  using L = TcBwd<DPAD>;
+xl_bwd_dkv_tc_kernel(XlArgs a, bool vec) {
+  using L = XlTile<DPAD>;
   constexpr int NO = DPAD / 8;
   constexpr int QW = 0, QR = QW + L::TILE, G = QR + L::TILE, K = G + L::TILE;
   constexpr int V = K + L::TILE, R = V + L::TILE, RAW = R + L::BAND;
@@ -1222,8 +1332,8 @@ xl_bwd_dkv_tc_kernel(XlBwd a, bool vec) {
 // band rows; the 16 other columns of a row stay 0) for dq += dS_sh r.
 template <int DPAD>
 __global__ void __launch_bounds__(128)
-xl_bwd_dq_tc_kernel(XlBwd a, bool vec) {
-  using L = TcBwd<DPAD>;
+xl_bwd_dq_tc_kernel(XlArgs a, bool vec) {
+  using L = XlTile<DPAD>;
   constexpr int NO = DPAD / 8;
   constexpr int QW = 0, QR = QW + L::TILE, G = QR + L::TILE, K = G + L::TILE;
   constexpr int V = K + L::TILE, R = V + L::TILE, RAW = R + L::BAND;
@@ -1376,8 +1486,8 @@ xl_bwd_dq_tc_kernel(XlBwd a, bool vec) {
 // position rows.
 template <int DPAD>
 __global__ void __launch_bounds__(128)
-xl_bwd_dr_tc_kernel(XlBwd a, bool vec) {
-  using L = TcBwd<DPAD>;
+xl_bwd_dr_tc_kernel(XlArgs a, bool vec) {
+  using L = XlTile<DPAD>;
   constexpr int NO = DPAD / 8;
   constexpr int BAND_ROW = 2 * L::ROW;   // the key flags: 128 floats
   constexpr int QW = 0, QR = QW + L::TILE, G = QR + L::TILE, K = G + L::TILE;
@@ -1508,17 +1618,17 @@ xl_bwd_dr_tc_kernel(XlBwd a, bool vec) {
 
 template <int DPAD>
 constexpr int tc_dkv_bytes() {
-  using L = TcBwd<DPAD>;
+  using L = XlTile<DPAD>;
   return 5 * L::TILE + L::BAND + L::RAW + 2 * L::PT + 3 * L::ROW + 2 * L::BIAS;
 }
 template <int DPAD>
 constexpr int tc_dq_bytes() {
-  using L = TcBwd<DPAD>;
+  using L = XlTile<DPAD>;
   return 5 * L::TILE + L::BAND + L::RAW + L::SH + L::ROW + 2 * L::BIAS;
 }
 template <int DPAD>
 constexpr int tc_dr_bytes() {
-  using L = TcBwd<DPAD>;
+  using L = XlTile<DPAD>;
   return 4 * L::TILE + 2 * L::BAND + L::RAW + L::PT + 4 * L::ROW + 2 * L::BIAS;
 }
 
@@ -1540,7 +1650,7 @@ xl_bwd_bias_sum_kernel(const float* __restrict__ partial, T* __restrict__ drwb,
 
 // passes 2-4
 template <int DPAD>
-cudaError_t launch_bwd_tc(const XlBwd& a, bool vec, cudaStream_t s) {
+cudaError_t launch_bwd_tc(const XlArgs& a, bool vec, cudaStream_t s) {
   cudaError_t e;
   const int nt = (a.T + 63) / 64, np = (2 * a.T + 63) / 64;
   auto kd = xl_bwd_dkv_tc_kernel<DPAD>;
@@ -1558,7 +1668,7 @@ cudaError_t launch_bwd_tc(const XlBwd& a, bool vec, cudaStream_t s) {
 }
 
 template <typename T, int DPAD>
-cudaError_t launch_bwd_simt(const XlBwd& a, cudaStream_t s) {
+cudaError_t launch_bwd_simt(const XlArgs& a, cudaStream_t s) {
   cudaError_t e;
   constexpr int BT = bwd_tile<DPAD>();
   const int smem = (int)SimtSmem<DPAD>::bytes();
@@ -1580,7 +1690,7 @@ cudaError_t launch_bwd_simt(const XlBwd& a, cudaStream_t s) {
 // passes 1 and 5 around the dtype's passes 2-4; `tile`: the query tile of
 // pass 3, which sets the number of bias partials
 template <typename T, typename Passes>
-cudaError_t launch_bwd(const XlBwd& a, const void* out, int tile,
+cudaError_t launch_bwd(const XlArgs& a, const void* out, int tile,
                        cudaStream_t s, Passes passes) {
   const long long rows = (long long)a.B * a.H * a.T;
   attention_blc_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
@@ -1617,18 +1727,23 @@ extern "C" int xl_rel_attention_fwd(const void* q, const void* k,
                                     int H, int D, int dtype, int thresh,
                                     float inv_keep, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D < 1 || D > 128 || B < 1 || T_len < 1 || H < 1)
+  if (D < 1 || D > 128 || B < 1 || T_len < 1 || H < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const vilco::Dropout drop = make_dropout(seed, thresh, inv_keep);
   if (dtype == 0)
     return (int)(D <= 64
         ? launch_simt<64>(q, k, v, r, rwb, rrb, mask, out, lse, B, T_len, H, D, drop, s)
         : launch_simt<128>(q, k, v, r, rwb, rrb, mask, out, lse, B, T_len, H, D, drop, s));
-  if (dtype == 1)
-    return (int)(D <= 64
-        ? launch_tc<64>(q, k, v, r, rwb, rrb, mask, out, lse, B, T_len, H, D, drop, s)
-        : launch_tc<128>(q, k, v, r, rwb, rrb, mask, out, lse, B, T_len, H, D, drop, s));
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  XlArgs a{q, k, v, r, rwb, rrb, mask};   // the backward's fields null
+  a.B = B, a.T = T_len, a.H = H, a.D = D;
+  a.scale = 1.f / sqrtf((float)D), a.scale_log2 = a.scale * LOG2E;
+  a.drop = drop;
+  bool vec = D % 8 == 0;
+  for (const void* p : {q, k, v, r, (const void*)out})
+    vec = vec && (uintptr_t)p % 16 == 0;
+  return (int)(D <= 64 ? launch_fwd_tc<64>(a, out, lse, vec, s)
+                       : launch_fwd_tc<128>(a, out, lse, vec, s));
 }
 
 // Backward in five passes (the header): two calls give equal bits. Inputs as the forward's, plus out and lse from it and dout
@@ -1648,7 +1763,7 @@ extern "C" int xl_rel_attention_bwd(
       (dtype == 1 && thresh != 0) != (bits != nullptr))
     return (int)cudaErrorInvalidValue;
   const float scale = 1.f / sqrtf((float)D);
-  const XlBwd a{q, k, v, r, rwb, rrb, mask, lse, dout, dq, dk, dv, dr,
+  const XlArgs a{q, k, v, r, rwb, rrb, mask, lse, dout, dq, dk, dv, dr,
                 drwb, drrb, (const float*)delta, (float*)partial,
                 (unsigned long long*)bits, B, T_len, H, D, scale,
                 scale * LOG2E,

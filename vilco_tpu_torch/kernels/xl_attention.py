@@ -8,10 +8,11 @@ Forward: one block per (query tile, head, batch) with an online softmax in
 f32; the relative shift, for which the TPU kernel rolled its (S, 2T)
 position-score tile, is a load offset here: query row i reads r[T + j - i],
 a band of BQ + BK - 1 rows of r per tile that the block stages in shared
-memory. bfloat16 runs its three products on the tensor cores (WMMA)
-through shared memory, which bounds it; float32, the parity path, runs
-SIMT and is bound by FMA issue. With a gradient to come it also stores the
-row log-sum-exp.
+memory. bfloat16 is FlashAttention-2 on mma.sync, as K1's forward, with
+S, P and O in registers; each warp's position tile goes through its own
+shared tile and comes back sheared, and K, V and the band stream through
+cp.async rings. float32, the parity path, runs SIMT and is bound by FMA
+issue. With a gradient to come it also stores the row log-sum-exp.
 
 Dropout: the TPU kernel seeded its per-program PRNG, whose bits cannot be
 matched. Here the keep bit of element (b, h, i, j) is word 0 of a
