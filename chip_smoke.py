@@ -65,9 +65,14 @@ fallback):
  10. trace         one more train step profiled: device ms by kernel kind,
                    the top kernels and the idle share
  11. nlq_kernels   the NLQ flagship's kernels against their plain versions,
-                   bf16 and f32: the banded attention forward, dq and dk/dv
-                   at batch 16 and 4 for every pyramid length 2560..40, the
-                   band wider than T (T=8) and an odd T; the dense attention
+                   bf16 and f32: the banded attention forward and its one
+                   backward launch (dq, dk, dv; against its plain passes and
+                   autograd through the plain forward, queued behind a
+                   device sleep), each called twice for equal bits, at
+                   batch 16 and 4 for every pyramid length 2560..40, the
+                   band wider than T (T=8) and an odd T, then K5's ms summed
+                   over an NLQ request's and a step's 10 calls, each at its
+                   own length; the dense attention
                    at D=96 as text self-attention (T=32) and video-to-text
                    cross-attention (2560 x 32), forward and backward; the
                    depthwise convs and their backward at C=384; AdamW over
@@ -671,7 +676,8 @@ class KernelChecks:
         """`queued`: time the kernel, the plain version and the library
         call by `queued_ms`, where a host-timed figure would be the host's
         (autograd's backward at small shapes). `also_queued`: time the
-        kernel by `queued_ms` too, beside its time by events."""
+        kernel by `queued_ms` too, beside its time by events. Returns the
+        kernel's device ms (queued where it was timed so) and the bound."""
         ok = all(err <= lim for _, err, lim in rows)
         self.ok &= ok
         self.errs[key].append(max(err for _, err, _ in rows))
@@ -693,6 +699,7 @@ class KernelChecks:
                                  bound_ms=bms, bound_by=by)
             if qms is not None:
                 self.top[key]["queued_ms"] = qms
+        return (ms if qms is None else qms), bms
 
 
 def grads_of(fn, inputs, g):
@@ -1318,21 +1325,44 @@ def band_pairs(m, w: int) -> int:
 
 def banded_work(m, C, H, w, dtype, which):
     """(flops, bytes) of K5 on this run's mask: 2 C operations per band
-    pair for each product (forward q.k, p.v; dq adds dO.v, ds.k; dk/dv
-    q.k, dO.v, p.dO, ds.q) and 2 C per valid query for delta. Bytes: the
-    mask, the rows the function needs read once (q, k, v of the valid rows
-    only, a masked query or key needing none; the backward also out, dout
-    and lse of the valid rows) and each output written in full (a masked
-    row is written as 0)."""
+    pair for each product (forward q.k, p.v; backward q.k, dO.v, ds.k,
+    ds.q, p.dO) and 2 C per valid query for delta. Bytes: the mask, the
+    rows the function needs read once (q, k, v of the valid rows only, a
+    masked query or key needing none; the backward also out, dout and lse
+    of the valid rows) and each output written in full (a masked row is
+    written as 0). `which`: "fwd" or "bwd" (dq, dk and dv)."""
     pairs, nq = band_pairs(m, w), int(m.sum())
     el = torch.empty((), dtype=dtype).element_size()
     B, T = m.shape
     rows, full, lse = nq * C * el, B * T * C * el, 4 * H * nq
     if which == "fwd":
         return 4 * C * pairs, 3 * rows + full + B * T
-    if which == "dq":
-        return 6 * C * pairs + 2 * C * nq, 5 * rows + full + lse + B * T
-    return 8 * C * pairs + 2 * C * nq, 5 * rows + 2 * full + lse + B * T
+    return 10 * C * pairs + 2 * C * nq, 5 * rows + 3 * full + lse + B * T
+
+
+def k5_calls(cfg) -> list:
+    """(T, calls) of K5 in one NLQ forward: the video stem's blocks at
+    max_seq_len, branch block i (stride 2) at max_seq_len >> (i + 1)."""
+    T0, nb = cfg.max_seq_len, cfg.num_branch_layers
+    return [(T0, cfg.backbone_arch[2])] + [(T0 >> (i + 1), 1)
+                                           for i in range(nb)]
+
+
+def say_k5_sums(tag: str, band_ms: dict, cfg, b_train: int) -> None:
+    """K5's bf16 ms summed over an NLQ request's calls (forward at
+    B_NLQ_SERVE) and a train step's (forward and backward at b_train),
+    each at its own length; band_ms[(part, B, T)] = (ms, bound ms)."""
+    calls = k5_calls(cfg)
+    for what, B, parts in (("request", B_NLQ_SERVE, ("fwd",)),
+                           ("train step", b_train, ("fwd", "bwd"))):
+        ms, bms = (sum(n * band_ms[p, B, T][j] for T, n in calls
+                       for p in parts) for j in (0, 1))
+        say(f"[{tag}] K5 over an NLQ {what}'s "
+            f"{sum(n for _, n in calls)} calls ("
+            + ", ".join(f"{n} x T={T}" for T, n in calls)
+            + f"), bf16 batch {B}, {' + '.join(parts)}: {ms:.4f} ms on the "
+            f"card (queued behind a sleep), bound {bms:.4f} ms, time - "
+            f"bound {ms - bms:.4f} ms [{CARD}]")
 
 
 def band_mask(m, w: int):
@@ -1370,8 +1400,8 @@ def phase_nlq_kernels(dev):
     from vilco_tpu_torch.kernels.banded_attention import (
         banded_attention_blc,
         banded_attention_blc_plain,
-        banded_dkv_cuda,
-        banded_dq_cuda,
+        banded_attention_bwd_plain,
+        banded_bwd_cuda,
         banded_fwd_cuda,
     )
     from vilco_tpu_torch.kernels.dwconv import (
@@ -1386,9 +1416,8 @@ def phase_nlq_kernels(dev):
     D, L, nb, B_TR = C // H, full.max_text_len, cfg.num_branch_layers, \
         full.batch_size
     rng = np.random.default_rng(SEED + 6)
-    chk = KernelChecks("nlq_kernels", ("band_fwd", "band_dq", "band_dkv",
-                                       "attn", "attn_bwd", "dw", "dw_bwd",
-                                       "adamw"))
+    chk = KernelChecks("nlq_kernels", ("band_fwd", "band_bwd", "attn",
+                                       "attn_bwd", "dw", "dw_bwd", "adamw"))
     report = chk.report
 
     def randn(*shape, dtype, scale=1.0):
@@ -1397,9 +1426,11 @@ def phase_nlq_kernels(dev):
 
     bf16, f32 = torch.bfloat16, torch.float32
     # K5 at every pyramid length, serving and training batch, the band
-    # wider than T (T=8) and an odd T
+    # wider than T (T=8) and an odd T; band_ms[(which, B, T)]: bf16 ms and
+    # bound, for the sum over the model's calls
     cases = ([(B, T0 >> i) for B in (B_NLQ_SERVE, B_TR)
               for i in range(nb + 1)] + [(B_TR, 8), (B_TR, 37)])
+    band_ms = {}
     for dtype in (bf16, f32):
         for B, T in cases:
             q, k, v, g = (randn(B, T, C, dtype=dtype) for _ in range(4))
@@ -1419,36 +1450,42 @@ def phase_nlq_kernels(dev):
             bh = lambda x: x.reshape(B, T, H, D).transpose(1, 2)
             sdpa = lambda a, b, c: F.scaled_dot_product_attention(
                 bh(a), bh(b), bh(c), attn_mask=bm)
-            report("band_fwd", f"banded forward {label}", dtype,
-                   output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
-                   lambda: banded_fwd_cuda(q, k, v, m, H, w, False),
-                   lambda: banded_attention_blc_plain(q, k, v, m, H, w),
-                   banded_work(m, C, H, w, dtype, "fwd"),
-                   lambda: sdpa(q, k, v),
-                   is_top=dtype == bf16 and (B, T) == (B_NLQ_SERVE, T0))
+            check_repeatable(
+                "nlq_kernels", f"banded forward {label} {str(dtype)[6:]}",
+                lambda: banded_fwd_cuda(q, k, v, m, H, w, True))
+            t = report("band_fwd", f"banded forward {label}", dtype,
+                       output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+                       lambda: banded_fwd_cuda(q, k, v, m, H, w, False),
+                       lambda: banded_attention_blc_plain(q, k, v, m, H, w),
+                       banded_work(m, C, H, w, dtype, "fwd"),
+                       lambda: sdpa(q, k, v),
+                       is_top=dtype == bf16 and (B, T) == (B_NLQ_SERVE, T0),
+                       also_queued=True)
+            if dtype == bf16:
+                band_ms["fwd", B, T] = t
+            # the one backward launch on the forward's out and lse, against
+            # its plain passes and against autograd through the plain
+            # forward; library: SDPA's backward with the band mask
             o, lse = banded_fwd_cuda(q, k, v, m, H, w, True)
-            plain_bwd = backward_timer(
-                lambda *a: banded_attention_blc_plain(*a, m, H, w),
-                (q, k, v), g)
-            lib_bwd = backward_timer(sdpa, (q, k, v), bh(g))
-            train_top = dtype == bf16 and (B, T) == (B_TR, T0)
-            # plain and library: the whole backward (dq, dk, dv together)
-            report("band_dq", f"banded dq {label} (plain/library: whole "
-                   "backward)", dtype,
-                   output_errors(("dq",), got[:1], want[:1],
-                                 TRAIN_TOL[dtype]),
-                   lambda: banded_dq_cuda(q, k, v, m, o, lse, g, H, w),
-                   plain_bwd, banded_work(m, C, H, w, dtype, "dq"), lib_bwd,
-                   is_top=train_top)
-            report("band_dkv", f"banded dk/dv {label} (plain/library: whole "
-                   "backward)", dtype,
-                   output_errors(("dk", "dv"), got[1:], want[1:],
-                                 TRAIN_TOL[dtype]),
-                   lambda: banded_dkv_cuda(q, k, v, m, o, lse, g, H, w),
-                   plain_bwd, banded_work(m, C, H, w, dtype, "dkv"),
-                   lib_bwd, is_top=train_top)
+            kern = lambda: banded_bwd_cuda(q, k, v, m, o, lse, g, H, w)
+            plain = lambda: banded_attention_bwd_plain(q, k, v, m, o, lse, g,
+                                                       H, w)
+            rows = output_errors(("dq", "dk", "dv"), kern(), plain(),
+                                 TRAIN_TOL[dtype]) + output_errors(
+                ("dq (autograd)", "dk (autograd)", "dv (autograd)"), got,
+                want, TRAIN_TOL[dtype])
+            zero_row(f"banded backward {label}", kern())
+            check_repeatable("nlq_kernels", f"banded backward {label} "
+                             f"{str(dtype)[6:]}", kern)
+            t = report("band_bwd", f"banded backward {label} (library: "
+                       "SDPA's backward with the band mask)", dtype, rows,
+                       kern, plain, banded_work(m, C, H, w, dtype, "bwd"),
+                       backward_timer(sdpa, (q, k, v), bh(g)),
+                       is_top=dtype == bf16 and (B, T) == (B_TR, T0),
+                       queued=True)
+            if dtype == bf16:
+                band_ms["bwd", B, T] = t
             del q, k, v, g, out, ref, got, want, o, lse, bm
-            del plain_bwd, lib_bwd
         torch.cuda.empty_cache()
 
         # K1 at D=96: text self-attention (T=L) and video-to-text
@@ -1544,6 +1581,7 @@ def phase_nlq_kernels(dev):
                            a.transpose(1, 2), b, stride=s, padding=1,
                            groups=C), (x, wg), gcat))
         torch.cuda.empty_cache()
+    say_k5_sums("nlq_kernels", band_ms, cfg, B_TR)
     # K4 over the dual tower's 467 leaves (no Gaussian parameters)
     check_adamw(chk, *point_transformer_leaves(cfg, dev), torch.bfloat16)
     if not chk.ok:
@@ -2676,8 +2714,7 @@ def main():
     )
     from vilco_tpu_torch.kernels.banded_attention import (
         banded_attention_blc,
-        banded_dkv_cuda,
-        banded_dq_cuda,
+        banded_bwd_cuda,
     )
     from vilco_tpu_torch.kernels.dwconv import (
         dwconv_bwd_cuda,
@@ -2713,8 +2750,8 @@ def main():
          for _ in range(7)],
         (fused_attention_blc, banded_attention_blc, fused_dwconv_qkv))
     nlq_train = phase_train(
-        dev, "nlq_train", nlq, (banded_attention_blc, banded_dq_cuda,
-                                banded_dkv_cuda, fused_attention_blc,
+        dev, "nlq_train", nlq, (banded_attention_blc, banded_bwd_cuda,
+                                fused_attention_blc,
                                 attention_bwd_cuda, fused_dwconv_qkv,
                                 dwconv_bwd_cuda, adamw_update_multi),
         SEED + 9, normalised_must_fall=False)
@@ -2763,12 +2800,9 @@ def main():
         ("banded_attention_blc", "vilco_tpu_torch/csrc/banded_attention.cu",
          "vilco_tpu/kernels/banded_attention.py:153", nerrs["band_fwd"],
          ntop["band_fwd"], nlq_serve["banded_attention_blc"]),
-        ("banded_dq_cuda", "vilco_tpu_torch/csrc/banded_attention.cu",
-         "vilco_tpu/kernels/banded_attention.py:308", nerrs["band_dq"],
-         ntop["band_dq"], nlq_train["banded_dq_cuda"]),
-        ("banded_dkv_cuda", "vilco_tpu_torch/csrc/banded_attention.cu",
-         "vilco_tpu/kernels/banded_attention.py:318", nerrs["band_dkv"],
-         ntop["band_dkv"], nlq_train["banded_dkv_cuda"]),
+        ("banded_bwd_cuda", "vilco_tpu_torch/csrc/banded_attention.cu",
+         "vilco_tpu/kernels/banded_attention.py:308", nerrs["band_bwd"],
+         ntop["band_bwd"], nlq_train["banded_bwd_cuda"]),
         ("frame_band_attention", "vilco_tpu_torch/csrc/frame_band.cu",
          "vilco_tpu/kernels/frame_band.py:248", verrs["fb_fwd"],
          vtop["fb_fwd"], vq_serve["frame_band_attention"]),
@@ -2803,7 +2837,8 @@ def main():
     ]
     also = {"fused_dwconv_qkv": "vilco_tpu/kernels/dwconv.py:267",
             "dwconv_bwd_cuda": "vilco_tpu/kernels/dwconv.py:283",
-            "frame_band_bwd_cuda": "vilco_tpu/kernels/frame_band.py:307"}
+            "frame_band_bwd_cuda": "vilco_tpu/kernels/frame_band.py:307",
+            "banded_bwd_cuda": "vilco_tpu/kernels/banded_attention.py:318"}
     kernels = []
     for fn, src, replaces, err, t, launches in rows:
         entry = {"name": fn, "route": "cuda", "source": src,

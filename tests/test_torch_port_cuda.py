@@ -2,8 +2,10 @@
 PyTorch version on the card, at small and odd lengths (2, 37, 70, 100, 256)
 and head dims 24, 64, 128; the head-major (K1n) and flash (K1f) attention
 and the probe's K1 variants (P2) from T=128 up to the ViT's 1025 tokens,
-with a fully masked row; the banded kernels also at the NLQ head dim 96,
-the band wider than T and windows wider than one staged chunk; the
+with a fully masked row; the banded kernels (K5's forward, its lse and
+its one backward launch, two calls bitwise equal) also at the NLQ head dim
+96, the edges of their row tiles, windows at and past the unroll cap,
+the band wider than T, and a head dim that takes the scalar loads; the
 frame-banded kernels at the VQ shape (fr 64, w 2, 8 heads of 32), odd fr,
 frames longer than a tile and bands wider than the clip, the backward's
 passes against their plain version, two calls bitwise equal; the fused MLP at
@@ -319,14 +321,25 @@ def test_k1_backward_is_bitwise_repeatable_on_card(cuda, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("T,w,D", [(8, 4, 96), (37, 4, 96), (160, 4, 96),
-                                   (300, 1, 24), (100, 70, 64),
-                                   (64, 64, 128), (2, 5, 32)])
+@pytest.mark.parametrize("T,w,D", [
+    (8, 4, 96), (37, 4, 96), (160, 4, 96), (300, 1, 24), (100, 70, 64),
+    (64, 64, 128), (2, 5, 32),
+    # the tiles' edges (BT 64 rows forward, 32 backward): T = BT - 1, BT,
+    # BT + 1, 2 BT + w
+    (63, 4, 96), (64, 4, 8), (65, 4, 128), (132, 4, 96),
+    (31, 4, 96), (32, 4, 24), (33, 8, 96), (68, 4, 96),
+    # w at the unroll cap (8), one past it (two passes), w >= T
+    (130, 8, 96), (130, 9, 96), (70, 9, 24), (40, 45, 96),
+    # D not a multiple of the 16-byte vector: the scalar instantiation
+    (70, 4, 37), (65, 9, 37)])
 def test_banded_kernels_match_plain_on_card(cuda, dtype, tol, T, w, D):
-    """K5 forward, dq and dk/dv against the plain version with ragged
-    masks and one fully masked row. Tolerance relative to each output's
-    largest reference value: f32 1e-4 (summation order, an online softmax
-    against a two-pass one); bf16 2e-2 (inputs and outputs rounded, the
+    """K5's forward (and its lse) and its one backward launch against the
+    plain versions with ragged masks and one fully masked row: the
+    backward through autograd against autograd through the plain forward,
+    and the kernel called on the forward's out and lse against
+    `banded_attention_bwd_plain` on the same; two calls of each bitwise
+    equal. Tolerance relative to each output's largest reference value: f32
+    1e-4 (summation order); bf16 2e-2 (inputs and outputs rounded, the
     backward reading the bf16 forward output)."""
     rng = np.random.default_rng(200 + T + w)
     rn = lambda *s: torch.from_numpy(
@@ -346,28 +359,45 @@ def test_banded_kernels_match_plain_on_card(cuda, dtype, tol, T, w, D):
                   (q, k, v), g)
     _close(got, want, tol, "banded backward")
     assert all(torch.all(x[-1] == 0) for x in got)
+    o, lse = banded.banded_fwd_cuda(q, k, v, m, H, w, True)
+    o2, lse2 = banded.banded_fwd_cuda(q, k, v, m, H, w, True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    # element by element: a row whose band holds no valid key is -1e9 on
+    # both sides (f32 rounds off the log of the slot count), every other
+    # row within 1e-5 x max(1, |ref|)
+    lse_ref = banded.banded_lse_plain(q, k, m, H, w)
+    empty = lse_ref <= -1e8
+    assert torch.equal(lse[empty], lse_ref[empty])
+    err = (lse - lse_ref).abs() / lse_ref.abs().clamp(min=1.0)
+    assert err[~empty].max().item() <= 1e-5, "banded lse"
+    first = banded.banded_bwd_cuda(q, k, v, m, o, lse, g, H, w)
+    second = banded.banded_bwd_cuda(q, k, v, m, o, lse, g, H, w)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _close(first, banded.banded_attention_bwd_plain(q, k, v, m, o, lse, g,
+                                                    H, w), tol,
+           "banded backward passes")
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 def test_banded_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
-    """On the card the wrapper launches its kernels (the counts rise) and
-    the plain version is never called."""
+    """On the card the wrapper launches its kernels (the forward's count
+    and the one backward launch's rise by one) and no plain version is
+    called."""
     def refuse(*a, **kw):
         raise AssertionError("the plain version ran on a CUDA tensor")
 
-    monkeypatch.setattr(banded, "banded_attention_blc_plain", refuse)
-    monkeypatch.setattr(banded, "banded_attention", refuse)
+    for name in ("banded_attention_blc_plain", "banded_attention",
+                 "banded_lse_plain", "banded_attention_bwd_plain"):
+        monkeypatch.setattr(banded, name, refuse)
     x = torch.randn(2, 40, 192, device=cuda, requires_grad=True)
     m = torch.ones(2, 40, dtype=torch.bool, device=cuda)
     counts = (banded.banded_attention_blc.launches,
-              banded.banded_dq_cuda.launches,
-              banded.banded_dkv_cuda.launches)
+              banded.banded_bwd_cuda.launches)
     banded.banded_attention_blc(x, x, x, m, 2, 4).sum().backward()
     torch.cuda.synchronize()
     assert (banded.banded_attention_blc.launches,
-            banded.banded_dq_cuda.launches,
-            banded.banded_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+            banded.banded_bwd_cuda.launches) == tuple(c + 1 for c in counts)
     assert torch.isfinite(x.grad).all()
     with pytest.raises(TypeError):
         banded.banded_attention_blc(x.half(), x.half(), x.half(), m, 2, 4)

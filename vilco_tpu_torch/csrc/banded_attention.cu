@@ -1,5 +1,5 @@
-// Sliding-window (banded) attention on channels-last q/k/v: forward, dq and
-// dk/dv.
+// Sliding-window (banded) attention on channels-last q/k/v: the forward, and
+// one backward launch that writes dq, dk and dv.
 //
 // Replaces vilco_tpu/kernels/banded_attention.py::banded_attention_fused
 // (the Pallas _fwd_kernel run by _forward, and _dq_kernel / _dkv_kernel run
@@ -8,379 +8,565 @@
 // (B*H, T, D) fold. The mask is one byte per key (nonzero = valid) and
 // doubles as the query mask. Semantics, those of the plain version
 // (ops/attention.py::banded_attention):
-//   s_ij = (q_i * scale) . k_j  for |i - j| <= w, 0 <= j < T, key j valid
-//        = -1e9                 for a masked key of the band
+//   s_ij = (q_i * scale) . k_j  for |i - j| <= w, key j valid
+//        = -1e9                 for a masked key of the band, or one outside
+//                               [0, T) (the plain version's padding)
 //   o_i  = sum_j softmax(s_i)_j v_j   (f32 softmax), 0 for an invalid query
-// Keys outside [0, T) are left out of the sum: against the plain version's
-// -1e9 padding they only ever add exp(-1e9 - m) = 0 to a valid row (a valid
-// query sees itself), and invalid rows are zeroed. Every T >= 1 and w >= 1
-// is taken, the band wider than T included; D <= 128; all arithmetic f32.
+// A key outside [0, T) only ever adds exp(-1e9 - m) = 0 to a valid row (a
+// valid query sees itself), and invalid rows are zeroed. Every T >= 1 and
+// w >= 1 is taken, the band wider than T included; D <= 128; all arithmetic
+// f32. The forward stores lse_i = m_i + log(l_i) (natural log, f32,
+// (B, H, T)) when a gradient follows.
 //
 // What bounds it on the card: memory. Per query the work is 2w + 1 dot
 // products of length D (9 of 96 at the NLQ shape), far below the ~300
-// operations per byte where Hopper's tensor cores would pay, so the TPU
-// kernel's whole (BQ, BQ + 128) MXU score tile is not carried over. One warp
-// owns a query (or, in dk/dv, a key): lane l holds channels l + 32c, c <
-// NC = ceil(D / 32), each dot product is a warp sum, and the softmax runs
-// online over the keys in f32. A block takes BT = 32 rows of one (batch,
-// head) and stages the rows its band reaches, [t0 - w, t0 + BT + w), in
-// shared memory in chunks of 64 (one chunk at w = 4), so each key or query
-// row comes from device memory about once per block whatever w is.
-//
-// Forward: when a gradient follows it also stores lse_i = m_i + log(l_i)
-// (natural log, f32, (B, H, T)).
-// dq: per query, delta_i = dO_i . o_i with dO of an invalid query zeroed
-// (the forward zeroes that row), p_ij = exp(s_ij - lse_i),
-// dp_ij = dO_i . v_j (v zeroed at masked keys), ds = p (dp - delta),
-// dq_i = scale * sum_j ds_ij k_j.
-// dk/dv, blocked over keys from the start: key j is seen by the queries
-// [j - w, j + w] in [0, T); the block stages that query halo (q, dO, lse and
-// delta, recomputed from dO and o) and each warp sums dv_j = sum_i p_ij dO_i
-// and dk_j = scale * sum_i ds_ij q_i in registers. No atomics and no
-// accumulator over the full T: the TPU kernel's full-T dk/dv accumulators,
-// which ran out of VMEM at T = 16384, have no counterpart here.
+// operations per byte where Hopper's tensor cores would pay, and the
+// softmax stays f32, so the TPU kernel's (BQ, BQ + 128) MXU score tile is
+// not carried over. The design keeps the chain per row short and each byte
+// read from device memory about once:
+// - A block takes one (batch, head) and a tile of BT rows (64 in the
+//   forward, three blocks an SM; 32 in the longer backward, so twice the
+//   blocks fill the card), and stages the rows its band reaches,
+//   [t0 - w, t0 + BT + w), in shared memory in their own
+//   dtype by 16-byte cp.async copies (a bf16 row of D = 96 is 12), zero
+//   outside [0, T), v and dO also at masked rows, the mask bytes beside.
+// - G = 4 lanes own one row: lane g holds the 16-byte vectors g, g + 4, ...
+//   of it (24 channels of a D = 96 row), so a warp holds 8 rows, and the two
+//   rows a quarter warp reads sit 64 bytes apart in the banks. A dot product
+//   is the lane's partial sum and two shuffles.
+// - A tile whose band holds no valid key (padding past a clip's length) is
+//   written as 0 (lse -1e9, as the full computation rounds it) with no row
+//   read: the bound counts the valid rows only.
+// - Forward: the row's 2w + 1 scores are held in registers (unrolled for
+//   w <= WCAP = 8), the softmax takes two passes over them (max, then exp
+//   and sum), then p.v runs over the lane's channels from shared memory;
+//   the output and the lse are written from registers, 16 bytes a store. A
+//   wider window runs the same code pass after pass of NS = 17 keys, with an
+//   online rescale between passes; a pass whose rows all lie outside
+//   [0, T) is skipped (its keys only add exp(-1e9 - m) = 0).
+// - Backward, one launch: the block stages q, k, v, dO, lse and delta_i =
+//   dO_i . o_i (computed by the block from o and dO) of its halo rows. Each
+//   group then writes dq_i of its query row from the keys of its band, and
+//   dk_j, dv_j of its key row from the queries whose band holds it,
+//   recomputing p_ij = exp(s_ij - lse_i) and ds_ij = p_ij (dp_ij - delta_i)
+//   from shared memory: dq_i = scale sum_j ds_ij k_j, dk_j = scale sum_i
+//   ds_ij q_i, dv_j = sum_i p_ij dO_i, 0 at masked keys. Every output row is
+//   written once, by one group, in a fixed order: no atomics, two calls give
+//   equal bits, and nothing accumulates over the full T (the TPU kernel's
+//   full-T dk/dv accumulators ran out of VMEM at T = 16384). A window wider
+//   than WCAP restages per pass: k, v for dq, then q, dO, lse and delta for
+//   dk/dv.
+// - A D that is not a multiple of the 16-byte vector, or a pointer that is
+//   not 16-byte aligned, takes a scalar-load instantiation of the same
+//   kernels (one element an access, plain loads into shared memory).
+
+#include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int BT = 32;                 // rows (queries or keys) per block
-constexpr int ROWS = BT / WARPS;       // rows per warp
-constexpr int CHUNK = 64;              // staged halo rows per pass
+constexpr int G = 4;                    // lanes per row
+constexpr int WCAP = 8;                 // the widest window run in one pass
+constexpr int NS = 2 * WCAP + 1;        // band slots per pass
 constexpr float NEG_INF_BIAS = -1e9f;
 
-__device__ __forceinline__ float warp_sum(float x) {
+// A block of WARPS warps: BT rows, SROWS staged rows a pass.
+template <int WARPS>
+struct Blk {
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int BT = WARPS * (32 / G);
+  static constexpr int SROWS = BT + NS - 1;
+};
+using FwdBlk = Blk<8>;   // 64 rows
+using BwdBlk = Blk<4>;   // 32 rows: twice the blocks, for the longer body
+
+// A lane's share of a row: VW elements an access (16 bytes, or 1 in the
+// scalar instantiation), access a at channels (a*G + g)*VW .. + VW - 1.
+template <typename T, int VW, int NVL>
+struct Lay {
+  static constexpr bool VEC = VW * sizeof(T) == 16;
+  static constexpr int NCH = NVL * VW;    // channels a lane holds
+  static constexpr int PER = NVL * G;     // accesses a row
+  static constexpr int DP = PER * VW;     // padded row, zero past D
+  // shared row stride: rows 64 bytes apart mod 128 (vector), or G elements
+  // apart (scalar), so a quarter warp's rows fall in different banks
+  static constexpr int LDS =
+      DP + (VEC ? ((DP * sizeof(T)) % 128 == 0 ? 64 / (int)sizeof(T) : 0)
+                : G);
+  // forward blocks an SM: three (a cap of 80 registers) at up to 24
+  // channels a lane; the backward keeps the cap of 255, its body holding
+  // four rows of channels and two operand rows
+  static constexpr int FWD_MINB = NCH <= 24 ? 3 : 1;
+};
+
+template <typename T, int VW>
+using Raw = std::conditional_t<VW * sizeof(T) == 16, uint4, T>;
+
+template <typename T, int VW>
+__device__ __forceinline__ Raw<T, VW> ldv(const T* p) {
+  return *reinterpret_cast<const Raw<T, VW>*>(p);
+}
+
+template <typename T, int VW>
+__device__ __forceinline__ void unpack(const Raw<T, VW>& r, float* out) {
+  const T* e = reinterpret_cast<const T*>(&r);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int i = 0; i < VW; ++i) out[i] = vilco::to_f32<T>(e[i]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float group_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x;
 }
 
-// Channels lane + 32c of one row (global memory), zero past D.
-template <typename T, int NC>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, int D,
-                                         int lane, float (&r)[NC]) {
+// The lane's channels of `row` times `scale`, zero past D or for a null row.
+template <typename T, int VW, int NVL>
+__device__ __forceinline__ void load_lane(const T* row, int D, int g,
+                                          float scale,
+                                          float (&x)[NVL * VW]) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int d = lane + 32 * c;
-    r[c] = d < D ? vilco::to_f32<T>(row[d]) : 0.f;
+  for (int a = 0; a < NVL; ++a) {
+    const int c = (a * G + g) * VW;
+    if (row != nullptr && c < D) {
+      unpack<T, VW>(ldv<T, VW>(row + c), x + a * VW);
+#pragma unroll
+      for (int e = 0; e < VW; ++e) x[a * VW + e] *= scale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < VW; ++e) x[a * VW + e] = 0.f;
+    }
   }
 }
 
-template <int NC>
-__device__ __forceinline__ float dot_smem(const float (&a)[NC],
-                                          const float* __restrict__ row,
-                                          int lane) {
+// Stores the lane's channels times `mul` (0 where `zero`) into `row`.
+template <typename T, int VW, int NVL>
+__device__ __forceinline__ void store_lane(T* row, int D, int g,
+                                           const float (&x)[NVL * VW],
+                                           float mul, bool zero) {
+#pragma unroll
+  for (int a = 0; a < NVL; ++a) {
+    const int c = (a * G + g) * VW;
+    if (c >= D) continue;
+    float y[VW];
+#pragma unroll
+    for (int e = 0; e < VW; ++e) y[e] = zero ? 0.f : x[a * VW + e] * mul;
+    if constexpr (VW * sizeof(T) == 16) {
+      vilco::store16<T>(row + c, y);
+    } else {
+      row[c] = vilco::from_f32<T>(y[0]);
+    }
+  }
+}
+
+// Zeroes the lane's channels of `row`.
+template <typename T, int VW, int NVL>
+__device__ __forceinline__ void zero_lane(T* row, int D, int g) {
+#pragma unroll
+  for (int a = 0; a < NVL; ++a) {
+    const int c = (a * G + g) * VW;
+    if (c < D) *reinterpret_cast<Raw<T, VW>*>(row + c) = Raw<T, VW>{};
+  }
+}
+
+// The lane's partial dot product of x with a staged (padded) row.
+template <typename T, int VW, int NVL>
+__device__ __forceinline__ float dot_lane(const float (&x)[NVL * VW],
+                                          const T* row, int g) {
   float acc = 0.f;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) acc = fmaf(a[c], row[lane + 32 * c], acc);
+  for (int a = 0; a < NVL; ++a) {
+    float r[VW];
+    unpack<T, VW>(ldv<T, VW>(row + (a * G + g) * VW), r);
+#pragma unroll
+    for (int e = 0; e < VW; ++e) acc = fmaf(x[a * VW + e], r[e], acc);
+  }
   return acc;
 }
 
-// Row i of head h times `scale` (channels lane + 32c), zero for i >= Tn.
-template <typename T, int NC>
-__device__ __forceinline__ void load_head_row(const T* __restrict__ x,
-                                              long long base, int i, int Tn,
-                                              long long C, int h, int D,
-                                              int lane, float scale,
-                                              float (&r)[NC]) {
-  if (i < Tn) {
-    load_row<T, NC>(x + (base + i) * C + h * D, D, lane, r);
-  } else {
+// x += p * (the lane's channels of a staged row)
+template <typename T, int VW, int NVL>
+__device__ __forceinline__ void axpy_lane(float (&x)[NVL * VW], float p,
+                                          const T* row, int g) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) r[c] = 0.f;
+  for (int a = 0; a < NVL; ++a) {
+    float r[VW];
+    unpack<T, VW>(ldv<T, VW>(row + (a * G + g) * VW), r);
+#pragma unroll
+    for (int e = 0; e < VW; ++e) x[a * VW + e] = fmaf(p, r[e], x[a * VW + e]);
   }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) r[c] *= scale;
 }
 
-// Stages the key rows [c0, c0 + n) of head h for the query-blocked kernels:
-// k, v zeroed at masked keys, and each key's valid bit. The sync before
-// frees the previous chunk, the one after publishes this one.
-template <typename T, int NC>
-__device__ __forceinline__ void stage_kv(const T* __restrict__ k,
-                                         const T* __restrict__ v,
-                                         const uint8_t* __restrict__ mask,
-                                         long long base, int c0, int n,
-                                         int h, int D, long long C, int warp,
-                                         int lane, float* ks, float* vs,
-                                         float* ok) {
-  constexpr int DP = 32 * NC;
-  __syncthreads();
-  for (int r = warp; r < n; r += WARPS) {
-    const long long off = (base + c0 + r) * C + h * D;
-    const bool valid = mask[base + c0 + r] != 0;
-    float kr[NC], vr[NC];
-    load_row<T, NC>(k + off, D, lane, kr);
-    load_row<T, NC>(v + off, D, lane, vr);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      ks[r * DP + lane + 32 * c] = kr[c];
-      vs[r * DP + lane + 32 * c] = valid ? vr[c] : 0.f;
+// Stages rows [row0, row0 + n) of one head (xb: the head's first column of
+// the batch's row 0; rows C apart) into shared rows of Lay::LDS elements:
+// zero past D, outside [0, Tn) and, with `mrow`, where the row's mask byte
+// is 0. Visible after cp_async_wait_all and a barrier.
+template <typename T, int VW, int NVL, int THREADS>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ xb,
+                                           long long C, int D, int row0,
+                                           int n, int Tn,
+                                           const uint8_t* __restrict__ mrow) {
+  using L = Lay<T, VW, NVL>;
+  for (int e = threadIdx.x; e < n * L::PER; e += THREADS) {
+    const int r = e / L::PER, c = (e - r * L::PER) * VW, t = row0 + r;
+    const bool ok = t >= 0 && t < Tn && c < D &&
+                    (mrow == nullptr || mrow[t] != 0);
+    T* d = dst + r * L::LDS + c;
+    if constexpr (L::VEC) {
+      cp_async16(d, ok ? xb + t * C + c : xb, ok);
+    } else {
+      *d = ok ? xb[t * C + c] : vilco::from_f32<T>(0.f);
     }
-    if (lane == 0) ok[r] = valid ? 1.f : 0.f;
   }
-  __syncthreads();
 }
 
-template <int NC>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * CHUNK * 32 * NC + 2 * CHUNK);
+// The valid bit of each staged row, 0 outside [0, Tn).
+template <int THREADS>
+__device__ __forceinline__ void stage_mask(uint8_t* okb,
+                                           const uint8_t* __restrict__ mrow,
+                                           int row0, int n, int Tn) {
+  for (int r = threadIdx.x; r < n; r += THREADS) {
+    const int t = row0 + r;
+    okb[r] = (t >= 0 && t < Tn && mrow[t] != 0) ? 1 : 0;
+  }
+}
+
+// Whether any key of the rows [row0, row0 + n) is valid, for the whole
+// block (every thread must call it). A tile whose band holds none has every
+// score at -1e9: its output and gradients are 0 and its lse is -1e9 (f32
+// rounds off the log of the slot count), written without reading a row.
+template <int THREADS>
+__device__ __forceinline__ bool any_valid(const uint8_t* __restrict__ mrow,
+                                          int row0, int n, int Tn) {
+  bool any = false;
+  for (int r = threadIdx.x; r < n; r += THREADS) {
+    const int t = row0 + r;
+    any |= t >= 0 && t < Tn && mrow[t] != 0;
+  }
+  return __syncthreads_or(any) != 0;
 }
 
 // ---- forward ---------------------------------------------------------------
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int VW, int NVL>
+__global__ void __launch_bounds__(FwdBlk::THREADS, Lay<T, VW, NVL>::FWD_MINB)
 banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const uint8_t* __restrict__ mask,
                   T* __restrict__ out, float* __restrict__ lse, int Tn, int H,
                   int D, int w, float scale) {
-  constexpr int DP = 32 * NC;
-  extern __shared__ __align__(16) float sm[];
-  float* ks = sm;                    // [CHUNK][DP]
-  float* vs = ks + CHUNK * DP;       // [CHUNK][DP], zero at masked keys
-  float* ok = vs + CHUNK * DP;       // [CHUNK] 1 = valid key
+  using L = Lay<T, VW, NVL>;
+  constexpr int NCH = L::NCH, THREADS = FwdBlk::THREADS, BT = FwdBlk::BT,
+                SROWS = FwdBlk::SROWS;
+  extern __shared__ __align__(16) unsigned char sm[];
+  T* Ks = reinterpret_cast<T*>(sm);                   // [SROWS][LDS]
+  T* Vs = Ks + SROWS * L::LDS;                        // zero at masked keys
+  uint8_t* okb = reinterpret_cast<uint8_t*>(Vs + SROWS * L::LDS);
 
   const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * BT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = threadIdx.x % G, lr = threadIdx.x / G, i = t0 + lr;
   const long long C = (long long)H * D;
-  const long long base = (long long)b * Tn;
+  const long long off = (long long)b * Tn * C + (long long)h * D;
+  const uint8_t* mrow = mask + (long long)b * Tn;
 
-  float qr[ROWS][NC], acc[ROWS][NC], m[ROWS], l[ROWS];
+  float qr[NCH], acc[NCH];
 #pragma unroll
-  for (int s = 0; s < ROWS; ++s) {
-    load_head_row<T, NC>(q, base, t0 + warp * ROWS + s, Tn, C, h, D, lane,
-                         scale, qr[s]);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[s][c] = 0.f;
-    m[s] = -INFINITY;
-    l[s] = 0.f;
+  for (int c = 0; c < NCH; ++c) acc[c] = 0.f;
+  if (!any_valid<THREADS>(mrow, t0 - w, BT + 2 * w, Tn)) {
+    if (i < Tn) {
+      zero_lane<T, VW, NVL>(out + off + i * C, D, g);
+      if (lse != nullptr && g == 0)
+        lse[((long long)b * H + h) * Tn + i] = NEG_INF_BIAS;
+    }
+    return;
   }
+  load_lane<T, VW, NVL>(i < Tn ? q + off + i * C : nullptr, D, g, scale, qr);
+  float m = -INFINITY, l = 0.f;
 
-  const int lo = max(t0 - w, 0), hi = min(t0 + BT + w, Tn);
-  for (int c0 = lo; c0 < hi; c0 += CHUNK) {
-    const int n = min(CHUNK, hi - c0);
-    stage_kv<T, NC>(k, v, mask, base, c0, n, h, D, C, warp, lane, ks, vs, ok);
+  // pass jb: slots jb .. jb + ns - 1 of each row, key i - w + slot
+  for (int jb = 0; jb < 2 * w + 1; jb += NS) {
+    const int ns = min(NS, 2 * w + 1 - jb), n = BT + ns - 1,
+              row0 = t0 - w + jb;
+    if (row0 + n <= 0 || row0 >= Tn) continue;   // block-uniform
+    __syncthreads();                             // the last pass is read
+    stage_rows<T, VW, NVL, THREADS>(Ks, k + off, C, D, row0, n,
+                                    Tn, nullptr);
+    stage_rows<T, VW, NVL, THREADS>(Vs, v + off, C, D, row0, n,
+                                    Tn, mrow);
+    cp_async_commit();
+    stage_mask<THREADS>(okb, mrow, row0, n, Tn);
+    cp_async_wait_all();
+    __syncthreads();
 
+    float s[NS];
 #pragma unroll
-    for (int s = 0; s < ROWS; ++s) {
-      const int i = t0 + warp * ROWS + s;
-      if (i >= Tn) continue;   // warp-uniform
-      const int jlo = max(i - w, c0), jhi = min(i + w, c0 + n - 1);
-      for (int j = jlo; j <= jhi; ++j) {
-        const int r = j - c0;
-        const float dot = warp_sum(dot_smem<NC>(qr[s], ks + r * DP, lane));
-        const float sc = ok[r] != 0.f ? dot : NEG_INF_BIAS;
-        const float m_new = fmaxf(m[s], sc);
-        const float alpha = expf(m[s] - m_new);
-        const float p = expf(sc - m_new);
-        l[s] = l[s] * alpha + p;
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          acc[s][c] = fmaf(p, vs[r * DP + lane + 32 * c], acc[s][c] * alpha);
-        m[s] = m_new;
+    for (int j = 0; j < NS; ++j) {
+      s[j] = -INFINITY;
+      if (j < ns) {   // block-uniform: every lane reaches the shuffles
+        const float d =
+            group_sum(dot_lane<T, VW, NVL>(qr, Ks + (lr + j) * L::LDS, g));
+        s[j] = okb[lr + j] ? d : NEG_INF_BIAS;
       }
     }
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) mx = fmaxf(mx, s[j]);
+    const float alpha = expf(m - mx);            // 0 on the first pass
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (j < ns) {
+        const float p = expf(s[j] - mx);
+        l += p;
+        axpy_lane<T, VW, NVL>(acc, p, Vs + (lr + j) * L::LDS, g);
+      }
+    }
+    m = mx;
   }
 
-#pragma unroll
-  for (int s = 0; s < ROWS; ++s) {
-    const int i = t0 + warp * ROWS + s;
-    if (i >= Tn) continue;
-    const bool valid = mask[base + i] != 0;
-    const float inv = valid ? 1.f / l[s] : 0.f;
-    T* op = out + (base + i) * C + h * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) op[d] = vilco::from_f32<T>(acc[s][c] * inv);
-    }
-    if (lse != nullptr && lane == 0)
-      lse[((long long)b * H + h) * Tn + i] = m[s] + logf(l[s]);
+  if (i < Tn) {
+    const bool valid = mrow[i] != 0;
+    store_lane<T, VW, NVL>(out + off + i * C, D, g, acc, 1.f / l, !valid);
+    if (lse != nullptr && g == 0)
+      lse[((long long)b * H + h) * Tn + i] = m + logf(l);
   }
 }
 
-// ---- dq --------------------------------------------------------------------
+// ---- backward: dq, dk and dv in one launch ---------------------------------
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS)
-banded_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                 const T* __restrict__ out, const T* __restrict__ dout,
-                 const float* __restrict__ lse, T* __restrict__ dq, int Tn,
-                 int H, int D, int w, float scale) {
-  constexpr int DP = 32 * NC;
-  extern __shared__ __align__(16) float sm[];
-  float* ks = sm;                    // [CHUNK][DP]
-  float* vs = ks + CHUNK * DP;       // [CHUNK][DP], zero at masked keys
-  float* ok = vs + CHUNK * DP;       // [CHUNK]
-
-  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * BT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long C = (long long)H * D;
-  const long long base = (long long)b * Tn;
-
-  float qr[ROWS][NC], g[ROWS][NC], dqa[ROWS][NC], delta[ROWS], lq[ROWS];
-#pragma unroll
-  for (int s = 0; s < ROWS; ++s) {
-    const int i = t0 + warp * ROWS + s;
-    // the cotangent of an invalid query row is zeroed
-    const float gm = (i < Tn && mask[base + i] != 0) ? 1.f : 0.f;
-    float o[NC];
-    load_head_row<T, NC>(q, base, i, Tn, C, h, D, lane, scale, qr[s]);
-    load_head_row<T, NC>(dout, base, i, Tn, C, h, D, lane, gm, g[s]);
-    load_head_row<T, NC>(out, base, i, Tn, C, h, D, lane, 1.f, o);
-    lq[s] = i < Tn ? lse[((long long)b * H + h) * Tn + i] : 0.f;
-    float dd = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dd = fmaf(g[s][c], o[c], dd);
-      dqa[s][c] = 0.f;
-    }
-    delta[s] = warp_sum(dd);
-  }
-
-  const int lo = max(t0 - w, 0), hi = min(t0 + BT + w, Tn);
-  for (int c0 = lo; c0 < hi; c0 += CHUNK) {
-    const int n = min(CHUNK, hi - c0);
-    stage_kv<T, NC>(k, v, mask, base, c0, n, h, D, C, warp, lane, ks, vs, ok);
-
-#pragma unroll
-    for (int s = 0; s < ROWS; ++s) {
-      const int i = t0 + warp * ROWS + s;
-      if (i >= Tn) continue;
-      const int jlo = max(i - w, c0), jhi = min(i + w, c0 + n - 1);
-      for (int j = jlo; j <= jhi; ++j) {
-        const int r = j - c0;
-        const float* kr = ks + r * DP;
-        const float dot = warp_sum(dot_smem<NC>(qr[s], kr, lane));
-        const float dp = warp_sum(dot_smem<NC>(g[s], vs + r * DP, lane));
-        const float sc = ok[r] != 0.f ? dot : NEG_INF_BIAS;
-        const float ds = expf(sc - lq[s]) * (dp - delta[s]);
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          dqa[s][c] = fmaf(ds, kr[lane + 32 * c], dqa[s][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int s = 0; s < ROWS; ++s) {
-    const int i = t0 + warp * ROWS + s;
-    if (i >= Tn) continue;
-    T* p = dq + (base + i) * C + h * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) p[d] = vilco::from_f32<T>(dqa[s][c] * scale);
-    }
-  }
-}
-
-// ---- dk, dv ----------------------------------------------------------------
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS)
-banded_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+template <typename T, int VW, int NVL>
+__global__ void __launch_bounds__(BwdBlk::THREADS)
+banded_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const uint8_t* __restrict__ mask,
                   const T* __restrict__ out, const T* __restrict__ dout,
-                  const float* __restrict__ lse, T* __restrict__ dk,
-                  T* __restrict__ dv, int Tn, int H, int D, int w,
-                  float scale) {
-  constexpr int DP = 32 * NC;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                    // [CHUNK][DP] q * scale
-  float* gs = qs + CHUNK * DP;       // [CHUNK][DP] dO, zero at invalid rows
-  float* ls = gs + CHUNK * DP;       // [CHUNK] lse
-  float* ds_ = ls + CHUNK;           // [CHUNK] delta
+                  const float* __restrict__ lse, T* __restrict__ dq,
+                  T* __restrict__ dk, T* __restrict__ dv, int Tn, int H,
+                  int D, int w, float scale) {
+  using L = Lay<T, VW, NVL>;
+  constexpr int NCH = L::NCH, THREADS = BwdBlk::THREADS, BT = BwdBlk::BT,
+                SROWS = BwdBlk::SROWS;
+  extern __shared__ __align__(16) unsigned char sm[];
+  T* Qs = reinterpret_cast<T*>(sm);                   // [SROWS][LDS] each
+  T* Ks = Qs + SROWS * L::LDS;
+  T* Vs = Ks + SROWS * L::LDS;                        // zero at masked keys
+  T* Gs = Vs + SROWS * L::LDS;                        // dO, zero at invalid
+  float* ls = reinterpret_cast<float*>(Gs + SROWS * L::LDS);   // lse
+  float* dl = ls + SROWS;                             // delta
+  uint8_t* okb = reinterpret_cast<uint8_t*>(dl + SROWS);
 
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * BT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * BT;
+  const int g = threadIdx.x % G, lr = threadIdx.x / G, i = t0 + lr;
   const long long C = (long long)H * D;
-  const long long base = (long long)b * Tn;
+  const long long off = (long long)b * Tn * C + (long long)h * D;
+  const uint8_t* mrow = mask + (long long)b * Tn;
   const float* lrow = lse + ((long long)b * H + h) * Tn;
-
-  float kr[ROWS][NC], vr[ROWS][NC], dka[ROWS][NC], dva[ROWS][NC];
-  bool kok[ROWS];
-#pragma unroll
-  for (int s = 0; s < ROWS; ++s) {
-    const int j = j0 + warp * ROWS + s;
-    kok[s] = j < Tn && mask[base + j] != 0;
-    load_head_row<T, NC>(k, base, j, Tn, C, h, D, lane, 1.f, kr[s]);
-    load_head_row<T, NC>(v, base, j, Tn, C, h, D, lane, 1.f, vr[s]);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (!kok[s]) vr[s][c] = 0.f;
-      dka[s][c] = dva[s][c] = 0.f;
+  const int nslot = 2 * w + 1;
+  const bool one = nslot <= NS;     // the whole band in one pass, staged once
+  if (!any_valid<THREADS>(mrow, t0 - w, BT + 2 * w, Tn)) {
+    if (i < Tn) {
+      zero_lane<T, VW, NVL>(dq + off + i * C, D, g);
+      zero_lane<T, VW, NVL>(dk + off + i * C, D, g);
+      zero_lane<T, VW, NVL>(dv + off + i * C, D, g);
     }
+    return;
   }
 
-  const int lo = max(j0 - w, 0), hi = min(j0 + BT + w, Tn);
-  for (int c0 = lo; c0 < hi; c0 += CHUNK) {
-    const int n = min(CHUNK, hi - c0);
-    __syncthreads();
-    for (int r = warp; r < n; r += WARPS) {
-      const int i = c0 + r;
-      const long long off = (base + i) * C + h * D;
-      const float gm = mask[base + i] != 0 ? 1.f : 0.f;
-      float qv[NC], gv[NC], ov[NC];
-      load_row<T, NC>(q + off, D, lane, qv);
-      load_row<T, NC>(dout + off, D, lane, gv);
-      load_row<T, NC>(out + off, D, lane, ov);
-      float dd = 0.f;
+  // q and dO of the query rows [row0, row0 + n), their lse and delta (from
+  // o and dO in device memory, a group a row; 0 outside [0, T)). The loads
+  // for delta overlap the copies in flight.
+  auto stage_queries = [&](int row0, int n) {
+    stage_rows<T, VW, NVL, THREADS>(Qs, q + off, C, D, row0, n,
+                                    Tn, nullptr);
+    stage_rows<T, VW, NVL, THREADS>(Gs, dout + off, C, D, row0, n,
+                                    Tn, mrow);
+    cp_async_commit();
+    for (int r0 = 0; r0 < n; r0 += BT) {          // block-uniform
+      const int r = r0 + lr, t = row0 + r;
+      const bool in = r < n && t >= 0 && t < Tn;
+      const bool ok = in && mrow[t] != 0;
+      float o[NCH], go[NCH];
+      load_lane<T, VW, NVL>(ok ? out + off + t * C : nullptr, D, g, 1.f, o);
+      load_lane<T, VW, NVL>(ok ? dout + off + t * C : nullptr, D, g, 1.f,
+                            go);
+      float d = 0.f;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        gv[c] *= gm;
-        dd = fmaf(gv[c], ov[c], dd);
-        qs[r * DP + lane + 32 * c] = qv[c] * scale;
-        gs[r * DP + lane + 32 * c] = gv[c];
-      }
-      dd = warp_sum(dd);
-      if (lane == 0) {
-        ls[r] = lrow[i];
-        ds_[r] = dd;
+      for (int c = 0; c < NCH; ++c) d = fmaf(go[c], o[c], d);
+      d = group_sum(d);
+      if (r < n && g == 0) {
+        dl[r] = d;
+        ls[r] = in ? lrow[t] : 0.f;
       }
     }
-    __syncthreads();
+  };
+  auto stage_keys = [&](int row0, int n) {
+    stage_rows<T, VW, NVL, THREADS>(Ks, k + off, C, D, row0, n,
+                                    Tn, nullptr);
+    stage_rows<T, VW, NVL, THREADS>(Vs, v + off, C, D, row0, n,
+                                    Tn, mrow);
+    cp_async_commit();
+    stage_mask<THREADS>(okb, mrow, row0, n, Tn);
+  };
 
+  if (one) {
+    stage_keys(t0 - w, BT + 2 * w);
+    stage_queries(t0 - w, BT + 2 * w);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // ---- dq_i of query row i over the keys of its band
+  {
+    float qi[NCH], gi[NCH], acc[NCH], li, di;
+    if (one) {           // row i is staged row lr + w
+      load_lane<T, VW, NVL>(Qs + (lr + w) * L::LDS, L::DP, g, scale, qi);
+      load_lane<T, VW, NVL>(Gs + (lr + w) * L::LDS, L::DP, g, 1.f, gi);
+      li = ls[lr + w];
+      di = dl[lr + w];
+    } else {
+      const bool in = i < Tn, ok = in && mrow[i] != 0;
+      float o[NCH];
+      load_lane<T, VW, NVL>(in ? q + off + i * C : nullptr, D, g, scale, qi);
+      load_lane<T, VW, NVL>(ok ? dout + off + i * C : nullptr, D, g, 1.f,
+                            gi);
+      load_lane<T, VW, NVL>(ok ? out + off + i * C : nullptr, D, g, 1.f, o);
+      float d = 0.f;
 #pragma unroll
-    for (int s = 0; s < ROWS; ++s) {
-      const int j = j0 + warp * ROWS + s;
-      if (j >= Tn) continue;
-      const int ilo = max(j - w, c0), ihi = min(j + w, c0 + n - 1);
-      for (int i = ilo; i <= ihi; ++i) {
-        const int r = i - c0;
-        const float* qrow = qs + r * DP;
-        const float* grow = gs + r * DP;
-        const float dot = warp_sum(dot_smem<NC>(kr[s], qrow, lane));
-        const float dp = warp_sum(dot_smem<NC>(vr[s], grow, lane));
-        const float sc = kok[s] ? dot : NEG_INF_BIAS;
-        const float p = expf(sc - ls[r]);
-        const float ds = p * (dp - ds_[r]);
+      for (int c = 0; c < NCH; ++c) d = fmaf(gi[c], o[c], d);
+      di = group_sum(d);
+      li = in ? lrow[i] : 0.f;
+    }
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dva[s][c] = fmaf(p, grow[lane + 32 * c], dva[s][c]);
-          dka[s][c] = fmaf(ds, qrow[lane + 32 * c], dka[s][c]);
+    for (int c = 0; c < NCH; ++c) acc[c] = 0.f;
+
+    for (int jb = 0; jb < nslot; jb += NS) {
+      const int ns = min(NS, nslot - jb), n = BT + ns - 1,
+                row0 = t0 - w + jb;
+      if (!one) {
+        if (row0 + n <= 0 || row0 >= Tn) continue;   // block-uniform
+        __syncthreads();
+        stage_keys(row0, n);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      for (int j = 0; j < ns; ++j) {
+        const T* kr = Ks + (lr + j) * L::LDS;
+        const T* vr = Vs + (lr + j) * L::LDS;
+        Raw<T, VW> kraw[NVL];
+        float sd = 0.f, pd = 0.f;
+#pragma unroll
+        for (int a = 0; a < NVL; ++a) {
+          float kf[VW], vf[VW];
+          kraw[a] = ldv<T, VW>(kr + (a * G + g) * VW);
+          unpack<T, VW>(kraw[a], kf);
+          unpack<T, VW>(ldv<T, VW>(vr + (a * G + g) * VW), vf);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            sd = fmaf(qi[a * VW + e], kf[e], sd);
+            pd = fmaf(gi[a * VW + e], vf[e], pd);
+          }
+        }
+        sd = group_sum(sd);
+        pd = group_sum(pd);
+        const float p = expf((okb[lr + j] ? sd : NEG_INF_BIAS) - li);
+        const float ds = p * (pd - di);
+#pragma unroll
+        for (int a = 0; a < NVL; ++a) {
+          float kf[VW];
+          unpack<T, VW>(kraw[a], kf);
+#pragma unroll
+          for (int e = 0; e < VW; ++e)
+            acc[a * VW + e] = fmaf(ds, kf[e], acc[a * VW + e]);
         }
       }
     }
+    if (i < Tn) store_lane<T, VW, NVL>(dq + off + i * C, D, g, acc, scale,
+                                       false);
   }
 
+  // ---- dk_j, dv_j of key row j = i over the queries whose band holds it
+  {
+    const bool keep = i < Tn && mrow[i] != 0;   // masked keys get 0
+    float kj[NCH], vj[NCH], dka[NCH], dva[NCH];
+    if (one) {
+      load_lane<T, VW, NVL>(Ks + (lr + w) * L::LDS, L::DP, g, scale, kj);
+      load_lane<T, VW, NVL>(Vs + (lr + w) * L::LDS, L::DP, g, 1.f, vj);
+    } else {
+      load_lane<T, VW, NVL>(i < Tn ? k + off + i * C : nullptr, D, g, scale,
+                            kj);
+      load_lane<T, VW, NVL>(i < Tn ? v + off + i * C : nullptr, D, g, 1.f,
+                            vj);
+    }
 #pragma unroll
-  for (int s = 0; s < ROWS; ++s) {
-    const int j = j0 + warp * ROWS + s;
-    if (j >= Tn) continue;
-    const long long off = (base + j) * C + h * D;
-    const float keep = kok[s] ? 1.f : 0.f;   // masked keys get no gradient
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) {
-        dk[off + d] = vilco::from_f32<T>(dka[s][c] * keep);
-        dv[off + d] = vilco::from_f32<T>(dva[s][c] * keep);
+    for (int c = 0; c < NCH; ++c) dka[c] = dva[c] = 0.f;
+
+    // pass jb: slots jb .. jb + ns - 1, query j - w + slot = staged lr + slot
+    for (int jb = 0; jb < nslot; jb += NS) {
+      const int ns = min(NS, nslot - jb), n = BT + ns - 1,
+                row0 = t0 - w + jb;
+      if (!one) {
+        if (row0 + n <= 0 || row0 >= Tn) continue;   // block-uniform
+        __syncthreads();
+        stage_queries(row0, n);
+        cp_async_wait_all();
+        __syncthreads();
       }
+      for (int j = 0; j < ns; ++j) {
+        const int r = lr + j;
+        const T* qr = Qs + r * L::LDS;
+        const T* gr = Gs + r * L::LDS;
+        Raw<T, VW> qraw[NVL], graw[NVL];
+        float sd = 0.f, pd = 0.f;
+#pragma unroll
+        for (int a = 0; a < NVL; ++a) {
+          float qf[VW], gf[VW];
+          qraw[a] = ldv<T, VW>(qr + (a * G + g) * VW);
+          graw[a] = ldv<T, VW>(gr + (a * G + g) * VW);
+          unpack<T, VW>(qraw[a], qf);
+          unpack<T, VW>(graw[a], gf);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            sd = fmaf(kj[a * VW + e], qf[e], sd);
+            pd = fmaf(vj[a * VW + e], gf[e], pd);
+          }
+        }
+        sd = group_sum(sd);
+        pd = group_sum(pd);
+        const float p = expf((keep ? sd : NEG_INF_BIAS) - ls[r]);
+        const float ds = p * (pd - dl[r]);
+#pragma unroll
+        for (int a = 0; a < NVL; ++a) {
+          float qf[VW], gf[VW];
+          unpack<T, VW>(qraw[a], qf);
+          unpack<T, VW>(graw[a], gf);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            dka[a * VW + e] = fmaf(ds, qf[e], dka[a * VW + e]);
+            dva[a * VW + e] = fmaf(p, gf[e], dva[a * VW + e]);
+          }
+        }
+      }
+    }
+    if (i < Tn) {
+      store_lane<T, VW, NVL>(dk + off + i * C, D, g, dka, scale, !keep);
+      store_lane<T, VW, NVL>(dv + off + i * C, D, g, dva, 1.f, !keep);
     }
   }
 }
@@ -389,64 +575,85 @@ banded_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 struct Args {
   const void *q, *k, *v, *mask, *out, *dout, *lse;
-  void *o0, *o1, *lse_out;
+  void *o0, *o1, *o2, *lse_out;
   int B, T, H, D, w;
 };
 
-template <typename Kern>
-cudaError_t prepare(Kern kern, size_t smem) {
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <typename T, int NC>
-cudaError_t launch(int which, const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NC>();
-  const dim3 grid((a.T + BT - 1) / BT, a.H, a.B);
+template <typename T, int VW, int NVL>
+cudaError_t launch(bool fwd, const Args& a, cudaStream_t stream) {
+  using L = Lay<T, VW, NVL>;
   const float scale = 1.f / sqrtf((float)a.D);
   cudaError_t e;
-  if (which == 0) {
-    auto kern = banded_fwd_kernel<T, NC>;
-    if ((e = prepare(kern, smem)) != cudaSuccess) return e;
-    kern<<<grid, THREADS, smem, stream>>>(
+  if (fwd) {
+    using K = FwdBlk;
+    const size_t smem = 2 * (size_t)K::SROWS * L::LDS * sizeof(T) + K::SROWS;
+    const dim3 grid((a.T + K::BT - 1) / K::BT, a.H, a.B);
+    auto kern = banded_fwd_kernel<T, VW, NVL>;
+    if ((e = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess)
+      return e;
+    kern<<<grid, K::THREADS, smem, stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const uint8_t*)a.mask,
         (T*)a.o0, (float*)a.lse_out, a.T, a.H, a.D, a.w, scale);
-  } else if (which == 1) {
-    auto kern = banded_dq_kernel<T, NC>;
-    if ((e = prepare(kern, smem)) != cudaSuccess) return e;
-    kern<<<grid, THREADS, smem, stream>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const uint8_t*)a.mask,
-        (const T*)a.out, (const T*)a.dout, (const float*)a.lse, (T*)a.o0,
-        a.T, a.H, a.D, a.w, scale);
   } else {
-    auto kern = banded_dkv_kernel<T, NC>;
-    if ((e = prepare(kern, smem)) != cudaSuccess) return e;
-    kern<<<grid, THREADS, smem, stream>>>(
+    using K = BwdBlk;
+    const size_t smem = 4 * (size_t)K::SROWS * L::LDS * sizeof(T) +
+                        2 * K::SROWS * sizeof(float) + K::SROWS;
+    const dim3 grid((a.T + K::BT - 1) / K::BT, a.H, a.B);
+    auto kern = banded_bwd_kernel<T, VW, NVL>;
+    if ((e = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess)
+      return e;
+    kern<<<grid, K::THREADS, smem, stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const uint8_t*)a.mask,
         (const T*)a.out, (const T*)a.dout, (const float*)a.lse, (T*)a.o0,
-        (T*)a.o1, a.T, a.H, a.D, a.w, scale);
+        (T*)a.o1, (T*)a.o2, a.T, a.H, a.D, a.w, scale);
   }
   return cudaGetLastError();
 }
 
+// The 16-byte instantiation where D is a multiple of the vector and every
+// pointer is 16-byte aligned, else the scalar one; NVL rounded up to an
+// instantiated count (padded channels are zero).
 template <typename T>
-cudaError_t dispatch(int which, const Args& a, cudaStream_t s) {
-  switch ((a.D + 31) / 32) {
-    case 1: return launch<T, 1>(which, a, s);
-    case 2: return launch<T, 2>(which, a, s);
-    case 3: return launch<T, 3>(which, a, s);
-    case 4: return launch<T, 4>(which, a, s);
+cudaError_t dispatch(bool fwd, const Args& a, bool aligned, cudaStream_t s) {
+  constexpr int VW = 16 / sizeof(T);
+  if (aligned && a.D % VW == 0) {
+    const int nvl = (a.D / VW + G - 1) / G;
+    if (nvl <= 1) return launch<T, VW, 1>(fwd, a, s);
+    if (nvl <= 2) return launch<T, VW, 2>(fwd, a, s);
+    if (nvl <= 3) return launch<T, VW, 3>(fwd, a, s);
+    if (nvl <= 4) return launch<T, VW, 4>(fwd, a, s);
+    if constexpr (VW == 4) {       // f32: D up to 128 is 8 accesses a lane
+      if (nvl <= 6) return launch<T, VW, 6>(fwd, a, s);
+      return launch<T, VW, 8>(fwd, a, s);
+    }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
+  const int nvl = (a.D + G - 1) / G;
+  if (nvl <= 2) return launch<T, 1, 2>(fwd, a, s);
+  if (nvl <= 8) return launch<T, 1, 8>(fwd, a, s);
+  if (nvl <= 16) return launch<T, 1, 16>(fwd, a, s);
+  return launch<T, 1, 32>(fwd, a, s);
 }
 
-int run(int which, const Args& a, int dtype, void* stream) {
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return false;
+  return true;
+}
+
+int run(bool fwd, const Args& a, int dtype, void* stream) {
   if (a.D < 1 || a.D > 128 || a.B < 1 || a.T < 1 || a.H < 1 || a.w < 1 ||
       a.B > 65535 || a.H > 65535)
     return (int)cudaErrorInvalidValue;
+  const bool al = aligned16({a.q, a.k, a.v, a.out, a.dout, a.o0, a.o1, a.o2});
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)dispatch<float>(which, a, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(which, a, s);
+  if (dtype == 0) return (int)dispatch<float>(fwd, a, al, s);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(fwd, a, al, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -459,30 +666,19 @@ extern "C" int banded_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* mask,
                                     void* out, void* lse, int B, int T, int H,
                                     int D, int w, int dtype, void* stream) {
-  Args a{q, k, v, mask, nullptr, nullptr, nullptr, out, nullptr, lse,
-         B, T, H, D, w};
-  return run(0, a, dtype, stream);
+  Args a{q, k, v, mask, nullptr, nullptr, nullptr, out, nullptr, nullptr,
+         lse, B, T, H, D, w};
+  return run(true, a, dtype, stream);
 }
 
-// dq (B, T, H*D) in dtype from the forward's out and lse and the output
-// gradient dout (B, T, H*D).
-extern "C" int banded_attention_dq(const void* q, const void* k,
-                                   const void* v, const void* mask,
-                                   const void* out, const void* dout,
-                                   const void* lse, void* dq, int B, int T,
-                                   int H, int D, int w, int dtype,
-                                   void* stream) {
-  Args a{q, k, v, mask, out, dout, lse, dq, nullptr, nullptr, B, T, H, D, w};
-  return run(1, a, dtype, stream);
-}
-
-// dk, dv (B, T, H*D) in dtype, blocked over keys.
-extern "C" int banded_attention_dkv(const void* q, const void* k,
+// dq, dk, dv (B, T, H*D) in dtype, one launch, from the forward's out and
+// lse and the output gradient dout (B, T, H*D).
+extern "C" int banded_attention_bwd(const void* q, const void* k,
                                     const void* v, const void* mask,
                                     const void* out, const void* dout,
-                                    const void* lse, void* dk, void* dv,
-                                    int B, int T, int H, int D, int w,
-                                    int dtype, void* stream) {
-  Args a{q, k, v, mask, out, dout, lse, dk, dv, nullptr, B, T, H, D, w};
-  return run(2, a, dtype, stream);
+                                    const void* lse, void* dq, void* dk,
+                                    void* dv, int B, int T, int H, int D,
+                                    int w, int dtype, void* stream) {
+  Args a{q, k, v, mask, out, dout, lse, dq, dk, dv, nullptr, B, T, H, D, w};
+  return run(false, a, dtype, stream);
 }
