@@ -90,13 +90,18 @@ fallback):
                    label smoothing 0.1, FusedAdamW over 467 leaves): ms
                    split, losses, peak memory, launches, one profiled step
  16. vq_kernels    the VQ flagship's kernels against their plain versions,
-                   bf16 and f32: the frame-banded attention forward at
-                   batch 8 and 16 and its backward (delta, dk/dv and dq,
-                   K1's passes in band mode) at batch 16 (30 frames of 64
-                   tokens, 8 heads of 32, +-2 frames; SDPA with the (L, L)
-                   band mask as the library call), and at the edges (the
-                   band wider than the clip, odd fr, one frame, a frame
-                   longer than a tile); the backward against its plain
+                   bf16 and f32: the frame-banded attention forward (K1's
+                   forward in band mode) at batch 8 and 16 and its
+                   backward (delta, dk/dv and dq, K1's passes in band
+                   mode) at batch 16 (30 frames of 64 tokens, 8 heads of
+                   32, +-2 frames; SDPA with the (L, L) band mask as the
+                   library call), and at the edges (the band wider than
+                   the clip, odd fr, one frame, a frame longer than a
+                   tile); the forward's out and lse against the plain
+                   versions, called twice for equal bits, timed queued
+                   behind a device sleep and by events, its bf16 ms
+                   summed over a VQ request's and an HNM step's calls;
+                   the backward against its plain
                    passes and autograd through the plain forward, called
                    twice for equal bits, timed queued behind a device
                    sleep (its three launches take longer on the host than
@@ -1617,6 +1622,18 @@ def frame_band_work(B, L, C, H, fr, w, dtype, which):
     return 10 * C * pairs + 2 * B * L * C, 8 * rows + 4 * B * H * L
 
 
+def say_k6_sums(tag: str, fwd_ms: dict, calls: int) -> None:
+    """K6's bf16 forward summed over a VQ request's calls (one per
+    spatio-temporal layer at the serving chunk, batch 8) and an HNM step's
+    (at its 16 pairs); fwd_ms[B] = (ms queued behind a sleep, bound ms)."""
+    for what, B in (("request", min(VQ_K6_BATCHES)),
+                    ("HNM step", max(VQ_K6_BATCHES))):
+        ms, bms = (calls * x for x in fwd_ms[B])
+        say(f"[{tag}] K6's forward over a VQ {what}'s {calls} calls, bf16 "
+            f"batch {B}: {ms:.4f} ms on the card (queued behind a sleep), "
+            f"bound {bms:.4f} ms, time - bound {ms - bms:.4f} ms [{CARD}]")
+
+
 def frame_band_mask(L: int, fr: int, w: int, dev):
     """(L, L) bool, True in the band: SDPA's mask for the same function."""
     f = torch.arange(L, device=dev) // fr
@@ -1642,6 +1659,7 @@ def phase_vq_kernels(dev):
         frame_band_bwd_cuda,
         frame_band_bwd_plain,
         frame_band_fwd_cuda,
+        frame_band_lse_plain,
     )
     from vilco_tpu_torch.kernels.mlp import (
         fused_mlp,
@@ -1671,6 +1689,7 @@ def phase_vq_kernels(dev):
     cases = ([(B, T, fr, w, H, C // H) for B in VQ_K6_BATCHES]
              + [(2, 3, fr, w, H, C // H), (2, 9, 7, w, 3, 24),
                 (2, 1, fr, w, H, C // H), (2, 4, 100, 1, 2, 128)])
+    fwd_ms = {}
     for dtype in (bf16, f32):
         for B, nf, f_, w_, H_, D_ in cases:
             L, C_ = nf * f_, H_ * D_
@@ -1690,19 +1709,30 @@ def phase_vq_kernels(dev):
             sdpa = lambda a, b, c: F.scaled_dot_product_attention(
                 bh(a), bh(b), bh(c), attn_mask=bm)
             flagship = (nf, f_) == (T, fr)
-            report("fb_fwd", f"frame_band forward {label}", dtype,
-                   output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
-                   lambda: frame_band_fwd_cuda(q, k, v, H_, f_, w_, False),
-                   lambda: frame_band_attention_plain(q, k, v, H_, f_, w_),
-                   frame_band_work(B, L, C_, H_, f_, w_, dtype, "fwd"),
-                   lambda: sdpa(q, k, v),
-                   is_top=dtype == bf16 and flagship and B == 8)
+            # the forward: its out, and its lse (f32 in both dtypes) against
+            # the plain two-pass one; two calls give equal bits
+            o, lse = frame_band_fwd_cuda(q, k, v, H_, f_, w_, True)
+            check_repeatable("vq_kernels", f"frame_band forward {label} "
+                             f"{str(dtype)[6:]}", lambda: frame_band_fwd_cuda(
+                                 q, k, v, H_, f_, w_, True))
+            ms = report(
+                "fb_fwd", f"frame_band forward {label}", dtype,
+                output_errors(("out", "lse"), [out, lse], [
+                    ref, frame_band_lse_plain(q, k, H_, f_, w_)],
+                    FWD_TOL[dtype]),
+                lambda: frame_band_fwd_cuda(q, k, v, H_, f_, w_, False),
+                lambda: frame_band_attention_plain(q, k, v, H_, f_, w_),
+                frame_band_work(B, L, C_, H_, f_, w_, dtype, "fwd"),
+                lambda: sdpa(q, k, v),
+                is_top=dtype == bf16 and flagship and B == 8,
+                also_queued=True)
+            if dtype == bf16 and flagship:
+                fwd_ms[B] = ms
             if flagship and B != max(VQ_K6_BATCHES):
                 continue          # the backward at the HNM batch only
             # the backward's three passes (delta, dk/dv, dq) on the
             # forward's out and lse, against their plain version and
             # against autograd through the plain forward
-            o, lse = frame_band_fwd_cuda(q, k, v, H_, f_, w_, True)
             kern = lambda: frame_band_bwd_cuda(q, k, v, o, lse, g, H_, f_,
                                                w_)
             plain = lambda: frame_band_bwd_plain(q, k, v, o, lse, g, H_, f_,
@@ -1725,6 +1755,7 @@ def phase_vq_kernels(dev):
                             for n, t in passes.items()) + f" [{CARD}]")
             del q, k, v, g, out, ref, got, want, o, lse, bm
         torch.cuda.empty_cache()
+    say_k6_sums("vq_kernels", fwd_ms, cfg.num_transformer)
 
     # K7 at the ViT-B MLP: the two ViT calls of a serving request (the
     # eval_windows x num_frames clip frames and the eval_windows query
@@ -2599,7 +2630,7 @@ def attention_ablations(dev, mq):
 
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
-                               "dwconv_qkv", "adamw_kernel", "banded_", "fb_",
+                               "dwconv_qkv", "adamw_kernel", "banded_",
                                "mlp_wgmma", "mlp_simt")):
         return "port kernels"
     if "conv" in name or "cudnn" in name:
@@ -2803,7 +2834,7 @@ def main():
         ("banded_bwd_cuda", "vilco_tpu_torch/csrc/banded_attention.cu",
          "vilco_tpu/kernels/banded_attention.py:308", nerrs["band_bwd"],
          ntop["band_bwd"], nlq_train["banded_bwd_cuda"]),
-        ("frame_band_attention", "vilco_tpu_torch/csrc/frame_band.cu",
+        ("frame_band_attention", "vilco_tpu_torch/csrc/attention_blc.cu",
          "vilco_tpu/kernels/frame_band.py:248", verrs["fb_fwd"],
          vtop["fb_fwd"], vq_serve["frame_band_attention"]),
         ("frame_band_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc_bwd.cu",

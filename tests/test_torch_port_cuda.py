@@ -7,8 +7,9 @@ its one backward launch, two calls bitwise equal) also at the NLQ head dim
 96, the edges of their row tiles, windows at and past the unroll cap,
 the band wider than T, and a head dim that takes the scalar loads; the
 frame-banded kernels at the VQ shape (fr 64, w 2, 8 heads of 32), odd fr,
-frames longer than a tile and bands wider than the clip, the backward's
-passes against their plain version, two calls bitwise equal; the fused MLP at
+frames longer than a tile and bands wider than the clip, the forward's lse
+element by element, the backward's passes against their plain version, two
+calls of each bitwise equal; the fused MLP at
 the tiny twin's, a middle and the ViT-B width, up to the ViT's query call;
 two K1f backward calls bitwise equal; K2-bwd's passes against their plain
 version, two calls bitwise equal at dropout rate 0 and 0.1; K2's forward
@@ -436,13 +437,17 @@ def test_adamw_kernel_matches_plain_on_card(cuda, mdt):
     (3, 100, 1, 2, 128), (6, 8, 1, 2, 64), (1, 64, 2, 8, 8)])
 def test_frame_band_kernels_match_plain_on_card(cuda, dtype, tol, n_frames,
                                                 fr, w, H, D):
-    """K6 forward and backward against the plain versions (autograd through
-    the plain forward, and the plain backward passes on the kernel's own
-    out and lse); two backward calls give equal bits (no atomics). Tolerance
-    relative to each output's largest reference value: f32 1e-4 (summation
-    order, an online softmax against a two-pass one); bf16 2e-2 (inputs
-    and outputs rounded, P rounded before P V, P and dS before their
-    products, the backward reading the bf16 forward output)."""
+    """K6 forward (the band mode of K1's forward) and backward against the
+    plain versions (autograd through the plain forward, the plain walk
+    `frame_band_fwd_plain`, and the plain backward passes on the kernel's
+    own out and lse); the lse element by element against
+    `frame_band_lse_plain` within 1e-4 + 1e-5 |lse| (f32 from the same
+    inputs in both dtypes: the summation order of the dots and of l); two
+    forward calls and two backward calls give equal bits (no atomics).
+    Tolerance relative to each output's largest reference value: f32 1e-4
+    (summation order, an online softmax against a two-pass one); bf16 2e-2
+    (inputs and outputs rounded, P rounded before P V, P and dS before
+    their products, the backward reading the bf16 forward output)."""
     rng = np.random.default_rng(300 + n_frames * fr + w)
     rn = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
@@ -458,6 +463,12 @@ def test_frame_band_kernels_match_plain_on_card(cuda, dtype, tol, n_frames,
                   (q, k, v), g)
     _close(got, want, tol, "frame band backward")
     o, lse = fb.frame_band_fwd_cuda(q, k, v, H, fr, w, True)
+    o2, lse2 = fb.frame_band_fwd_cuda(q, k, v, H, fr, w, True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _close([o], [fb.frame_band_fwd_plain(q, k, v, H, fr, w)[0]], tol,
+           "frame band forward against the plain walk")
+    torch.testing.assert_close(lse, fb.frame_band_lse_plain(q, k, H, fr, w),
+                               rtol=1e-5, atol=1e-4)
     first = fb.frame_band_bwd_cuda(q, k, v, o, lse, g, H, fr, w)
     second = fb.frame_band_bwd_cuda(q, k, v, o, lse, g, H, fr, w)
     assert all(torch.equal(a, b) for a, b in zip(first, second))

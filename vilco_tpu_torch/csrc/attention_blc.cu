@@ -30,6 +30,28 @@
 // lse: m + log2 l rounds to m at m = FLASH_MASK, losing the 1 / Tk the
 // backward needs).
 //
+// Band mode (a template switch; K6) replaces
+// vilco_tpu/kernels/frame_band.py::frame_band_attention's forward (the
+// Pallas _fwd_kernel run by _forward; its backward is the band mode of
+// csrc/attention_blc_bwd.cu, which reads the lse stored here), on
+// channels-last q/k/v (B, L, H * D) with no mask. L = n_frames * fr tokens
+// in frames of fr; token i sees every token of the frames within +-w of its
+// own, inside [0, n_frames) (attention_blc.cuh::Band):
+//   s_ij = (q_i . k_j) * scale * log2 e  in the band, -inf elsewhere
+// (before the row max), then K1's floor, sum and lse. Every row sees its
+// own frame, so l >= 1 and K1's 1e-30 changes no bit of 1 / l or of lse.
+// A block walks only the key tiles of its rows' window of frames, not 0 to
+// Tk: at the VQ flagship (fr 64, w 2, 8 heads of 32, L 1920) a 128-row
+// block is two frames and walks 6 key tiles, not 30. Where a tile pair is
+// covered (Band::covers: every row sees every key) there is no element
+// test; elsewhere each score is tested against its row's range
+// (Band::range). A warp skips a key tile that no row of its own sees (at
+// fr 64 each warp's 32 rows lie in one frame: one tile of the 6), which
+// leaves m, l and o as an all -inf tile would. What bounds it: the band
+// makes the attention block-dense at ~29 operations a byte at the
+// flagship, far under the ~295 where the tensor cores would limit, so the
+// staging of q, k and v and the latency of the short walk.
+//
 // The forward also carries the two switches of the VQ attention probe
 // (tools/probe_vq_attn.py::run_variant, P2), as template parameters whose
 // defaults compile to the plain K1 forward:
@@ -66,7 +88,10 @@
 //  - float32 (the parity path; TF32 would not be f32): SIMT, one thread per
 //    query row holding q and the output in registers, key tiles of 32 read
 //    as shared-memory broadcasts. Bound by FMA issue (2 * D FMAs per score).
-// Every Tq, Tk >= 1 and D <= 128 is taken. When asked, the forward also
+//    Band mode pads D to 32, 64 or 128 (32, the VQ encoder's head width,
+//    where 64 would double the work).
+// Every Tq, Tk >= 1 and D <= 128 is taken; in band mode every n_frames,
+// fr >= 1 and w >= 0. When asked, the forward also
 // stores lse = m + log2(l + 1e-30) per (batch, head, query row), the row's
 // log-sum-exp in the log2 domain; a fully masked row gets -1e8 - 99.7, so
 // exp2(s - lse) is 0 there in the backward too.
@@ -116,14 +141,16 @@ __device__ float key_norm2_max(const T* __restrict__ k, Strides sk, int b,
   return all;
 }
 
-template <typename T, int DPAD, bool BOUND_SHIFT, bool FLASH>
+template <typename T, int DPAD, bool BOUND_SHIFT, Mode M>
 __global__ void __launch_bounds__(BQ)
 attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const uint8_t* __restrict__ mask,
                           T* __restrict__ out, float* __restrict__ lse,
                           float* __restrict__ lsum, int Tq, int Tk, int D,
-                          Strides sq, Strides sk, float scale_log2) {
+                          Strides sq, Strides sk, float scale_log2,
+                          Band band) {
+  constexpr bool FLASH = M == Mode::Flash, BAND = M == Mode::FrameBand;
   __shared__ __align__(16) float ks[BK][DPAD];
   __shared__ __align__(16) float vs[BK][DPAD];
   __shared__ float bias[BK];
@@ -147,13 +174,22 @@ attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < DPAD; ++d) qn2 = fmaf(qr[d], qr[d], qn2);
     m = sqrtf(qn2) * sqrtf(key_norm2_max<T, BQ>(k, sk, b, h, Tk, D, red));
   }
-  const uint8_t* mp = mask + (long long)b * Tk;
+  const uint8_t* mp = BAND ? nullptr : mask + (long long)b * Tk;
+  // the keys [j_begin, j_end) the block walks: all, or in band mode its
+  // rows' window, with this row's own range (none past Tq)
+  int j_begin = 0, j_end = Tk;
+  int2 win = make_int2(0, 0);
+  if constexpr (BAND) {
+    const int r0 = blockIdx.x * BQ;
+    band.window(r0, min(Tq, r0 + BQ) - 1, j_begin, j_end);
+    win = band.range(row);
+  }
 
-  for (int j0 = 0; j0 < Tk; j0 += BK) {
+  for (int j0 = j_begin; j0 < j_end; j0 += BK) {
     for (int e = threadIdx.x; e < BK * DPAD; e += BQ) {
       const int jj = e / DPAD, d = e % DPAD, j = j0 + jj;
       float kv = 0.f, vv = 0.f;
-      if (j < Tk && d < D) {
+      if (j < j_end && d < D) {
         const long long off = sk.at(b, j, h) + d;
         kv = vilco::to_f32<T>(k[off]);
         vv = vilco::to_f32<T>(v[off]);
@@ -161,8 +197,9 @@ attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ks[jj][d] = kv;
       vs[jj][d] = vv;
     }
-    for (int jj = threadIdx.x; jj < BK; jj += BQ)
-      bias[jj] = key_bias<FLASH>(mp, j0 + jj, Tk);
+    if constexpr (!BAND)
+      for (int jj = threadIdx.x; jj < BK; jj += BQ)
+        bias[jj] = key_bias<FLASH>(mp, j0 + jj, Tk);
     __syncthreads();
 
     float s[BK];
@@ -178,12 +215,13 @@ attention_blc_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc = fmaf(qr[d + 2], kk.z, acc);
         acc = fmaf(qr[d + 3], kk.w, acc);
       }
-      s[jj] = acc + bias[jj];
+      s[jj] = BAND ? keep_in(win, j0 + jj, acc, -INFINITY) : acc + bias[jj];
       tmax = fmaxf(tmax, s[jj]);
     }
     if constexpr (!BOUND_SHIFT) {   // with the fixed shift, nothing rescales
       // (flash: m_new is finite, the tile having a key < Tk; alpha is 0 on
-      // the first tile)
+      // the first tile; band mode: a tile out of the row's band has tmax
+      // -inf, so alpha 1 and every p 0)
       const float m_new = fmaxf(m, tmax);
       const float alpha = exp2f(m - m_new);
       l *= alpha;
@@ -243,14 +281,16 @@ struct FwdLayout {
   static constexpr int BYTES = B_OFF + 2 * BK * 4;
 };
 
-template <int DPAD, bool BOUND_SHIFT, bool MXU_SUM, bool FLASH>
+template <int DPAD, bool BOUND_SHIFT, bool MXU_SUM, Mode M>
 __global__ void __launch_bounds__(128)
 attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const uint8_t* __restrict__ mask,
                         bf16* __restrict__ out, float* __restrict__ lse,
                         float* __restrict__ lsum, int Tq, int Tk, int D,
-                        Strides sq, Strides sk, float scale_log2, bool vec) {
+                        Strides sq, Strides sk, float scale_log2, bool vec,
+                        Band band) {
+  constexpr bool FLASH = M == Mode::Flash, BAND = M == Mode::FrameBand;
   using L = FwdLayout<DPAD>;
   constexpr int MS = L::MS;
   constexpr int NS = L::BK / 8;   // n8 tiles of S (keys)
@@ -266,17 +306,25 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int w0 = warp * 16 * MS;   // this warp's first row in the tile
-  const uint8_t* mp = mask + (long long)b * Tk;
-  const int ntiles = (Tk + L::BK - 1) / L::BK;
+  const uint8_t* mp = BAND ? nullptr : mask + (long long)b * Tk;
+  // the keys [j_begin, j_end) the block walks: all, or in band mode its
+  // rows' window (no bias: keys past j_end are staged as zeros and fail
+  // the element test)
+  int j_begin = 0, j_end = Tk;
+  if constexpr (BAND)
+    band.window(q0, min(Tq, q0 + L::BQ) - 1, j_begin, j_end);
+  const int ntiles = (j_end - j_begin + L::BK - 1) / L::BK;
 
   auto stage_kv = [&](int t) {
-    const int j0 = t * L::BK, s = t & 1, nk = min(L::BK, Tk - j0);
+    const int j0 = j_begin + t * L::BK, s = t & 1;
+    const int nk = min(L::BK, j_end - j0);
     stage_tile<L::BK, DPAD, L::LD, L::THREADS>(
         ks + s * L::TILE, k + sk.at(b, j0, h), sk.st, nk, D, vec);
     stage_tile<L::BK, DPAD, L::LD, L::THREADS>(
         vs + s * L::TILE, v + sk.at(b, j0, h), sk.st, nk, D, vec);
-    for (int jj = tid; jj < L::BK; jj += L::THREADS)
-      bias[s * L::BK + jj] = key_bias<FLASH>(mp, j0 + jj, Tk);
+    if constexpr (!BAND)
+      for (int jj = tid; jj < L::BK; jj += L::THREADS)
+        bias[s * L::BK + jj] = key_bias<FLASH>(mp, j0 + jj, Tk);
     cp_async_commit();
   };
 
@@ -295,6 +343,20 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if constexpr (BOUND_SHIFT) {
     __shared__ float red[L::THREADS / 32];
     kn2 = key_norm2_max<bf16, L::THREADS>(k, sk, b, h, Tk, D, red);
+  }
+  // band mode: this warp's rows r0 .. r1 (none past Tq), the keys [wlo,
+  // whi) they reach together (none if the warp has no row), and the range
+  // each of this lane's rows sees
+  int r0 = 0, r1 = -1, wlo = 0, whi = 0;
+  int2 kwin[MS][2];
+  if constexpr (BAND) {
+    r0 = q0 + w0, r1 = min(Tq, r0 + 16 * MS) - 1;
+    if (r0 <= r1) band.window(r0, r1, wlo, whi);
+#pragma unroll
+    for (int ms = 0; ms < MS; ++ms)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        kwin[ms][r] = band.range(r0 + 16 * ms + g + 8 * r);
   }
   uint32_t qf[MS][KD][4];
   float o[MS][NO][4];
@@ -338,107 +400,136 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* kt = ks + (t & 1) * L::TILE;
     const bf16* vt = vs + (t & 1) * L::TILE;
     const float* bt = bias + (t & 1) * L::BK;
-
-    // S (this warp's MS x 16 rows x 64 keys) = Q K^T, in registers; each K
-    // fragment feeds every strip
-    float s[MS][NS][4];
-#pragma unroll
-    for (int ms = 0; ms < MS; ++ms)
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-        s[ms][n][0] = s[ms][n][1] = s[ms][n][2] = s[ms][n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t kb[4];
-        load_bt(kb, kt, L::LD, np * 16, kk * 16, lane);
-#pragma unroll
-        for (int ms = 0; ms < MS; ++ms) {
-          mma16816(s[ms][2 * np], qf[ms][kk], kb[0], kb[1]);
-          mma16816(s[ms][2 * np + 1], qf[ms][kk], kb[2], kb[3]);
-        }
-      }
-
-    uint32_t pf[MS][NS / 2][4];
-#pragma unroll
-    for (int ms = 0; ms < MS; ++ms) {
-      // online softmax: scale, bias, the quad's row max with the floor (or
-      // the fixed shift)
-      float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const float2 bb =
-            *reinterpret_cast<const float2*>(bt + n * 8 + 2 * t4);
-        float* x = s[ms][n];
-        x[0] = x[0] * scale_log2 + bb.x;
-        x[1] = x[1] * scale_log2 + bb.y;
-        x[2] = x[2] * scale_log2 + bb.x;
-        x[3] = x[3] * scale_log2 + bb.y;
-        tmax[0] = fmaxf(tmax[0], fmaxf(x[0], x[1]));
-        tmax[1] = fmaxf(tmax[1], fmaxf(x[2], x[3]));
-      }
-      float alpha[2] = {1.f, 1.f};
-      if constexpr (!BOUND_SHIFT) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-          tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-          const float m_new = fmaxf(m[ms][r], tmax[r]);
-          alpha[r] = exp2f(m[ms][r] - m_new);
-          m[ms][r] = m_new;
-        }
-      }
-      // P = exp2(s - m), rounded to bf16 A fragments; the sum from the f32
-      // values (this lane's share; the quad is summed once at the end)
-      float psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const float* x = s[ms][n];
-        const float p0 = exp2f(x[0] - m[ms][0]), p1 = exp2f(x[1] - m[ms][0]);
-        const float p2 = exp2f(x[2] - m[ms][1]), p3 = exp2f(x[3] - m[ms][1]);
-        psum[0] += p0 + p1;
-        psum[1] += p2 + p3;
-        pf[ms][n / 2][(n & 1) * 2] = pack2(p0, p1);
-        pf[ms][n / 2][(n & 1) * 2 + 1] = pack2(p2, p3);
-      }
-      if constexpr (MXU_SUM) {
-        // the rows of the bf16 P tile times ones: every column of the
-        // product is the row sum (the whole row's, not this lane's share)
-        const uint32_t one = pack2(1.f, 1.f);
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < NS / 2; ++kk)
-          mma16816(acc, pf[ms][kk], one, one);
-        l[ms][0] = l[ms][0] * alpha[0] + acc[0];
-        l[ms][1] = l[ms][1] * alpha[1] + acc[2];
-      } else {
-        l[ms][0] = l[ms][0] * alpha[0] + psum[0];
-        l[ms][1] = l[ms][1] * alpha[1] + psum[1];
-      }
-      if constexpr (!BOUND_SHIFT) {
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          o[ms][n][0] *= alpha[0];
-          o[ms][n][1] *= alpha[0];
-          o[ms][n][2] *= alpha[1];
-          o[ms][n][3] *= alpha[1];
-        }
-      }
+    // band mode: a tile no row of this warp sees is skipped (every score
+    // -inf would leave m, l and o as they are); the element test where an
+    // edge of the band crosses this warp's rows' pair with the tile (keys
+    // past j_end, staged as zeros, need it too)
+    const int j0 = j_begin + t * L::BK;
+    bool run = true, test = false;
+    if constexpr (BAND) {
+      run = j0 < whi && j0 + L::BK > wlo;
+      test = !band.covers(r0, r1, j0, j0 + L::BK);
     }
-    // O += P V, V through ldmatrix.trans; each V fragment feeds every strip
+    if (run) {
+      // S (this warp's MS x 16 rows x 64 keys) = Q K^T, in registers; each
+      // K fragment feeds every strip
+      float s[MS][NS][4];
 #pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk)
+      for (int ms = 0; ms < MS; ++ms)
 #pragma unroll
-      for (int dp = 0; dp < NO / 2; ++dp) {
-        uint32_t vb[4];
-        load_b(vb, vt, L::LD, kk * 16, dp * 16, lane);
+        for (int n = 0; n < NS; ++n)
+          s[ms][n][0] = s[ms][n][1] = s[ms][n][2] = s[ms][n][3] = 0.f;
 #pragma unroll
-        for (int ms = 0; ms < MS; ++ms) {
-          mma16816(o[ms][2 * dp], pf[ms][kk], vb[0], vb[1]);
-          mma16816(o[ms][2 * dp + 1], pf[ms][kk], vb[2], vb[3]);
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t kb[4];
+          load_bt(kb, kt, L::LD, np * 16, kk * 16, lane);
+#pragma unroll
+          for (int ms = 0; ms < MS; ++ms) {
+            mma16816(s[ms][2 * np], qf[ms][kk], kb[0], kb[1]);
+            mma16816(s[ms][2 * np + 1], qf[ms][kk], kb[2], kb[3]);
+          }
+        }
+
+      uint32_t pf[MS][NS / 2][4];
+#pragma unroll
+      for (int ms = 0; ms < MS; ++ms) {
+        // online softmax: scale, bias, the quad's row max with the floor
+        // (or the fixed shift)
+        float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          float* x = s[ms][n];
+          if constexpr (BAND) {   // -inf out of the row's band
+            x[0] *= scale_log2, x[1] *= scale_log2;
+            x[2] *= scale_log2, x[3] *= scale_log2;
+            if (test) {
+              const int j = j0 + n * 8 + 2 * t4;
+              const int2 w0r = kwin[ms][0], w1r = kwin[ms][1];
+              x[0] = keep_in(w0r, j, x[0], -INFINITY);
+              x[1] = keep_in(w0r, j + 1, x[1], -INFINITY);
+              x[2] = keep_in(w1r, j, x[2], -INFINITY);
+              x[3] = keep_in(w1r, j + 1, x[3], -INFINITY);
+            }
+          } else {
+            const float2 bb =
+                *reinterpret_cast<const float2*>(bt + n * 8 + 2 * t4);
+            x[0] = x[0] * scale_log2 + bb.x;
+            x[1] = x[1] * scale_log2 + bb.y;
+            x[2] = x[2] * scale_log2 + bb.x;
+            x[3] = x[3] * scale_log2 + bb.y;
+          }
+          tmax[0] = fmaxf(tmax[0], fmaxf(x[0], x[1]));
+          tmax[1] = fmaxf(tmax[1], fmaxf(x[2], x[3]));
+        }
+        float alpha[2] = {1.f, 1.f};
+        if constexpr (!BOUND_SHIFT) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            tmax[r] =
+                fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+            tmax[r] =
+                fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+            const float m_new = fmaxf(m[ms][r], tmax[r]);
+            alpha[r] = exp2f(m[ms][r] - m_new);
+            m[ms][r] = m_new;
+          }
+        }
+        // P = exp2(s - m), rounded to bf16 A fragments; the sum from the
+        // f32 values (this lane's share; the quad is summed once at the end)
+        float psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float* x = s[ms][n];
+          const float p0 = exp2f(x[0] - m[ms][0]);
+          const float p1 = exp2f(x[1] - m[ms][0]);
+          const float p2 = exp2f(x[2] - m[ms][1]);
+          const float p3 = exp2f(x[3] - m[ms][1]);
+          psum[0] += p0 + p1;
+          psum[1] += p2 + p3;
+          pf[ms][n / 2][(n & 1) * 2] = pack2(p0, p1);
+          pf[ms][n / 2][(n & 1) * 2 + 1] = pack2(p2, p3);
+        }
+        if constexpr (MXU_SUM) {
+          // the rows of the bf16 P tile times ones: every column of the
+          // product is the row sum (the whole row's, not this lane's share)
+          const uint32_t one = pack2(1.f, 1.f);
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < NS / 2; ++kk)
+            mma16816(acc, pf[ms][kk], one, one);
+          l[ms][0] = l[ms][0] * alpha[0] + acc[0];
+          l[ms][1] = l[ms][1] * alpha[1] + acc[2];
+        } else {
+          l[ms][0] = l[ms][0] * alpha[0] + psum[0];
+          l[ms][1] = l[ms][1] * alpha[1] + psum[1];
+        }
+        if constexpr (!BOUND_SHIFT) {
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            o[ms][n][0] *= alpha[0];
+            o[ms][n][1] *= alpha[0];
+            o[ms][n][2] *= alpha[1];
+            o[ms][n][3] *= alpha[1];
+          }
         }
       }
+      // O += P V, V through ldmatrix.trans; each V fragment feeds every
+      // strip
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk)
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t vb[4];
+          load_b(vb, vt, L::LD, kk * 16, dp * 16, lane);
+#pragma unroll
+          for (int ms = 0; ms < MS; ++ms) {
+            mma16816(o[ms][2 * dp], pf[ms][kk], vb[0], vb[1]);
+            mma16816(o[ms][2 * dp + 1], pf[ms][kk], vb[2], vb[3]);
+          }
+        }
+    }
     __syncthreads();   // this stage is refilled two tiles on
   }
 
@@ -476,31 +567,31 @@ attention_blc_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---- launchers --------------------------------------------------------------
 
-template <int DPAD, bool BS, bool FL>
+template <int DPAD, bool BS, Mode M>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         const void* mask, void* out, void* lse, void* lsum,
                         int B, int Tq, int Tk, int H, int D, bool head_major,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, const Band& band = {}) {
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  attention_blc_simt_kernel<float, DPAD, BS, FL><<<grid, BQ, 0, stream>>>(
+  attention_blc_simt_kernel<float, DPAD, BS, M><<<grid, BQ, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v,
       (const uint8_t*)mask, (float*)out, (float*)lse, (float*)lsum, Tq, Tk,
       D, strides_of(head_major, B, Tq, H, D),
-      strides_of(head_major, B, Tk, H, D), scale_log2);
+      strides_of(head_major, B, Tk, H, D), scale_log2, band);
   return cudaGetLastError();
 }
 
-template <int DPAD, bool BS, bool MS, bool FL>
+template <int DPAD, bool BS, bool MS, Mode M>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* mask, void* out, void* lse, void* lsum,
                       int B, int Tq, int Tk, int H, int D, bool head_major,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, const Band& band = {}) {
   const Strides sq = strides_of(head_major, B, Tq, H, D);
   const Strides sk = strides_of(head_major, B, Tk, H, D);
   const bool vec = vec_ok(D, sq, sk, {q, k, v, out});
   using L = FwdLayout<DPAD>;
-  auto kern = attention_blc_tc_kernel<DPAD, BS, MS, FL>;
+  auto kern = attention_blc_tc_kernel<DPAD, BS, MS, M>;
   cudaError_t e = set_smem(kern, L::BYTES);
   if (e != cudaSuccess) return e;
   const dim3 grid((Tq + L::BQ - 1) / L::BQ, H, B);
@@ -508,7 +599,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   kern<<<grid, L::THREADS, L::BYTES, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const uint8_t*)mask,
       (bf16*)out, (float*)lse, (float*)lsum, Tq, Tk, D, sq, sk, scale_log2,
-      vec);
+      vec, band);
   return cudaGetLastError();
 }
 
@@ -523,19 +614,37 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        bool head_major, int variant, cudaStream_t s) {
 #define VILCO_FWD(F) F(q, k, v, mask, out, lse, lsum, B, Tq, Tk, H, D, head_major, s)
   constexpr int FP = DPAD <= 64 ? 64 : 128;
+  constexpr Mode K1 = Mode::K1, FL = Mode::Flash;
   if (variant == 4)
-    return dtype == 0 ? VILCO_FWD((launch_simt<FP, false, true>))
-                      : VILCO_FWD((launch_tc<FP, false, false, true>));
+    return dtype == 0 ? VILCO_FWD((launch_simt<FP, false, FL>))
+                      : VILCO_FWD((launch_tc<FP, false, false, FL>));
   const bool bs = variant & 1, ms = variant & 2;
   if (dtype == 0)
-    return bs ? VILCO_FWD((launch_simt<FP, true, false>))
-              : VILCO_FWD((launch_simt<FP, false, false>));
+    return bs ? VILCO_FWD((launch_simt<FP, true, K1>))
+              : VILCO_FWD((launch_simt<FP, false, K1>));
   if (bs)
-    return ms ? VILCO_FWD((launch_tc<DPAD, true, true, false>))
-              : VILCO_FWD((launch_tc<DPAD, true, false, false>));
-  return ms ? VILCO_FWD((launch_tc<DPAD, false, true, false>))
-            : VILCO_FWD((launch_tc<DPAD, false, false, false>));
+    return ms ? VILCO_FWD((launch_tc<DPAD, true, true, K1>))
+              : VILCO_FWD((launch_tc<DPAD, true, false, K1>));
+  return ms ? VILCO_FWD((launch_tc<DPAD, false, true, K1>))
+            : VILCO_FWD((launch_tc<DPAD, false, false, K1>));
 #undef VILCO_FWD
+}
+
+// K6's forward at one head width: band mode on the channels-last layout,
+// no mask, bf16 at DPAD, f32 at 32, 64 or 128.
+template <int DPAD>
+cudaError_t launch_band(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int L, int H, int D,
+                        int dtype, const Band& band, cudaStream_t s) {
+  constexpr Mode FB = Mode::FrameBand;
+  constexpr int FP = DPAD == 96 ? 128 : DPAD;
+  return dtype == 0
+             ? launch_simt<FP, false, FB>(q, k, v, nullptr, out, lse,
+                                          nullptr, B, L, L, H, D, false, s,
+                                          band)
+             : launch_tc<DPAD, false, false, FB>(q, k, v, nullptr, out, lse,
+                                                 nullptr, B, L, L, H, D,
+                                                 false, s, band);
 }
 
 }  // namespace
@@ -560,6 +669,25 @@ extern "C" int attention_blc_fwd(const void* q, const void* k, const void* v,
       (variant == 4 && (lse == nullptr) != (lsum == nullptr)))
     return (int)cudaErrorInvalidValue;
 #define VILCO_FWD(DP) launch_fwd<DP>(q, k, v, mask, out, lse, lsum, B, Tq, Tk, H, D, dtype, layout == 1, variant, s)
+  return (int)(D <= 32 ? VILCO_FWD(32) : D <= 64 ? VILCO_FWD(64)
+               : D <= 96 ? VILCO_FWD(96) : VILCO_FWD(128));
+#undef VILCO_FWD
+}
+
+// K6's forward, the band mode of the kernels above. dtype: 0 = float32, 1 =
+// bfloat16. q/k/v/out (B, L, H*D), all contiguous, L = n_frames * fr; D <=
+// 128, w >= 0. lse (B, H, L) f32 (log2 domain), or null when no backward
+// follows.
+extern "C" int frame_band_fwd(const void* q, const void* k, const void* v,
+                              void* out, void* lse, int B, int L, int H, int D,
+                              int fr, int w, int dtype, void* stream) {
+  if (D < 1 || D > 128 || B < 1 || L < 1 || H < 1 || fr < 1 || w < 0 ||
+      w >= FAR / 2 || L % fr != 0 || B > 65535 || H > 65535 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const Band band{L, fr, w, L / fr};
+  cudaStream_t s = (cudaStream_t)stream;
+#define VILCO_FWD(DP) launch_band<DP>(q, k, v, out, lse, B, L, H, D, dtype, band, s)
   return (int)(D <= 32 ? VILCO_FWD(32) : D <= 64 ? VILCO_FWD(64)
                : D <= 96 ? VILCO_FWD(96) : VILCO_FWD(128));
 #undef VILCO_FWD

@@ -1,11 +1,11 @@
 // Shared by csrc/attention_blc.cu (K1's forward) and
-// csrc/attention_blc_bwd.cu (its backward): the row strides of the two
-// layouts, the -1e9 key bias and -1e8 row-max floor, flash mode's
-// masked-key value, K6's frame band, the backward's delta pass, and the
-// mma.sync, ldmatrix and cp.async helpers of the bf16 kernels. Two files,
-// so that nvcc builds the forward and the backward side by side.
-// csrc/xl_rel_attention.cu (K2) takes the delta pass and the mma.sync
-// helpers from here too, csrc/frame_band.cu (K6's forward) the band.
+// csrc/attention_blc_bwd.cu (its backward): the modes both compile (K1,
+// flash, K6's frame band), the row strides of the two layouts, the -1e9
+// key bias and -1e8 row-max floor, flash mode's masked-key value, the
+// band, the backward's delta pass, and the mma.sync, ldmatrix and cp.async
+// helpers of the bf16 kernels. Two files, so that nvcc builds the forward
+// and the backward side by side. csrc/xl_rel_attention.cu (K2) takes the
+// delta pass and the mma.sync helpers from here too.
 #pragma once
 
 #include <algorithm>
@@ -14,6 +14,10 @@
 #include "common.cuh"
 
 namespace {
+
+// What an instance of the forward or the backward computes: K1 (and K1n),
+// K1f's flash mode or K6's band mode.
+enum class Mode { K1, Flash, FrameBand };
 
 constexpr float NEG_INF_BIAS = -1e9f;
 constexpr float ROWMAX_FLOOR = -1e8f;
@@ -47,7 +51,7 @@ Strides strides_of(bool head_major, int B, int T, int H, int D) {
                     : Strides{(long long)T * H * D, (long long)H * D, D};
 }
 
-// K6's frame band (csrc/frame_band.cu's forward, the backward's band mode):
+// K6's frame band (the band mode of the forward and of the backward):
 // L tokens in frames of fr; a token sees every token of the frames within
 // +-w of its own, inside [0, n_frames). The band is symmetric, so the keys
 // a query row sees and the queries a key row is seen by are the same range.
@@ -75,9 +79,10 @@ struct Band {
   }
 };
 
-// p where token i lies in the range `win`, else 0
-__device__ __forceinline__ float keep_in(int2 win, int i, float p) {
-  return i >= win.x && i < win.y ? p : 0.f;
+// x where token i lies in the range `win`, else `out`
+__device__ __forceinline__ float keep_in(int2 win, int i, float x,
+                                         float out = 0.f) {
+  return i >= win.x && i < win.y ? x : out;
 }
 
 // The backward's first pass (K1's (a), K2-bwd's 1): delta = rowsum(dO * O)

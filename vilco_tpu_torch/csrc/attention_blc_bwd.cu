@@ -41,8 +41,8 @@
 // sums are K1's, so two calls give equal bits there too.
 // Band mode (a template switch; K6: the backward of
 // vilco_tpu/kernels/frame_band.py::frame_band_attention, the Pallas
-// _dq_kernel and _dkv_kernel) reads csrc/frame_band.cu's lse (K1's, m +
-// log2 l) on the channels-last layout, with no mask and one query slice:
+// _dq_kernel and _dkv_kernel) reads the lse of K6's forward (the band mode
+// of csrc/attention_blc.cu: K1's m + log2 l) on the channels-last layout, with no mask and one query slice:
 // (b) walks only the query tiles of its key tile's window (the band is
 // symmetric: Band::window), (c) only the key tiles of its query tile's
 // window, so each pass visits at most 2w + 1 frames' worth of tiles (at the
@@ -54,10 +54,6 @@
 #include "attention_blc.cuh"
 
 namespace {
-
-// What an instance of the passes computes: K1 (and K1n), K1f's flash mode
-// or K6's band mode.
-enum class Mode { K1, Flash, FrameBand };
 
 // ---- backward -------------------------------------------------------------
 
@@ -904,7 +900,7 @@ extern "C" int attention_blc_bwd(const void* q, const void* k, const void* v,
 // key tile's window, (c) dq over each query tile's window; no atomics.
 // q/k/v/out/dout/dq/dk/dv (B, L, H * D) channels-last in dtype, L =
 // n_frames * fr, D <= 128, w >= 0; lse (B, H, L) f32 from
-// csrc/frame_band.cu's forward; delta (B, H, L) f32 scratch; all
+// csrc/attention_blc.cu's frame_band_fwd; delta (B, H, L) f32 scratch; all
 // contiguous.
 extern "C" int frame_band_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* lse,

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -91,7 +92,11 @@ def load_all() -> dict[str, Library]:
     srcs = [s for s in sorted(CSRC.glob("*.cu")) if s.stem not in _LOADED]
     started = {s: _start(s) for s in srcs if not _target(s).exists()}
     try:
-        built = {s: _finish(s, st) for s, st in started.items()}
+        # one waiting thread a process, so each library's seconds are its
+        # own nvcc's, not the time until its turn to be collected
+        with ThreadPoolExecutor(max(1, len(started))) as pool:
+            built = dict(zip(started, pool.map(lambda kv: _finish(*kv),
+                                               started.items())))
     finally:
         for proc, _, _ in started.values():
             if proc.poll() is None:

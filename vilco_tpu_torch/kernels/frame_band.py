@@ -3,13 +3,18 @@ VQ spatio-temporal encoder's attention, where token i (frame i // fr) sees
 every token of the frames within +-w of its own.
 
 Replaces vilco_tpu/kernels/frame_band.py::frame_band_attention. The Pallas
-`_forward` becomes csrc/frame_band.cu: the band is by frame, so the
-attention is block-dense, and one block per query tile of 64 rows (one VQ
-frame) stages only its window's K and V (at most 2w + 1 frames) and runs
-an f32 online softmax, on the tensor cores in bf16; keys outside the window
-are never visited. The forward stores each row's log-sum-exp (log2 domain,
-K1's m + log2 l). The Pallas `_backward` (the dq and dk/dv kernels) becomes
-the band mode of K1's three backward passes (csrc/attention_blc_bwd.cu):
+`_forward` becomes the band mode of K1's forward (csrc/attention_blc.cu's
+`frame_band_fwd`): the band is by frame, so the attention is block-dense,
+and one block per query tile (128 rows, 64 where the head dim passes 64;
+two VQ frames) streams only its window's key tiles of 64 (its own frames
+and w frames on either side) through a cp.async ring and runs an f32 online
+softmax, S, P and O in registers on mma.sync in bf16 (SIMT in f32, 64 rows
+and key tiles of 32); keys outside the window are never staged, and a
+score out of the band is -inf before the row max. `frame_band_fwd_plain`
+is the same walk in plain PyTorch. The forward stores each row's
+log-sum-exp (log2 domain, K1's m + log2 l). The Pallas `_backward` (the dq
+and dk/dv kernels) becomes the band mode of K1's three backward passes
+(csrc/attention_blc_bwd.cu):
 delta = rowsum(dO * O), dk/dv by key tile over the query tiles of its
 window, dq by query tile over the key tiles of its window, P = 0 where a
 pair's frames are more than w apart; bf16 on mma.sync with P and dS
@@ -33,6 +38,13 @@ NEG_INF = -1e9
 LOG2E = 1.4426950408889634
 ROWMAX_FLOOR = -1e8
 BWD_TILE = 64        # the query and key tile of the backward's passes
+FWD_KEYS = 64        # the key tile of the forward's walk (bf16)
+
+
+def fwd_rows(head_dim: int) -> int:
+    """The query rows of a block of the bf16 forward: two strips of 16 a
+    warp where the head is at most 64 wide, one above."""
+    return 128 if head_dim <= 64 else 64
 
 
 def frame_band_attention_plain(q, k, v, num_heads: int, fr: int, w: int):
@@ -82,7 +94,7 @@ def frame_band_fwd_cuda(q, k, v, num_heads: int, fr: int, w: int,
     lse = (torch.empty((B, num_heads, L), dtype=torch.float32,
                        device=q.device) if with_lse else None)
     out = torch.empty_like(q)
-    fn = _build.bind("frame_band", "frame_band_fwd", 5, 7)
+    fn = _build.bind("attention_blc", "frame_band_fwd", 5, 7)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              0 if lse is None else lse.data_ptr(), B, L, num_heads,
              C // num_heads, fr, w, _build.dtype_code(q), _build.stream_of(q))
@@ -127,6 +139,13 @@ def _window(r0: int, r1: int, L: int, fr: int, w: int):
     return max(0, r0 // fr - w) * fr, min(L // fr - 1, r1 // fr + w) * fr + fr
 
 
+def _covers(r0: int, r1: int, c0: int, c1: int, L: int, fr: int, w: int):
+    """Every row of r0 .. r1 sees every token of [c0, c1) (the kernels'
+    Band::covers)."""
+    return (max(0, r1 // fr - w) * fr <= c0
+            and min(L // fr - 1, r0 // fr + w) * fr + fr >= c1)
+
+
 def _band_scores(qh, kh, fr: int, w: int):
     """score(i0, i1, j0, j1): the log2-domain scores (q * scale * log2 e) . k
     of query rows i0:i1 and keys j0:j1, -inf where the frames are more than
@@ -150,6 +169,39 @@ def frame_band_lse_plain(q, k, num_heads: int, fr: int, w: int):
                      w)(0, L, 0, L)
     m = s.amax(-1).clamp(min=ROWMAX_FLOOR)
     return m + torch.log2(torch.exp2(s - m[..., None]).sum(-1))
+
+
+def frame_band_fwd_plain(q, k, v, num_heads: int, fr: int, w: int):
+    """Plain version of K6's forward, the bf16 kernel's walk in f32 (f64
+    for f64 inputs) on channels-last tensors: query tiles of fwd_rows(D)
+    rows, each over the key tiles of FWD_KEYS from its window's start, an
+    online softmax from the -1e8 floor with -inf out of the band, P rounded
+    to q's dtype before P V (as the TPU kernel rounds e) and l summed from
+    the unrounded P. Returns (out in q.dtype, lse (B, H, L) m + log2 l)."""
+    B, L, C = q.shape
+    H = num_heads
+    qh, kh, vh = (_heads(x, H) for x in (q, k, v))
+    score = _band_scores(qh, kh, fr, w)
+    bq = fwd_rows(C // H)
+    out, lse = torch.empty_like(qh), qh.new_empty(qh.shape[:3])
+    for i0 in range(0, L, bq):
+        i1 = min(i0 + bq, L)
+        lo, hi = _window(i0, i1 - 1, L, fr, w)
+        m = qh.new_full((B, H, i1 - i0), ROWMAX_FLOOR)
+        l, o = torch.zeros_like(m), torch.zeros_like(qh[:, :, i0:i1])
+        for j0 in range(lo, hi, FWD_KEYS):
+            j1 = min(j0 + FWD_KEYS, hi)
+            s = score(i0, i1, j0, j1)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + p.to(q.dtype).to(p.dtype) \
+                @ vh[:, :, j0:j1]
+            m = m_new
+        out[:, :, i0:i1] = o / l[..., None]
+        lse[:, :, i0:i1] = m + torch.log2(l)
+    return out.transpose(1, 2).reshape(B, L, C).to(q.dtype), lse
 
 
 def frame_band_delta_plain(out, dout, num_heads: int):
