@@ -40,9 +40,10 @@ fallback):
                    step, batch 2, bf16 and f32, plus the XL backward's
                    inverse shift at odd lengths (37, 101, 131; both dtypes
                    and rates): error, tolerance, ms, bound, library ms
-                   (AdamW: torch._fused_adamw_); the attention and XL
-                   backwards and the XL forward called twice for equal
-                   bits, the XL forward also timed queued
+                   (AdamW: torch._fused_adamw_); the attention, XL and
+                   conv backwards and the XL forward called twice for
+                   equal bits, the XL forward and the convs also timed
+                   queued
   8. train_parity  one flagship train step at batch 1 in f32 (regularisers
                    off), the card against the CPU from the same weights and
                    batch: loss, clipped grad norm, max relative error of the
@@ -75,7 +76,8 @@ fallback):
                    own length; the dense attention
                    at D=96 as text self-attention (T=32) and video-to-text
                    cross-attention (2560 x 32), forward and backward; the
-                   depthwise convs and their backward at C=384; AdamW over
+                   depthwise convs and their backward at C=384 (also timed
+                   queued, the backward twice for equal bits); AdamW over
                    the dual tower's 467 leaves (bit-exact). Each output's
                    error beside its own limit, kernel, plain and library
                    ms (SDPA with the band mask) and the bound
@@ -431,7 +433,7 @@ def phase_kernels(dev):
                        dwconv_work(B_SERVE, T, C, s, dtype, backward=False),
                        lambda: F.conv1d(xt, wg, stride=s, padding=1,
                                         groups=C),
-                       is_top=top and T == T0 and s == 1)
+                       is_top=top and T == T0 and s == 1, also_queued=True)
         del q, k, v, r, x, out
         torch.cuda.empty_cache()
     if not chk.ok:
@@ -642,6 +644,39 @@ def dwconv_work(B, T, C, s, dtype, backward):
     if backward:
         return 36 * B * To * C, (2 * B * T * C + 3 * B * To * C) * el
     return 18 * B * To * C, (B * T * C + 3 * B * To * C) * el
+
+
+def k3_calls(full) -> list:
+    """(T, stride, calls) of K3 in one forward of the flagship `full` (a
+    Config): the stem blocks at stride 1 (NLQ: the video stem at
+    max_seq_len and the text stem at max_text_len), then branch block i at
+    stride 2 on its input of max_seq_len >> i."""
+    m = full.model
+    T0 = m.max_seq_len
+    if m.variant == "nlq":
+        stems = [(T0, 1, m.backbone_arch[2]),
+                 (full.max_text_len, 1, m.backbone_arch[1])]
+    else:
+        stems = [(T0, 1, m.backbone_arch[1])]
+    return stems + [(T0 >> i, 2, 1) for i in range(m.num_branch_layers)]
+
+
+def say_k3_sums(tag: str, dw_ms: dict, full, b_serve: int) -> None:
+    """K3's bf16 ms summed over a request's calls (forward at b_serve) and a
+    train step's (forward and backward at full.batch_size), each call at
+    its own length and stride; dw_ms[(part, B, T, stride)] = (ms, bound
+    ms)."""
+    calls = k3_calls(full)
+    for what, B, parts in (("request", b_serve, ("fwd",)),
+                           ("train step", full.batch_size, ("fwd", "bwd"))):
+        ms, bms = (sum(n * dw_ms[p, B, T, s][j] for T, s, n in calls
+                       for p in parts) for j in (0, 1))
+        say(f"[{tag}] K3 over a {full.model.variant.upper()} {what}'s "
+            f"{sum(n for _, _, n in calls)} calls ("
+            + ", ".join(f"{n} x T={T} s{s}" for T, s, n in calls)
+            + f"), bf16 batch {B}, {' + '.join(parts)}: {ms:.4f} ms on the "
+            f"card (queued behind a sleep), bound {bms:.4f} ms, time - "
+            f"bound {ms - bms:.4f} ms [{CARD}]")
 
 
 def output_errors(names, got, want, tol):
@@ -954,7 +989,11 @@ def phase_train_kernels(dev):
                        backward_timer(lambda a, b: F.conv1d(
                            a.transpose(1, 2), b, stride=s, padding=1,
                            groups=C), (x, wg), gcat),
-                       is_top=dtype == torch.bfloat16 and T == T0 and s == 1)
+                       is_top=dtype == torch.bfloat16 and T == T0 and s == 1,
+                       also_queued=True)
+            check_repeatable("train_kernels", f"dwconv backward B={B} T={T} "
+                             f"C={C} stride={s} {str(dtype)[6:]}",
+                             lambda: dwconv_bwd_cuda(x, w, *gs, s))
         torch.cuda.empty_cache()
 
     # the XL backward's inverse shift (d_raw[i, T + j - i] += d_ac[i, j]) at
@@ -1565,7 +1604,7 @@ def phase_nlq_kernels(dev):
                            lambda: fused_dwconv_qkv_plain(x, wt, s),
                            dwconv_work(B, T, C, s, dtype, backward=False),
                            lambda: F.conv1d(xt, wg, stride=s, padding=1,
-                                            groups=C))
+                                            groups=C), also_queued=True)
                     continue
                 gs = tuple(randn(B, To, C, dtype=dtype) for _ in range(3))
                 got = grads_of(lambda a, b: fused_dwconv_qkv(a, b, s),
@@ -1584,7 +1623,10 @@ def phase_nlq_kernels(dev):
                        dwconv_work(B, T, C, s, dtype, backward=True),
                        backward_timer(lambda a, b: F.conv1d(
                            a.transpose(1, 2), b, stride=s, padding=1,
-                           groups=C), (x, wg), gcat))
+                           groups=C), (x, wg), gcat), also_queued=True)
+                check_repeatable("nlq_kernels", f"dwconv backward {label} "
+                                 f"{str(dtype)[6:]}",
+                                 lambda: dwconv_bwd_cuda(x, wt, *gs, s))
         torch.cuda.empty_cache()
     say_k5_sums("nlq_kernels", band_ms, cfg, B_TR)
     # K4 over the dual tower's 467 leaves (no Gaussian parameters)

@@ -1,6 +1,7 @@
 """A kernel of the port in several checkouts of the repo on one card, in
 turn: a change against its parent in one call.
 
+    python3 kernel_compare.py k3 TREE [TREE ...]
     python3 kernel_compare.py k5 TREE [TREE ...]
     python3 kernel_compare.py k6 TREE [TREE ...]
     python3 kernel_compare.py sass PARENT CHANGE
@@ -13,6 +14,16 @@ masks, the bounds and the serve and train phases. Give the trees in turn
 (parent, change, change, parent). Each time below is the median of queued
 reps behind a device sleep (`chip_smoke.queued_ms`), the median by CUDA
 events beside it.
+
+k3, the depthwise q/k/v convs: K3's forward (`fused_dwconv_qkv`) at the
+serving batch (MQ and NLQ 16) and its forward and backward
+(`dwconv_bwd_cuda`, every launch of the tree's backward) at the training
+batch (MQ 2, NLQ 4), in bf16 at every (T, stride) a request or step calls
+K3 with (`chip_smoke.k3_calls`) and in f32 at the top length, beside
+conv1d (forward, and backward through autograd) and the bound; K3's bf16 ms
+summed over an MQ and an NLQ request and step (`chip_smoke.say_k3_sums`);
+then chip_smoke.py's MQ and NLQ serving and train phases (device ms and
+the idle share from their traces).
 
 k5, the NLQ banded attention: on random inputs with chip_smoke.py's ragged
 masks, K5's forward (`banded_fwd_cuda`, no lse) at the serving batch 16
@@ -173,6 +184,104 @@ def k6(cs, name: str, dev) -> None:
     cs.phase_vq_train(dev, cs.vq_train_kernels())
 
 
+def k3(cs, name: str, dev) -> None:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vilco_tpu_torch.core.config import (
+        flagship_config,
+        nlq_flagship_config,
+    )
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.banded_attention import (
+        banded_attention_blc,
+        banded_bwd_cuda,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+    )
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(cs.SEED + 12)
+    mq, nlq = flagship_config(), nlq_flagship_config()
+    for full, b_serve in ((mq, cs.B_SERVE), (nlq, cs.B_NLQ_SERVE)):
+        C, b_train, T0 = (full.model.embd_dim, full.batch_size,
+                          full.model.max_seq_len)
+        dw_ms = {}
+        for dtype in (bf16, f32):
+            rn = lambda *shape: torch.from_numpy(rng.standard_normal(
+                shape).astype(np.float32)).to(dev, dtype)
+            w = rn(3, 3, C) * 0.3
+            # conv1d's weight: output channel 3c + j is conv j of channel c
+            wg = w.float().permute(2, 0, 1).reshape(3 * C, 1, 3).to(dtype)
+            for T, s, _ in cs.k3_calls(full):
+                if dtype == f32 and T != T0:
+                    continue
+                To = (T - 1) // s + 1
+                cases = ([(b_serve, "fwd"), (b_train, "fwd"),
+                          (b_train, "bwd")] if dtype == bf16
+                         else [(b_serve, "fwd"), (b_train, "bwd")])
+                for B, p in cases:
+                    x = rn(B, T, C)
+                    if p == "fwd":
+                        xt = x.transpose(1, 2)
+                        kern = lambda: fused_dwconv_qkv(x, w, s)
+                        lib = lambda: F.conv1d(xt, wg, stride=s, padding=1,
+                                               groups=C)
+                    else:
+                        gs = tuple(rn(B, To, C) for _ in range(3))
+                        gcat = torch.stack(gs, -1).reshape(
+                            B, To, 3 * C).transpose(1, 2)
+                        kern = lambda: dwconv_bwd_cuda(x, w, *gs, s)
+                        lib = cs.backward_timer(lambda a, b: F.conv1d(
+                            a.transpose(1, 2), b, stride=s, padding=1,
+                            groups=C), (x, wg), gcat)
+                    ms = cs.queued_ms(kern)
+                    bms, by = cs.bound(*cs.dwconv_work(
+                        B, T, C, s, dtype, backward=p == "bwd"), dtype)
+                    if dtype == bf16:
+                        dw_ms[p, B, T, s] = ms, bms
+                    cs.say(f"[kernel_compare] {name}: K3 {p} "
+                           f"{str(dtype)[6:]} {full.model.variant.upper()} "
+                           f"B={B} T={T} C={C} stride={s}: {ms:.4f} ms "
+                           f"queued ({cs.median_ms(kern):.4f} by events), "
+                           f"bound {bms:.4f} ({by}); conv1d "
+                           f"{cs.queued_ms(lib):.4f} ms queued")
+                    del x, kern, lib
+            torch.cuda.empty_cache()
+        cs.say_k3_sums(f"kernel_compare {name}", dw_ms, full, b_serve)
+
+    cs.phase_serve(dev, "serve", mq, cs.mq_requests(mq.model, dev),
+                   (fused_attention_blc, xl_rel_attention, fused_dwconv_qkv))
+    cs.phase_train(dev, "train", mq, (fused_attention_blc, attention_bwd_cuda,
+                                      xl_rel_attention, xl_bwd_cuda,
+                                      fused_dwconv_qkv, dwconv_bwd_cuda,
+                                      adamw_update_multi),
+                   cs.SEED + 5, normalised_must_fall=True)
+    srng = np.random.default_rng(cs.SEED + 8)
+    cs.phase_serve(
+        dev, "nlq_serve", nlq,
+        [cs.nlq_inputs(srng, cs.B_NLQ_SERVE, nlq, dev, bf16)
+         for _ in range(7)],
+        (fused_attention_blc, banded_attention_blc, fused_dwconv_qkv))
+    cs.phase_train(
+        dev, "nlq_train", nlq, (banded_attention_blc, banded_bwd_cuda,
+                                fused_attention_blc, attention_bwd_cuda,
+                                fused_dwconv_qkv, dwconv_bwd_cuda,
+                                adamw_update_multi),
+        cs.SEED + 9, normalised_must_fall=False)
+
+
 def one_tree(kernel: str, tree: str) -> None:
     sys.path[0] = tree
     spec = importlib.util.spec_from_file_location(
@@ -187,8 +296,8 @@ def one_tree(kernel: str, tree: str) -> None:
     cs.phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    {"k5": k5, "k6": k6}[kernel](cs, os.path.basename(tree),
-                                 torch.device("cuda", 0))
+    {"k3": k3, "k5": k5, "k6": k6}[kernel](cs, os.path.basename(tree),
+                                           torch.device("cuda", 0))
 
 
 def _tool(name: str) -> str:
@@ -280,7 +389,7 @@ if __name__ == "__main__":
         one_tree(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["sass"] and len(sys.argv) == 4:
         sass(*map(os.path.abspath, sys.argv[2:]))
-    elif sys.argv[1:2] in (["k5"], ["k6"]) and len(sys.argv) > 2:
+    elif sys.argv[1:2] in (["k3"], ["k5"], ["k6"]) and len(sys.argv) > 2:
         main(sys.argv[1], sys.argv[2:])
     else:
         sys.exit(__doc__)

@@ -14,7 +14,10 @@ the tiny twin's, a middle and the ViT-B width, up to the ViT's query call;
 two K1f backward calls bitwise equal; K2-bwd's passes against their plain
 version, two calls bitwise equal at dropout rate 0 and 0.1; K2's forward
 at the edges of its tiles and band chunks (T 1 to 1024, D 32 to 128),
-its lse, two calls bitwise equal, K2-bwd from its output. Marked
+its lse, two calls bitwise equal, K2-bwd from its output; K3's row walk
+(forward and its one backward launch) at T 1 to 129, odd T, one and two
+channel columns a block and every walk length, dx and dw bitwise equal
+over two calls. Marked
 `gpu`: skips where there is no card. Imports no JAX, so that it runs on a
 machine with only PyTorch:
 
@@ -38,7 +41,9 @@ from vilco_tpu_torch.kernels.attention import (
     fused_attention_blc,
     fused_attention_blc_plain,
 )
+import vilco_tpu_torch.kernels.dwconv as dwconv
 from vilco_tpu_torch.kernels.dwconv import (
+    dwconv_bwd_cuda,
     fused_dwconv_qkv,
     fused_dwconv_qkv_plain,
 )
@@ -402,6 +407,69 @@ def test_banded_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     assert torch.isfinite(x.grad).all()
     with pytest.raises(TypeError):
         banded.banded_attention_blc(x.half(), x.half(), x.half(), m, 2, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 8), (torch.bfloat16, 16),
+                                     (torch.bfloat16, 384), (torch.float32, 4),
+                                     (torch.float32, 96)])
+@pytest.mark.parametrize("T", [1, 2, 3, 5, 37, 63, 65, 129])
+def test_dwconv_walk_on_card(cuda, dtype, C, T):
+    """K3's row walk at both strides against the plain version: T 1, 2, 3
+    and 5 below one walker's rows, odd T (one dx row fewer at stride 2),
+    63 and 65 about a tile edge, C 8 and 16 bf16 and 4 f32 (blocks of one
+    and two channel columns) and wider. q, k, v within FWD_TOL; dx and dw
+    within TRAIN_TOL of autograd through the plain version; the backward
+    one launch a call, its dx and dw bitwise equal over two calls, the
+    forward one launch a call."""
+    rng = np.random.default_rng(T * 7 + C)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    B = 3
+    x, w = rn(B, T, C), rn(3, 3, C) * 0.3
+    for s in (1, 2):
+        To = (T - 1) // s + 1
+        gs = tuple(rn(B, To, C) for _ in range(3))
+        n_fwd = fused_dwconv_qkv.launches
+        _close(fused_dwconv_qkv(x, w, s), fused_dwconv_qkv_plain(x, w, s),
+               FWD_TOL[dtype], f"dwconv forward stride {s}")
+        assert fused_dwconv_qkv.launches == n_fwd + 1
+        n_bwd = dwconv_bwd_cuda.launches
+        first = dwconv_bwd_cuda(x, w, *gs, s)
+        second = dwconv_bwd_cuda(x, w, *gs, s)
+        assert dwconv_bwd_cuda.launches == n_bwd + 2
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), s
+        _close(first, _grads(lambda a, b: fused_dwconv_qkv_plain(a, b, s),
+                             (x, w), gs), TRAIN_TOL[dtype],
+               f"dwconv backward stride {s}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", sorted(set(sum(dwconv.ROWS.values(), ()))))
+def test_dwconv_every_walk_length_on_card(cuda, monkeypatch, dtype, rows):
+    """Each number of rows a walker may take, forced through the plan, at
+    a shape of several row blocks and channel groups (B 3, T 301, C 96):
+    forward and backward against the plain version at both strides, the
+    backward's tickets back at 0 after it."""
+    plan = dwconv.plan
+    monkeypatch.setattr(dwconv, "plan", lambda B, T, C, s, kernel:
+                        plan(B, T, C, s, kernel, rows))
+    rng = np.random.default_rng(rows)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    B, T, C = 3, 301, 96
+    x, w = rn(B, T, C), rn(3, 3, C) * 0.3
+    for s in (1, 2):
+        gs = tuple(rn(B, (T - 1) // s + 1, C) for _ in range(3))
+        _close(fused_dwconv_qkv(x, w, s), fused_dwconv_qkv_plain(x, w, s),
+               FWD_TOL[dtype], f"forward rows {rows} stride {s}")
+        _close(_grads(lambda a, b: fused_dwconv_qkv(a, b, s), (x, w), gs),
+               _grads(lambda a, b: fused_dwconv_qkv_plain(a, b, s), (x, w),
+                      gs), TRAIN_TOL[dtype], f"backward rows {rows} s {s}")
+        assert not dwconv._tickets(x.device, 1).any()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
