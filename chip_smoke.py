@@ -5,11 +5,13 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --mq-train
     python3 chip_smoke.py --vq-train
     python3 chip_smoke.py --vq-train-parity SEED [SEED ...]
+    python3 chip_smoke.py --mq-yaml
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
 train step (phases 16, 18 and 20); the fourth only the VQ train-step
-parity (phase 18), once per seed of weights and batch.
+parity (phase 18), once per seed of weights and batch; the fifth only the
+phases of the MQ yaml model (10a-10e).
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -65,6 +67,33 @@ fallback):
                    peak memory, every loss, launch counts per kernel
  10. trace         one more train step profiled: device ms by kernel kind,
                    the top kernels and the idle share
+ 10a. mq_yaml_kernels  the MQ flagship as configs/mq_vilco.yaml runs it
+                   (core/config.py::mq_yaml_config): K1 at the shapes it
+                   adds, over the prompted text (Tk = 128 text + 80 prompt
+                   tokens = 208): the text stem's self-attention and the
+                   branch blocks' cross-attention (Tq 512, 64 .. 2), the
+                   forward at batch 16, the backward at batch 2 (query
+                   slices in dk/dv, called twice for equal bits), SDPA
+                   beside; K3 at T=208 forward and backward; AdamW over its
+                   560 leaves; bf16 and f32
+ 10b. mq_yaml_parity   phase 4 on the yaml model (the adapters' zero fc2
+                   redrawn): cls_logits, offsets, reduce_sim,
+                   narration_feat and video_feat, with the TF32 control
+ 10c. mq_yaml_serve    phase 5 through the eval step's adapter ensemble (two
+                   forwards, live and EMA adapters), decode + soft-NMS at
+                   the yaml's test_cfg (5000 candidates): the two forwards
+                   split by CUDA events, launches a request checked against
+                   the model (K1 40, K3 26, K2 2), one profiled request
+ 10d. mq_yaml_train_parity  phase 8 as CL task 1 (L2P with its pull,
+                   narration SSL, the AL loss, the adapter EMA at decay
+                   0.5), plus each loss term, the memory bank, its pointer
+                   and the EMA (against its formula on each side); the
+                   gradients also against the same step in f64 on the CPU,
+                   the first embedding conv's weight held there
+ 10e. mq_yaml_train    phase 9 as CL task 1 of 5 (n_known 22, classes 0-43,
+                   prompt slots 4-7), dropout 0.1: every term's values,
+                   launches a step checked (K1 20 and K1-bwd 20, K3 13 and
+                   K3-bwd 13, K2 1, K2-bwd 1, K4 1)
  11. nlq_kernels   the NLQ flagship's kernels against their plain versions,
                    bf16 and f32: the banded attention forward and its one
                    backward launch (dq, dk, dv; against its plain passes and
@@ -441,16 +470,30 @@ def phase_kernels(dev):
     return chk.errs, chk.top
 
 
-def phase_parity(dev, tag: str, cfg, inputs):
-    """`cfg` (a ModelConfig) at batch 1 in f32: the forward on the card
-    with its kernels against the CPU with the plain versions, on the same
-    CPU `inputs` (model(*inputs)): max relative error of the head outputs,
+def redraw_adapters(model) -> None:
+    """The time adapters' fc2 kernels, zero at init (so their fc1 gets no
+    gradient and the adapters add nothing), redrawn from N(0, 0.02^2) with
+    a seeded CPU generator: the same values wherever the model lies."""
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("adapter.fc2.weight"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+
+
+def phase_parity(dev, tag: str, cfg, inputs, cl=None,
+                 keys=("cls_logits", "offsets")):
+    """`cfg` (a ModelConfig) with the CL extras of `cl` at batch 1 in f32
+    (the adapters redrawn, redraw_adapters): the forward on the card with
+    its kernels against the CPU with the plain versions, on the same CPU
+    `inputs` (model(*inputs)): max relative error of the outputs `keys`,
     and a TF32 control that must read above the limit."""
     from vilco_tpu_torch.models.point_transformer import PointTransformer
 
     model = PointTransformer(
         cfg, generator=torch.Generator().manual_seed(SEED),
-        device="cpu").eval()
+        device="cpu", cl=cl).eval()
+    redraw_adapters(model)
     card = [a.to(dev) for a in inputs]
     with torch.no_grad():
         ref = model(*inputs)
@@ -472,7 +515,7 @@ def phase_parity(dev, tag: str, cfg, inputs):
         return ((o - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
 
     worst, control = 0.0, 0.0
-    for key in ("cls_logits", "offsets"):
+    for key in keys:
         rel = rel_err(out[key], ref[key])
         worst = max(worst, rel)
         control = max(control, rel_err(tf32[key], ref[key]))
@@ -512,23 +555,42 @@ def mq_requests(cfg, dev, n: int = 7):
     return requests
 
 
-def phase_serve(dev, tag: str, full, requests, kernels):
-    """The bf16 model of `full` (a Config) serving `requests` (tuples of
-    card tensors for model(*request)): 2 warm-up and the rest timed through
-    forward + decode_and_nms_batch at full.test_cfg; clips/s, ms per
-    request split, peak memory, detections, the launch counts of
-    `kernels` (set to 0 just before), then one more request profiled."""
+SERVE_KEYS = ("feats", "mask", "text", "text_mask")
+
+
+def phase_serve(dev, tag: str, full, requests, kernels, cl=None):
+    """The bf16 model of `full` (a Config) with the CL extras of `cl`
+    serving `requests` (tuples of card tensors for model(*request)): 2
+    warm-up and the rest timed through forward + decode_and_nms_batch at
+    full.test_cfg; clips/s, ms per request split, peak memory, detections,
+    the launch counts of `kernels` (set to 0 just before), then one more
+    request profiled. With `cl.use_adapt` the forward is the eval step's
+    adapter ensemble (train/engine.py::make_eval_step): the live adapters'
+    and an EMA's forwards averaged, the EMA drawn as the adapters plus
+    N(0, 0.02^2), and the two forwards are split by CUDA events."""
     from vilco_tpu_torch.models.point_transformer import (
         PointTransformer,
         level_lengths,
     )
     from vilco_tpu_torch.ops.assign import generate_points
     from vilco_tpu_torch.ops.decode import decode_and_nms_batch
+    from vilco_tpu_torch.train.engine import init_adapter_ema, make_eval_step
 
     cfg, t = full.model, full.test_cfg
     model = PointTransformer(
         cfg, generator=torch.Generator().manual_seed(SEED),
-        device=dev).eval().to(torch.bfloat16)
+        device=dev, cl=cl).eval().to(torch.bfloat16)
+    ensemble = cl is not None and cl.use_adapt
+    if ensemble:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        ema = {n: e + 0.02 * torch.randn(e.shape, generator=gen, device=dev,
+                                         dtype=e.dtype)
+               for n, e in init_adapter_ema(model).items()}
+        evaluate = make_eval_step(model, ensemble_adapters=True)
+        forward = lambda req, marks=None: evaluate(
+            dict(zip(SERVE_KEYS, req)), ema, marks)
+    else:
+        forward = lambda req, marks=None: model(*req)
     points = torch.from_numpy(generate_points(
         level_lengths(cfg), cfg.fpn_strides, cfg.regression_range)).to(dev)
     class_mask = torch.ones(cfg.num_classes, dtype=torch.bool, device=dev)
@@ -543,13 +605,20 @@ def phase_serve(dev, tag: str, full, requests, kernels):
             min_score=t.min_score, nms_sigma=t.nms_sigma,
             voting_thresh=t.voting_thresh)
 
+    splits = []
+
     def serve(req):
+        marks = [] if ensemble else None
         t0 = time.perf_counter()
-        out = model(*req)
+        out = forward(req, marks)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         det = postprocess(out)
         torch.cuda.synchronize()
+        if ensemble:
+            ev = dict(marks)
+            splits.append((ev["start"].elapsed_time(ev["forward"]),
+                           ev["forward"].elapsed_time(ev["ema_forward"])))
         return det, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
 
     for k in kernels:
@@ -585,6 +654,18 @@ def phase_serve(dev, tag: str, full, requests, kernels):
         f"{wall / n_req * 1e3:.3f} ms/request (forward median "
         f"{statistics.median(fwd):.3f} ms, decode+NMS median "
         f"{statistics.median(post):.3f} ms) [{CARD}]")
+    if ensemble:
+        timed = splits[2:]
+        say(f"[{tag}] the ensemble's two forwards by CUDA events, median: "
+            f"live adapters {statistics.median(s[0] for s in timed):.3f} "
+            f"ms, EMA adapters {statistics.median(s[1] for s in timed):.3f}"
+            f" ms; {t.pre_nms_topk} candidates into soft-NMS (sigma "
+            f"{t.nms_sigma:g}) [{CARD}]")
+        with torch.no_grad():
+            live = model(*requests[0])["cls_logits"]
+            both = forward(requests[0])["cls_logits"]
+        if torch.equal(live, both):
+            fail(f"{tag}: the EMA adapters' forward changed nothing")
     say(f"[{tag}] peak memory {peak:.3f} GiB; valid detections per clip "
         f"mean {n_valid.mean().item():.2f} min {n_valid.min().item():.0f}")
     say(f"[{tag}] launches in the {len(requests)} requests: {launches}")
@@ -592,7 +673,7 @@ def phase_serve(dev, tag: str, full, requests, kernels):
         fail(f"{tag}: a kernel of the path was never launched")
     req = requests[-1]
     with torch.no_grad():
-        out = phase_trace(f"{tag} forward", lambda: model(*req),
+        out = phase_trace(f"{tag} forward", lambda: forward(req),
                           statistics.median(fwd))
         phase_trace(f"{tag} decode+NMS", lambda: postprocess(out),
                     statistics.median(post))
@@ -781,15 +862,18 @@ TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 XL_GRADS = ("dq", "dk", "dv", "dr", "d_r_w_bias", "d_r_r_bias")
 
 
-def point_transformer_leaves(cfg, dev):
-    """(label, leaves, decay flags) of the model of `cfg` (a ModelConfig),
-    decay on the matrices as the MQ/NLQ optimizer's mask."""
+def point_transformer_leaves(cfg, dev, cl=None):
+    """(label, leaves, decay flags) of the model of `cfg` (a ModelConfig)
+    with the CL extras of `cl`, decay as the MQ/NLQ optimizer's mask
+    (train/optim.py::decays)."""
     from vilco_tpu_torch.models.point_transformer import PointTransformer
+    from vilco_tpu_torch.train.optim import decays
 
     model = PointTransformer(cfg, generator=torch.Generator().manual_seed(
-        SEED), device=dev)
-    ps = [p.data for p in model.parameters()]
-    return cfg.variant.upper(), ps, [p.dim() >= 2 for p in ps]
+        SEED), device=dev, cl=cl)
+    named = list(model.named_parameters())
+    return (cfg.variant.upper(), [p.data for _, p in named],
+            [decays(n, p.dim()) for n, p in named])
 
 
 def check_adamw(chk, label, ps, decays, mdt, wd=None):
@@ -1039,16 +1123,22 @@ PARAM_RTOL = 5e-3
 PARITY_STEP = 4      # the schedule step of the parity update: lr at its peak
 
 
-def rel_by_leaf(got: dict, want: dict, floor_frac: float):
-    """max over leaves of max|got - want| / max|want| per leaf, the
-    denominator floored at floor_frac of the tree's largest |want| (leaves
-    whose exact gradient is 0 hold roundoff only); returns (worst, the
-    three worst leaves)."""
+def leaf_errors(got: dict, want: dict, floor_frac: float) -> dict:
+    """max|got - want| / max|want| per leaf, the denominator floored at
+    floor_frac of the tree's largest |want| (leaves whose exact gradient is
+    0 hold roundoff only)."""
     floor = floor_frac * max(w.float().abs().max().item()
                              for w in want.values())
-    errs = sorted((((got[n].float() - w.float()).abs().max()
-                    / max(w.float().abs().max().item(), floor, 1e-30)).item(),
-                   n) for n, w in want.items())[::-1]
+    return {n: ((got[n].float() - w.float()).abs().max()
+                / max(w.float().abs().max().item(), floor, 1e-30)).item()
+            for n, w in want.items()}
+
+
+def rel_by_leaf(got: dict, want: dict, floor_frac: float):
+    """The worst of leaf_errors and the three worst leaves."""
+    errs = sorted(((e, n) for n, e in leaf_errors(got, want,
+                                                  floor_frac).items()),
+                  reverse=True)
     return errs[0][0], ", ".join(f"{n} {e:.2e}" for e, n in errs[:3])
 
 
@@ -1116,11 +1206,74 @@ def say_gaps(tag, label, r, base, base_label, g):
         f"{g['nu'][0]:.3e} ({g['nu'][1]})")
 
 
-def phase_train_parity(dev, tag="train_parity", full=None):
+def cl_step_setup(cfg, task, batch_size, device):
+    """The CL method of `cfg` (a Config) at task `task` (None: the naive
+    method's step over every class): (the model's `cl` argument,
+    make_train_step's CL keywords, the step's CLBatchExtras on `device`
+    with the memory bank's first value where SSL is on, the batch's
+    prompt_mask or None)."""
+    from vilco_tpu_torch.data.synthetic import task_extras
+    from vilco_tpu_torch.train.engine import CLBatchExtras, init_memory_bank
+
+    c = cfg.cl_cfg
+    if task is None:
+        return (None, {}, CLBatchExtras(torch.ones(
+            cfg.model.num_classes, dtype=torch.bool, device=device)), None)
+    ex = task_extras(cfg, task, batch_size)
+    bank, ptr = (init_memory_bank(cfg, device) if c.narration_ssl
+                 else (None, None))
+    return (c, dict(cl_cfg=c, n_known=ex["n_known"]),
+            CLBatchExtras(torch.from_numpy(ex["class_mask"]).to(device),
+                          bank, ptr), ex["prompt_mask"])
+
+
+BANK_RTOL = 1e-5     # the memory bank after a step: f32 narration features
+PARITY_EMA_DECAY = 0.5   # the CL parity step's adapter EMA (the yaml's 0.999
+                         # moves it by 1e-3 of the adapters' step)
+
+
+def step_gradients(cfg, task, batch, pts, device="cpu",
+                   dtype=torch.float64):
+    """The CL step's forward, losses and backward, without the optimizer,
+    on `device` in `dtype` (the model, batch, memory bank and points in
+    `dtype`, regularisers off): (loss, {leaf: gradient in f32 on the
+    CPU}). On the CPU in f64 it is the witness of the f32 steps'
+    gradients."""
+    from vilco_tpu_torch.models.point_transformer import PointTransformer
+    from vilco_tpu_torch.train.engine import batch_to, compute_losses
+
+    cl_model, flags, cl, prompt_mask = cl_step_setup(cfg, task, 1, device)
+    model = PointTransformer(cfg.model, torch.Generator().manual_seed(SEED),
+                             device=device, cl=cl_model)
+    redraw_adapters(model)
+    model.to(dtype).train()
+    b = {k: v.to(dtype) if v.is_floating_point() else v
+         for k, v in batch_to(batch, device).items()}
+    cl.memory_bank = cl.memory_bank.to(dtype)
+    out = model(b["feats"], b["mask"], b["text"], b["text_mask"],
+                b["narration"], b["narration_mask"], b["narration_valid"],
+                torch.from_numpy(np.ascontiguousarray(prompt_mask)).to(device))
+    loss, _, _ = compute_losses(
+        out, b, torch.from_numpy(pts).to(device, dtype), cl,
+        torch.tensor(cfg.train_cfg.init_loss_norm, dtype=dtype,
+                     device=device),
+        cfg.train_cfg, flags["n_known"], cfg.cl_cfg.ssl_factor)
+    loss.backward()
+    return loss.item(), {n: p.grad.float().cpu()
+                         for n, p in model.named_parameters()}
+
+
+def phase_train_parity(dev, tag="train_parity", full=None, task=None):
     """One train step of `full` (a Config; the MQ flagship when None) at
     batch 1 in f32, regularisers off: the card against the CPU, the TF32
     control, and the card through the plain versions (the kernels' share
-    and the libraries' share of the gap)."""
+    and the libraries' share of the gap); then the repeatability pairs.
+    With `task`, the step is CL task `task` of full's CL method (the clip's
+    narration valid, the adapters redrawn, the adapter EMA at
+    PARITY_EMA_DECAY), and in place of the repeatability pairs: the same
+    step's gradients in f64 on the CPU (step_gradients) as the witness of
+    the f32 ones, and the loss terms, the memory bank, its pointer and the
+    adapter EMA after the step."""
     from vilco_tpu_torch.core.config import flagship_config
     from vilco_tpu_torch.data.synthetic import make_batch
     from vilco_tpu_torch.models.point_transformer import (
@@ -1129,7 +1282,6 @@ def phase_train_parity(dev, tag="train_parity", full=None):
     )
     from vilco_tpu_torch.ops.assign import generate_points
     from vilco_tpu_torch.train.engine import (
-        CLBatchExtras,
         batch_to,
         init_train_state,
         make_train_step,
@@ -1139,22 +1291,30 @@ def phase_train_parity(dev, tag="train_parity", full=None):
     m = cfg.model
     pts = generate_points(level_lengths(m), m.fpn_strides, m.regression_range)
     batch = make_batch(np.random.default_rng(SEED + 4), 1, cfg)
+    if "narration_valid" in batch:
+        batch["narration_valid"][:] = True
 
     def run(device, tf32: bool, plain: bool = False,
             regularize: bool = False):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
+        cl_model, flags, cl, prompt_mask = cl_step_setup(cfg, task, 1,
+                                                         device)
+        if prompt_mask is not None:
+            batch["prompt_mask"] = prompt_mask
         model = PointTransformer(m, torch.Generator().manual_seed(SEED),
-                                 device=device)
+                                 device=device, cl=cl_model)
+        redraw_adapters(model)
         st = init_train_state(model, cfg, steps_per_epoch=1, seed=SEED,
                               device=device)
         st.opt.count = PARITY_STEP
+        ema0 = {n: e.cpu().clone()
+                for n, e in (st.adapter_ema or {}).items()}
         if plain:
             st.opt._table = None        # AdamW through its plain version
         step = make_train_step(torch.from_numpy(pts).to(device),
-                               cfg.train_cfg, regularize=regularize)
-        cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
-                                      device=device))
+                               cfg.train_cfg, regularize=regularize,
+                               ema_decay=PARITY_EMA_DECAY, **flags)
         t0 = time.perf_counter()
         with plain_versions() if plain else contextlib.nullcontext():
             met = step(st, batch_to(batch, device), cl)
@@ -1168,7 +1328,12 @@ def phase_train_parity(dev, tag="train_parity", full=None):
             grads={n: p.grad.cpu() for n, p in named},
             params={n: p.detach().cpu() for n, p in named},
             mu={n: t.cpu() for n, t in mu.items()},
-            nu={n: t.cpu() for n, t in nu.items()}, secs=secs)
+            nu={n: t.cpu() for n, t in nu.items()}, secs=secs,
+            metrics={k: v.item() for k, v in met.items()},
+            bank=None if cl.memory_bank is None else cl.memory_bank.cpu(),
+            ptr=None if cl.memory_ptr is None else int(cl.memory_ptr),
+            ema={n: e.cpu() for n, e in (st.adapter_ema or {}).items()},
+            ema0=ema0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         del model, st
@@ -1203,12 +1368,20 @@ def phase_train_parity(dev, tag="train_parity", full=None):
     if c["params"][0] > PARAM_RTOL or max(c["mu"][0], c["nu"][0]) > 2.0 ** -6:
         fail(f"{tag}: updated parameters or moments out of "
              f"tolerance ({PARAM_RTOL:g}; 2^-6, two bf16 steps)")
-    if max(c["loss"], c["gnorm"]) > 1e-5 or c["grads"][0] > GRAD_RTOL:
+    errs = leaf_errors(card["grads"], ref["grads"], 1e-4)
+    if task is not None:
+        for n in check_f64_witness(tag, cfg, task, batch, pts, ref, card,
+                                   plain, ctrl):
+            del errs[n]
+    if max(c["loss"], c["gnorm"]) > 1e-5 or max(errs.values()) > GRAD_RTOL:
         fail(f"{tag}: out of tolerance")
     if gaps["kernel gap: card kernels"]["grads"][0] > GRAD_RTOL:
         fail(f"{tag}: the kernels alone move the gradients past the limit")
     if gaps["TF32 control"]["grads"][0] <= GRAD_RTOL:
         fail(f"{tag}: the check does not see TF32: limit too loose")
+    if task is not None:
+        check_cl_state(tag, card, ref)
+        return
     say_repeatable(tag, m, "", run(dev, False, regularize=True),
                    run(dev, False, regularize=True))
     for algorithms in (False, True):
@@ -1219,6 +1392,84 @@ def phase_train_parity(dev, tag="train_parity", full=None):
                f"it names: {'; '.join(ops) if ops else 'none'}) and"
                if algorithms else "")
         say_repeatable(tag, m, f"{how} with cudnn.deterministic", *pair)
+
+
+def check_f64_witness(tag, cfg, task, batch, pts, ref, card, plain, ctrl):
+    """The CL step's f32 gradients against the f64 step (step_gradients):
+    each run's three worst leaves, then each leaf of F64_LIMITS, held there
+    (the card against the f64 step within its limit, the TF32 control
+    above it). Returns those leaves, which the caller leaves out of the
+    card-vs-CPU check."""
+    t0 = time.perf_counter()
+    loss, want = step_gradients(cfg, task, batch, pts)
+    say(f"[{tag}] f64 witness: the step's loss and gradients on the CPU in "
+        f"f64 ({time.perf_counter() - t0:.1f} s), loss {loss:.9f}")
+    runs = (("card", card), ("CPU", ref), ("card plain", plain),
+            ("TF32 control", ctrl))
+    errs = {label: leaf_errors(r["grads"], want, 1e-4) for label, r in runs}
+    for label, r in runs:
+        worst = sorted(errs[label].items(), key=lambda kv: -kv[1])[:3]
+        say(f"[{tag}] f64 witness: {label} vs f64: loss rel "
+            f"{abs(r['loss'] - loss) / abs(loss):.3e}; gradients "
+            + ", ".join(f"{n} {e:.3e}" for n, e in worst))
+    for n, lim in F64_LIMITS.items():
+        say(f"[{tag}] f64 witness: {n} vs f64: "
+            + ", ".join(f"{label} {errs[label][n]:.3e}" for label, _ in runs)
+            + f"; limit {lim:g} (the card below, TF32 above)")
+        if errs["card"][n] > lim:
+            fail(f"{tag}: {n}'s gradient out of tolerance of the f64 step")
+        if errs["TF32 control"][n] <= lim:
+            fail(f"{tag}: {n}'s limit does not see TF32")
+    return set(F64_LIMITS)
+
+
+def ema_spacings(r):
+    """Run r's adapter EMA after the step against its formula, e0 + (1 -
+    PARITY_EMA_DECAY) (p - e0) from the first values e0 and the updated
+    adapters p, in f32 spacings of the EMA's values: (the largest
+    difference, the largest move of the formula). At decay 0.5 both
+    products are exact and the sum rounds once, so the difference is at
+    most half a spacing; most adapter elements move by only a few spacings
+    in the parity step (their clipped gradients lie below AdamW's eps)."""
+    eps, tiny = torch.finfo(torch.float32).eps, torch.finfo(torch.float32).tiny
+    off = moved = 0.0
+    for n, e0 in r["ema0"].items():
+        spacing = (eps * r["ema"][n].abs()).clamp(min=tiny)
+        step = (1.0 - PARITY_EMA_DECAY) * (r["params"][n] - e0)
+        off = max(off, (((r["ema"][n] - e0) - step).abs()
+                        / spacing).max().item())
+        moved = max(moved, (step.abs() / spacing).max().item())
+    return off, moved
+
+
+def check_cl_state(tag, card, ref):
+    """The CL step's terms and state, card against CPU: each loss term
+    1e-5 relative, the memory bank BANK_RTOL of its largest value, the
+    pointer equal, the adapter EMA PARAM_RTOL of each leaf's largest value
+    (as the updated parameters); and on each side the EMA against its
+    formula to one f32 spacing (ema_spacings), with the CPU's EMA moved by
+    8 spacings or more somewhere, so that an EMA not updated, or at another
+    decay, shows."""
+    terms = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-30)
+             for k, v in ref["metrics"].items()
+             if k not in ("final_loss", "grad_norm", "num_pos")}
+    bank = ((card["bank"] - ref["bank"]).abs().max()
+            / ref["bank"].abs().max()).item()
+    ema, worst_ema = rel_by_leaf(card["ema"], ref["ema"], 0.0)
+    (off_cpu, moved), (off_card, _) = ema_spacings(ref), ema_spacings(card)
+    say(f"[{tag}] CL terms card vs CPU: " + ", ".join(
+        f"{k} {ref['metrics'][k]:.6f} (rel {e:.3e})"
+        for k, e in terms.items())
+        + f"; memory bank max rel err {bank:.3e} (tol {BANK_RTOL:g}), "
+        f"pointer {card['ptr']} ({ref['ptr']}); adapter EMA at decay "
+        f"{PARITY_EMA_DECAY:g} over {len(ref['ema'])} leaves: card vs CPU "
+        f"{ema:.3e} ({worst_ema}; tol {PARAM_RTOL:g}); against its formula "
+        f"CPU {off_cpu:.3f}, card {off_card:.3f} f32 spacings (tol 1), the "
+        f"CPU's largest move {moved:.1f} spacings (at least 8)")
+    if max(terms.values()) > 1e-5 or bank > BANK_RTOL or ema > PARAM_RTOL \
+            or max(off_cpu, off_card) > 1.0 or moved < 8.0 \
+            or card["ptr"] != ref["ptr"]:
+        fail(f"{tag}: the CL terms or state out of tolerance")
 
 
 @contextlib.contextmanager
@@ -1262,16 +1513,17 @@ def say_repeatable(tag, m, how, first, second):
 
 
 def phase_train(dev, tag: str, cfg, kernels, seed: int,
-                normalised_must_fall: bool):
+                normalised_must_fall: bool, task=None):
     """The train step of `cfg` (a Config) in bf16 with f32 masters and the
-    regularisers on, at cfg.batch_size on one fixed synthetic batch: 2
-    warm-up and 10 timed steps, ms per step split into forward / backward /
-    optimizer, every loss, peak memory, the launch counts of `kernels` (set
-    to 0 just before), then one more step profiled. The losses must be
-    finite and the loss before the normaliser (the sum the step's gradient
-    follows) must fall; with `normalised_must_fall` the normalised loss
-    too (the normaliser is an EMA from init_loss_norm toward the batch's
-    positives, which can fall as fast as the loss)."""
+    regularisers on, at cfg.batch_size on one fixed synthetic batch, as CL
+    task `task` of cfg's CL method (None: the naive method): 2 warm-up and
+    10 timed steps, ms per step split into forward / backward / optimizer,
+    every loss, peak memory, the launch counts of `kernels` (set to 0 just
+    before), then one more step profiled. The losses must be finite and
+    the loss before the normaliser (the sum the step's gradient follows)
+    must fall; with `normalised_must_fall` the normalised loss too (the
+    normaliser is an EMA from init_loss_norm toward the batch's positives,
+    which can fall as fast as the loss)."""
     from vilco_tpu_torch.data.synthetic import make_batch
     from vilco_tpu_torch.models.point_transformer import (
         PointTransformer,
@@ -1279,29 +1531,30 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
     )
     from vilco_tpu_torch.ops.assign import generate_points
     from vilco_tpu_torch.train.engine import (
-        CLBatchExtras,
         batch_to,
         init_train_state,
         make_train_step,
     )
 
     m = cfg.model
+    cl_model, flags, cl, prompt_mask = cl_step_setup(cfg, task,
+                                                     cfg.batch_size, dev)
     model = PointTransformer(m, torch.Generator().manual_seed(SEED),
-                             device=dev)
+                             device=dev, cl=cl_model)
     st = init_train_state(model, cfg, steps_per_epoch=1, seed=SEED,
                           device=dev)
     pts = torch.from_numpy(generate_points(
         level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
     step = make_train_step(pts, cfg.train_cfg, regularize=True,
-                           compute_dtype=torch.bfloat16)
-    batch = batch_to(make_batch(np.random.default_rng(seed),
-                                cfg.batch_size, cfg), dev)
-    cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
-                                  device=dev))
+                           compute_dtype=torch.bfloat16, **flags)
+    batch = make_batch(np.random.default_rng(seed), cfg.batch_size, cfg)
+    if prompt_mask is not None:
+        batch["prompt_mask"] = prompt_mask
+    batch = batch_to(batch, dev)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, norms, walls, parts = [], [], [], []
+    losses, norms, walls, parts, terms = [], [], [], [], []
     for i in range(12):
         marks = []
         torch.cuda.synchronize()
@@ -1310,6 +1563,7 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         losses.append(met["final_loss"].item())
+        terms.append({k: v.item() for k, v in met.items()})
         norms.append(st.loss_normalizer.item())   # the one this loss used
         if i >= 2:
             walls.append(wall)
@@ -1324,7 +1578,11 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
     secs = sum(walls) / 1e3
     regs = (f"drop-path {m.droppath}"
             + (", XL dropout on" if m.variant == "mq" else "")
-            + f", label smoothing {cfg.train_cfg.label_smoothing}")
+            + (f", dropout {m.dropout}" if m.dropout else "")
+            + f", label smoothing {cfg.train_cfg.label_smoothing}"
+            + ("" if task is None else
+               f", CL method {cfg.cl_cfg.name} at task {task} (n_known "
+               f"{flags['n_known']})"))
     say(f"[{tag}] {m.variant.upper()} flagship bf16 (f32 masters), batch "
         f"{B}, T={m.max_seq_len}, {regs}, {len(list(model.parameters()))} "
         f"leaves, {len(walls)} timed steps: {statistics.median(walls):.3f} "
@@ -1337,6 +1595,11 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
     say(f"[{tag}] loss x normaliser (the sum before the normaliser) "
         + ", ".join(f"{x:.4f}" for x in sums))
     say(f"[{tag}] launches in the {len(losses)} steps: {launches}")
+    if task is not None:
+        for k in ("al_loss", "reduce_sim", "ssl_loss"):
+            if k in terms[0]:
+                say(f"[{tag}] {k} " + ", ".join(f"{t[k]:.6f}"
+                                                for t in terms))
     if not all(np.isfinite(losses)):
         fail(f"{tag}: a training loss is not finite")
     say(f"[{tag}] loss {losses[0]:.6f} -> {losses[-1]:.6f}; before the "
@@ -1352,6 +1615,256 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
     del model, st
     torch.cuda.empty_cache()
     return launches
+
+
+# ---- the MQ flagship as configs/mq_vilco.yaml runs it --------------------
+
+YAML_TASK = 1        # CL task 1 of 5: n_known 22, the AL, SSL and pull on
+YAML_PARITY_KEYS = ("cls_logits", "offsets", "reduce_sim", "narration_feat",
+                    "video_feat")
+# leaves of the CL step held against the f64 step, with their limits. The
+# first embedding conv's weight gradient: the card's f32 forward puts a few
+# elements of the two embedding ReLUs' inputs, within 4e-7 of 0, on the
+# other side of 0 from the f64 step (the CPU's f32 none), and the ReLU then
+# drops or passes the whole gradient there; that leaf's sum cancels to
+# ~1e-4 of its terms, so those few elements move it by 2.3e-3 of its
+# largest value. vilco_tpu_torch/tools/yaml_grad_probe.py (H100 80GB HBM3,
+# 700.00 W) read it at 2.313e-3 to 2.334e-3 against the f64 step with the
+# CL terms on (SSL off: 2.6e-4), the CPU at 1.1e-6, and the TF32 control
+# at 3.52e-3 to 3.535e-3; every other leaf of the card lies within
+# GRAD_RTOL of the CPU
+F64_LIMITS = {"backbone.embd_0.weight": 3e-3}
+
+
+def yaml_calls(full):
+    """K1's calls in one forward of the yaml model `full` (a Config), as
+    (Tq, Tk, count): the text stem at the prompted text length, the video
+    stem, each branch block's strided self-attention, and the branch
+    blocks' cross-attention to the text; then K3's (T, stride, count)."""
+    from vilco_tpu_torch.models.backbone import CROSS_MODAL_SKIP_LEVELS
+
+    m, c = full.model, full.cl_cfg
+    T0, n_stem, nb = m.max_seq_len, m.backbone_arch[1], m.num_branch_layers
+    L = full.max_text_len + c.topk * c.length
+    k1 = ([(L, L, n_stem), (T0, T0, n_stem)]
+          + [(T0 >> (i + 1), T0 >> (i + 1), 1) for i in range(nb)]
+          + [(T0 >> (i + 1), L, 1) for i in range(nb)
+             if i not in CROSS_MODAL_SKIP_LEVELS])
+    k3 = [(L, 1, n_stem), (T0, 1, n_stem)] + [(T0 >> i, 2, 1)
+                                               for i in range(nb)]
+    return k1, k3
+
+
+def yaml_text_mask(rng, B, full, dev):
+    """The text keys' mask as the yaml model builds it: the prompt pool's
+    top_k x length prompts, all valid, then 4..L text tokens (the last row
+    only the prompts)."""
+    c, L = full.cl_cfg, full.max_text_len
+    tl = rng.integers(4, L + 1, size=B)
+    tl[-1] = 0
+    m = np.concatenate([np.ones((B, c.topk * c.length), bool),
+                        np.arange(L)[None, :] < tl[:, None]], 1)
+    return torch.from_numpy(m).to(dev)
+
+
+def phase_yaml_kernels(dev):
+    """The kernels at the shapes the yaml model adds to the graft flagship's
+    (which phase_kernels and phase_train_kernels check): K1 over the
+    prompted text (Tk = 128 + 80 = 208, the last key tile 16 keys) as the
+    text stem's self-attention and the branch blocks' cross-attention (Tq
+    512 down to 2), forward at batch 16 and backward at batch 2 (its dk/dv
+    pass over query slices); K3 at T=208, forward and backward; AdamW over
+    the yaml model's 560 leaves. bf16 and f32, each output against its
+    limit, SDPA beside K1."""
+    from vilco_tpu_torch.core.config import mq_yaml_config
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        attention_fwd_cuda,
+        dkv_splits,
+        fused_attention_blc,
+        fused_attention_blc_plain,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+        fused_dwconv_qkv_plain,
+    )
+
+    full = mq_yaml_config()
+    cfg = full.model
+    T0, C, H = cfg.max_seq_len, cfg.embd_dim, cfg.n_head
+    D = C // H
+    k1, _ = yaml_calls(full)
+    L = k1[0][1]
+    shapes = [(Tq, Tk) for Tq, Tk, _ in k1 if Tk == L]
+    rng = np.random.default_rng(SEED + 10)
+    chk = KernelChecks("mq_yaml_kernels", (
+        "attn_text", "attn_cross", "attn_bwd_text", "attn_bwd_cross", "dw",
+        "dw_bwd", "adamw"))
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev, dtype)
+
+    for dtype in (bf16, torch.float32):
+        for B, backward in ((B_SERVE, False), (B_TRAIN, True)):
+            for Tq, Tk in shapes:
+                what = "text" if Tq == Tk else "cross"
+                q, g = (randn(B, Tq, C, dtype=dtype) for _ in range(2))
+                k, v = (randn(B, Tk, C, dtype=dtype) for _ in range(2))
+                m = yaml_text_mask(rng, B, full, dev)
+                bh = lambda x: x.reshape(B, -1, H, D).transpose(1, 2)
+                am = m[:, None, None, :]
+                sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+                    bh(a), bh(b), bh(c), attn_mask=am)
+                label = (f"{'text self' if Tq == Tk else 'cross'}-attention"
+                         f" B={B} Tq={Tq} Tk={Tk} C={C} H={H}")
+                top = dtype == bf16 and Tq in (L, T0 >> 1)
+                if not backward:
+                    with torch.no_grad():
+                        out = fused_attention_blc(q, k, v, m, H)
+                        ref = fused_attention_blc_plain(q, k, v, m, H)
+                    chk.report(f"attn_{what}", f"attention forward {label}",
+                               dtype, output_errors(("out",), [out], [ref],
+                                                    FWD_TOL[dtype]),
+                               lambda: attention_fwd_cuda(q, k, v, m, H,
+                                                          False),
+                               lambda: fused_attention_blc_plain(q, k, v, m,
+                                                                 H),
+                               attention_work(Tq, m, C, dtype, False),
+                               lambda: sdpa(q, k, v), is_top=top)
+                    continue
+                got = grads_of(lambda *a: fused_attention_blc(*a, m, H),
+                               (q, k, v), g)
+                want = grads_of(
+                    lambda *a: fused_attention_blc_plain(*a, m, H),
+                    (q, k, v), g)
+                o, lse = attention_fwd_cuda(q, k, v, m, H, with_lse=True)
+                check_repeatable(
+                    "mq_yaml_kernels", f"attention backward {label} "
+                    f"{str(dtype)[6:]} ({dkv_splits(B, H, Tq, Tk)} query "
+                    "slices)",
+                    lambda: attention_bwd_cuda(q, k, v, m, o, lse, g, H))
+                chk.report(f"attn_bwd_{what}", f"attention backward {label}",
+                           dtype, output_errors(("dq", "dk", "dv"), got,
+                                                want, TRAIN_TOL[dtype]),
+                           lambda: attention_bwd_cuda(q, k, v, m, o, lse, g,
+                                                      H),
+                           backward_timer(
+                               lambda *a: fused_attention_blc_plain(*a, m,
+                                                                    H),
+                               (q, k, v), g),
+                           attention_work(Tq, m, C, dtype, True),
+                           backward_timer(sdpa, (q, k, v), bh(g)),
+                           is_top=top, queued=True)
+        # K3 at the text stem's T=208, stride 1
+        w = randn(3, 3, C, dtype=dtype, scale=0.3)
+        wg = w.float().permute(2, 0, 1).reshape(3 * C, 1, 3).to(dtype)
+        x = randn(B_SERVE, L, C, dtype=dtype)
+        xt = x.transpose(1, 2)
+        with torch.no_grad():
+            rows = output_errors(("q", "k", "v"), fused_dwconv_qkv(x, w, 1),
+                                 fused_dwconv_qkv_plain(x, w, 1),
+                                 FWD_TOL[dtype])
+        chk.report("dw", f"dwconv forward B={B_SERVE} T={L} C={C} stride=1",
+                   dtype, rows, lambda: fused_dwconv_qkv(x, w, 1),
+                   lambda: fused_dwconv_qkv_plain(x, w, 1),
+                   dwconv_work(B_SERVE, L, C, 1, dtype, backward=False),
+                   lambda: F.conv1d(xt, wg, padding=1, groups=C),
+                   is_top=dtype == bf16, also_queued=True)
+        x = randn(B_TRAIN, L, C, dtype=dtype)
+        gs = tuple(randn(B_TRAIN, L, C, dtype=dtype) for _ in range(3))
+        got = grads_of(lambda a, b: fused_dwconv_qkv(a, b, 1), (x, w), gs)
+        want = grads_of(lambda a, b: fused_dwconv_qkv_plain(a, b, 1), (x, w),
+                        gs)
+        gcat = torch.stack(gs, -1).reshape(B_TRAIN, L, 3 * C).transpose(1, 2)
+        label = f"dwconv backward B={B_TRAIN} T={L} C={C} stride=1"
+        check_repeatable("mq_yaml_kernels", f"{label} {str(dtype)[6:]}",
+                         lambda: dwconv_bwd_cuda(x, w, *gs, 1))
+        chk.report("dw_bwd", label, dtype,
+                   output_errors(("dx", "dw"), got, want, TRAIN_TOL[dtype]),
+                   lambda: dwconv_bwd_cuda(x, w, *gs, 1),
+                   backward_timer(lambda a, b: fused_dwconv_qkv_plain(a, b, 1),
+                                  (x, w), gs),
+                   dwconv_work(B_TRAIN, L, C, 1, dtype, backward=True),
+                   backward_timer(lambda a, b: F.conv1d(
+                       a.transpose(1, 2), b, padding=1, groups=C), (x, wg),
+                       gcat),
+                   is_top=dtype == bf16, also_queued=True)
+        torch.cuda.empty_cache()
+    check_adamw(chk, *point_transformer_leaves(cfg, dev, full.cl_cfg),
+                torch.bfloat16)
+    if not chk.ok:
+        fail("a kernel disagrees with its plain version at the yaml shapes")
+    return chk.errs, chk.top
+
+
+def mq_yaml_inputs(rng, B, full, dev, dtype):
+    """A batch of the yaml model's inputs: features and text as
+    nlq_inputs draws them, then narration tokens (1..Ln valid) and every
+    clip's narration valid."""
+    feats, mask, text, tmask = nlq_inputs(rng, B, full, dev, dtype)
+    Ln, c = full.max_narration_len, full.cl_cfg
+    nar = rng.standard_normal((B, Ln, c.narration_dim)).astype(np.float32)
+    nl = rng.integers(1, Ln + 1, size=B)
+    to = lambda a, dt=None: torch.from_numpy(a).to(dev, dt)
+    return (feats, mask, text, tmask, to(nar, dtype),
+            to(np.arange(Ln)[None, :] < nl[:, None]),
+            torch.ones(B, dtype=torch.bool, device=dev))
+
+
+def mq_yaml(dev, yaml):
+    """The yaml model's phases: its kernels' new shapes, parity, serving
+    through the adapter ensemble, the train step's parity and training as
+    CL task YAML_TASK; each serving request's and train step's launches
+    checked against the model's structure. Returns the kernel errors and
+    timings and the launch counts."""
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+    )
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
+
+    errs, top = phase_yaml_kernels(dev)
+    phase_parity(dev, "mq_yaml_parity", yaml.model,
+                 mq_yaml_inputs(np.random.default_rng(SEED + 11), 1, yaml,
+                                "cpu", torch.float32),
+                 cl=yaml.cl_cfg, keys=YAML_PARITY_KEYS)
+    k1, k3 = yaml_calls(yaml)
+    per_fwd = {"fused_attention_blc": sum(n for *_, n in k1),
+               "fused_dwconv_qkv": sum(n for *_, n in k3),
+               "xl_rel_attention": 1}
+    rng = np.random.default_rng(SEED + 12)
+    requests = [nlq_inputs(rng, B_SERVE, yaml, dev, torch.bfloat16)
+                for _ in range(7)]
+    serve = phase_serve(dev, "mq_yaml_serve", yaml, requests,
+                        (fused_attention_blc, xl_rel_attention,
+                         fused_dwconv_qkv), cl=yaml.cl_cfg)
+    check_launches("mq_yaml_serve", serve,
+                   {k: 2 * n for k, n in per_fwd.items()}, len(requests),
+                   "request")
+    del requests
+    phase_train_parity(dev, "mq_yaml_train_parity", yaml, task=YAML_TASK)
+    train = phase_train(
+        dev, "mq_yaml_train", yaml,
+        (fused_attention_blc, attention_bwd_cuda, xl_rel_attention,
+         xl_bwd_cuda, fused_dwconv_qkv, dwconv_bwd_cuda, adamw_update_multi),
+        SEED + 13, normalised_must_fall=False, task=YAML_TASK)
+    check_launches("mq_yaml_train", train,
+                   {**per_fwd, "attention_bwd_cuda": per_fwd[
+                       "fused_attention_blc"], "xl_bwd_cuda": 1,
+                    "dwconv_bwd_cuda": per_fwd["fused_dwconv_qkv"],
+                    "adamw_update_multi": 1}, 12, "step")
+    return errs, top, serve, train
 
 
 # ---- NLQ: the dual tower with banded attention (K5) -----------------------
@@ -1418,8 +1931,8 @@ def band_mask(m, w: int):
 
 
 def nlq_inputs(rng, B, full, dev, dtype):
-    """A batch of NLQ inputs: clip features with ragged lengths, query text
-    of 4..L tokens."""
+    """A batch of NLQ inputs (and of the MQ yaml model's serving): clip
+    features with ragged lengths, text of 4..L tokens."""
     m = full.model
     T, L = m.max_seq_len, full.max_text_len
     feats = rng.standard_normal((B, T, m.input_dim)).astype(np.float32)
@@ -2779,7 +3292,7 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     from vilco_tpu_torch.core.config import flagship_config, \
-        nlq_flagship_config
+        mq_yaml_config, nlq_flagship_config
     from vilco_tpu_torch.kernels.adamw import adamw_update_multi
     from vilco_tpu_torch.kernels.attention import (
         attention_bwd_cuda,
@@ -2799,7 +3312,7 @@ def main():
     # f32 means f32 in every comparison: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mq, nlq = flagship_config(), nlq_flagship_config()
+    mq, nlq, yaml = flagship_config(), nlq_flagship_config(), mq_yaml_config()
 
     # MQ: the serving kernels, parity, serving, the training kernels, the
     # f32 step's parity, training
@@ -2809,6 +3322,10 @@ def main():
         dev, "serve", mq, mq_requests(mq.model, dev),
         (fused_attention_blc, xl_rel_attention, fused_dwconv_qkv))
     terrs, ttop, train_launches = mq_training(dev, mq)
+
+    # the MQ flagship as configs/mq_vilco.yaml runs it: text tower, branch
+    # cross-attention, L2P, time adapters and their ensemble, narration SSL
+    yerrs, ytop, yaml_serve, yaml_train = mq_yaml(dev, yaml)
 
     # NLQ: the same at the dual tower's shapes
     nerrs, ntop = phase_nlq_kernels(dev)
@@ -2845,11 +3362,13 @@ def main():
         # banded kernels: NLQ path)
         ("fused_attention_blc", "vilco_tpu_torch/csrc/attention_blc.cu",
          "vilco_tpu/kernels/attention.py:359", errs["attn"]
-         + nerrs["attn"] + verrs["attn"] + verrs["attn_cq"], top["attn"],
+         + nerrs["attn"] + verrs["attn"] + verrs["attn_cq"]
+         + yerrs["attn_text"] + yerrs["attn_cross"], top["attn"],
          serve_launches["fused_attention_blc"]),
         ("attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc_bwd.cu",
          "vilco_tpu/kernels/attention.py:383",
-         terrs["attn_bwd"] + nerrs["attn_bwd"] + verrs["attn_bwd"],
+         terrs["attn_bwd"] + nerrs["attn_bwd"] + verrs["attn_bwd"]
+         + yerrs["attn_bwd_text"] + yerrs["attn_bwd_cross"],
          ttop["attn_bwd"],
          train_launches["attention_bwd_cuda"]),
         ("xl_rel_attention", "vilco_tpu_torch/csrc/xl_rel_attention.cu",
@@ -2860,15 +3379,15 @@ def main():
          "vilco_tpu/kernels/xl_attention.py:286", terrs["xl_bwd"],
          ttop["xl_bwd"], train_launches["xl_bwd_cuda"]),
         ("fused_dwconv_qkv", "vilco_tpu_torch/csrc/dwconv_qkv.cu",
-         "vilco_tpu/kernels/dwconv.py:119", errs["dw"] + nerrs["dw"],
-         top["dw"], serve_launches["fused_dwconv_qkv"]),
+         "vilco_tpu/kernels/dwconv.py:119", errs["dw"] + nerrs["dw"]
+         + yerrs["dw"], top["dw"], serve_launches["fused_dwconv_qkv"]),
         ("dwconv_bwd_cuda", "vilco_tpu_torch/csrc/dwconv_qkv.cu",
          "vilco_tpu/kernels/dwconv.py:136", terrs["dw_bwd"]
-         + nerrs["dw_bwd"], ttop["dw_bwd"],
+         + nerrs["dw_bwd"] + yerrs["dw_bwd"], ttop["dw_bwd"],
          train_launches["dwconv_bwd_cuda"]),
         ("adamw_update_multi", "vilco_tpu_torch/csrc/adamw.cu",
          "vilco_tpu/kernels/adamw.py:97", terrs["adamw"] + nerrs["adamw"]
-         + verrs["adamw"], ttop["adamw"],
+         + verrs["adamw"] + yerrs["adamw"], ttop["adamw"],
          train_launches["adamw_update_multi"]),
         ("banded_attention_blc", "vilco_tpu_torch/csrc/banded_attention.cu",
          "vilco_tpu/kernels/banded_attention.py:153", nerrs["band_fwd"],
@@ -2919,6 +3438,10 @@ def main():
                  "max_abs_err": max(err), **t}
         if fn in serve_launches:
             entry["launches_train"] = train_launches[fn]
+        if fn in yaml_serve:
+            entry["launches_mq_yaml_serve"] = yaml_serve[fn]
+        if fn in yaml_train:
+            entry["launches_mq_yaml_train"] = yaml_train[fn]
         if fn in nlq_serve:
             entry["launches_nlq_serve"] = nlq_serve[fn]
         if fn in nlq_train:
@@ -2930,9 +3453,17 @@ def main():
             entry["launches_vq_train"] = vq_train[fn]
         if fn in also:
             entry["also_replaces"] = also[fn]
-        if fn == "adamw_update_multi":     # the same kernel over NLQ's and
-            entry["nlq"] = ntop["adamw"]   # VQ's leaves
+        if fn == "adamw_update_multi":     # the same kernel over NLQ's,
+            entry["nlq"] = ntop["adamw"]   # VQ's and the yaml model's leaves
             entry["vq"] = vtop["adamw"]
+            entry["mq_yaml"] = ytop["adamw"]
+        if fn in ("fused_attention_blc", "attention_bwd_cuda"):
+            part = "attn" if fn == "fused_attention_blc" else "attn_bwd"
+            entry["mq_yaml_text"] = ytop[f"{part}_text"]   # Tk = 208
+            entry["mq_yaml_cross"] = ytop[f"{part}_cross"]
+        if fn in ("fused_dwconv_qkv", "dwconv_bwd_cuda"):
+            entry["mq_yaml_text"] = ytop["dw" if fn == "fused_dwconv_qkv"
+                                         else "dw_bwd"]
         if fn == "fused_attention_blc":    # at the ViT's and cq_corr's shapes
             entry["vq_vit"] = vtop["attn"]
             entry["vq_cq_corr"] = vtop["attn_cq"]
@@ -2960,7 +3491,7 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
-                         ["--vq-train"]):
+                         ["--vq-train"], ["--mq-yaml"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2970,6 +3501,10 @@ if __name__ == "__main__":
             from vilco_tpu_torch.core.config import flagship_config
 
             mq_training(dev, flagship_config())
+        if sys.argv[1] == "--mq-yaml":
+            from vilco_tpu_torch.core.config import mq_yaml_config
+
+            mq_yaml(dev, mq_yaml_config())
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

@@ -17,7 +17,8 @@ at the edges of its tiles and band chunks (T 1 to 1024, D 32 to 128),
 its lse, two calls bitwise equal, K2-bwd from its output; K3's row walk
 (forward and its one backward launch) at T 1 to 129, odd T, one and two
 channel columns a block and every walk length, dx and dw bitwise equal
-over two calls. Marked
+over two calls; K1 forward and backward over the MQ yaml model's prompted
+text keys (208, Tq 512 down to 2) and K3 at its text stem (T=208). Marked
 `gpu`: skips where there is no card. Imports no JAX, so that it runs on a
 machine with only PyTorch:
 
@@ -297,6 +298,66 @@ def test_k1_matches_plain_at_path_shapes_on_card(cuda, dtype, ftol, btol,
            attn.attention_bwd_plain(q, k, v, m, o, lse, g, H), btol,
            "K1 backward against the plain three passes")
     assert all(torch.all(x[-1] == 0) for x in [out] + got)
+    torch.cuda.synchronize()
+
+
+# the MQ yaml model's text keys: 20 x 4 prompt tokens, all valid, then 128
+# text tokens (Tk = 208, the last key tile 16 keys); the text stem's
+# self-attention and the branch blocks' cross-attention, Tq 512 down to 2
+YAML_TK, YAML_PROMPT = 208, 80
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ftol,btol", [(torch.float32, 1e-4, 1e-4),
+                                             (torch.bfloat16, 1e-2, 2e-2)])
+@pytest.mark.parametrize("Tq", [208, 512, 64, 32, 16, 8, 4, 2])
+def test_k1_at_mq_yaml_text_shapes_on_card(cuda, dtype, ftol, btol, Tq):
+    """K1's forward and backward over the prompted text keys (16 heads of
+    64, batch 2, one row with only the prompts valid) against autograd
+    through the plain version, at the limits above; the backward (query
+    slices in dk/dv where dkv_splits gives them) twice for equal bits; one
+    launch a wrapper call."""
+    B, H, D = 2, 16, 64
+    rng = np.random.default_rng(Tq)
+    q, k, v, g, _ = _k1_inputs(rng, cuda, dtype, B, Tq, YAML_TK, H, D)
+    text = np.arange(YAML_TK - YAML_PROMPT)[None, :] < np.array([[37], [0]])
+    m = torch.from_numpy(np.concatenate(
+        [np.ones((B, YAML_PROMPT), bool), text], 1)).to(cuda)
+    n_fwd, n_bwd = fused_attention_blc.launches, attn.attention_bwd_cuda.launches
+    with torch.no_grad():
+        out = fused_attention_blc(q, k, v, m, H)
+    _close([out], [fused_attention_blc_plain(q, k, v, m, H)], ftol,
+           "K1 forward")
+    got = _grads(lambda *a: fused_attention_blc(*a, m, H), (q, k, v), g)
+    assert fused_attention_blc.launches == n_fwd + 2
+    assert attn.attention_bwd_cuda.launches == n_bwd + 1
+    _close(got, _grads(lambda *a: fused_attention_blc_plain(*a, m, H),
+                       (q, k, v), g), btol, "K1 backward")
+    o, lse = attn.attention_fwd_cuda(q, k, v, m, H, with_lse=True)
+    first = attn.attention_bwd_cuda(q, k, v, m, o, lse, g, H)
+    second = attn.attention_bwd_cuda(q, k, v, m, o, lse, g, H)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_at_mq_yaml_text_stem_on_card(cuda, dtype):
+    """K3 at the yaml model's text stem (T = 208, C = 1024, stride 1, batch
+    2): q, k, v within FWD_TOL of the plain version, dx and dw within
+    TRAIN_TOL of autograd through it, the backward twice for equal bits."""
+    rng = np.random.default_rng(208)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+    x, w = rn(2, YAML_TK, 1024), rn(3, 3, 1024) * 0.3
+    gs = tuple(rn(2, YAML_TK, 1024) for _ in range(3))
+    _close(fused_dwconv_qkv(x, w, 1), fused_dwconv_qkv_plain(x, w, 1),
+           FWD_TOL[dtype], "dwconv forward")
+    first = dwconv_bwd_cuda(x, w, *gs, 1)
+    second = dwconv_bwd_cuda(x, w, *gs, 1)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _close(first, _grads(lambda a, b: fused_dwconv_qkv_plain(a, b, 1),
+                         (x, w), gs), TRAIN_TOL[dtype], "dwconv backward")
     torch.cuda.synchronize()
 
 

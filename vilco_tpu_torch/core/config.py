@@ -6,11 +6,13 @@ names. `ModelConfig` holds only what differs between the flagships and
 their tiny twins (variant, widths, depths, heads, window, classes, lengths,
 regression ranges, drop-path), with the dataset dims already propagated
 (what `Config.derived()` does there); `TrainCfg`, `OptCfg` and `TestCfg`
-hold the `train_cfg`, `opt` and `test_cfg` values the two differ in. What
-every config shares is fixed in the module that reads it: the identity
+hold the `train_cfg`, `opt` and `test_cfg` values the two differ in, and
+`CLCfg` the `cl_cfg` fields the MQ yaml's CL method reads. What every
+config shares is fixed in the module that reads it: the identity
 neck and the channel LayerNorms of the embedding, neck and heads, the
 absolute position encoding, the MQ variant's one XL stage
-(models/backbone.py), 3-tap convs and 3-layer heads
+and the branch levels without text cross-attention (models/backbone.py),
+3-tap convs and 3-layer heads
 (models/point_transformer.py), the 0.8 channel blend (models/layers.py),
 stride-2 branch blocks (`fpn_strides`), multiclass soft-NMS (ops/nms.py),
 radius center sampling, loss weight 1 and clip 1.0 (train/engine.py),
@@ -19,6 +21,7 @@ AdamW's betas, decay and eta_min (train/optim.py).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -34,7 +37,10 @@ class ModelConfig:
     window w = size // 2), -1 for dense attention. `attention_impl` picks
     the dense self-attention of the MQ stem and branch blocks: "xla" (K1,
     the kernel JAX's default runs on a TPU), "flash" (K1f) or
-    "pallas_naive" (K1n)."""
+    "pallas_naive" (K1n). `use_cross_modal` builds the MQ text tower and
+    the branch blocks' text cross-attention (the NLQ dual tower always has
+    its text tower and ignores it); `dropout` is the blocks' proj_drop
+    (train_cfg.dropout, copied by `Config.derived()`)."""
     variant: str = "mq"
     backbone_arch: Tuple[int, ...] = (2, 2, 9)
     regression_range: Tuple[Tuple[float, float], ...] = (
@@ -51,6 +57,8 @@ class ModelConfig:
     num_classes: int = 110
     max_seq_len: int = 1024
     droppath: float = 0.1
+    dropout: float = 0.0
+    use_cross_modal: bool = False
     attention_impl: str = "xla"
 
     def __post_init__(self):
@@ -90,10 +98,39 @@ class TestCfg:
 @dataclass(frozen=True)
 class TrainCfg:
     """MQ weights its losses by the learned per-class Gaussians; NLQ does
-    not, and smooths its labels."""
+    not, and smooths its labels. `al_loss_weight` weights the
+    label-involved loss (0: off); `temperature` is the narration-SSL
+    InfoNCE's."""
     label_smoothing: float = 0.0
     use_gaussian_weights: bool = True
     init_loss_norm: float = 100.0
+    al_loss_weight: float = 0.0
+    temperature: float = 0.07
+
+
+@dataclass(frozen=True)
+class CLCfg:
+    """The `cl_cfg` fields of the MQ yaml's CL method (name "l2p"): the L2P
+    prompt pool (`prompt_pool`, `pool_size` prompts of `length` tokens of
+    `embed_dim`, `topk` chosen), narration SSL (`narration_ssl`, narration
+    tokens of `narration_dim`, weight `ssl_factor`, a memory bank of
+    `memory_size` rows), the time adapters (`use_adapt` in the branch
+    blocks `adapt_blocks`) and the task split (`num_tasks` of
+    `classes_per_task`)."""
+    name: str = "naive"
+    memory_size: int = 0
+    prompt_pool: bool = False
+    pool_size: int = 10
+    topk: int = 4
+    length: int = 20
+    embed_dim: int = 768
+    narration_ssl: bool = False
+    narration_dim: int = 512
+    ssl_factor: float = 0.03
+    use_adapt: bool = False
+    adapt_blocks: Tuple[int, ...] = ()
+    num_tasks: int = 5
+    classes_per_task: int = 22
 
 
 @dataclass(frozen=True)
@@ -105,27 +142,28 @@ class OptCfg:
 
 @dataclass(frozen=True)
 class Config:
-    """`batch_size` is `loader.batch_size`; `max_segments` and
-    `max_text_len` are `dataset.max_segments` (the static GT padding per
-    clip) and `dataset.max_text_len` (text tokens per query, NLQ)."""
+    """`batch_size` is `loader.batch_size`; `max_segments`,
+    `max_text_len` and `max_narration_len` are `dataset.max_segments` (the
+    static GT padding per clip), `dataset.max_text_len` (text tokens per
+    clip or query) and `dataset.max_narration_len` (narration tokens per
+    clip)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     test_cfg: TestCfg = field(default_factory=TestCfg)
     train_cfg: TrainCfg = field(default_factory=TrainCfg)
     opt: OptCfg = field(default_factory=OptCfg)
+    cl_cfg: CLCfg = field(default_factory=CLCfg)
     batch_size: int = 2
     max_segments: int = 64
     max_text_len: int = 128
+    max_narration_len: int = 128
 
 
 def flagship_config(tiny: bool = False) -> Config:
     """The MQ ViLCo flagship as `__graft_entry__._flagship_cfg(tiny)`
     builds it, equal to it field by field; the tiny twin with its XL stage
-    on, as the port always runs it. configs/mq_vilco.yaml differs from it:
-    `model.use_cross_modal` True, `model.dropout` and `train_cfg.dropout`
-    0.1, `train_cfg.al_loss_weight` 0.2, and in `test_cfg`
-    `pre_nms_topk` 5000, `min_score` 1e-4, `nms_sigma` 0.99,
-    `duration_thresh` 0.01 and `voting_thresh` 0.9."""
+    on, as the port always runs it, naive CL method and no text.
+    configs/mq_vilco.yaml is `mq_yaml_config()`."""
     if tiny:
         model = ModelConfig(
             backbone_arch=(2, 1, 3), embd_dim=64, fpn_dim=64, head_dim=64,
@@ -135,6 +173,46 @@ def flagship_config(tiny: bool = False) -> Config:
         )
         return Config(model=model, batch_size=8, max_segments=8)
     return Config(model=ModelConfig())
+
+
+MQ_YAML_CL = CLCfg(name="l2p", memory_size=1010, prompt_pool=True,
+                   narration_ssl=True, use_adapt=True,
+                   adapt_blocks=(0, 1, 2, 3, 4))
+
+
+def mq_yaml_config(tiny: bool = False) -> Config:
+    """The MQ ViLCo flagship as configs/mq_vilco.yaml runs it: the graft
+    flagship's model with the text tower and the branch blocks' text
+    cross-attention (text 128 tokens of 768), dropout 0.1, the AL loss at
+    0.2, the yaml's test_cfg (5000 candidates, sigma 0.99), and its CL
+    method: L2P (10 prompts of 20 tokens, 4 chosen), narration SSL (128
+    tokens of 512, a bank of 1010) and time adapters in branch blocks 0-4;
+    5 tasks of 22 classes. The tiny twin is vilco_tpu/data/synthetic.py::
+    tiny_config() with the same switches on and the XL stage (E=32, T=64,
+    arch (2, 1, 3), 10 classes in 5 tasks of 2, text 16 x 768, narration
+    8 x 512, no dropout or drop-path, AL weight 0.1)."""
+    if tiny:
+        model = ModelConfig(
+            backbone_arch=(2, 1, 3), embd_dim=32, fpn_dim=32, head_dim=32,
+            n_head=4,
+            regression_range=((0, 4), (2, 8), (4, 16), (8, 10000)),
+            input_dim=16, num_classes=10, max_seq_len=64, droppath=0.0,
+            use_cross_modal=True)
+        return Config(
+            model=model,
+            test_cfg=TestCfg(pre_nms_topk=256, max_seg_num=20,
+                             nms_sigma=0.9),
+            train_cfg=TrainCfg(init_loss_norm=20.0, al_loss_weight=0.1),
+            opt=OptCfg(learning_rate=2e-3, epochs=3, warmup_epochs=1),
+            cl_cfg=dataclasses.replace(MQ_YAML_CL, classes_per_task=2),
+            batch_size=2, max_segments=8, max_text_len=16,
+            max_narration_len=8)
+    return Config(
+        model=ModelConfig(dropout=0.1, use_cross_modal=True),
+        test_cfg=TestCfg(pre_nms_topk=5000, min_score=1e-4, nms_sigma=0.99,
+                         duration_thresh=0.01, voting_thresh=0.9),
+        train_cfg=TrainCfg(al_loss_weight=0.2),
+        cl_cfg=MQ_YAML_CL)
 
 
 def nlq_flagship_config(tiny: bool = False) -> Config:
@@ -148,6 +226,7 @@ def nlq_flagship_config(tiny: bool = False) -> Config:
             embd_dim=32, fpn_dim=32, head_dim=32, n_head=4, n_txt_in=12,
             regression_range=((0, 4), (2, 8), (4, 16), (8, 10000)),
             input_dim=16, num_classes=1, max_seq_len=64, droppath=0.0,
+            use_cross_modal=True,
         )
         return Config(
             model=model,

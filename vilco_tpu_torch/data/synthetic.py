@@ -1,7 +1,8 @@
-"""Synthetic MQ and NLQ batches (vilco_tpu/data/synthetic.py::make_batch
-without the narration extras), so the card's machine draws batches with no
-JAX present. The same numpy generator gives the same batch as the JAX
-package's function. `make_vq_batch` draws a VQ training batch in the layout
+"""Synthetic MQ and NLQ batches (vilco_tpu/data/synthetic.py::make_batch),
+so the card's machine draws batches with no JAX present. The same numpy
+generator gives the same batch as the JAX package's function.
+`task_extras` gives a CL task's class mask, prompt slots and known classes
+as the JAX episode runner sets them (vilco_tpu/cl/episode.py). `make_vq_batch` draws a VQ training batch in the layout
 of vilco_tpu/train/vq_engine.py (the JAX package draws its VQ bench batch
 inline, bench.py)."""
 
@@ -19,9 +20,12 @@ def make_batch(rng: np.random.Generator, batch_size: int, cfg: Config,
     """Clips of noise with a class-specific bump on each of 1-4 GT
     segments, in the padded batch layout: feats (B, T, Cin) f32, mask
     (B, T), gt_segments (B, N, 2), gt_labels (B, N) int64, gt_valid
-    (B, N); for the NLQ variant also the query text (B, L, n_txt_in) f32
-    and text_mask (B, L), 4..L tokens valid, drawn after the clips as the
-    JAX function draws them."""
+    (B, N); for the NLQ variant and a cross-modal MQ model also the text
+    (B, L, n_txt_in) f32 and text_mask (B, L), 4..L tokens valid; with
+    narration SSL the narration (B, Ln, narration_dim) f32,
+    narration_mask (B, Ln), 1..Ln tokens valid, and narration_valid (B,),
+    each True with probability 0.8; all drawn after the clips in the JAX
+    function's order."""
     m = cfg.model
     T, Cin, C, N = m.max_seq_len, m.input_dim, m.num_classes, cfg.max_segments
     B = batch_size
@@ -45,13 +49,38 @@ def make_batch(rng: np.random.Generator, batch_size: int, cfg: Config,
             feats[b, start:start + length, (c * 7 + 1) % Cin] += signal
     batch = {"feats": feats, "mask": mask, "gt_segments": segs,
              "gt_labels": labels, "gt_valid": valid}
-    if m.variant == "nlq":
+    if m.variant == "nlq" or m.use_cross_modal:
         L = cfg.max_text_len
         batch["text"] = rng.standard_normal((B, L, m.n_txt_in)).astype(
             np.float32)
         tl = rng.integers(4, L + 1, size=B)
         batch["text_mask"] = np.arange(L)[None, :] < tl[:, None]
+    if cfg.cl_cfg.narration_ssl:
+        Ln = cfg.max_narration_len
+        batch["narration"] = rng.standard_normal(
+            (B, Ln, cfg.cl_cfg.narration_dim)).astype(np.float32)
+        nl = rng.integers(1, Ln + 1, size=B)
+        batch["narration_mask"] = np.arange(Ln)[None, :] < nl[:, None]
+        batch["narration_valid"] = rng.random(B) < 0.8
     return batch
+
+
+def task_extras(cfg: Config, task: int, batch_size: int) -> dict:
+    """CL task `task` of `cfg.cl_cfg` (0-based) as the JAX episode runner
+    sets it up: `class_mask` (C,) over the classes of tasks 0..task,
+    `n_known` the classes of the tasks before it, and with the prompt
+    pool `prompt_mask` (B, topk), the task's own slots task x topk ..
+    (task + 1) x topk - 1 (None once they pass the pool's end)."""
+    cl = cfg.cl_cfg
+    class_mask = np.zeros(cfg.model.num_classes, bool)
+    class_mask[:(task + 1) * cl.classes_per_task] = True
+    prompt_mask = None
+    if cl.prompt_pool and (task + 1) * cl.topk <= cl.pool_size:
+        prompt_mask = np.broadcast_to(
+            np.arange(task * cl.topk, (task + 1) * cl.topk)[None],
+            (batch_size, cl.topk)).copy()
+    return {"class_mask": class_mask, "n_known": task * cl.classes_per_task,
+            "prompt_mask": prompt_mask}
 
 
 def make_vq_batch(rng: np.random.Generator, batch_size: int,

@@ -61,6 +61,7 @@ import torch
 
 from vilco_tpu_torch.kernels import _build
 from vilco_tpu_torch.ops.attention import NEG_INF, masked_attention
+from vilco_tpu_torch.ops.masked import wide
 
 LOG2E = 1.4426950408889634
 ROWMAX_FLOOR = -1e8
@@ -87,8 +88,8 @@ def fused_attention_blc_plain(q, k, v, kv_mask, num_heads: int):
 
 def fused_attention_plain(q, k, v, kv_mask):
     """Plain version of K1n (and of K1 on (B, T, H, D) heads):
-    `masked_attention` in f32, returned in q.dtype."""
-    return masked_attention(q.float(), k.float(), v.float(),
+    `masked_attention` in f32 (f64 for f64 inputs), returned in q.dtype."""
+    return masked_attention(wide(q), wide(k), wide(v),
                             kv_mask).to(q.dtype)
 
 
@@ -105,11 +106,6 @@ def dkv_splits(B: int, H: int, Tq: int, Tk: int) -> int:
     tiles = cdiv(Tq, BWD_TILE)
     per = cdiv(tiles, min(cdiv(2 * SMS, blocks), tiles))
     return cdiv(tiles, per)
-
-
-def _wide(x):
-    """x in f32, or f64 where it is f64 (the plain versions' f64 tests)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _heads_f32(x, H):
@@ -152,7 +148,7 @@ def _three_pass_bwd(q, k, v, out, dout, num_heads, score, shift, inv,
     B, Tq, C = q.shape
     Tk, H, T = k.shape[1], num_heads, BWD_TILE
     D = C // H
-    qh, kh, vh, oh, gh = (_wide(x).reshape(x.shape[0], x.shape[1], H, D)
+    qh, kh, vh, oh, gh = (wide(x).reshape(x.shape[0], x.shape[1], H, D)
                           .transpose(1, 2) for x in (q, k, v, out, dout))
     scale = 1.0 / D ** 0.5
     delta = (gh * oh).sum(-1)                                  # (B, H, Tq)
@@ -194,12 +190,12 @@ def flash_attention_plain(q, k, v, kv_mask):
     B, T, H, D = q.shape
     if T < KERNEL_MIN_T:
         return fused_attention_plain(q, k, v, kv_mask)
-    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k))
+    s = torch.einsum("bqhd,bkhd->bhqk", wide(q), wide(k))
     s = s * (1.0 / D ** 0.5)
     s = s + torch.where(kv_mask, 0.0, FLASH_MASK_VALUE).to(
         s.dtype)[:, None, None, :]
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, _wide(v)).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, wide(v)).to(q.dtype)
 
 
 def _scores(qh, kh, bias):
@@ -216,7 +212,7 @@ def _scores(qh, kh, bias):
 def _flash_scores(q, k, kv_mask):
     """K1f's scores of (B, T, H, D) q/k: the library's -0.7 * FLT_MAX at
     masked keys, in f32 (f64 for f64 q)."""
-    return _scores(_wide(q).transpose(1, 2), _wide(k).transpose(1, 2),
+    return _scores(wide(q).transpose(1, 2), wide(k).transpose(1, 2),
                    torch.where(kv_mask, 0.0, FLASH_MASK_VALUE))
 
 

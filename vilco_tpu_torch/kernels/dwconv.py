@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from vilco_tpu_torch.kernels import _build
+from vilco_tpu_torch.ops.masked import wide
 
 CH = 4                   # channels a thread owns (csrc/dwconv_qkv.cu)
 THREADS = 256            # threads a block
@@ -144,9 +145,9 @@ def fused_dwconv_qkv_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     w (3, 3, C) (w[j, i] = tap i of conv j in q, k, v order), zero
     padding 1, computed in f32 and returned in x.dtype."""
     C = x.shape[-1]
-    xt = x.float().transpose(1, 2)
+    xt = wide(x).transpose(1, 2)
     # output channel j*C + c convolves copy j of x with taps w[j, :, c]
-    weight = w.float().permute(0, 2, 1).reshape(3 * C, 1, 3)
+    weight = wide(w).permute(0, 2, 1).reshape(3 * C, 1, 3)
     out = F.conv1d(xt.repeat(1, 3, 1), weight, stride=stride, padding=1,
                    groups=3 * C)
     out = out.transpose(1, 2).to(x.dtype)

@@ -5,7 +5,15 @@ ConvTransformerBackbone, the MQ variant with the XL stage:
   (conv embed + LN + ReLU) x arch[0] -> + abs PE -> stem TransformerBlock
   x arch[1] -> one XLRelAttention -> branch TransformerBlock x arch[2]
   (stride 2 each); the stem and branch blocks attend through
-  `cfg.attention_impl` (K1, K1f or K1n; models/layers.py::MaskedMHCA)
+  `cfg.attention_impl` (K1, K1f or K1n; models/layers.py::MaskedMHCA).
+  With `cfg.use_cross_modal` the text tower runs first: text (1x1 conv
+  embed + LN + ReLU) x arch[0] -> text stem TransformerBlock x arch[1]
+  (self-attention only), and every branch block outside
+  CROSS_MODAL_SKIP_LEVELS cross-attends to its output. The stem blocks
+  get no cross-attention: JAX builds them cross-modal but calls them with
+  no text (vilco_tpu/models/backbone.py:138-147), and its TransformerBlock
+  builds `cross_attn` only when given text (layers.py:412). Branch blocks
+  in `adapt_blocks` carry a TimeAdapter on their input length.
 
 DualTowerBackbone, the NLQ variant, arch (convs, txt_stem, vid_stem,
 cross_branch, plain_branch):
@@ -17,8 +25,7 @@ cross_branch, plain_branch):
   configuration has cross-modal branches (arch[3] > 0), so none are built.
 
 Each returns the feature pyramid and its masks; `rng` switches the blocks'
-regularisers on (models/layers.py). The MQ text tower comes in a later
-slice.
+regularisers on (models/layers.py).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from vilco_tpu_torch.ops.masked import sinusoid_encoding
 
 EMBD_KERNEL_SIZE = 3
 XL_D_INNER = 2048
+# branch levels without text cross-attention (the reference hardcodes them)
+CROSS_MODAL_SKIP_LEVELS = (1, 2)
 
 
 def _embed(backbone, prefix: str, n: int, x, mask):
@@ -69,35 +78,55 @@ def _pe_table(cfg: ModelConfig) -> torch.Tensor:
 
 
 class ConvTransformerBackbone(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, adapt_blocks=()):
         super().__init__()
         self.cfg = cfg
         E = cfg.embd_dim
         n_convs, n_stem, n_branch = (cfg.backbone_arch[0],
                                      cfg.backbone_arch[1],
                                      cfg.backbone_arch[-1])
+        block = lambda **kw: TransformerBlock(
+            E, cfg.n_head, path_drop=cfg.droppath, proj_drop=cfg.dropout,
+            attention_impl=cfg.attention_impl, **kw)
         _add_embed(self, "embd", n_convs, cfg.input_dim, E, EMBD_KERNEL_SIZE)
+        if cfg.use_cross_modal:
+            _add_embed(self, "txt_embd", n_convs, cfg.n_txt_in, E, 1)
+            for i in range(n_stem):
+                self.add_module(f"txt_stem_{i}", block())
         for i in range(n_stem):
-            self.add_module(f"stem_{i}", TransformerBlock(
-                E, cfg.n_head, path_drop=cfg.droppath,
-                attention_impl=cfg.attention_impl))
+            self.add_module(f"stem_{i}", block())
         self.xl_0 = XLRelAttention(E, cfg.n_head, XL_D_INNER)
+        self.cross = [cfg.use_cross_modal and i not in CROSS_MODAL_SKIP_LEVELS
+                      for i in range(n_branch)]
         for i in range(n_branch):
-            self.add_module(f"branch_{i}", TransformerBlock(
-                E, cfg.n_head, n_ds_stride=2, path_drop=cfg.droppath,
-                attention_impl=cfg.attention_impl))
+            self.add_module(f"branch_{i}", block(
+                n_ds_stride=2, use_cross_modal=self.cross[i],
+                adapter_t_in=(cfg.max_seq_len >> i if i in adapt_blocks
+                              else 0)))
         self.register_buffer("pe", _pe_table(cfg), persistent=False)
         self.n_convs, self.n_stem, self.n_branch = n_convs, n_stem, n_branch
 
-    def forward(self, x, mask, rng=None):
+    def forward(self, x, mask, text=None, text_mask=None, rng=None):
+        """`text` (B, L, n_txt_in) and `text_mask` (B, L): the text tokens,
+        needed with `cfg.use_cross_modal` and ignored without."""
         x, mask = _embed(self, "embd", self.n_convs, x, mask)
         x = _add_pe(self, x, mask)
+        if self.cfg.use_cross_modal:
+            if text is None or text_mask is None:
+                raise ValueError("a cross-modal backbone needs text and "
+                                 "text_mask")
+            text, text_mask = _embed(self, "txt_embd", self.n_convs, text,
+                                     text_mask)
+            for i in range(self.n_stem):
+                text, text_mask = getattr(self, f"txt_stem_{i}")(
+                    text, text_mask, rng)
         for i in range(self.n_stem):
             x, mask = getattr(self, f"stem_{i}")(x, mask, rng)
         feats, masks = [x], [mask]
         x = self.xl_0(x, mask, rng)
         for i in range(self.n_branch):
-            x, mask = getattr(self, f"branch_{i}")(x, mask, rng)
+            y = (text, text_mask) if self.cross[i] else (None, None)
+            x, mask = getattr(self, f"branch_{i}")(x, mask, rng, *y)
             feats.append(x)
             masks.append(mask)
         return feats, masks

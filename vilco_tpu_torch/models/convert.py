@@ -19,7 +19,12 @@ is a rename of the leaf plus a layout change:
   everything else (LayerNormC weight/bias, biases, the XL q/k/v/r/o
   (C, H, D) and r_w/r_r biases, AffineDropPath and Scale `scale`, the
   class Gaussians, the ViT's cls_token and pos_embed, the ClipMatcher's
-  pe_3d)                              -> kept as it is
+  pe_3d, the L2P `prompt` and `prompt_key`, unshifted)
+                                      -> kept as it is
+
+The time adapters' Dense kernels (t_in, 5 t_in) and (5 t_in, t_in / 2) act
+on the time axis; they map as any Dense kernel, and the port's TimeAdapter
+applies its Linear layers to the transposed input.
 """
 
 from __future__ import annotations

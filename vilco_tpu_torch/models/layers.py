@@ -7,11 +7,13 @@ dtype on use, as the JAX modules do.
 
 Regularisers: a forward given `rng` (a torch.Generator on the input's
 device) in training mode applies the drop-path of the blocks built with a
-rate > 0 (AffineDropPath residuals, the channel block's two residuals) and
-the XL stage's dropouts (XL_DROPOUT: on the attention probabilities inside
-the kernel, after the output projection, after the FF's GELU and after its
-second layer). Without `rng` they are the identity (the JAX modules'
-`deterministic=True`, or training with the rates at 0).
+rate > 0 (AffineDropPath residuals, the channel block's two residuals),
+the blocks' `proj_drop` dropout (after the attention's and the
+cross-attention's output projection, after the MLP's GELU and after its
+second layer) and the XL stage's dropouts (XL_DROPOUT: on the attention
+probabilities inside the kernel, after the output projection, after the
+FF's GELU and after its second layer). Without `rng` they are the identity
+(the JAX modules' `deterministic=True`, or training with the rates at 0).
 
   MaskedConv, LayerNormC, Scale, AffineDropPath
   MaskedMHCA        depthwise q/k/v convs (kernels/dwconv.py) + LN + dense
@@ -21,8 +23,10 @@ second layer). Without `rng` they are the identity (the JAX modules'
   MaskedMHA         1x1 projections + dense attention; self- or
                     cross-attention (kernels/attention.py, Tq != Tk)
   ChannelBlock      channel attention + MLP
-  TransformerBlock  self-attention, the optional text cross-attention and
-                    channel-attention blend (no adapter)
+  TimeAdapter       the CL adapter: an MLP over the time axis, T -> 5T -> T/2
+  TransformerBlock  self-attention, the optional time adapter beside it,
+                    the optional text cross-attention and the
+                    channel-attention blend
   XLRelAttention    single stream: no mems, no g stream, no segments
 """
 
@@ -48,6 +52,7 @@ from vilco_tpu_torch.ops.masked import (
     channel_layernorm,
     masked_conv1d,
     masked_max_pool1d,
+    wide,
 )
 
 T_C_ALPHA = 0.8  # train_cfg.t_c_alpha: temporal vs channel attention blend
@@ -109,11 +114,12 @@ class LayerNormC(nn.Module):
 
 
 class LayerNorm(nn.LayerNorm):
-    """Flax's nn.LayerNorm: statistics in f32, result in the input dtype."""
+    """Flax's nn.LayerNorm: statistics in f32 (f64 for f64 inputs), result
+    in the input dtype."""
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
+        return F.layer_norm(wide(x), self.normalized_shape,
+                            wide(self.weight), wide(self.bias),
                             self.eps).to(x.dtype)
 
 
@@ -157,11 +163,13 @@ class MaskedMHCA(nn.Module):
     one, and otherwise the channels-last dense kernel."""
 
     def __init__(self, n_embd: int, n_head: int, stride: int = 1,
-                 window: int = -1, attention_impl: str = "xla"):
+                 window: int = -1, attention_impl: str = "xla",
+                 proj_drop: float = 0.0):
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride {stride}: the fused convs take 1 or 2")
         self.n_head, self.stride, self.window = n_head, stride, window
+        self.proj_drop = proj_drop
         self.attention_impl = attention_impl
         E = n_embd
         self.query_conv = _DWKernel(E, 3)
@@ -175,7 +183,7 @@ class MaskedMHCA(nn.Module):
         self.value = Linear(E, E)
         self.proj = Linear(E, E)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng=None):
         w3 = torch.stack([self.query_conv.weight[:, 0],
                           self.key_conv.weight[:, 0],
                           self.value_conv.weight[:, 0]])      # (3, E, 3)
@@ -201,7 +209,7 @@ class MaskedMHCA(nn.Module):
                                   kv_mask).reshape(B, T, E)
         else:
             out = fused_attention_blc(q, k, v, kv_mask, self.n_head)
-        out = self.proj(out)
+        out = _dropout(self.proj(out), self.proj_drop, rng)
         return out * mm, q_mask
 
 
@@ -211,20 +219,21 @@ class MaskedMHA(nn.Module):
     through the attention kernel; the output is zeroed at x's invalid
     positions."""
 
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int, proj_drop: float = 0.0):
         super().__init__()
         E = n_embd
-        self.n_head = n_head
+        self.n_head, self.proj_drop = n_head, proj_drop
         self.query = Linear(E, E)
         self.key = Linear(E, E)
         self.value = Linear(E, E)
         self.proj = Linear(E, E)
 
-    def forward(self, x, mask, enc=None, enc_mask=None):
+    def forward(self, x, mask, enc=None, enc_mask=None, rng=None):
         src, kv_mask = (x, mask) if enc is None else (enc, enc_mask)
         q, k, v = self.query(x), self.key(src), self.value(src)
         out = self.proj(fused_attention_blc(q, k, v, kv_mask.contiguous(),
                                             self.n_head))
+        out = _dropout(out, self.proj_drop, rng)
         return out * mask[..., None].to(out.dtype), mask
 
 
@@ -253,32 +262,61 @@ class ChannelBlock(nn.Module):
         return x + _drop_path(h, self.drop_path, rng)
 
 
+class TimeAdapter(nn.Module):
+    """The CL time adapter (vilco_tpu/models/layers.py::TimeAdapter): a
+    Linear over the time axis of (B, t_in, C), t_in -> 5 t_in, GELU, ->
+    t_in / 2, so its output has the strided attention's length. `fc2`
+    starts at zero."""
+
+    def __init__(self, t_in: int, down_sample: int = 5,
+                 t_out_factor: int = 2):
+        super().__init__()
+        self.t_in = t_in
+        self.fc1 = Linear(t_in, down_sample * t_in)
+        self.fc2 = Linear(down_sample * t_in, t_in // t_out_factor)
+        self.fc2.zero_init = True
+
+    def forward(self, x):
+        if x.shape[1] != self.t_in:
+            raise ValueError(f"TimeAdapter of t_in {self.t_in} given T="
+                             f"{x.shape[1]}")
+        h = gelu(self.fc1(x.transpose(1, 2)))
+        return self.fc2(h).transpose(1, 2)
+
+
 class TransformerBlock(nn.Module):
     """Pre-LN block: MaskedMHCA (+ max-pool skip when strided; banded with
-    `window` > 0), with `use_cross_modal` the text cross-attention
-    (LayerNorm ln3 on both streams, MaskedMHA, sharing the attention
-    residual's drop-path), MLP, and with `use_channel_attn` on stride-1
-    blocks the channel-attention blend by T_C_ALPHA. With `path_drop` > 0
-    both residuals carry AffineDropPath scales, as in JAX; at 0 there are
-    none (the reference's nn.Identity)."""
+    `window` > 0), with `adapter_t_in` > 0 a TimeAdapter on the block's
+    LayerNormed input added to the attention output, with
+    `use_cross_modal` the text cross-attention (LayerNorm ln3 on both
+    streams, MaskedMHA, sharing the attention residual's drop-path), MLP,
+    and with `use_channel_attn` on stride-1 blocks the channel-attention
+    blend by T_C_ALPHA. `proj_drop` is the dropout after the attention's
+    and cross-attention's projections and inside the MLP. With `path_drop`
+    > 0 both residuals carry AffineDropPath scales, as in JAX; at 0 there
+    are none (the reference's nn.Identity)."""
 
     def __init__(self, n_embd: int, n_head: int, n_ds_stride: int = 1,
                  path_drop: float = 0.0, window: int = -1,
                  use_cross_modal: bool = False,
-                 use_channel_attn: bool = True, attention_impl: str = "xla"):
+                 use_channel_attn: bool = True, attention_impl: str = "xla",
+                 proj_drop: float = 0.0, adapter_t_in: int = 0):
         super().__init__()
         E = n_embd
-        self.stride = n_ds_stride
+        self.stride, self.proj_drop = n_ds_stride, proj_drop
         self.ln1 = LayerNormC(E)
         self.attn = MaskedMHCA(E, n_head, stride=n_ds_stride, window=window,
-                               attention_impl=attention_impl)
+                               attention_impl=attention_impl,
+                               proj_drop=proj_drop)
+        self.adapter = (TimeAdapter(adapter_t_in) if adapter_t_in > 0
+                        else None)
         self.drop_path_attn = (AffineDropPath(E, path_drop) if path_drop > 0
                                else None)
         self.drop_path_mlp = (AffineDropPath(E, path_drop) if path_drop > 0
                               else None)
         if use_cross_modal:
             self.ln3 = LayerNormC(E)
-            self.cross_attn = MaskedMHA(E, n_head)
+            self.cross_attn = MaskedMHA(E, n_head, proj_drop)
         else:
             self.ln3 = self.cross_attn = None
         self.ln2 = LayerNormC(E)
@@ -295,7 +333,9 @@ class TransformerBlock(nn.Module):
     def forward(self, x, mask, rng=None, cross_y=None, cross_y_mask=None):
         s = self.stride
         ln1 = self.ln1(x)
-        out, out_mask = self.attn(ln1, mask)
+        out, out_mask = self.attn(ln1, mask, rng)
+        if self.adapter is not None:
+            out = out + self.adapter(ln1)
         out_mask_f = out_mask[..., None].to(out.dtype)
         if s > 1:
             skip, _ = masked_max_pool1d(x, mask, kernel=s + 1, stride=s)
@@ -307,10 +347,12 @@ class TransformerBlock(nn.Module):
             if cross_y is None:
                 raise ValueError("a cross-modal block needs cross_y")
             cross_out, _ = self.cross_attn(self.ln3(out), out_mask,
-                                           self.ln3(cross_y), cross_y_mask)
+                                           self.ln3(cross_y), cross_y_mask,
+                                           rng)
             out = out * out_mask_f + self._residual(self.drop_path_attn,
                                                     cross_out, rng)
-        h = self.mlp_fc2(gelu(self.mlp_fc1(self.ln2(out))))
+        h = _dropout(gelu(self.mlp_fc1(self.ln2(out))), self.proj_drop, rng)
+        h = _dropout(self.mlp_fc2(h), self.proj_drop, rng)
         out = out + self._residual(self.drop_path_mlp, h * out_mask_f, rng)
         if self.channel_attn is not None:
             out2 = self.channel_attn(ln1, rng)
@@ -370,9 +412,12 @@ class XLRelAttention(nn.Module):
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Random init from `generator`, with Flax's initializers: He-uniform
-    conv kernels, LeCun-normal dense kernels with zero bias, N(0, 0.02)
-    XL projections and biases. Norms, scales and conv biases keep the
-    constants their constructors set."""
+    conv kernels, LeCun-normal dense kernels with zero bias (zero kernels
+    where the module says `zero_init`: the time adapters' fc2), N(0,
+    0.02) XL projections and biases, U(-b, b) for the own parameters of a
+    module that sets `uniform_init = b` (the prompt pool's prompts and
+    keys, b = 1). Norms, scales and conv biases keep the constants their
+    constructors set."""
     def uniform_(p, bound):
         p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
 
@@ -384,9 +429,15 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
             w = m.weight
             uniform_(w, math.sqrt(6.0 / (w.shape[1] * w.shape[2])))
         elif isinstance(m, nn.Linear):
-            normal_(m.weight, 1.0 / math.sqrt(m.in_features))
+            if getattr(m, "zero_init", False):
+                m.weight.zero_()
+            else:
+                normal_(m.weight, 1.0 / math.sqrt(m.in_features))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, XLRelAttention):
             for name in ("q", "k", "v", "r", "o", "r_w_bias", "r_r_bias"):
                 normal_(getattr(m, name), 0.02)
+        elif hasattr(m, "uniform_init"):
+            for p in m.parameters(recurse=False):
+                uniform_(p, m.uniform_init)

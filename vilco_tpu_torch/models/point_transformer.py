@@ -8,8 +8,18 @@ Returns the same keys as the JAX model's forward: `cls_logits` (B, P, C)
 f32, `offsets` (B, P, 2) f32, `fpn_mask` (B, P), `level_lengths`,
 `fpn_feats`, and `gaussians`: for MQ the six learnable per-class (C,)
 parameters that weight the training losses, for NLQ None (the NLQ model
-has no such parameters). The L2P prompt pool and narration-SSL extras come
-in a later slice.
+has no such parameters).
+
+The CL extras of `cl` (core/config.py::CLCfg), as the MQ yaml runs them:
+with `prompt_pool` the L2P pool (cl/prompt.py) prepends its prompts to the
+raw text tokens, their positions valid, and the forward returns
+`reduce_sim`; with `narration_ssl` and narration given, a Linear encoder
+(in f32, as Flax promotes the bf16 tokens against its f32 kernel) and a
+masked mean give the l2-normalised `narration_feat` (B, E), the mean over
+levels of the neck features' masked means gives `video_feat`, and
+`narration_valid` is passed through (all True when not given); with
+`use_adapt` the branch blocks of `adapt_blocks` carry time adapters
+(models/backbone.py).
 """
 
 from __future__ import annotations
@@ -20,17 +30,20 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from vilco_tpu_torch.core.config import ModelConfig
+from vilco_tpu_torch.cl.prompt import PromptPool
+from vilco_tpu_torch.core.config import CLCfg, ModelConfig
 from vilco_tpu_torch.models.backbone import (
     ConvTransformerBackbone,
     DualTowerBackbone,
 )
 from vilco_tpu_torch.models.layers import (
     LayerNormC,
+    Linear,
     MaskedConv,
     Scale,
     init_weights_,
 )
+from vilco_tpu_torch.ops.masked import l2_normalize, masked_mean, wide
 
 HEAD_KERNEL_SIZE = 3
 HEAD_NUM_LAYERS = 3
@@ -127,23 +140,34 @@ class RegHead(_Head):
 
 
 class PointTransformer(nn.Module):
-    """The meta-arch, variant `cfg.variant` ("mq" or "nlq"). Parameters are
-    drawn in f32 from the CPU `generator` (seed 0 if None), then placed on
-    `device` (the card unless the caller asks for the CPU; no card raises).
-    The forward computes in `compute_dtype` (default: the parameters'
-    dtype), casting f32 master parameters on use as the JAX model does;
-    `.to(device, torch.bfloat16)` gives the serving path's bf16 model."""
+    """The meta-arch, variant `cfg.variant` ("mq" or "nlq"), with the CL
+    extras of `cl` (None: the naive method, none of them; the MQ variant
+    only). Parameters are drawn in f32 from the CPU `generator` (seed 0 if
+    None), then placed on `device` (the card unless the caller asks for
+    the CPU; no card raises). The forward computes in `compute_dtype`
+    (default: the parameters' dtype), casting f32 master parameters on use
+    as the JAX model does; `.to(device, torch.bfloat16)` gives the serving
+    path's bf16 model."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: torch.Generator | None = None,
-                 device="cuda"):
+                 device="cuda", cl: CLCfg | None = None):
         super().__init__()
         if cfg.variant not in ("mq", "nlq"):
             raise ValueError(f"variant {cfg.variant!r}: 'mq' or 'nlq'")
-        self.cfg = cfg
+        cl = cl or CLCfg()
+        if cfg.variant == "nlq" and (cl.prompt_pool or cl.narration_ssl
+                                     or cl.use_adapt):
+            raise NotImplementedError("the NLQ model takes no CL extras")
+        self.cfg, self.cl = cfg, cl
         n_levels = cfg.num_branch_layers + 1
+        self.prompt = (PromptPool(cl.pool_size, cl.length, cl.embed_dim,
+                                  cl.topk) if cl.prompt_pool else None)
         self.backbone = (DualTowerBackbone(cfg) if cfg.variant == "nlq"
-                         else ConvTransformerBackbone(cfg))
+                         else ConvTransformerBackbone(
+                             cfg, cl.adapt_blocks if cl.use_adapt else ()))
+        self.narration_encoder = (Linear(cl.narration_dim, cfg.embd_dim)
+                                  if cl.narration_ssl else None)
         self.neck = FPNIdentity(cfg.fpn_dim, n_levels)
         self.cls_head = ClsHead(cfg.fpn_dim, cfg.head_dim, cfg.num_classes)
         self.reg_head = RegHead(cfg.fpn_dim, cfg.head_dim, n_levels)
@@ -160,32 +184,56 @@ class PointTransformer(nn.Module):
         init_weights_(self, generator)
         self.to(device)
 
-    def forward(self, feats, mask, text=None, text_mask=None, rng=None,
-                compute_dtype=None):
-        """`text` (B, L, n_txt_in) and `text_mask` (B, L), the NLQ query;
-        `rng` (a torch.Generator on the card or CPU of the inputs) switches
-        on drop-path and the XL dropouts in training mode."""
+    def forward(self, feats, mask, text=None, text_mask=None, narration=None,
+                narration_mask=None, narration_valid=None, prompt_mask=None,
+                rng=None, compute_dtype=None):
+        """`text` (B, L, n_txt_in) and `text_mask` (B, L): the NLQ query or
+        the MQ clip's text; `narration` (B, Ln, narration_dim),
+        `narration_mask` (B, Ln) and `narration_valid` (B,): the SSL
+        inputs; `prompt_mask` (B, top_k): the task's prompt ids; `rng` (a
+        torch.Generator on the card or CPU of the inputs) switches on
+        drop-path and the dropouts in training mode."""
         dt = compute_dtype or next(self.parameters()).dtype
         feats = feats.to(dt)
+        text = None if text is None else text.to(dt)
         rng = rng if self.training else None
+        out = {}
+        if self.prompt is not None and text is not None:
+            text, out["reduce_sim"], _ = self.prompt(text, prompt_mask)
+            if text_mask is not None:
+                text_mask = torch.cat([torch.ones(
+                    (text.shape[0], self.prompt.total_prompt_len),
+                    dtype=torch.bool, device=text_mask.device), text_mask], 1)
         if self.cfg.variant == "nlq":
             if text is None or text_mask is None:
                 raise ValueError("the NLQ model needs text and text_mask")
-            bb_feats, bb_masks = self.backbone(feats, mask, text.to(dt),
-                                               text_mask, rng)
+            bb_feats, bb_masks = self.backbone(feats, mask, text, text_mask,
+                                               rng)
             gaussians = None
         else:
-            bb_feats, bb_masks = self.backbone(feats, mask, rng)
+            bb_feats, bb_masks = self.backbone(feats, mask, text, text_mask,
+                                               rng)
             gaussians = (self.mu, self.sigma, self.mu_reg_left,
                          self.sigma_reg_left, self.mu_reg_right,
                          self.sigma_reg_right)
         fpn_feats, fpn_masks = self.neck(bb_feats, bb_masks)
+        if self.narration_encoder is not None and narration is not None:
+            nar = self.narration_encoder(wide(narration.to(dt)))
+            out["narration_feat"] = l2_normalize(
+                masked_mean(nar, narration_mask, 1), 1)
+            vids = [masked_mean(wide(f), m, 1)
+                    for f, m in zip(fpn_feats, fpn_masks)]
+            out["video_feat"] = l2_normalize(torch.stack(vids).mean(0), 1)
+            out["narration_valid"] = (
+                narration_valid if narration_valid is not None
+                else torch.ones(feats.shape[0], dtype=torch.bool,
+                                device=feats.device))
         cls_list = self.cls_head(fpn_feats, fpn_masks)
         reg_list = self.reg_head(fpn_feats, fpn_masks)
-        return {
+        return {**out,
             "level_lengths": tuple(f.shape[1] for f in fpn_feats),
-            "cls_logits": torch.cat([c.float() for c in cls_list], 1),
-            "offsets": torch.cat([r.float() for r in reg_list], 1),
+            "cls_logits": torch.cat([wide(c) for c in cls_list], 1),
+            "offsets": torch.cat([wide(r) for r in reg_list], 1),
             "fpn_mask": torch.cat(fpn_masks, 1),
             "fpn_feats": fpn_feats,
             "gaussians": gaussians,

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from vilco_tpu_torch.ops.masked import wide
+
 NEG_INF = -1e9
 
 
@@ -21,7 +23,7 @@ def masked_attention(q, k, v, kv_mask):
     q (B, Tq, H, D), k/v (B, Tk, H, D), kv_mask (B, Tk) bool."""
     d = q.shape[-1]
     scale = torch.tensor(1.0 / d ** 0.5, dtype=q.dtype)
-    att = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).float()
+    att = wide(torch.einsum("bqhd,bkhd->bhqk", q * scale, k))
     att = att.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
     att = torch.softmax(att, dim=-1).to(q.dtype)
     vm = v * kv_mask[:, :, None, None].to(v.dtype)
@@ -58,6 +60,6 @@ def channel_attention(qkv: torch.Tensor, n_head: int) -> torch.Tensor:
     qkv (B, T, 3, H, Dh) -> (B, T, H, Dh)."""
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     k = k * q.shape[-1] ** -0.5
-    att = torch.einsum("bthd,bthe->bhde", k, v).float()
+    att = wide(torch.einsum("bthd,bthe->bhde", k, v))
     att = torch.softmax(att, dim=-1).to(q.dtype)
     return torch.einsum("bhde,bthe->bthd", att, q)

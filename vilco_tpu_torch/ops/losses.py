@@ -6,11 +6,13 @@ from __future__ import annotations
 
 import torch
 
+from vilco_tpu_torch.ops.masked import wide
+
 
 def sigmoid_focal_loss(logits, targets, alpha: float = 0.25,
                        gamma: float = 2.0):
     """Elementwise focal loss (RetinaNet) with a stable BCE-with-logits."""
-    logits, targets = logits.float(), targets.float()
+    logits, targets = wide(logits), wide(targets)
     p = torch.sigmoid(logits)
     ce = (torch.clamp(logits, min=0.0) - logits * targets
           + torch.log1p(torch.exp(-logits.abs())))
@@ -32,8 +34,8 @@ def _iou_1d(input_offsets, target_offsets, eps):
 def ctr_diou_loss_1d(input_offsets, target_offsets, eps: float = 1e-8):
     """1 - IoU + rho^2 / len_c^2 on (left, right) center offsets, with rho
     the center distance and len_c the enclosing length."""
-    iouk, (lp, rp, lg, rg) = _iou_1d(input_offsets.float(),
-                                     target_offsets.float(), eps)
+    iouk, (lp, rp, lg, rg) = _iou_1d(wide(input_offsets),
+                                     wide(target_offsets), eps)
     len_c = torch.maximum(lp, lg) + torch.maximum(rp, rg)
     rho = 0.5 * (rp - lp - rg + lg)
     return 1.0 - iouk + torch.square(rho) / torch.square(

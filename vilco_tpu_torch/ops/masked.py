@@ -7,6 +7,12 @@ import torch
 import torch.nn.functional as F
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in f64 where it is f64 (an f64 witness of an f32
+    step)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def masked_conv1d(
     x: torch.Tensor,             # (B, T, C_in)
     mask: torch.Tensor,          # (B, T) bool
@@ -29,17 +35,18 @@ def masked_conv1d(
 
 def channel_layernorm(x: torch.Tensor, weight=None, bias=None,
                       eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last (channel) axis, computed in f32."""
+    """LayerNorm over the last (channel) axis, computed in f32 (f64 for
+    f64 inputs)."""
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     mu = x.mean(dim=-1, keepdim=True)
     res = x - mu
     sigma = (res * res).mean(dim=-1, keepdim=True)
     out = res * torch.rsqrt(sigma + eps)
     if weight is not None:
-        out = out * weight.to(dt).float()
+        out = out * wide(weight.to(dt))
     if bias is not None:
-        out = out + bias.to(dt).float()
+        out = out + wide(bias.to(dt))
     return out.to(dt)
 
 
@@ -63,3 +70,20 @@ def masked_max_pool1d(x: torch.Tensor, mask: torch.Tensor, kernel: int,
     out = F.max_pool1d(xp, kernel, stride).transpose(1, 2)
     out_mask = mask[:, ::stride]
     return out * out_mask[..., None].to(out.dtype), out_mask
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int):
+    """Mean over `dim` counting only the positions where `mask` is True; an
+    empty row gives 0."""
+    m = mask.to(x.dtype)
+    if m.dim() < x.dim():
+        m = m.unsqueeze(-1)
+    total = (x * m).sum(dim)
+    count = m.sum(dim)
+    return total / torch.where(count == 0, torch.ones_like(count), count)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12):
+    """x * rsqrt(max(sum x^2, eps)) along `dim` (vilco_tpu/cl/prompt.py)."""
+    sq = x.square().sum(dim, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(sq, min=eps))

@@ -1,26 +1,30 @@
-"""The MQ and NLQ train step (vilco_tpu/train/engine.py::make_train_step),
-naive continual-learning method: no SSL, distillation, penalty or prompts,
-one micro-batch per step.
+"""The MQ and NLQ train step (vilco_tpu/train/engine.py::make_train_step)
+with the naive CL method or the MQ yaml's (L2P with narration SSL and the
+time adapters' EMA), one micro-batch per step, and the eval step
+(`make_eval_step`, with the adapter ensemble). Distillation and the
+EWC/MAS penalty are not ported.
 
     forward (training mode) -> compute_losses -> backward
     -> global-norm clip at CLIP_GRAD_L2NORM -> FusedAdamW -> loss-normaliser EMA
+    -> the SSL memory bank's ring write -> the adapter EMA
 
 What the flagships share is fixed here: radius center sampling at 1.5,
-the label-involved loss off, loss weight 1, clip 1.0. What they differ in
-comes from the config's `train_cfg` (core/config.py::TrainCfg): label
-smoothing (NLQ 0.1), the Gaussian loss weights (MQ only) and the initial
-loss normaliser (MQ 100, NLQ 200).
+loss weight 1, clip 1.0. What they differ in comes from the config's
+`train_cfg` (core/config.py::TrainCfg): label smoothing (NLQ 0.1), the
+Gaussian loss weights (MQ only), the initial loss normaliser (MQ 100, NLQ
+200), the label-involved (AL) loss's weight (the MQ yaml 0.2) and the SSL
+temperature; and from its `cl_cfg`: the SSL weight and the bank's size.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vilco_tpu_torch.core.config import Config, TrainCfg
+from vilco_tpu_torch.core.config import CLCfg, Config, TrainCfg
 from vilco_tpu_torch.core.marks import mark
 from vilco_tpu_torch.ops.assign import label_points
 from vilco_tpu_torch.ops.losses import ctr_diou_loss_1d, sigmoid_focal_loss
@@ -29,31 +33,69 @@ from vilco_tpu_torch.train.optim import FusedAdamW
 CENTER_SAMPLE_RADIUS = 1.5
 CLIP_GRAD_L2NORM = 1.0
 LOSS_WEIGHT = 1.0
+PULL_WEIGHT = 0.1        # the L2P pull: final -= 0.1 x reduce_sim
+CL_METHODS = ("naive", "l2p")
+EMA_DECAY = 0.999        # the time adapters' EMA
+AL_NEG = -1e7            # the AL loss's logit at invalid points, unseen classes
 
 
 @dataclass
 class CLBatchExtras:
+    """Per-step CL inputs. `memory_bank` (M, E) f32 and `memory_ptr` (0-d
+    int64), the narration-SSL negatives and the next row to write, are
+    advanced in place by a step with SSL on."""
     class_mask: torch.Tensor            # (C,) bool: the classes seen so far
+    memory_bank: Optional[torch.Tensor] = None
+    memory_ptr: Optional[torch.Tensor] = None
 
 
 @dataclass
 class TrainState:
     """`model` holds the f32 master parameters and `opt` the AdamW state;
     `generator` (on the model's device) draws drop-path, dropout and the
-    XL kernel's dropout seed."""
+    XL kernel's dropout seed; `adapter_ema` maps each time-adapter
+    parameter's name to its EMA (None without adapters)."""
     model: torch.nn.Module
     opt: FusedAdamW
     loss_normalizer: torch.Tensor
     generator: torch.Generator
     step: int = 0
+    adapter_ema: Optional[Dict[str, torch.Tensor]] = None
+
+
+def init_adapter_ema(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Copies of the time adapters' parameters, by name."""
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if "adapter" in n.split(".")}
+
+
+@torch.no_grad()
+def update_adapter_ema(ema: Dict[str, torch.Tensor], model: torch.nn.Module,
+                       decay: float) -> None:
+    """ema = decay ema + (1 - decay) p, in place, for each adapter leaf."""
+    params = dict(model.named_parameters())
+    for n, e in ema.items():
+        e.copy_(decay * e + (1.0 - decay) * params[n])
+
+
+def init_memory_bank(cfg: Config, device="cuda"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The narration-SSL memory bank's first value and pointer, as the JAX
+    episode draws them (vilco_tpu/cl/episode.py): N(0, 1) rows from numpy's
+    default_rng(0), (cl_cfg.memory_size, embd_dim) f32, and 0."""
+    bank = np.random.default_rng(0).standard_normal(
+        (cfg.cl_cfg.memory_size, cfg.model.embd_dim)).astype(np.float32)
+    return (torch.from_numpy(bank).to(device),
+            torch.zeros((), dtype=torch.int64, device=device))
 
 
 def init_train_state(model: torch.nn.Module, cfg: Config,
                      steps_per_epoch: int, seed: int = 0,
                      device="cuda") -> TrainState:
     """Place `model` on `device` (the card unless the caller asks for the
-    CPU; no card raises) and start AdamW (the schedule of `cfg.opt`) and
-    the loss normaliser at `cfg.train_cfg.init_loss_norm`."""
+    CPU; no card raises) and start AdamW (the schedule of `cfg.opt`), the
+    loss normaliser at `cfg.train_cfg.init_loss_norm` and, with
+    `cfg.cl_cfg.use_adapt`, the adapter EMA at the adapters' values."""
     device = torch.device(device)
     model.to(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -61,17 +103,23 @@ def init_train_state(model: torch.nn.Module, cfg: Config,
                       opt=FusedAdamW(model, steps_per_epoch, cfg.opt),
                       loss_normalizer=torch.tensor(
                           cfg.train_cfg.init_loss_norm, device=device),
-                      generator=gen)
+                      generator=gen,
+                      adapter_ema=(init_adapter_ema(model)
+                                   if cfg.cl_cfg.use_adapt else None))
 
 
 def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
                    cl: CLBatchExtras, loss_normalizer: torch.Tensor,
-                   tc: TrainCfg):
+                   tc: TrainCfg, n_known: int = 0, ssl_factor: float = 0.0):
     """Focal classification loss against the targets smoothed over the
     seen classes plus one, and Distance-IoU regression loss on the
     positives, with the Gaussian weights on the positives where
     `tc.use_gaussian_weights`, both over the new normaliser 0.9 old + 0.1
-    max(#positives, 1). Returns (loss, metrics, new normaliser)."""
+    max(#positives, 1); the AL loss x tc.al_loss_weight where that is > 0
+    and there is more than one class; minus PULL_WEIGHT x the prompt
+    pool's reduce_sim once `n_known` > 0; the narration-SSL loss x
+    `ssl_factor` where the outputs hold narration features and `cl` a
+    memory bank. Returns (loss, metrics, new normaliser)."""
     cls_logits = outputs["cls_logits"]            # (B, P, C) f32
     valid = outputs["fpn_mask"]                   # (B, P)
     class_mask_f = cl.class_mask.float()
@@ -100,8 +148,72 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
 
     final = cls_loss + reg_loss * LOSS_WEIGHT
     metrics = {"cls_loss": cls_loss, "reg_loss": reg_loss,
-               "num_pos": num_pos, "final_loss": final}
+               "num_pos": num_pos}
+    if tc.al_loss_weight > 0 and cls_logits.shape[-1] > 1:
+        al_loss = label_involved_loss(cls_logits, valid, cl.class_mask,
+                                      batch["gt_labels"],
+                                      batch["gt_valid"]) / norm
+        final = final + al_loss * tc.al_loss_weight
+        metrics["al_loss"] = al_loss
+    if "reduce_sim" in outputs and n_known > 0:
+        final = final - PULL_WEIGHT * outputs["reduce_sim"]
+        metrics["reduce_sim"] = outputs["reduce_sim"]
+    if "narration_feat" in outputs and cl.memory_bank is not None:
+        ssl = narration_ssl_loss(
+            outputs["narration_feat"], outputs["video_feat"],
+            outputs["narration_valid"], cl.memory_bank, cl.memory_ptr,
+            tc.temperature) * ssl_factor
+        final = final + ssl
+        metrics["ssl_loss"] = ssl
+    metrics["final_loss"] = final
     return final, metrics, norm
+
+
+def label_involved_loss(cls_logits, valid, class_mask, gt_labels, gt_valid):
+    """The AL loss before the normaliser (vilco_tpu/train/engine.py:125-140):
+    per clip and seen class, the BCE of the class's largest softmax
+    probability over the valid points (softmax over the seen classes)
+    against whether a valid GT segment carries the class."""
+    C = cls_logits.shape[-1]
+    logits = torch.where(valid[..., None] & class_mask[None, None, :],
+                         cls_logits, torch.full_like(cls_logits, AL_NEG))
+    p = torch.softmax(logits, -1).amax(1).clamp(1e-7, 1.0 - 1e-7)  # (B, C)
+    involved = torch.zeros_like(p).scatter_reduce(
+        1, gt_labels.clamp(0, C - 1), gt_valid.to(p.dtype), "amax")
+    al = -involved * torch.log(p) - (1 - involved) * torch.log1p(-p)
+    return (al * class_mask.to(p.dtype)[None, :]).sum()
+
+
+def ring_update(bank, ptr, feats, valid):
+    """The memory bank's ring write (vilco_tpu/train/engine.py::
+    _ring_update): the valid rows of `feats` in order from row `ptr`,
+    wrapping at M; returns (new bank, (ptr + #valid) mod M). The invalid
+    rows go to a scratch row past the bank, so nothing syncs with the
+    host."""
+    M = bank.shape[0]
+    nv = valid.to(torch.int64)
+    idx = torch.where(valid, (ptr + torch.cumsum(nv, 0) - 1) % M,
+                      torch.full_like(nv, M))
+    ext = torch.cat([bank, bank.new_zeros((1, bank.shape[1]))])
+    ext = ext.index_put((idx,), feats.to(bank.dtype))
+    return ext[:M], (ptr + nv.sum()) % M
+
+
+def narration_ssl_loss(nf, vf, narration_valid, bank, ptr,
+                       temperature: float):
+    """The narration-SSL InfoNCE (vilco_tpu/train/engine.py::
+    narration_ssl_loss), the JAX package's quirk kept: the bank is first
+    written with the batch's detached narration features, so each valid
+    row meets its own narration among the negatives; text-to-video and
+    video-to-text cross-entropies averaged, over the valid rows."""
+    nvalid = narration_valid.to(nf.dtype)
+    neg_bank, _ = ring_update(bank, ptr, nf.detach(), narration_valid)
+    pos = (nf * vf).sum(-1, keepdim=True)
+    lt = torch.cat([pos, nf @ neg_bank.T], 1) / temperature
+    lv = torch.cat([pos, vf @ neg_bank.T], 1) / temperature
+    ce = lambda lg: -torch.log_softmax(lg, -1)[:, 0]
+    per_row = 0.5 * (ce(lt) + ce(lv))
+    return (per_row * nvalid).sum() / torch.clamp(nvalid.sum(), min=1.0)
 
 
 def global_norm_clip(grad_flat: torch.Tensor):
@@ -121,37 +233,94 @@ def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
                     regularize: bool = True,
-                    compute_dtype: Optional[torch.dtype] = None
-                    ) -> Callable:
+                    compute_dtype: Optional[torch.dtype] = None,
+                    cl_cfg: Optional[CLCfg] = None, n_known: int = 0,
+                    ema_decay: float = EMA_DECAY) -> Callable:
     """step(state, batch, cl, marks=None) -> metrics (0-d tensors, no
-    host sync). `batch` holds tensors on the model's device, the NLQ
-    query's `text` and `text_mask` included. `tc`: the config's train_cfg.
-    regularize: drop-path and dropouts from state.generator (off: the
-    deterministic step of the parity checks). `marks`, if a list, receives
-    (phase, CUDA event or host time) at the forward / backward / optimizer
-    boundaries."""
+    host sync). `batch` holds tensors on the model's device: the text's
+    `text` and `text_mask`, and for the CL method's extras `narration`,
+    `narration_mask`, `narration_valid` (read with `cl_cfg.narration_ssl`)
+    and `prompt_mask` (read with `cl_cfg.prompt_pool`). `tc`: the config's
+    train_cfg; `cl_cfg` its cl_cfg (None: the naive method); `n_known`:
+    the classes of the tasks before this one (the L2P pull from 1 on).
+    After the optimizer, with narration SSL the step writes the batch's
+    narration features into `cl.memory_bank` from `cl.memory_ptr` (both
+    replaced), and with `state.adapter_ema` it moves the EMA toward the
+    updated adapters at `ema_decay`. regularize: drop-path and dropouts
+    from state.generator (off: the deterministic step of the parity
+    checks). `marks`, if a list, receives (phase, CUDA event or host time)
+    at the forward / backward / optimizer boundaries."""
+    cl_cfg = cl_cfg or CLCfg()
+    if cl_cfg.name not in CL_METHODS:
+        raise NotImplementedError(f"cl method {cl_cfg.name!r}: the port "
+                                  f"runs {CL_METHODS}")
+    use_ssl, use_prompt = cl_cfg.narration_ssl, cl_cfg.prompt_pool
+    ssl_factor = cl_cfg.ssl_factor
 
     def step(state: TrainState, batch: dict, cl: CLBatchExtras,
              marks: Optional[list] = None):
         model = state.model
         model.train()
         mark(marks, "start", points.device)
+        nar = (lambda k: batch.get(k)) if use_ssl else (lambda k: None)
         out = model(batch["feats"], batch["mask"], batch.get("text"),
-                    batch.get("text_mask"),
+                    batch.get("text_mask"), nar("narration"),
+                    nar("narration_mask"), nar("narration_valid"),
+                    batch.get("prompt_mask") if use_prompt else None,
                     rng=state.generator if regularize else None,
                     compute_dtype=compute_dtype)
-        loss, metrics, new_norm = compute_losses(out, batch, points, cl,
-                                                 state.loss_normalizer, tc)
+        loss, metrics, new_norm = compute_losses(
+            out, batch, points, cl, state.loss_normalizer, tc, n_known,
+            ssl_factor)
         mark(marks, "forward", points.device)
         state.opt.zero_grad()
         loss.backward()
         mark(marks, "backward", points.device)
         gnorm, gscale = global_norm_clip(state.opt.grad_flat)
         state.opt.step(gscale)
+        if (use_ssl and cl.memory_bank is not None
+                and "narration_feat" in out):
+            cl.memory_bank, cl.memory_ptr = ring_update(
+                cl.memory_bank, cl.memory_ptr,
+                out["narration_feat"].detach(), out["narration_valid"])
+        if state.adapter_ema is not None:
+            update_adapter_ema(state.adapter_ema, model, ema_decay)
         mark(marks, "optimizer", points.device)
         metrics["grad_norm"] = gnorm
         state.loss_normalizer = new_norm.detach()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, ensemble_adapters: bool = False
+                   ) -> Callable:
+    """step(batch, adapter_ema=None, marks=None) -> the head outputs
+    (`cls_logits`, `offsets`, `fpn_mask`, `fpn_feats`) of the model in eval
+    mode on batch["feats"], ["mask"] and the text, the prompt pool
+    choosing its prompts; with `ensemble_adapters` and an EMA given, the
+    mean of cls_logits and offsets over two forwards, the live adapters'
+    and the EMA's (swapped in by torch.func.functional_call, the model
+    unchanged) (vilco_tpu/train/engine.py::make_eval_step). `marks`, if a
+    list, receives (phase, CUDA event or host time) after each forward."""
+
+    def step(batch: dict, adapter_ema=None, marks: Optional[list] = None):
+        model.eval()
+        args = (batch["feats"], batch["mask"], batch.get("text"),
+                batch.get("text_mask"))
+        dev = batch["feats"].device
+        with torch.no_grad():
+            mark(marks, "start", dev)
+            out = model(*args)
+            mark(marks, "forward", dev)
+            if ensemble_adapters and adapter_ema is not None:
+                out2 = torch.func.functional_call(model, adapter_ema, args)
+                mark(marks, "ema_forward", dev)
+                out["cls_logits"] = 0.5 * (out["cls_logits"]
+                                           + out2["cls_logits"])
+                out["offsets"] = 0.5 * (out["offsets"] + out2["offsets"])
+        return {k: out[k] for k in ("cls_logits", "offsets", "fpn_mask",
+                                    "fpn_feats")}
 
     return step

@@ -48,9 +48,11 @@ _GAUSSIANS = ("mu", "sigma", "mu_reg_left", "mu_reg_right",
 def decays(name: str, ndim: int) -> bool:
     """True where weight decay applies, on the port's parameter names
     (equal to vilco_tpu's weight_decay_mask through models/convert.py):
-    conv and dense kernels, the XL q/k/v/r/o projections, the channel
-    block's LayerNorm weight and the per-class Gaussians; not biases, other
-    norms, scales or the XL r_w/r_r biases."""
+    conv and dense kernels (the time adapters', the cross-attention's and
+    the narration encoder's among them), the XL q/k/v/r/o projections, the
+    channel block's LayerNorm weight and the per-class Gaussians; not
+    biases, other norms, scales, the XL r_w/r_r biases or the L2P prompts
+    and prompt keys."""
     parts = name.split(".")
     leaf = parts[-1]
     if leaf == "weight" and ndim >= 2:
