@@ -6,12 +6,15 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --vq-train
     python3 chip_smoke.py --vq-train-parity SEED [SEED ...]
     python3 chip_smoke.py --mq-yaml
+    python3 chip_smoke.py --cl-methods
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
 train step (phases 16, 18 and 20); the fourth only the VQ train-step
 parity (phase 18), once per seed of weights and batch; the fifth only the
-phases of the MQ yaml model (10a-10e).
+phases of the MQ yaml model (10a-10e); the sixth only the CL methods'
+f32 steps card against CPU (cl_parity, vq_cl_parity: below, after the
+phases).
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -67,6 +70,15 @@ fallback):
                    peak memory, every loss, launch counts per kernel
  10. trace         one more train step profiled: device ms by kernel kind,
                    the top kernels and the idle share
+ 10'. cl_methods   the graft flagship's other CL methods as CL task 1 of 5
+                   (n_known 22, classes 0-43), batch 2, bf16, one model
+                   trained on: iCaRL (targets from the eval step's logits),
+                   BiC (task 0's bias, softmax-T targets) and 3 of its
+                   stage-2 steps, the naive step at accumulation 2 (ms/step,
+                   every term); one batch-16 request with BiC's bias and
+                   iCaRL's filter (means of 2 clips of each of 22 classes;
+                   the keep mask of 2 clips against the full direct form,
+                   flips counted); launches over the phase
  10a. mq_yaml_kernels  the MQ flagship as configs/mq_vilco.yaml runs it
                    (core/config.py::mq_yaml_config): K1 at the shapes it
                    adds, over the prompted text (Tk = 128 text + 80 prompt
@@ -112,7 +124,10 @@ fallback):
                    ms (SDPA with the band mask) and the bound
  12. nlq_parity    nlq_flagship_config() at batch 1 in f32, the card against
                    the CPU on the head outputs, with a TF32 control
- 13. nlq_train_parity  phase 8 on nlq_flagship_config()
+ 13. nlq_train_parity  phase 8 on nlq_flagship_config(), with its EWC
+                   penalty (lambda 3000) over one task whose importance is
+                   the port's estimate over 2 batches, the weights 1e-3
+                   from that task's; the penalty card vs CPU
  14. nlq_serve     batch 16 bf16 requests (clip features + query text):
                    forward + decode_and_nms_batch at the NLQ test_cfg,
                    clips/s, ms split, peak memory, launches, one profiled
@@ -120,6 +135,9 @@ fallback):
  15. nlq_train     12 bf16 steps at batch 4 (f32 masters, drop-path 0.1,
                    label smoothing 0.1, FusedAdamW over 467 leaves): ms
                    split, losses, peak memory, launches, one profiled step
+ 15'. nlq_train_ewc  the same with the EWC penalty over 12 stacked tasks;
+                   first the penalty alone at 1 and 12 tasks (ms, kernel
+                   launches a call, bound)
  16. vq_kernels    the VQ flagship's kernels against their plain versions,
                    bf16 and f32: the frame-banded attention forward (K1's
                    forward in band mode) at batch 8 and 16 and its
@@ -200,6 +218,11 @@ fallback):
                    a request), without the fused-MLP request
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
+
+--cl-methods: cl_parity (the graft flagship's iCaRL and BiC steps at batch
+1 and the naive step at accumulation 2 over batch 2, f32, card vs CPU as
+phase 8; BiC's stage 2; MAS's importance) and vq_cl_parity (phase 18 at
+batch 4 in 2 micro-batches with an EWC penalty over every leaf).
 """
 
 from __future__ import annotations
@@ -1263,11 +1286,15 @@ def step_gradients(cfg, task, batch, pts, device="cpu",
                          for n, p in model.named_parameters()}
 
 
-def phase_train_parity(dev, tag="train_parity", full=None, task=None):
+def phase_train_parity(dev, tag="train_parity", full=None, task=None,
+                       reg=None):
     """One train step of `full` (a Config; the MQ flagship when None) at
     batch 1 in f32, regularisers off: the card against the CPU, the TF32
     control, and the card through the plain versions (the kernels' share
     and the libraries' share of the gap); then the repeatability pairs.
+    With `reg` (finished tasks' [(importance, optpar)] on the CPU, from
+    `importance_tasks`), every step carries full's EWC/MAS penalty over
+    them, and its value is held card against CPU at 1e-5.
     With `task`, the step is CL task `task` of full's CL method (the clip's
     narration valid, the adapters redrawn, the adapter EMA at
     PARITY_EMA_DECAY), and in place of the repeatability pairs: the same
@@ -1294,17 +1321,22 @@ def phase_train_parity(dev, tag="train_parity", full=None, task=None):
     if "narration_valid" in batch:
         batch["narration_valid"][:] = True
 
+    template = []       # SEED's model, adapters redrawn, on the CPU
+
     def run(device, tf32: bool, plain: bool = False,
-            regularize: bool = False):
+            regularize: bool = False, params_only: bool = False):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
         cl_model, flags, cl, prompt_mask = cl_step_setup(cfg, task, 1,
                                                          device)
         if prompt_mask is not None:
             batch["prompt_mask"] = prompt_mask
-        model = PointTransformer(m, torch.Generator().manual_seed(SEED),
-                                 device=device, cl=cl_model)
-        redraw_adapters(model)
+        if not template:    # built once: every run starts from its copy
+            template.append(PointTransformer(
+                m, torch.Generator().manual_seed(SEED), device="cpu",
+                cl=cl_model))
+            redraw_adapters(template[0])
+        model = copy.deepcopy(template[0])
         st = init_train_state(model, cfg, steps_per_epoch=1, seed=SEED,
                               device=device)
         st.opt.count = PARITY_STEP
@@ -1312,6 +1344,12 @@ def phase_train_parity(dev, tag="train_parity", full=None, task=None):
                 for n, e in (st.adapter_ema or {}).items()}
         if plain:
             st.opt._table = None        # AdamW through its plain version
+        if reg is not None:
+            from vilco_tpu_torch.cl.regularizers import RegPenalty
+
+            cl.penalty = RegPenalty.for_optimizer(reg, st.opt,
+                                                  cfg.cl_cfg.reg_lambda)
+            flags = dict(flags, cl_cfg=cfg.cl_cfg)
         step = make_train_step(torch.from_numpy(pts).to(device),
                                cfg.train_cfg, regularize=regularize,
                                ema_decay=PARITY_EMA_DECAY, **flags)
@@ -1322,6 +1360,10 @@ def phase_train_parity(dev, tag="train_parity", full=None, task=None):
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         named = list(model.named_parameters())
+        if params_only:     # the repeatability pairs read nothing else
+            res = dict(params={n: p.detach().cpu() for n, p in named})
+            del model, st
+            return res
         mu, nu = st.opt.moments()
         res = dict(
             loss=met["final_loss"].item(), gnorm=met["grad_norm"].item(),
@@ -1379,19 +1421,29 @@ def phase_train_parity(dev, tag="train_parity", full=None, task=None):
         fail(f"{tag}: the kernels alone move the gradients past the limit")
     if gaps["TF32 control"]["grads"][0] <= GRAD_RTOL:
         fail(f"{tag}: the check does not see TF32: limit too loose")
+    if reg is not None:
+        pen = (card["metrics"]["reg_penalty"], ref["metrics"]["reg_penalty"])
+        rel = abs(pen[0] - pen[1]) / abs(pen[1])
+        say(f"[{tag}] {cfg.cl_cfg.name.upper()} penalty at lambda "
+            f"{cfg.cl_cfg.reg_lambda:g} over {len(reg)} task: card "
+            f"{pen[0]:.6e}, CPU {pen[1]:.6e} (rel {rel:.3e}, tol 1e-5); the "
+            f"step's loss before it {ref['loss']:.6f}")
+        if rel > 1e-5 or not pen[1] > 0:
+            fail(f"{tag}: the penalty's value out of tolerance")
     if task is not None:
         check_cl_state(tag, card, ref)
         return
-    say_repeatable(tag, m, "", run(dev, False, regularize=True),
-                   run(dev, False, regularize=True))
+    pair = lambda: [run(dev, False, regularize=True, params_only=True)
+                    for _ in range(2)]
+    say_repeatable(tag, m, "", *pair())
     for algorithms in (False, True):
         with deterministic_algorithms(algorithms) as ops:
-            pair = run(dev, False, regularize=True), \
-                run(dev, False, regularize=True)
+            first, second = pair()
         how = (" under torch.use_deterministic_algorithms (warn only; ops "
                f"it names: {'; '.join(ops) if ops else 'none'}) and"
                if algorithms else "")
-        say_repeatable(tag, m, f"{how} with cudnn.deterministic", *pair)
+        say_repeatable(tag, m, f"{how} with cudnn.deterministic", first,
+                       second)
 
 
 def check_f64_witness(tag, cfg, task, batch, pts, ref, card, plain, ctrl):
@@ -1513,7 +1565,7 @@ def say_repeatable(tag, m, how, first, second):
 
 
 def phase_train(dev, tag: str, cfg, kernels, seed: int,
-                normalised_must_fall: bool, task=None):
+                normalised_must_fall: bool, task=None, reg_k: int = 0):
     """The train step of `cfg` (a Config) in bf16 with f32 masters and the
     regularisers on, at cfg.batch_size on one fixed synthetic batch, as CL
     task `task` of cfg's CL method (None: the naive method): 2 warm-up and
@@ -1523,7 +1575,10 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
     the loss before the normaliser (the sum the step's gradient follows)
     must fall; with `normalised_must_fall` the normalised loss too (the
     normaliser is an EMA from init_loss_norm toward the batch's positives,
-    which can fall as fast as the loss)."""
+    which can fall as fast as the loss). With `reg_k` > 0 every step
+    carries cfg's EWC/MAS penalty over `reg_k` stacked tasks
+    (synthetic_reg_tasks), and the penalty alone is timed at reg_k and at 1
+    task (say_penalty_cost)."""
     from vilco_tpu_torch.data.synthetic import make_batch
     from vilco_tpu_torch.models.point_transformer import (
         PointTransformer,
@@ -1545,6 +1600,19 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
                           device=dev)
     pts = torch.from_numpy(generate_points(
         level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
+    if reg_k:
+        from vilco_tpu_torch.cl.regularizers import RegPenalty
+
+        lam = cfg.cl_cfg.reg_lambda
+        pens = {k: RegPenalty.for_optimizer(
+            synthetic_reg_tasks(model, k, seed), st.opt, lam)
+            for k in (1, reg_k)}
+        for pen in pens.values():
+            say_penalty_cost(tag, pen, st.opt)
+        cl.penalty = pens[reg_k]
+        del pens
+        flags = dict(flags, cl_cfg=cfg.cl_cfg)
+        torch.cuda.empty_cache()
     step = make_train_step(pts, cfg.train_cfg, regularize=True,
                            compute_dtype=torch.bfloat16, **flags)
     batch = make_batch(np.random.default_rng(seed), cfg.batch_size, cfg)
@@ -1582,7 +1650,10 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
             + f", label smoothing {cfg.train_cfg.label_smoothing}"
             + ("" if task is None else
                f", CL method {cfg.cl_cfg.name} at task {task} (n_known "
-               f"{flags['n_known']})"))
+               f"{flags['n_known']})")
+            + ("" if not reg_k else
+               f", {cfg.cl_cfg.name.upper()} penalty at lambda "
+               f"{cfg.cl_cfg.reg_lambda:g} over {reg_k} stacked tasks"))
     say(f"[{tag}] {m.variant.upper()} flagship bf16 (f32 masters), batch "
         f"{B}, T={m.max_seq_len}, {regs}, {len(list(model.parameters()))} "
         f"leaves, {len(walls)} timed steps: {statistics.median(walls):.3f} "
@@ -1595,8 +1666,8 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
     say(f"[{tag}] loss x normaliser (the sum before the normaliser) "
         + ", ".join(f"{x:.4f}" for x in sums))
     say(f"[{tag}] launches in the {len(losses)} steps: {launches}")
-    if task is not None:
-        for k in ("al_loss", "reduce_sim", "ssl_loss"):
+    if task is not None or reg_k:
+        for k in ("al_loss", "reduce_sim", "ssl_loss", "reg_penalty"):
             if k in terms[0]:
                 say(f"[{tag}] {k} " + ", ".join(f"{t[k]:.6f}"
                                                 for t in terms))
@@ -1615,6 +1686,501 @@ def phase_train(dev, tag: str, cfg, kernels, seed: int,
     del model, st
     torch.cuda.empty_cache()
     return launches
+
+
+# ---- the CL methods: EWC/MAS, iCaRL, BiC, gradient accumulation ----------
+
+CL_TASK = 1          # CL task 1 of the graft flagship's 5: n_known 22, 44 seen
+CL_STEPS = 6         # bf16 steps a method in cl_methods: 2 warm-up, 4 timed
+REG_TASKS = 12       # nlq_train_ewc's stacked tasks: the NLQ yaml's 13th task
+EXEMPLARS = 2        # iCaRL's exemplar clips a known class
+PRIOR_MOVE = 1e-3    # the finished task's weights: the step's + N(0, 1e-3^2)
+# cl_parity's grad norm: at these CL steps it is the norm of stem_0's ln1
+# and channel-attention projection biases (1e4-5e4 in L2 at the graft
+# flagship's init, sums over every position), card vs CPU 6.2e-6 to 2.0e-5
+# (H100 80GB HBM3, 700 W); every leaf is held at GRAD_RTOL beside it
+CL_GNORM_RTOL = 1e-4
+
+
+def importance_tasks(cfg, dev, mode: str, seed: int):
+    """One finished task's [(importance, optpar)] on the CPU: the port's
+    estimate_importance (`mode`) over two batch-1 batches on `dev`, every
+    class seen, from init_loss_norm, of cfg's model drawn from SEED (the
+    train parity's) with every weight moved by N(0, PRIOR_MOVE^2) (a seeded
+    CPU draw): the step then starts PRIOR_MOVE from the optpar, so that
+    the penalty and its gradient are neither 0 nor the whole step's."""
+    from vilco_tpu_torch.cl.regularizers import estimate_importance
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train.engine import CLBatchExtras, batch_to
+
+    m = cfg.model
+    model = PointTransformer(m, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    redraw_adapters(model)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * PRIOR_MOVE)
+    model.to(dev)
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
+    batches = [batch_to(make_batch(np.random.default_rng(seed + i), 1, cfg),
+                        dev) for i in range(2)]
+    cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
+                                  device=dev))
+    imp, opt, _ = estimate_importance(
+        model, pts, batches, cl,
+        torch.tensor(cfg.train_cfg.init_loss_norm, device=dev),
+        cfg.train_cfg, mode)
+    del model
+    return [({n: v.cpu() for n, v in imp.items()},
+             {n: v.cpu() for n, v in opt.items()})]
+
+
+def synthetic_reg_tasks(model, k: int, seed: int):
+    """`k` finished tasks' [(importance, optpar)] for the model's every
+    state_dict leaf, on its device: importance (1e-3 N(0, 1))^2, optpar the
+    leaf + 1e-3 N(0, 1) (a seeded draw)."""
+    out = []
+    sd = model.state_dict()
+    dev = next(iter(sd.values())).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda t: torch.randn(t.shape, generator=gen, device=dev) * 1e-3
+    for _ in range(k):
+        out.append(({n: rnd(t).square() for n, t in sd.items()},
+                    {n: t.detach().float() + rnd(t) for n, t in sd.items()}))
+    return out
+
+
+def say_penalty_cost(tag, pen, opt) -> None:
+    """The penalty alone (RegPenalty.apply into a copy of the gradients):
+    device ms by events, kernel launches a call (the profiler), and the
+    bound of the bytes it must move (A, -B in f64, theta read, the
+    gradient read and written in f32: 28 bytes an element)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = opt.grad_flat.clone()
+    fn = lambda: pen.apply(opt.param_flat, g)
+    ms = median_ms(fn, reps=10)
+    # the largest count of three traces: a trace can lose some or all of
+    # its device records (0, 3.3 and 4 of 11 seen in one of two traces)
+    reps, n_kernels = 3, 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n_kernels = max(n_kernels, sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / reps)
+    if not n_kernels:
+        fail(f"{tag}: the profiler saw none of the penalty's kernels")
+    n = opt.param_flat.numel()
+    bms, _ = bound(0.0, 28.0 * n, torch.float32)
+    say(f"[{tag}] the penalty alone over {pen.num_tasks} stacked tasks, "
+        f"{len(opt.params)} leaves, {n} elements: {ms:.4f} ms a step by "
+        f"events, {n_kernels:g} kernel launches a call, bound {bms:.4f} ms "
+        f"(bytes) [{CARD}]")
+
+
+def cl_config(full, method: str, accumulation_steps: int = 1):
+    """`full` (a Config) with CL method `method` and `accumulation_steps`,
+    its other cl_cfg fields kept (dist_factor 0.01)."""
+    return dataclasses.replace(
+        full, cl_cfg=dataclasses.replace(full.cl_cfg, name=method),
+        opt=dataclasses.replace(full.opt,
+                                accumulation_steps=accumulation_steps))
+
+
+def cl_task(cfg, dev):
+    """(class mask of CL task CL_TASK on `dev`, n_known)."""
+    c = cfg.cl_cfg.classes_per_task
+    return (torch.arange(cfg.model.num_classes, device=dev)
+            < (CL_TASK + 1) * c), CL_TASK * c
+
+
+def bic_state(cfg):
+    """A BicState after task 0 (its pair (0.9, 0.1)) with task CL_TASK
+    registered."""
+    from vilco_tpu_torch.cl.bic import BicState
+
+    c = cfg.cl_cfg.classes_per_task
+    bic = BicState(cfg.model.num_classes, cfg.cl_cfg.num_tasks)
+    bic.register_task(0, range(c))
+    bic.alphas[0], bic.betas[0] = 0.9, 0.1
+    bic.register_task(CL_TASK, range(c, 2 * c))
+    return bic
+
+
+def phase_cl_methods(dev, full, kernels):
+    """The graft flagship's other CL methods as CL task CL_TASK (n_known
+    22, classes 0-43 seen), batch 2, bf16 with f32 masters, drop-path and
+    XL dropout on, one model trained on through the phase: CL_STEPS steps
+    (2 warm-up) of iCaRL (targets: snapshot_targets of the serving copy's
+    logits on the batch), of BiC (task 0's pair (0.9, 0.1) on classes
+    0-21, softmax-T targets) followed by 3 of BiC's stage-2 steps on a
+    held-out batch, and of the naive step at accumulation 2; ms per step,
+    every term. Then one serving request at batch 16 (a bf16 copy of the
+    model, eval step, BiC's bias, iCaRL's filter, decode + soft-NMS):
+    exemplar means from EXEMPLARS clips of each known class; the distances
+    and keep mask of 2 of the request's clips against the direct form in
+    f32 (max rel gap 1e-5, flips counted, at most 1e-4 of the bits), the
+    filter holding -1e9 exactly where it drops.
+    The launch counts of `kernels` over the phase (set to 0 just before).
+    Returns them."""
+    from vilco_tpu_torch.cl.bic import make_bias_stage2_step
+    from vilco_tpu_torch.cl.icarl import (
+        adjust_eval_outputs,
+        compute_exemplar_means,
+        distance_keep_mask,
+        level_distances,
+    )
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.ops.decode import decode_and_nms_batch
+    from vilco_tpu_torch.train.engine import (
+        CLBatchExtras,
+        batch_to,
+        init_train_state,
+        make_eval_step,
+        make_train_step,
+        snapshot_targets,
+    )
+
+    tag = "cl_methods"
+    m, t = full.model, full.test_cfg
+    C = m.num_classes
+    mask, n_known = cl_task(full, dev)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = PointTransformer(m, torch.Generator().manual_seed(SEED),
+                             device=dev)
+    st = init_train_state(model, full, steps_per_epoch=1, seed=SEED,
+                          device=dev)
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
+    rng = np.random.default_rng(SEED + 20)
+    batch = batch_to(make_batch(rng, full.batch_size, full), dev)
+    heldout = batch_to(make_batch(rng, full.batch_size, full), dev)
+
+    def serving_copy():
+        return copy.deepcopy(model).eval().to(torch.bfloat16)
+
+    def train(label, method, cl, K=1):
+        c = cl_config(full, method, K)
+        step = make_train_step(pts, c.train_cfg, regularize=True,
+                               compute_dtype=torch.bfloat16, cl_cfg=c.cl_cfg,
+                               n_known=n_known, accumulation_steps=K)
+        walls, terms = [], []
+        for i in range(CL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = step(st, batch, cl)
+            torch.cuda.synchronize()
+            if i >= 2:
+                walls.append((time.perf_counter() - t0) * 1e3)
+            terms.append({k: v.item() for k, v in met.items()})
+        if not all(np.isfinite(v) for tm in terms for v in tm.values()):
+            fail(f"{tag}: {label}: a term is not finite")
+        keys = [k for k in ("final_loss", "dist_loss", "cls_loss",
+                            "grad_norm") if k in terms[0]]
+        say(f"[{tag}] {label}: {len(walls)} timed bf16 steps at batch "
+            f"{full.batch_size}{f' ({K} micro-batches)' if K > 1 else ''}, "
+            f"{statistics.median(walls):.3f} ms/step (median) [{CARD}]")
+        for k in keys:
+            say(f"[{tag}] {label} {k} " + ", ".join(f"{tm[k]:.6f}"
+                                                   for tm in terms))
+        return terms
+
+    with torch.no_grad():
+        logits = serving_copy()(batch["feats"], batch["mask"])["cls_logits"]
+    icarl = train("iCaRL", "icarl", CLBatchExtras(
+        mask, prev_logits=snapshot_targets(logits, "icarl", n_known)))
+    bic = bic_state(full)
+    a, b = (torch.from_numpy(x).to(dev) for x in bic.per_class(0))
+    bic_terms = train("BiC", "bic", CLBatchExtras(
+        mask, prev_logits=snapshot_targets(logits, "bic", n_known),
+        bias_alpha=a, bias_beta=b))
+    if min(icarl[0]["dist_loss"], bic_terms[0]["dist_loss"]) <= 0:
+        fail(f"{tag}: a distillation term is not positive")
+    step2, init2 = make_bias_stage2_step(model, pts, full.train_cfg, CL_TASK,
+                                         bic.class_task)
+    bias = init2()
+    a1, b1 = (torch.from_numpy(x).to(dev) for x in bic.per_class(CL_TASK))
+    cl2 = CLBatchExtras(mask, bias_alpha=a1, bias_beta=b1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        bias, met2 = step2(bias, heldout, cl2, st.loss_normalizer)
+    torch.cuda.synchronize()
+    s2_ms = (time.perf_counter() - t0) * 1e3 / 3
+    bic.alphas[CL_TASK] = bias["alpha"].item()
+    bic.betas[CL_TASK] = bias["beta"].item()
+    say(f"[{tag}] BiC stage 2: 3 SGD steps (lr 1e-3) on task {CL_TASK}'s "
+        f"pair, the model frozen: alpha {bic.alphas[CL_TASK]:.6f}, beta "
+        f"{bic.betas[CL_TASK]:.6f}, loss {met2['final_loss'].item():.6f}, "
+        f"{s2_ms:.3f} ms/step [{CARD}]")
+    if (bic.alphas[CL_TASK], bic.betas[CL_TASK]) == (1.0, 0.0):
+        fail(f"{tag}: BiC's stage 2 did not move the pair")
+    train("naive at accumulation 2", "naive", CLBatchExtras(mask), K=2)
+
+    # serving: BiC's bias and iCaRL's filter on one request at batch 16
+    serve = serving_copy()
+    evaluate = make_eval_step(serve)
+    ex = np.random.default_rng(SEED + 21).standard_normal(
+        (n_known * EXEMPLARS, m.max_seq_len, m.input_dim)).astype(np.float32)
+    ex = torch.from_numpy(ex).to(dev, torch.bfloat16)
+    full_mask = torch.ones(ex.shape[:2], dtype=torch.bool, device=dev)
+
+    def feats_fn(vids):
+        out = evaluate({"feats": ex[vids], "mask": full_mask[vids]})
+        return list(out["fpn_feats"])
+
+    t0 = time.perf_counter()
+    means, valid = compute_exemplar_means(
+        feats_fn, {c: [EXEMPLARS * c + j for j in range(EXEMPLARS)]
+                   for c in range(n_known)}, C)
+    torch.cuda.synchronize()
+    means_s = time.perf_counter() - t0
+    feats, fmask = mq_requests(m, dev, 1)[0]
+    ab = tuple(torch.from_numpy(x).to(dev)
+               for x in bic.per_class(bic.num_tasks_seen - 1))
+    marks = []
+    with torch.no_grad():
+        mark_ev = lambda: marks.append(torch.cuda.Event(enable_timing=True))
+        mark_ev()
+        marks[-1].record()
+        out = evaluate({"feats": feats, "mask": fmask})
+        mark_ev()
+        marks[-1].record()
+        adj = adjust_eval_outputs(out, ab, means, valid)
+        mark_ev()
+        marks[-1].record()
+        det = decode_and_nms_batch(
+            pts, adj["cls_logits"], adj["offsets"], adj["fpn_mask"], mask,
+            num_classes=C, pre_nms_topk=t.pre_nms_topk,
+            pre_nms_thresh=t.pre_nms_thresh,
+            duration_thresh=t.duration_thresh, max_seg_num=t.max_seg_num,
+            min_score=t.min_score, nms_sigma=t.nms_sigma,
+            voting_thresh=t.voting_thresh)
+        mark_ev()
+        marks[-1].record()
+        torch.cuda.synchronize()
+        two = [f[:2] for f in out["fpn_feats"]]
+        keep = distance_keep_mask(out["fpn_feats"], means, valid)
+        direct = distance_keep_mask(two, means, valid, chunk=C)
+        gap = max(((level_distances(f, mm)[:2] - d).abs().max() / d.abs()
+                   .max()).item() for f, mm, d in zip(
+                       out["fpn_feats"], means,
+                       (level_distances(f2, mm, C)
+                        for f2, mm in zip(two, means))))
+    adjust = lambda: adjust_eval_outputs(out, ab, means, valid)
+    adj_ms = median_ms(adjust, reps=5)
+    by_kernel = device_ms_by_kernel(adjust, reps=3, warmup=1)
+    flips = int((keep[:2] != direct).sum())
+    want = torch.where(keep, out["cls_logits"] * ab[0] + ab[1],
+                       torch.full_like(out["cls_logits"], -1e9))
+    filt_ok = torch.equal(adj["cls_logits"], want)
+    ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
+    say(f"[{tag}] serving with BiC's bias and iCaRL's filter, batch "
+        f"{feats.shape[0]} bf16, the first request: forward {ms[0]:.3f} ms, "
+        f"bias + keep mask {ms[1]:.3f} ms, decode + soft-NMS {ms[2]:.3f} ms "
+        f"(CUDA events; bias + keep mask again, warm: {adj_ms:.3f} ms); "
+        f"exemplar means of {n_known} classes x {EXEMPLARS} clips in "
+        f"{means_s:.3f} s; keep share {keep.float().mean().item():.4f}; "
+        f"2 clips against the direct form in f32: distances max rel gap "
+        f"{gap:.3e} (tol 1e-5), keep bits flipped {flips} of "
+        f"{direct.numel()} (tol 1e-4 of them); filter exact: {filt_ok} "
+        f"[{CARD}]")
+    say(f"[{tag}] bias + keep mask, {sum(by_kernel.values()):.4f} device "
+        "ms; by kernel (profiler): " + ", ".join(
+            f"{short_name(k)[:60]} {v:.4f}" for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:5]) + f" [{CARD}]")
+    if (gap > 1e-5 or flips > 1e-4 * direct.numel() or not filt_ok
+            or not 0 < keep.float().mean().item() < 1):
+        fail(f"{tag}: the iCaRL filter or the keep mask is wrong")
+    if not (torch.isfinite(det.segs).all() and torch.isfinite(det.scores)
+            .all()):
+        fail(f"{tag}: non-finite detections")
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    say(f"[{tag}] peak memory {peak:.3f} GiB; launches in the phase: "
+        f"{launches}")
+    if min(launches.values()) < 1:
+        fail(f"{tag}: a kernel of the path was never launched")
+    del model, st, serve
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cl_step_result(device, full, template, method, K, batch, prev=None,
+                   bias=None):
+    """One f32 train step of `full` under `method` at accumulation K, CL
+    task CL_TASK, regularisers off, from a copy of `template` (SEED's
+    model on the CPU) at schedule step PARITY_STEP, on `device`: the
+    result dict step_gaps reads, plus the metrics."""
+    from vilco_tpu_torch.models.point_transformer import level_lengths
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train.engine import (
+        CLBatchExtras,
+        batch_to,
+        init_train_state,
+        make_train_step,
+    )
+
+    m = full.model
+    c = cl_config(full, method, K)
+    mask, n_known = cl_task(full, device)
+    model = copy.deepcopy(template)
+    st = init_train_state(model, c, steps_per_epoch=1, seed=SEED,
+                          device=device)
+    st.opt.count = PARITY_STEP
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range)).to(device)
+    step = make_train_step(pts, c.train_cfg, regularize=False,
+                           cl_cfg=c.cl_cfg, n_known=n_known,
+                           accumulation_steps=K)
+    ab = {} if bias is None else dict(bias_alpha=bias[0].to(device),
+                                      bias_beta=bias[1].to(device))
+    cl = CLBatchExtras(mask, prev_logits=None if prev is None
+                       else prev.to(device), **ab)
+    t0 = time.perf_counter()
+    met = step(st, batch_to(batch, device), cl)
+    secs = time.perf_counter() - t0
+    named = list(model.named_parameters())
+    mu, nu = st.opt.moments()
+    res = dict(loss=met["final_loss"].item(), gnorm=met["grad_norm"].item(),
+               grads={n: p.grad.cpu() for n, p in named},
+               params={n: p.detach().cpu() for n, p in named},
+               mu={n: x.cpu() for n, x in mu.items()},
+               nu={n: x.cpu() for n, x in nu.items()}, secs=secs,
+               metrics={k: v.item() for k, v in met.items()})
+    del model, st
+    return res
+
+
+def phase_cl_parity(dev):
+    """--cl-methods: the graft flagship's CL steps in f32 (TF32 off), the
+    card against the CPU from the same weights and batch, as CL task
+    CL_TASK: iCaRL and BiC at batch 1 (targets from snapshot_targets of
+    N(0, 2^2) logits; BiC with task 0's pair), the naive step at
+    accumulation 2 over a batch of 2: loss and the method's term 1e-5,
+    grad norm CL_GNORM_RTOL, gradients GRAD_RTOL, updated parameters
+    PARAM_RTOL, moments 2^-6, the leaves of the largest gradients printed; then BiC's stage 2 (3 steps on task 1's pair; its moves of alpha
+    and beta GRAD_RTOL) and MAS's importance over two batch-1 batches
+    (GRAD_RTOL a leaf, as gradients; the normaliser 1e-6); then VQ's HNM
+    step with an EWC penalty at accumulation 2 (phase_vq_train_parity)."""
+    from vilco_tpu_torch.cl.bic import make_bias_stage2_step
+    from vilco_tpu_torch.cl.regularizers import estimate_importance
+    from vilco_tpu_torch.core.config import flagship_config
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train.engine import (
+        CLBatchExtras,
+        batch_to,
+        snapshot_targets,
+    )
+
+    tag = "cl_parity"
+    full = flagship_config()
+    m = full.model
+    C, P = m.num_classes, sum(level_lengths(m))
+    rng = np.random.default_rng(SEED + 30)
+    b2 = make_batch(rng, 2, full)
+    b1 = {k: v[:1] for k, v in b2.items()}
+    logits = torch.from_numpy(
+        (2 * rng.standard_normal((1, P, C))).astype(np.float32))
+    _, n_known = cl_task(full, "cpu")
+    bic = bic_state(full)
+    bias = tuple(torch.from_numpy(x) for x in bic.per_class(0))
+    template = PointTransformer(m, torch.Generator().manual_seed(SEED),
+                                device="cpu")
+    for label, method, K, batch, prev, bb, term in (
+            ("iCaRL", "icarl", 1, b1,
+             snapshot_targets(logits, "icarl", n_known), None, "dist_loss"),
+            ("BiC", "bic", 1, b1, snapshot_targets(logits, "bic", n_known),
+             bias, "dist_loss"),
+            ("accumulation 2", "naive", 2, b2, None, None, "cls_loss")):
+        ref = cl_step_result("cpu", full, template, method, K, batch, prev,
+                             bb)
+        card = cl_step_result(dev, full, template, method, K, batch, prev,
+                              bb)
+        g = step_gaps(card, ref)
+        say_gaps(tag, f"{label}: card", card, ref, "CPU", g)
+        norms = sorted(((w.norm().item(), n) for n, w in ref["grads"].items()),
+                       reverse=True)[:3]
+        say(f"[{tag}] {label}: the largest gradients (L2 norm, CPU; card's "
+            "rel gap): " + ", ".join(
+                f"{n} {v:.4e} ({(card['grads'][n] - ref['grads'][n]).norm() / v:.2e})"
+                for v, n in norms))
+        t_rel = abs(card["metrics"][term] - ref["metrics"][term]) \
+            / abs(ref["metrics"][term])
+        say(f"[{tag}] {label}: {term} card {card['metrics'][term]:.6f}, CPU "
+            f"{ref['metrics'][term]:.6f} (rel {t_rel:.3e}); CPU "
+            f"{ref['secs']:.1f} s, card {card['secs']:.3f} s")
+        if (max(g["loss"], t_rel) > 1e-5 or g["gnorm"] > CL_GNORM_RTOL
+                or g["grads"][0] > GRAD_RTOL or g["params"][0] > PARAM_RTOL
+                or max(g["mu"][0], g["nu"][0]) > 2.0 ** -6):
+            fail(f"{tag}: {label} out of tolerance")
+
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range))
+    moves, imps = {}, {}
+    for device in ("cpu", dev):
+        model = copy.deepcopy(template).to(device)
+        mask = cl_task(full, device)[0]
+        step2, init2 = make_bias_stage2_step(
+            model, pts.to(device), full.train_cfg, CL_TASK, bic.class_task)
+        a1, be1 = (torch.from_numpy(x).to(device)
+                   for x in bic.per_class(CL_TASK))
+        bias2 = init2()
+        for _ in range(3):
+            bias2, _ = step2(bias2, batch_to(b1, device),
+                             CLBatchExtras(mask, bias_alpha=a1,
+                                           bias_beta=be1),
+                             torch.tensor(full.train_cfg.init_loss_norm,
+                                          device=device))
+        moves[str(device)] = (bias2["alpha"].item() - 1.0,
+                              bias2["beta"].item())
+        batches = [batch_to({k: v[i:i + 1] for k, v in b2.items()}, device)
+                   for i in range(2)]
+        imp, _, norm = estimate_importance(
+            model, pts.to(device), batches,
+            CLBatchExtras(torch.ones(C, dtype=torch.bool, device=device)),
+            torch.tensor(full.train_cfg.init_loss_norm, device=device),
+            full.train_cfg, "mas")
+        imps[str(device)] = ({n: v.cpu() for n, v in imp.items()},
+                             norm.item())
+        del model
+    (ca, cb), (ra, rb) = moves[str(dev)], moves["cpu"]
+    mv = max(abs(ca - ra) / abs(ra), abs(cb - rb) / abs(rb))
+    say(f"[{tag}] BiC stage 2, 3 steps: alpha - 1 card {ca:.6e} CPU "
+        f"{ra:.6e}, beta card {cb:.6e} CPU {rb:.6e}: max rel {mv:.3e} (tol "
+        f"{GRAD_RTOL:g}) [{CARD}]")
+    worst, names = rel_by_leaf(imps[str(dev)][0], imps["cpu"][0], 1e-4)
+    nrel = abs(imps[str(dev)][1] - imps["cpu"][1]) / imps["cpu"][1]
+    say(f"[{tag}] MAS importance over 2 batches, card vs CPU: max rel err "
+        f"{worst:.3e} ({names}; tol {GRAD_RTOL:g}), normaliser "
+        f"{imps['cpu'][1]:.6f} (rel {nrel:.3e}, tol 1e-6) [{CARD}]")
+    if mv > GRAD_RTOL or worst > GRAD_RTOL or nrel > 1e-6 or ra == 0:
+        fail(f"{tag}: BiC's stage 2 or MAS's importance out of tolerance")
+    torch.cuda.empty_cache()
+    phase_vq_train_parity(dev, SEED, tag="vq_cl_parity",
+                          batch_size=2 * VQ_PARITY_BATCH,
+                          accumulation_steps=2, reg_k=1)
 
 
 # ---- the MQ flagship as configs/mq_vilco.yaml runs it --------------------
@@ -2168,12 +2734,19 @@ def frame_band_work(B, L, C, H, fr, w, dtype, which):
     for each product the function needs (forward q.k, p.v; backward q.k,
     dO.v, p^T dO, dS^T q, dS k) and 2 C per row for delta. Bytes: q, k, v
     (backward: and out, dO) read once, each output written once, lse (f32
-    per row and head) read by the backward."""
+    per row and head) read by the backward. `which`: "fwd", "bwd" (the
+    call), or one pass of the backward: "dkv" (q.k, dO.v, p^T dO, dS^T q;
+    q, k, v, dO, lse and delta read, dk and dv written) or "dq" (q.k,
+    dO.v, dS k; the same read, dq written)."""
     pairs = B * frame_band_pairs(L, fr, w)
     el = torch.empty((), dtype=dtype).element_size()
     rows = B * L * C * el
     if which == "fwd":
         return 4 * C * pairs, 4 * rows
+    if which == "dkv":
+        return 8 * C * pairs, 6 * rows + 8 * B * H * L
+    if which == "dq":
+        return 6 * C * pairs, 5 * rows + 8 * B * H * L
     return 10 * C * pairs + 2 * B * L * C, 8 * rows + 4 * B * H * L
 
 
@@ -2304,10 +2877,15 @@ def phase_vq_kernels(dev):
                    backward_timer(sdpa, (q, k, v), bh(g)),
                    is_top=dtype == bf16 and flagship, queued=True)
             passes = device_ms_by_kernel(kern, reps=10)
+            pb = {p: bound(*frame_band_work(B, L, C_, H_, f_, w_, dtype, p),
+                           dtype) for p in ("dq", "dkv")}
             say(f"[vq_kernels] frame_band backward {label} "
                 f"{str(dtype)[6:]}, device ms by pass (profiler): "
                 + ", ".join(f"{short_name(n)} {t:.4f}"
-                            for n, t in passes.items()) + f" [{CARD}]")
+                            for n, t in passes.items())
+                + "; the passes' bounds: " + ", ".join(
+                    f"{p} {b[0]:.4f} ms ({b[1]})" for p, b in pb.items())
+                + f" [{CARD}]")
             del q, k, v, g, out, ref, got, want, o, lse, bm
         torch.cuda.empty_cache()
     say_k6_sums("vq_kernels", fwd_ms, cfg.num_transformer)
@@ -2510,6 +3088,7 @@ def phase_vq_parity(dev):
 
 
 VQ_PARITY_BATCH = 2    # 4 HNM pairs: every clip also against a foreign query
+VQ_REG_LAMBDA = 3000.0  # the --cl-methods VQ step's penalty weight (NLQ's)
 VQ_PE_LEAF = "pe_3d"
 # Activation gradients, unlike a weight's gradient not a sum over every
 # position: the 3-D position table's (the sum over the pairs of the
@@ -2534,7 +3113,9 @@ def vq_grad_gaps(r, base):
             rel(r["pe_pairs"], base["pe_pairs"]))
 
 
-def phase_vq_train_parity(dev, seed: int = SEED):
+def phase_vq_train_parity(dev, seed: int = SEED, tag="vq_train_parity",
+                          batch_size: int = VQ_PARITY_BATCH,
+                          accumulation_steps: int = 1, reg_k: int = 0):
     """One VQ HNM train step of vq_flagship_config() in f32 (head dropout
     off) at batch VQ_PARITY_BATCH x 30 frames, full width: the card against
     the CPU from the same weights and batch (drawn from `seed`; output
@@ -2549,7 +3130,12 @@ def phase_vq_train_parity(dev, seed: int = SEED):
     largest sum of |terms|) is printed. Updated parameters and
     moments are printed, not held: the first Adam step moves each weight
     by about lr * sign(g), so a near-zero gradient whose sign differs
-    moves a zero-initialised bias by 2 lr against its max of lr."""
+    moves a zero-initialised bias by 2 lr against its max of lr. With
+    `accumulation_steps` the batch of `batch_size` clips goes in that many
+    micro-batches (the per-pair gradient is the first one's); with `reg_k`
+    the step carries an EWC penalty at lambda VQ_REG_LAMBDA over `reg_k`
+    synthetic tasks of every leaf (the frozen ViT's included), its value
+    held card against CPU at 1e-5."""
     from vilco_tpu_torch.core.config import vq_flagship_config
     from vilco_tpu_torch.data.synthetic import make_vq_batch
     from vilco_tpu_torch.models.clip_matcher import ClipMatcher
@@ -2559,17 +3145,21 @@ def phase_vq_train_parity(dev, seed: int = SEED):
         make_vq_train_step,
     )
 
-    tag = "vq_train_parity"
-    cfg = dataclasses.replace(vq_flagship_config(), batch_size=VQ_PARITY_BATCH)
+    cfg = dataclasses.replace(vq_flagship_config(), batch_size=batch_size,
+                              accumulation_steps=accumulation_steps)
     batch = make_vq_batch(np.random.default_rng(seed + 18), cfg.batch_size,
                           cfg)
+
+    template = ClipMatcher(cfg, generator=torch.Generator().manual_seed(
+        seed), device="cpu", compute_dtype=torch.float32)
+    redraw_heads(template, seed + 13)
+    reg = None if not reg_k else synthetic_reg_tasks(template, reg_k,
+                                                     seed + 19)
 
     def run(device, tf32: bool, plain: bool = False):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
-        model = ClipMatcher(cfg, generator=torch.Generator().manual_seed(
-            seed), device="cpu", compute_dtype=torch.float32)
-        redraw_heads(model, seed + 13)
+        model = copy.deepcopy(template)
         st = init_vq_train_state(model, cfg, seed=seed, device=device)
         if plain:
             st.opt._table = None        # AdamW through its plain version
@@ -2579,9 +3169,15 @@ def phase_vq_train_parity(dev, seed: int = SEED):
             args[0].register_hook(pairs.append)
         model.st_0.register_forward_pre_hook(catch)
         step = make_vq_train_step(cfg, deterministic=True)
+        pen = None
+        if reg is not None:
+            from vilco_tpu_torch.cl.regularizers import RegPenalty
+
+            pen = RegPenalty.for_optimizer(reg, st.opt, VQ_REG_LAMBDA,
+                                           model=model)
         t0 = time.perf_counter()
         with plain_versions() if plain else contextlib.nullcontext():
-            met = step(st, batch_to(batch, device))
+            met = step(st, batch_to(batch, device), reg=pen)
         if device != "cpu":
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -2592,7 +3188,8 @@ def phase_vq_train_parity(dev, seed: int = SEED):
             params={n: p.detach().cpu() for n, p in zip(o.names, o.params)},
             mu={n: t.cpu() for n, t in zip(o.names, o.mu)},
             nu={n: t.cpu() for n, t in zip(o.names, o.nu)}, secs=secs,
-            pe_pairs=pairs[0].cpu())
+            pe_pairs=pairs[0].cpu(),
+            metrics={k: v.item() for k, v in met.items()})
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         del model, st
@@ -2603,8 +3200,10 @@ def phase_vq_train_parity(dev, seed: int = SEED):
     plain = run(dev, False, plain=True)
     ctrl = run(dev, True)
     torch.cuda.empty_cache()
+    K = cfg.accumulation_steps
     say(f"[{tag}] VQ, seed {seed}: one f32 HNM step at batch "
-        f"{cfg.batch_size} ({cfg.batch_size ** 2} pairs) x {cfg.num_frames} "
+        f"{cfg.batch_size} in {K} micro-batch{'es' if K > 1 else ''} "
+        f"({K * (cfg.batch_size // K) ** 2} pairs) x {cfg.num_frames} "
         f"frames, {len(ref['grads'])} trainable leaves: CPU "
         f"{ref['secs']:.1f} s, card {card['secs']:.3f} s (first call) "
         f"[{CARD}]")
@@ -2642,6 +3241,14 @@ def phase_vq_train_parity(dev, seed: int = SEED):
         fail(f"{tag}: the kernels alone move the gradients past the limit")
     if any(x <= lim for x, lim in zip(vg["TF32 control"], lims)):
         fail(f"{tag}: the check does not see TF32: limit too loose")
+    if reg is not None:
+        pen = (card["metrics"]["reg_penalty"], ref["metrics"]["reg_penalty"])
+        rel = abs(pen[0] - pen[1]) / abs(pen[1])
+        say(f"[{tag}] EWC penalty at lambda {VQ_REG_LAMBDA:g} over {reg_k} "
+            f"task of every leaf: card {pen[0]:.6e}, CPU {pen[1]:.6e} (rel "
+            f"{rel:.3e}, tol 1e-5)")
+        if rel > 1e-5:
+            fail(f"{tag}: the penalty's value out of tolerance")
 
 
 def vq_request_parts(marks):
@@ -3288,9 +3895,19 @@ def mq_training(dev, mq):
 
 
 def main():
+    t_start = last = time.perf_counter()
+
+    def took(what):        # wall seconds of each group of phases
+        nonlocal last
+        now = time.perf_counter()
+        say(f"[time] {what}: {now - last:.1f} s; {now - t_start:.1f} s "
+            "since the start")
+        last = now
+
     name = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    took("device and build")
     from vilco_tpu_torch.core.config import flagship_config, \
         mq_yaml_config, nlq_flagship_config
     from vilco_tpu_torch.kernels.adamw import adamw_update_multi
@@ -3308,7 +3925,10 @@ def main():
     )
     from vilco_tpu_torch.kernels.frame_band import frame_band_attention
     from vilco_tpu_torch.kernels.mlp import fused_mlp
-    from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
     # f32 means f32 in every comparison: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3322,29 +3942,42 @@ def main():
         dev, "serve", mq, mq_requests(mq.model, dev),
         (fused_attention_blc, xl_rel_attention, fused_dwconv_qkv))
     terrs, ttop, train_launches = mq_training(dev, mq)
+    took("MQ graft: kernels, parity, serve, training")
+    # the other CL methods' steps at the graft flagship: iCaRL, BiC with its
+    # stage 2, accumulation; serving with BiC's bias and iCaRL's filter
+    cl_launches = phase_cl_methods(dev, mq, (
+        fused_attention_blc, attention_bwd_cuda, xl_rel_attention,
+        xl_bwd_cuda, fused_dwconv_qkv, dwconv_bwd_cuda, adamw_update_multi))
+    took("cl_methods")
 
     # the MQ flagship as configs/mq_vilco.yaml runs it: text tower, branch
     # cross-attention, L2P, time adapters and their ensemble, narration SSL
     yerrs, ytop, yaml_serve, yaml_train = mq_yaml(dev, yaml)
+    took("MQ yaml")
 
     # NLQ: the same at the dual tower's shapes
     nerrs, ntop = phase_nlq_kernels(dev)
     phase_parity(dev, "nlq_parity", nlq.model,
                  nlq_inputs(np.random.default_rng(SEED + 7), 1, nlq, "cpu",
                             torch.float32))
-    phase_train_parity(dev, "nlq_train_parity", nlq)
+    phase_train_parity(dev, "nlq_train_parity", nlq,
+                       reg=importance_tasks(nlq, dev, nlq.cl_cfg.name,
+                                            SEED + 11))
     rng = np.random.default_rng(SEED + 8)
     nlq_serve = phase_serve(
         dev, "nlq_serve", nlq,
         [nlq_inputs(rng, B_NLQ_SERVE, nlq, dev, torch.bfloat16)
          for _ in range(7)],
         (fused_attention_blc, banded_attention_blc, fused_dwconv_qkv))
-    nlq_train = phase_train(
-        dev, "nlq_train", nlq, (banded_attention_blc, banded_bwd_cuda,
-                                fused_attention_blc,
-                                attention_bwd_cuda, fused_dwconv_qkv,
-                                dwconv_bwd_cuda, adamw_update_multi),
-        SEED + 9, normalised_must_fall=False)
+    nlq_kernels = (banded_attention_blc, banded_bwd_cuda,
+                   fused_attention_blc, attention_bwd_cuda,
+                   fused_dwconv_qkv, dwconv_bwd_cuda, adamw_update_multi)
+    nlq_train = phase_train(dev, "nlq_train", nlq, nlq_kernels, SEED + 9,
+                            normalised_must_fall=False)
+    # the yaml's own method: EWC at lambda 3000 over 12 stacked tasks
+    nlq_ewc = phase_train(dev, "nlq_train_ewc", nlq, nlq_kernels, SEED + 9,
+                          normalised_must_fall=False, reg_k=REG_TASKS)
+    took("NLQ")
 
     # VQ: the frame-banded and fused-MLP kernels, parity, sliding-window
     # serving (K7 on one extra request), the HNM train step
@@ -3354,8 +3987,10 @@ def main():
     vq_serve, vq_mlp = phase_vq_serve(
         dev, (fused_attention_blc, frame_band_attention), fused_mlp)
     vq_train = phase_vq_train(dev, vq_train_kernels())
+    took("VQ")
 
     ab = attention_ablations(dev, mq)
+    took("attention ablations")
 
     rows = [
         # name, source, replaces, errors, timing, launches (MQ path; the
@@ -3446,6 +4081,9 @@ def main():
             entry["launches_nlq_serve"] = nlq_serve[fn]
         if fn in nlq_train:
             entry["launches_nlq_train"] = nlq_train[fn]
+            entry["launches_nlq_train_ewc"] = nlq_ewc[fn]
+        if fn in cl_launches:
+            entry["launches_cl_methods"] = cl_launches[fn]
         if fn in vq_serve or fn in vq_mlp:
             entry["launches_vq_serve"] = vq_mlp[fn] if fn == "fused_mlp" \
                 else vq_serve[fn]
@@ -3491,7 +4129,7 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
-                         ["--vq-train"], ["--mq-yaml"]):
+                         ["--vq-train"], ["--mq-yaml"], ["--cl-methods"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3505,6 +4143,8 @@ if __name__ == "__main__":
             from vilco_tpu_torch.core.config import mq_yaml_config
 
             mq_yaml(dev, mq_yaml_config())
+        if sys.argv[1] == "--cl-methods":
+            phase_cl_parity(dev)
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

@@ -110,15 +110,19 @@ class TrainCfg:
 
 @dataclass(frozen=True)
 class CLCfg:
-    """The `cl_cfg` fields of the MQ yaml's CL method (name "l2p"): the L2P
-    prompt pool (`prompt_pool`, `pool_size` prompts of `length` tokens of
-    `embed_dim`, `topk` chosen), narration SSL (`narration_ssl`, narration
-    tokens of `narration_dim`, weight `ssl_factor`, a memory bank of
-    `memory_size` rows), the time adapters (`use_adapt` in the branch
-    blocks `adapt_blocks`) and the task split (`num_tasks` of
+    """The `cl_cfg` fields the CL methods read: `name` (naive, l2p, ewc,
+    mas, icarl or bic), the EWC/MAS penalty's weight `reg_lambda`, the
+    iCaRL/BiC distillation weight `dist_factor`, the L2P prompt pool
+    (`prompt_pool`, `pool_size` prompts of `length` tokens of `embed_dim`,
+    `topk` chosen), narration SSL (`narration_ssl`, narration tokens of
+    `narration_dim`, weight `ssl_factor`, a memory bank of `memory_size`
+    rows), the time adapters (`use_adapt` in the branch blocks
+    `adapt_blocks`) and the task split (`num_tasks` of
     `classes_per_task`)."""
     name: str = "naive"
     memory_size: int = 0
+    reg_lambda: float = 0.0
+    dist_factor: float = 0.01
     prompt_pool: bool = False
     pool_size: int = 10
     topk: int = 4
@@ -135,9 +139,12 @@ class CLCfg:
 
 @dataclass(frozen=True)
 class OptCfg:
+    """`accumulation_steps` K: one optimizer step takes K micro-batches of
+    the batch's rows, in order (train/engine.py::make_train_step)."""
     learning_rate: float = 1e-4
     epochs: int = 10
     warmup_epochs: int = 5
+    accumulation_steps: int = 1
 
 
 @dataclass(frozen=True)
@@ -215,10 +222,15 @@ def mq_yaml_config(tiny: bool = False) -> Config:
         cl_cfg=MQ_YAML_CL)
 
 
+NLQ_YAML_CL = CLCfg(name="ewc", memory_size=0, reg_lambda=3000.0,
+                    embed_dim=512, num_tasks=13)
+
+
 def nlq_flagship_config(tiny: bool = False) -> Config:
     """The NLQ ViLCo flagship (configs/nlq_vilco.yaml): the dual tower at
     T=2560 with 9-wide banded attention, 4 heads of 96, one class, text of
-    32 tokens x 512. The tiny twin is vilco_tpu/tasks/nlq.py::
+    32 tokens x 512, and the yaml's CL method: EWC at lambda 3000 over 13
+    tasks, no rehearsal memory. The tiny twin is vilco_tpu/tasks/nlq.py::
     nlq_tiny_config() (E=32, T=64, arch (2, 1, 1, 0, 3), no drop-path)."""
     if tiny:
         model = ModelConfig(
@@ -236,6 +248,7 @@ def nlq_flagship_config(tiny: bool = False) -> Config:
                                use_gaussian_weights=False,
                                init_loss_norm=20.0),
             opt=OptCfg(learning_rate=3e-3, epochs=6, warmup_epochs=1),
+            cl_cfg=CLCfg(embed_dim=12, num_tasks=3, classes_per_task=1),
             batch_size=4, max_segments=4, max_text_len=8)
     model = ModelConfig(
         variant="nlq", backbone_arch=(2, 4, 4, 0, 6), n_mha_win_size=9,
@@ -250,7 +263,7 @@ def nlq_flagship_config(tiny: bool = False) -> Config:
                          voting_thresh=0.9),
         train_cfg=TrainCfg(label_smoothing=0.1, use_gaussian_weights=False,
                            init_loss_norm=200.0),
-        opt=OptCfg(epochs=8, warmup_epochs=5),
+        opt=OptCfg(epochs=8, warmup_epochs=5), cl_cfg=NLQ_YAML_CL,
         batch_size=4, max_segments=64, max_text_len=32)
 
 
@@ -260,8 +273,9 @@ class VQConfig:
     serving path and train step read, with their JAX names, plus what the
     VQ episode runner fixes: `eval_windows` (windows per inference chunk),
     the head's dropout and the optimizer's clip norm and MultiStepLR
-    milestones and factor. One optimizer step is one batch (the yaml's
-    accumulation_steps 1); the query crop has the clips' size.
+    milestones and factor. `accumulation_steps` K: one optimizer step takes
+    K micro-batches of the batch's rows (the yaml's 1); the query crop has
+    the clips' size.
     `vit_attn_impl` picks the ViT's attention: "pallas" (K1) or "flash"
     (K1f)."""
     dim: int = 256
@@ -288,6 +302,7 @@ class VQConfig:
     lr_milestones: Tuple[int, ...] = (7000, 14000, 20000, 25000)
     lr_gamma: float = 0.3
     vit_attn_impl: str = "pallas"
+    accumulation_steps: int = 1
 
     def __post_init__(self):
         if self.vit_attn_impl not in VIT_ATTN_IMPLS:

@@ -29,7 +29,7 @@ applies its Linear layers to the transposed input.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +87,20 @@ def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two Flax leaves map to {key}")
         out[key] = torch.from_numpy(np.array(_layout(path, a), order="C"))
     return out
+
+
+def reg_tasks_from_jax(reg_list) -> List[Tuple[Dict[str, torch.Tensor],
+                                               Dict[str, torch.Tensor]]]:
+    """JAX's per-task EWC/MAS state, [(importance, optpar), ...] as
+    vilco_tpu/cl/regularizers.py::estimate_importance returns each task's
+    trees, -> the same list in the port's names and layouts, one task at a
+    time. The layout changes are permutations, so an elementwise product
+    of importance and optpar maps to the same product. JAX stacks the
+    tasks along a leading axis (stack_reg_tasks), which `params_from_jax`
+    would read as a kernel's axes: stack on the port's side instead
+    (vilco_tpu_torch/cl/regularizers.py::stack_reg_tasks)."""
+    return [(params_from_jax(imp), params_from_jax(opt))
+            for imp, opt in reg_list]
 
 
 def adam_state_from_jax(count, mu: Mapping[str, Any],

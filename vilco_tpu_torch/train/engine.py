@@ -1,23 +1,30 @@
 """The MQ and NLQ train step (vilco_tpu/train/engine.py::make_train_step)
-with the naive CL method or the MQ yaml's (L2P with narration SSL and the
-time adapters' EMA), one micro-batch per step, and the eval step
-(`make_eval_step`, with the adapter ensemble). Distillation and the
-EWC/MAS penalty are not ported.
+with every CL method JAX's step runs: naive; L2P with narration SSL and
+the time adapters' EMA (the MQ yaml's); the EWC/MAS penalty over stacked
+tasks (cl/regularizers.py); iCaRL's and BiC's distillation against
+snapshot targets, and BiC's bias on the logits (cl/bic.py); each with
+gradient accumulation over micro-batches; and the eval step
+(`make_eval_step`, with the adapter ensemble).
 
-    forward (training mode) -> compute_losses -> backward
-    -> global-norm clip at CLIP_GRAD_L2NORM -> FusedAdamW -> loss-normaliser EMA
-    -> the SSL memory bank's ring write -> the adapter EMA
+    for each of K micro-batches: forward (training mode) -> BiC's bias
+        -> compute_losses -> backward (the gradients add up)
+        -> the SSL memory bank's ring write
+    -> the gradients / K -> + the EWC/MAS penalty's gradient
+    -> global-norm clip at CLIP_GRAD_L2NORM -> FusedAdamW
+    -> loss-normaliser EMA -> the adapter EMA
 
 What the flagships share is fixed here: radius center sampling at 1.5,
 loss weight 1, clip 1.0. What they differ in comes from the config's
 `train_cfg` (core/config.py::TrainCfg): label smoothing (NLQ 0.1), the
 Gaussian loss weights (MQ only), the initial loss normaliser (MQ 100, NLQ
 200), the label-involved (AL) loss's weight (the MQ yaml 0.2) and the SSL
-temperature; and from its `cl_cfg`: the SSL weight and the bank's size.
+temperature; from its `cl_cfg`: the method, the SSL weight, the bank's
+size and the distillation weight; from its `opt`: the accumulation steps.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -34,7 +41,8 @@ CENTER_SAMPLE_RADIUS = 1.5
 CLIP_GRAD_L2NORM = 1.0
 LOSS_WEIGHT = 1.0
 PULL_WEIGHT = 0.1        # the L2P pull: final -= 0.1 x reduce_sim
-CL_METHODS = ("naive", "l2p")
+CL_METHODS = ("naive", "l2p", "ewc", "mas", "icarl", "bic")
+BIC_T = 2.0              # BiC's distillation temperature
 EMA_DECAY = 0.999        # the time adapters' EMA
 AL_NEG = -1e7            # the AL loss's logit at invalid points, unseen classes
 
@@ -43,10 +51,18 @@ AL_NEG = -1e7            # the AL loss's logit at invalid points, unseen classes
 class CLBatchExtras:
     """Per-step CL inputs. `memory_bank` (M, E) f32 and `memory_ptr` (0-d
     int64), the narration-SSL negatives and the next row to write, are
-    advanced in place by a step with SSL on."""
+    advanced in place by a step with SSL on. `prev_logits` (B, P, C) f32:
+    the distillation targets, probabilities (`snapshot_targets`);
+    `penalty`: the EWC/MAS penalty of the stacked tasks' fisher and optpar
+    (cl/regularizers.py::RegPenalty); `bias_alpha`, `bias_beta` (C,) f32:
+    BiC's per-class bias on the logits."""
     class_mask: torch.Tensor            # (C,) bool: the classes seen so far
     memory_bank: Optional[torch.Tensor] = None
     memory_ptr: Optional[torch.Tensor] = None
+    prev_logits: Optional[torch.Tensor] = None
+    penalty: Optional[object] = None
+    bias_alpha: Optional[torch.Tensor] = None
+    bias_beta: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -110,16 +126,20 @@ def init_train_state(model: torch.nn.Module, cfg: Config,
 
 def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
                    cl: CLBatchExtras, loss_normalizer: torch.Tensor,
-                   tc: TrainCfg, n_known: int = 0, ssl_factor: float = 0.0):
+                   tc: TrainCfg, n_known: int = 0, ssl_factor: float = 0.0,
+                   cl_method: str = "naive", dist_factor: float = 0.01):
     """Focal classification loss against the targets smoothed over the
     seen classes plus one, and Distance-IoU regression loss on the
     positives, with the Gaussian weights on the positives where
     `tc.use_gaussian_weights`, both over the new normaliser 0.9 old + 0.1
     max(#positives, 1); the AL loss x tc.al_loss_weight where that is > 0
     and there is more than one class; minus PULL_WEIGHT x the prompt
-    pool's reduce_sim once `n_known` > 0; the narration-SSL loss x
+    pool's reduce_sim once `n_known` > 0; the distillation against
+    `cl.prev_logits` once `n_known` > 0 (`distill_loss`: BiC's where
+    `cl_method` is "bic", else iCaRL's); the narration-SSL loss x
     `ssl_factor` where the outputs hold narration features and `cl` a
-    memory bank. Returns (loss, metrics, new normaliser)."""
+    memory bank. The EWC/MAS penalty is the step's (it reads the
+    parameters). Returns (loss, metrics, new normaliser)."""
     cls_logits = outputs["cls_logits"]            # (B, P, C) f32
     valid = outputs["fpn_mask"]                   # (B, P)
     class_mask_f = cl.class_mask.float()
@@ -158,6 +178,12 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
     if "reduce_sim" in outputs and n_known > 0:
         final = final - PULL_WEIGHT * outputs["reduce_sim"]
         metrics["reduce_sim"] = outputs["reduce_sim"]
+    if cl.prev_logits is not None and n_known > 0:
+        dist = distill_loss(cls_logits, cl.prev_logits, valid,
+                            outputs["level_lengths"], n_known, cl_method,
+                            dist_factor)
+        final = final + dist
+        metrics["dist_loss"] = dist
     if "narration_feat" in outputs and cl.memory_bank is not None:
         ssl = narration_ssl_loss(
             outputs["narration_feat"], outputs["video_feat"],
@@ -167,6 +193,45 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
         metrics["ssl_loss"] = ssl
     metrics["final_loss"] = final
     return final, metrics, norm
+
+
+def distill_loss(cls_logits, prev, valid, lens, n_known: int,
+                 cl_method: str, dist_factor: float):
+    """The distillation term (vilco_tpu/train/engine.py:178-203) over the
+    first `n_known` classes against the targets `prev` (probabilities):
+    BiC's softmax-T cross-entropy at T = BIC_T x dist_factor x n_known / C,
+    or iCaRL's BCE-with-logits summed over the classes x dist_factor. Per
+    clip, each level's mean over its valid points (`lens` the levels'
+    lengths), summed over the levels; then the mean over the batch."""
+    x = cls_logits[..., :n_known]
+    t = prev[..., :n_known].to(x.dtype)
+    if cl_method == "bic":
+        per_pt = -(t * torch.log_softmax(x / BIC_T, -1)).sum(-1)
+        factor = dist_factor * (n_known / cls_logits.shape[-1])
+    else:
+        per_pt = (torch.clamp(x, min=0) - x * t
+                  + torch.log1p(torch.exp(-x.abs()))).sum(-1)
+        factor = dist_factor
+    vf = valid.to(per_pt.dtype)
+    lens = list(lens)
+    sums = torch.stack([a.sum(1) for a in torch.split(per_pt * vf, lens, 1)],
+                       1)
+    counts = torch.stack([a.sum(1) for a in torch.split(vf, lens, 1)], 1)
+    return factor * (sums / torch.clamp(counts, min=1.0)).sum(-1).mean()
+
+
+def snapshot_targets(cls_logits: torch.Tensor, cl_method: str,
+                     n_known: int) -> torch.Tensor:
+    """The distillation targets from an eval step's cls_logits, on their
+    device (vilco_tpu/cl/episode.py::snapshot_logits): for BiC past task 0
+    softmax(z / BIC_T) over the first n_known classes, zero-padded to C;
+    else sigmoid(z)."""
+    z = cls_logits.float()
+    if cl_method == "bic" and n_known > 0:
+        out = torch.zeros_like(z)
+        out[..., :n_known] = torch.softmax(z[..., :n_known] / BIC_T, -1)
+        return out
+    return torch.sigmoid(z)
 
 
 def label_involved_loss(cls_logits, valid, class_mask, gt_labels, gt_valid):
@@ -235,59 +300,99 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
                     regularize: bool = True,
                     compute_dtype: Optional[torch.dtype] = None,
                     cl_cfg: Optional[CLCfg] = None, n_known: int = 0,
-                    ema_decay: float = EMA_DECAY) -> Callable:
+                    ema_decay: float = EMA_DECAY,
+                    accumulation_steps: int = 1) -> Callable:
     """step(state, batch, cl, marks=None) -> metrics (0-d tensors, no
     host sync). `batch` holds tensors on the model's device: the text's
     `text` and `text_mask`, and for the CL method's extras `narration`,
     `narration_mask`, `narration_valid` (read with `cl_cfg.narration_ssl`)
     and `prompt_mask` (read with `cl_cfg.prompt_pool`). `tc`: the config's
     train_cfg; `cl_cfg` its cl_cfg (None: the naive method); `n_known`:
-    the classes of the tasks before this one (the L2P pull from 1 on).
-    After the optimizer, with narration SSL the step writes the batch's
-    narration features into `cl.memory_bank` from `cl.memory_ptr` (both
-    replaced), and with `state.adapter_ema` it moves the EMA toward the
-    updated adapters at `ema_decay`. regularize: drop-path and dropouts
-    from state.generator (off: the deterministic step of the parity
-    checks). `marks`, if a list, receives (phase, CUDA event or host time)
-    at the forward / backward / optimizer boundaries."""
+    the classes of the tasks before this one (the L2P pull and the
+    distillation from 1 on). From `cl`: BiC's bias on the logits
+    (`bias_alpha`, `bias_beta`), the distillation targets (`prev_logits`)
+    and the EWC/MAS penalty (`penalty`, its gradient added once after the
+    micro-batches, before the clip), each where given.
+
+    `accumulation_steps` K (the config's opt.accumulation_steps): the
+    batch's rows split into K micro-batches in order (micro-batch k is
+    rows [k b/K, (k+1) b/K); a batch size K does not divide raises), each
+    with its forward, its drop-path and dropout draws, its normaliser
+    update and its ring write of the memory bank; the K backwards add up
+    in the optimizer's f32 gradient buffer, which is then divided by K;
+    one AdamW update; the metrics are the micro-batches' means.
+
+    After the update, with `state.adapter_ema` the step moves the EMA
+    toward the updated adapters at `ema_decay`. regularize: drop-path and
+    dropouts from state.generator (off: the deterministic step of the
+    parity checks). `marks`, if a list, receives (phase, CUDA event or
+    host time) at the forward / backward / optimizer boundaries (per
+    micro-batch for the first two)."""
     cl_cfg = cl_cfg or CLCfg()
     if cl_cfg.name not in CL_METHODS:
         raise NotImplementedError(f"cl method {cl_cfg.name!r}: the port "
                                   f"runs {CL_METHODS}")
     use_ssl, use_prompt = cl_cfg.narration_ssl, cl_cfg.prompt_pool
-    ssl_factor = cl_cfg.ssl_factor
+    K = accumulation_steps
+
+    def micro_loss(state, mb, mcl, norm, marks):
+        model = state.model
+        nar = (lambda k: mb.get(k)) if use_ssl else (lambda k: None)
+        out = model(mb["feats"], mb["mask"], mb.get("text"),
+                    mb.get("text_mask"), nar("narration"),
+                    nar("narration_mask"), nar("narration_valid"),
+                    mb.get("prompt_mask") if use_prompt else None,
+                    rng=state.generator if regularize else None,
+                    compute_dtype=compute_dtype)
+        if mcl.bias_alpha is not None:
+            out["cls_logits"] = (out["cls_logits"] * mcl.bias_alpha
+                                 + mcl.bias_beta)
+        loss, metrics, norm = compute_losses(
+            out, mb, points, mcl, norm, tc, n_known, cl_cfg.ssl_factor,
+            cl_cfg.name, cl_cfg.dist_factor)
+        mark(marks, "forward", points.device)
+        loss.backward()
+        mark(marks, "backward", points.device)
+        return out, metrics, norm
 
     def step(state: TrainState, batch: dict, cl: CLBatchExtras,
              marks: Optional[list] = None):
-        model = state.model
-        model.train()
+        b = batch["feats"].shape[0]
+        if b % K:
+            raise ValueError(f"batch size {b} not divisible by "
+                             f"accumulation_steps {K}")
+        m = b // K
+        state.model.train()
         mark(marks, "start", points.device)
-        nar = (lambda k: batch.get(k)) if use_ssl else (lambda k: None)
-        out = model(batch["feats"], batch["mask"], batch.get("text"),
-                    batch.get("text_mask"), nar("narration"),
-                    nar("narration_mask"), nar("narration_valid"),
-                    batch.get("prompt_mask") if use_prompt else None,
-                    rng=state.generator if regularize else None,
-                    compute_dtype=compute_dtype)
-        loss, metrics, new_norm = compute_losses(
-            out, batch, points, cl, state.loss_normalizer, tc, n_known,
-            ssl_factor)
-        mark(marks, "forward", points.device)
         state.opt.zero_grad()
-        loss.backward()
-        mark(marks, "backward", points.device)
+        norm, mets = state.loss_normalizer, []
+        for k in range(K):
+            rows = slice(k * m, (k + 1) * m)
+            mb = batch if K == 1 else {n: v[rows] for n, v in batch.items()}
+            mcl = cl if K == 1 or cl.prev_logits is None else \
+                dataclasses.replace(cl, prev_logits=cl.prev_logits[rows])
+            out, met, norm = micro_loss(state, mb, mcl, norm, marks)
+            mets.append(met)
+            if (use_ssl and cl.memory_bank is not None
+                    and "narration_feat" in out):
+                cl.memory_bank, cl.memory_ptr = ring_update(
+                    cl.memory_bank, cl.memory_ptr,
+                    out["narration_feat"].detach(), out["narration_valid"])
+        metrics = mets[0] if K == 1 else {
+            n: torch.stack([mt[n].detach() for mt in mets]).mean()
+            for n in mets[0]}
+        if K > 1:
+            state.opt.grad_flat.div_(K)
+        if cl.penalty is not None:
+            metrics["reg_penalty"] = cl.penalty.apply(state.opt.param_flat,
+                                                      state.opt.grad_flat)
         gnorm, gscale = global_norm_clip(state.opt.grad_flat)
         state.opt.step(gscale)
-        if (use_ssl and cl.memory_bank is not None
-                and "narration_feat" in out):
-            cl.memory_bank, cl.memory_ptr = ring_update(
-                cl.memory_bank, cl.memory_ptr,
-                out["narration_feat"].detach(), out["narration_valid"])
         if state.adapter_ema is not None:
-            update_adapter_ema(state.adapter_ema, model, ema_decay)
+            update_adapter_ema(state.adapter_ema, state.model, ema_decay)
         mark(marks, "optimizer", points.device)
         metrics["grad_norm"] = gnorm
-        state.loss_normalizer = new_norm.detach()
+        state.loss_normalizer = norm.detach()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -37,6 +37,7 @@ from vilco_tpu_torch.kernels.adamw import (  # noqa: F401 (re-exported)
 )
 
 ETA_MIN = 1e-8
+FLAT_ALIGN = 64    # elements: each leaf of a flat buffer 256-byte aligned
 MOMENT_DTYPE = torch.bfloat16      # opt.mu_dtype = opt.nu_dtype = bfloat16
 SMALL_LEAF_ELEMS = 1 << 18
 
@@ -70,6 +71,29 @@ def weight_decay_mask(named_params) -> Dict[str, bool]:
     return {n: decays(n, p.dim()) for n, p in named_params}
 
 
+def flat_buffers(params) -> Tuple[List[int], torch.Tensor, torch.Tensor]:
+    """(offsets, param_flat, grad_flat): each leaf's first element in two
+    f32 buffers on the parameters' device, every leaf starting on a
+    FLAT_ALIGN boundary; each parameter's data becomes a view of
+    param_flat (its values copied) and its .grad a view of grad_flat
+    (zeros) at its offset, so that the whole model is one vector for the
+    EWC/MAS penalty (cl/regularizers.py) and the optimizer's leaf table is
+    built once."""
+    offs, n = [], 0
+    for p in params:
+        offs.append(n)
+        n += -(-p.numel() // FLAT_ALIGN) * FLAT_ALIGN
+    dev = params[0].device
+    pf = torch.zeros(n, device=dev)
+    gf = torch.zeros(n, device=dev)
+    for p, off in zip(params, offs):
+        sl = slice(off, off + p.numel())
+        pf[sl].view_as(p).copy_(p.data)
+        p.data = pf[sl].view_as(p)
+        p.grad = gf[sl].view_as(p)
+    return offs, pf, gf
+
+
 def make_schedule(opt: OptCfg, steps_per_epoch: int):
     """step -> lr (numpy f32): linear warmup over opt.warmup_epochs
     reaching opt.learning_rate at step warmup - 1, then cosine from the
@@ -95,9 +119,10 @@ class FusedAdamW:
     """AdamW over `model.named_parameters()`, updated in place by `step`.
     State: `count` (steps taken), `mu_big`/`nu_big` (one moment tensor per
     big leaf), `mu_flat`/`nu_flat` (the small leaves' moments, packed in
-    parameter order). The gradients live in one persistent f32 buffer
-    (`grad_flat`, each parameter's .grad a view of it; `zero_grad` clears
-    it), so the kernel's leaf table is built once."""
+    parameter order). The parameters and the gradients live in two
+    persistent f32 buffers (`param_flat`, `grad_flat`, flat_buffers: each
+    parameter's data and .grad a view of them at its `flat_offsets` entry;
+    `zero_grad` clears the gradients)."""
 
     def __init__(self, model: torch.nn.Module, steps_per_epoch: int,
                  opt: OptCfg):
@@ -122,12 +147,8 @@ class FusedAdamW:
         self._decay_flat = torch.cat([
             torch.full((p.numel(),), float(d), device=dev)
             for p, d, s in zip(self.params, self.decay, self.small) if s])
-        self.grad_flat = torch.zeros(sum(p.numel() for p in self.params),
-                                     device=dev)
-        goff = 0
-        for p in self.params:
-            p.grad = self.grad_flat[goff:goff + p.numel()].view_as(p)
-            goff += p.numel()
+        self.flat_offsets, self.param_flat, self.grad_flat = flat_buffers(
+            self.params)
         self._table = None
         if dev.type == "cuda":
             mu, nu = self.moments()

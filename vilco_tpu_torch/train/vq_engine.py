@@ -6,10 +6,12 @@ per-frame top-anchor decode.
     -> global-norm clip at grad_max -> AdamW (MultiStepLR) on the trainable
        leaves
 
-Naive continual-learning method, one micro-batch per step, no EWC/MAS
-penalty. The frozen ViT runs under no_grad and its parameters are outside
-the optimizer: no update, no state, no decay. Every trainable leaf decays
-(the VQ optimizer is optax.adamw with no mask: biases, norms and pe_3d
+The step takes the EWC/MAS penalty of the stacked tasks
+(cl/regularizers.py::RegPenalty: its gradient on the trainable leaves, its
+value over every leaf, the frozen ViT's share fixed) and
+`accumulation_steps` micro-batches. The frozen ViT runs under no_grad and
+its parameters are outside the optimizer: no update, no state, no decay.
+Every trainable leaf decays (the VQ optimizer is optax.adamw with no mask: biases, norms and pe_3d
 too), the moments are f32, and on the card the update is one multi-tensor
 launch of kernels/adamw.py (which equals optax's chain expression for
 expression at f32 state); on the CPU each leaf goes through its plain
@@ -39,6 +41,7 @@ from vilco_tpu_torch.kernels.adamw import (
     adamw_update_plain,
 )
 from vilco_tpu_torch.ops.anchors import assign_anchor_labels, giou
+from vilco_tpu_torch.train.optim import flat_buffers
 
 GT_KEYS = ("clip_bbox", "clip_with_bbox", "before_query")
 
@@ -137,9 +140,10 @@ class VQOptimizer:
     clipped to global norm `grad_max` (optax.clip_by_global_norm: the norm
     over the trainable leaves, the factor 1 below the limit); the lr
     MultiStepLR, lr * gamma^k with k the milestones <= the updates taken
-    before this one. The gradients live in one persistent f32 buffer
-    (`grad_flat`, each trainable .grad a view of it), and the moments in two
-    more, so the kernel's leaf table is built once."""
+    before this one. The trainable parameters and their gradients live in
+    two persistent f32 buffers (`param_flat`, `grad_flat`, as FusedAdamW's),
+    and the moments in two more, so the kernel's leaf table is built
+    once."""
 
     def __init__(self, model: torch.nn.Module, lr: float,
                  weight_decay: float, grad_max: float = 20.0,
@@ -153,17 +157,15 @@ class VQOptimizer:
         self.milestones = sorted(milestones)
         self.count = 0
         dev = self.params[0].device
-        n = sum(p.numel() for p in self.params)
-        self.grad_flat = torch.zeros(n, device=dev)
-        self.mu_flat = torch.zeros(n, device=dev)
-        self.nu_flat = torch.zeros(n, device=dev)
-        self.mu, self.nu, off = [], [], 0
-        for p in self.params:
+        self.flat_offsets, self.param_flat, self.grad_flat = flat_buffers(
+            self.params)
+        self.mu_flat = torch.zeros_like(self.grad_flat)
+        self.nu_flat = torch.zeros_like(self.grad_flat)
+        self.mu, self.nu = [], []
+        for p, off in zip(self.params, self.flat_offsets):
             sl = slice(off, off + p.numel())
-            p.grad = self.grad_flat[sl].view_as(p)
             self.mu.append(self.mu_flat[sl].view_as(p))
             self.nu.append(self.nu_flat[sl].view_as(p))
-            off += p.numel()
         self._table = None
         if dev.type == "cuda":
             self._table = LeafTable([p.data for p in self.params],
@@ -240,33 +242,59 @@ def init_vq_train_state(model: torch.nn.Module, cfg: VQConfig,
 
 def make_vq_train_step(cfg: VQConfig, *,
                        deterministic: bool = False) -> Callable:
-    """step(state, batch, marks=None) -> metrics (0-d tensors, no host
-    sync), on frames, with HNM where cfg.use_hnm; `deterministic` turns the
-    head's dropout off (the parity checks). `marks`, if a list, receives
+    """step(state, batch, marks=None, reg=None) -> metrics (0-d tensors, no
+    host sync), on frames, with HNM where cfg.use_hnm; `deterministic`
+    turns the head's dropout off (the parity checks). `reg`, a RegPenalty
+    over the optimizer's flat parameters (RegPenalty.for_optimizer with the
+    model, for the frozen leaves' share), adds the EWC/MAS penalty: its
+    gradient once after the micro-batches, before the clip, and its value
+    as the metric `reg_penalty`. With cfg.accumulation_steps K the batch's
+    rows split into K micro-batches in order (a batch size K does not
+    divide raises), each with its own HNM pairs and dropout draws; the K
+    backwards add up and are divided by K before one update, and the
+    metrics are the micro-batches' means. `marks`, if a list, receives
     (phase, CUDA event or host time) at the forward / backward / optimizer
-    boundaries."""
-    hnm = cfg.use_hnm
+    boundaries (per micro-batch for the first two)."""
+    hnm, K = cfg.use_hnm, cfg.accumulation_steps
 
-    def step(state: VQTrainState, batch: dict, marks: Optional[list] = None):
+    def step(state: VQTrainState, batch: dict, marks: Optional[list] = None,
+             reg=None):
         model = state.model
         model.train()
         dev = batch["clip"].device
+        b = batch["clip"].shape[0]
+        if b % K:
+            raise ValueError(f"batch size {b} not divisible by "
+                             f"accumulation_steps {K}")
+        m = b // K
         mark(marks, "start", dev)
-        preds = model(batch["clip"], batch["query"], hnm=hnm,
-                      rng=None if deterministic else state.generator)
-        gts = {k: batch[k] for k in GT_KEYS}
-        if hnm:
-            gts = replicate_for_hnm(gts, batch["clip"].shape[0])
-        loss, metrics, _ = vq_losses(preds, gts, cfg.positive_threshold,
-                                     cfg.positive_topk)
-        mark(marks, "forward", dev)
         state.opt.zero_grad()
-        loss.backward()
-        mark(marks, "backward", dev)
+        mets = []
+        for k in range(K):
+            mb = batch if K == 1 else {n: v[k * m:(k + 1) * m]
+                                       for n, v in batch.items()}
+            preds = model(mb["clip"], mb["query"], hnm=hnm,
+                          rng=None if deterministic else state.generator)
+            gts = {n: mb[n] for n in GT_KEYS}
+            if hnm:
+                gts = replicate_for_hnm(gts, m)
+            loss, met, _ = vq_losses(preds, gts, cfg.positive_threshold,
+                                     cfg.positive_topk)
+            mark(marks, "forward", dev)
+            loss.backward()
+            mark(marks, "backward", dev)
+            mets.append({n: v.detach() for n, v in met.items()})
+        metrics = mets[0] if K == 1 else {
+            n: torch.stack([mt[n] for mt in mets]).mean() for n in mets[0]}
+        if K > 1:
+            state.opt.grad_flat.div_(K)
+        if reg is not None:
+            metrics["reg_penalty"] = reg.apply(state.opt.param_flat,
+                                               state.opt.grad_flat)
         metrics["grad_norm"] = state.opt.step()
         mark(marks, "optimizer", dev)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return step
 
