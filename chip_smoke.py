@@ -7,6 +7,7 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --vq-train-parity SEED [SEED ...]
     python3 chip_smoke.py --mq-yaml
     python3 chip_smoke.py --cl-methods
+    python3 chip_smoke.py --mq-episode
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
@@ -14,7 +15,7 @@ train step (phases 16, 18 and 20); the fourth only the VQ train-step
 parity (phase 18), once per seed of weights and batch; the fifth only the
 phases of the MQ yaml model (10a-10e); the sixth only the CL methods'
 f32 steps card against CPU (cl_parity, vq_cl_parity: below, after the
-phases).
+phases); the seventh only the MQ CL episode (10f).
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -106,6 +107,21 @@ fallback):
                    prompt slots 4-7), dropout 0.1: every term's values,
                    launches a step checked (K1 20 and K1-bwd 20, K3 13 and
                    K3-bwd 13, K2 1, K2-bwd 1, K4 1)
+ 10f. mq_episode   the MQ CL episode (cl/episode.py): the tiny yaml-method
+                   episode (2 tasks) on the card against the CPU, TF32 off,
+                   cudnn.deterministic on (the memory equal, the eval series
+                   and BwF 1e-4, the final parameters 2e-3 a leaf); then the
+                   yaml's method at its published widths through
+                   bin/train_cl.main on synthetic sources, cut to 2 of 5
+                   tasks, 1 train and 1 val clip a class, 1 epoch and no
+                   warmup: ms/step and clips/s a task, eval ms a request
+                   and its decode + soft-NMS share, the losses finite, the
+                   memory at its quota after task 0, each task checkpoint
+                   reloaded bit-equal (save and load seconds), the launches
+                   over the run (each of K1, K1-bwd, K2, K2-bwd, K3,
+                   K3-bwd, K4 at least once), bin/evaluate.main on the
+                   workdir as of task 0; then one yaml step's ms with and
+                   without cudnn.deterministic
  11. nlq_kernels   the NLQ flagship's kernels against their plain versions,
                    bf16 and f32: the banded attention forward and its one
                    backward launch (dq, dk, dv; against its plain passes and
@@ -231,6 +247,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -273,7 +290,10 @@ def say(line: str) -> None:
 
 
 def fail(msg: str) -> None:
+    """Print the failure on stdout, among the results, and on stderr, where
+    a caller that keeps only the error stream still reads its cause."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -293,34 +313,53 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms_by_kernel(fn, reps: int = 20, warmup: int = 3) -> dict:
-    """The device ms of one call of `fn` by kernel name: each kernel's own
-    time in a torch.profiler trace of `reps` calls, over `reps`. A trace
-    with no device time at all is taken once more: the profiler has been
-    seen to drop every device record of a trace of microsecond kernels
-    that ran and checked out."""
+# traces taken of one call before a trace with no device time fails: the
+# profiler has been seen to drop every device record of a trace of kernels
+# that ran and checked out (about once in a default run)
+TRACE_TRIES = 3
+
+
+def device_rows(fn, label: str):
+    """Run `fn` under torch.profiler (CPU and CUDA activities) until a trace
+    holds device time, at most TRACE_TRIES times: (fn's result, host ms of
+    the profiled call, [(device ms, launches, kernel name)])."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(TRACE_TRIES):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            t0 = time.perf_counter()
+            out = fn()
             torch.cuda.synchronize()
-        ms = {}
+            host_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
         for e in prof.key_averages():
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)):
-                t = getattr(e, "self_device_time_total", None)
-                ms[e.key] = (e.self_cuda_time_total if t is None else t) \
-                    / 1e3 / reps
-        if sum(ms.values()) > 0:
-            return ms
-        say("[profiler] a trace held no device time; taking it again")
-    fail("device_ms_by_kernel: the profiler saw no device time, twice")
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(e, "is_user_annotation", False)):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            rows.append(((e.self_cuda_time_total if us is None else us)
+                         / 1e3, e.count, e.key))
+        if sum(r[0] for r in rows) > 0:
+            return out, host_ms, rows
+        say(f"[profiler] a trace of {label} held no device time; taking it "
+            f"again")
+    fail(f"{label}: the profiler saw no device time in {TRACE_TRIES} traces")
+
+
+def device_ms_by_kernel(fn, reps: int = 20, warmup: int = 3) -> dict:
+    """The device ms of one call of `fn` by kernel name: each kernel's own
+    time in a torch.profiler trace of `reps` calls, over `reps`."""
+    for _ in range(warmup):
+        fn()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    _, _, rows = device_rows(calls, "device_ms_by_kernel")
+    return {key: ms / reps for ms, _, key in rows}
 
 
 def short_name(kernel: str) -> str:
@@ -2433,6 +2472,366 @@ def mq_yaml(dev, yaml):
     return errs, top, serve, train
 
 
+# ---- the MQ CL episode (cl/episode.py, bin/train_cl.py, bin/evaluate.py) ---
+
+EPISODE_KERNELS = ("fused_attention_blc", "attention_bwd_cuda",
+                   "xl_rel_attention", "xl_bwd_cuda", "fused_dwconv_qkv",
+                   "dwconv_bwd_cuda", "adamw_update_multi")
+# the tiny episode, card against CPU: 2 tasks of 2 classes, 2 train and 1
+# val clips a class, a batch of 8 (an epoch is one step), lr 1e-4, 1 + 2
+# epochs, from N(0, 0.02)-perturbed parameters (as the CPU lockstep,
+# tests/test_torch_port_episode.py), the XL dropout at 0
+EPISODE_VIDEOS = (2, 1)
+EPISODE_EVAL_ATOL = 1e-4      # the CPU lockstep's limit on the eval series
+EPISODE_PARAM_RTOL = GRAD_RTOL    # the train parity's 2e-3, per leaf
+# leaves whose exact gradient is 0 or a cancelling sum of roundoff: AdamW
+# moves them by up to lr a step whatever the sign (the CPU lockstep's rule)
+ROUNDOFF_GRAD = ("attn.key.bias", "attn.key_norm.bias", "adapter.fc2.bias")
+EVAL_KEYS = ("avg_mAP", "avg_R1@0.3", "avg_R5@0.3", "avg_R1@0.5",
+             "avg_R5@0.5", "BwF_R1@0.5", "BwF_mAP")
+# the full-width episode's cuts
+EPISODE_TASKS = 2
+EPISODE_FULL_VIDEOS = (1, 1)
+DETERMINISM_STEPS = 5         # timed yaml steps a cudnn.deterministic mode
+# the synthetic clips' feature grid: 16 frames a feature at 30 fps (the tiny
+# config's), so a 60-120 s clip is 112-225 rows, upsampled to T = 1024
+EPISODE_SYNTHETIC_GRID = {"feat_stride": 16.0, "num_frames": 16.0}
+
+
+def tiny_episode(device: str, workdir: str):
+    """The tiny yaml-method episode of the port on `device` (module
+    constants above), run to its end: (runner, results)."""
+    from vilco_tpu_torch.bin.train_cl import synthetic_mq_runner
+    from vilco_tpu_torch.core.config import mq_yaml_config
+
+    rep = dataclasses.replace
+    cfg = mq_yaml_config(tiny=True)
+    cfg = rep(cfg, model=rep(cfg.model, xl_dropout=0.0),
+              cl_cfg=rep(cfg.cl_cfg, num_tasks=2, memory_size=20),
+              opt=rep(cfg.opt, learning_rate=1e-4, epochs=2,
+                      warmup_epochs=1),
+              loader=rep(cfg.loader, batch_size=8))
+    cfg, runner = synthetic_mq_runner(cfg, workdir, device, EPISODE_VIDEOS)
+    rng = np.random.default_rng(SEED + 21)
+    runner.set_params({
+        n: p.detach().cpu() + 0.02 * torch.from_numpy(
+            rng.standard_normal(tuple(p.shape)).astype(np.float32))
+        for n, p in runner.model.named_parameters()})
+    return runner, runner.run()
+
+
+def memory_ids(memory) -> dict:
+    return {int(c): [v["id"] for v in vs] for c, vs in memory.data.items()}
+
+
+def episode_parity(dev, tmp: str) -> None:
+    """(a) The tiny episode on the card against the same on the CPU, TF32
+    off and cudnn.deterministic on: the rehearsal memory equal, the eval
+    series and BwF within 1e-4, the final parameters within 2e-3 of each
+    leaf's largest value (the roundoff leaves within 2 x the lrs)."""
+    from vilco_tpu_torch.train.optim import make_schedule
+
+    with deterministic_algorithms(False):
+        card, card_res = tiny_episode(str(dev), f"{tmp}/tiny_card")
+    cpu, cpu_res = tiny_episode("cpu", f"{tmp}/tiny_cpu")
+    if memory_ids(card.memory) != memory_ids(cpu.memory):
+        fail("mq_episode_parity: the rehearsal memory differs card vs CPU")
+    worst_eval = 0.0
+    for a, b in zip(cpu_res["tasks"], card_res["tasks"]):
+        gaps = [abs(a["eval"][k] - b["eval"][k]) for k in EVAL_KEYS]
+        gaps += [float(np.abs(np.subtract(x["mAP"], y["mAP"])).max())
+                 for x, y in zip(a["eval"]["per_task"],
+                                 b["eval"]["per_task"])]
+        worst_eval = max(worst_eval, *gaps)
+    sched = make_schedule(cpu.cfg.opt, 1)
+    lr_sum = 2 * sum(float(sched(s)) for s in range(cpu.cfg.opt.total_epochs))
+    want = dict(cpu.model.named_parameters())
+    errs, roundoff = {}, 0.0
+    for n, p in card.model.named_parameters():
+        d = (p.detach().cpu() - want[n].detach()).abs().max().item()
+        if n.endswith(ROUNDOFF_GRAD):
+            roundoff = max(roundoff, d)
+        else:
+            errs[n] = d / max(want[n].detach().abs().max().item(), 1e-30)
+    top = max(errs, key=errs.get)
+    say(f"[mq_episode_parity] the tiny yaml-method episode (2 tasks, "
+        f"{sum(r['train']['steps'] for r in card_res['tasks'])} steps), "
+        f"card vs CPU, f32, cudnn.deterministic: memory equal "
+        f"({sum(map(len, card.memory.data.values()))} clips), eval series "
+        f"and BwF {worst_eval:.3e} (limit {EPISODE_EVAL_ATOL:g}), "
+        f"parameters {errs[top]:.3e} at {top} (limit "
+        f"{EPISODE_PARAM_RTOL:g}), roundoff leaves {roundoff:.3e} (limit "
+        f"{2 * lr_sum:.3e}), normaliser {card.loss_normalizer:.6f} vs "
+        f"{cpu.loss_normalizer:.6f}")
+    if (worst_eval > EPISODE_EVAL_ATOL or errs[top] > EPISODE_PARAM_RTOL
+            or roundoff > 2 * lr_sum):
+        fail("mq_episode_parity: the card's episode is outside its limits")
+
+
+def determinism_cost(dev, runner) -> None:
+    """One yaml train step (task 1, batch 2, bf16) timed with cuDNN's
+    default algorithms and with cudnn.deterministic, alternating modes
+    (ROADMAP §3, F3)."""
+    from vilco_tpu_torch.data.pipeline import BatchIterator
+    from vilco_tpu_torch.train.engine import (
+        CLBatchExtras,
+        TrainState,
+        init_adapter_ema,
+        make_train_step,
+    )
+    from vilco_tpu_torch.train.optim import FusedAdamW
+
+    cfg = runner.cfg
+    videos = runner.stream.train_videos(1, runner.memory)
+    batch, _ = next(iter(BatchIterator(runner._make_dataset(videos, True),
+                                       cfg, cfg.loader.batch_size, True)))
+    batch = runner._to_device(batch)
+    topk = cfg.cl_cfg.topk
+    batch["prompt_mask"] = torch.arange(topk, 2 * topk, device=dev).expand(
+        batch["feats"].shape[0], -1).contiguous()
+    state = TrainState(runner.model, FusedAdamW(runner.model, 1, cfg.opt),
+                       torch.tensor(100.0, device=dev),
+                       torch.Generator(device=dev).manual_seed(SEED),
+                       adapter_ema=init_adapter_ema(runner.model))
+    step = make_train_step(runner.points, cfg.train_cfg,
+                           compute_dtype=torch.bfloat16, cl_cfg=cfg.cl_cfg,
+                           n_known=len(runner.stream.classes_upto(0)))
+    cl = CLBatchExtras(class_mask=runner._class_mask(1),
+                       memory_bank=runner.memory_bank.clone(),
+                       memory_ptr=runner.memory_ptr.clone())
+    times = {False: [], True: []}
+    was = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True, False, True):
+            torch.backends.cudnn.deterministic = det
+            step(state, batch, cl)
+            torch.cuda.synchronize()
+            for _ in range(DETERMINISM_STEPS):
+                t0 = time.perf_counter()
+                step(state, batch, cl)
+                torch.cuda.synchronize()
+                times[det].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    med = {k: statistics.median(v) for k, v in times.items()}
+    say(f"[mq_episode] F3: one yaml train step at batch "
+        f"{cfg.loader.batch_size}, bf16, task 1: "
+        f"{med[False]:.3f} ms by default, {med[True]:.3f} ms with "
+        f"cudnn.deterministic ({med[True] / med[False]:.4f}x; medians of "
+        f"{2 * DETERMINISM_STEPS} steps each, modes alternated, host clock "
+        f"synced)")
+
+
+def phase_mq_episode(dev) -> dict:
+    """(a) episode_parity; (b) the full-width episode of the yaml's method
+    through bin/train_cl.main on synthetic sources, cut to EPISODE_TASKS
+    tasks, EPISODE_FULL_VIDEOS clips a class and one epoch with no warmup:
+    finite losses, the memory at its quota after task 0, every task
+    checkpoint reloaded bit-equal, bin/evaluate.main on the workdir; its
+    timings, the launches of the run (each kernel of the path at least
+    once) and the cost of cudnn.deterministic. Returns the launches."""
+    import tempfile
+
+    from vilco_tpu_torch.bin import evaluate as evaluate_cli
+    from vilco_tpu_torch.bin import train_cl
+    from vilco_tpu_torch.cl import episode as episode_mod
+    from vilco_tpu_torch.core.checkpoint import load_checkpoint
+    from vilco_tpu_torch.core.config import mq_yaml_config
+    from vilco_tpu_torch.kernels import adamw, attention, dwconv, \
+        xl_attention
+
+    kernels = (attention.fused_attention_blc, attention.attention_bwd_cuda,
+               xl_attention.xl_rel_attention, xl_attention.xl_bwd_cuda,
+               dwconv.fused_dwconv_qkv, dwconv.dwconv_bwd_cuda,
+               adamw.adamw_update_multi)
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        episode_parity(dev, tmp)
+
+        yaml = mq_yaml_config()
+        cfg = dataclasses.replace(
+            yaml, opt=dataclasses.replace(yaml.opt, epochs=1,
+                                          warmup_epochs=0),
+            dataset=dataclasses.replace(yaml.dataset,
+                                        **EPISODE_SYNTHETIC_GRID))
+        cfg_path, wd = f"{tmp}/mq_episode.json", f"{tmp}/mq_episode"
+        with open(cfg_path, "w") as f:
+            json.dump(cfg.to_dict(), f)
+        say(f"[mq_episode] cuts of configs/mq_vilco.yaml's episode: "
+            f"{EPISODE_TASKS} of the {yaml.cl_cfg.num_tasks} tasks; "
+            f"{EPISODE_FULL_VIDEOS[0]} train and {EPISODE_FULL_VIDEOS[1]} "
+            f"val video a class; epochs=1, warmup_epochs=0 (was "
+            f"{yaml.opt.epochs} + {yaml.opt.warmup_epochs}); the synthetic "
+            f"clips at feat_stride and num_frames "
+            f"{EPISODE_SYNTHETIC_GRID['feat_stride']:g} (the yaml's "
+            f"{yaml.dataset.feat_stride:g}: a 60-120 s synthetic clip would "
+            f"span 1800-3600 rows, past the synthetic source's 512-row "
+            f"cap, and every GT segment would fall off the grid); published "
+            f"widths kept (T {yaml.model.max_seq_len}, width "
+            f"{yaml.model.embd_dim}, {yaml.model.n_head} heads, text "
+            f"{yaml.max_text_len} x {yaml.model.n_txt_in}, narration "
+            f"{yaml.max_narration_len} x {yaml.cl_cfg.narration_dim}, "
+            f"{yaml.model.num_classes} classes, L2P, SSL bank "
+            f"{yaml.cl_cfg.memory_size}, adapters in "
+            f"{list(yaml.cl_cfg.adapt_blocks)})")
+
+        cls = episode_mod.EpisodeRunner
+        orig = (cls.run, cls.predict_videos, cls._decode_batch,
+                episode_mod.save_checkpoint, episode_mod.make_train_step)
+        seen, saved = {}, []
+        timing = {"eval_s": 0.0, "decode_s": 0.0, "fwd_s": 0.0,
+                  "requests": 0, "save_s": [], "step_s": []}
+
+        def synced(fn, key):
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                if isinstance(timing[key], list):
+                    timing[key].append(dt)
+                else:
+                    timing[key] += dt
+                return out
+            return timed
+
+        def run(self, resume=False):
+            seen["runner"] = self
+            self.eval_step = synced(self.eval_step, "fwd_s")
+            return orig[0](self, resume)
+
+        def make_train_step(*a, **k):
+            return synced(orig[4](*a, **k), "step_s")
+
+        def predict_videos(self, videos, class_mask):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[1](self, videos, class_mask)
+            torch.cuda.synchronize()
+            timing["eval_s"] += time.perf_counter() - t0
+            timing["requests"] += -(-len(videos) // self.cfg.loader.batch_size)
+            return out
+
+        def decode_batch(self, out, class_mask):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det = orig[2](self, out, class_mask)
+            torch.cuda.synchronize()
+            timing["decode_s"] += time.perf_counter() - t0
+            return det
+
+        def save(path, tree, arrays_format="npz"):
+            t0 = time.perf_counter()
+            orig[3](path, tree, arrays_format)
+            timing["save_s"].append(time.perf_counter() - t0)
+            saved.append((path, tree, memory_ids(seen["runner"].memory)))
+
+        cls.run, cls.predict_videos, cls._decode_batch = (
+            run, predict_videos, decode_batch)
+        episode_mod.save_checkpoint = save
+        episode_mod.make_train_step = make_train_step
+        for k in kernels:
+            k.launches = 0
+        try:
+            t0 = time.perf_counter()
+            results = train_cl.main([
+                "--config", cfg_path, "--synthetic", "--workdir", wd,
+                "--num-tasks", str(EPISODE_TASKS), "--synthetic-videos",
+                *map(str, EPISODE_FULL_VIDEOS), "--device", str(dev)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+        finally:
+            cls.run, cls.predict_videos, cls._decode_batch = orig[:3]
+            episode_mod.save_checkpoint, episode_mod.make_train_step = \
+                orig[3:]
+        runner = seen["runner"]
+        missing = [n for n, v in launches.items() if v == 0]
+        if missing:
+            fail(f"mq_episode: {missing} never launched in the episode")
+        say("[mq_episode] launches over the episode (train_cl.main): "
+            + ", ".join(f"{n} {v}" for n, v in launches.items()))
+
+        first = 0
+        for r in results["tasks"]:
+            tr, ev = r["train"], r["eval"]
+            bad = [k for k, v in tr["last_metrics"].items()
+                   if not np.isfinite(v)]
+            if bad:
+                fail(f"mq_episode: task {r['task']} losses not finite: {bad}")
+            steps = timing["step_s"][first:first + tr["steps"]]
+            first += tr["steps"]
+            say(f"[mq_episode] task {r['task']}: {tr['steps']} steps, "
+                f"{1e3 * tr['wall_s'] / tr['steps']:.3f} ms/step, "
+                f"{tr['clips_per_s']:.3f} clips/s (host clock; the step "
+                f"itself, synced, median "
+                f"{1e3 * statistics.median(steps):.3f} ms, the rest the "
+                f"loader's host work); final_loss "
+                f"{tr['last_metrics']['final_loss']:.4f}, ssl "
+                f"{tr['last_metrics'].get('ssl_loss', 0.0):.4f}; eval "
+                f"avg mAP {ev['avg_mAP']:.4f}, R1@0.5 {ev['avg_R1@0.5']:.4f}"
+                f", BwF {ev['BwF_R1@0.5']:.4f}")
+        n = timing["requests"]
+        say(f"[mq_episode] eval: {n} requests of "
+            f"{cfg.loader.batch_size} clips through the adapter ensemble, "
+            f"{1e3 * timing['eval_s'] / n:.3f} ms a request: the two "
+            f"forwards {1e3 * timing['fwd_s'] / n:.3f} ms, decode + "
+            f"soft-NMS {1e3 * timing['decode_s'] / n:.3f} ms "
+            f"({timing['decode_s'] / timing['eval_s']:.3f}), the rest the "
+            f"loader's host work; the episode "
+            f"{wall:.1f} s in all, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        quota = runner.stream.memory_quota(yaml.cl_cfg.memory_size,
+                                           len(runner.stream.classes_upto(0)))
+        ckpts = [(p, t, m) for p, t, m in saved if p.endswith(".ckpt")]
+        mem0 = ckpts[0][2]
+        per = runner.stream.train_class_videos(0)
+        if (len(mem0) != len(runner.stream.task_classes(0))
+                or any(len(v) != min(len(per[c]), quota)
+                       for c, v in mem0.items())):
+            fail(f"mq_episode: memory after task 0 holds {len(mem0)} "
+                 f"classes, not each at min(clips, quota {quota})")
+        load_s = []
+        for path, tree, _ in ckpts:
+            t0 = time.perf_counter()
+            back = load_checkpoint(path)
+            load_s.append(time.perf_counter() - t0)
+            same = (back["params"].keys() == tree["params"].keys()
+                    and all(np.array_equal(back["params"][k], v)
+                            for k, v in tree["params"].items())
+                    and np.array_equal(back["memory_bank"],
+                                       tree["memory_bank"])
+                    and back["memory_ptr"] == tree["memory_ptr"])
+            if not same:
+                fail(f"mq_episode: {path} does not reload bit-equal")
+        mem_back = runner.memory.__class__()
+        mem_back.load(f"{wd}/{cfg.cl_cfg.path_memory}")
+        if memory_ids(mem_back) != ckpts[-1][2]:
+            fail("mq_episode: the memory file does not reload equal")
+        size = os.path.getsize(ckpts[-1][0]) / 2**30
+        say(f"[mq_episode] memory after task 0: {len(mem0)} classes at "
+            f"min(clips, quota {quota}); checkpoints ({size:.2f} GiB a task, "
+            f"{len(ckpts[-1][1]['params'])} leaves) reload bit-equal: save "
+            + ", ".join(f"{s:.2f}" for s in timing["save_s"])
+            + " s, load " + ", ".join(f"{s:.2f}" for s in load_s) + " s")
+
+        t0 = time.perf_counter()
+        ev = evaluate_cli.main(["--workdir", wd, "--synthetic",
+                                "--synthetic-videos",
+                                *map(str, EPISODE_FULL_VIDEOS),
+                                "--task-idx", "0", "--device", str(dev)])
+        if len(ev["per_task"]) != 1 or not np.isfinite(ev["avg_mAP"]):
+            fail("mq_episode: bin/evaluate.main --task-idx 0 gave "
+                 f"{len(ev['per_task'])} tasks, avg mAP {ev['avg_mAP']}")
+        say(f"[mq_episode] bin/evaluate.main --task-idx 0 on the workdir "
+            f"(params and memory only: the single forward, no text): avg "
+            f"mAP {ev['avg_mAP']:.4f} in {time.perf_counter() - t0:.1f} s")
+        determinism_cost(dev, runner)
+        del runner, seen, saved
+    return launches
+
+
 # ---- NLQ: the dual tower with banded attention (K5) -----------------------
 
 B_NLQ_SERVE = 16     # serving batch; training takes the yaml's loader.batch_size
@@ -3813,27 +4212,8 @@ def phase_trace(label: str, fn, unprofiled_ms: float):
     """Run `fn` once under torch.profiler. Device time is the sum of the
     kernels' own times in the trace; the idle share compares it with the
     host time of the same profiled call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((us / 1e3, e.count, e.key))
+    out, host_ms, rows = device_rows(fn, f"trace {label}")
     dev_ms = sum(r[0] for r in rows)
-    if dev_ms <= 0:
-        fail(f"trace {label}: the profiler saw no device time")
     say(f"[trace] {label}: host {host_ms:.3f} ms profiled, "
         f"{unprofiled_ms:.3f} ms unprofiled (median of this run); device "
         f"{dev_ms:.3f} ms in {sum(r[1] for r in rows)} kernels; idle "
@@ -3954,6 +4334,10 @@ def main():
     # cross-attention, L2P, time adapters and their ensemble, narration SSL
     yerrs, ytop, yaml_serve, yaml_train = mq_yaml(dev, yaml)
     took("MQ yaml")
+    # its CL episode: card against CPU at the tiny twin, then the full-width
+    # episode through bin/train_cl.py and bin/evaluate.py
+    episode = phase_mq_episode(dev)
+    took("mq_episode")
 
     # NLQ: the same at the dual tower's shapes
     nerrs, ntop = phase_nlq_kernels(dev)
@@ -4077,6 +4461,8 @@ def main():
             entry["launches_mq_yaml_serve"] = yaml_serve[fn]
         if fn in yaml_train:
             entry["launches_mq_yaml_train"] = yaml_train[fn]
+        if fn in episode:
+            entry["launches_mq_episode"] = episode[fn]
         if fn in nlq_serve:
             entry["launches_nlq_serve"] = nlq_serve[fn]
         if fn in nlq_train:
@@ -4129,7 +4515,8 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
-                         ["--vq-train"], ["--mq-yaml"], ["--cl-methods"]):
+                         ["--vq-train"], ["--mq-yaml"], ["--cl-methods"],
+                         ["--mq-episode"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4145,6 +4532,8 @@ if __name__ == "__main__":
             mq_yaml(dev, mq_yaml_config())
         if sys.argv[1] == "--cl-methods":
             phase_cl_parity(dev)
+        if sys.argv[1] == "--mq-episode":
+            phase_mq_episode(dev)
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

@@ -50,6 +50,7 @@ from vilco_tpu_torch.data.synthetic import make_batch, task_extras
 from vilco_tpu_torch.models import backbone as t_backbone
 from vilco_tpu_torch.models import layers as t_layers
 from vilco_tpu_torch.models.convert import (
+    adapter_ema_from_jax,
     load_jax_params,
     params_from_jax,
     port_name,
@@ -362,8 +363,13 @@ def test_mq_yaml_model_matches_jax(tiny, prompted):
                                   np.asarray(ref["narration_valid"]))
     for key in OUT_KEYS:
         assert _rel(out[key].numpy(), np.asarray(ref[key])) <= RTOL, key
-    with pytest.raises(ValueError, match="text"):
-        model(torch.from_numpy(b["feats"]), torch.from_numpy(b["mask"]))
+    # given no text, no text tower and no cross-attention, as in JAX (the
+    # evaluate CLI's synthetic path gives the model no text)
+    ref = jax.jit(jmodel.apply)({"params": params}, *jin[:2])
+    with torch.no_grad():
+        out = model(torch.from_numpy(b["feats"]), torch.from_numpy(b["mask"]))
+    for key in ("cls_logits", "offsets"):
+        assert _rel(out[key].numpy(), np.asarray(ref[key])) <= RTOL, key
 
 
 def _cl(jax_side, task, bank_ptr):
@@ -467,14 +473,7 @@ def test_mq_yaml_gradients_match_jax(tiny):
 def _adapter_names(ema: dict):
     """JAX's path-keyed adapter EMA ('backbone/branch_0/adapter/fc1/kernel')
     in the port's names and layouts."""
-    tree = {}
-    for path, v in ema.items():
-        *mods, leaf = path.split("/")
-        d = tree
-        for k in mods:
-            d = d.setdefault(k, {})
-        d[leaf] = np.asarray(v)
-    return params_from_jax(tree)
+    return adapter_ema_from_jax(ema)
 
 
 @pytest.fixture(scope="module")

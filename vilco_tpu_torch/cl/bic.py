@@ -12,7 +12,7 @@ runs where the reference builds the bias optimizer but never steps it.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +52,9 @@ def apply_bias(cls_logits: torch.Tensor, alpha: torch.Tensor,
 
 def make_bias_stage2_step(model: torch.nn.Module, points: torch.Tensor, tc,
                           task_idx: int, class_task: np.ndarray,
-                          lr: float = 1e-3) -> Tuple[Callable, Callable]:
+                          lr: float = 1e-3,
+                          compute_dtype: Optional[torch.dtype] = None
+                          ) -> Tuple[Callable, Callable]:
     """(step, init) of BiC's stage 2. init(alpha0=1, beta0=0) -> the
     current task's pair {"alpha", "beta"} (0-d f32 on the points' device).
     step(bias, batch, cl, loss_norm) -> (new bias, metrics): the model's
@@ -60,7 +62,7 @@ def make_bias_stage2_step(model: torch.nn.Module, points: torch.Tensor, tc,
     biased by `cl.bias_alpha`/`cl.bias_beta` with the current task's
     classes taking the pair, the naive loss (n_known 0, no distillation)
     at the normaliser `loss_norm`, and one SGD step at `lr` on the pair
-    only."""
+    only. `compute_dtype`: the forward's (default: the parameters')."""
     cur = torch.from_numpy(np.asarray(class_task) == task_idx).to(
         points.device)
 
@@ -69,7 +71,7 @@ def make_bias_stage2_step(model: torch.nn.Module, points: torch.Tensor, tc,
         model.eval()
         with torch.no_grad():
             out = model(batch["feats"], batch["mask"], batch.get("text"),
-                        batch.get("text_mask"))
+                        batch.get("text_mask"), compute_dtype=compute_dtype)
         a = bias["alpha"].detach().requires_grad_(True)
         b = bias["beta"].detach().requires_grad_(True)
         out = dict(out)

@@ -1,32 +1,37 @@
 """The subset of vilco_tpu.core.config that the MQ, NLQ and VQ serving and
-training paths read.
+training paths and the MQ CL episode read.
 
-Plain frozen dataclasses with no YAML dependency; fields carry their JAX
-names. `ModelConfig` holds only what differs between the flagships and
-their tiny twins (variant, widths, depths, heads, window, classes, lengths,
-regression ranges, drop-path), with the dataset dims already propagated
-(what `Config.derived()` does there); `TrainCfg`, `OptCfg` and `TestCfg`
-hold the `train_cfg`, `opt` and `test_cfg` values the two differ in, and
-`CLCfg` the `cl_cfg` fields the MQ yaml's CL method reads. What every
-config shares is fixed in the module that reads it: the identity
-neck and the channel LayerNorms of the embedding, neck and heads, the
-absolute position encoding, the MQ variant's one XL stage
-and the branch levels without text cross-attention (models/backbone.py),
-3-tap convs and 3-layer heads
-(models/point_transformer.py), the 0.8 channel blend (models/layers.py),
-stride-2 branch blocks (`fpn_strides`), multiclass soft-NMS (ops/nms.py),
-radius center sampling, loss weight 1 and clip 1.0 (train/engine.py),
-AdamW's betas, decay and eta_min (train/optim.py).
+Plain frozen dataclasses; fields carry their JAX names, and YAML is read
+only inside `load_config`. `DatasetCfg` and `LoaderCfg` are JAX's `dataset`
+and `loader` sections whole. `ModelConfig` holds only what differs between
+the flagships and their tiny twins (variant, widths, depths, heads, window,
+classes, lengths, regression ranges, drop-path), with the dataset dims
+already propagated (what `Config.derived()` does there); `TrainCfg`,
+`OptCfg` and `TestCfg` hold the `train_cfg`, `opt` and `test_cfg` values
+the two differ in, and `CLCfg` the `cl_cfg` fields the MQ yaml's CL method
+reads. What every config shares is fixed in the module that reads it: the
+identity neck and the channel LayerNorms of the embedding, neck and heads,
+the absolute position encoding, the MQ variant's XL stage of one layer
+(`use_xl` says whether there is one) and the branch levels without text
+cross-attention (models/backbone.py), 3-tap
+convs and 3-layer heads (models/point_transformer.py), the 0.8 channel
+blend (models/layers.py), stride-2 branch blocks (`fpn_strides`),
+multiclass soft-NMS (ops/nms.py), radius center sampling, loss weight 1 and
+clip 1.0 (train/engine.py), AdamW's betas, decay and eta_min
+(train/optim.py); `_FIXED` lists them by their JAX names, and
+`config_from_dict` refuses a config that sets another value.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 ATTENTION_IMPLS = ("xla", "flash", "pallas_naive")
 VIT_ATTN_IMPLS = ("pallas", "flash")
+COMPUTE_DTYPES = ("bfloat16", "float32")
 
 
 @dataclass(frozen=True)
@@ -40,7 +45,11 @@ class ModelConfig:
     "pallas_naive" (K1n). `use_cross_modal` builds the MQ text tower and
     the branch blocks' text cross-attention (the NLQ dual tower always has
     its text tower and ignores it); `dropout` is the blocks' proj_drop
-    (train_cfg.dropout, copied by `Config.derived()`)."""
+    (train_cfg.dropout, copied by `Config.derived()`). `use_xl`: the MQ
+    variant's long-context stage at branch level 0 is one XL relative
+    attention (dropout `xl_dropout` in training); without it, one more
+    stem block (`pre_branch`), as JAX builds it. `compute_dtype`: the
+    episode's train and eval forwards (models/point_transformer.py)."""
     variant: str = "mq"
     backbone_arch: Tuple[int, ...] = (2, 2, 9)
     regression_range: Tuple[Tuple[float, float], ...] = (
@@ -60,11 +69,17 @@ class ModelConfig:
     dropout: float = 0.0
     use_cross_modal: bool = False
     attention_impl: str = "xla"
+    use_xl: bool = False
+    xl_dropout: float = 0.1
+    compute_dtype: str = "bfloat16"
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {self.attention_impl!r}: one "
                              f"of {ATTENTION_IMPLS}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: one of "
+                             f"{COMPUTE_DTYPES}")
 
     @property
     def num_branch_layers(self) -> int:
@@ -93,6 +108,7 @@ class TestCfg:
     nms_sigma: float = 0.75
     duration_thresh: float = 0.05
     voting_thresh: float = 0.75
+    ext_score_file: str = ""
 
 
 @dataclass(frozen=True)
@@ -117,10 +133,14 @@ class CLCfg:
     `topk` chosen), narration SSL (`narration_ssl`, narration tokens of
     `narration_dim`, weight `ssl_factor`, a memory bank of `memory_size`
     rows), the time adapters (`use_adapt` in the branch blocks
-    `adapt_blocks`) and the task split (`num_tasks` of
-    `classes_per_task`)."""
+    `adapt_blocks`), the task split (`num_tasks` of `classes_per_task`,
+    read from the split pickle `pkl_file`) and the rehearsal memory
+    (`memory_size` clips in all, saved to `path_memory` in the
+    workdir)."""
     name: str = "naive"
     memory_size: int = 0
+    pkl_file: str = ""
+    path_memory: str = "path_memory.pkl"
     reg_lambda: float = 0.0
     dist_factor: float = 0.01
     prompt_pool: bool = False
@@ -140,30 +160,140 @@ class CLCfg:
 @dataclass(frozen=True)
 class OptCfg:
     """`accumulation_steps` K: one optimizer step takes K micro-batches of
-    the batch's rows, in order (train/engine.py::make_train_step)."""
+    the batch's rows, in order (train/engine.py::make_train_step). The
+    episode trains `total_epochs` a task; with `track_best` it evaluates
+    every epoch from int(total_epochs x eval_start_ratio) on and restores
+    the first epoch with the best `best_metric`."""
     learning_rate: float = 1e-4
     epochs: int = 10
     warmup_epochs: int = 5
     accumulation_steps: int = 1
+    early_stop_epochs: int = 0
+    track_best: bool = False
+    eval_start_ratio: float = 1.0 / 3.0
+    best_metric: str = "avg_mAP"
+
+    @property
+    def total_epochs(self) -> int:
+        """early_stop_epochs, or epochs + warmup_epochs (JAX's OptCfg)."""
+        if self.early_stop_epochs > 0:
+            return self.early_stop_epochs
+        return self.epochs + self.warmup_epochs
+
+
+@dataclass(frozen=True)
+class DatasetCfg:
+    """JAX's `dataset` section (vilco_tpu/core/config.py::DatasetConfig),
+    every field: what data/pipeline.py reads to turn video dicts into
+    padded clips, and the feature folders of tasks/mq.py."""
+    name: str = "ego4d_mq"
+    json_file: str = ""
+    feat_folder: Tuple[str, ...] = ()
+    file_prefix: str = ""
+    file_ext: Tuple[str, ...] = (".pt",)
+    feat_stride: float = 1.0
+    num_frames: float = 1.0
+    default_fps: Optional[float] = None
+    input_dim: int = 4096
+    num_classes: int = 110
+    downsample_rate: int = 1
+    max_seq_len: int = 1024
+    trunc_thresh: float = 0.3
+    crop_ratio: Optional[Tuple[float, float]] = (0.9, 1.0)
+    force_upsampling: bool = True
+    use_text: bool = False
+    text_feat_folder: str = ""
+    use_narration: bool = False
+    narration_feat_folder: str = ""
+    narration_jsonl: str = ""
+    max_text_len: int = 128
+    max_narration_len: int = 128
+    max_segments: int = 64
+    train_jsonl_file: str = ""
+    val_jsonl_file: str = ""
+    video_feat_dir: str = ""
+    text_feat_dir: str = ""
+    val_text_feat_dir: str = ""
+    input_txt_dim: int = 512
+    enable_temporal_jittering: bool = False
+    center_offset: bool = True
+
+
+@dataclass(frozen=True)
+class LoaderCfg:
+    """JAX's `loader` section."""
+    batch_size: int = 2
+    num_workers: int = 0
+    prefetch: int = 2
 
 
 @dataclass(frozen=True)
 class Config:
-    """`batch_size` is `loader.batch_size`; `max_segments`,
-    `max_text_len` and `max_narration_len` are `dataset.max_segments` (the
-    static GT padding per clip), `dataset.max_text_len` (text tokens per
-    clip or query) and `dataset.max_narration_len` (narration tokens per
-    clip)."""
+    """The top level: `task` (mq, nlq or vq), the task checkpoints' array
+    format `ckpt_format` (npz only), the episode's seed `init_rand_seed`
+    and the sections. `batch_size`, `max_segments`, `max_text_len` and
+    `max_narration_len` read `loader.batch_size`, `dataset.max_segments`
+    (the static GT padding per clip), `dataset.max_text_len` (text tokens
+    per clip or query) and `dataset.max_narration_len` (narration tokens
+    per clip). `to_dict()` gives JAX's `Config.to_dict()` layout, which
+    `config_from_dict` reads back."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     test_cfg: TestCfg = field(default_factory=TestCfg)
     train_cfg: TrainCfg = field(default_factory=TrainCfg)
     opt: OptCfg = field(default_factory=OptCfg)
     cl_cfg: CLCfg = field(default_factory=CLCfg)
-    batch_size: int = 2
-    max_segments: int = 64
-    max_text_len: int = 128
-    max_narration_len: int = 128
+    dataset: DatasetCfg = field(default_factory=DatasetCfg)
+    loader: LoaderCfg = field(default_factory=LoaderCfg)
+    task: str = "mq"
+    ckpt_format: str = "npz"
+    init_rand_seed: int = 0
+
+    @property
+    def batch_size(self) -> int:
+        return self.loader.batch_size
+
+    @property
+    def max_segments(self) -> int:
+        return self.dataset.max_segments
+
+    @property
+    def max_text_len(self) -> int:
+        return self.dataset.max_text_len
+
+    @property
+    def max_narration_len(self) -> int:
+        return self.dataset.max_narration_len
+
+    def to_dict(self) -> Dict[str, Any]:
+        """JAX's `Config.to_dict()` layout (the episode's config.json), which
+        vilco_tpu's `Config.from_dict` reads: the port's fields under their
+        JAX names, with what the port fixes in its modules (`_FIXED`) and
+        train_cfg's dropout and drop-path, which the model section holds
+        here."""
+        d = {name: dataclasses.asdict(getattr(self, name))
+             for name in _SECTIONS}
+        for (sec, name), v in _FIXED.items():
+            d[sec][name] = v
+        for name in ("dropout", "droppath"):
+            d["train_cfg"][name] = getattr(self.model, name)
+        d.update(task=self.task, ckpt_format=self.ckpt_format,
+                 init_rand_seed=self.init_rand_seed)
+        return _thaw(d)
+
+
+def _dataset(model: ModelConfig, **kw) -> DatasetCfg:
+    """The dataset section of a config whose model is `model`: the dims
+    `Config.derived()` copies into the model, and `kw`."""
+    return DatasetCfg(input_dim=model.input_dim,
+                      num_classes=model.num_classes,
+                      max_seq_len=model.max_seq_len, **kw)
+
+
+# vilco_tpu/data/synthetic.py::tiny_config()'s dataset, feat_stride and
+# num_frames aside from the dims
+_TINY_DATASET = dict(max_segments=8, max_text_len=16, max_narration_len=8,
+                     feat_stride=16.0, num_frames=16.0)
 
 
 def flagship_config(tiny: bool = False) -> Config:
@@ -176,15 +306,29 @@ def flagship_config(tiny: bool = False) -> Config:
             backbone_arch=(2, 1, 3), embd_dim=64, fpn_dim=64, head_dim=64,
             n_head=4,
             regression_range=((0, 4), (2, 8), (4, 16), (8, 10000)),
-            input_dim=32, num_classes=12, max_seq_len=64,
+            input_dim=32, num_classes=12, max_seq_len=64, use_xl=True,
         )
-        return Config(model=model, batch_size=8, max_segments=8)
-    return Config(model=ModelConfig())
+        return Config(model=model, dataset=_dataset(model, max_segments=8),
+                      loader=LoaderCfg(batch_size=8))
+    model = ModelConfig(use_xl=True)
+    return Config(model=model, dataset=_dataset(model))
 
 
 MQ_YAML_CL = CLCfg(name="l2p", memory_size=1010, prompt_pool=True,
                    narration_ssl=True, use_adapt=True,
-                   adapt_blocks=(0, 1, 2, 3, 4))
+                   adapt_blocks=(0, 1, 2, 3, 4),
+                   pkl_file="./data/ego4d/ego4d_mq_query_incremental_22_all"
+                            ".pkl",
+                   path_memory="l2p_memory.pkl")
+MQ_YAML_DATASET = dict(
+    json_file="./data/ego4d/ego4d_clip_annotations_v2.json",
+    feat_folder=("./data/ego4d/features/EgoVLPv2",),
+    use_text=True,
+    text_feat_folder="./data/ego4d/features/CLIP_text_features_mq",
+    use_narration=True,
+    narration_feat_folder="./data/ego4d/features/"
+                          "em_narration_clip_token_features",
+    narration_jsonl="./data/format_unique_pretrain_data_v2.jsonl")
 
 
 def mq_yaml_config(tiny: bool = False) -> Config:
@@ -194,36 +338,42 @@ def mq_yaml_config(tiny: bool = False) -> Config:
     0.2, the yaml's test_cfg (5000 candidates, sigma 0.99), and its CL
     method: L2P (10 prompts of 20 tokens, 4 chosen), narration SSL (128
     tokens of 512, a bank of 1010) and time adapters in branch blocks 0-4;
-    5 tasks of 22 classes. The tiny twin is vilco_tpu/data/synthetic.py::
-    tiny_config() with the same switches on and the XL stage (E=32, T=64,
-    arch (2, 1, 3), 10 classes in 5 tasks of 2, text 16 x 768, narration
-    8 x 512, no dropout or drop-path, AL weight 0.1)."""
+    5 tasks of 22 classes; its dataset section (the feature folders). The
+    tiny twin is vilco_tpu/data/synthetic.py::tiny_config() with the same
+    switches on and the XL stage (E=32, T=64, arch (2, 1, 3), 10 classes in
+    5 tasks of 2, text 16 x 768, narration 8 x 512, no dropout or
+    drop-path, AL weight 0.1, f32 compute)."""
     if tiny:
         model = ModelConfig(
             backbone_arch=(2, 1, 3), embd_dim=32, fpn_dim=32, head_dim=32,
             n_head=4,
             regression_range=((0, 4), (2, 8), (4, 16), (8, 10000)),
             input_dim=16, num_classes=10, max_seq_len=64, droppath=0.0,
-            use_cross_modal=True)
+            use_cross_modal=True, use_xl=True, compute_dtype="float32")
         return Config(
             model=model,
             test_cfg=TestCfg(pre_nms_topk=256, max_seg_num=20,
                              nms_sigma=0.9),
             train_cfg=TrainCfg(init_loss_norm=20.0, al_loss_weight=0.1),
             opt=OptCfg(learning_rate=2e-3, epochs=3, warmup_epochs=1),
-            cl_cfg=dataclasses.replace(MQ_YAML_CL, classes_per_task=2),
-            batch_size=2, max_segments=8, max_text_len=16,
-            max_narration_len=8)
+            cl_cfg=dataclasses.replace(MQ_YAML_CL, classes_per_task=2,
+                                       pkl_file="",
+                                       path_memory="path_memory.pkl"),
+            dataset=_dataset(model, use_text=True, use_narration=True,
+                             **_TINY_DATASET))
+    model = ModelConfig(dropout=0.1, use_cross_modal=True, use_xl=True)
     return Config(
-        model=ModelConfig(dropout=0.1, use_cross_modal=True),
+        model=model,
         test_cfg=TestCfg(pre_nms_topk=5000, min_score=1e-4, nms_sigma=0.99,
                          duration_thresh=0.01, voting_thresh=0.9),
         train_cfg=TrainCfg(al_loss_weight=0.2),
-        cl_cfg=MQ_YAML_CL)
+        cl_cfg=MQ_YAML_CL, dataset=_dataset(model, **MQ_YAML_DATASET))
 
 
 NLQ_YAML_CL = CLCfg(name="ewc", memory_size=0, reg_lambda=3000.0,
-                    embed_dim=512, num_tasks=13)
+                    embed_dim=512, num_tasks=13,
+                    pkl_file="./ego4d_data/ego4d_nlq_query_incremental_13"
+                             ".pkl")
 
 
 def nlq_flagship_config(tiny: bool = False) -> Config:
@@ -232,13 +382,15 @@ def nlq_flagship_config(tiny: bool = False) -> Config:
     32 tokens x 512, and the yaml's CL method: EWC at lambda 3000 over 13
     tasks, no rehearsal memory. The tiny twin is vilco_tpu/tasks/nlq.py::
     nlq_tiny_config() (E=32, T=64, arch (2, 1, 1, 0, 3), no drop-path)."""
+    nlq_data = dict(use_text=True, force_upsampling=False,
+                    center_offset=False, crop_ratio=None)
     if tiny:
         model = ModelConfig(
             variant="nlq", backbone_arch=(2, 1, 1, 0, 3), n_mha_win_size=9,
             embd_dim=32, fpn_dim=32, head_dim=32, n_head=4, n_txt_in=12,
             regression_range=((0, 4), (2, 8), (4, 16), (8, 10000)),
             input_dim=16, num_classes=1, max_seq_len=64, droppath=0.0,
-            use_cross_modal=True,
+            use_cross_modal=True, compute_dtype="float32",
         )
         return Config(
             model=model,
@@ -249,7 +401,10 @@ def nlq_flagship_config(tiny: bool = False) -> Config:
                                init_loss_norm=20.0),
             opt=OptCfg(learning_rate=3e-3, epochs=6, warmup_epochs=1),
             cl_cfg=CLCfg(embed_dim=12, num_tasks=3, classes_per_task=1),
-            batch_size=4, max_segments=4, max_text_len=8)
+            dataset=_dataset(model, max_segments=4, max_text_len=8,
+                             feat_stride=16.0, num_frames=16.0,
+                             input_txt_dim=12, **nlq_data),
+            loader=LoaderCfg(batch_size=4), task="nlq")
     model = ModelConfig(
         variant="nlq", backbone_arch=(2, 4, 4, 0, 6), n_mha_win_size=9,
         embd_dim=384, fpn_dim=384, head_dim=384, n_head=4, n_txt_in=512,
@@ -263,8 +418,173 @@ def nlq_flagship_config(tiny: bool = False) -> Config:
                          voting_thresh=0.9),
         train_cfg=TrainCfg(label_smoothing=0.1, use_gaussian_weights=False,
                            init_loss_norm=200.0),
-        opt=OptCfg(epochs=8, warmup_epochs=5), cl_cfg=NLQ_YAML_CL,
-        batch_size=4, max_segments=64, max_text_len=32)
+        opt=OptCfg(epochs=8, warmup_epochs=5, best_metric="avg_R1@0.3"),
+        cl_cfg=NLQ_YAML_CL,
+        dataset=_dataset(
+            model, name="ego4d_nlq", feat_stride=16.043,
+            num_frames=16.043, default_fps=30.0, max_text_len=32,
+            train_jsonl_file="./ego4d_data/ego4d_nlq_train_v2.jsonl",
+            val_jsonl_file="./ego4d_data/ego4d_nlq_val_v2.jsonl",
+            video_feat_dir="./features/egovlp",
+            text_feat_dir="./features/CLIP_text_features_train",
+            val_text_feat_dir="./features/CLIP_text_features_val",
+            **nlq_data),
+        loader=LoaderCfg(batch_size=4), task="nlq")
+
+
+# ------------------------------------------------ JAX's Config.to_dict()
+
+_SECTIONS = {"model": ModelConfig, "test_cfg": TestCfg,
+             "train_cfg": TrainCfg, "opt": OptCfg, "cl_cfg": CLCfg,
+             "dataset": DatasetCfg, "loader": LoaderCfg}
+
+# JAX fields whose value the port's modules fix (docstring above): a config
+# that sets another value is refused
+_FIXED = {
+    ("model", "name"): "point_transformer",
+    ("model", "backbone_type"): "convTransformer",
+    ("model", "fpn_type"): "identity",
+    ("model", "scale_factor"): 2,
+    ("model", "embd_kernel_size"): 3,
+    ("model", "embd_with_ln"): True,
+    ("model", "fpn_with_ln"): True,
+    ("model", "fpn_start_level"): 0,
+    ("model", "head_kernel_size"): 3,
+    ("model", "head_num_layers"): 3,
+    ("model", "head_with_ln"): True,
+    ("model", "max_buffer_len_factor"): 1.0,
+    ("model", "use_abs_pe"): True,
+    ("model", "use_rel_pe"): False,
+    ("model", "xl_layers"): 1,
+    ("model", "xl_d_inner"): 2048,
+    ("model", "t_c_alpha"): 0.8,
+    ("model", "cross_modal_skip_levels"): (1, 2),
+    ("train_cfg", "center_sample"): "radius",
+    ("train_cfg", "center_sample_radius"): 1.5,
+    ("train_cfg", "loss_weight"): 1.0,
+    ("train_cfg", "cls_prior_prob"): 0.01,
+    ("train_cfg", "clip_grad_l2norm"): 1.0,
+    ("train_cfg", "t_c_alpha"): 0.8,
+    ("test_cfg", "nms_method"): "soft",
+    ("test_cfg", "multiclass_nms"): True,
+    ("opt", "type"): "adamw",
+    ("opt", "weight_decay"): 0.05,
+    ("opt", "warmup"): True,
+    ("opt", "schedule_type"): "cosine",
+    ("opt", "schedule_steps"): (),
+    ("opt", "eta_min"): 1e-8,
+    ("opt", "mu_dtype"): "bfloat16",
+    ("opt", "nu_dtype"): "bfloat16",
+    ("opt", "second_moment"): "full",
+    ("opt", "param_compute_dtype"): "float32",
+}
+# why the port refuses the fixed fields it cannot honour, by field
+_UNSUPPORTED = {
+    ("opt", "mu_dtype"): "FusedAdamW keeps bf16 moments "
+                         "(train/optim.py::MOMENT_DTYPE)",
+    ("opt", "nu_dtype"): "FusedAdamW keeps bf16 moments "
+                         "(train/optim.py::MOMENT_DTYPE)",
+    ("opt", "second_moment"): "the port's AdamW keeps the full second "
+                              "moment; the factored one is not ported",
+    ("opt", "param_compute_dtype"): "the port casts its f32 masters on "
+                                    "use; a persistent bf16 copy is not "
+                                    "ported",
+}
+# JAX fields no path of the port reads: the knobs of JAX's own kernels and
+# optimizer forms (the same math), the hard-NMS threshold, the model EMA
+# (the episode never starts one), the VQ section (VQConfig), and options
+# the MQ episode ignores in JAX too
+_IGNORED = {
+    ("model", "fused_xl"), ("model", "remat_xl"),
+    ("model", "fused_attention"), ("model", "fused_conv"),
+    ("model", "xl_mem_len"),
+    ("train_cfg", "dropout"), ("train_cfg", "droppath"),
+    ("test_cfg", "iou_threshold"),
+    ("opt", "momentum"), ("opt", "schedule_gamma"), ("opt", "flatten"),
+    ("opt", "fused_apply"), ("opt", "ema_decay"),
+    ("cl_cfg", "random_order"), ("cl_cfg", "type_sampling"),
+}
+_IGNORED_TOP = ("train_split", "val_split", "output_folder", "vq")
+
+
+def _freeze(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    return v
+
+
+def _thaw(v):
+    if isinstance(v, dict):
+        return {k: _thaw(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_thaw(x) for x in v]
+    return v
+
+
+def config_from_dict(d: Mapping[str, Any]) -> Config:
+    """A JAX config as a dict (`Config.to_dict()`, the config.json that the
+    episode persists, or a yaml read as it is) -> the port's Config, with
+    what JAX's `Config.derived()` does: the dataset's dims, train_cfg's
+    dropout and drop-path into the model, cl_cfg.embed_dim to the text
+    dim. A key the port does not know, a fixed field set to another value
+    (`_FIXED`) and `ckpt_format` "orbax" raise a ValueError naming the
+    field."""
+    d = dict(d)
+    d_train = dict(d.get("train_cfg") or {})
+    kw: Dict[str, Any] = {}
+    for sec, cls in _SECTIONS.items():
+        raw = dict(d.pop(sec, None) or {})
+        names = {f.name for f in dataclasses.fields(cls)}
+        for key, v in raw.items():
+            where = f"{sec}.{key}"
+            if (sec, key) in _FIXED:
+                if _freeze(v) != _FIXED[(sec, key)]:
+                    why = _UNSUPPORTED.get(
+                        (sec, key), "the port fixes it in its modules")
+                    raise ValueError(f"{where}={v!r}: the port runs only "
+                                     f"{_FIXED[(sec, key)]!r} ({why})")
+            elif key not in names and (sec, key) not in _IGNORED:
+                raise ValueError(f"{where}: not a field of the port's "
+                                 f"config")
+        kw[sec] = {k: _freeze(v) for k, v in raw.items() if k in names}
+    top = {}
+    for key, v in d.items():
+        if key in ("task", "ckpt_format", "init_rand_seed"):
+            top[key] = v
+        elif key not in _IGNORED_TOP:
+            raise ValueError(f"{key}: not a field of the port's config")
+    if top.get("ckpt_format", "npz") != "npz":
+        raise ValueError(f"ckpt_format={top['ckpt_format']!r}: the port "
+                         "writes npz checkpoints only (orbax needs JAX)")
+    ds = DatasetCfg(**kw["dataset"])
+    # Config.derived(): the dataset's dims and train_cfg's dropout and
+    # drop-path (JAX's defaults 0 and 0.1) go to the model
+    model = ModelConfig(**{
+        **kw["model"], "input_dim": ds.input_dim,
+        "num_classes": ds.num_classes, "max_seq_len": ds.max_seq_len,
+        "dropout": d_train.get("dropout", 0.0),
+        "droppath": d_train.get("droppath", 0.1)})
+    cl = CLCfg(**kw["cl_cfg"])
+    if cl.embed_dim != model.n_txt_in:
+        cl = dataclasses.replace(cl, embed_dim=model.n_txt_in)
+    return Config(model=model, test_cfg=TestCfg(**kw["test_cfg"]),
+                  train_cfg=TrainCfg(**kw["train_cfg"]),
+                  opt=OptCfg(**kw["opt"]), cl_cfg=cl, dataset=ds,
+                  loader=LoaderCfg(**kw["loader"]), **top)
+
+
+def load_config(path: str) -> Config:
+    """A JAX config file -> the port's Config (`config_from_dict`). A .json
+    file (the episode's config.json) is read with json, which gives what
+    YAML gives for it; other files with PyYAML, imported here only."""
+    with open(path) as f:
+        if path.endswith(".json"):
+            raw = json.load(f)
+        else:
+            import yaml
+
+            raw = yaml.safe_load(f)
+    return config_from_dict(raw or {})
 
 
 @dataclass(frozen=True)

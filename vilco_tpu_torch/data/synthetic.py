@@ -2,9 +2,13 @@
 so the card's machine draws batches with no JAX present. The same numpy
 generator gives the same batch as the JAX package's function.
 `task_extras` gives a CL task's class mask, prompt slots and known classes
-as the JAX episode runner sets them (vilco_tpu/cl/episode.py). `make_vq_batch` draws a VQ training batch in the layout
-of vilco_tpu/train/vq_engine.py (the JAX package draws its VQ bench batch
-inline, bench.py)."""
+as the JAX episode runner sets them (vilco_tpu/cl/episode.py).
+`make_vq_batch` draws a VQ training batch in the layout of
+vilco_tpu/train/vq_engine.py (the JAX package draws its VQ bench batch
+inline, bench.py). `tiny_config` and `make_synthetic_cl_split` are copies
+of the JAX package's: the CPU-sized MQ config of the tests and the
+synthetic CL episode, and the episode's split of synthetic videos, drawn
+from the same numpy generator."""
 
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ from typing import Dict
 
 import numpy as np
 
-from vilco_tpu_torch.core.config import Config, VQConfig
+from vilco_tpu_torch.core.config import Config, VQConfig, config_from_dict
 
 
 def make_batch(rng: np.random.Generator, batch_size: int, cfg: Config,
@@ -108,3 +112,96 @@ def make_vq_batch(rng: np.random.Generator, batch_size: int,
         before[b, :int(rng.integers(t0 + 1, T + 1))] = 1.0
     return {"clip": clip, "query": query, "clip_bbox": bbox,
             "clip_with_bbox": with_box, "before_query": before}
+
+
+def tiny_config(**overrides) -> Config:
+    """A CPU-runnable MQ-flavor config for tests."""
+    d = {
+        "task": "mq",
+        "dataset": {
+            "num_classes": 10, "max_seq_len": 64, "input_dim": 16,
+            "max_segments": 8, "max_text_len": 16, "max_narration_len": 8,
+            "feat_stride": 16.0, "num_frames": 16.0,
+        },
+        "model": {
+            "backbone_arch": (2, 1, 3), "embd_dim": 32, "fpn_dim": 32,
+            "head_dim": 32, "n_head": 4, "use_abs_pe": True,
+            "regression_range": ((0, 4), (2, 8), (4, 16), (8, 10000)),
+            "compute_dtype": "float32",
+        },
+        "train_cfg": {"init_loss_norm": 20.0, "al_loss_weight": 0.1,
+                      "droppath": 0.0, "dropout": 0.0},
+        "test_cfg": {"pre_nms_topk": 256, "max_seg_num": 20,
+                     "min_score": 0.001, "nms_sigma": 0.9,
+                     "duration_thresh": 0.05},
+        "opt": {"learning_rate": 2e-3, "epochs": 3, "warmup_epochs": 1},
+        "loader": {"batch_size": 2},
+        "cl_cfg": {"num_tasks": 5, "classes_per_task": 2},
+    }
+    return config_from_dict(_deep_merge(d, overrides))
+
+
+def _deep_merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def make_synthetic_cl_split(
+    rng: np.random.Generator,
+    cfg: Config,
+    videos_per_class_train: int = 6,
+    videos_per_class_val: int = 2,
+):
+    """Reference-format QIL split dict: {task_idx: {'label_dict': {name: id},
+    'dict_db': [video dicts]}} (scripts/split_mq.py output consumed by
+    MQ/train_cl.py:103 / cl_benchmark.py:18). Videos carry second-domain
+    segments + metadata so the full pipeline incl. grid conversion runs.
+    """
+    C = cfg.dataset.num_classes
+    K = cfg.cl_cfg.num_tasks
+    per = cfg.cl_cfg.classes_per_task
+    assert per * K <= C
+
+    fps = 30.0
+    stride, nframes = cfg.dataset.feat_stride, cfg.dataset.num_frames
+
+    def make_split(videos_per_class, split_name):
+        tasks = {}
+        vid = 0
+        for k in range(K):
+            label_dict = {}
+            dict_db = []
+            for ci in range(per):
+                c = k * per + ci
+                label_dict[f"class_{c}"] = c
+                for _ in range(videos_per_class):
+                    duration = float(rng.uniform(60, 120))
+                    n = int(rng.integers(1, 4))
+                    segments, labels = [], []
+                    for _ in range(n):
+                        ln = float(rng.uniform(2, 20))
+                        st = float(rng.uniform(0, max(1.0, duration - ln)))
+                        segments.append([st, st + ln])
+                        labels.append(c)
+                    dict_db.append({
+                        "id": f"{split_name}_v{vid:05d}",
+                        "fps": fps,
+                        "duration": duration,
+                        "feat_stride": stride,
+                        "feat_num_frames": nframes,
+                        "segments": np.array(segments, np.float32),
+                        "labels": np.array(labels, np.int64),
+                        "subset": split_name,
+                    })
+                    vid += 1
+            tasks[k] = {"label_dict": label_dict, "dict_db": dict_db}
+        return tasks
+
+    return make_split(videos_per_class_train, "train"), make_split(
+        videos_per_class_val, "val"
+    )

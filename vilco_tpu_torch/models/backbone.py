@@ -1,15 +1,17 @@
 """Conv-transformer pyramid backbones (vilco_tpu/models/backbone.py).
 
-ConvTransformerBackbone, the MQ variant with the XL stage:
+ConvTransformerBackbone, the MQ variant:
 
   (conv embed + LN + ReLU) x arch[0] -> + abs PE -> stem TransformerBlock
-  x arch[1] -> one XLRelAttention -> branch TransformerBlock x arch[2]
+  x arch[1] -> one XLRelAttention (`cfg.use_xl`; else one more stem block,
+  `pre_branch`, as JAX builds it) -> branch TransformerBlock x arch[2]
   (stride 2 each); the stem and branch blocks attend through
   `cfg.attention_impl` (K1, K1f or K1n; models/layers.py::MaskedMHCA).
   With `cfg.use_cross_modal` the text tower runs first: text (1x1 conv
   embed + LN + ReLU) x arch[0] -> text stem TransformerBlock x arch[1]
   (self-attention only), and every branch block outside
-  CROSS_MODAL_SKIP_LEVELS cross-attends to its output. The stem blocks
+  CROSS_MODAL_SKIP_LEVELS cross-attends to its output; given no text, the
+  tower and the cross-attention are skipped, as in JAX. The stem blocks
   get no cross-attention: JAX builds them cross-modal but calls them with
   no text (vilco_tpu/models/backbone.py:138-147), and its TransformerBlock
   builds `cross_attn` only when given text (layers.py:412). Branch blocks
@@ -95,7 +97,11 @@ class ConvTransformerBackbone(nn.Module):
                 self.add_module(f"txt_stem_{i}", block())
         for i in range(n_stem):
             self.add_module(f"stem_{i}", block())
-        self.xl_0 = XLRelAttention(E, cfg.n_head, XL_D_INNER)
+        if cfg.use_xl:
+            self.xl_0 = XLRelAttention(E, cfg.n_head, XL_D_INNER,
+                                       cfg.xl_dropout)
+        else:
+            self.pre_branch = block()
         self.cross = [cfg.use_cross_modal and i not in CROSS_MODAL_SKIP_LEVELS
                       for i in range(n_branch)]
         for i in range(n_branch):
@@ -108,13 +114,13 @@ class ConvTransformerBackbone(nn.Module):
 
     def forward(self, x, mask, text=None, text_mask=None, rng=None):
         """`text` (B, L, n_txt_in) and `text_mask` (B, L): the text tokens,
-        needed with `cfg.use_cross_modal` and ignored without."""
+        read with `cfg.use_cross_modal` (None: no text tower, no
+        cross-attention) and ignored without."""
         x, mask = _embed(self, "embd", self.n_convs, x, mask)
         x = _add_pe(self, x, mask)
-        if self.cfg.use_cross_modal:
-            if text is None or text_mask is None:
-                raise ValueError("a cross-modal backbone needs text and "
-                                 "text_mask")
+        if text is None or not self.cfg.use_cross_modal:
+            text = text_mask = None
+        else:
             text, text_mask = _embed(self, "txt_embd", self.n_convs, text,
                                      text_mask)
             for i in range(self.n_stem):
@@ -123,7 +129,10 @@ class ConvTransformerBackbone(nn.Module):
         for i in range(self.n_stem):
             x, mask = getattr(self, f"stem_{i}")(x, mask, rng)
         feats, masks = [x], [mask]
-        x = self.xl_0(x, mask, rng)
+        if self.cfg.use_xl:
+            x = self.xl_0(x, mask, rng)
+        else:
+            x, mask = self.pre_branch(x, mask, rng)
         for i in range(self.n_branch):
             y = (text, text_mask) if self.cross[i] else (None, None)
             x, mask = getattr(self, f"branch_{i}")(x, mask, rng, *y)

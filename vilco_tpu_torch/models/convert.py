@@ -103,6 +103,20 @@ def reg_tasks_from_jax(reg_list) -> List[Tuple[Dict[str, torch.Tensor],
             for imp, opt in reg_list]
 
 
+def adapter_ema_from_jax(ema: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX's time-adapter EMA, keyed by Flax path ('backbone/branch_0/
+    adapter/fc1/kernel': vilco_tpu/train/engine.py::init_adapter_ema) ->
+    {port name: f32 tensor}, the port's TrainState.adapter_ema."""
+    tree: Dict[str, Any] = {}
+    for path, v in ema.items():
+        *mods, leaf = path.split("/")
+        d = tree
+        for k in mods:
+            d = d.setdefault(k, {})
+        d[leaf] = np.asarray(v)
+    return params_from_jax(tree)
+
+
 def adam_state_from_jax(count, mu: Mapping[str, Any],
                         nu: Mapping[str, Any]) -> Dict[str, Any]:
     """JAX AdamW state (the step count and the canonical mu and nu trees,

@@ -10,10 +10,11 @@ device) in training mode applies the drop-path of the blocks built with a
 rate > 0 (AffineDropPath residuals, the channel block's two residuals),
 the blocks' `proj_drop` dropout (after the attention's and the
 cross-attention's output projection, after the MLP's GELU and after its
-second layer) and the XL stage's dropouts (XL_DROPOUT: on the attention
-probabilities inside the kernel, after the output projection, after the
-FF's GELU and after its second layer). Without `rng` they are the identity
-(the JAX modules' `deterministic=True`, or training with the rates at 0).
+second layer) and the XL stage's dropouts (`dropout`, default
+XL_DROPOUT: on the attention probabilities inside the kernel, after the
+output projection, after the FF's GELU and after its second layer).
+Without `rng` they are the identity (the JAX modules'
+`deterministic=True`, or training with the rates at 0).
 
   MaskedConv, LayerNormC, Scale, AffineDropPath
   MaskedMHCA        depthwise q/k/v convs (kernels/dwconv.py) + LN + dense
@@ -343,9 +344,7 @@ class TransformerBlock(nn.Module):
             skip = x
         out = skip * out_mask_f + self._residual(self.drop_path_attn, out,
                                                  rng)
-        if self.cross_attn is not None:
-            if cross_y is None:
-                raise ValueError("a cross-modal block needs cross_y")
+        if self.cross_attn is not None and cross_y is not None:
             cross_out, _ = self.cross_attn(self.ln3(out), out_mask,
                                            self.ln3(cross_y), cross_y_mask,
                                            rng)
@@ -364,8 +363,10 @@ class XLRelAttention(nn.Module):
     """Transformer-XL relative attention + FF, post-LN (eps 1e-12), single
     stream. Head projections keep Flax's (C, H, D) layout."""
 
-    def __init__(self, d_model: int, n_head: int, d_inner: int):
+    def __init__(self, d_model: int, n_head: int, d_inner: int,
+                 dropout: float = XL_DROPOUT):
         super().__init__()
+        self.dropout = dropout
         C, H = d_model, n_head
         D = C // H
         for name in ("q", "k", "v", "r", "o"):
@@ -395,7 +396,7 @@ class XLRelAttention(nn.Module):
         rate, seed = 0.0, 0
         if rng is not None:
             # drawn on the generator's device: no host sync on the card
-            rate = XL_DROPOUT
+            rate = self.dropout
             seed = torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), generator=rng,
                                  device=rng.device)
         out = xl_rel_attention(q.contiguous(), k.contiguous(),
@@ -403,9 +404,9 @@ class XLRelAttention(nn.Module):
                                w(self.r_w_bias), w(self.r_r_bias),
                                mask.contiguous(), seed, rate)
         o = torch.einsum("bqhd,chd->bqc", out, w(self.o))
-        y = self.ln_attn(x + _dropout(o, XL_DROPOUT, rng))
-        f = _dropout(gelu(self.ff1(y)), XL_DROPOUT, rng)
-        f = _dropout(self.ff2(f), XL_DROPOUT, rng)
+        y = self.ln_attn(x + _dropout(o, self.dropout, rng))
+        f = _dropout(gelu(self.ff1(y)), self.dropout, rng)
+        f = _dropout(self.ff2(f), self.dropout, rng)
         return self.ln_ff(y + f) * mask[..., None].to(dt)
 
 

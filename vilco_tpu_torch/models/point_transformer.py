@@ -48,6 +48,11 @@ from vilco_tpu_torch.ops.masked import l2_normalize, masked_mean, wide
 HEAD_KERNEL_SIZE = 3
 HEAD_NUM_LAYERS = 3
 CLS_PRIOR_PROB = 0.01
+CLS_PRIOR_BIAS = -math.log((1 - CLS_PRIOR_PROB) / CLS_PRIOR_PROB)
+# the MQ variant's learnable per-class Gaussians and their first values
+GAUSSIAN_INIT = (("mu", 0.0), ("sigma", 1.0), ("mu_reg_left", -0.5),
+                 ("sigma_reg_left", 1.0), ("mu_reg_right", 0.5),
+                 ("sigma_reg_right", 1.0))
 
 
 class FPNIdentity(nn.Module):
@@ -115,9 +120,8 @@ class _Head(nn.Module):
 class ClsHead(_Head):
     def __init__(self, cin: int, feat_dim: int, num_classes: int):
         super().__init__(cin, feat_dim)
-        bias_init = -math.log((1 - CLS_PRIOR_PROB) / CLS_PRIOR_PROB)
         self.cls = MaskedConv(feat_dim, num_classes, HEAD_KERNEL_SIZE,
-                              bias_init=bias_init)
+                              bias_init=CLS_PRIOR_BIAS)
 
     def forward(self, feats, masks):
         h, m, slices = self.trunk(feats, masks)
@@ -174,9 +178,7 @@ class PointTransformer(nn.Module):
         if cfg.variant == "mq":
             # learnable per-class Gaussians for label weighting in training
             C = cfg.num_classes
-            for name, v in (("mu", 0.0), ("sigma", 1.0),
-                            ("mu_reg_left", -0.5), ("sigma_reg_left", 1.0),
-                            ("mu_reg_right", 0.5), ("sigma_reg_right", 1.0)):
+            for name, v in GAUSSIAN_INIT:
                 self.register_parameter(name,
                                         nn.Parameter(torch.full((C,), v)))
         if generator is None:

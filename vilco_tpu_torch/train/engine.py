@@ -399,8 +399,8 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
     return step
 
 
-def make_eval_step(model: torch.nn.Module, ensemble_adapters: bool = False
-                   ) -> Callable:
+def make_eval_step(model: torch.nn.Module, ensemble_adapters: bool = False,
+                   compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """step(batch, adapter_ema=None, marks=None) -> the head outputs
     (`cls_logits`, `offsets`, `fpn_mask`, `fpn_feats`) of the model in eval
     mode on batch["feats"], ["mask"] and the text, the prompt pool
@@ -408,7 +408,9 @@ def make_eval_step(model: torch.nn.Module, ensemble_adapters: bool = False
     mean of cls_logits and offsets over two forwards, the live adapters'
     and the EMA's (swapped in by torch.func.functional_call, the model
     unchanged) (vilco_tpu/train/engine.py::make_eval_step). `marks`, if a
-    list, receives (phase, CUDA event or host time) after each forward."""
+    list, receives (phase, CUDA event or host time) after each forward.
+    `compute_dtype`: the forwards' (default: the parameters' dtype)."""
+    kw = {"compute_dtype": compute_dtype}
 
     def step(batch: dict, adapter_ema=None, marks: Optional[list] = None):
         model.eval()
@@ -417,10 +419,11 @@ def make_eval_step(model: torch.nn.Module, ensemble_adapters: bool = False
         dev = batch["feats"].device
         with torch.no_grad():
             mark(marks, "start", dev)
-            out = model(*args)
+            out = model(*args, **kw)
             mark(marks, "forward", dev)
             if ensemble_adapters and adapter_ema is not None:
-                out2 = torch.func.functional_call(model, adapter_ema, args)
+                out2 = torch.func.functional_call(model, adapter_ema, args,
+                                                  kw)
                 mark(marks, "ema_forward", dev)
                 out["cls_logits"] = 0.5 * (out["cls_logits"]
                                            + out2["cls_logits"])
