@@ -8,6 +8,8 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --mq-yaml
     python3 chip_smoke.py --cl-methods
     python3 chip_smoke.py --mq-episode
+    python3 chip_smoke.py --nlq-episode
+    python3 chip_smoke.py --vq-episode
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
@@ -15,7 +17,8 @@ train step (phases 16, 18 and 20); the fourth only the VQ train-step
 parity (phase 18), once per seed of weights and batch; the fifth only the
 phases of the MQ yaml model (10a-10e); the sixth only the CL methods'
 f32 steps card against CPU (cl_parity, vq_cl_parity: below, after the
-phases); the seventh only the MQ CL episode (10f).
+phases); the seventh only the MQ CL episode (10f); the eighth only the
+NLQ CL episode (15''); the ninth only the VQ CL episode (20').
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -154,6 +157,19 @@ fallback):
  15'. nlq_train_ewc  the same with the EWC penalty over 12 stacked tasks;
                    first the penalty alone at 1 and 12 tasks (ms, kernel
                    launches a call, bound)
+ 15''. nlq_episode the NLQ CL episode (tasks/nlq.py): the tiny twin (EWC
+                   at lambda 3000, 2 tasks) on the card against the CPU,
+                   TF32 off, cudnn.deterministic on (memory equal, eval
+                   series and BwF 1e-4, parameters 2e-3 a leaf); then
+                   configs/nlq_vilco.yaml's episode at its published widths
+                   through bin/train_cl.main on the synthetic split, cut to
+                   2 of 13 tasks, 8 train and 3 val queries a template, 1
+                   epoch and no warmup: ms/step and clips/s a task (the
+                   step alone, synced), eval ms a request split into the
+                   forward and decode + soft-NMS, the losses finite, each
+                   checkpoint reloaded bit-equal (size, save and load
+                   seconds), the launches; bin/evaluate.main --task nlq
+                   --submission within 1e-4 of the last eval
  16. vq_kernels    the VQ flagship's kernels against their plain versions,
                    bf16 and f32: the frame-banded attention forward (K1's
                    forward in band mode) at batch 8 and 16 and its
@@ -207,6 +223,18 @@ fallback):
                    and falling), peak memory, launches (K6's backward once
                    per spatio-temporal layer a step), the backbone
                    bit-identical, one profiled step
+ 20'. vq_episode  the VQ CL episode (tasks/vq.py): the tiny twin (EWC,
+                   augmentation on, the head's dropout 0, 2 tasks) card vs
+                   CPU as 15'' (and task 0's importance 2e-3 a leaf); then
+                   configs/vq_vilco.yaml's episode at its published widths
+                   (frozen ViT-B/14 at 448, 30-frame windows, HNM and
+                   augmentation on, batch 4, naive) through
+                   bin/train_cl.main --task vq on the synthetic split, 2
+                   tasks of 2 categories, 4 train and 2 val samples a
+                   category, 60-frame clips, 1 epoch: ms/step and clips/s a
+                   task, eval ms a request split into ViT, matcher and peak
+                   finding, checkpoints reloaded bit-equal, the launches;
+                   bin/vq_infer.main within 1e-4 of the last eval
  21. attn_impl_kernels  the head-major attention (K1n, forward and backward)
                    and the flash attention (K1f: K1's forward and three-pass
                    backward in flash mode) against their plain versions at
@@ -274,6 +302,9 @@ PARITY_RTOL = 2e-5
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 CARD = ""            # nvidia-smi's name and power limit, set by phase_device
+# timed calls of a kernel check's plain version (10-200x the kernel's time;
+# its ms is context, not a gate), after one warm-up call
+PLAIN_REPS = 3
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -865,7 +896,8 @@ class KernelChecks:
         self.ok &= ok
         self.errs[key].append(max(err for _, err, _ in rows))
         timer = queued_ms if queued else median_ms
-        ms, pms = timer(kern, reps=reps), timer(plain, reps=reps)
+        ms = timer(kern, reps=reps)
+        pms = timer(plain, reps=min(reps, PLAIN_REPS), warmup=1)
         lms = timer(library, reps=reps) if library is not None else None
         qms = queued_ms(kern, reps=reps) if also_queued else None
         bms, by = bound(*work, dtype)
@@ -2496,6 +2528,49 @@ DETERMINISM_STEPS = 5         # timed yaml steps a cudnn.deterministic mode
 # the synthetic clips' feature grid: 16 frames a feature at 30 fps (the tiny
 # config's), so a 60-120 s clip is 112-225 rows, upsampled to T = 1024
 EPISODE_SYNTHETIC_GRID = {"feat_stride": 16.0, "num_frames": 16.0}
+VQ_YAML_SEED = 42             # configs/vq_vilco.yaml's init_rand_seed
+
+
+def perturbed(runner, seed: int) -> None:
+    """The runner's parameters + N(0, 0.02) drawn on the host from seed."""
+    rng = np.random.default_rng(seed)
+    runner.set_params({
+        n: p.detach().cpu() + 0.02 * torch.from_numpy(
+            rng.standard_normal(tuple(p.shape)).astype(np.float32))
+        for n, p in runner.model.named_parameters()})
+
+
+def twin_gaps(tag, card, cpu, card_res, cpu_res, keys, avg_keys, lr_sum,
+              zero_grad=lambda n, shape: None):
+    """Card vs CPU: the eval series (each task's `keys`, scalars or lists,
+    and the `avg_keys`) within EPISODE_EVAL_ATOL, every parameter leaf within
+    EPISODE_PARAM_RTOL of its largest value, the elements whose exact
+    gradient is 0 (`zero_grad` gives their slice) within 2 x lr_sum."""
+    worst = 0.0
+    for a, b in zip(cpu_res["tasks"], card_res["tasks"]):
+        gaps = [abs(a["eval"][k] - b["eval"][k]) for k in avg_keys]
+        gaps += [float(np.abs(np.subtract(x[k], y[k])).max())
+                 for x, y in zip(a["eval"]["per_task"], b["eval"]["per_task"])
+                 for k in keys]
+        worst = max(worst, *gaps)
+    want = dict(cpu.model.named_parameters())
+    errs, roundoff = {}, 0.0
+    for n, p in card.model.named_parameters():
+        d = (p.detach().cpu() - want[n].detach()).abs()
+        zero = zero_grad(n, d.shape)
+        if zero is not None:
+            roundoff = max(roundoff, d[zero].max().item())
+            d[zero] = 0.0
+        errs[n] = d.max().item() / max(want[n].detach().abs().max().item(),
+                                       1e-30)
+    top = max(errs, key=errs.get)
+    say(f"[{tag}] card vs CPU, f32, cudnn.deterministic: eval series and "
+        f"BwF {worst:.3e} (limit {EPISODE_EVAL_ATOL:g}), parameters "
+        f"{errs[top]:.3e} at {top} (limit {EPISODE_PARAM_RTOL:g}), "
+        f"zero-gradient elements {roundoff:.3e} (limit {2 * lr_sum:.3e})")
+    if (worst > EPISODE_EVAL_ATOL or errs[top] > EPISODE_PARAM_RTOL
+            or roundoff > 2 * lr_sum):
+        fail(f"{tag}: the card's episode is outside its limits")
 
 
 def tiny_episode(device: str, workdir: str):
@@ -2512,11 +2587,7 @@ def tiny_episode(device: str, workdir: str):
                       warmup_epochs=1),
               loader=rep(cfg.loader, batch_size=8))
     cfg, runner = synthetic_mq_runner(cfg, workdir, device, EPISODE_VIDEOS)
-    rng = np.random.default_rng(SEED + 21)
-    runner.set_params({
-        n: p.detach().cpu() + 0.02 * torch.from_numpy(
-            rng.standard_normal(tuple(p.shape)).astype(np.float32))
-        for n, p in runner.model.named_parameters()})
+    perturbed(runner, SEED + 21)
     return runner, runner.run()
 
 
@@ -2536,36 +2607,16 @@ def episode_parity(dev, tmp: str) -> None:
     cpu, cpu_res = tiny_episode("cpu", f"{tmp}/tiny_cpu")
     if memory_ids(card.memory) != memory_ids(cpu.memory):
         fail("mq_episode_parity: the rehearsal memory differs card vs CPU")
-    worst_eval = 0.0
-    for a, b in zip(cpu_res["tasks"], card_res["tasks"]):
-        gaps = [abs(a["eval"][k] - b["eval"][k]) for k in EVAL_KEYS]
-        gaps += [float(np.abs(np.subtract(x["mAP"], y["mAP"])).max())
-                 for x, y in zip(a["eval"]["per_task"],
-                                 b["eval"]["per_task"])]
-        worst_eval = max(worst_eval, *gaps)
     sched = make_schedule(cpu.cfg.opt, 1)
     lr_sum = 2 * sum(float(sched(s)) for s in range(cpu.cfg.opt.total_epochs))
-    want = dict(cpu.model.named_parameters())
-    errs, roundoff = {}, 0.0
-    for n, p in card.model.named_parameters():
-        d = (p.detach().cpu() - want[n].detach()).abs().max().item()
-        if n.endswith(ROUNDOFF_GRAD):
-            roundoff = max(roundoff, d)
-        else:
-            errs[n] = d / max(want[n].detach().abs().max().item(), 1e-30)
-    top = max(errs, key=errs.get)
     say(f"[mq_episode_parity] the tiny yaml-method episode (2 tasks, "
-        f"{sum(r['train']['steps'] for r in card_res['tasks'])} steps), "
-        f"card vs CPU, f32, cudnn.deterministic: memory equal "
-        f"({sum(map(len, card.memory.data.values()))} clips), eval series "
-        f"and BwF {worst_eval:.3e} (limit {EPISODE_EVAL_ATOL:g}), "
-        f"parameters {errs[top]:.3e} at {top} (limit "
-        f"{EPISODE_PARAM_RTOL:g}), roundoff leaves {roundoff:.3e} (limit "
-        f"{2 * lr_sum:.3e}), normaliser {card.loss_normalizer:.6f} vs "
+        f"{sum(r['train']['steps'] for r in card_res['tasks'])} steps): "
+        f"memory equal ({sum(map(len, card.memory.data.values()))} clips), "
+        f"normaliser {card.loss_normalizer:.6f} vs "
         f"{cpu.loss_normalizer:.6f}")
-    if (worst_eval > EPISODE_EVAL_ATOL or errs[top] > EPISODE_PARAM_RTOL
-            or roundoff > 2 * lr_sum):
-        fail("mq_episode_parity: the card's episode is outside its limits")
+    twin_gaps("mq_episode_parity", card, cpu, card_res, cpu_res, ("mAP",),
+              EVAL_KEYS, lr_sum, lambda n, shape: slice(None)
+              if n.endswith(ROUNDOFF_GRAD) else None)
 
 
 def determinism_cost(dev, runner) -> None:
@@ -2622,6 +2673,132 @@ def determinism_cost(dev, runner) -> None:
         f"synced)")
 
 
+def synced(timing: dict, key: str, fn):
+    """`fn` timed by the host clock between two synchronizes, its seconds
+    added to timing[key] (appended where that is a list)."""
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if isinstance(timing[key], list):
+            timing[key].append(dt)
+        else:
+            timing[key] += dt
+        return out
+    return timed
+
+
+class EpisodeProbe:
+    """What `episode_probe` gathers over a run of cl/episode.py's runner:
+    `timing` (eval_s, decode_s, fwd_s and requests over predict_videos;
+    save_s and step_s lists, each step synced; wall_s), `saved` (path,
+    tree, memory ids) of each checkpoint, `launches` of each kernel over
+    the run, `runner`."""
+
+    def __init__(self):
+        self.timing = {"eval_s": 0.0, "decode_s": 0.0, "fwd_s": 0.0,
+                       "requests": 0, "save_s": [], "step_s": [],
+                       "wall_s": 0.0}
+        self.saved, self.launches, self.runner = [], {}, None
+
+
+@contextlib.contextmanager
+def episode_probe(kernels):
+    """Time cl/episode.py's EpisodeRunner (MQ, and NLQ's subclass) inside
+    the block: each train step and eval forward synced, the eval requests
+    and their decode + soft-NMS, each checkpoint's save; the kernels'
+    launch counts set to 0 on entry and read on exit. Yields an
+    EpisodeProbe."""
+    from vilco_tpu_torch.cl import episode as episode_mod
+
+    probe = EpisodeProbe()
+    timing = probe.timing
+    cls = episode_mod.EpisodeRunner
+    orig = (cls.run, cls.predict_videos, cls._decode_batch,
+            episode_mod.save_checkpoint, episode_mod.make_train_step)
+
+    def run(self, resume=False):
+        probe.runner = self
+        self.eval_step = synced(timing, "fwd_s", self.eval_step)
+        return orig[0](self, resume)
+
+    def make_train_step(*a, **k):
+        return synced(timing, "step_s", orig[4](*a, **k))
+
+    def predict_videos(self, videos, class_mask):
+        timing["requests"] += -(-len(videos) // self.cfg.loader.batch_size)
+        return synced(timing, "eval_s", orig[1])(self, videos, class_mask)
+
+    def decode_batch(self, out, class_mask):
+        return synced(timing, "decode_s", orig[2])(self, out, class_mask)
+
+    def save(path, tree, arrays_format="npz"):
+        synced(timing, "save_s", orig[3])(path, tree, arrays_format)
+        probe.saved.append((path, tree, memory_ids(probe.runner.memory)))
+
+    cls.run, cls.predict_videos, cls._decode_batch = (
+        run, predict_videos, decode_batch)
+    episode_mod.save_checkpoint = save
+    episode_mod.make_train_step = make_train_step
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        yield probe
+        torch.cuda.synchronize()
+        timing["wall_s"] = time.perf_counter() - t0
+        probe.launches = {k.__name__: k.launches for k in kernels}
+    finally:
+        cls.run, cls.predict_videos, cls._decode_batch = orig[:3]
+        episode_mod.save_checkpoint, episode_mod.make_train_step = orig[3:]
+
+
+def say_episode_tasks(tag, results, timing):
+    """Each task's steps, ms/step, clips/s, the step alone (synced) and
+    its last losses and eval; fails on a loss that is not finite."""
+    first = 0
+    for r in results["tasks"]:
+        tr, ev = r["train"], r["eval"]
+        bad = [k for k, v in tr["last_metrics"].items()
+               if not np.isfinite(v)]
+        if bad:
+            fail(f"{tag}: task {r['task']} losses not finite: {bad}")
+        steps = timing["step_s"][first:first + tr["steps"]]
+        first += tr["steps"]
+        say(f"[{tag}] task {r['task']}: {tr['steps']} steps, "
+            f"{1e3 * tr['wall_s'] / tr['steps']:.3f} ms/step, "
+            f"{tr['clips_per_s']:.3f} clips/s (host clock; the step "
+            f"itself, synced, median "
+            f"{1e3 * statistics.median(steps):.3f} ms, the rest the "
+            f"loader's host work); final_loss "
+            f"{tr['last_metrics']['final_loss']:.4f}, ssl "
+            f"{tr['last_metrics'].get('ssl_loss', 0.0):.4f}, penalty "
+            f"{tr['last_metrics'].get('reg_penalty', 0.0):.4g}; eval "
+            + ", ".join(f"{k} {ev[k]:.4f}" for k in ev if k != "per_task")
+            + f" [{CARD}]")
+
+
+def reload_checkpoints(tag, ckpts, keys=()):
+    """Load each (path, tree, _) of `ckpts` again: its params and `keys`
+    must come back bit-equal; returns the load seconds."""
+    from vilco_tpu_torch.core.checkpoint import load_checkpoint
+
+    load_s = []
+    for path, tree, _ in ckpts:
+        t0 = time.perf_counter()
+        back = load_checkpoint(path)
+        load_s.append(time.perf_counter() - t0)
+        same = (back["params"].keys() == tree["params"].keys()
+                and all(np.array_equal(back["params"][k], v)
+                        for k, v in tree["params"].items())
+                and all(np.array_equal(back[k], tree[k]) for k in keys))
+        if not same:
+            fail(f"{tag}: {path} does not reload bit-equal")
+    return load_s
+
+
 def phase_mq_episode(dev) -> dict:
     """(a) episode_parity; (b) the full-width episode of the yaml's method
     through bin/train_cl.main on synthetic sources, cut to EPISODE_TASKS
@@ -2634,8 +2811,6 @@ def phase_mq_episode(dev) -> dict:
 
     from vilco_tpu_torch.bin import evaluate as evaluate_cli
     from vilco_tpu_torch.bin import train_cl
-    from vilco_tpu_torch.cl import episode as episode_mod
-    from vilco_tpu_torch.core.checkpoint import load_checkpoint
     from vilco_tpu_torch.core.config import mq_yaml_config
     from vilco_tpu_torch.kernels import adamw, attention, dwconv, \
         xl_attention
@@ -2674,103 +2849,19 @@ def phase_mq_episode(dev) -> dict:
             f"{yaml.cl_cfg.memory_size}, adapters in "
             f"{list(yaml.cl_cfg.adapt_blocks)})")
 
-        cls = episode_mod.EpisodeRunner
-        orig = (cls.run, cls.predict_videos, cls._decode_batch,
-                episode_mod.save_checkpoint, episode_mod.make_train_step)
-        seen, saved = {}, []
-        timing = {"eval_s": 0.0, "decode_s": 0.0, "fwd_s": 0.0,
-                  "requests": 0, "save_s": [], "step_s": []}
-
-        def synced(fn, key):
-            def timed(*a, **k):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*a, **k)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                if isinstance(timing[key], list):
-                    timing[key].append(dt)
-                else:
-                    timing[key] += dt
-                return out
-            return timed
-
-        def run(self, resume=False):
-            seen["runner"] = self
-            self.eval_step = synced(self.eval_step, "fwd_s")
-            return orig[0](self, resume)
-
-        def make_train_step(*a, **k):
-            return synced(orig[4](*a, **k), "step_s")
-
-        def predict_videos(self, videos, class_mask):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = orig[1](self, videos, class_mask)
-            torch.cuda.synchronize()
-            timing["eval_s"] += time.perf_counter() - t0
-            timing["requests"] += -(-len(videos) // self.cfg.loader.batch_size)
-            return out
-
-        def decode_batch(self, out, class_mask):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            det = orig[2](self, out, class_mask)
-            torch.cuda.synchronize()
-            timing["decode_s"] += time.perf_counter() - t0
-            return det
-
-        def save(path, tree, arrays_format="npz"):
-            t0 = time.perf_counter()
-            orig[3](path, tree, arrays_format)
-            timing["save_s"].append(time.perf_counter() - t0)
-            saved.append((path, tree, memory_ids(seen["runner"].memory)))
-
-        cls.run, cls.predict_videos, cls._decode_batch = (
-            run, predict_videos, decode_batch)
-        episode_mod.save_checkpoint = save
-        episode_mod.make_train_step = make_train_step
-        for k in kernels:
-            k.launches = 0
-        try:
-            t0 = time.perf_counter()
+        with episode_probe(kernels) as probe:
             results = train_cl.main([
                 "--config", cfg_path, "--synthetic", "--workdir", wd,
                 "--num-tasks", str(EPISODE_TASKS), "--synthetic-videos",
                 *map(str, EPISODE_FULL_VIDEOS), "--device", str(dev)])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {k.__name__: k.launches for k in kernels}
-        finally:
-            cls.run, cls.predict_videos, cls._decode_batch = orig[:3]
-            episode_mod.save_checkpoint, episode_mod.make_train_step = \
-                orig[3:]
-        runner = seen["runner"]
+        timing, saved, launches = probe.timing, probe.saved, probe.launches
+        wall = timing["wall_s"]
         missing = [n for n, v in launches.items() if v == 0]
         if missing:
             fail(f"mq_episode: {missing} never launched in the episode")
         say("[mq_episode] launches over the episode (train_cl.main): "
             + ", ".join(f"{n} {v}" for n, v in launches.items()))
-
-        first = 0
-        for r in results["tasks"]:
-            tr, ev = r["train"], r["eval"]
-            bad = [k for k, v in tr["last_metrics"].items()
-                   if not np.isfinite(v)]
-            if bad:
-                fail(f"mq_episode: task {r['task']} losses not finite: {bad}")
-            steps = timing["step_s"][first:first + tr["steps"]]
-            first += tr["steps"]
-            say(f"[mq_episode] task {r['task']}: {tr['steps']} steps, "
-                f"{1e3 * tr['wall_s'] / tr['steps']:.3f} ms/step, "
-                f"{tr['clips_per_s']:.3f} clips/s (host clock; the step "
-                f"itself, synced, median "
-                f"{1e3 * statistics.median(steps):.3f} ms, the rest the "
-                f"loader's host work); final_loss "
-                f"{tr['last_metrics']['final_loss']:.4f}, ssl "
-                f"{tr['last_metrics'].get('ssl_loss', 0.0):.4f}; eval "
-                f"avg mAP {ev['avg_mAP']:.4f}, R1@0.5 {ev['avg_R1@0.5']:.4f}"
-                f", BwF {ev['BwF_R1@0.5']:.4f}")
+        say_episode_tasks("mq_episode", results, timing)
         n = timing["requests"]
         say(f"[mq_episode] eval: {n} requests of "
             f"{cfg.loader.batch_size} clips through the adapter ensemble, "
@@ -2782,6 +2873,8 @@ def phase_mq_episode(dev) -> dict:
             f"{wall:.1f} s in all, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+        runner = probe.runner
+
         quota = runner.stream.memory_quota(yaml.cl_cfg.memory_size,
                                            len(runner.stream.classes_upto(0)))
         ckpts = [(p, t, m) for p, t, m in saved if p.endswith(".ckpt")]
@@ -2792,19 +2885,8 @@ def phase_mq_episode(dev) -> dict:
                        for c, v in mem0.items())):
             fail(f"mq_episode: memory after task 0 holds {len(mem0)} "
                  f"classes, not each at min(clips, quota {quota})")
-        load_s = []
-        for path, tree, _ in ckpts:
-            t0 = time.perf_counter()
-            back = load_checkpoint(path)
-            load_s.append(time.perf_counter() - t0)
-            same = (back["params"].keys() == tree["params"].keys()
-                    and all(np.array_equal(back["params"][k], v)
-                            for k, v in tree["params"].items())
-                    and np.array_equal(back["memory_bank"],
-                                       tree["memory_bank"])
-                    and back["memory_ptr"] == tree["memory_ptr"])
-            if not same:
-                fail(f"mq_episode: {path} does not reload bit-equal")
+        load_s = reload_checkpoints("mq_episode", ckpts,
+                                    ("memory_bank", "memory_ptr"))
         mem_back = runner.memory.__class__()
         mem_back.load(f"{wd}/{cfg.cl_cfg.path_memory}")
         if memory_ids(mem_back) != ckpts[-1][2]:
@@ -2828,7 +2910,358 @@ def phase_mq_episode(dev) -> dict:
             f"(params and memory only: the single forward, no text): avg "
             f"mAP {ev['avg_mAP']:.4f} in {time.perf_counter() - t0:.1f} s")
         determinism_cost(dev, runner)
+        del runner, probe, saved
+    return launches
+
+
+# ---- the NLQ and VQ CL episodes --------------------------------------------
+
+# the tiny twins, card against CPU, as the MQ episode's: 2 tasks, lr 1e-4,
+# from N(0, 0.02)-perturbed parameters; NLQ with the yaml's EWC at lambda
+# 3000 over 1 + 2 epochs, VQ with EWC, augmentation on, 1 epoch, the
+# head's dropout at 0 (the card's and the CPU's generators draw different
+# masks) and f32 forwards
+TWIN_LR = 1e-4
+TWIN_LAMBDA = 3000.0
+NLQ_TWIN_EVAL = ("R1@0.3", "R1@0.5", "R5@0.3", "R5@0.5")
+VQ_TWIN_EVAL = ("tAP@0.25", "stAP@0.25", "Success", "recovery%")
+# leaves whose exact gradient is 0 (the NLQ twin; tests/test_torch_port_nlq)
+NLQ_ZERO_GRAD = ("attn.key.bias", "attn.key_norm.bias")
+# the full-width episodes' cuts: 2 tasks, 1 epoch, no warmup; NLQ's split
+# keeps make_synthetic_nlq_split's 8 train and 3 val queries a template,
+# VQ's make_synthetic_vq_split's 2 categories a task, 4 train and 2 val
+# samples a category (60-frame clips at the 30-frame window)
+EPISODE_CHAIN_ATOL = 1e-4     # evaluate / vq_infer against the run's eval
+
+
+def nlq_twin(device: str, workdir: str):
+    """The tiny NLQ episode (EWC at lambda 3000) on `device`, run to its
+    end: (runner, results)."""
+    from vilco_tpu_torch.bin.train_cl import synthetic_nlq_runner
+    from vilco_tpu_torch.tasks.nlq import nlq_tiny_config
+
+    cfg = nlq_tiny_config(
+        cl_cfg={"name": "ewc", "reg_lambda": TWIN_LAMBDA, "num_tasks": 2},
+        opt={"learning_rate": TWIN_LR, "epochs": 2, "warmup_epochs": 1})
+    runner = synthetic_nlq_runner(cfg, workdir, device)
+    perturbed(runner, SEED + 31)
+    return runner, runner.run()
+
+
+def nlq_episode_parity(dev, tmp: str) -> None:
+    from vilco_tpu_torch.train.optim import make_schedule
+
+    with deterministic_algorithms(False):
+        card, card_res = nlq_twin(str(dev), f"{tmp}/nlq_twin_card")
+    cpu, cpu_res = nlq_twin("cpu", f"{tmp}/nlq_twin_cpu")
+    steps = sum(r["train"]["steps"] for r in cpu_res["tasks"])
+    sched = make_schedule(cpu.cfg.opt, steps // 2 // cpu.cfg.opt.total_epochs)
+    lr_sum = 2 * sum(float(sched(s)) for s in range(steps // 2))
+    say(f"[nlq_episode_parity] the tiny NLQ episode (EWC at lambda "
+        f"{TWIN_LAMBDA:g}, 2 tasks, {steps} steps), normaliser "
+        f"{card.loss_normalizer:.6f} vs {cpu.loss_normalizer:.6f}, "
+        f"memory {memory_ids(card.memory) == memory_ids(cpu.memory)}")
+    if memory_ids(card.memory) != memory_ids(cpu.memory):
+        fail("nlq_episode_parity: the rehearsal memory differs")
+    twin_gaps("nlq_episode_parity", card, cpu, card_res, cpu_res,
+              NLQ_TWIN_EVAL, ("avg_R1@0.3", "avg_R5@0.3", "BwF_R1@0.3"),
+              lr_sum, lambda n, shape: slice(None)
+              if n.endswith(NLQ_ZERO_GRAD) else None)
+
+
+def phase_nlq_episode(dev) -> dict:
+    """(a) the tiny NLQ twin card vs CPU; (b) configs/nlq_vilco.yaml's
+    episode (nlq_flagship_config(): EWC at lambda 3000, best_metric
+    avg_R1@0.3) through bin/train_cl.main on the synthetic split, cut to
+    EPISODE_TASKS tasks and one epoch with no warmup, then
+    bin/evaluate.main --task nlq --submission on its workdir: finite
+    losses, each checkpoint reloaded bit-equal, evaluate's per-task
+    numbers within EPISODE_CHAIN_ATOL of the run's last eval; ms/step,
+    clips/s, eval ms a request split into the forward and decode +
+    soft-NMS, checkpoint size and seconds, the launches (each kernel of
+    the path at least once). Returns the launches."""
+    import tempfile
+
+    from vilco_tpu_torch.bin import evaluate as evaluate_cli
+    from vilco_tpu_torch.bin import train_cl
+    from vilco_tpu_torch.core.config import nlq_flagship_config
+    from vilco_tpu_torch.kernels import adamw, attention, \
+        banded_attention, dwconv
+
+    kernels = (banded_attention.banded_attention_blc,
+               banded_attention.banded_bwd_cuda,
+               attention.fused_attention_blc, attention.attention_bwd_cuda,
+               dwconv.fused_dwconv_qkv, dwconv.dwconv_bwd_cuda,
+               adamw.adamw_update_multi)
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        nlq_episode_parity(dev, tmp)
+
+        yaml = nlq_flagship_config()
+        cfg = dataclasses.replace(yaml, opt=dataclasses.replace(
+            yaml.opt, epochs=1, warmup_epochs=0))
+        cfg_path, wd = f"{tmp}/nlq_episode.json", f"{tmp}/nlq_episode"
+        with open(cfg_path, "w") as f:
+            json.dump(cfg.to_dict(), f)
+        say(f"[nlq_episode] cuts of configs/nlq_vilco.yaml's episode: "
+            f"{EPISODE_TASKS} of the {yaml.cl_cfg.num_tasks} templates; 8 "
+            f"train and 3 val queries a template; epochs=1, "
+            f"warmup_epochs=0 (was {yaml.opt.epochs} + "
+            f"{yaml.opt.warmup_epochs}); published widths kept (T "
+            f"{yaml.model.max_seq_len}, width {yaml.model.embd_dim}, "
+            f"{yaml.model.n_head} heads, window "
+            f"{yaml.model.n_mha_win_size}, text {yaml.max_text_len} x "
+            f"{yaml.model.n_txt_in}, {yaml.cl_cfg.name} at lambda "
+            f"{yaml.cl_cfg.reg_lambda:g}, batch {yaml.loader.batch_size})")
+        with episode_probe(kernels) as probe:
+            results = train_cl.main([
+                "--config", cfg_path, "--task", "nlq", "--synthetic",
+                "--workdir", wd, "--num-tasks", str(EPISODE_TASKS),
+                "--device", str(dev)])
+        timing, launches = probe.timing, probe.launches
+        missing = [n for n, v in launches.items() if v == 0]
+        if missing:
+            fail(f"nlq_episode: {missing} never launched in the episode")
+        say("[nlq_episode] launches over the episode (train_cl.main): "
+            + ", ".join(f"{n} {v}" for n, v in launches.items()))
+        say_episode_tasks("nlq_episode", results, timing)
+        n = timing["requests"]
+        say(f"[nlq_episode] eval: {n} requests of {cfg.loader.batch_size} "
+            f"queries, {1e3 * timing['eval_s'] / n:.3f} ms a request: the "
+            f"forward {1e3 * timing['fwd_s'] / n:.3f} ms, decode + "
+            f"soft-NMS {1e3 * timing['decode_s'] / n:.3f} ms "
+            f"({timing['decode_s'] / timing['eval_s']:.3f}), the rest the "
+            f"loader's host work; the episode {timing['wall_s']:.1f} s in "
+            f"all, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{CARD}]")
+        ckpts = [c for c in probe.saved if c[0].endswith(".ckpt")]
+        load_s = reload_checkpoints("nlq_episode", ckpts)
+        if len(ckpts[0][1]["reg_list"]) != 1:
+            fail("nlq_episode: task 0's checkpoint holds no EWC task")
+        size = os.path.getsize(ckpts[-1][0]) / 2**20
+        say(f"[nlq_episode] checkpoints ({size:.1f} MiB a task with its "
+            f"EWC tasks, {len(ckpts[-1][1]['params'])} leaves) reload "
+            f"bit-equal: save "
+            + ", ".join(f"{s:.2f}" for s in timing["save_s"])
+            + " s, load " + ", ".join(f"{s:.2f}" for s in load_s) + " s")
+
+        t0 = time.perf_counter()
+        ev = evaluate_cli.main(["--workdir", wd, "--synthetic",
+                                "--submission", f"{tmp}/nlq_sub.json",
+                                "--device", str(dev)])
+        last = results["final"]
+        gap = max(abs(a[k] - b[k]) for a, b in zip(ev["per_task"],
+                                                   last["per_task"])
+                  for k in NLQ_TWIN_EVAL)
+        with open(f"{tmp}/nlq_sub.json") as f:
+            sub = json.load(f)
+        say(f"[nlq_episode] bin/evaluate.main --task nlq --submission on the "
+            f"workdir: per-task R1/R5 at 0.3/0.5 {gap:.3e} from the run's "
+            f"last eval (limit {EPISODE_CHAIN_ATOL:g}), "
+            f"{len(sub['results'])} {sub['challenge']} records, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if len(ev["per_task"]) != EPISODE_TASKS or gap > EPISODE_CHAIN_ATOL:
+            fail("nlq_episode: evaluate does not reproduce the last eval")
+        del probe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vq_twin(device: str, workdir: str):
+    """The tiny VQ episode (EWC, augmentation on) on `device`, run to its
+    end: (runner, results)."""
+    from vilco_tpu_torch.core.config import vq_flagship_config
+    from vilco_tpu_torch.tasks import vq as vq_mod
+
+    cfg = dataclasses.replace(vq_flagship_config(tiny=True), dropout=0.0)
+    tr, va = vq_mod.make_synthetic_vq_split(np.random.default_rng(SEED),
+                                            num_tasks=2)
+    runner = vq_mod.VQEpisodeRunner(
+        vq_mod.VQTaskStream(tr, va), vq_mod.SyntheticVQSource(cfg.clip_size),
+        workdir, model_cfg=cfg, method="ewc", reg_lambda=TWIN_LAMBDA,
+        epochs=1, batch_size=cfg.batch_size, lr=TWIN_LR,
+        weight_decay=cfg.weight_decay, use_hnm=True, augment=True,
+        seed=SEED, device=device, compute_dtype=torch.float32)
+    perturbed(runner, SEED + 32)
+    return runner, runner.run()
+
+
+def vq_zero_grad(name, shape):
+    """The VQ model's elements whose exact gradient is 0: the key biases
+    (the decoder's, the middle third of each encoder's fused qkv bias)."""
+    if name.endswith(("self_k.bias", "cross_k.bias")):
+        return slice(None)
+    if name.endswith("qkv.bias") and name.startswith("st_"):
+        return slice(shape[0] // 3, 2 * shape[0] // 3)
+    return None
+
+
+def vq_episode_parity(dev, tmp: str) -> None:
+    with deterministic_algorithms(False):
+        card, card_res = vq_twin(str(dev), f"{tmp}/vq_twin_card")
+    cpu, cpu_res = vq_twin("cpu", f"{tmp}/vq_twin_cpu")
+    steps = sum(len(cpu.stream.train_videos(j)) // cpu.batch_size
+                for j in range(2))
+    (want, _), = cpu.reg_list
+    (got, _), = card.reg_list
+    imp = max((got[n].cpu() - w).abs().max().item()
+              / max(w.abs().max().item(), 1e-30) for n, w in want.items()
+              if vq_zero_grad(n, w.shape) is None
+              and not n.startswith("backbone."))
+    say(f"[vq_episode_parity] the tiny VQ episode (EWC at lambda "
+        f"{TWIN_LAMBDA:g}, augmentation on, 2 tasks, {steps} steps): task 0's "
+        f"importance {imp:.3e} of each leaf's largest, card vs CPU")
+    if imp > EPISODE_PARAM_RTOL:
+        fail("vq_episode_parity: the importance differs card vs CPU")
+    twin_gaps("vq_episode_parity", card, cpu, card_res, cpu_res,
+              VQ_TWIN_EVAL, ("avg_tAP25", "avg_stAP25", "avg_success",
+                             "BwF_tAP25"), TWIN_LR * steps, vq_zero_grad)
+
+
+def phase_vq_episode(dev) -> dict:
+    """(a) the tiny VQ twin card vs CPU; (b) configs/vq_vilco.yaml's
+    episode (vq_flagship_config(): the frozen ViT-B/14 at 448, 30-frame
+    windows, HNM and augmentation on, batch 4; the method the yaml gets
+    from the CLI, naive) through bin/train_cl.main --task vq on the
+    synthetic split, cut to EPISODE_TASKS tasks and one epoch, then
+    bin/vq_infer.main on its workdir: finite losses, each checkpoint
+    reloaded bit-equal, vq_infer's numbers within EPISODE_CHAIN_ATOL of
+    the run's last eval; ms/step, clips/s, eval ms a request split into
+    ViT, matcher and peak finding, checkpoint size and seconds, the
+    launches (each kernel of the path at least once). Returns the
+    launches."""
+    import tempfile
+
+    from vilco_tpu_torch.bin import train_cl, vq_infer
+    from vilco_tpu_torch.core.config import Config, vq_flagship_config
+    from vilco_tpu_torch.kernels import adamw, attention, frame_band
+    from vilco_tpu_torch.tasks import vq as vq_mod
+
+    kernels = (attention.fused_attention_blc, attention.attention_bwd_cuda,
+               frame_band.frame_band_attention,
+               frame_band.frame_band_bwd_cuda, adamw.adamw_update_multi)
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        vq_episode_parity(dev, tmp)
+
+        vq = vq_flagship_config()
+        cfg = Config(task="vq", init_rand_seed=VQ_YAML_SEED, vq=vq)
+        cfg_path, wd = f"{tmp}/vq_episode.json", f"{tmp}/vq_episode"
+        with open(cfg_path, "w") as f:
+            json.dump(cfg.to_dict(), f)
+        say(f"[vq_episode] cuts of configs/vq_vilco.yaml's episode: "
+            f"{EPISODE_TASKS} tasks of 2 categories (the yaml groups 400), "
+            f"4 train and 2 val samples a category, 1 epoch; synthetic "
+            f"clips of {vq_mod.synthetic_frames(vq.num_frames)} frames "
+            f"(2 x the window; JAX's 16 would wrap the windows around); "
+            f"published widths kept (ViT-B/14 at {vq.clip_size}, "
+            f"{vq.num_frames}-frame windows, matcher {vq.dim}, "
+            f"{vq.num_transformer} layers, HNM {vq.use_hnm}, augmentation "
+            f"{vq.augment}, batch {vq.batch_size}, seed {VQ_YAML_SEED})")
+        cls = vq_mod.VQEpisodeRunner
+        orig = (cls.__init__, cls.train_task, cls.evaluate,
+                vq_mod.save_checkpoint)
+        timing = {"task_s": [], "step_s": [], "eval_s": 0.0, "requests": 0,
+                  "save_s": []}
+        saved, marks = [], []
+        seen = {}
+
+        def init(self, *a, **k):
+            orig[0](self, *a, **k)
+            seen["runner"] = self
+            self.train_step = synced(timing, "step_s", self.train_step)
+            self.eval_marks = marks
+
+        def evaluate(self, j):
+            timing["requests"] += sum(len(self.stream.val_videos_task(i))
+                                      for i in range(j + 1))
+            return synced(timing, "eval_s", orig[2])(self, j)
+
+        def save(path, tree, arrays_format="npz"):
+            synced(timing, "save_s", orig[3])(path, tree, arrays_format)
+            saved.append((path, tree, None))
+
+        cls.__init__, cls.evaluate = init, evaluate
+        cls.train_task = synced(timing, "task_s", orig[1])
+        vq_mod.save_checkpoint = save
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            t0 = time.perf_counter()
+            results = train_cl.main([
+                "--config", cfg_path, "--task", "vq", "--synthetic",
+                "--workdir", wd, "--num-tasks", str(EPISODE_TASKS),
+                "--epochs", "1", "--device", str(dev)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+        finally:
+            cls.__init__, cls.train_task, cls.evaluate = orig[:3]
+            vq_mod.save_checkpoint = orig[3]
+        runner = seen["runner"]
+        runner.eval_marks = None
+        missing = [n for n, v in launches.items() if v == 0]
+        if missing:
+            fail(f"vq_episode: {missing} never launched in the episode")
+        say("[vq_episode] launches over the episode (train_cl.main): "
+            + ", ".join(f"{n} {v}" for n, v in launches.items()))
+        first = 0
+        for r, task_s in zip(results["tasks"], timing["task_s"]):
+            tr, ev = r["train"], r["eval"]
+            bad = [k for k, v in tr.items() if not np.isfinite(v)]
+            if bad:
+                fail(f"vq_episode: task {r['task']} losses not finite: {bad}")
+            n_steps = len(runner.stream.train_videos(r["task"])) // (
+                runner.batch_size)
+            steps = timing["step_s"][first:first + n_steps]
+            first += n_steps
+            say(f"[vq_episode] task {r['task']}: {n_steps} steps, "
+                f"{1e3 * task_s / n_steps:.3f} ms/step, "
+                f"{n_steps * runner.batch_size / task_s:.3f} clips/s (the "
+                f"task's train wall, synced; the step itself median "
+                f"{1e3 * statistics.median(steps):.3f} ms, the rest the "
+                f"loader's host work: rendering and augmenting the "
+                f"windows); final_loss {tr['final_loss']:.4f}, num_pos "
+                f"{tr['num_pos']:.0f}; eval "
+                + ", ".join(f"{k} {ev[k]:.4f}" for k in ev
+                            if k != "per_task") + f" [{CARD}]")
+        parts = vq_request_parts(marks)
+        n = timing["requests"]
+        say(f"[vq_episode] eval: {n} requests (one clip of "
+            f"{vq_mod.synthetic_frames(vq.num_frames)} frames + query), "
+            f"{1e3 * timing['eval_s'] / n:.3f} ms a request: ViT "
+            f"{parts[0] / n:.3f}, matcher {parts[1] / n:.3f}, top anchor "
+            f"{parts[2] / n:.3f} ms (CUDA events), peak finding "
+            f"{parts[3] / n:.3f} ms (host), the rest the host's frames; the "
+            f"episode {wall:.1f} s in all, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+            f"[{CARD}]")
+        load_s = reload_checkpoints("vq_episode", saved)
+        size = os.path.getsize(saved[-1][0]) / 2**20
+        say(f"[vq_episode] checkpoints ({size:.1f} MiB a task, the frozen "
+            f"ViT in it, {len(saved[-1][1]['params'])} leaves) reload "
+            f"bit-equal: save "
+            + ", ".join(f"{s:.2f}" for s in timing["save_s"])
+            + " s, load " + ", ".join(f"{s:.2f}" for s in load_s) + " s")
+
+        t0 = time.perf_counter()
+        ev = vq_infer.main(["--workdir", wd, "--synthetic", "--num-tasks",
+                            str(EPISODE_TASKS), "--seed", str(VQ_YAML_SEED),
+                            "--device", str(dev)])
+        last = results["final"]
+        gap = max([abs(a[k] - b[k]) for a, b in zip(ev["per_task"],
+                                                    last["per_task"])
+                   for k in VQ_TWIN_EVAL]
+                  + [abs(ev[k] - last[k]) for k in ("avg_tAP25",
+                                                    "avg_stAP25",
+                                                    "avg_success")])
+        say(f"[vq_episode] bin/vq_infer.main on the workdir (vq_config.json "
+            f"and vq_task_001.ckpt): {gap:.3e} from the run's last eval "
+            f"(limit {EPISODE_CHAIN_ATOL:g}), "
+            f"{time.perf_counter() - t0:.1f} s")
+        if len(ev["per_task"]) != EPISODE_TASKS or gap > EPISODE_CHAIN_ATOL:
+            fail("vq_episode: vq_infer does not reproduce the last eval")
         del runner, seen, saved
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3651,16 +4084,16 @@ def phase_vq_train_parity(dev, seed: int = SEED, tag="vq_train_parity",
 
 
 def vq_request_parts(marks):
-    """ms of (ViT, matcher, top anchor, peak finding) from one request's
-    marks."""
+    """ms of (ViT, matcher, top anchor, peak finding) from the marks of one
+    or more requests, summed."""
     ev = [e for e in marks if e[0] != "peaks_ms"]
-    parts = [0.0, 0.0, 0.0]
+    parts = [0.0, 0.0, 0.0, sum(v for k, v in marks if k == "peaks_ms")]
     for i in range(0, len(ev), 4):
         chunk = dict(ev[i:i + 4])
         parts[0] += chunk["start"].elapsed_time(chunk["vit"])
         parts[1] += chunk["vit"].elapsed_time(chunk["matcher"])
         parts[2] += chunk["matcher"].elapsed_time(chunk["top"])
-    return parts + [dict(marks)["peaks_ms"]]
+    return parts
 
 
 def phase_vq_serve(dev, kernels, mlp_kernel, cfg=None, tag="vq_serve",
@@ -4362,6 +4795,10 @@ def main():
     nlq_ewc = phase_train(dev, "nlq_train_ewc", nlq, nlq_kernels, SEED + 9,
                           normalised_must_fall=False, reg_k=REG_TASKS)
     took("NLQ")
+    # its CL episode: the tiny twin card against CPU, then configs/
+    # nlq_vilco.yaml's episode through bin/train_cl.py and bin/evaluate.py
+    nlq_episode = phase_nlq_episode(dev)
+    took("nlq_episode")
 
     # VQ: the frame-banded and fused-MLP kernels, parity, sliding-window
     # serving (K7 on one extra request), the HNM train step
@@ -4372,6 +4809,10 @@ def main():
         dev, (fused_attention_blc, frame_band_attention), fused_mlp)
     vq_train = phase_vq_train(dev, vq_train_kernels())
     took("VQ")
+    # its CL episode: the tiny twin card against CPU, then configs/
+    # vq_vilco.yaml's episode through bin/train_cl.py and bin/vq_infer.py
+    vq_episode = phase_vq_episode(dev)
+    took("vq_episode")
 
     ab = attention_ablations(dev, mq)
     took("attention ablations")
@@ -4463,6 +4904,10 @@ def main():
             entry["launches_mq_yaml_train"] = yaml_train[fn]
         if fn in episode:
             entry["launches_mq_episode"] = episode[fn]
+        if fn in nlq_episode:
+            entry["launches_nlq_episode"] = nlq_episode[fn]
+        if fn in vq_episode:
+            entry["launches_vq_episode"] = vq_episode[fn]
         if fn in nlq_serve:
             entry["launches_nlq_serve"] = nlq_serve[fn]
         if fn in nlq_train:
@@ -4516,7 +4961,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
                          ["--vq-train"], ["--mq-yaml"], ["--cl-methods"],
-                         ["--mq-episode"]):
+                         ["--mq-episode"], ["--nlq-episode"],
+                         ["--vq-episode"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4534,6 +4980,10 @@ if __name__ == "__main__":
             phase_cl_parity(dev)
         if sys.argv[1] == "--mq-episode":
             phase_mq_episode(dev)
+        if sys.argv[1] == "--nlq-episode":
+            phase_nlq_episode(dev)
+        if sys.argv[1] == "--vq-episode":
+            phase_vq_episode(dev)
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

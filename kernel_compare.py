@@ -347,7 +347,8 @@ def _kernels(lib: str) -> dict:
 
 
 def sass(parent: str, change: str) -> None:
-    for src in ("attention_blc", "attention_blc_bwd"):
+    for src in ("attention_blc", "attention_blc_band", "attention_blc_probe",
+                "attention_blc_bwd"):
         a, b = (_kernels(_built(t, src)) for t in (parent, change))
         for key in sorted(set(a) & set(b)):
             pairs = list(zip(a[key], b[key]))

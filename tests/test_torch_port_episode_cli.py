@@ -144,7 +144,8 @@ def test_yaml_method_workdir_evaluates_with_the_single_forward(tmp_path):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--task", "nlq"], "item 3"), (["--task", "vq"], "item 4"),
+    (["--task", "nlq", "--dp", "2"], "item 7"),
+    (["--task", "vq", "--params-bf16"], "bf16"),
     (["--dp", "2"], "item 7"), (["--distributed"], "item 7"),
     (["--factored"], "factored"), (["--mu-dtype", "float32"], "bf16"),
     (["--nu-dtype", "float32"], "bf16"), (["--params-bf16"], "bf16"),

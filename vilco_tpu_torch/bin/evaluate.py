@@ -1,11 +1,14 @@
-"""Re-evaluate a finished MQ CL run from its workdir
+"""Re-evaluate a finished MQ or NLQ CL run from its workdir
 (vilco_tpu/bin/evaluate.py):
 
   python -m vilco_tpu_torch.bin.evaluate --workdir ./runs/x \
       [--task-idx 4] [--synthetic] [--submission out.json]
 
 The config is `--config`, else the workdir's config.json (either
-package's), else the tiny config. As JAX's CLI, it restores the task
+package's), else the tiny config of `--task` (MQ's, or NLQ's). VQ runs are
+evaluated by bin/vq_infer.py. The submission is Ego4D-MQ's
+submission.json for MQ and the ego4d_nlq_challenge file for NLQ. As JAX's
+CLI, it restores the task
 checkpoint's params (either package's) and the rehearsal memory only: no
 adapter EMA and no BiC state, so a run of the yaml's method evaluates
 with the single forward; and the synthetic path builds no text or
@@ -27,7 +30,7 @@ def main(argv=None):
     p.add_argument("--config", default=None)
     p.add_argument("--workdir", required=True)
     p.add_argument("--task", default=None,
-                   help="mq (nlq and vq are not ported)")
+                   help="mq | nlq (default from config; vq: bin/vq_infer)")
     p.add_argument("--task-idx", type=int, default=None,
                    help="evaluate as of this task (default: latest ckpt)")
     p.add_argument("--synthetic", action="store_true")
@@ -35,7 +38,9 @@ def main(argv=None):
                    metavar=("TRAIN", "VAL"),
                    help="as train_cl's (default 6 2)")
     p.add_argument("--submission",
-                   help="also write the Ego4D-MQ submission.json here")
+                   help="also write the official prediction file here: "
+                        "Ego4D-MQ submission.json for mq, "
+                        "ego4d_nlq_challenge for nlq")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no card raises) or cpu")
     args = p.parse_args(argv)
@@ -55,13 +60,29 @@ def main(argv=None):
         cfg = load_config(args.config)
     elif os.path.exists(saved_cfg):
         cfg = load_config(saved_cfg)
+    elif (args.task or "mq") == "nlq":
+        from vilco_tpu_torch.tasks.nlq import nlq_tiny_config
+
+        cfg = nlq_tiny_config()
     else:
         cfg = tiny_config()
     task = args.task or cfg.task
-    if task != "mq":
-        p.error(f"--task {task}: only the MQ task is ported (NLQ is "
-                "ROADMAP §1 item 3, VQ item 4)")
-    if args.synthetic:
+    if task == "vq":
+        p.error("VQ checkpoints are evaluated by the sliding-window "
+                "inference pipeline: python -m vilco_tpu_torch.bin.vq_infer "
+                f"--workdir {args.workdir}")
+    if task == "nlq":
+        if args.synthetic:
+            from vilco_tpu_torch.bin.train_cl import synthetic_nlq_runner
+
+            # as JAX's evaluate: no narration source
+            runner = synthetic_nlq_runner(cfg, args.workdir, args.device,
+                                          persist_config=False,
+                                          narration=False)
+        else:
+            p.error("--task nlq evaluates the synthetic episode only "
+                    "(--synthetic), as JAX's evaluate")
+    elif args.synthetic:
         from vilco_tpu_torch.cl.episode import EpisodeRunner
         from vilco_tpu_torch.cl.stream import TaskStream
         from vilco_tpu_torch.data.pipeline import SyntheticFeatureSource
@@ -95,8 +116,12 @@ def main(argv=None):
         runner.memory.load(mem_path)
 
     if args.submission:
+        sub = runner.predict_submission(j)
+        if isinstance(sub, list):   # NLQ's records take the challenge wrapper
+            sub = {"version": "1.0", "challenge": "ego4d_nlq_challenge",
+                   "results": sub}
         with open(args.submission, "w") as f:
-            json.dump(runner.predict_submission(j), f)
+            json.dump(sub, f)
         logging.getLogger("vilco.evaluate").info(
             "wrote submission to %s", args.submission)
 

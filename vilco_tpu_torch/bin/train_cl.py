@@ -1,16 +1,27 @@
-"""The CL training CLI of the port, MQ task (vilco_tpu/bin/train_cl.py):
+"""The CL training CLI of the port, MQ, NLQ and VQ
+(vilco_tpu/bin/train_cl.py):
 
   python -m vilco_tpu_torch.bin.train_cl --config cfg.yaml --workdir ./runs/x
   python -m vilco_tpu_torch.bin.train_cl --synthetic --workdir ./runs/x
+  python -m vilco_tpu_torch.bin.train_cl --task nlq --synthetic --workdir W
+  python -m vilco_tpu_torch.bin.train_cl --task vq --synthetic --workdir W
 
 `--config` takes a yaml (read with PyYAML, which the card's machine does
 not have) or the config.json an episode persists (read with json). With
-no config, the tiny MQ config of the tests (data/synthetic.py::
-tiny_config). Features come from the config's feat_folder, or with
-`--synthetic` from the synthetic sources over a synthetic task split
-(`synthetic_mq_runner`). The runner trains on the card (`--device`);
-without one it raises. Writes {workdir}/results.json and prints a JSON
-summary line.
+no config, the tiny config of the tests: data/synthetic.py::tiny_config
+(MQ), tasks/nlq.py::nlq_tiny_config (NLQ), JAX's toy ClipMatcher (VQ).
+Features come from the config's feat_folder (MQ), jsonl annotations with
+lmdb or per-file features (NLQ), Ego4D VQ annotations with clips or frame
+folders (VQ), or with `--synthetic` from the synthetic sources over a
+synthetic task split. The runner trains on the card (`--device`); without
+one it raises. Writes {workdir}/results.json and prints a JSON summary
+line.
+
+One deliberate difference from JAX: at a VQ window of more than 8 frames
+the synthetic split's clips are 2 x window frames long
+(tasks/vq.py::synthetic_frames), so that no training window starts below
+frame 0; JAX keeps 16-frame clips, and numpy wraps the frames of its
+negative start around.
 """
 
 from __future__ import annotations
@@ -137,7 +148,7 @@ def main(argv=None):
     p.add_argument("--reg-lambda", type=float, default=None,
                    help="override cl_cfg.reg_lambda (EWC/MAS weight)")
     p.add_argument("--task", default=None,
-                   help="mq (nlq and vq are not ported)")
+                   help="mq | nlq | vq (default from config)")
     p.add_argument("--num-tasks", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--joint", action="store_true",
@@ -176,6 +187,37 @@ def main(argv=None):
                    default=None, help="bfloat16 only (FusedAdamW)")
     p.add_argument("--ckpt-format", choices=["npz", "orbax"], default=None,
                    help="npz only (orbax needs JAX)")
+    # real-data VQ sources (data/vq_frames.py)
+    p.add_argument("--vq-annotations", default=None,
+                   help="Ego4D vq_train.json (with --task vq)")
+    p.add_argument("--vq-val-annotations", default=None,
+                   help="Ego4D vq_val.json (defaults to --vq-annotations)")
+    p.add_argument("--vq-clip-dir", default=None,
+                   help="directory of {clip_uid}.mp4 clips (needs cv2)")
+    p.add_argument("--vq-images-dir", default=None,
+                   help="directory of {clip_uid}/frame_XXXXXXX.jpg frames "
+                        "(needs cv2)")
+    p.add_argument("--vq-frame-size", type=int, default=None,
+                   help="default: config vq.clip_size (448) for real data, "
+                        "32 for --synthetic")
+    p.add_argument("--vq-window", type=int, default=None)
+    p.add_argument("--vq-categories-per-task", type=int, default=None)
+    p.add_argument("--vit-ckpt", default=None,
+                   help="local DINO/DINOv2/MAE torch checkpoint for the VQ "
+                        "ViT (models/vit.py::load_torch_vit_checkpoint)")
+    # real-data NLQ sources (reference lmdb envs or per-key dirs)
+    p.add_argument("--nlq-train-jsonl", default=None,
+                   help="NLQ train annotations jsonl (with --task nlq)")
+    p.add_argument("--nlq-val-jsonl", default=None)
+    p.add_argument("--nlq-video-lmdb", default=None,
+                   help="reference video-feature lmdb env (video_id keys)")
+    p.add_argument("--nlq-text-lmdb", default=None,
+                   help="reference text-feature lmdb env (query_id keys)")
+    p.add_argument("--nlq-val-text-lmdb", default=None)
+    p.add_argument("--nlq-video-dir", default=None,
+                   help="dir of {video_id}.npy features")
+    p.add_argument("--nlq-text-dir", default=None,
+                   help="dir of {query_id}.npz token features")
     args = p.parse_args(argv)
     for flag, why in REFUSED.items():
         if getattr(args, flag):
@@ -195,25 +237,37 @@ def main(argv=None):
 
     from vilco_tpu_torch.core.config import load_config
     from vilco_tpu_torch.data.synthetic import tiny_config
+    from vilco_tpu_torch.tasks.nlq import nlq_tiny_config
 
-    cfg = load_config(args.config) if args.config else tiny_config()
-    task = args.task or cfg.task
-    if task != "mq":
-        p.error(f"--task {task}: only the MQ task is ported (NLQ is "
-                "ROADMAP §1 item 3, VQ item 4)")
-    cfg = apply_overrides(cfg, args)
-    if args.synthetic:
-        cfg, runner = synthetic_mq_runner(cfg, args.workdir, args.device,
-                                          tuple(args.synthetic_videos))
+    if args.config:
+        cfg = load_config(args.config)
+    elif args.task == "nlq":
+        cfg = nlq_tiny_config()
     else:
-        from vilco_tpu_torch.tasks.mq import build_mq_runner
+        cfg = tiny_config()
+    task = args.task or cfg.task
+    cfg = apply_overrides(cfg, args)
+    if task == "vq":
+        return train_vq(p, args, cfg)
+    if task == "nlq":
+        if args.joint:
+            p.error("--joint: the NLQ runner has no joint mode")
+        runner = nlq_runner(p, args, cfg)
+    elif task == "mq":
+        if args.synthetic:
+            cfg, runner = synthetic_mq_runner(
+                cfg, args.workdir, args.device, tuple(args.synthetic_videos))
+        else:
+            from vilco_tpu_torch.tasks.mq import build_mq_runner
 
-        runner = build_mq_runner(cfg, args.workdir, device=args.device)
-    if args.joint:
-        from vilco_tpu_torch.cl.stream import merge_tasks
+            runner = build_mq_runner(cfg, args.workdir, device=args.device)
+        if args.joint:
+            from vilco_tpu_torch.cl.stream import merge_tasks
 
-        runner.stream = merge_tasks(runner.stream)
-        runner._setup_eval()
+            runner.stream = merge_tasks(runner.stream)
+            runner._setup_eval()
+    else:
+        p.error(f"--task {task}: one of mq, nlq, vq")
     if args.init_from:
         from vilco_tpu_torch.core.checkpoint import load_params_into
 
@@ -226,6 +280,163 @@ def main(argv=None):
         "final_avg_mAP": results["final"]["avg_mAP"],
         "final_R1@0.5": results["final"]["avg_R1@0.5"],
         "BwF_R1@0.5": results["final"]["BwF_R1@0.5"],
+        "results_file": out,
+    }))
+    return results
+
+
+def synthetic_nlq_runner(cfg, workdir: str, device="cuda",
+                         persist_config=True, narration=True):
+    """The synthetic NLQ episode (vilco_tpu/bin/train_cl.py's synthetic NLQ
+    path): a template split of 8 train and 3 val queries a template from
+    numpy's default_rng(init_rand_seed), SyntheticNLQFeatures, and, with
+    `narration`, the synthetic narration source where the config reads
+    it."""
+    import numpy as np
+
+    from vilco_tpu_torch.data.pipeline import SyntheticNarrationSource
+    from vilco_tpu_torch.tasks.nlq import (
+        NLQEpisodeRunner,
+        NLQTaskStream,
+        SyntheticNLQFeatures,
+        make_synthetic_nlq_split,
+    )
+
+    train_tasks, val_tasks = make_synthetic_nlq_split(
+        np.random.default_rng(cfg.init_rand_seed), cfg)
+    feat = SyntheticNLQFeatures(cfg.dataset.input_dim, cfg.model.n_txt_in)
+    nar = (SyntheticNarrationSource(cfg.cl_cfg.narration_dim,
+                                    cfg.dataset.max_narration_len)
+           if narration and cfg.cl_cfg.narration_ssl else None)
+    return NLQEpisodeRunner(cfg, NLQTaskStream(train_tasks, val_tasks),
+                            feat.video, workdir=workdir,
+                            text_source=feat.text, narration_source=nar,
+                            persist_config=persist_config, device=device)
+
+
+def nlq_runner(p, args, cfg):
+    """The NLQ runner of the CLI's arguments: jsonl annotations with lmdb
+    or per-file features, or the synthetic episode."""
+    if args.nlq_train_jsonl:
+        from vilco_tpu_torch.tasks.nlq import build_nlq_runner
+
+        return build_nlq_runner(
+            cfg, args.workdir, args.nlq_train_jsonl,
+            args.nlq_val_jsonl or args.nlq_train_jsonl,
+            video_lmdb=args.nlq_video_lmdb, text_lmdb=args.nlq_text_lmdb,
+            val_text_lmdb=args.nlq_val_text_lmdb,
+            video_dir=args.nlq_video_dir, text_dir=args.nlq_text_dir,
+            device=args.device)
+    if not args.synthetic:
+        p.error("--task nlq needs --synthetic or --nlq-train-jsonl with a "
+                "feature source")
+    return synthetic_nlq_runner(cfg, args.workdir, args.device)
+
+
+def vq_runner_kwargs(args, cfg):
+    """(vq section with the --vq-* size flags on top or None, the VQ
+    runner's keywords) as JAX's CLI derives them: the config's vq section
+    when a config is given, the CLI's flags over it."""
+    rep = dataclasses.replace
+    vqc = cfg.vq if args.config else None
+    if vqc is not None:
+        if args.vq_frame_size:
+            vqc = rep(vqc, clip_size=args.vq_frame_size,
+                      query_size=args.vq_frame_size)
+        if args.vq_window:
+            vqc = rep(vqc, num_frames=args.vq_window)
+    kw = {"seed": cfg.init_rand_seed, "ckpt_format": cfg.ckpt_format,
+          "device": args.device, "method": args.method or "naive",
+          "epochs": args.epochs or 4}
+    if vqc is not None:
+        kw.update(model_cfg=vqc, batch_size=vqc.batch_size, lr=vqc.lr,
+                  weight_decay=vqc.weight_decay, use_hnm=vqc.use_hnm,
+                  augment=vqc.augment,
+                  positive_threshold=vqc.positive_threshold,
+                  positive_topk=vqc.positive_topk,
+                  vit_ckpt=args.vit_ckpt or vqc.vit_ckpt,
+                  accumulation_steps=vqc.accumulation_steps)
+    elif args.vit_ckpt:
+        kw["vit_ckpt"] = args.vit_ckpt
+    if args.accum_steps:
+        kw["accumulation_steps"] = args.accum_steps
+    if args.batch_size:
+        kw["batch_size"] = args.batch_size
+    if args.reg_lambda is not None:
+        kw["reg_lambda"] = args.reg_lambda
+    return vqc, kw
+
+
+def train_vq(p, args, cfg):
+    """The VQ episode (vilco_tpu/bin/train_cl.py's --task vq): real
+    annotations through data/vq_frames.py, or the synthetic split (clips of
+    tasks/vq.py::synthetic_frames(window) frames); `--joint` merges the
+    tasks into one."""
+    import numpy as np
+
+    from vilco_tpu_torch.tasks.vq import (
+        SyntheticVQSource,
+        VQEpisodeRunner,
+        VQTaskStream,
+        make_synthetic_vq_split,
+        merge_vq_tasks,
+        synthetic_frames,
+    )
+
+    vqc, kw = vq_runner_kwargs(args, cfg)
+    rehearsal = args.method in ("icarl", "rehearsal", "vilco")
+    if args.vq_annotations:
+        from vilco_tpu_torch.data.vq_frames import (
+            FrameDirSource,
+            VideoFrameSource,
+            group_splits,
+            load_vq_annotations,
+        )
+
+        frame_size = args.vq_frame_size or (vqc.clip_size if vqc else 448)
+        window = args.vq_window or (vqc.num_frames if vqc else 30)
+        train_s = load_vq_annotations(args.vq_annotations, "train")
+        val_s = load_vq_annotations(
+            args.vq_val_annotations or args.vq_annotations, "val")
+        per = args.vq_categories_per_task or (
+            vqc.categories_per_task if vqc else 400)
+        stream = VQTaskStream(*group_splits(train_s, val_s, per))
+        if args.vq_images_dir:
+            source = FrameDirSource(args.vq_images_dir, frame_size=frame_size)
+        elif args.vq_clip_dir:
+            source = VideoFrameSource(args.vq_clip_dir, frame_size=frame_size)
+        else:
+            p.error("--vq-annotations needs --vq-clip-dir or "
+                    "--vq-images-dir")
+        memory = 2 * per if rehearsal else 0
+    else:
+        if not args.synthetic:
+            p.error("--task vq needs --synthetic or --vq-annotations with a "
+                    "frame source")
+        frame_size = args.vq_frame_size or (vqc.clip_size if vqc else 32)
+        window = args.vq_window or (vqc.num_frames if vqc else 4)
+        stream = VQTaskStream(*make_synthetic_vq_split(
+            np.random.default_rng(cfg.init_rand_seed),
+            num_tasks=args.num_tasks or 3,
+            num_frames=synthetic_frames(window), window=window))
+        source = SyntheticVQSource(frame_size=frame_size)
+        memory = 8 if args.method in ("icarl", "rehearsal") else 0
+    if args.joint:
+        stream = merge_vq_tasks(stream)
+    runner = VQEpisodeRunner(stream, source, args.workdir, window=window,
+                             frame_size=frame_size, memory_size=memory, **kw)
+    if args.init_from:
+        from vilco_tpu_torch.core.checkpoint import load_params_into
+
+        load_params_into(args.init_from, runner.model)
+    results = runner.run()
+    out = os.path.join(args.workdir, "results.json")
+    with open(out, "w") as f:
+        json.dump(results, f, indent=2)
+    print(json.dumps({
+        "final_avg_tAP25": results["final"]["avg_tAP25"],
+        "final_avg_stAP25": results["final"]["avg_stAP25"],
+        "final_avg_success": results["final"]["avg_success"],
         "results_file": out,
     }))
     return results

@@ -1,9 +1,10 @@
 """The subset of vilco_tpu.core.config that the MQ, NLQ and VQ serving and
-training paths and the MQ CL episode read.
+training paths and their CL episodes read.
 
 Plain frozen dataclasses; fields carry their JAX names, and YAML is read
-only inside `load_config`. `DatasetCfg` and `LoaderCfg` are JAX's `dataset`
-and `loader` sections whole. `ModelConfig` holds only what differs between
+only inside `load_config`. `DatasetCfg`, `LoaderCfg` and `VQConfig` are
+JAX's `dataset`, `loader` and `vq` sections whole (VQConfig with what JAX's
+VQ runner fixes beside them). `ModelConfig` holds only what differs between
 the flagships and their tiny twins (variant, widths, depths, heads, window,
 classes, lengths, regression ranges, drop-path), with the dataset dims
 already propagated (what `Config.derived()` does there); `TrainCfg`,
@@ -228,10 +229,85 @@ class LoaderCfg:
 
 
 @dataclass(frozen=True)
+class VQConfig:
+    """JAX's `vq` section (vilco_tpu/core/config.py::VQCfg), every field
+    under its JAX name, plus what JAX's VQ episode runner and model fix
+    (`RUNNER_FIELDS`, not in JAX's section): `eval_windows` (windows per
+    inference chunk), the head's dropout, the optimizer's clip norm and
+    MultiStepLR milestones and factor, and `vit_attn_impl`, the ViT's
+    attention: "pallas" (K1) or "flash" (K1f). `accumulation_steps` K: one
+    optimizer step takes K micro-batches of the batch's rows (the yaml's
+    1). `augment` switches the train batches' augmentation on
+    (data/vq_augment.py); `vit_ckpt` is a DINO/DINOv2 checkpoint for the
+    ViT (models/vit.py::load_torch_vit_checkpoint); `categories_per_task`
+    groups real annotations into tasks. The query-frame ROI resample is
+    not ported: `use_query_roi` true raises."""
+    dim: int = 256
+    clip_size: int = 448
+    query_size: int = 448
+    patch_size: int = 14
+    vit_dim: int = 768
+    vit_depth: int = 12
+    vit_heads: int = 12
+    resolution_transformer: int = 8
+    resolution_anchor_feat: int = 16
+    num_transformer: int = 3
+    window_transformer: int = 5
+    num_frames: int = 30
+    freeze_backbone: bool = True
+    vit_ckpt: str = ""
+    categories_per_task: int = 400
+    batch_size: int = 4
+    lr: float = 3e-4
+    weight_decay: float = 5e-3
+    use_hnm: bool = True
+    augment: bool = True
+    positive_threshold: float = 0.2
+    positive_topk: int = 5
+    use_query_roi: bool = False
+    eval_windows: int = 8
+    dropout: float = 0.2
+    grad_max: float = 20.0
+    lr_milestones: Tuple[int, ...] = (7000, 14000, 20000, 25000)
+    lr_gamma: float = 0.3
+    vit_attn_impl: str = "pallas"
+    accumulation_steps: int = 1
+
+    RUNNER_FIELDS = ("eval_windows", "dropout", "grad_max", "lr_milestones",
+                     "lr_gamma", "vit_attn_impl")
+
+    def __post_init__(self):
+        if self.vit_attn_impl not in VIT_ATTN_IMPLS:
+            raise ValueError(f"vit_attn_impl {self.vit_attn_impl!r}: one of "
+                             f"{VIT_ATTN_IMPLS}")
+        if self.use_query_roi:
+            raise ValueError("vq.use_query_roi: the query-frame ROI resample "
+                             "is not ported (ROADMAP §1 item 5)")
+
+    def to_dict(self) -> Dict[str, Any]:
+        """JAX's `VQCfg.to_dict()` layout: every field but RUNNER_FIELDS."""
+        return {f.name: _thaw(getattr(self, f.name))
+                for f in dataclasses.fields(self)
+                if f.name not in self.RUNNER_FIELDS}
+
+    @classmethod
+    def from_dict(cls, d: Optional[Mapping[str, Any]]) -> "VQConfig":
+        """JAX's `vq` section (a yaml's, or `VQCfg.to_dict()`) -> VQConfig,
+        RUNNER_FIELDS at their defaults. A key that is not a field of JAX's
+        section raises."""
+        d = dict(d or {})
+        bad = sorted(set(d) - {f.name for f in dataclasses.fields(cls)}
+                     | set(d) & set(cls.RUNNER_FIELDS))
+        if bad:
+            raise ValueError(f"vq.{bad[0]}: not a field of JAX's vq section")
+        return cls(**{k: _freeze(v) for k, v in d.items()})
+
+
+@dataclass(frozen=True)
 class Config:
     """The top level: `task` (mq, nlq or vq), the task checkpoints' array
     format `ckpt_format` (npz only), the episode's seed `init_rand_seed`
-    and the sections. `batch_size`, `max_segments`, `max_text_len` and
+    and the sections, `vq` (VQConfig) the VQ task's. `batch_size`, `max_segments`, `max_text_len` and
     `max_narration_len` read `loader.batch_size`, `dataset.max_segments`
     (the static GT padding per clip), `dataset.max_text_len` (text tokens
     per clip or query) and `dataset.max_narration_len` (narration tokens
@@ -245,6 +321,7 @@ class Config:
     cl_cfg: CLCfg = field(default_factory=CLCfg)
     dataset: DatasetCfg = field(default_factory=DatasetCfg)
     loader: LoaderCfg = field(default_factory=LoaderCfg)
+    vq: VQConfig = field(default_factory=VQConfig)
     task: str = "mq"
     ckpt_format: str = "npz"
     init_rand_seed: int = 0
@@ -278,7 +355,7 @@ class Config:
         for name in ("dropout", "droppath"):
             d["train_cfg"][name] = getattr(self.model, name)
         d.update(task=self.task, ckpt_format=self.ckpt_format,
-                 init_rand_seed=self.init_rand_seed)
+                 init_rand_seed=self.init_rand_seed, vq=self.vq.to_dict())
         return _thaw(d)
 
 
@@ -492,8 +569,8 @@ _UNSUPPORTED = {
 }
 # JAX fields no path of the port reads: the knobs of JAX's own kernels and
 # optimizer forms (the same math), the hard-NMS threshold, the model EMA
-# (the episode never starts one), the VQ section (VQConfig), and options
-# the MQ episode ignores in JAX too
+# (the episode never starts one), and options the MQ episode ignores in JAX
+# too
 _IGNORED = {
     ("model", "fused_xl"), ("model", "remat_xl"),
     ("model", "fused_attention"), ("model", "fused_conv"),
@@ -504,7 +581,7 @@ _IGNORED = {
     ("opt", "fused_apply"), ("opt", "ema_decay"),
     ("cl_cfg", "random_order"), ("cl_cfg", "type_sampling"),
 }
-_IGNORED_TOP = ("train_split", "val_split", "output_folder", "vq")
+_IGNORED_TOP = ("train_split", "val_split", "output_folder")
 
 
 def _freeze(v):
@@ -551,6 +628,8 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
     for key, v in d.items():
         if key in ("task", "ckpt_format", "init_rand_seed"):
             top[key] = v
+        elif key == "vq":
+            top[key] = VQConfig.from_dict(v)
         elif key not in _IGNORED_TOP:
             raise ValueError(f"{key}: not a field of the port's config")
     if top.get("ckpt_format", "npz") != "npz":
@@ -587,49 +666,6 @@ def load_config(path: str) -> Config:
     return config_from_dict(raw or {})
 
 
-@dataclass(frozen=True)
-class VQConfig:
-    """The `vq` section (vilco_tpu/core/config.py::VQCfg) fields the VQ
-    serving path and train step read, with their JAX names, plus what the
-    VQ episode runner fixes: `eval_windows` (windows per inference chunk),
-    the head's dropout and the optimizer's clip norm and MultiStepLR
-    milestones and factor. `accumulation_steps` K: one optimizer step takes
-    K micro-batches of the batch's rows (the yaml's 1); the query crop has
-    the clips' size.
-    `vit_attn_impl` picks the ViT's attention: "pallas" (K1) or "flash"
-    (K1f)."""
-    dim: int = 256
-    clip_size: int = 448
-    patch_size: int = 14
-    vit_dim: int = 768
-    vit_depth: int = 12
-    vit_heads: int = 12
-    resolution_transformer: int = 8
-    resolution_anchor_feat: int = 16
-    num_transformer: int = 3
-    window_transformer: int = 5
-    num_frames: int = 30
-    freeze_backbone: bool = True
-    batch_size: int = 4
-    lr: float = 3e-4
-    weight_decay: float = 5e-3
-    use_hnm: bool = True
-    positive_threshold: float = 0.2
-    positive_topk: int = 5
-    eval_windows: int = 8
-    dropout: float = 0.2
-    grad_max: float = 20.0
-    lr_milestones: Tuple[int, ...] = (7000, 14000, 20000, 25000)
-    lr_gamma: float = 0.3
-    vit_attn_impl: str = "pallas"
-    accumulation_steps: int = 1
-
-    def __post_init__(self):
-        if self.vit_attn_impl not in VIT_ATTN_IMPLS:
-            raise ValueError(f"vit_attn_impl {self.vit_attn_impl!r}: one of "
-                             f"{VIT_ATTN_IMPLS}")
-
-
 def vq_flagship_config(tiny: bool = False) -> VQConfig:
     """The VQ ViLCo flagship (configs/vq_vilco.yaml): a frozen ViT-B/14 on
     448-square frames (32 x 32 patches + CLS = 1025 tokens), a dim-256
@@ -640,7 +676,7 @@ def vq_flagship_config(tiny: bool = False) -> VQConfig:
     stride-2 down head (8 -> R = 4) and one transposed-conv up step
     (R = 4 -> anchor grid 8); chunks of 4 windows."""
     if tiny:
-        return VQConfig(dim=64, clip_size=64, patch_size=8,
+        return VQConfig(dim=64, clip_size=64, query_size=64, patch_size=8,
                         vit_dim=48, vit_depth=2, vit_heads=4,
                         resolution_transformer=4, resolution_anchor_feat=8,
                         num_transformer=1, window_transformer=5,

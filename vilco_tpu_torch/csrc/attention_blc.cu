@@ -95,6 +95,12 @@
 // stores lse = m + log2(l + 1e-30) per (batch, head, query row), the row's
 // log-sum-exp in the log2 domain; a fully masked row gets -1e8 - 99.7, so
 // exp2(s - lse) is 0 there in the backward too.
+//
+// Three libraries are built from this file, so that nvcc compiles their
+// template instances side by side: this file itself (K1, K1n and K1f),
+// csrc/attention_blc_probe.cu, which includes it with VILCO_PROBE_VARIANTS
+// defined (the probe's variants 1-3 alone), and csrc/attention_blc_band.cu,
+// with VILCO_FRAME_BAND defined (K6's frame_band_fwd alone).
 
 #include "attention_blc.cuh"
 
@@ -603,10 +609,12 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The forward of one head width, with the probe's switches (variant bit 0:
-// bound_shift, bit 1: mxu_sum; f32 has no use for mxu_sum) or in flash
-// mode (variant 4, K1f). f32 pads D to 64 or 128, bf16 to 32, 64, 96 or
-// 128 (flash mode to 64 or 128, which halves its instantiations).
+#ifndef VILCO_FRAME_BAND
+// The forward of one head width: K1 (variant 0) or flash mode (variant 4,
+// K1f); with VILCO_PROBE_VARIANTS, the probe's switches (variant bit 0:
+// bound_shift, bit 1: mxu_sum; f32 has no use for mxu_sum) instead. f32
+// pads D to 64 or 128, bf16 to 32, 64, 96 or 128 (flash mode to 64 or
+// 128, which halves its instantiations).
 template <int DPAD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* mask, void* out, void* lse, void* lsum,
@@ -614,10 +622,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        bool head_major, int variant, cudaStream_t s) {
 #define VILCO_FWD(F) F(q, k, v, mask, out, lse, lsum, B, Tq, Tk, H, D, head_major, s)
   constexpr int FP = DPAD <= 64 ? 64 : 128;
-  constexpr Mode K1 = Mode::K1, FL = Mode::Flash;
-  if (variant == 4)
-    return dtype == 0 ? VILCO_FWD((launch_simt<FP, false, FL>))
-                      : VILCO_FWD((launch_tc<FP, false, false, FL>));
+  constexpr Mode K1 = Mode::K1;
+#ifdef VILCO_PROBE_VARIANTS
   const bool bs = variant & 1, ms = variant & 2;
   if (dtype == 0)
     return bs ? VILCO_FWD((launch_simt<FP, true, K1>))
@@ -625,11 +631,18 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   if (bs)
     return ms ? VILCO_FWD((launch_tc<DPAD, true, true, K1>))
               : VILCO_FWD((launch_tc<DPAD, true, false, K1>));
-  return ms ? VILCO_FWD((launch_tc<DPAD, false, true, K1>))
-            : VILCO_FWD((launch_tc<DPAD, false, false, K1>));
+  return VILCO_FWD((launch_tc<DPAD, false, true, K1>));
+#else
+  constexpr Mode FL = Mode::Flash;
+  if (variant == 4)
+    return dtype == 0 ? VILCO_FWD((launch_simt<FP, false, FL>))
+                      : VILCO_FWD((launch_tc<FP, false, false, FL>));
+  return dtype == 0 ? VILCO_FWD((launch_simt<FP, false, K1>))
+                    : VILCO_FWD((launch_tc<DPAD, false, false, K1>));
+#endif
 #undef VILCO_FWD
 }
-
+#else
 // K6's forward at one head width: band mode on the channels-last layout,
 // no mask, bf16 at DPAD, f32 at 32, 64 or 128.
 template <int DPAD>
@@ -646,14 +659,17 @@ cudaError_t launch_band(const void* q, const void* k, const void* v,
                                                  nullptr, B, L, L, H, D,
                                                  false, s, band);
 }
+#endif
 
 }  // namespace
 
+#ifndef VILCO_FRAME_BAND
 // dtype: 0 = float32, 1 = bfloat16. layout 0: q/out (B, Tq, H*D), k/v
 // (B, Tk, H*D); layout 1 (head-major): q/out (H, B, Tq, D), k/v
 // (H, B, Tk, D). mask (B, Tk) one byte per key (nonzero = valid), all
-// contiguous; D <= 128. variant: 0 for K1; bit 0 bound_shift, bit 1
-// mxu_sum (the probe); 4 flash mode (K1f). lse (B, H, Tq) f32, or null
+// contiguous; D <= 128. variant: 0 for K1, 4 flash mode (K1f); in the
+// probe's library (VILCO_PROBE_VARIANTS) 1-3: bit 0 bound_shift, bit 1
+// mxu_sum. Another variant is refused. lse (B, H, Tq) f32, or null
 // when no backward follows: K1 stores the row's log-sum-exp there (log2
 // domain); flash mode stores the row max m there (log2 domain) and the
 // row sum l in lsum (B, H, Tq) f32 (null with lse null, ignored by K1).
@@ -663,9 +679,14 @@ extern "C" int attention_blc_fwd(const void* q, const void* k, const void* v,
                                  int D, int dtype, int layout, int variant,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+#ifdef VILCO_PROBE_VARIANTS
+  const bool variant_ok = variant >= 1 && variant <= 3;
+#else
+  const bool variant_ok = variant == 0 || variant == 4;
+#endif
   if (D < 1 || D > 128 || B < 1 || Tq < 1 || Tk < 1 || H < 1 ||
       (dtype != 0 && dtype != 1) || layout < 0 || layout > 1 ||
-      variant < 0 || variant > 4 ||
+      !variant_ok ||
       (variant == 4 && (lse == nullptr) != (lsum == nullptr)))
     return (int)cudaErrorInvalidValue;
 #define VILCO_FWD(DP) launch_fwd<DP>(q, k, v, mask, out, lse, lsum, B, Tq, Tk, H, D, dtype, layout == 1, variant, s)
@@ -673,7 +694,7 @@ extern "C" int attention_blc_fwd(const void* q, const void* k, const void* v,
                : D <= 96 ? VILCO_FWD(96) : VILCO_FWD(128));
 #undef VILCO_FWD
 }
-
+#else
 // K6's forward, the band mode of the kernels above. dtype: 0 = float32, 1 =
 // bfloat16. q/k/v/out (B, L, H*D), all contiguous, L = n_frames * fr; D <=
 // 128, w >= 0. lse (B, H, L) f32 (log2 domain), or null when no backward
@@ -692,3 +713,4 @@ extern "C" int frame_band_fwd(const void* q, const void* k, const void* v,
                : D <= 96 ? VILCO_FWD(96) : VILCO_FWD(128));
 #undef VILCO_FWD
 }
+#endif

@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` exposes plain `extern "C"` functions and becomes one
 shared library `_build/lib<name>-<hash>.so`, where the hash covers the
-source, the headers it may include and the flags, so a changed source
+source, every file it may include and the flags, so a changed source
 rebuilds and an unchanged one loads from the cache. Nothing here runs at
 import time: the first kernel launch builds every library, nvcc processes
 running side by side.
@@ -51,7 +51,8 @@ def _nvcc() -> str:
 
 def _digest(src: Path) -> str:
     h = hashlib.sha256()
-    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
+    # a source may include another .cu (attention_blc_probe.cu does)
+    for p in [src, *sorted(CSRC.glob("*.cu*"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -313,7 +313,10 @@ def _fwd(q, k, v, kv_mask, B, Tq, Tk, H, D, with_lse, head_major=False,
     lsum = stat() if with_lse and flash else None
     out = torch.empty_like(q)
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    fn = _build.bind("attention_blc", "attention_blc_fwd", 7, 8)
+    # the probe's variants are a library of their own (attention_blc_probe)
+    lib = ("attention_blc_probe" if bound_shift or mxu_sum
+           else "attention_blc")
+    fn = _build.bind(lib, "attention_blc_fwd", 7, 8)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
              out.data_ptr(), ptr(lse), ptr(lsum), B, Tq, Tk, H, D,
              _build.dtype_code(q), int(head_major),

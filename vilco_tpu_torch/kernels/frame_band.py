@@ -4,12 +4,13 @@ every token of the frames within +-w of its own.
 
 Replaces vilco_tpu/kernels/frame_band.py::frame_band_attention. The Pallas
 `_forward` becomes the band mode of K1's forward (csrc/attention_blc.cu's
-`frame_band_fwd`): the band is by frame, so the attention is block-dense,
-and one block per query tile (128 rows, 64 where the head dim passes 64;
-two VQ frames) streams only its window's key tiles of 64 (its own frames
-and w frames on either side) through a cp.async ring and runs an f32 online
-softmax, S, P and O in registers on mma.sync in bf16 (SIMT in f32, 64 rows
-and key tiles of 32); keys outside the window are never staged, and a
+`frame_band_fwd`, built as the library attention_blc_band): the band is by
+frame, so the attention is block-dense, and one block per query tile (128
+rows, 64 where the head dim passes 64; two VQ frames) streams only its
+window's key tiles of 64 (its own frames and w frames on either side)
+through a cp.async ring and runs an f32 online softmax, S, P and O in
+registers on mma.sync in bf16 (SIMT in f32, 64 rows and key tiles of 32);
+keys outside the window are never staged, and a
 score out of the band is -inf before the row max. `frame_band_fwd_plain`
 is the same walk in plain PyTorch. The forward stores each row's
 log-sum-exp (log2 domain, K1's m + log2 l). The Pallas `_backward` (the dq
@@ -94,7 +95,7 @@ def frame_band_fwd_cuda(q, k, v, num_heads: int, fr: int, w: int,
     lse = (torch.empty((B, num_heads, L), dtype=torch.float32,
                        device=q.device) if with_lse else None)
     out = torch.empty_like(q)
-    fn = _build.bind("attention_blc", "frame_band_fwd", 5, 7)
+    fn = _build.bind("attention_blc_band", "frame_band_fwd", 5, 7)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              0 if lse is None else lse.data_ptr(), B, L, num_heads,
              C // num_heads, fr, w, _build.dtype_code(q), _build.stream_of(q))

@@ -128,3 +128,48 @@ class ViT(nn.Module):
             x = getattr(self, f"block_{i}")(x, kv_mask)
         x = self.norm(x)
         return x[:, 1:].reshape(B, hh, ww, self.dim)
+
+
+# timm / DINO / DINOv2 names of a block's leaves -> the port's
+_BLOCK_KEYS = {"norm1.weight": "norm1.weight", "norm1.bias": "norm1.bias",
+               "attn.qkv.weight": "qkv.weight", "attn.qkv.bias": "qkv.bias",
+               "attn.proj.weight": "proj.weight",
+               "attn.proj.bias": "proj.bias",
+               "norm2.weight": "norm2.weight", "norm2.bias": "norm2.bias",
+               "mlp.fc1.weight": "fc1.weight", "mlp.fc1.bias": "fc1.bias",
+               "mlp.fc2.weight": "fc2.weight", "mlp.fc2.bias": "fc2.bias"}
+
+
+@torch.no_grad()
+def load_torch_vit_checkpoint(vit: ViT, ckpt_path: str) -> None:
+    """Load DINO / DINOv2 / MAE ViT weights from a torch checkpoint into
+    `vit` in place (vilco_tpu/models/vit.py::load_torch_vit_checkpoint; the
+    reference torch.hub-loads these, so the file must be on disk): the
+    timm naming patch_embed.proj, cls_token, pos_embed, blocks.N.{norm1,
+    attn.qkv, attn.proj, norm2, mlp.fc1, mlp.fc2}, norm, a state_dict or
+    one under "model". Torch's layouts are the port's, so the map is a
+    rename. Every leaf of `vit` must be found at its shape, else it raises
+    naming the key; the checkpoint's other keys (DINOv2's LayerScale and
+    mask token) are not read, as in JAX."""
+    sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    src = {"patch_embed.weight": "patch_embed.proj.weight",
+           "patch_embed.bias": "patch_embed.proj.bias",
+           "cls_token": "cls_token", "pos_embed": "pos_embed",
+           "norm.weight": "norm.weight", "norm.bias": "norm.bias"}
+    for i in range(vit.depth):
+        for theirs, ours in _BLOCK_KEYS.items():
+            src[f"block_{i}.{ours}"] = f"blocks.{i}.{theirs}"
+    own = dict(vit.named_parameters())
+    if set(own) != set(src):
+        raise ValueError(f"ViT leaves without a checkpoint key: "
+                         f"{sorted(set(own) - set(src))}")
+    for name, key in src.items():
+        if key not in sd:
+            raise KeyError(f"{ckpt_path}: no {key!r} for the ViT's {name}")
+        val = torch.as_tensor(sd[key])
+        if tuple(val.shape) != tuple(own[name].shape):
+            raise ValueError(f"{key}: shape {tuple(val.shape)}, the ViT's "
+                             f"{name} is {tuple(own[name].shape)}")
+        own[name].copy_(val.to(own[name].device, own[name].dtype))
