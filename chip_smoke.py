@@ -10,6 +10,7 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --mq-episode
     python3 chip_smoke.py --nlq-episode
     python3 chip_smoke.py --vq-episode
+    python3 chip_smoke.py --vq-reference
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
@@ -18,7 +19,8 @@ parity (phase 18), once per seed of weights and batch; the fifth only the
 phases of the MQ yaml model (10a-10e); the sixth only the CL methods'
 f32 steps card against CPU (cl_parity, vq_cl_parity: below, after the
 phases); the seventh only the MQ CL episode (10f); the eighth only the
-NLQ CL episode (15''); the ninth only the VQ CL episode (20').
+NLQ CL episode (15''); the ninth only the VQ CL episode (20'); the tenth
+only the reference-geometry phase (20'').
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -231,10 +233,30 @@ fallback):
                    augmentation on, batch 4, naive) through
                    bin/train_cl.main --task vq on the synthetic split, 2
                    tasks of 2 categories, 4 train and 2 val samples a
-                   category, 60-frame clips, 1 epoch: ms/step and clips/s a
+                   category, JAX's 16-frame clips (the windows wrap), 1
+                   epoch: ms/step and clips/s a
                    task, eval ms a request split into ViT, matcher and peak
                    finding, checkpoints reloaded bit-equal, the launches;
                    bin/vq_infer.main within 1e-4 of the last eval
+ 20''. vq_reference the reference's own checkpoints: the VQ ClipMatcher in
+                   its geometry (vq_reference_config(): MAE ViT-B/16 at
+                   448, 785 tokens a frame, the 28 x 28 grid resized to
+                   16 x 16 with antialiasing, no final ViT norm, frozen BN,
+                   the query ROI on), every weight and BN statistic from a
+                   seeded reference-named state_dict through
+                   models/torch_import.py, each leaf checked bit for bit:
+                   K1 at 785 tokens (240 and 8 frames bf16, 4 f32) and at
+                   the decoder's 256 tokens (K1-bwd at the HNM step's 480)
+                   against the plain version, by events and queued, SDPA
+                   and the bound beside; the f32 parity card vs CPU on a
+                   4-frame clip with a query-frame box (TF32 control);
+                   then, the counts set to 0, requests of a 240-frame clip
+                   through predict_track (as 19, one profiled), 2 bf16
+                   frozen-BN HNM steps at batch 4 (the statistics
+                   bit-unchanged, bn_scale and bn_bias moved), and the MQ
+                   graft and NLQ flagships loaded through their importers
+                   at full width, one bf16 request each; every kernel of
+                   the path launched
  21. attn_impl_kernels  the head-major attention (K1n, forward and backward)
                    and the flash attention (K1f: K1's forward and three-pass
                    backward in flash mode) against their plain versions at
@@ -2930,7 +2952,7 @@ NLQ_ZERO_GRAD = ("attn.key.bias", "attn.key_norm.bias")
 # the full-width episodes' cuts: 2 tasks, 1 epoch, no warmup; NLQ's split
 # keeps make_synthetic_nlq_split's 8 train and 3 val queries a template,
 # VQ's make_synthetic_vq_split's 2 categories a task, 4 train and 2 val
-# samples a category (60-frame clips at the 30-frame window)
+# samples a category (JAX's 16-frame clips at the 30-frame window)
 EPISODE_CHAIN_ATOL = 1e-4     # evaluate / vq_infer against the run's eval
 
 
@@ -3150,8 +3172,9 @@ def phase_vq_episode(dev) -> dict:
         say(f"[vq_episode] cuts of configs/vq_vilco.yaml's episode: "
             f"{EPISODE_TASKS} tasks of 2 categories (the yaml groups 400), "
             f"4 train and 2 val samples a category, 1 epoch; synthetic "
-            f"clips of {vq_mod.synthetic_frames(vq.num_frames)} frames "
-            f"(2 x the window; JAX's 16 would wrap the windows around); "
+            f"clips of {vq_mod.SYNTHETIC_FRAMES} frames, as JAX's (a "
+            f"training window starts at {vq_mod.SYNTHETIC_FRAMES - vq.num_frames}"
+            f" and wraps around the clip); "
             f"published widths kept (ViT-B/14 at {vq.clip_size}, "
             f"{vq.num_frames}-frame windows, matcher {vq.dim}, "
             f"{vq.num_transformer} layers, HNM {vq.use_hnm}, augmentation "
@@ -3227,7 +3250,7 @@ def phase_vq_episode(dev) -> dict:
         parts = vq_request_parts(marks)
         n = timing["requests"]
         say(f"[vq_episode] eval: {n} requests (one clip of "
-            f"{vq_mod.synthetic_frames(vq.num_frames)} frames + query), "
+            f"{vq_mod.SYNTHETIC_FRAMES} frames + query), "
             f"{1e3 * timing['eval_s'] / n:.3f} ms a request: ViT "
             f"{parts[0] / n:.3f}, matcher {parts[1] / n:.3f}, top anchor "
             f"{parts[2] / n:.3f} ms (CUDA events), peak finding "
@@ -4097,7 +4120,7 @@ def vq_request_parts(marks):
 
 
 def phase_vq_serve(dev, kernels, mlp_kernel, cfg=None, tag="vq_serve",
-                   want=None):
+                   want=None, model=None):
     """Requests of one clip of eval_windows x num_frames frames plus a
     query, 448-square bf16 frames on the card, through predict_track: 2
     warm-up and 5 timed; frames/s, ms per request split into ViT / matcher
@@ -4105,7 +4128,8 @@ def phase_vq_serve(dev, kernels, mlp_kernel, cfg=None, tag="vq_serve",
     before) against `want` (launches per request by kernel name; the
     default path's when None), one profiled request, then, given
     `mlp_kernel`, one request with the ViT's MLP on the fused kernel.
-    `cfg` defaults to vq_flagship_config()."""
+    `cfg` defaults to vq_flagship_config(); `model`, a ClipMatcher of
+    `cfg` on the card, to one drawn from SEED."""
     from vilco_tpu_torch.core.config import vq_flagship_config
     from vilco_tpu_torch.models.clip_matcher import ClipMatcher
     from vilco_tpu_torch.tasks.vq import predict_track
@@ -4118,7 +4142,9 @@ def phase_vq_serve(dev, kernels, mlp_kernel, cfg=None, tag="vq_serve",
         redraw_heads(model, SEED + 15)
         return model
 
-    model = build(False)
+    label = ("VQ flagship" if model is None
+             else f"VQ, the reference's geometry (ViT-B/{cfg.patch_size}),")
+    model = model or build(False)
     S, T = cfg.clip_size, cfg.eval_windows * cfg.num_frames
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
     requests = [(torch.rand((T, S, S, 3), generator=gen, device=dev,
@@ -4154,7 +4180,7 @@ def phase_vq_serve(dev, kernels, mlp_kernel, cfg=None, tag="vq_serve",
             fail(f"{tag}: an empty or non-finite response track")
     med = [statistics.median(p[j] for p in parts) for j in range(4)]
     n_req = len(walls)
-    say(f"[{tag}] VQ flagship bf16 (f32 masters), ViT attention "
+    say(f"[{tag}] {label} bf16 (f32 masters), ViT attention "
         f"{cfg.vit_attn_impl!r}, one {T}-frame "
         f"{S}x{S} clip + query per request ({cfg.eval_windows} windows of "
         f"{cfg.num_frames}), {n_req} timed requests: "
@@ -4277,6 +4303,491 @@ def phase_vq_train(dev, kernels):
     del model, st, batch
     torch.cuda.empty_cache()
     return launches
+
+
+# ---- VQ in the reference's geometry: the reference's own state_dicts through
+# models/torch_import.py (frozen BN, MAE ViT-B/16 with its grid resize, the
+# query ROI), and the MQ and NLQ importers at full width -------------------
+
+VQ_REF_INTERP = 16       # the MAE path's grid resize: 28 x 28 -> 16 x 16
+VQ_REF_FRAMES = 4        # the f32 parity's clip
+VQ_REF_STEPS = 2         # frozen-BN HNM steps
+VQ_REF_BOXES = ((0.12, 0.2, 0.7, 0.85),)    # the parity's query-frame box
+
+
+def vq_reference_config():
+    """vq_flagship_config() in the reference's MAE geometry: ViT-B/16 (785
+    tokens a 448-square frame, a 28 x 28 grid), the query ROI on."""
+    from vilco_tpu_torch.core.config import vq_flagship_config
+
+    return dataclasses.replace(vq_flagship_config(), patch_size=16,
+                               use_query_roi=True)
+
+
+def reference_state_dict(model, seed: int, dev) -> dict:
+    """A seeded state_dict of the reference's names at the shapes of the
+    model's import rules (models/torch_import.py::reference_shapes), drawn
+    on `dev` from a torch generator: weights N(0, 1/fan_in), biases
+    N(0, 0.02^2), norm and BN weights U(0.5, 1.5), BN running mean
+    N(0, 0.1^2) and var U(0.5, 2), pe_3d N(0, 1), the ViT's tokens
+    N(0, 0.02^2), the drop-path scales U(0, 0.2) and the level scales
+    U(0.5, 1.5)."""
+    from vilco_tpu_torch.models.torch_import import reference_shapes
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for key, shape in sorted(reference_shapes(model).items()):
+        leaf = key.rsplit(".", 1)[-1]
+        u = lambda lo, hi: lo + (hi - lo) * torch.rand(
+            shape, generator=gen, device=dev)
+        n = lambda std: std * torch.randn(shape, generator=gen, device=dev)
+        normish = ("norm" in key or ".ln" in key or len(shape) == 1)
+        if leaf == "running_mean":
+            a = n(0.1)
+        elif leaf == "running_var":
+            a = u(0.5, 2.0)
+        elif leaf == "pe_3d":
+            a = n(1.0)
+        elif leaf in ("cls_token", "pos_embed"):
+            a = n(0.02)
+        elif "drop_path" in key:
+            a = u(0.0, 0.2)
+        elif leaf == "scale" or (leaf == "weight" and normish):
+            a = u(0.5, 1.5)
+        elif "bias" in leaf or len(shape) <= 1:
+            a = n(0.02)
+        else:
+            a = n(float(np.prod(shape[1:])) ** -0.5)
+        out[key] = a
+    return out
+
+
+def hand_pins(model):
+    """[(port leaf, reference key, map)] written out here, apart from
+    models/torch_import.py's table: at least one leaf of each reshape and
+    of each shared key, so that check_imported also holds a few rules to
+    an independent statement of the reference's layout (the whole table is
+    held to JAX's importer by tests/test_torch_port_torch_import.py)."""
+    from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+
+    same = lambda w: w
+    channel = lambda w: w[0, :, 0]                    # (1, C, 1) -> (C,)
+    if isinstance(model, ClipMatcher):
+        c = model.cfg.dim
+        sa = "CQ_corr_transformer.0.self_attn.in_proj_"
+        ca = "CQ_corr_transformer.0.multihead_attn.in_proj_"
+        pins = [("backbone.block_0.qkv.weight",
+                 "backbone.blocks.0.attn.qkv.weight", same),
+                ("backbone.patch_embed.weight",
+                 "backbone.patch_embed.proj.weight", same),
+                ("cq_corr.self_q.weight", sa + "weight", lambda w: w[:c]),
+                ("cq_corr.self_k.weight", sa + "weight",
+                 lambda w: w[c:2 * c]),
+                ("cq_corr.cross_v.bias", ca + "bias", lambda w: w[2 * c:]),
+                ("st_0.qkv.weight",
+                 "feat_corr_transformer.0.self_attn.in_proj_weight", same),
+                ("down_0.bn_var", "down_heads.0.1.running_var", same),
+                ("reduce1.bn_scale", "reduce.1.weight", same),
+                ("head.cls_2.bn_mean",
+                 "head.classification_conv.2.1.running_mean", same),
+                ("head.reg_head.weight", "head.regression_head.weight",
+                 same)]
+        if model.head.n_up:
+            pins.append(("head.up_0.weight", "head.up_convs.0.weight", same))
+        return pins
+    cfg = model.cfg
+    b = "backbone."
+    pins = [("backbone.branch_0.attn.query.weight",
+             "backbone.branch.0.attn.query.weight", lambda w: w[:, :, 0]),
+            ("reg_head.scale_0.scale", "reg_head.scale.0.scale", same),
+            ("cls_head.cls.weight", "cls_head.cls_head.conv.weight", same)]
+    if cfg.droppath > 0:
+        pins.append(("backbone.branch_0.drop_path_attn.scale",
+                     "backbone.branch.0.drop_path_attn.scale",
+                     lambda w: w[0, :, 0][None, None]))
+    if cfg.variant == "nlq":
+        return pins + [
+            (b + "txt_embd_norm_0.bias", b + "txt_embd_norm.0.bias", channel),
+            (b + "vid_stem_0.cross_attn.key.weight",
+             b + "vid_stem.0.cross_attn.key.weight", lambda w: w[:, :, 0])]
+    pins += [(b + "embd_norm_0.weight", b + "embd_norm.0.weight", channel),
+             ("mu", "mu", lambda w: w[:, 0])]
+    if cfg.use_xl:
+        return pins + [(b + "xl_0.q", b + "xlnet.layer.0.rel_attn.q", same)]
+    return pins + [(b + "pre_branch.ln1.weight", b + "stem.0.ln1.weight",
+                    channel)]
+
+
+def check_imported(tag: str, model, sd) -> int:
+    """Every leaf of `model`'s state_dict equals its reference key after
+    the rule's reshape, bit for bit (which shows the copy reached the
+    card), and the hand_pins leaves equal their keys as written there;
+    returns the leaf count."""
+    from vilco_tpu_torch.models.torch_import import RESHAPES, rules_for
+
+    own = model.state_dict()
+    rules = rules_for(model)
+    if set(rules) != set(own):
+        fail(f"{tag}: the rules do not cover the model's leaves")
+    for name, (key, kind) in rules.items():
+        want = RESHAPES[kind](sd[key]).to(own[name].device, own[name].dtype)
+        if not torch.equal(own[name], want):
+            fail(f"{tag}: {name} differs from {key} after {kind}")
+    pins = hand_pins(model)
+    for name, key, f in pins:
+        want = f(sd[key]).to(own[name].device, own[name].dtype)
+        if want.shape != own[name].shape or not torch.equal(own[name], want):
+            fail(f"{tag}: {name} is not {key} as the pins write it")
+    say(f"[{tag}] {len(own)} leaves equal their reference keys bit for "
+        f"bit; {len(pins)} of them also as hand_pins writes them")
+    return len(own)
+
+
+def reference_clip_matcher(cfg, dev, seed: int, compute_dtype):
+    """The frozen-BN ClipMatcher of `cfg` in the MAE geometry, its weights
+    and statistics from a seeded reference-named state_dict through
+    load_torch_clip_matcher, checked leaf by leaf; (model, leaves)."""
+    from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+    from vilco_tpu_torch.models.torch_import import load_torch_clip_matcher
+
+    model = ClipMatcher(cfg, device=dev, compute_dtype=compute_dtype,
+                        norm="frozen_bn", interp_feat_to=VQ_REF_INTERP,
+                        vit_final_norm=False)
+    sd = reference_state_dict(model, seed, dev)
+    load_torch_clip_matcher(sd, model)
+    return model, check_imported("vq_reference", model, sd)
+
+
+def vq_reference_kernels(dev, cfg):
+    """K1 at the ViT-B/16 shape (785 tokens: six full tiles of 128 and a
+    tail of 17, every key valid) and at the decoder's (the 16 x 16 grid as
+    256 tokens, 4 heads of 64), against the plain version, by CUDA events
+    and queued, SDPA and the bound beside; K1's backward at the HNM step's
+    decoder shape. Returns (errors, timings)."""
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        attention_fwd_cuda,
+        fused_attention_blc,
+        fused_attention_blc_plain,
+    )
+    from vilco_tpu_torch.models.clip_matcher import CQ_HEADS
+
+    rng = np.random.default_rng(SEED + 40)
+    chk = KernelChecks("vq_reference", ("attn", "attn_cq", "attn_bwd"))
+    bf16, f32 = torch.bfloat16, torch.float32
+    T = cfg.num_frames
+    Lv = (cfg.clip_size // cfg.patch_size) ** 2 + 1
+    Cv, Hv = cfg.vit_dim, cfg.vit_heads
+
+    def randn(*shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    # a request's clip and query calls in bf16, the parity's f32 call
+    for dtype, B in ((bf16, cfg.eval_windows * T), (bf16, cfg.eval_windows),
+                     (f32, VQ_REF_FRAMES)):
+        q, k, v = (randn(B, Lv, Cv, dtype=dtype) for _ in range(3))
+        m = torch.ones(B, Lv, dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            out = fused_attention_blc(q, k, v, m, Hv)
+            ref = fused_attention_blc_plain(q, k, v, m, Hv)
+        bh = lambda x: x.reshape(B, Lv, Hv, Cv // Hv).transpose(1, 2)
+        chk.report("attn", f"attention forward (ViT-B/{cfg.patch_size}) "
+                   f"B={B} T={Lv} "
+                   f"C={Cv} H={Hv}", dtype,
+                   output_errors(("out",), [out], [ref], FWD_TOL[dtype]),
+                   lambda: attention_fwd_cuda(q, k, v, m, Hv, False),
+                   lambda: fused_attention_blc_plain(q, k, v, m, Hv),
+                   attention_work(Lv, m, Cv, dtype, backward=False),
+                   lambda: F.scaled_dot_product_attention(bh(q), bh(k),
+                                                          bh(v)),
+                   is_top=(dtype, B) == (bf16, cfg.eval_windows * T),
+                   reps=5, also_queued=True)
+        del q, k, v, m, out, ref
+        torch.cuda.empty_cache()
+    # the decoder: the serving chunk's forward, the HNM step's backward
+    Lc, Cc = VQ_REF_INTERP ** 2, cfg.dim
+    b_serve, b_train = cfg.eval_windows * T, cfg.batch_size ** 2 * T
+    for which, B in (("forward", b_serve), ("backward", b_train)):
+        q, k, v = (randn(B, Lc, Cc, dtype=bf16) for _ in range(3))
+        m = torch.ones(B, Lc, dtype=torch.bool, device=dev)
+        bh = lambda x: x.reshape(B, Lc, CQ_HEADS, Cc // CQ_HEADS).transpose(
+            1, 2)
+        label = f"(cq_corr) B={B} T={Lc} C={Cc} H={CQ_HEADS}"
+        if which == "forward":
+            with torch.no_grad():
+                out = fused_attention_blc(q, k, v, m, CQ_HEADS)
+                ref = fused_attention_blc_plain(q, k, v, m, CQ_HEADS)
+            chk.report("attn_cq", f"attention forward {label}", bf16,
+                       output_errors(("out",), [out], [ref], FWD_TOL[bf16]),
+                       lambda: attention_fwd_cuda(q, k, v, m, CQ_HEADS,
+                                                  False),
+                       lambda: fused_attention_blc_plain(q, k, v, m,
+                                                         CQ_HEADS),
+                       attention_work(Lc, m, Cc, bf16, backward=False),
+                       lambda: F.scaled_dot_product_attention(
+                           bh(q), bh(k), bh(v)), is_top=True, reps=5)
+            del out, ref
+        else:
+            g = randn(B, Lc, Cc, dtype=bf16)
+            got = grads_of(lambda *a: fused_attention_blc(*a, m, CQ_HEADS),
+                           (q, k, v), g)
+            want = grads_of(
+                lambda *a: fused_attention_blc_plain(*a, m, CQ_HEADS),
+                (q, k, v), g)
+            o, lse = attention_fwd_cuda(q, k, v, m, CQ_HEADS, with_lse=True)
+            rows = output_errors(("dq", "dk", "dv"), got, want,
+                                 TRAIN_TOL[bf16])
+            del got, want
+            check_repeatable("vq_reference", f"attention backward {label}",
+                             lambda: attention_bwd_cuda(q, k, v, m, o, lse,
+                                                        g, CQ_HEADS))
+            chk.report("attn_bwd", f"attention backward {label}", bf16, rows,
+                       lambda: attention_bwd_cuda(q, k, v, m, o, lse, g,
+                                                  CQ_HEADS),
+                       backward_timer(lambda *a: fused_attention_blc_plain(
+                           *a, m, CQ_HEADS), (q, k, v), g),
+                       attention_work(Lc, m, Cc, bf16, backward=True),
+                       backward_timer(lambda *a: F.scaled_dot_product_attention(
+                           *(bh(x) for x in a)), (q, k, v), bh(g)),
+                       is_top=True, reps=5, queued=True)
+            del g, o, lse
+        del q, k, v, m
+        torch.cuda.empty_cache()
+    if not chk.ok:
+        fail("vq_reference: a kernel disagrees with its plain version")
+    return chk.errs, chk.top
+
+
+def vq_reference_parity(dev, cfg):
+    """The full-width reference-geometry ClipMatcher in f32 on a
+    VQ_REF_FRAMES-frame clip plus a query with its query-frame box (the ROI
+    on): the card with its kernels against the CPU with the plain versions,
+    on the box deltas and the logits, within PARITY_RTOL, with a TF32
+    control that must read above it."""
+    model, leaves = reference_clip_matcher(cfg, "cpu", SEED + 41,
+                                           torch.float32)
+    model.eval()
+    rng = np.random.default_rng(SEED + 42)
+    S = cfg.clip_size
+    clip = torch.from_numpy(rng.random((1, VQ_REF_FRAMES, S, S, 3),
+                                       np.float32))
+    query = torch.from_numpy(rng.random((1, S, S, 3), np.float32))
+    boxes = torch.tensor(VQ_REF_BOXES)
+
+    def deltas(out):
+        refine = torch.cat([out["center"], 2 * out["hw"]], -1).cpu()
+        return {"deltas": refine - model.anchors_xyhw,
+                "logits": out["prob"].cpu()}
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = deltas(model(clip, query, query_frame_bbox=boxes))
+        cpu_s = time.perf_counter() - t0
+        plain = deltas(model(clip, query))
+        gpu = copy.deepcopy(model).to(dev)
+        run = lambda: deltas(gpu(clip.to(dev), query.to(dev),
+                                 query_frame_bbox=boxes.to(dev)))
+        out = run()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = run()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    worst, control = 0.0, 0.0
+    for key, r in ref.items():
+        for o in (out[key], tf32[key]):
+            if o.shape != r.shape or not torch.isfinite(o).all():
+                fail(f"vq_reference: {key} shape {tuple(o.shape)} or "
+                     "non-finite")
+        rel = lambda o: ((o - r).abs().max() / r.abs().max()).item()
+        worst, control = max(worst, rel(out[key])), max(control,
+                                                        rel(tf32[key]))
+        say(f"[vq_reference] parity {key} {tuple(r.shape)} f32 card vs CPU:"
+            f" max rel err {rel(out[key]):.3e} (tol {PARITY_RTOL:g}); TF32 "
+            f"{rel(tf32[key]):.3e}; max |ref| {r.abs().max().item():.4f}; "
+            f"the query ROI moves it by {rel(plain[key]):.3e}")
+    n = sum(p.numel() for p in model.parameters())
+    nb = sum(b.numel() for _, b in model.named_buffers()
+             if b.dtype.is_floating_point and b.dim() == 1)
+    say(f"[vq_reference] the reference geometry: ViT-B/{cfg.patch_size} "
+        f"({(S // cfg.patch_size) ** 2 + 1} tokens a frame, grid "
+        f"{S // cfg.patch_size} -> {VQ_REF_INTERP}), frozen BN, no final "
+        f"ViT norm, query ROI on; {leaves} leaves imported, {n} "
+        f"parameters and {nb} BN statistics; the CPU forward "
+        f"{cpu_s:.1f} s; control, TF32 allowed on the card: max rel err "
+        f"{control:.3e} (must exceed tol {PARITY_RTOL:g})")
+    if worst > PARITY_RTOL:
+        fail("vq_reference: f32 parity out of tolerance")
+    if control <= PARITY_RTOL:
+        fail("vq_reference: the check does not see TF32: tolerance too loose")
+    del gpu, model
+    torch.cuda.empty_cache()
+
+
+def vq_reference_train(dev, cfg):
+    """VQ_REF_STEPS bf16 HNM steps at the config's batch with frozen BN:
+    finite losses, the BN statistics bit-unchanged, every bn_scale and
+    bn_bias moved; ms a step."""
+    from vilco_tpu_torch.data.synthetic import make_vq_batch
+    from vilco_tpu_torch.models.clip_matcher import frozen_bn_stats
+    from vilco_tpu_torch.train.engine import batch_to
+    from vilco_tpu_torch.train.vq_engine import (
+        init_vq_train_state,
+        make_vq_train_step,
+    )
+
+    model, _ = reference_clip_matcher(cfg, dev, SEED + 43, torch.bfloat16)
+    st = init_vq_train_state(model, cfg, seed=SEED, device=dev)
+    step = make_vq_train_step(cfg)
+    batch = batch_to(make_vq_batch(np.random.default_rng(SEED + 44),
+                                   cfg.batch_size, cfg), dev)
+    stats0 = {n: b.clone() for n, b in frozen_bn_stats(model)}
+    norms = {n: p.detach().clone() for n, p in model.named_parameters()
+             if n.endswith(("bn_scale", "bn_bias"))}
+    walls, losses = [], []
+    for _ in range(VQ_REF_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(st, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: v.item() for k, v in met.items()})
+    B = cfg.batch_size
+    say(f"[vq_reference] train: {VQ_REF_STEPS} bf16 HNM steps at batch {B} "
+        f"x {cfg.num_frames} frames ({B * B} pairs), frozen BN, "
+        f"{len(st.opt.params)} trainable leaves: "
+        + ", ".join(f"{w:.3f}" for w in walls) + " ms (the first with the "
+        f"warm-up); final_loss "
+        + ", ".join(f"{m['final_loss']:.6f}" for m in losses)
+        + f"; grad_norm " + ", ".join(f"{m['grad_norm']:.4f}" for m in losses)
+        + f" [{CARD}]")
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        fail("vq_reference: a loss is not finite")
+    changed = [n for n, b in frozen_bn_stats(model)
+               if not torch.equal(b, stats0[n])]
+    if changed or any(n in st.opt.names for n in stats0):
+        fail(f"vq_reference: BN statistics trained or changed: {changed}")
+    still = [n for n, p in model.named_parameters()
+             if n in norms and torch.equal(p, norms[n])]
+    if still:
+        fail(f"vq_reference: bn_scale/bn_bias did not move: {still}")
+    say(f"[vq_reference] the {len(stats0)} BN statistics are bit-unchanged "
+        f"after the steps; all {len(norms)} bn_scale and bn_bias leaves "
+        "moved")
+    del model, st, batch
+    torch.cuda.empty_cache()
+
+
+def point_transformer_import(dev, tag: str, full, request, seed: int):
+    """The MQ (graft) or NLQ flagship of `full` at full width, its weights
+    from a seeded reference-named state_dict through the port's importer,
+    strictly, each leaf checked bit for bit; then one bf16 serving request
+    (forward + decode_and_nms_batch): finite, sorted detections."""
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.models.torch_import import (
+        load_torch_nlq_point_transformer,
+        load_torch_point_transformer,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.ops.decode import decode_and_nms_batch
+
+    cfg, t = full.model, full.test_cfg
+    model = PointTransformer(cfg, device=dev)
+    sd = reference_state_dict(model, seed, dev)
+    t0 = time.perf_counter()
+    (load_torch_nlq_point_transformer if cfg.variant == "nlq"
+     else load_torch_point_transformer)(sd, model)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    leaves = check_imported(tag, model, sd)
+    n = sum(p.numel() for p in model.parameters())
+    model = model.eval().to(torch.bfloat16)
+    del sd
+    points = torch.from_numpy(generate_points(
+        level_lengths(cfg), cfg.fpn_strides, cfg.regression_range)).to(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model(*request)
+        det = decode_and_nms_batch(
+            points, out["cls_logits"], out["offsets"], out["fpn_mask"],
+            torch.ones(cfg.num_classes, dtype=torch.bool, device=dev),
+            num_classes=cfg.num_classes, pre_nms_topk=t.pre_nms_topk,
+            pre_nms_thresh=t.pre_nms_thresh,
+            duration_thresh=t.duration_thresh, max_seg_num=t.max_seg_num,
+            min_score=t.min_score, nms_sigma=t.nms_sigma,
+            voting_thresh=t.voting_thresh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ok = all(torch.isfinite(x).all() for x in (
+        out["cls_logits"], out["offsets"], det.segs, det.scores))
+    say(f"[vq_reference] {tag}: {leaves} leaves ({n} parameters) loaded "
+        f"strictly from a seeded reference-named state_dict in "
+        f"{load_s:.2f} s, each equal to its key after its reshape, bit for "
+        f"bit; one bf16 request at batch {request[0].shape[0]}, "
+        f"T={cfg.max_seq_len}: {ms:.3f} ms (the first, with the warm-up), "
+        f"outputs {'finite' if ok else 'NOT FINITE'}, "
+        f"{int(det.valid.sum())} valid detections [{CARD}]")
+    if not ok:
+        fail(f"vq_reference: {tag}'s request is not finite")
+    del model, out, det
+    torch.cuda.empty_cache()
+
+
+def phase_vq_reference(dev):
+    """The VQ ClipMatcher in the reference's geometry (vq_reference_config:
+    MAE ViT-B/16, frozen BN, the grid resized to 16 x 16, the query ROI),
+    its weights through the port's importer: K1 at its shapes, the f32
+    parity card vs CPU, then the main path with every kernel count set to 0
+    just before it: serving through predict_track (vq_serve's requests),
+    VQ_REF_STEPS frozen-BN train steps, and the MQ graft and NLQ flagships
+    loaded through their importers at full width, one request each.
+    Returns (errors, timings, launches over the main path)."""
+    from vilco_tpu_torch.core.config import flagship_config, \
+        nlq_flagship_config
+    from vilco_tpu_torch.kernels import (
+        adamw,
+        attention,
+        banded_attention,
+        dwconv,
+        frame_band,
+        xl_attention,
+    )
+
+    cfg = vq_reference_config()
+    errs, top = vq_reference_kernels(dev, cfg)
+    vq_reference_parity(dev, cfg)
+    kernels = (attention.fused_attention_blc, attention.attention_bwd_cuda,
+               frame_band.frame_band_attention,
+               frame_band.frame_band_bwd_cuda, adamw.adamw_update_multi,
+               xl_attention.xl_rel_attention, dwconv.fused_dwconv_qkv,
+               banded_attention.banded_attention_blc)
+    for k in kernels:
+        k.launches = 0
+    model, _ = reference_clip_matcher(cfg, dev, SEED + 45, torch.bfloat16)
+    phase_vq_serve(dev, kernels[:1] + kernels[2:3], None, cfg=cfg,
+                   tag="vq_reference_serve", model=model.eval())
+    del model
+    vq_reference_train(dev, cfg)
+    mq, nlq = flagship_config(), nlq_flagship_config()
+    point_transformer_import(dev, "MQ graft flagship", mq,
+                             mq_requests(mq.model, dev, n=1)[0], SEED + 46)
+    point_transformer_import(
+        dev, "NLQ flagship", nlq,
+        nlq_inputs(np.random.default_rng(SEED + 47), B_NLQ_SERVE, nlq, dev,
+                   torch.bfloat16), SEED + 48)
+    launches = {k.__name__: k.launches for k in kernels}
+    say("[vq_reference] launches over the main path (serving, the train "
+        "steps, the MQ and NLQ requests): "
+        + ", ".join(f"{n} {v}" for n, v in launches.items()))
+    missing = [n for n, v in launches.items() if v == 0]
+    if missing:
+        fail(f"vq_reference: {missing} never launched on the main path")
+    return errs, top, launches
 
 
 # ---- the attention ablations: head-major (K1n) and flash (K1f) attention,
@@ -4813,6 +5324,11 @@ def main():
     # vq_vilco.yaml's episode through bin/train_cl.py and bin/vq_infer.py
     vq_episode = phase_vq_episode(dev)
     took("vq_episode")
+    # the reference's own checkpoints: VQ in its geometry (frozen BN, MAE
+    # ViT-B/16 and its grid resize, the query ROI) through the importer,
+    # the MQ and NLQ importers at full width
+    rerrs, rtop, ref_launches = phase_vq_reference(dev)
+    took("vq_reference")
 
     ab = attention_ablations(dev, mq)
     took("attention ablations")
@@ -4823,12 +5339,14 @@ def main():
         ("fused_attention_blc", "vilco_tpu_torch/csrc/attention_blc.cu",
          "vilco_tpu/kernels/attention.py:359", errs["attn"]
          + nerrs["attn"] + verrs["attn"] + verrs["attn_cq"]
-         + yerrs["attn_text"] + yerrs["attn_cross"], top["attn"],
+         + yerrs["attn_text"] + yerrs["attn_cross"] + rerrs["attn"]
+         + rerrs["attn_cq"], top["attn"],
          serve_launches["fused_attention_blc"]),
         ("attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc_bwd.cu",
          "vilco_tpu/kernels/attention.py:383",
          terrs["attn_bwd"] + nerrs["attn_bwd"] + verrs["attn_bwd"]
-         + yerrs["attn_bwd_text"] + yerrs["attn_bwd_cross"],
+         + yerrs["attn_bwd_text"] + yerrs["attn_bwd_cross"]
+         + rerrs["attn_bwd"],
          ttop["attn_bwd"],
          train_launches["attention_bwd_cuda"]),
         ("xl_rel_attention", "vilco_tpu_torch/csrc/xl_rel_attention.cu",
@@ -4908,6 +5426,8 @@ def main():
             entry["launches_nlq_episode"] = nlq_episode[fn]
         if fn in vq_episode:
             entry["launches_vq_episode"] = vq_episode[fn]
+        if fn in ref_launches:
+            entry["launches_vq_reference"] = ref_launches[fn]
         if fn in nlq_serve:
             entry["launches_nlq_serve"] = nlq_serve[fn]
         if fn in nlq_train:
@@ -4937,9 +5457,12 @@ def main():
             entry["vq_vit"] = vtop["attn"]
             entry["vq_cq_corr"] = vtop["attn_cq"]
             entry["nlq_cross"] = ntop["attn"]
+            entry["vq_reference_vit"] = rtop["attn"]      # ViT-B/16, 785
+            entry["vq_reference_cq_corr"] = rtop["attn_cq"]
         if fn == "attention_bwd_cuda":     # the VQ decoder; NLQ's video-
             entry["vq_cq_corr"] = vtop["attn_bwd"]   # to-text cross-attention
             entry["nlq_cross"] = ntop["attn_bwd"]
+            entry["vq_reference_cq_corr"] = rtop["attn_bwd"]
         if fn == "fused_attention":
             entry["launches_train"] = ab["train"]["pallas_naive"][fn]
         if fn == "flash_attention":        # the MQ step; the flash ViT
@@ -4962,7 +5485,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
                          ["--vq-train"], ["--mq-yaml"], ["--cl-methods"],
                          ["--mq-episode"], ["--nlq-episode"],
-                         ["--vq-episode"]):
+                         ["--vq-episode"], ["--vq-reference"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4984,6 +5507,8 @@ if __name__ == "__main__":
             phase_nlq_episode(dev)
         if sys.argv[1] == "--vq-episode":
             phase_vq_episode(dev)
+        if sys.argv[1] == "--vq-reference":
+            phase_vq_reference(dev)
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

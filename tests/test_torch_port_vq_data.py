@@ -1,7 +1,7 @@
 """The VQ task's data and metrics in the port against the JAX package on the
 CPU: the copies (data/vq_frames.py, evals/vq_metrics.py), the augmentation
 (data/vq_augment.py), the ViT checkpoint import, and the synthetic split's
-window deviation.
+windows at the flagship window, which wrap around the clip as JAX's do.
 
 Limits: the copies exact; each augmentation apply under JAX's draws
 (recomputed here with jax.random from JAX's keys) within 1e-6 of JAX's
@@ -353,32 +353,53 @@ def test_torch_vit_checkpoint_loads_as_in_jax(tmp_path):
 
 
 def test_synthetic_windows_stay_in_the_clip_at_the_flagship_window():
-    """At configs/vq_vilco.yaml's 30-frame window, JAX's synthetic split
-    (16-frame clips, bin/train_cl.py) starts training windows at frame -14
-    and numpy wraps their frames around; the port's split draws 60-frame
-    clips, whose windows lie in [0, 60); at the toy window both draw JAX's
-    16 frames."""
+    """At configs/vq_vilco.yaml's 30-frame window both packages draw JAX's
+    16-frame synthetic clips (bin/train_cl.py), so a training window starts
+    at frame -14 and numpy wraps its frames around, so every frame of a
+    window is still a frame of the clip (index mod 16): the port's window
+    indices, frames and labels equal JAX's on every sample of the split,
+    the wrapped frames' negative indices finding no box in either; the
+    sliding-window eval cuts the clip as JAX's predict_track does."""
     w = vq_flagship_config().num_frames
-    assert w == 30 and t_vq.synthetic_frames(w) == 60
-    assert t_vq.synthetic_frames(4) == t_vq.synthetic_frames(6) == 16
+    assert w == 30 and t_vq.SYNTHETIC_FRAMES == 16
     jtr, _ = j_vq.make_synthetic_vq_split(np.random.default_rng(42),
                                           num_tasks=2)
+    ttr, _ = t_vq.make_synthetic_vq_split(np.random.default_rng(42),
+                                          num_tasks=2)
+    assert ttr == jtr
+    S = 32
     runner = object.__new__(j_vq.VQEpisodeRunner)
-    runner.window = w
-    sample = jtr[0]["cat_0"][0]
-    idx = j_vq.VQEpisodeRunner._window_indices(runner, sample,
-                                               np.random.default_rng(0))
-    assert idx[0] == 16 - w == -14 and len(idx) == w
-    ttr, _ = t_vq.make_synthetic_vq_split(
-        np.random.default_rng(42), num_tasks=2,
-        num_frames=t_vq.synthetic_frames(w), window=w)
     port = object.__new__(t_vq.VQEpisodeRunner)
-    port.window = w
+    runner.window = port.window = w
+    runner.source = j_vq.SyntheticVQSource(S)
+    port.source = t_vq.SyntheticVQSource(S)
+    n_wrapped = 0
     for cats in ttr.values():
         for samples in cats.values():
             for s in samples:
-                for seed in range(4):
+                assert s["num_frames"] == 16
+                for seed in range(3):
+                    want = j_vq.VQEpisodeRunner._sample_window(
+                        runner, s, np.random.default_rng(seed))
+                    got = port._sample_window(s, np.random.default_rng(seed))
                     idx = port._window_indices(s, np.random.default_rng(seed))
-                    assert idx[0] >= 0 and idx[-1] < s["num_frames"] == 60
-    with pytest.raises(ValueError, match="shorter"):
-        port._window_indices(sample, np.random.default_rng(0))
+                    np.testing.assert_array_equal(
+                        idx, j_vq.VQEpisodeRunner._window_indices(
+                            runner, s, np.random.default_rng(seed)))
+                    assert idx[0] == 16 - w == -14 and len(idx) == w
+                    assert got.keys() == want.keys()
+                    for k in want:
+                        np.testing.assert_array_equal(got[k], want[k],
+                                                      err_msg=k)
+                    wrapped = idx < 0
+                    assert not got["clip_with_bbox"][wrapped].any()
+                    np.testing.assert_array_equal(
+                        got["clip"][wrapped],
+                        port.source.clip(s)[idx[wrapped] + 16])
+                    n_wrapped += int(wrapped.sum())
+    assert n_wrapped > 0
+    # serving a 16-frame clip: one window, its tail clipped to the last
+    # frame, as JAX's predict_track cuts it
+    idx, chunk = t_vq.window_chunks(16, w, 8)
+    np.testing.assert_array_equal(idx, np.minimum(np.arange(w), 15)[None])
+    assert chunk == 1

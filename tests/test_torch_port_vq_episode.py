@@ -242,8 +242,8 @@ def test_vq_stream_source_and_train_batches_equal_jax(f32_forwards,
 def test_vq_config_section_reads_and_writes_as_jax(tmp_path):
     """configs/vq_vilco.yaml's vq section: the port's config reads it
     (VQConfig equal to vq_flagship_config(), the runner's fields at their
-    defaults) and writes it back in JAX's layout; use_query_roi and a
-    field JAX's section lacks are refused."""
+    defaults) and writes it back in JAX's layout; use_query_roi is read
+    and written as JAX's, and a field JAX's section lacks is refused."""
     from vilco_tpu.core.config import Config as JConfig
     from vilco_tpu.core.config import load_config as j_load_config
 
@@ -253,8 +253,9 @@ def test_vq_config_section_reads_and_writes_as_jax(tmp_path):
     assert JConfig.from_dict(json.loads(json.dumps(port.to_dict()))).vq == (
         jcfg.vq)
     assert set(port.vq.to_dict()) == set(dataclasses.asdict(jcfg.vq))
-    with pytest.raises(ValueError, match="use_query_roi"):
-        VQConfig.from_dict({"use_query_roi": True})
+    roi = VQConfig.from_dict({"use_query_roi": True})
+    assert roi.use_query_roi and roi.to_dict() == VQCfg(
+        use_query_roi=True).to_dict()
     with pytest.raises(ValueError, match="eval_windows"):
         VQConfig.from_dict({"eval_windows": 4})
     assert Config().vq == VQConfig()

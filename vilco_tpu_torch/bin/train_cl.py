@@ -17,11 +17,9 @@ synthetic task split. The runner trains on the card (`--device`); without
 one it raises. Writes {workdir}/results.json and prints a JSON summary
 line.
 
-One deliberate difference from JAX: at a VQ window of more than 8 frames
-the synthetic split's clips are 2 x window frames long
-(tasks/vq.py::synthetic_frames), so that no training window starts below
-frame 0; JAX keeps 16-frame clips, and numpy wraps the frames of its
-negative start around.
+The VQ synthetic split's clips are 16 frames long at every window, as
+JAX's: at configs/vq_vilco.yaml's 30-frame window a training window
+starts at frame -14 and numpy wraps its frames around, in both packages.
 """
 
 from __future__ import annotations
@@ -369,9 +367,8 @@ def vq_runner_kwargs(args, cfg):
 
 def train_vq(p, args, cfg):
     """The VQ episode (vilco_tpu/bin/train_cl.py's --task vq): real
-    annotations through data/vq_frames.py, or the synthetic split (clips of
-    tasks/vq.py::synthetic_frames(window) frames); `--joint` merges the
-    tasks into one."""
+    annotations through data/vq_frames.py, or the synthetic split (JAX's:
+    16-frame clips at any window); `--joint` merges the tasks into one."""
     import numpy as np
 
     from vilco_tpu_torch.tasks.vq import (
@@ -380,7 +377,6 @@ def train_vq(p, args, cfg):
         VQTaskStream,
         make_synthetic_vq_split,
         merge_vq_tasks,
-        synthetic_frames,
     )
 
     vqc, kw = vq_runner_kwargs(args, cfg)
@@ -417,8 +413,7 @@ def train_vq(p, args, cfg):
         window = args.vq_window or (vqc.num_frames if vqc else 4)
         stream = VQTaskStream(*make_synthetic_vq_split(
             np.random.default_rng(cfg.init_rand_seed),
-            num_tasks=args.num_tasks or 3,
-            num_frames=synthetic_frames(window), window=window))
+            num_tasks=args.num_tasks or 3))
         source = SyntheticVQSource(frame_size=frame_size)
         memory = 8 if args.method in ("icarl", "rehearsal") else 0
     if args.joint:

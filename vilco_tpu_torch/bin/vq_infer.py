@@ -13,9 +13,9 @@ frame sources need cv2):
   python -m vilco_tpu_torch.bin.vq_infer --workdir ./runs/vq \\
       --annotations vq_val.json --clip-dir ./clips   # or --images-dir
 
-The synthetic split is the one train_cl --task vq --synthetic draws at the
-workdir's window (tasks/vq.py::synthetic_frames), from numpy's
-default_rng(--seed), 0 by default as JAX's. The runner runs on the card
+The synthetic split is the one train_cl --task vq --synthetic draws (JAX's:
+16-frame clips at any window), from numpy's default_rng(--seed), 0 by
+default as JAX's. The runner runs on the card
 (`--device`); without one it raises.
 """
 
@@ -68,7 +68,6 @@ def main(argv=None):
         VQEpisodeRunner,
         VQTaskStream,
         make_synthetic_vq_split,
-        synthetic_frames,
     )
 
     # the training runner's model-defining settings: the rebuilt
@@ -120,8 +119,7 @@ def main(argv=None):
         window = args.window if man else 4
         frame_size = args.frame_size if man else 32
         stream = VQTaskStream(*make_synthetic_vq_split(
-            np.random.default_rng(args.seed), num_tasks=args.num_tasks,
-            num_frames=synthetic_frames(window), window=window))
+            np.random.default_rng(args.seed), num_tasks=args.num_tasks))
         src = SyntheticVQSource(frame_size=frame_size)
     runner = VQEpisodeRunner(stream, src, args.workdir, window=window,
                              frame_size=frame_size, **kw)

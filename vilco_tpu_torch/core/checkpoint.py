@@ -153,17 +153,19 @@ def reg_tasks_of(reg_list) -> list:
 
 @torch.no_grad()
 def load_params_into(path: str, model: torch.nn.Module) -> int:
-    """Copy a checkpoint's params into `model`'s parameters in place (their
-    storage, e.g. the optimizer's flat buffer, is kept); a leaf that is
-    missing or of another shape keeps its fresh value, as JAX's
+    """Copy a checkpoint's params into `model`'s parameters and persistent
+    buffers (the frozen-BN statistics, leaves of JAX's tree) in place
+    (their storage, e.g. the optimizer's flat buffer, is kept); a leaf that
+    is missing or of another shape keeps its fresh value, as JAX's
     `--init-from` does. Returns the number of leaves loaded."""
     src = params_of(load_checkpoint(path))
+    own = model.state_dict(keep_vars=True)
     loaded = 0
-    for name, p in model.named_parameters():
+    for name, p in own.items():
         cand = src.get(name)
         if cand is not None and tuple(cand.shape) == tuple(p.shape):
             p.copy_(cand.to(p.device, p.dtype))
             loaded += 1
     log.info("init-from %s: %d leaves loaded, %d kept fresh", path, loaded,
-             len(list(model.parameters())) - loaded)
+             len(own) - loaded)
     return loaded

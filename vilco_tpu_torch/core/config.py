@@ -240,8 +240,9 @@ class VQConfig:
     1). `augment` switches the train batches' augmentation on
     (data/vq_augment.py); `vit_ckpt` is a DINO/DINOv2 checkpoint for the
     ViT (models/vit.py::load_torch_vit_checkpoint); `categories_per_task`
-    groups real annotations into tasks. The query-frame ROI resample is
-    not ported: `use_query_roi` true raises."""
+    groups real annotations into tasks. `use_query_roi` resamples the
+    query's features onto its query-frame box when the model is given one
+    (models/clip_matcher.py)."""
     dim: int = 256
     clip_size: int = 448
     query_size: int = 448
@@ -280,9 +281,6 @@ class VQConfig:
         if self.vit_attn_impl not in VIT_ATTN_IMPLS:
             raise ValueError(f"vit_attn_impl {self.vit_attn_impl!r}: one of "
                              f"{VIT_ATTN_IMPLS}")
-        if self.use_query_roi:
-            raise ValueError("vq.use_query_roi: the query-frame ROI resample "
-                             "is not ported (ROADMAP §1 item 5)")
 
     def to_dict(self) -> Dict[str, Any]:
         """JAX's `VQCfg.to_dict()` layout: every field but RUNNER_FIELDS."""

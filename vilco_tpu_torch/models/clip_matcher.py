@@ -7,17 +7,26 @@ self-attention over (T x R x R) tokens with a +-w frame band -> anchor head
 Layouts follow the JAX model at the module boundaries (channels-last frames
 and grids, (B, L, C) tokens); the conv stack runs NCHW inside. The forward
 computes in `compute_dtype` (bf16 on the serving and training paths) with
-f32 master parameters, GroupNorm statistics in f32, and f32 outputs. The
-dense attentions (ViT, query/frame) run through kernels/attention.py (the
-ViT on K1, or on K1f with `cfg.vit_attn_impl="flash"`), the
-frame-banded one through kernels/frame_band.py, the ViT's MLP optionally
-through kernels/mlp.py. Parameter names follow the Flax tree
-(models/convert.py maps it). The query-ROI resample, the frozen-BN norm and
-the MAE backbone path are not ported.
+f32 master parameters, the norms in f32, and f32 outputs. The dense
+attentions (ViT, query/frame) run through kernels/attention.py (the ViT on
+K1, or on K1f with `cfg.vit_attn_impl="flash"`), the frame-banded one
+through kernels/frame_band.py, the ViT's MLP optionally through
+kernels/mlp.py. Parameter names follow the Flax tree (models/convert.py
+maps it).
+
+The reference's own checkpoints (models/torch_import.py) run in its
+geometry: `norm="frozen_bn"` (each conv block's BatchNorm in eval mode on
+imported running statistics, which are buffers here), `interp_feat_to`
+(the ViT's patch grid resized to S x S, bilinear with antialiasing, as
+JAX's jax.image.resize) and `vit_final_norm=False` (the MAE ViT's tokens
+taken without the final LayerNorm). With `cfg.use_query_roi` a given
+query-frame box resamples the query's features onto it
+(ops/roi_align.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -33,11 +42,15 @@ from vilco_tpu_torch.models.layers import LayerNorm, Linear, _dropout
 from vilco_tpu_torch.models.vit import LN_EPS, ViT, Conv2dSame
 from vilco_tpu_torch.ops.activations import gelu
 from vilco_tpu_torch.ops.anchors import generate_anchors, xyhw_to_xyxy
+from vilco_tpu_torch.ops.masked import wide
+from vilco_tpu_torch.ops.roi_align import roi_align_2d
 
 N_ANCHORS = 12       # 4 base sizes x 3 aspect ratios
 CQ_HEADS = 4         # the query/frame decoder layer
 ST_HEADS = 8         # the spatio-temporal encoder layers
 LEAKY_SLOPE = 0.01   # Flax's leaky_relu
+BN_EPS = 1e-5        # torch's BatchNorm2d epsilon
+NORMS = ("group", "frozen_bn")
 
 
 def positional_encoding_3d(d_model: int, depth: int, height: int,
@@ -62,20 +75,41 @@ def positional_encoding_3d(d_model: int, depth: int, height: int,
 
 
 class ConvBlock2D(nn.Module):
-    """3x3 'SAME' conv + GroupNorm(min(32, C), eps 1e-6, in f32, cast back)
-    + leaky ReLU, on NCHW."""
+    """3x3 'SAME' conv + norm + leaky ReLU, on NCHW. `norm` "group":
+    GroupNorm(min(32, C), eps 1e-6, in f32, cast back); "frozen_bn": torch's
+    eval-mode BatchNorm2d, the parameters `bn_scale` and `bn_bias` and the
+    running statistics `bn_mean` and `bn_var` (buffers: no gradient, no
+    optimizer state, in the state_dict under JAX's leaf names) folded into
+    one multiply-add in f32 (eps 1e-5), cast back."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 norm: str = "group"):
         super().__init__()
-        self.groups = min(32, features)
+        if norm not in NORMS:
+            raise ValueError(f"norm {norm!r}: one of {NORMS}")
         self.conv = Conv2dSame(cin, features, 3, stride)
-        self.norm = nn.GroupNorm(self.groups, features, eps=LN_EPS)
+        self.groups = min(32, features)
+        if norm == "group":
+            self.norm = nn.GroupNorm(self.groups, features, eps=LN_EPS)
+        else:
+            self.norm = None
+            self.bn_scale = nn.Parameter(torch.ones(features))
+            self.bn_bias = nn.Parameter(torch.zeros(features))
+            self.register_buffer("bn_mean", torch.zeros(features))
+            self.register_buffer("bn_var", torch.ones(features))
 
     def forward(self, x):
         dt = x.dtype
         x = self.conv(x)
-        x = F.group_norm(x.float(), self.groups, self.norm.weight.float(),
-                         self.norm.bias.float(), LN_EPS).to(dt)
+        if self.norm is not None:
+            x = F.group_norm(x.float(), self.groups,
+                             self.norm.weight.float(),
+                             self.norm.bias.float(), LN_EPS).to(dt)
+        else:
+            mult = self.bn_scale * torch.rsqrt(self.bn_var + BN_EPS)
+            shift = self.bn_bias - self.bn_mean * mult
+            x = (x.float() * mult[:, None, None]
+                 + shift[:, None, None]).to(dt)
         return F.leaky_relu(x, LEAKY_SLOPE)
 
 
@@ -141,16 +175,16 @@ class AnchorHead(nn.Module):
     bbox deltas (B, h*w*12, 4) and occupancy logits (B, h*w*12)."""
 
     def __init__(self, dim: int, in_res: int, out_res: int,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2, norm: str = "group"):
         super().__init__()
         self.dim, self.dropout = dim, dropout
         self.n_up = int(math.log2(out_res // in_res))
         for i in range(self.n_up):
             self.add_module(f"up_{i}", nn.ConvTranspose2d(dim, dim, 4, 2, 1))
-        self.in_conv = ConvBlock2D(dim, 2 * dim)
+        self.in_conv = ConvBlock2D(dim, 2 * dim, norm=norm)
         for i in range(3):
-            self.add_module(f"reg_{i}", ConvBlock2D(dim, dim))
-            self.add_module(f"cls_{i}", ConvBlock2D(dim, dim))
+            self.add_module(f"reg_{i}", ConvBlock2D(dim, dim, norm=norm))
+            self.add_module(f"cls_{i}", ConvBlock2D(dim, dim, norm=norm))
         self.reg_head = Conv2dSame(dim, N_ANCHORS * 4, 3)
         self.cls_head = Conv2dSame(dim, N_ANCHORS, 3)
 
@@ -169,6 +203,13 @@ class AnchorHead(nn.Module):
         out_cls = self.cls_head(feat_cls).permute(0, 2, 3, 1)
         B = out_reg.shape[0]
         return out_reg.reshape(B, -1, 4), out_cls.reshape(B, -1)
+
+
+def frozen_bn_stats(model: nn.Module):
+    """[(name, buffer)] of the frozen-BN running statistics (`bn_mean`,
+    `bn_var`) of `model`, in state_dict order."""
+    return [(n, b) for n, b in model.named_buffers()
+            if n.rsplit(".", 1)[-1] in ("bn_mean", "bn_var")]
 
 
 def init_clip_matcher_(model: "ClipMatcher",
@@ -204,31 +245,39 @@ class ClipMatcher(nn.Module):
     masters, and the forward computes in `compute_dtype` (bf16 unless
     asked otherwise, as the JAX model's default). With
     `cfg.freeze_backbone` the ViT's parameters take no gradient and its
-    forward runs under no_grad."""
+    forward (and the grid resize) runs under no_grad. `norm`,
+    `interp_feat_to` and `vit_final_norm` are the JAX model's fields of
+    the same names (module docstring), which JAX's vq config section does
+    not carry either: the grid resize to interp_feat_to x interp_feat_to
+    also sets the number of stride-2 down heads to R."""
 
     def __init__(self, cfg: VQConfig, use_fused_mlp: bool = False,
                  generator: torch.Generator | None = None, device="cuda",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 norm: str = "group", interp_feat_to: int | None = None,
+                 vit_final_norm: bool = True):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.norm, self.interp_feat_to = norm, interp_feat_to
         dim, R = cfg.dim, cfg.resolution_transformer
         self.backbone = ViT(cfg.patch_size, cfg.vit_dim, cfg.vit_depth,
                             cfg.vit_heads, cfg.clip_size, use_fused_mlp,
-                            cfg.vit_attn_impl)
-        self.reduce1 = ConvBlock2D(cfg.vit_dim, dim)
-        self.reduce2 = ConvBlock2D(dim, dim)
+                            cfg.vit_attn_impl, final_norm=vit_final_norm)
+        self.reduce1 = ConvBlock2D(cfg.vit_dim, dim, norm=norm)
+        self.reduce2 = ConvBlock2D(dim, dim, norm=norm)
         self.cq_corr = DecoderLayer(dim, CQ_HEADS, 4 * dim)
-        feat_res = cfg.clip_size // cfg.patch_size
+        feat_res = interp_feat_to or cfg.clip_size // cfg.patch_size
         self.n_down = max(0, int(math.log2(max(feat_res // R, 1))))
         for i in range(self.n_down):
-            self.add_module(f"down_{i}", ConvBlock2D(dim, dim, stride=2))
+            self.add_module(f"down_{i}", ConvBlock2D(dim, dim, stride=2,
+                                                     norm=norm))
         for i in range(cfg.num_transformer):
             self.add_module(f"st_{i}", EncoderLayer(
                 dim, ST_HEADS, 8 * dim, fr=R * R,
                 band_w=cfg.window_transformer // 2))
         self.head = AnchorHead(dim, R, cfg.resolution_anchor_feat,
-                               cfg.dropout)
+                               cfg.dropout, norm)
         anchors = generate_anchors(cfg.clip_size, cfg.resolution_anchor_feat)
         xyhw = anchors / cfg.clip_size
         self.register_buffer("anchors_xyhw", torch.from_numpy(xyhw),
@@ -245,20 +294,44 @@ class ClipMatcher(nn.Module):
         self.to(device)
 
     def extract(self, images):
-        """Frames (N, H, W, 3) -> ViT patch grid (N, h, w, vit_dim), with no
-        gradient when the backbone is frozen."""
-        if self.cfg.freeze_backbone:
-            with torch.no_grad():
-                return self.backbone(images)
-        return self.backbone(images)
+        """Frames (N, H, W, 3) -> ViT patch grid (N, h, w, vit_dim), resized
+        to interp_feat_to x interp_feat_to if set (in f32 or wider, cast
+        back), with no gradient when the backbone is frozen."""
+        with (torch.no_grad() if self.cfg.freeze_backbone
+              else contextlib.nullcontext()):
+            feats = self.backbone(images)
+            if self.interp_feat_to:
+                S = self.interp_feat_to
+                feats = F.interpolate(
+                    wide(feats.permute(0, 3, 1, 2)), size=(S, S),
+                    mode="bilinear", align_corners=False, antialias=True,
+                ).to(feats.dtype).permute(0, 2, 3, 1)
+        return feats
+
+    def query_roi(self, query_feat, query_frame_bbox, h: int, w: int):
+        """The query's grid (B, h', w', C) resampled onto its query-frame
+        box (B, 4; normalized xyxy) scaled to the clip's (h, w) grid, back
+        to (h, w) by roi_align_2d in f32."""
+        qb = query_frame_bbox.float()
+        scale = torch.tensor([w, h, w, h], dtype=torch.float32,
+                             device=qb.device)
+        rois = torch.cat([torch.arange(qb.shape[0], dtype=torch.float32,
+                                       device=qb.device)[:, None],
+                          qb * scale], 1)
+        return roi_align_2d(query_feat.float(), rois, (h, w)).to(
+            query_feat.dtype)
 
     def match(self, clip_feat, query_feat, B: int, T: int, hnm: bool = False,
-              rng=None):
+              rng=None, query_frame_bbox=None):
         """Patch grids of the B*T clip frames (B*T, h, w, C) and the B
         queries (B, h, w, C) -> the output dict. hnm pairs every clip i with
-        every query j (clip index slowest): B*B outputs."""
+        every query j (clip index slowest): B*B outputs. With
+        `cfg.use_query_roi`, a `query_frame_bbox` (B, 4) resamples the
+        queries' grids first (`query_roi`)."""
         dim, R = self.cfg.dim, self.cfg.resolution_transformer
         h, w = clip_feat.shape[1:3]
+        if self.cfg.use_query_roi and query_frame_bbox is not None:
+            query_feat = self.query_roi(query_feat, query_frame_bbox, h, w)
         reduce = lambda x: self.reduce2(self.reduce1(x.permute(0, 3, 1, 2)))
         cf, qf = reduce(clip_feat), reduce(query_feat)      # NCHW
         if hnm:
@@ -291,12 +364,14 @@ class ClipMatcher(nn.Module):
                 "prob": prob, "anchors_xyxy": self.anchors_xyxy}
 
     def forward(self, clip, query, from_features: bool = False,
-                hnm: bool = False, rng=None, marks=None):
+                hnm: bool = False, rng=None, marks=None,
+                query_frame_bbox=None):
         """clip (B, T, H, W, 3) frames or (B, T, h, w, C) features; query
         (B, H, W, 3) or (B, h, w, C). `rng` (a torch.Generator on the
         inputs' device) switches on the head's dropout in training mode.
         `marks`, if a list, receives ("vit", mark) between the backbone and
-        the matcher."""
+        the matcher. `query_frame_bbox` (B, 4), the queries' boxes in
+        normalized xyxy, is read with `cfg.use_query_roi`."""
         dt = self.compute_dtype
         B, T = clip.shape[:2]
         clip = clip.to(dt).reshape((B * T,) + tuple(clip.shape[2:]))
@@ -305,4 +380,4 @@ class ClipMatcher(nn.Module):
             clip, query = self.extract(clip), self.extract(query)
         mark(marks, "vit", clip.device)
         return self.match(clip, query, B, T, hnm,
-                          rng if self.training else None)
+                          rng if self.training else None, query_frame_bbox)

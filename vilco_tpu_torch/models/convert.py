@@ -22,6 +22,13 @@ is a rename of the leaf plus a layout change:
   pe_3d, the L2P `prompt` and `prompt_key`, unshifted)
                                       -> kept as it is
 
+The frozen-BN conv blocks' `bn_scale` and `bn_bias` are parameters of the
+port, and their running statistics `bn_mean` and `bn_var`, parameters of
+JAX's tree, are buffers of the port under the same names: both are in the
+port's state_dict, so `load_jax_params` fills them strictly. A gradient
+tree of JAX holds the statistics' gradients, which the port does not take
+(JAX's optimizer zeroes their updates).
+
 The time adapters' Dense kernels (t_in, 5 t_in) and (5 t_in, t_in / 2) act
 on the time axis; they map as any Dense kernel, and the port's TimeAdapter
 applies its Linear layers to the transposed input.
@@ -129,8 +136,9 @@ def adam_state_from_jax(count, mu: Mapping[str, Any],
 
 def load_jax_params(model: nn.Module, flax_params: Mapping[str, Any]) -> None:
     """Load Flax params into `model`, strictly: every Flax leaf must land on
-    a port parameter of the same shape and every port parameter must be
-    filled. Raises with the names that do not match."""
+    a leaf of the port's state_dict (a parameter, or a frozen-BN statistic
+    buffer) of the same shape and every such leaf must be filled. Raises
+    with the names that do not match."""
     sd = params_from_jax(flax_params)
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))

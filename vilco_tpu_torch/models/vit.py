@@ -1,6 +1,9 @@
 """The VQ tracker's Vision Transformer (vilco_tpu/models/vit.py): a pre-LN
 ViT with DINO's parameter layout, returning the patch-token grid with the
-CLS token dropped and the final LayerNorm applied.
+CLS token dropped and the final LayerNorm applied (DINO's
+get_intermediate_layers), or with `final_norm=False` the tokens straight
+after the blocks, as the reference's MAE path's forward_features returns
+them; that ViT builds no `norm`.
 
 Attention runs through kernels/attention.py with every key valid: the
 channels-last kernel K1 (`attn_impl="pallas"`) or the flash kernel K1f
@@ -25,6 +28,7 @@ from vilco_tpu_torch.kernels.attention import (
 )
 from vilco_tpu_torch.kernels.mlp import fused_mlp
 from vilco_tpu_torch.models.layers import LayerNorm, Linear
+from vilco_tpu_torch.models.torch_import import load_rules, vit_rules
 from vilco_tpu_torch.ops import activations
 
 LN_EPS = 1e-6        # Flax's LayerNorm and GroupNorm epsilon
@@ -98,11 +102,12 @@ class ViT(nn.Module):
     """images (B, H, W, 3) of side `image_size` -> patch tokens (B, H/p,
     W/p, dim); pos_embed holds (H/p)^2 + 1 positions, as the JAX model
     builds it from its init image. `attn_impl` "pallas" (K1) or "flash"
-    (K1f)."""
+    (K1f); `final_norm` False skips (and builds no) final LayerNorm."""
 
     def __init__(self, patch_size: int = 14, dim: int = 768, depth: int = 12,
                  num_heads: int = 12, image_size: int = 448,
-                 use_fused_mlp: bool = False, attn_impl: str = "pallas"):
+                 use_fused_mlp: bool = False, attn_impl: str = "pallas",
+                 final_norm: bool = True):
         super().__init__()
         self.dim = dim
         self.patch_embed = Conv2dSame(3, dim, patch_size, patch_size)
@@ -114,7 +119,7 @@ class ViT(nn.Module):
                 dim, num_heads, use_fused_mlp=use_fused_mlp,
                 attn_impl=attn_impl))
         self.depth = depth
-        self.norm = LayerNorm(dim, eps=LN_EPS)
+        self.norm = LayerNorm(dim, eps=LN_EPS) if final_norm else None
 
     def forward(self, images):
         B = images.shape[0]
@@ -126,50 +131,22 @@ class ViT(nn.Module):
         kv_mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x, kv_mask)
-        x = self.norm(x)
+        if self.norm is not None:
+            x = self.norm(x)
         return x[:, 1:].reshape(B, hh, ww, self.dim)
-
-
-# timm / DINO / DINOv2 names of a block's leaves -> the port's
-_BLOCK_KEYS = {"norm1.weight": "norm1.weight", "norm1.bias": "norm1.bias",
-               "attn.qkv.weight": "qkv.weight", "attn.qkv.bias": "qkv.bias",
-               "attn.proj.weight": "proj.weight",
-               "attn.proj.bias": "proj.bias",
-               "norm2.weight": "norm2.weight", "norm2.bias": "norm2.bias",
-               "mlp.fc1.weight": "fc1.weight", "mlp.fc1.bias": "fc1.bias",
-               "mlp.fc2.weight": "fc2.weight", "mlp.fc2.bias": "fc2.bias"}
 
 
 @torch.no_grad()
 def load_torch_vit_checkpoint(vit: ViT, ckpt_path: str) -> None:
     """Load DINO / DINOv2 / MAE ViT weights from a torch checkpoint into
     `vit` in place (vilco_tpu/models/vit.py::load_torch_vit_checkpoint; the
-    reference torch.hub-loads these, so the file must be on disk): the
-    timm naming patch_embed.proj, cls_token, pos_embed, blocks.N.{norm1,
-    attn.qkv, attn.proj, norm2, mlp.fc1, mlp.fc2}, norm, a state_dict or
-    one under "model". Torch's layouts are the port's, so the map is a
-    rename. Every leaf of `vit` must be found at its shape, else it raises
-    naming the key; the checkpoint's other keys (DINOv2's LayerScale and
-    mask token) are not read, as in JAX."""
+    reference torch.hub-loads these, so the file must be on disk): a
+    state_dict or one under "model", in the timm naming of
+    models/torch_import.py::vit_rules, loaded strictly through its
+    load_rules (a missing key or a wrong shape raises, naming it); the
+    checkpoint's other keys (DINOv2's LayerScale and mask token; the final
+    norm of a ViT built without one) are not read, as in JAX."""
     sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model" in sd:
         sd = sd["model"]
-    src = {"patch_embed.weight": "patch_embed.proj.weight",
-           "patch_embed.bias": "patch_embed.proj.bias",
-           "cls_token": "cls_token", "pos_embed": "pos_embed",
-           "norm.weight": "norm.weight", "norm.bias": "norm.bias"}
-    for i in range(vit.depth):
-        for theirs, ours in _BLOCK_KEYS.items():
-            src[f"block_{i}.{ours}"] = f"blocks.{i}.{theirs}"
-    own = dict(vit.named_parameters())
-    if set(own) != set(src):
-        raise ValueError(f"ViT leaves without a checkpoint key: "
-                         f"{sorted(set(own) - set(src))}")
-    for name, key in src.items():
-        if key not in sd:
-            raise KeyError(f"{ckpt_path}: no {key!r} for the ViT's {name}")
-        val = torch.as_tensor(sd[key])
-        if tuple(val.shape) != tuple(own[name].shape):
-            raise ValueError(f"{key}: shape {tuple(val.shape)}, the ViT's "
-                             f"{name} is {tuple(own[name].shape)}")
-        own[name].copy_(val.to(own[name].device, own[name].dtype))
+    load_rules(vit, sd, vit_rules(vit.depth, vit.norm is not None))

@@ -49,7 +49,7 @@ from vilco_tpu_torch.evals.vq_metrics import (
     compute_visual_query_metrics,
     predictions_to_response_track,
 )
-from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+from vilco_tpu_torch.models.clip_matcher import ClipMatcher, frozen_bn_stats
 from vilco_tpu_torch.train.vq_engine import (
     GT_KEYS,
     VQTrainState,
@@ -64,11 +64,10 @@ log = logging.getLogger("vilco.vq")
 # epoch_key of the EWC/MAS importance pass's batches; training epochs key
 # theirs by (task << 16) | epoch, which stays far below it
 _IMPORTANCE_EPOCH_KEY = 0x7FFF0000
-# the synthetic split's clip length: JAX's 16 frames up to a window of
-# SYNTHETIC_WINDOW_MAX, else 2 x window, so that no training window starts
-# before frame 0 (JAX's 16-frame clips with a 30-frame window wrap around)
+# the synthetic split's clip length at every window, as JAX's: at a window
+# longer than the clip, a training window starts below frame 0 and numpy
+# wraps its frames around (`_window_indices`)
 SYNTHETIC_FRAMES = 16
-SYNTHETIC_WINDOW_MAX = 8
 # the ClipMatcher's forward dtype when the caller names none: bf16, as the
 # JAX model's default
 COMPUTE_DTYPE = torch.bfloat16
@@ -231,7 +230,8 @@ def make_synthetic_vq_split(rng: np.random.Generator, num_tasks: int = 3,
                             cats_per_task: int = 2,
                             samples_per_cat_train: int = 4,
                             samples_per_cat_val: int = 2,
-                            num_frames: int = 16, window: int = 4):
+                            num_frames: int = SYNTHETIC_FRAMES,
+                            window: int = 4):
     """{task: {category: [samples]}} with box tracks occupying a contiguous
     span of frames before the query frame."""
 
@@ -272,11 +272,6 @@ def make_synthetic_vq_split(rng: np.random.Generator, num_tasks: int = 3,
 
     return (split(samples_per_cat_train, "train"),
             split(samples_per_cat_val, "val"))
-
-
-def synthetic_frames(window: int) -> int:
-    """The synthetic split's clip length at `window` (SYNTHETIC_FRAMES)."""
-    return SYNTHETIC_FRAMES if window <= SYNTHETIC_WINDOW_MAX else 2 * window
 
 
 def toy_vq_config(window: int = 4, frame_size: int = 32) -> VQConfig:
@@ -371,9 +366,10 @@ class VQEpisodeRunner:
     # --------------------------------------------------------------
     @torch.no_grad()
     def set_params(self, params: Dict[str, torch.Tensor]) -> None:
-        """Copy {name: tensor} into every parameter of the model, in
-        place; the names must be the model's, and every one given."""
-        own = dict(self.model.named_parameters())
+        """Copy {name: tensor} into every leaf of the model's state_dict
+        (its parameters and the frozen-BN statistics), in place; the names
+        must be the model's, and every one given."""
+        own = self.model.state_dict(keep_vars=True)
         if set(own) != set(params):
             raise ValueError(
                 f"parameters differ: missing {sorted(set(own) - set(params))}"
@@ -382,16 +378,19 @@ class VQEpisodeRunner:
             p.copy_(params[name].to(p.device, p.dtype))
 
     def params_numpy(self) -> Dict[str, np.ndarray]:
+        """The model's state_dict as f32 numpy: the parameters and the
+        frozen-BN statistics, which JAX's parameter tree holds too."""
         return {n: p.detach().float().cpu().numpy()
-                for n, p in self.model.named_parameters()}
+                for n, p in self.model.state_dict().items()}
 
     def _window_indices(self, sample: dict,
                         rng: np.random.Generator) -> np.ndarray:
         """Training-window frame indices: the reference's balanced sampler
         when the sample carries a `valid_range` (real Ego4D annotations),
-        else a random contiguous window around the track. A clip shorter
-        than the window raises (JAX's start would go below 0 and numpy
-        would wrap the frames around)."""
+        else a random contiguous window around the track. On a clip shorter
+        than the window the start is T - window, below 0, as JAX's: the
+        frames are fetched with numpy's wrap, and a wrapped frame's negative
+        index finds no box in the track, as in JAX."""
         T = sample["num_frames"]
         w = self.window
         if sample.get("valid_range") is not None:
@@ -399,9 +398,6 @@ class VQEpisodeRunner:
 
             return np.clip(balanced_frame_indices(w, sample, rng),
                            0, max(T - 1, 0))
-        if T < w:
-            raise ValueError(f"sample {sample['id']}: {T} frames, shorter "
-                             f"than the {w}-frame window")
         fnos = sorted(sample["track"])
         center = int(rng.choice(fnos))
         start = int(np.clip(center - rng.integers(0, w), 0, T - w))
@@ -517,7 +513,11 @@ class VQEpisodeRunner:
         gradient becomes the importance, g^2 for EWC and |g| for MAS, so
         only that batch is built, at the micro batch size, with no
         augmentation, no HNM and no dropout. The frozen ViT's importance is
-        0 (JAX stops its gradient); optpar copies every leaf."""
+        0 (JAX stops its gradient); optpar copies every leaf. The frozen-BN
+        statistics are leaves of JAX's tree, so they take their gradient
+        too, through detached copies, which keeps the importance and the
+        checkpoints that hold it equal to JAX's (their zero drift gives
+        them a zero penalty)."""
         last = None
         for batch in self._train_batches(videos, rng, self.batch_size,
                                          epoch_key=_IMPORTANCE_EPOCH_KEY,
@@ -529,14 +529,17 @@ class VQEpisodeRunner:
         model = self.model
         was = model.training
         model.eval()
-        named = list(model.named_parameters())
-        preds = model(batch["clip"], batch["query"])
+        stats = {n: b.detach().requires_grad_()
+                 for n, b in frozen_bn_stats(model)}
+        named = list(model.named_parameters()) + list(stats.items())
+        preds = torch.func.functional_call(model, stats,
+                                           (batch["clip"], batch["query"]))
         loss = vq_losses(preds, {k: batch[k] for k in GT_KEYS})[0]
-        train = [p for _, p in named if p.requires_grad]
-        got = iter(torch.autograd.grad(loss, train))
+        got = iter(torch.autograd.grad(
+            loss, [p for _, p in named if p.requires_grad]))
         model.train(was)
         f = torch.square if self.method == "ewc" else torch.abs
-        imp = {n: (f(next(got).detach().float()) if p.requires_grad
+        imp = {n: (f(next(got).float()) if p.requires_grad
                    else torch.zeros_like(p, dtype=torch.float32))
                for n, p in named}
         optpar = {n: p.detach().float().clone() for n, p in named}
