@@ -11,6 +11,7 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --nlq-episode
     python3 chip_smoke.py --vq-episode
     python3 chip_smoke.py --vq-reference
+    python3 chip_smoke.py --dp
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
@@ -20,7 +21,8 @@ phases of the MQ yaml model (10a-10e); the sixth only the CL methods'
 f32 steps card against CPU (cl_parity, vq_cl_parity: below, after the
 phases); the seventh only the MQ CL episode (10f); the eighth only the
 NLQ CL episode (15''); the ninth only the VQ CL episode (20'); the tenth
-only the reference-geometry phase (20'').
+only the reference-geometry phase (20''); the eleventh only the
+data-parallel phase (27).
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -206,7 +208,8 @@ fallback):
                    card against the CPU on the box deltas and the logits
                    (output convs redrawn at a normal scale), with a TF32
                    control
- 18. vq_train_parity  one VQ HNM step at batch 2 x 30 frames in f32, the
+ 18. vq_train_parity  one VQ HNM step at batch 2 x 30 frames in f32 (the
+                   frozen ViT cut to 4 of its 12 blocks), the
                    card against the CPU as phase 8, every trainable leaf's
                    gradient; the position table's held to its summation
                    scale (its gradient sums the pairs' gradients at its
@@ -282,6 +285,20 @@ fallback):
                    per step checked (K1f-bwd or K1n-bwd 5, K1-bwd 6)
  26. vq_flash_serve phase 19 with vit_attn_impl "flash" (K1f 24, K1 2, K6 3
                    a request), without the fused-MLP request
+ 27. dp            data parallelism (vilco_tpu_torch/parallel/): 2 ranks on
+                   the one card over Gloo, spawned after the build (they
+                   load its libraries), each on its rows of the global
+                   batch: the MQ yaml method at global batch 2 and at
+                   accumulation 2 over 4, NLQ with EWC at lambda 3000 over
+                   REG_TASKS stacked tasks at 4, VQ's HNM step at 4 (16
+                   pairs): f32 2 ranks against 1 process (loss, every
+                   gradient and updated parameter leaf; a TF32 control
+                   above the limits), then 3 bf16 steps, the ranks'
+                   parameters bitwise equal after each, every kernel of
+                   the path launched, step ms and the gradient
+                   all-reduce's ms and bytes; seq_banded_attention over
+                   the 2 ranks at NLQ's T 2560 against K5; a 1-rank NCCL
+                   group through init_distributed (dp_nccl)
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
 
@@ -1225,10 +1242,73 @@ def phase_train_kernels(dev):
                     "train_kernels", label,
                     lambda: xl_bwd_cuda(args, out, lse, g, st, rate))
 
+    check_xl_row0(dev)
     check_adamw(chk, *point_transformer_leaves(cfg, dev), torch.bfloat16)
     if not chk.ok:
         fail("a training kernel disagrees with its plain version")
     return chk.errs, chk.top
+
+
+def check_xl_row0(dev) -> None:
+    """K2 and K2-bwd as a data-parallel rank calls them (the dp phase's
+    rank 1 at the MQ yaml's global batch 2: one row, global row 1), at the
+    yaml's XL shape, dropout 0.1, both dtypes: the 1-row call at row0 = 1
+    against the plain version at row0 = 1 (out and every gradient at
+    TRAIN_TOL), and bit for bit against row 1 of the 2-row call at row0 =
+    0 (out, dq, dk, dv), so each rank draws its rows of the global mask."""
+    from vilco_tpu_torch.core.config import mq_yaml_config
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_rel_attention,
+        xl_rel_attention_plain,
+    )
+
+    cfg = mq_yaml_config().model
+    T, H = cfg.max_seq_len, cfg.n_head
+    D = cfg.embd_dim // H
+    rng = np.random.default_rng(SEED + 41)
+    seed, rate = 0x243F6A8885A308D3, 0.1
+    kern = lambda *a: xl_rel_attention(*a, seed, rate, row0=1)
+    plain = lambda *a: xl_rel_attention_plain(*a, seed=seed, rate=rate,
+                                              row0=1)
+    whole = lambda *a: xl_rel_attention(*a, seed, rate)
+    row = lambda t: t[1:2].contiguous()
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        def randn(*shape, scale=1.0):
+            a = rng.standard_normal(shape).astype(np.float32) * scale
+            return torch.from_numpy(a).to(dev, dtype)
+
+        q, k, v, g = (randn(2, T, H, D) for _ in range(4))
+        r = randn(2 * T, H, D)
+        rwb, rrb = (randn(H, D, scale=0.1) for _ in range(2))
+        lens = rng.integers(T // 2, T + 1, size=2)
+        m = torch.from_numpy(np.arange(T)[None, :] < lens[:, None]).to(dev)
+        both = (q, k, v, r, rwb, rrb, m)
+        one = (row(q), row(k), row(v), r, rwb, rrb, row(m))
+        with torch.no_grad():
+            out1, out2 = kern(*one), whole(*both)
+            rows = output_errors(("out",), [out1], [plain(*one)],
+                                 TRAIN_TOL[dtype])
+        got1 = grads_of(kern, one, row(g))
+        rows += output_errors(XL_GRADS, got1, grads_of(plain, one, row(g)),
+                              TRAIN_TOL[dtype])
+        got2 = grads_of(whole, both, g)
+        same = [torch.equal(out1, out2[1:2])] + [
+            torch.equal(a, b[1:2]) for a, b in zip(got1[:3], got2[:3])]
+        within = all(e <= lim for _, e, lim in rows)
+        ok &= within and all(same)
+        differ = [n for n, x in zip(("out", "dq", "dk", "dv"), same)
+                  if not x]
+        say(f"[train_kernels] xl_rel_attention at row0 1 (a DP rank's row) "
+            f"B=1 T={T} H={H} D={D} rate {rate} {str(dtype)[6:]} against "
+            "the plain version at row0 1: max_abs_err (limit) "
+            + ", ".join(f"{n} {e:.3e} ({lim:.3e})" for n, e, lim in rows)
+            + f" {'ok' if within else 'OUT OF TOLERANCE'}; out, dq, dk, dv "
+            f"against row 1 of the 2-row call: "
+            + (f"DIFFER ({', '.join(differ)})" if differ
+               else "bitwise equal"))
+    if not ok:
+        fail("K2 at a data-parallel rank's row0 disagrees")
 
 
 # f32 train step, card vs CPU: per-leaf gradient error relative to the
@@ -3943,6 +4023,11 @@ def phase_vq_parity(dev):
 
 
 VQ_PARITY_BATCH = 2    # 4 HNM pairs: every clip also against a foreign query
+# the train-step parity's frozen ViT cut from 12 blocks to 4, to keep the
+# default run under 900 s with the dp phase: its CPU forward over 60 frames
+# was most of the phase's ~60 s CPU step, and no gradient flows through it;
+# vq_parity holds the full-depth ViT's forward
+VQ_PARITY_VIT_DEPTH = 4
 VQ_REG_LAMBDA = 3000.0  # the --cl-methods VQ step's penalty weight (NLQ's)
 VQ_PE_LEAF = "pe_3d"
 # Activation gradients, unlike a weight's gradient not a sum over every
@@ -3971,7 +4056,8 @@ def vq_grad_gaps(r, base):
 def phase_vq_train_parity(dev, seed: int = SEED, tag="vq_train_parity",
                           batch_size: int = VQ_PARITY_BATCH,
                           accumulation_steps: int = 1, reg_k: int = 0):
-    """One VQ HNM train step of vq_flagship_config() in f32 (head dropout
+    """One VQ HNM train step of vq_flagship_config() (its ViT cut to
+    VQ_PARITY_VIT_DEPTH blocks) in f32 (head dropout
     off) at batch VQ_PARITY_BATCH x 30 frames, full width: the card against
     the CPU from the same weights and batch (drawn from `seed`; output
     convs redrawn at a normal scale), on the loss, the grad norm and every
@@ -4001,7 +4087,8 @@ def phase_vq_train_parity(dev, seed: int = SEED, tag="vq_train_parity",
     )
 
     cfg = dataclasses.replace(vq_flagship_config(), batch_size=batch_size,
-                              accumulation_steps=accumulation_steps)
+                              accumulation_steps=accumulation_steps,
+                              vit_depth=VQ_PARITY_VIT_DEPTH)
     batch = make_vq_batch(np.random.default_rng(seed + 18), cfg.batch_size,
                           cfg)
 
@@ -5133,6 +5220,610 @@ def attention_ablations(dev, mq):
                 train=impl_train, vq_flash=vq_flash)
 
 
+# ---- data parallelism: 2 Gloo ranks on the one card, a 1-rank NCCL group --
+
+DP_SEED = SEED + 31
+DP_BF16_STEPS = 3
+DP_TIMEOUT_S = 300        # the ranks' whole run, and each collective's wait
+DP_LOSS_RTOL = 1e-5
+# the 2-rank step against the 1-process step on the same card, both f32
+# with TF32 off: the ranks sum their partial gradients in another order
+# than one backward does (f32 roundoff), so the limits are phase 8's
+# (GRAD_RTOL, PARAM_RTOL), and the TF32 control must read above them
+DP_SEQ_RTOL = 1e-4        # the halo-exchange band (plain f32) against K5
+# VQ's updated parameters, absolute, in units of lr: its first AdamW step
+# moves an element by lr g / (|g| + eps) (the bias corrections cancel), so
+# a gradient gap d moves it by at most lr eps d / (|g| + eps)^2, which is
+# below lr / 40 wherever |g| >= 10 d. An element whose gradient is within
+# DP_VQ_ROUNDOFF x d of 0 (d its leaf's largest gap between the 2-rank
+# and the 1-process f32 gradients), such as the key bias, whose exact
+# gradient is 0, may step the other way: those are held at 2 lr, every
+# other element at DP_VQ_PARAM_LR lr, and the TF32 control must read
+# above that
+DP_VQ_ROUNDOFF = 10
+DP_VQ_PARAM_LR = 0.05
+DP_TEMPLATES = {}         # the models drawn from SEED, by kind, on the CPU
+
+
+def dp_point_case(dp, dev, cfg, task, B, accum, reg_k=0, tf32=False,
+                  dtype=None, regularize=False, steps=1, seed=DP_SEED,
+                  counters=(), parity=False):
+    """Train steps of the MQ yaml or NLQ flagship `cfg` at global batch B
+    (accumulation `accum`) from SEED's weights (adapters redrawn): under
+    `dp` on the rank's rows, else the whole batch in this process. With
+    `reg_k`, the EWC penalty of reg_k synthetic tasks at cfg's lambda.
+    Returns losses, step ms, the flat gradient and parameter buffers (on
+    the card, with `parity`), the launches of `counters` over the steps
+    (counted from 0), the all-reduce's ms and bytes, and the replicated
+    check's outcome after every step (under dp)."""
+    from vilco_tpu_torch.cl.regularizers import RegPenalty
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.parallel.mesh import (
+        assert_replicated,
+        replicated,
+        shard_batch,
+    )
+    from vilco_tpu_torch.train.engine import (
+        batch_to,
+        init_train_state,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    m = cfg.model
+    cl_model, flags, cl, prompt_mask = cl_step_setup(cfg, task, B, dev)
+    key = (m.variant, cl_model is not None)
+    if key not in DP_TEMPLATES:     # drawn once a process, copied per run
+        DP_TEMPLATES[key] = PointTransformer(
+            m, torch.Generator().manual_seed(SEED), device="cpu",
+            cl=cl_model)
+        redraw_adapters(DP_TEMPLATES[key])
+    model = copy.deepcopy(DP_TEMPLATES[key])
+    st = init_train_state(model, cfg, steps_per_epoch=1, seed=SEED,
+                          device=dev)
+    st.opt.count = PARITY_STEP
+    if reg_k:
+        cl.penalty = RegPenalty.for_optimizer(
+            synthetic_reg_tasks(model, reg_k, seed + 1), st.opt,
+            cfg.cl_cfg.reg_lambda)
+        flags = dict(flags, cl_cfg=cfg.cl_cfg)
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
+    dp = None if dp is None else timed_dp(dp)
+    step = make_train_step(pts, cfg.train_cfg, regularize=regularize,
+                           compute_dtype=dtype, accumulation_steps=accum,
+                           ema_decay=PARITY_EMA_DECAY, dp=dp, **flags)
+    if dp is not None:
+        replicated(model.parameters(), dp)
+    out = {"loss": [], "ms": [], "replicated": []}
+    for c in counters:
+        c.launches = 0
+    for i in range(steps):
+        batch = make_batch(np.random.default_rng(seed + 2 + i), B, cfg)
+        if "narration_valid" in batch:
+            batch["narration_valid"][:] = True
+        if prompt_mask is not None:
+            batch["prompt_mask"] = prompt_mask
+        if dp is not None:
+            batch = shard_batch(batch, dp.rank, dp.world, accum)
+        tb = batch_to(batch, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(st, tb, cl)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(met["final_loss"].item())
+        if dp is not None and steps > 1:
+            assert_replicated([st.opt.param_flat], dp,
+                              f"parameters after step {i + 1}")
+            out["replicated"].append(True)
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["gnorm"] = met["grad_norm"].item()
+    if parity:
+        out["flat"] = (st.opt.grad_flat.clone(), st.opt.param_flat.clone(),
+                       list(zip(st.opt.names, st.opt.flat_offsets,
+                                [p.numel() for p in st.opt.params])))
+    if dp is not None:
+        out["allreduce"] = dp.timed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    del st, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_dp(dp):
+    """`dp` whose all-reduces record (ms, bytes) in `.timed`, each
+    synchronized on both sides (the largest is the gradient buffer's)."""
+    from vilco_tpu_torch.parallel.mesh import DataParallel
+
+    class Timed(DataParallel):
+        timed = []
+
+        def all_reduce_(self, t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().all_reduce_(t)
+            torch.cuda.synchronize()
+            self.timed.append(((time.perf_counter() - t0) * 1e3,
+                               t.numel() * t.element_size()))
+            return t
+
+    out = Timed(dp.rank, dp.world, dp.group)
+    out.timed = []
+    return out
+
+
+def dp_flat_gaps(a, b) -> dict:
+    """Relative gaps of one step's flat gradient and parameter buffers to
+    another's, leaf by leaf (leaf_errors' rule: max|a - b| / max|b|, the
+    denominator floored at 1e-4 of the buffer's largest): the worst and
+    its leaf, for each buffer."""
+    out = {}
+    for i, what in ((0, "grads"), (1, "params")):
+        x, y = a["flat"][i], b["flat"][i]
+        floor = 1e-4 * y.abs().max().item()
+        worst = (0.0, "")
+        for n, off, k in b["flat"][2]:
+            d = (x[off:off + k] - y[off:off + k]).abs().max().item()
+            worst = max(worst, (d / max(y[off:off + k].abs().max().item(),
+                                        floor, 1e-30), n))
+        out[what] = worst
+    out["loss"] = abs(a["loss"][0] - b["loss"][0]) / abs(b["loss"][0])
+    out["gnorm"] = abs(a["gnorm"] - b["gnorm"]) / abs(b["gnorm"])
+    return out
+
+
+def dp_vq_case(dp, dev, B, dtype, tf32=False, deterministic=True, steps=1,
+               seed=DP_SEED, counters=(), parity=False):
+    """VQ flagship HNM steps at global batch B (B x B pairs), the rest as
+    dp_point_case."""
+    from vilco_tpu_torch.core.config import vq_flagship_config
+    from vilco_tpu_torch.data.synthetic import make_vq_batch
+    from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+    from vilco_tpu_torch.parallel.mesh import (
+        assert_replicated,
+        replicated,
+        shard_batch,
+    )
+    from vilco_tpu_torch.train.engine import batch_to
+    from vilco_tpu_torch.train.vq_engine import (
+        init_vq_train_state,
+        make_vq_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    cfg = dataclasses.replace(vq_flagship_config(), batch_size=B)
+    key = ("vq", dtype)
+    if key not in DP_TEMPLATES:
+        DP_TEMPLATES[key] = ClipMatcher(
+            cfg, generator=torch.Generator().manual_seed(SEED), device="cpu",
+            compute_dtype=dtype)
+        redraw_heads(DP_TEMPLATES[key], SEED + 13)
+    model = copy.deepcopy(DP_TEMPLATES[key])
+    st = init_vq_train_state(model, cfg, seed=SEED, device=dev)
+    dp = None if dp is None else timed_dp(dp)
+    step = make_vq_train_step(cfg, deterministic=deterministic, dp=dp)
+    if dp is not None:
+        replicated(model.state_dict(keep_vars=True).values(), dp)
+    out = {"loss": [], "ms": [], "replicated": []}
+    for c in counters:
+        c.launches = 0
+    for i in range(steps):
+        batch = make_vq_batch(np.random.default_rng(seed + 18 + i), B, cfg)
+        if dp is not None:
+            batch = shard_batch(batch, dp.rank, dp.world)
+        tb = batch_to(batch, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(st, tb)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(met["final_loss"].item())
+        if dp is not None and steps > 1:
+            assert_replicated([st.opt.param_flat], dp,
+                              f"trainable parameters after step {i + 1}")
+            out["replicated"].append(True)
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["gnorm"] = met["grad_norm"].item()
+    if parity:
+        out["flat"] = (st.opt.grad_flat.clone(), st.opt.param_flat.clone(),
+                       list(zip(st.opt.names, st.opt.flat_offsets,
+                                [p.numel() for p in st.opt.params])))
+    if dp is not None:
+        out["allreduce"] = dp.timed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    del st, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_roundoff(a, b) -> torch.Tensor:
+    """1.0 where `b`'s gradient is within DP_VQ_ROUNDOFF times its leaf's
+    largest gap to `a`'s gradient (at roundoff), else 0.0: one f32 a
+    flat-buffer element."""
+    ga, gb = a["flat"][0], b["flat"][0]
+    out = torch.zeros_like(gb)
+    for _, off, k in b["flat"][2]:
+        s = slice(off, off + k)
+        d = (ga[s] - gb[s]).abs().max()
+        out[s] = (gb[s].abs() <= DP_VQ_ROUNDOFF * d).float()
+    return out
+
+
+def dp_param_steps(a, b, roundoff, lr: float) -> dict:
+    """max|a - b| / lr of the updated parameters, with its leaf, over the
+    elements off `roundoff` ("held") and on it ("roundoff"); and the count
+    of roundoff elements by leaf."""
+    pa, pb = a["flat"][1], b["flat"][1]
+    out = {"held": (0.0, ""), "roundoff": (0.0, ""), "counts": {}}
+    for n, off, k in b["flat"][2]:
+        s = slice(off, off + k)
+        d = (pa[s] - pb[s]).abs().double() / lr
+        on = roundoff[s] > 0
+        for key, m in (("held", ~on), ("roundoff", on)):
+            if m.any():
+                out[key] = max(out[key], (d[m].max().item(), n))
+        if on.any():
+            out["counts"][n] = int(on.sum().item())
+    return out
+
+
+def dp_parity(dp, run, tf32_control: bool = True, lr=None) -> dict:
+    """`run(dp, tf32=...)` under dp (every rank then holds the same
+    gradients and parameters), then, side by side, the 1-process f32 step
+    on rank 1 and its gaps to the 2-rank step, and with `tf32_control`
+    the 1-process TF32 step on rank 0 and its gaps to the 2-rank step.
+    With `lr` (VQ), also dp_param_steps of both, on rank 1's roundoff
+    elements (dp_roundoff of the f32 pair, sent to every rank)."""
+    mine = run(dp, parity=True)
+    res = {"ms": mine["ms"], "loss": mine["loss"],
+           "allreduce": mine["allreduce"]}
+    one = tf = None
+    if dp.rank == 1:
+        one = run(None, parity=True)
+        res.update(dp=dp_flat_gaps(mine, one), one_ms=one["ms"],
+                   one_loss=one["loss"])
+    elif dp.rank == 0 and tf32_control:
+        tf = run(None, parity=True, tf32=True)
+        res["tf32"] = dp_flat_gaps(tf, mine)
+    if lr is not None:
+        roundoff = (dp_roundoff(mine, one) if one is not None
+                    else torch.zeros_like(mine["flat"][0]))
+        dp.all_reduce_(roundoff)
+        if one is not None:
+            res["dp"]["steps"] = dp_param_steps(mine, one, roundoff, lr)
+        if tf is not None:
+            res["tf32"]["steps"] = dp_param_steps(tf, mine, roundoff, lr)
+    del mine, one, tf
+    return res
+
+
+def dp_seq_case(dp, dev, cfg):
+    """The halo-exchange banded attention over the ranks' time shards at
+    NLQ's T and window (f32, plain PyTorch over the collectives) against
+    K5 on the whole sequence on rank 0: output and the q, k, v
+    gradients, and the ms of each."""
+    from vilco_tpu_torch.kernels.banded_attention import banded_attention_blc
+    from vilco_tpu_torch.parallel.seq import seq_banded_attention
+
+    m = cfg.model
+    B, T, H, w = cfg.loader.batch_size, m.max_seq_len, m.n_head, m.window
+    D = m.embd_dim // H
+    rng = np.random.default_rng(DP_SEED + 40)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (B, T, H, D)).astype(np.float32)).to(dev) for _ in range(4))
+    lens = rng.integers(T // 2, T + 1, size=B)
+    mask = torch.from_numpy(np.arange(T)[None, :] < lens[:, None]).to(dev)
+    n = T // dp.world
+    rows = slice(dp.rank * n, (dp.rank + 1) * n)
+    ins = [t[:, rows].clone().requires_grad_() for t in (q, k, v)]
+    fn = lambda: seq_banded_attention(*ins, mask[:, rows], w, dp=dp)
+    out = fn()
+    (out * g[:, rows]).sum().backward()
+    whole = lambda t: dp.gather(t[None]).transpose(0, 1).reshape(
+        (B, T) + tuple(t.shape[2:]))
+    got = [whole(out.detach())] + [whole(t.grad) for t in ins]
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 200
+    if dp.rank != 0:
+        return None
+    flat = lambda t: t.reshape(B, T, H * D).contiguous()
+    refs = [flat(t).clone().requires_grad_() for t in (q, k, v)]
+    ref = banded_attention_blc(*refs, mask, H, w)
+    (ref * flat(g)).sum().backward()
+    want = [ref.detach()] + [t.grad for t in refs]
+    errs = [((a.reshape(b.shape) - b).abs().max()
+             / max(b.abs().max().item(), 1.0)).item()
+            for a, b in zip(got, want)]
+    k5_ms = median_ms(lambda: banded_attention_blc(
+        *(t.detach() for t in refs), mask, H, w), reps=5, warmup=1)
+    return {"errs": errs, "seq_ms": seq_ms, "k5_ms": k5_ms,
+            "shape": (B, T, H, D, w)}
+
+
+def dp_kernels():
+    """The hand-written kernels whose launches the dp phase counts."""
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.banded_attention import (
+        banded_attention_blc,
+        banded_bwd_cuda,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+    )
+    from vilco_tpu_torch.kernels.frame_band import (
+        frame_band_attention,
+        frame_band_bwd_cuda,
+    )
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
+
+    return {"mq_yaml": (fused_attention_blc, attention_bwd_cuda,
+                        xl_rel_attention, xl_bwd_cuda, fused_dwconv_qkv,
+                        dwconv_bwd_cuda, adamw_update_multi),
+            "nlq": (banded_attention_blc, banded_bwd_cuda,
+                    fused_attention_blc, attention_bwd_cuda,
+                    fused_dwconv_qkv, dwconv_bwd_cuda, adamw_update_multi),
+            "vq": (fused_attention_blc, attention_bwd_cuda,
+                   frame_band_attention, frame_band_bwd_cuda,
+                   adamw_update_multi)}
+
+
+def dp_rank(dp, dev, plan):
+    """One rank of the dp phase (spawn_ranks' target): each case of `plan`
+    in turn; rank 0 returns the comparisons, every rank its ms and the
+    launches."""
+    from vilco_tpu_torch.core.config import mq_yaml_config, \
+        nlq_flagship_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yaml, nlq = mq_yaml_config(), nlq_flagship_config()
+    ks = dp_kernels()
+    bf16 = torch.bfloat16
+    res = {}
+    t0 = time.perf_counter()
+    if "mq_yaml" in plan:
+        point = lambda d, **kw: dp_point_case(d, dev, yaml, 1, **kw)
+        res["mq_yaml"] = dp_parity(dp, lambda d, **kw: point(
+            d, B=2, accum=1, **kw))
+        res["mq_yaml_accum"] = dp_parity(dp, lambda d, **kw: point(
+            d, B=4, accum=2, **kw), tf32_control=False)
+        res["mq_yaml_bf16"] = point(dp, B=2, accum=1, dtype=bf16,
+                                    regularize=True, steps=DP_BF16_STEPS,
+                                    counters=ks["mq_yaml"])
+        res["t_mq_yaml"] = time.perf_counter() - t0
+    if "nlq" in plan:
+        B = nlq.loader.batch_size
+        point = lambda d, **kw: dp_point_case(d, dev, nlq, None, B, 1,
+                                              reg_k=REG_TASKS, **kw)
+        res["nlq"] = dp_parity(dp, point)
+        res["nlq_bf16"] = point(dp, dtype=bf16, regularize=True,
+                                steps=DP_BF16_STEPS, counters=ks["nlq"])
+        res["t_nlq"] = time.perf_counter() - t0
+    if "vq" in plan:
+        from vilco_tpu_torch.core.config import vq_flagship_config
+
+        vq = lambda d, **kw: dp_vq_case(d, dev, 4, torch.float32, **kw)
+        res["vq"] = dp_parity(dp, vq, lr=vq_flagship_config().lr)
+        res["vq_bf16"] = dp_vq_case(dp, dev, 4, bf16, deterministic=False,
+                                    steps=DP_BF16_STEPS,
+                                    counters=ks["vq"])
+        res["t_vq"] = time.perf_counter() - t0
+    if "seq" in plan:
+        res["seq"] = dp_seq_case(dp, dev, nlq)
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return res
+
+
+def phase_dp_nccl(dev):
+    """The 1-rank NCCL group as train_cl --distributed joins it under
+    torchrun (init_distributed from RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR and MASTER_PORT): the backend, an all-reduce, the
+    zero-padded gather and its backward, and one NLQ f32 step through it
+    against the same step without the group (their gaps, and whether the
+    bits are equal)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vilco_tpu_torch.core.config import nlq_flagship_config
+    from vilco_tpu_torch.parallel.mesh import DataParallel, init_distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        rank, world = init_distributed(dev.type, timeout_s=DP_TIMEOUT_S)
+        backend = dist.get_backend()
+        dp = DataParallel(rank, world)
+        x = torch.arange(4.0, device=dev, requires_grad=True)
+        g = dp.gather(x[None])
+        (g * 3.0).sum().backward()
+        s = dp.sum(torch.ones(3, device=dev))
+        ok = (backend == "nccl" and (rank, world) == (0, 1)
+              and torch.equal(g[0].detach(), x.detach())
+              and torch.equal(x.grad, torch.full((4,), 3.0, device=dev))
+              and torch.equal(s, torch.ones(3, device=dev)))
+        cfg = nlq_flagship_config()
+        run = lambda d: dp_point_case(d, dev, cfg, None, 2, 1, parity=True)
+        gaps = dp_flat_gaps(run(dp), run(None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    say(f"[dp_nccl] a 1-rank NCCL group through init_distributed (torchrun's "
+        f"variables): backend {backend}, rank {rank} of {world}; all-reduce, "
+        f"gather and its backward {'exact' if ok else 'WRONG'}; the NLQ f32 "
+        f"step at batch 2 through the group against the same step without "
+        f"it: loss {gaps['loss']:.3e}, grads {gaps['grads'][0]:.3e} "
+        f"({gaps['grads'][1]}), params {gaps['params'][0]:.3e} "
+        f"({gaps['params'][1]}) (limits 1e-5, {GRAD_RTOL:g}, "
+        f"{PARAM_RTOL:g}); {time.perf_counter() - t0:.1f} s")
+    if not ok or gaps["loss"] > DP_LOSS_RTOL \
+            or gaps["grads"][0] > GRAD_RTOL or gaps["params"][0] > PARAM_RTOL:
+        fail("dp_nccl: the 1-rank NCCL group's collectives or step")
+
+
+DP_PLAN = ("mq_yaml", "nlq", "vq", "seq")
+DP_TARGET = "chip_smoke:dp_rank"     # the ranks' entry (module:function)
+DP_BYTES = {"mq_yaml": 294_892_462, "nlq": 30_168_202, "vq": 14_944_060}
+
+
+def dp_say_vq_steps(tag: str, st: dict, what: str = "2 ranks") -> bool:
+    """Print VQ's updated-parameter gaps (dp_param_steps) and return
+    whether they are within DP_VQ_PARAM_LR lr (held) and 2 lr
+    (roundoff)."""
+    (held, hn), (rnd, rn) = st["held"], st["roundoff"]
+    ok = held <= DP_VQ_PARAM_LR and rnd <= 2.0
+    top = sorted(st["counts"].items(), key=lambda kv: -kv[1])[:4]
+    say(f"[{tag}] {what}: updated params max|dp| / lr {held:.4e} "
+        f"({hn}) off the roundoff elements (limit {DP_VQ_PARAM_LR:g}), "
+        f"{rnd:.4e} ({rn}) on them (limit 2); roundoff elements (|g| <= "
+        f"{DP_VQ_ROUNDOFF} x the leaf's largest f32 gradient gap) "
+        f"{sum(st['counts'].values())} in {len(st['counts'])} leaves, most "
+        + ", ".join(f"{n} {k}" for n, k in top)
+        + (f" {'ok' if ok else 'OUT OF TOLERANCE'}" if what == "2 ranks"
+           else f" ({'WITHIN' if ok else 'above'} the limits)"))
+    return ok
+
+
+def phase_dp(dev) -> dict:
+    """2 ranks on the one card over Gloo (parallel/launch.py: spawned, the
+    kernels loaded from this run's build), each on its rows of the global
+    batch: the MQ yaml method at global batch 2 (1 a rank) and at
+    accumulation 2 over 4, the NLQ flagship with EWC at lambda 3000 over
+    REG_TASKS stacked tasks at 4, the VQ flagship's HNM step at 4 (2 a
+    rank, 16 pairs): in f32 (TF32 off) the 2-rank step against the
+    1-process step on the same card (loss; every gradient and updated
+    parameter leaf) with a TF32 control above the limits, then
+    DP_BF16_STEPS bf16 steps with the regularisers on, the ranks' updated
+    parameters bitwise equal after every step (rank 0's bytes sent to every
+    rank and compared), the losses finite, each step's ms, the
+    all-reduce's ms and bytes, the launches of every kernel of the path.
+    Then the halo-exchange banded attention over the 2 ranks at NLQ's T
+    and window against K5, and the 1-rank NCCL group. Returns rank 0's
+    launches over the bf16 steps, by kernel."""
+    from vilco_tpu_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    res = spawn_ranks(DP_TARGET, [dev, dev], (DP_PLAN,), backend="gloo",
+                      timeout_s=DP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0, r1 = res
+    launches = {}
+    for case, limit_b in DP_BYTES.items():
+        tag = f"dp_{case}"
+        for key in ((case, f"{case}_accum") if case == "mq_yaml"
+                    else (case,)):
+            p, c = r1[key], r0[key].get("tf32")
+            d = p["dp"]
+            label = ("accumulation 2, global batch 4" if key.endswith(
+                "accum") else "global batch " + ("2" if case == "mq_yaml"
+                                                 else "4"))
+            say(f"[{tag}] f32 step, {label}, 2 ranks against 1 process on "
+                f"the card: loss {p['loss'][0]:.6f} ({p['one_loss'][0]:.6f}, "
+                f"rel {d['loss']:.3e}), grad norm rel {d['gnorm']:.3e}, "
+                f"gradients {d['grads'][0]:.3e} ({d['grads'][1]}), updated "
+                f"params {d['params'][0]:.3e} ({d['params'][1]}); limits "
+                f"{DP_LOSS_RTOL:g}, {GRAD_RTOL:g}, "
+                f"{PARAM_RTOL if case != 'vq' else 'below'}; step "
+                f"{p['ms'][0]:.1f} ms a rank, {p['one_ms'][0]:.1f} ms in one "
+                f"process (first calls)")
+            params_ok = d["params"][0] <= PARAM_RTOL
+            if case == "vq":
+                params_ok = dp_say_vq_steps(tag, d["steps"])
+            if c is not None:
+                say(f"[{tag}] TF32 control (1 process, TF32) against the "
+                    f"2-rank f32 step: loss {c['loss']:.3e}, gradients "
+                    f"{c['grads'][0]:.3e} ({c['grads'][1]}), params "
+                    f"{c['params'][0]:.3e}")
+                if c["grads"][0] <= GRAD_RTOL:
+                    fail(f"{tag}: the check does not see TF32")
+                if case == "vq" and dp_say_vq_steps(tag, c["steps"],
+                                                    "TF32 control"):
+                    fail(f"{tag}: the parameter check does not see TF32")
+            if d["loss"] > DP_LOSS_RTOL or d["grads"][0] > GRAD_RTOL \
+                    or not params_ok:
+                fail(f"{tag}: the 2-rank step out of tolerance")
+        b = r0[f"{case}_bf16"]
+        # the step's largest all-reduce is its gradient buffer's (VQ's
+        # query gathers are the smaller ones)
+        nbytes = max(n for _, n in b["allreduce"])
+        grad_ms = [t for t, n in b["allreduce"] if n == nbytes]
+        ms = statistics.median(grad_ms)
+        both = [x for r in (r0, r1) for x in r[f"{case}_bf16"]["loss"]]
+        say(f"[{tag}] bf16, {DP_BF16_STEPS} steps: losses "
+            + ", ".join(f"{x:.5f}" for x in b["loss"])
+            + f"; parameters bitwise equal on both ranks after every step "
+            f"({len(b['replicated'])} checks); step ms a rank "
+            + ", ".join(f"{x:.1f}" for x in b["ms"])
+            + f" (rank 1: " + ", ".join(f"{x:.1f}"
+                                        for x in r1[f"{case}_bf16"]["ms"])
+            + f"); the f32 gradient all-reduce in them "
+            + ", ".join(f"{t:.1f}" for t in grad_ms)
+            + f" ms for {nbytes / 1e6:.1f} MB ({nbytes / ms / 1e6:.2f} GB/s "
+            f"at the median, Gloo through the host)")
+        if nbytes < 4 * limit_b or len(b["replicated"]) != DP_BF16_STEPS \
+                or not all(np.isfinite(both)) or b["loss"] != \
+                r1[f"{case}_bf16"]["loss"]:
+            fail(f"{tag}: bf16 steps: buffer, replication or losses")
+        dead = [n for n, k in b["launches"].items() if not k]
+        say(f"[{tag}] launches a rank over the bf16 steps: "
+            + ", ".join(f"{n} {k}" for n, k in b["launches"].items()))
+        if dead:
+            fail(f"{tag}: kernels not launched on the DP path: {dead}")
+        for n, k in b["launches"].items():
+            launches[n] = launches.get(n, 0) + k
+    s = r0["seq"]
+    B, T, H, D, w = s["shape"]
+    say(f"[dp_seq] seq_banded_attention over 2 ranks (plain f32, halo "
+        f"exchange) at NLQ's B {B}, T {T}, {H} heads of {D}, half window "
+        f"{w} against K5 on the whole sequence: out {s['errs'][0]:.3e}, "
+        f"dq {s['errs'][1]:.3e}, dk {s['errs'][2]:.3e}, dv "
+        f"{s['errs'][3]:.3e} (of max(1, max|K5|); limit {DP_SEQ_RTOL:g}); "
+        f"{s['seq_ms']:.3f} ms a rank, K5 {s['k5_ms']:.3f} ms")
+    if max(s["errs"]) > DP_SEQ_RTOL:
+        fail("dp_seq: the sharded band disagrees with K5")
+    say(f"[dp] 2 Gloo ranks on one card: {wall:.1f} s (MQ yaml "
+        f"{r0['t_mq_yaml']:.1f} s, NLQ {r0['t_nlq'] - r0['t_mq_yaml']:.1f}"
+        f" s, VQ {r0['t_vq'] - r0['t_nlq']:.1f} s); peak memory "
+        f"{r0['peak_gb']:.1f} / {r1['peak_gb']:.1f} GiB a rank")
+    phase_dp_nccl(dev)
+    return launches
+
+
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
                                "dwconv_qkv", "adamw_kernel", "banded_",
@@ -5332,6 +6023,10 @@ def main():
 
     ab = attention_ablations(dev, mq)
     took("attention ablations")
+    # data parallelism: 2 Gloo ranks on the card (the MQ yaml method, NLQ
+    # with EWC, VQ with HNM; the sequence-parallel band), the NCCL group
+    dp_launches = phase_dp(dev)
+    took("dp")
 
     rows = [
         # name, source, replaces, errors, timing, launches (MQ path; the
@@ -5442,6 +6137,8 @@ def main():
             entry["launches_vq_train"] = vq_train[fn]
         if fn in also:
             entry["also_replaces"] = also[fn]
+        if fn in dp_launches:
+            entry["launches_dp"] = dp_launches[fn]
         if fn == "adamw_update_multi":     # the same kernel over NLQ's,
             entry["nlq"] = ntop["adamw"]   # VQ's and the yaml model's leaves
             entry["vq"] = vtop["adamw"]
@@ -5485,7 +6182,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
                          ["--vq-train"], ["--mq-yaml"], ["--cl-methods"],
                          ["--mq-episode"], ["--nlq-episode"],
-                         ["--vq-episode"], ["--vq-reference"]):
+                         ["--vq-episode"], ["--vq-reference"], ["--dp"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5509,6 +6206,9 @@ if __name__ == "__main__":
             phase_vq_episode(dev)
         if sys.argv[1] == "--vq-reference":
             phase_vq_reference(dev)
+        if sys.argv[1] == "--dp":
+            check_xl_row0(dev)
+            phase_dp(dev)
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

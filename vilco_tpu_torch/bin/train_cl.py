@@ -20,6 +20,22 @@ line.
 The VQ synthetic split's clips are 16 frames long at every window, as
 JAX's: at configs/vq_vilco.yaml's 30-frame window a training window
 starts at frame -14 and numpy wraps its frames around, in both packages.
+
+Data parallelism, at JAX's global-batch semantics (parallel/mesh.py):
+
+  python -m vilco_tpu_torch.bin.train_cl --synthetic --dp 2 --workdir W
+  python -m vilco_tpu_torch.bin.train_cl --synthetic --dp 2 --device cpu ...
+  torchrun --nproc-per-node N -m vilco_tpu_torch.bin.train_cl \
+      --distributed --synthetic --workdir W
+
+`--dp N` spawns N ranks itself, one card each (`-1`: every visible card),
+or N Gloo processes with `--device cpu`; the global batch is the config's
+batch size, each rank training on its rows of it, and rank 0 writes the
+run's files. `--distributed` runs under torchrun (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT): each rank loads its shard of the
+train data, the global batch is batch size x world, and each rank writes
+to its own workdir (rank r > 0: {workdir}/rank{r}); with several ranks
+and no --dp it turns --dp -1 on, as JAX's CLI does.
 """
 
 from __future__ import annotations
@@ -31,12 +47,12 @@ import logging
 import os
 import sys
 
+# the --dp ranks' whole run: no deadline (each collective's wait still
+# times out after parallel/mesh.py's COLLECTIVE_TIMEOUT_S)
+RUN_TIMEOUT_S = None
+
 # flags of the JAX CLI that the port refuses, each with why
 REFUSED = {
-    "dp": "--dp: data parallelism over devices is not ported "
-          "(ROADMAP §1 item 7, multi-GPU)",
-    "distributed": "--distributed: multi-host training is not ported "
-                   "(ROADMAP §1 item 7, multi-GPU)",
     "factored": "--factored: the factored second moment is not ported "
                 "(FusedAdamW keeps the full one)",
     "params_bf16": "--params-bf16: a persistent bf16 parameter copy is not "
@@ -45,7 +61,8 @@ REFUSED = {
 
 
 def synthetic_mq_runner(cfg, workdir: str, device="cuda",
-                        videos_per_class=(6, 2), persist_config=True):
+                        videos_per_class=(6, 2), persist_config=True,
+                        writes=True):
     """The synthetic MQ episode (vilco_tpu/bin/train_cl.py's synthetic MQ
     path): with the prompt pool on and no text, the text stream and the
     cross-modal model switched on (L2P prompts prepend to text tokens);
@@ -85,7 +102,7 @@ def synthetic_mq_runner(cfg, workdir: str, device="cuda",
         cfg, TaskStream(train_tasks, val_tasks),
         SyntheticFeatureSource(cfg.dataset.input_dim), workdir=workdir,
         text_source=text, narration_source=nar,
-        persist_config=persist_config, device=device)
+        persist_config=persist_config, device=device, writes=writes)
     return cfg, runner
 
 
@@ -131,6 +148,21 @@ def apply_overrides(cfg, args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    args = parse(p, argv)
+    if args.dp and not args.distributed:
+        return spawn_dp(p, args, list(sys.argv[1:] if argv is None
+                                      else argv))
+    from vilco_tpu_torch.core.logging import configure_logging
+
+    configure_logging()
+    if not args.distributed:
+        return run(p, args)
+    return _main_distributed(p, args)
+
+
+def parse(p, argv):
+    """The CLI's arguments on `p`, parsed from `argv`; the flags the port
+    cannot honour exit with why."""
     p.add_argument("--config", default=None,
                    help="a yaml (needs PyYAML) or an episode's config.json")
     p.add_argument("--workdir", default="./runs/default")
@@ -171,10 +203,16 @@ def main(argv=None):
                         "{workdir}/logs")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no card raises) or cpu")
-    # the JAX CLI's flags that the port refuses
-    p.add_argument("--dp", type=int, default=0, help=REFUSED["dp"])
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel over N ranks (0: one process; -1: "
+                        "every visible card), each on its rows of the "
+                        "global batch, the gradients all-reduced; with "
+                        "--device cpu, N Gloo processes")
     p.add_argument("--distributed", action="store_true",
-                   help=REFUSED["distributed"])
+                   help="run under torchrun: join its process group, shard "
+                        "the train data per rank (global batch = batch "
+                        "size x world), DP over the ranks")
+    # the JAX CLI's flags that the port refuses
     p.add_argument("--factored", action="store_true",
                    help=REFUSED["factored"])
     p.add_argument("--params-bf16", action="store_true",
@@ -229,10 +267,89 @@ def main(argv=None):
     if args.tensorboard:
         os.environ["VILCO_TENSORBOARD_DIR"] = os.path.join(args.workdir,
                                                            "logs")
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s",
-                        handlers=[logging.StreamHandler(sys.stdout)])
+    return args
 
+
+def _main_distributed(p, args):
+    """--distributed under torchrun: one rank of the default group."""
+    import torch.distributed as dist
+
+    from vilco_tpu_torch.core.logging import configure_logging
+    from vilco_tpu_torch.parallel.mesh import init_distributed, local_device
+
+    rank, world = init_distributed(args.device)
+    try:
+        configure_logging(rank, world)
+        args.device = str(local_device(args.device))
+        if rank > 0:
+            args.workdir = os.path.join(args.workdir, f"rank{rank}")
+        if world > 1 and not args.dp:
+            # without the all-reduce each rank would train a replica of
+            # its own on 1/world of the data
+            logging.getLogger("vilco").warning(
+                "--distributed with %d hosts and no --dp: enabling --dp -1 "
+                "so gradients all-reduce", world)
+            args.dp = -1
+        if args.dp not in (0, -1, world):
+            p.error(f"--dp {args.dp} under --distributed: one rank a card, "
+                    f"so --dp is the world size {world} (or -1)")
+        dp = None
+        if args.dp:
+            from vilco_tpu_torch.parallel.mesh import DataParallel
+
+            dp = DataParallel(rank, world)
+        return run(p, args, dp, shard=(rank, world))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_dp(p, args, argv):
+    """`--dp N` on one host: N ranks (parallel/launch.py), one card each
+    or, with --device cpu, N Gloo processes on the CPU; returns rank 0's
+    results with every rank's final metrics under "rank_finals"."""
+    import torch
+
+    from vilco_tpu_torch.parallel.launch import spawn_ranks
+    from vilco_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(args.device)
+    n = None if args.dp == -1 else args.dp
+    if dev.type == "cpu":
+        devices = [dev] * (n or 1)
+    else:
+        try:
+            devices = make_mesh(n).devices
+        except ValueError as err:
+            p.error(str(err))
+        if not devices:
+            p.error("--dp -1: no card is visible (run with --device cpu "
+                    "for Gloo processes)")
+    out = spawn_ranks("vilco_tpu_torch.bin.train_cl:rank_main", devices,
+                      (argv,), timeout_s=RUN_TIMEOUT_S)
+    results = dict(out[0])
+    results["rank_finals"] = [r["final"] for r in out]
+    return results
+
+
+def rank_main(dp, device, argv):
+    """One rank of `--dp N` (spawn_dp): the run on `device`, rank 0
+    writing the files."""
+    from vilco_tpu_torch.core.logging import configure_logging
+
+    configure_logging(dp.rank, dp.world)
+    p = argparse.ArgumentParser()
+    args = parse(p, argv)
+    args.device = str(device)
+    return run(p, args, dp)
+
+
+def run(p, args, dp=None, shard=(0, 1)):
+    """The episode of the parsed `args`; `dp` (parallel/mesh.py::
+    DataParallel) runs its train steps over the ranks, `shard` (rank,
+    world) shards its train data (--distributed). Under --dp only rank 0
+    writes the run's files; under --distributed every rank writes its
+    own workdir's."""
     from vilco_tpu_torch.core.config import load_config
     from vilco_tpu_torch.data.synthetic import tiny_config
     from vilco_tpu_torch.tasks.nlq import nlq_tiny_config
@@ -245,20 +362,23 @@ def main(argv=None):
         cfg = tiny_config()
     task = args.task or cfg.task
     cfg = apply_overrides(cfg, args)
+    writes = dp is None or shard[1] > 1 or dp.rank == 0
     if task == "vq":
-        return train_vq(p, args, cfg)
+        return train_vq(p, args, cfg, dp, shard, writes)
     if task == "nlq":
         if args.joint:
             p.error("--joint: the NLQ runner has no joint mode")
-        runner = nlq_runner(p, args, cfg)
+        runner = nlq_runner(p, args, cfg, writes)
     elif task == "mq":
         if args.synthetic:
             cfg, runner = synthetic_mq_runner(
-                cfg, args.workdir, args.device, tuple(args.synthetic_videos))
+                cfg, args.workdir, args.device, tuple(args.synthetic_videos),
+                writes=writes)
         else:
             from vilco_tpu_torch.tasks.mq import build_mq_runner
 
-            runner = build_mq_runner(cfg, args.workdir, device=args.device)
+            runner = build_mq_runner(cfg, args.workdir, device=args.device,
+                                     writes=writes)
         if args.joint:
             from vilco_tpu_torch.cl.stream import merge_tasks
 
@@ -266,11 +386,10 @@ def main(argv=None):
             runner._setup_eval()
     else:
         p.error(f"--task {task}: one of mq, nlq, vq")
-    if args.init_from:
-        from vilco_tpu_torch.core.checkpoint import load_params_into
-
-        load_params_into(args.init_from, runner.model)
+    prep(runner, args, dp, shard)
     results = runner.run(resume=args.resume)
+    if not writes:
+        return results
     out = os.path.join(args.workdir, "results.json")
     with open(out, "w") as f:
         json.dump(results, f, indent=2)
@@ -283,8 +402,22 @@ def main(argv=None):
     return results
 
 
+def prep(runner, args, dp, shard):
+    """The pre-run settings shared by the tasks' runners: the train
+    data's shard, data parallelism (from rank 0's parameters, so after
+    --init-from), --init-from."""
+    runner.shard = shard
+    if args.init_from:
+        from vilco_tpu_torch.core.checkpoint import load_params_into
+
+        load_params_into(args.init_from, runner.model)
+    if dp is not None:
+        runner.enable_data_parallel(dp, sharded_loader=shard[1] > 1)
+    return runner
+
+
 def synthetic_nlq_runner(cfg, workdir: str, device="cuda",
-                         persist_config=True, narration=True):
+                         persist_config=True, narration=True, writes=True):
     """The synthetic NLQ episode (vilco_tpu/bin/train_cl.py's synthetic NLQ
     path): a template split of 8 train and 3 val queries a template from
     numpy's default_rng(init_rand_seed), SyntheticNLQFeatures, and, with
@@ -309,10 +442,11 @@ def synthetic_nlq_runner(cfg, workdir: str, device="cuda",
     return NLQEpisodeRunner(cfg, NLQTaskStream(train_tasks, val_tasks),
                             feat.video, workdir=workdir,
                             text_source=feat.text, narration_source=nar,
-                            persist_config=persist_config, device=device)
+                            persist_config=persist_config, device=device,
+                            writes=writes)
 
 
-def nlq_runner(p, args, cfg):
+def nlq_runner(p, args, cfg, writes=True):
     """The NLQ runner of the CLI's arguments: jsonl annotations with lmdb
     or per-file features, or the synthetic episode."""
     if args.nlq_train_jsonl:
@@ -324,11 +458,12 @@ def nlq_runner(p, args, cfg):
             video_lmdb=args.nlq_video_lmdb, text_lmdb=args.nlq_text_lmdb,
             val_text_lmdb=args.nlq_val_text_lmdb,
             video_dir=args.nlq_video_dir, text_dir=args.nlq_text_dir,
-            device=args.device)
+            device=args.device, writes=writes)
     if not args.synthetic:
         p.error("--task nlq needs --synthetic or --nlq-train-jsonl with a "
                 "feature source")
-    return synthetic_nlq_runner(cfg, args.workdir, args.device)
+    return synthetic_nlq_runner(cfg, args.workdir, args.device,
+                                writes=writes)
 
 
 def vq_runner_kwargs(args, cfg):
@@ -365,7 +500,7 @@ def vq_runner_kwargs(args, cfg):
     return vqc, kw
 
 
-def train_vq(p, args, cfg):
+def train_vq(p, args, cfg, dp=None, shard=(0, 1), writes=True):
     """The VQ episode (vilco_tpu/bin/train_cl.py's --task vq): real
     annotations through data/vq_frames.py, or the synthetic split (JAX's:
     16-frame clips at any window); `--joint` merges the tasks into one."""
@@ -419,12 +554,12 @@ def train_vq(p, args, cfg):
     if args.joint:
         stream = merge_vq_tasks(stream)
     runner = VQEpisodeRunner(stream, source, args.workdir, window=window,
-                             frame_size=frame_size, memory_size=memory, **kw)
-    if args.init_from:
-        from vilco_tpu_torch.core.checkpoint import load_params_into
-
-        load_params_into(args.init_from, runner.model)
+                             frame_size=frame_size, memory_size=memory,
+                             writes=writes, **kw)
+    prep(runner, args, dp, shard)
     results = runner.run()
+    if not writes:
+        return results
     out = os.path.join(args.workdir, "results.json")
     with open(out, "w") as f:
         json.dump(results, f, indent=2)

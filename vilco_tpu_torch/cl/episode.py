@@ -24,6 +24,16 @@ across tasks (the step advances it in place). config.json is JAX's
 `Config.to_dict()` layout, so each package's evaluate CLI reads the other's
 workdir. The runner runs on `device` (the card unless the caller asks for
 the CPU): no card raises, and nothing falls back to the CPU.
+
+Data parallelism (`enable_data_parallel`, vilco_tpu/cl/episode.py:
+213-267): the train steps and the EWC/MAS importance run over the ranks
+at the global batch's semantics (train/engine.py), each rank on its rows
+of every micro-batch: its slice of the whole batch (`--dp`: every rank
+loads the same global batch) or its own loader shard (`--distributed`:
+`shard`, the global batch the ranks' batches in rank order). Eval, the
+distillation snapshots, BiC's stage 2, iCaRL's means and the rehearsal
+memory run whole on every rank, as JAX's replicated, host-unsharded
+loaders do. The ranks start from rank 0's parameters.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ from vilco_tpu_torch.models.point_transformer import (
 )
 from vilco_tpu_torch.ops.assign import generate_points
 from vilco_tpu_torch.ops.decode import decode_and_nms_batch
+from vilco_tpu_torch.parallel.mesh import replicated, shard_batch
 from vilco_tpu_torch.train.engine import (
     CLBatchExtras,
     TrainState,
@@ -106,6 +117,7 @@ class EpisodeRunner:
         shard: tuple = (0, 1),
         persist_config: bool = True,
         device="cuda",
+        writes: bool = True,
     ):
         self.cfg = cfg
         self.stream = stream
@@ -116,8 +128,14 @@ class EpisodeRunner:
         # (process_index, process_count): the train data's shard
         self.shard = shard
         self.device = device_of(device)
+        # parallel/mesh.py::DataParallel once enable_data_parallel ran
+        self.dp = None
+        self._loader_sharded = False
+        # False: this process writes none of the run's files (config,
+        # metrics, memory, checkpoints): a --dp rank other than rank 0
+        self.writes = writes
         os.makedirs(workdir, exist_ok=True)
-        if persist_config:
+        if persist_config and writes:
             # the resolved config, so bin/evaluate.py (of either package)
             # rebuilds the model and stream from the workdir alone
             with open(os.path.join(workdir, "config.json"), "w") as f:
@@ -149,8 +167,8 @@ class EpisodeRunner:
         self.eval_step = make_eval_step(
             self.model, ensemble_adapters=cfg.cl_cfg.use_adapt,
             compute_dtype=self.compute_dtype)
-        self.metrics_log = MetricsLogger(
-            os.path.join(workdir, "metrics.jsonl"))
+        self.metrics_log = (MetricsLogger(
+            os.path.join(workdir, "metrics.jsonl")) if writes else None)
         self.ext_cls_scores = None
         if cfg.test_cfg.ext_score_file:
             from vilco_tpu_torch.ops.ext_scores import load_cls_scores
@@ -206,9 +224,39 @@ class EpisodeRunner:
         mask[self.stream.classes_upto(j)] = True
         return mask.to(self.device)
 
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+    def enable_data_parallel(self, dp, sharded_loader: bool = False):
+        """Run the train steps and the importance over the ranks of `dp`
+        (parallel/mesh.py::DataParallel). `sharded_loader`: each rank's
+        train loader yields its own shard (`shard`, --distributed), else
+        every rank loads the global batch and keeps its rows (--dp). The
+        parameters become rank 0's, checked bitwise on every rank."""
+        accum = max(self.cfg.opt.accumulation_steps, 1)
+        B = self.cfg.loader.batch_size * accum * (
+            dp.world if sharded_loader else 1)
+        if B % (dp.world * accum):
+            raise ValueError(f"global batch {B} not divisible by "
+                             f"{dp.world} ranks x {accum} micro-batches")
+        self.dp, self._loader_sharded = dp, sharded_loader
+        replicated(self.model.parameters(), dp)
+        return self
+
+    def _train_rows(self, batch: dict) -> dict:
+        """This rank's rows of a train batch (all of them when the loader
+        is sharded or without data parallelism)."""
+        if self.dp is None or self._loader_sharded:
+            return batch
+        return shard_batch(batch, self.dp.rank, self.dp.world,
+                           max(self.cfg.opt.accumulation_steps, 1))
+
+    def _to_device(self, batch, is_training: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+        """The batch on the device: a train batch's rows of this rank
+        (`_train_rows`), an eval batch whole."""
+        batch = {k: v for k, v in batch.items() if k != "video_idx"}
+        if is_training:
+            batch = self._train_rows(batch)
         return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.items() if k != "video_idx"}
+                for k, v in batch.items()}
 
     # ------------------------------------------------------------------
     def snapshot_logits(self, videos, n_known: int = 0
@@ -298,7 +346,7 @@ class EpisodeRunner:
         step = make_train_step(
             self.points, cfg.train_cfg, compute_dtype=self.compute_dtype,
             cl_cfg=dataclasses.replace(cfg.cl_cfg, name=self.method),
-            n_known=n_known, accumulation_steps=accum)
+            n_known=n_known, accumulation_steps=accum, dp=self.dp)
         state = TrainState(
             model=self.model, opt=opt,
             loss_normalizer=torch.tensor(self.loss_normalizer,
@@ -338,14 +386,15 @@ class EpisodeRunner:
         for epoch in range(total_epochs):
             loader.set_epoch(epoch)
             for batch, meta in loader:
-                batch = self._to_device(batch)
+                batch = self._to_device(batch, is_training=True)
                 if prompt_arange is not None:
                     batch["prompt_mask"] = prompt_arange.expand(
-                        len(meta["video_id"]), -1).contiguous()
+                        len(batch["feats"]), -1).contiguous()
                 prev = None
                 if use_distill:
-                    prev = torch.stack([prev_logits_map.get(vid, zeros)
-                                        for vid in meta["video_id"]])
+                    prev = self._train_rows({"p": torch.stack(
+                        [prev_logits_map.get(vid, zeros)
+                         for vid in meta["video_id"]])})["p"]
                 cl = CLBatchExtras(
                     class_mask=class_mask,
                     memory_bank=self.memory_bank if use_ssl else None,
@@ -360,8 +409,9 @@ class EpisodeRunner:
             last_metrics = {k: float(v) for k, v in metrics.items()}
             log.info("task %d epoch %d: %s", j, epoch,
                      {k: round(v, 4) for k, v in last_metrics.items()})
-            self.metrics_log.log("train_epoch", step=state.step, task=j,
-                                 epoch=epoch, **last_metrics)
+            if self.writes:
+                self.metrics_log.log("train_epoch", step=state.step,
+                                     task=j, epoch=epoch, **last_metrics)
             if cfg.opt.track_best and epoch >= eval_start:
                 self._adapter_ema = state.adapter_ema
                 score = self.evaluate(j, update_bwf=False)[
@@ -681,8 +731,9 @@ class EpisodeRunner:
                 m = self.stream.memory_quota(cfg.cl_cfg.memory_size, n_seen)
                 self.memory.add_task(self.stream.train_class_videos(j), m)
                 n_known = self.memory.n_known
-                self.memory.save(
-                    os.path.join(self.workdir, cfg.cl_cfg.path_memory))
+                if self.writes:
+                    self.memory.save(
+                        os.path.join(self.workdir, cfg.cl_cfg.path_memory))
 
             if j < self.stream.num_tasks - 1:
                 # the reference's augment_classification point: before the
@@ -695,27 +746,29 @@ class EpisodeRunner:
                 # spans the next task's classes too (mask through j + 1)
                 loader.set_epoch(0)
                 cl = CLBatchExtras(class_mask=self._class_mask(j + 1))
-                batches = (self._to_device(b) for b, _ in loader)
+                batches = (self._to_device(b, is_training=True)
+                           for b, _ in loader)
                 imp, optpar, new_norm = estimate_importance(
                     self.model, self.points, batches, cl,
                     torch.tensor(self.loss_normalizer, dtype=torch.float32,
                                  device=self.device),
                     cfg.train_cfg, mode=self.method,
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype, dp=self.dp)
                 self.loss_normalizer = float(new_norm)
                 self.reg_list.append((imp, optpar))
 
-            save_checkpoint(
-                os.path.join(self.workdir, f"task_{j:03d}.ckpt"),
-                self.checkpoint_tree(j, n_known),
-                arrays_format=cfg.ckpt_format)
-            self.metrics_log.log(
-                "task_eval", step=j, task=j,
-                avg_mAP=eval_stats.get("avg_mAP", 0.0),
-                R1_05=eval_stats.get("avg_R1@0.5", 0.0),
-                bwf=eval_stats.get("BwF_R1@0.5", 0.0),
-                clips_per_s=train_stats.get("clips_per_s", 0.0),
-            )
+            if self.writes:
+                save_checkpoint(
+                    os.path.join(self.workdir, f"task_{j:03d}.ckpt"),
+                    self.checkpoint_tree(j, n_known),
+                    arrays_format=cfg.ckpt_format)
+                self.metrics_log.log(
+                    "task_eval", step=j, task=j,
+                    avg_mAP=eval_stats.get("avg_mAP", 0.0),
+                    R1_05=eval_stats.get("avg_R1@0.5", 0.0),
+                    bwf=eval_stats.get("BwF_R1@0.5", 0.0),
+                    clips_per_s=train_stats.get("clips_per_s", 0.0),
+                )
             results["tasks"].append({"task": j, "train": train_stats,
                                      "eval": eval_stats})
         results["final"] = results["tasks"][-1]["eval"]

@@ -11,6 +11,12 @@ broken toward the lower id in both steps (`lax.top_k`'s order; a stable
 descending sort here, since `torch.topk`'s order for equal values is
 unspecified). A given `prompt_mask` (B, top_k) of pool ids replaces the
 choice. Parameters are stored unshifted: U(-1, 1) at init.
+
+Under data parallelism (`dp`, parallel/mesh.py::DataParallel) the batch is
+the global one, as in JAX's SPMD step: the vote's counts are summed over
+the ranks before the top-k, so every rank picks the same prompts, and
+`reduce_sim` divides by the global batch size (the ranks' terms add up to
+the global mean in the gradient's all-reduce).
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ class PromptPool(nn.Module):
     def total_prompt_len(self) -> int:
         return self.top_k * self.length
 
-    def forward(self, x, prompt_mask=None):
-        """x (B, L, C) text tokens; prompt_mask (B, top_k) int or None.
-        Returns (prompted (B, top_k * length + L, C), reduce_sim (0-d),
-        idx (B, top_k)), in x's dtype."""
+    def forward(self, x, prompt_mask=None, dp=None):
+        """x (B, L, C) text tokens; prompt_mask (B, top_k) int or None;
+        `dp` a data-parallel rank's place (module docstring) or None.
+        Returns (prompted (B, top_k * length + L, C), reduce_sim (0-d: this
+        rank's term under `dp`), idx (B, top_k)), in x's dtype."""
         if x.shape[-1] != self.prompt.shape[-1]:
             raise ValueError(f"PromptPool embed_dim={self.prompt.shape[-1]} "
                              f"but the text tokens are {x.shape[-1]}-d")
@@ -54,10 +61,13 @@ class PromptPool(nn.Module):
         if prompt_mask is None:
             idx = _top_k_ids(x_norm @ key_norm.T, self.top_k)
             counts = F.one_hot(idx.reshape(-1), self.pool_size).sum(0)
+            if dp is not None:
+                counts = dp.all_reduce_(counts)
             idx = _top_k_ids(counts, self.top_k)[None].expand(B, -1)
         else:
             idx = prompt_mask.long()
         prompts = self.prompt[idx].to(x.dtype).reshape(
             B, self.total_prompt_len, x.shape[-1])
-        reduce_sim = (key_norm[idx] * x_norm[:, None, :]).sum() / B
+        n = B if dp is None else B * dp.world
+        reduce_sim = (key_norm[idx] * x_norm[:, None, :]).sum() / n
         return torch.cat([prompts, x], 1), reduce_sim, idx

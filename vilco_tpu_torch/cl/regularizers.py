@@ -54,15 +54,19 @@ def penalty_excluded(name: str) -> bool:
 def estimate_importance(model: torch.nn.Module, points: torch.Tensor,
                         batches: Iterable[dict], cl: CLBatchExtras,
                         loss_norm: torch.Tensor, tc, mode: str = "ewc",
-                        compute_dtype: Optional[torch.dtype] = None
-                        ) -> Tuple[Tree, Tree, torch.Tensor]:
+                        compute_dtype: Optional[torch.dtype] = None,
+                        dp=None) -> Tuple[Tree, Tree, torch.Tensor]:
     """(importance, optpar, loss_norm) of the finished task
     (vilco_tpu/cl/regularizers.py: make_grad_step, estimate_importance):
     each batch's deterministic forward (feats, mask and text only) and
     compute_losses at n_known 0 advance the normaliser; the last batch's
     gradient of the loss gives the importance, g^2 for "ewc" and |g| for
     "mas" (zeros without a batch); optpar is a copy of the parameters. The
-    parameters' .grad buffers are not touched."""
+    parameters' .grad buffers are not touched. With `dp` (a data-parallel
+    rank's place) the batches are the rank's rows of the global ones: the
+    normaliser advances by the global #positives, and the gradient is
+    all-reduced before the square or the magnitude, so every rank holds
+    the global batch's importance."""
     if mode not in ("ewc", "mas"):
         raise ValueError(f"importance mode {mode!r}: ewc or mas")
     was = model.training
@@ -73,16 +77,18 @@ def estimate_importance(model: torch.nn.Module, points: torch.Tensor,
         if last is not None:
             with torch.no_grad():
                 loss_norm = _loss(model, points, last, cl, loss_norm, tc,
-                                  compute_dtype)[1]
+                                  compute_dtype, dp)[1]
         last = batch
     grads = [torch.zeros_like(p) for _, p in named]
     if last is not None:
         loss, loss_norm = _loss(model, points, last, cl, loss_norm, tc,
-                                compute_dtype)
+                                compute_dtype, dp)
         got = torch.autograd.grad(loss, [p for _, p in named],
                                   allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, (_, p) in zip(got, named)]
+        if dp is not None:
+            grads = all_reduce_tree(grads, dp)
     model.train(was)
     f = torch.square if mode == "ewc" else torch.abs
     imp = {n: f(g.detach().float()) for g, (n, _) in zip(grads, named)}
@@ -90,11 +96,24 @@ def estimate_importance(model: torch.nn.Module, points: torch.Tensor,
     return imp, optpar, loss_norm.detach()
 
 
-def _loss(model, points, batch, cl, loss_norm, tc, compute_dtype):
+def _loss(model, points, batch, cl, loss_norm, tc, compute_dtype, dp=None):
     out = model(batch["feats"], batch["mask"], batch.get("text"),
                 batch.get("text_mask"), compute_dtype=compute_dtype)
-    loss, _, norm = compute_losses(out, batch, points, cl, loss_norm, tc)
+    loss, _, norm = compute_losses(out, batch, points, cl, loss_norm, tc,
+                                   dp=dp)
     return loss, norm
+
+
+def all_reduce_tree(grads: List[torch.Tensor], dp) -> List[torch.Tensor]:
+    """The SUM over the ranks of each tensor of `grads`, by one all-reduce
+    of their f32 concatenation; returned in their dtypes."""
+    flat = dp.all_reduce_(torch.cat([g.detach().float().reshape(-1)
+                                     for g in grads]))
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
+        at += g.numel()
+    return out
 
 
 def stack_reg_tasks(tasks: List[Tuple[Tree, Tree]], names: List[str],

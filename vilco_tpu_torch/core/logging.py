@@ -4,16 +4,29 @@
 `MetricsLogger` and `StepTimer` are copies of the JAX package's; the
 JSONL stream's records are the same. `profile_ctx` traces with
 torch.profiler (CPU and CUDA activities) into the same `trace_dir` or
-VILCO_PROFILE_DIR, as a Chrome trace per context.
+VILCO_PROFILE_DIR, as a Chrome trace per context. `configure_logging`
+tags every log line of a data-parallel rank with the rank.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
+import sys
 import time
 from typing import Any, Dict, Optional
+
+
+def configure_logging(rank: int = 0, world: int = 1) -> None:
+    """INFO lines on stdout, each tagged `[rank r/w]` when world > 1 (which
+    replaces the handlers set before)."""
+    tag = f" [rank {rank}/{world}]" if world > 1 else ""
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s{tag} %(name)s %(message)s",
+                        handlers=[logging.StreamHandler(sys.stdout)],
+                        force=world > 1)
 
 
 class MetricsLogger:

@@ -90,7 +90,8 @@ __device__ __forceinline__ uint32_t philox_word0(unsigned long long e,
 
 // Dropout of the attention probabilities: thresh = 0 keeps everything. The
 // 64-bit seed is read from device memory (the step draws it on the card),
-// its two halves the Philox key.
+// its two halves the Philox key; the word after it is the counter's base
+// (a data-parallel rank's first global row times the elements of a row).
 struct Dropout {
   const unsigned long long* seed;
   uint32_t thresh;
@@ -98,7 +99,8 @@ struct Dropout {
   __device__ __forceinline__ bool keep(unsigned long long e) const {
     if (thresh == 0u) return true;
     const unsigned long long s = __ldg(seed);
-    return philox_word0(e, (uint32_t)s, (uint32_t)(s >> 32)) >= thresh;
+    return philox_word0(e + __ldg(seed + 1), (uint32_t)s,
+                        (uint32_t)(s >> 32)) >= thresh;
   }
 };
 

@@ -1715,10 +1715,10 @@ static vilco::Dropout make_dropout(const void* seed, int thresh,
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/out (B, T, H, D), r (2T, H, D),
 // r_w_bias/r_r_bias (H, D), mask (B, T) one byte per key, all contiguous;
-// D <= 128. lse (B, H, T) f32 or null. Dropout: seed points to one 64-bit
-// seed on the device (null when thresh is 0), whose two 32-bit halves key
-// Philox; keep iff bits >= thresh (0: no dropout), kept probabilities
-// times inv_keep.
+// D <= 128. lse (B, H, T) f32 or null. Dropout: seed points to two 64-bit
+// words on the device (null when thresh is 0), the seed, whose two 32-bit
+// halves key Philox, and the base added to each element's counter; keep
+// iff bits >= thresh (0: no dropout), kept probabilities times inv_keep.
 extern "C" int xl_rel_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* r,
                                     const void* rwb, const void* rrb,

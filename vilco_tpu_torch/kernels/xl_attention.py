@@ -20,7 +20,9 @@ Philox4x32-10 block keyed by the step's 64-bit seed, with the element index
 ((b H + h) T + i) T + j as the counter: the mask depends on neither tile
 size nor pass, so forward, backward and `philox_keep_mask` (plain torch
 integer arithmetic) draw the same mask. keep iff bits >= rate 2^32; kept
-probabilities scale by 1 / (1 - rate).
+probabilities scale by 1 / (1 - rate). A data-parallel rank holding rows
+row0.. of the global batch adds row0 H T T to the counter (the seed
+buffer's second word), so the ranks draw the global batch's mask.
 
 Backward: five passes that write each output once and sum in a fixed
 order, so two calls give equal bits (`xl_bwd_plain` is the same passes in
@@ -82,9 +84,11 @@ def keep_threshold(rate: float) -> int:
 
 
 def philox_keep_mask(seed: int, B: int, H: int, T: int, rate: float,
-                     device=None) -> torch.Tensor:
-    """(B, H, T, T) bool keep mask of the attention dropout."""
-    e = torch.arange(B * H * T * T, dtype=torch.int64, device=device)
+                     device=None, row0: int = 0) -> torch.Tensor:
+    """(B, H, T, T) bool keep mask of the attention dropout of batch rows
+    row0 .. row0 + B."""
+    e = torch.arange(B * H * T * T, dtype=torch.int64, device=device) \
+        + row0 * H * T * T
     zero = torch.zeros_like(e)
     bits = philox4x32_10((e & MASK32, e >> 32, zero, zero),
                          (seed & MASK32, (seed >> 32) & MASK32))[0]
@@ -92,10 +96,10 @@ def philox_keep_mask(seed: int, B: int, H: int, T: int, rate: float,
 
 
 def xl_rel_attention_plain(q, k, v, r, r_w_bias, r_r_bias, mask,
-                           seed: int = 0, rate: float = 0.0):
+                           seed: int = 0, rate: float = 0.0, row0: int = 0):
     """Plain version: XLRelAttention's attention core in f32 (f64 for f64
     inputs), returned in q.dtype. q/k/v (B, T, H, D), r (2T, H, D), biases
-    (H, D), mask (B, T)."""
+    (H, D), mask (B, T); the dropout mask of batch rows row0 ..."""
     dt = q.dtype
     ct = torch.promote_types(dt, torch.float32)
     q, k, v, r, rwb, rrb = (t.to(ct) for t in (q, k, v, r, r_w_bias,
@@ -110,7 +114,7 @@ def xl_rel_attention_plain(q, k, v, r, r_w_bias, r_r_bias, mask,
     att = ((ac + bd) * scale).masked_fill(~mask[:, None, None, :], NEG_INF)
     att = torch.softmax(att, dim=-1)
     if rate > 0.0:
-        keep = philox_keep_mask(seed, B, H, T, rate, q.device)
+        keep = philox_keep_mask(seed, B, H, T, rate, q.device, row0)
         att = torch.where(keep, att / (1.0 - rate), torch.zeros_like(att))
     vm = v * mask[:, :, None, None].to(ct)
     return torch.einsum("bhqk,bkhd->bqhd", att, vm).to(dt)
@@ -148,7 +152,8 @@ def xl_lse_plain(args) -> torch.Tensor:
     return m + torch.log2(torch.exp2(s - m[..., None]).sum(-1))
 
 
-def xl_bwd_plain(args, out, lse, dout, seed: int = 0, rate: float = 0.0):
+def xl_bwd_plain(args, out, lse, dout, seed: int = 0, rate: float = 0.0,
+                 row0: int = 0):
     """Plain version of K2-bwd, the kernels' five passes in f32 (f64 for
     f64 inputs) with their tiles and summation order, from the forward's
     out and lse (B, H, T):
@@ -175,7 +180,7 @@ def xl_bwd_plain(args, out, lse, dout, seed: int = 0, rate: float = 0.0):
     dp = gh @ vh.transpose(-1, -2)
     pd = p
     if rate > 0.0:
-        keep = philox_keep_mask(seed, B, H, T, rate, q.device)
+        keep = philox_keep_mask(seed, B, H, T, rate, q.device, row0)
         pd = torch.where(keep, p / (1.0 - rate), 0.0)
         dp = torch.where(keep, dp / (1.0 - rate), 0.0)
     delta = (gh * oh).sum(-1)                               # pass 1
@@ -222,16 +227,25 @@ def xl_bwd_plain(args, out, lse, dout, seed: int = 0, rate: float = 0.0):
             dr.transpose(0, 1).to(r.dtype), drwb.to(rwb.dtype), drrb.to(rrb.dtype))
 
 
-def _seed_tensor(seed, device) -> torch.Tensor:
-    """The seed as one int64 on the card: a tensor drawn there stays there
+def _seed_tensor(seed, device, base: int = 0) -> torch.Tensor:
+    """The kernels' seed buffer on the card: two int64, the seed and the
+    counter's base (`_seed_pair`). A seed tensor drawn there stays there
     (no host sync); an int is copied."""
     if isinstance(seed, torch.Tensor):
         if seed.numel() != 1 or seed.dtype != torch.int64 \
                 or seed.device != device:
             raise ValueError("seed must be one int64 on the inputs' device")
-        return seed.reshape(1).contiguous()
-    return torch.tensor([_signed64(int(seed))], dtype=torch.int64,
+        return _seed_pair(seed, base)
+    return torch.tensor([_signed64(int(seed)), base], dtype=torch.int64,
                         device=device)
+
+
+def _seed_pair(seed: torch.Tensor, base: int = 0) -> torch.Tensor:
+    """[seed, base] as the kernels read them: a one-word seed gets the
+    counter base `base` (0: the batch's first row is global row 0)."""
+    if seed.numel() == 2:
+        return seed.contiguous()
+    return torch.cat([seed.reshape(1), seed.new_full((1,), base)])
 
 
 def _signed64(u: int) -> int:
@@ -249,6 +263,7 @@ def xl_fwd_cuda(args, seed: torch.Tensor, rate: float, with_lse: bool):
     """Launch the forward kernel: (out, lse (B, H, T) f32 or None)."""
     q = args[0]
     B, T, H, D = q.shape
+    seed = _seed_pair(seed)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -267,6 +282,7 @@ def xl_bwd_cuda(args, out, lse, dout, seed: torch.Tensor, rate: float):
     d r_r_bias), each in its input's dtype and written once."""
     q, k, v, r, rwb, rrb, mask = args
     B, T, H, D = q.shape
+    seed = _seed_pair(seed)
     dev, f32 = q.device, torch.float32
     dout = dout.contiguous()
     grads = [torch.empty_like(t) for t in args[:6]]
@@ -311,10 +327,12 @@ class _XLRelAttention(torch.autograd.Function):
 
 
 def xl_rel_attention(q, k, v, r, r_w_bias, r_r_bias, mask, seed=0,
-                     rate: float = 0.0):
+                     rate: float = 0.0, row0: int = 0):
     """Returns (B, T, H, D); invalid query rows are not zeroed. `seed`, a
     64-bit int or one int64 tensor on the inputs' device, keys the dropout
-    mask when rate > 0. Differentiable in q, k, v, r and both biases."""
+    mask when rate > 0; `row0`, the global row of the batch's first (a
+    data-parallel rank's rows), offsets its element counter.
+    Differentiable in q, k, v, r and both biases."""
     B, T, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape or r.shape != (2 * T, H, D) \
             or r_w_bias.shape != (H, D) or r_r_bias.shape != (H, D) \
@@ -326,7 +344,8 @@ def xl_rel_attention(q, k, v, r, r_w_bias, r_r_bias, mask, seed=0,
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     args = (q, k, v, r, r_w_bias, r_r_bias, mask)
     if q.device.type == "cpu":
-        return xl_rel_attention_plain(*args, seed=int(seed), rate=rate)
+        return xl_rel_attention_plain(*args, seed=int(seed), rate=rate,
+                                      row0=row0)
     if q.device.type != "cuda" or any(t.device != q.device for t in args):
         raise ValueError("all inputs must be on one CUDA device")
     _build.dtype_code(q)
@@ -336,7 +355,7 @@ def xl_rel_attention(q, k, v, r, r_w_bias, r_r_bias, mask, seed=0,
         raise ValueError(f"head dim {D} > 128")
     if not all(t.is_contiguous() for t in args):
         raise ValueError("all inputs must be contiguous")
-    seed = _seed_tensor(seed, q.device)
+    seed = _seed_tensor(seed, q.device, row0 * H * T * T)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args[:6]):
         return _XLRelAttention.apply(*args, seed, rate)
     return xl_fwd_cuda(args, seed, rate, with_lse=False)[0]

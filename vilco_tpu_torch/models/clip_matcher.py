@@ -22,6 +22,14 @@ JAX's jax.image.resize) and `vit_final_norm=False` (the MAE ViT's tokens
 taken without the final LayerNorm). With `cfg.use_query_roi` a given
 query-frame box resamples the query's features onto it
 (ops/roi_align.py).
+
+Under data parallelism (`dp`, parallel/mesh.py::DataParallel) a rank holds
+its clips and queries of the global batch; HNM pairs its clips with EVERY
+query of the global batch, gathered after the channel reduce by an
+autograd-aware gather (the backward sums the ranks' gradients of each
+query), clip index slowest, so that the rank's pairs are a contiguous
+block of JAX's global pair list, and the head's dropout draws the global
+pair list's masks (each rank its rows).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from vilco_tpu_torch.ops.activations import gelu
 from vilco_tpu_torch.ops.anchors import generate_anchors, xyhw_to_xyxy
 from vilco_tpu_torch.ops.masked import wide
 from vilco_tpu_torch.ops.roi_align import roi_align_2d
+from vilco_tpu_torch.parallel.mesh import RowDraw
 
 N_ANCHORS = 12       # 4 base sizes x 3 aspect ratios
 CQ_HEADS = 4         # the query/frame decoder layer
@@ -322,10 +331,11 @@ class ClipMatcher(nn.Module):
             query_feat.dtype)
 
     def match(self, clip_feat, query_feat, B: int, T: int, hnm: bool = False,
-              rng=None, query_frame_bbox=None):
+              rng=None, query_frame_bbox=None, dp=None):
         """Patch grids of the B*T clip frames (B*T, h, w, C) and the B
         queries (B, h, w, C) -> the output dict. hnm pairs every clip i with
-        every query j (clip index slowest): B*B outputs. With
+        every query j (clip index slowest): B*B outputs; under `dp` the
+        rank's B clips with the global batch's B x world queries. With
         `cfg.use_query_roi`, a `query_frame_bbox` (B, 4) resamples the
         queries' grids first (`query_roi`)."""
         dim, R = self.cfg.dim, self.cfg.resolution_transformer
@@ -335,12 +345,17 @@ class ClipMatcher(nn.Module):
         reduce = lambda x: self.reduce2(self.reduce1(x.permute(0, 3, 1, 2)))
         cf, qf = reduce(clip_feat), reduce(query_feat)      # NCHW
         if hnm:
-            i_idx = torch.arange(B, device=cf.device).repeat_interleave(B)
-            j_idx = torch.arange(B, device=cf.device).repeat(B)
-            cf = cf.reshape(B, T, dim, h, w)[i_idx].reshape(B * B * T, dim,
+            if dp is not None:
+                qf = dp.gather(qf)
+            Bq = qf.shape[0]
+            i_idx = torch.arange(B, device=cf.device).repeat_interleave(Bq)
+            j_idx = torch.arange(Bq, device=cf.device).repeat(B)
+            cf = cf.reshape(B, T, dim, h, w)[i_idx].reshape(B * Bq * T, dim,
                                                             h, w)
             qf = qf[j_idx]
-            B = B * B
+            B = B * Bq
+            if isinstance(rng, RowDraw):
+                rng = rng.rows_of(Bq)
         tokens = lambda x: x.flatten(2).transpose(1, 2)     # (n, h*w, C)
         q_tokens = tokens(qf)[:, None].expand(B, T, h * w, dim).reshape(
             B * T, h * w, dim)
@@ -353,6 +368,8 @@ class ClipMatcher(nn.Module):
         for i in range(self.cfg.num_transformer):
             x = getattr(self, f"st_{i}")(x)
         x = x.reshape(B * T, R, R, dim).permute(0, 3, 1, 2)
+        if isinstance(rng, RowDraw):
+            rng = rng.rows_of(T)        # the head's rows: pairs x frames
         bbox_delta, prob = self.head(x, rng)
         N = bbox_delta.shape[1]
         bbox_delta = bbox_delta.reshape(B, T, N, 4).float()
@@ -365,13 +382,15 @@ class ClipMatcher(nn.Module):
 
     def forward(self, clip, query, from_features: bool = False,
                 hnm: bool = False, rng=None, marks=None,
-                query_frame_bbox=None):
+                query_frame_bbox=None, dp=None):
         """clip (B, T, H, W, 3) frames or (B, T, h, w, C) features; query
         (B, H, W, 3) or (B, h, w, C). `rng` (a torch.Generator on the
         inputs' device) switches on the head's dropout in training mode.
         `marks`, if a list, receives ("vit", mark) between the backbone and
         the matcher. `query_frame_bbox` (B, 4), the queries' boxes in
-        normalized xyxy, is read with `cfg.use_query_roi`."""
+        normalized xyxy, is read with `cfg.use_query_roi`. `dp`: a
+        data-parallel rank's place (module docstring), `rng` then a
+        RowDraw over the global batch's clips."""
         dt = self.compute_dtype
         B, T = clip.shape[:2]
         clip = clip.to(dt).reshape((B * T,) + tuple(clip.shape[2:]))
@@ -380,4 +399,5 @@ class ClipMatcher(nn.Module):
             clip, query = self.extract(clip), self.extract(query)
         mark(marks, "vit", clip.device)
         return self.match(clip, query, B, T, hnm,
-                          rng if self.training else None, query_frame_bbox)
+                          rng if self.training else None, query_frame_bbox,
+                          dp)

@@ -14,7 +14,11 @@ second layer) and the XL stage's dropouts (`dropout`, default
 XL_DROPOUT: on the attention probabilities inside the kernel, after the
 output projection, after the FF's GELU and after its second layer).
 Without `rng` they are the identity (the JAX modules'
-`deterministic=True`, or training with the rates at 0).
+`deterministic=True`, or training with the rates at 0). `rng` may be a
+parallel/mesh.py::RowDraw, a data-parallel rank's rows of a global batch:
+each draw then takes the global batch's shape and keeps the rank's rows,
+and the XL kernel's dropout counts its elements from the rank's first
+global row.
 
   MaskedConv, LayerNormC, Scale, AffineDropPath
   MaskedMHCA        depthwise q/k/v convs (kernels/dwconv.py) + LN + dense
@@ -55,6 +59,7 @@ from vilco_tpu_torch.ops.masked import (
     masked_max_pool1d,
     wide,
 )
+from vilco_tpu_torch.parallel.mesh import RowDraw, generator_of, rand_rows
 
 T_C_ALPHA = 0.8  # train_cfg.t_c_alpha: temporal vs channel attention blend
 XL_DROPOUT = 0.1  # model.xl_dropout (the xlnet json's dropout)
@@ -66,8 +71,8 @@ def _drop_path(x, rate: float, rng):
     if rng is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=rng,
-                      device=x.device) < keep
+    mask = rand_rows((x.shape[0],) + (1,) * (x.dim() - 1), rng,
+                     x.device) < keep
     return x / keep * mask.to(x.dtype)
 
 
@@ -75,7 +80,7 @@ def _dropout(x, rate: float, rng):
     """Elementwise dropout with rescaling by 1 / (1 - rate)."""
     if rng is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=rng, device=x.device) < 1.0 - rate
+    keep = rand_rows(x.shape, rng, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -393,16 +398,18 @@ class XLRelAttention(nn.Module):
         k = torch.einsum("btc,chd->bthd", x, w(self.k))
         v = torch.einsum("btc,chd->bthd", x, w(self.v))
         r = torch.einsum("tc,chd->thd", pos_emb, w(self.r))
-        rate, seed = 0.0, 0
+        rate, seed, row0 = 0.0, 0, 0
         if rng is not None:
             # drawn on the generator's device: no host sync on the card
             rate = self.dropout
-            seed = torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), generator=rng,
+            seed = torch.randint(-2 ** 63, 2 ** 63 - 1, (1,),
+                                 generator=generator_of(rng),
                                  device=rng.device)
+            row0 = rng.start if isinstance(rng, RowDraw) else 0
         out = xl_rel_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), r.contiguous(),
                                w(self.r_w_bias), w(self.r_r_bias),
-                               mask.contiguous(), seed, rate)
+                               mask.contiguous(), seed, rate, row0=row0)
         o = torch.einsum("bqhd,chd->bqc", out, w(self.o))
         y = self.ln_attn(x + _dropout(o, self.dropout, rng))
         f = _dropout(gelu(self.ff1(y)), self.dropout, rng)

@@ -188,20 +188,22 @@ class PointTransformer(nn.Module):
 
     def forward(self, feats, mask, text=None, text_mask=None, narration=None,
                 narration_mask=None, narration_valid=None, prompt_mask=None,
-                rng=None, compute_dtype=None):
+                rng=None, compute_dtype=None, dp=None):
         """`text` (B, L, n_txt_in) and `text_mask` (B, L): the NLQ query or
         the MQ clip's text; `narration` (B, Ln, narration_dim),
         `narration_mask` (B, Ln) and `narration_valid` (B,): the SSL
         inputs; `prompt_mask` (B, top_k): the task's prompt ids; `rng` (a
-        torch.Generator on the card or CPU of the inputs) switches on
-        drop-path and the dropouts in training mode."""
+        torch.Generator on the card or CPU of the inputs, or a data-parallel
+        rank's parallel/mesh.py::RowDraw) switches on drop-path and the
+        dropouts in training mode; `dp`, a data-parallel rank's place, makes
+        the prompt pool's vote and reduce_sim the global batch's."""
         dt = compute_dtype or next(self.parameters()).dtype
         feats = feats.to(dt)
         text = None if text is None else text.to(dt)
         rng = rng if self.training else None
         out = {}
         if self.prompt is not None and text is not None:
-            text, out["reduce_sim"], _ = self.prompt(text, prompt_mask)
+            text, out["reduce_sim"], _ = self.prompt(text, prompt_mask, dp)
             if text_mask is not None:
                 text_mask = torch.cat([torch.ones(
                     (text.shape[0], self.prompt.total_prompt_len),

@@ -98,9 +98,9 @@ class MQNarrationSource:
 
 def build_mq_runner(cfg: Config, workdir: str,
                     persist_config: bool = True,
-                    device="cuda") -> EpisodeRunner:
+                    device="cuda", writes: bool = True) -> EpisodeRunner:
     """Wire up the real-data MQ episode from a config (bin/train_cl.py's
-    non-synthetic path for MQ)."""
+    non-synthetic path for MQ); `writes` as EpisodeRunner's."""
     from vilco_tpu_torch.cl.stream import TaskStream
     from vilco_tpu_torch.data.pipeline import DirFeatureSource
 
@@ -120,5 +120,5 @@ def build_mq_runner(cfg: Config, workdir: str,
     return EpisodeRunner(
         cfg, stream, src, workdir=workdir,
         text_source=text_source, narration_source=narration_source,
-        persist_config=persist_config, device=device,
+        persist_config=persist_config, device=device, writes=writes,
     )

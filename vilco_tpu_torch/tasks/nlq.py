@@ -299,9 +299,11 @@ def build_nlq_runner(cfg: Config, workdir: str, train_jsonl: str,
                      video_dir: Optional[str] = None,
                      text_dir: Optional[str] = None,
                      persist_config: bool = True,
-                     device="cuda") -> "NLQEpisodeRunner":
+                     device="cuda", writes: bool = True
+                     ) -> "NLQEpisodeRunner":
     """Real-data NLQ episode: jsonl annotations + lmdb or per-file features
-    (bin/train_cl.py's non-synthetic NLQ path), on `device`."""
+    (bin/train_cl.py's non-synthetic NLQ path), on `device`; `writes` as
+    EpisodeRunner's."""
     fps = float(getattr(cfg.dataset, "default_fps", 30.0) or 30.0)
     stream = NLQTaskStream(load_nlq_tasks(train_jsonl, fps),
                            load_nlq_tasks(val_jsonl, fps))
@@ -320,7 +322,8 @@ def build_nlq_runner(cfg: Config, workdir: str, train_jsonl: str,
                          "--nlq-video-dir")
     return NLQEpisodeRunner(cfg, stream, feats.video, workdir=workdir,
                             text_source=feats.text,
-                            persist_config=persist_config, device=device)
+                            persist_config=persist_config, device=device,
+                            writes=writes)
 
 
 class SyntheticNLQFeatures:

@@ -50,6 +50,7 @@ from vilco_tpu_torch.evals.vq_metrics import (
     predictions_to_response_track,
 )
 from vilco_tpu_torch.models.clip_matcher import ClipMatcher, frozen_bn_stats
+from vilco_tpu_torch.parallel.mesh import replicated, shard_rows
 from vilco_tpu_torch.train.vq_engine import (
     GT_KEYS,
     VQTrainState,
@@ -307,12 +308,20 @@ class VQEpisodeRunner:
                  ckpt_format: str = "npz", grad_max: float = 20.0,
                  lr_milestones: tuple = (7000, 14000, 20000, 25000),
                  lr_gamma: float = 0.3, device="cuda",
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 writes: bool = True):
         self.stream = stream
         self.source = source
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
         self.device = device_of(device)
+        # data parallelism (enable_data_parallel): the ranks' place, and
+        # (process index, process count) of a sharded window loader
+        self.dp = None
+        self.shard = (0, 1)
+        # False: this process writes none of the run's files (config,
+        # checkpoints): a --dp rank other than rank 0
+        self.writes = writes
         self.method = method
         self.memory_size = memory_size
         self.reg_lambda = reg_lambda
@@ -339,7 +348,7 @@ class VQEpisodeRunner:
             lr_milestones=tuple(lr_milestones), lr_gamma=lr_gamma)
         self.window = self.cfg.num_frames
         self.frame_size = self.cfg.clip_size
-        if persist_config:
+        if persist_config and writes:
             # the model-defining settings, so that bin/vq_infer.py (of
             # either package) rebuilds the ClipMatcher from the workdir
             with open(os.path.join(workdir, "vq_config.json"), "w") as f:
@@ -364,6 +373,35 @@ class VQEpisodeRunner:
         self.eval_marks: Optional[List] = None
 
     # --------------------------------------------------------------
+    def enable_data_parallel(self, dp, sharded_loader: bool = False):
+        """Run the train steps and the importance over the ranks of `dp`
+        (parallel/mesh.py::DataParallel) at the global batch's semantics
+        (train/vq_engine.py) (vilco_tpu/tasks/vq.py:322-379).
+        `sharded_loader` (--distributed): the window loader yields this
+        rank's slice of the global step batch (`shard` = (rank, world)),
+        else every rank draws the global batch and keeps its rows (--dp).
+        The trainable and frozen leaves become rank 0's, checked bitwise.
+        Eval runs whole on every rank."""
+        B = self.batch_size * (dp.world if sharded_loader else 1)
+        if B % dp.world:
+            raise ValueError(
+                f"global batch {B} not divisible by {dp.world} ranks")
+        self.dp = dp
+        if sharded_loader:
+            self.shard = (dp.rank, dp.world)
+        self.train_step = make_vq_train_step(self.cfg, dp=dp)
+        replicated(self.model.state_dict(keep_vars=True).values(), dp)
+        return self
+
+    def _rank_rows(self, n: int) -> np.ndarray:
+        """The rows of a step batch of `n` rows (the global batch's under
+        --dp, this rank's slice under --distributed) that this rank
+        trains on, as indices into it; and their global positions."""
+        if self.dp is None or self.shard[1] > 1:
+            return np.arange(n)
+        return shard_rows(n, self.dp.rank, self.dp.world,
+                          self.accumulation_steps)
+
     @torch.no_grad()
     def set_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy {name: tensor} into every leaf of the model's state_dict
@@ -434,34 +472,52 @@ class VQEpisodeRunner:
         """Yield per-optimizer-step batches (numpy) as JAX draws them: one
         batch = accumulation_steps micro-batches of batch_size; the
         permutation from `rng`, each position's window from an rng keyed by
-        (seed, epoch_key, step, position). `last_only` builds only the
-        final step's batch (the keys do not depend on earlier steps)."""
+        (seed, epoch_key, step, GLOBAL position). `last_only` builds only the
+        final step's batch (the keys do not depend on earlier steps).
+
+        With a sharded loader (`shard` = (rank, world), --distributed) each
+        batch is this rank's slice of the global step batch, positions
+        rank B_local .. (rank + 1) B_local - 1 (vilco_tpu/tasks/vq.py:
+        437-459): the global batch is the same for any layout of ranks."""
+        pid, pc = self.shard
         idx = rng.permutation(len(videos))
-        B = batch_size or self.batch_size * self.accumulation_steps
+        B_local = batch_size or self.batch_size * self.accumulation_steps
+        B = B_local * pc
         pool = np.resize(idx, max(len(idx), B))
         n_steps = max(len(idx) // B, 1)
         for b in range(n_steps - 1 if last_only else 0, n_steps):
-            sel = pool[b * B:(b + 1) * B]
+            gsel = pool[b * B:(b + 1) * B]
             parts = []
-            for pos in range(B):
+            for gpos in range(pid * B_local, (pid + 1) * B_local):
                 win_rng = np.random.default_rng(
-                    np.random.SeedSequence([self.seed, epoch_key, b, pos]))
-                parts.append(self._sample_window(videos[sel[pos]], win_rng))
+                    np.random.SeedSequence([self.seed, epoch_key, b, gpos]))
+                parts.append(self._sample_window(videos[gsel[gpos]],
+                                                 win_rng))
             yield {k: np.stack([p[k] for p in parts]) for k in parts[0]}
 
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+    def _to_device(self, batch, rows=None) -> Dict[str, torch.Tensor]:
+        """The batch on the device, its `rows` only where given."""
+        if rows is not None:
+            batch = {k: np.asarray(v)[rows] for k, v in batch.items()}
         return {k: torch.from_numpy(np.asarray(v)).to(self.device)
                 for k, v in batch.items()}
 
-    def _augment(self, batch):
+    def _augment(self, batch, rows=None, n_global=None):
         """The batch augmented on the device by draws from the runner's
-        CPU generator (data/vq_augment.py)."""
+        CPU generator (data/vq_augment.py). Under data parallelism the
+        draws are the global step batch's (`n_global` rows), each rank
+        applying those of its `rows` (positions in the global batch)."""
         from vilco_tpu_torch.data.vq_augment import (
             augment_vq_batch,
             draw_vq_augment,
         )
 
-        draws = draw_vq_augment(self._aug_gen, batch["clip"].shape[0])
+        n = batch["clip"].shape[0]
+        draws = draw_vq_augment(self._aug_gen, n_global or n)
+        if rows is not None:
+            at = torch.from_numpy(np.asarray(rows))
+            draws = {k: None if v is None else v[at]
+                     for k, v in draws.items()}
         return augment_vq_batch(batch, draws)
 
     def train_task(self, j: int):
@@ -489,9 +545,12 @@ class VQEpisodeRunner:
                     videos, np.random.default_rng(
                         np.random.SeedSequence([self.seed, j, ep])),
                     epoch_key=(j << 16) | ep):
-                batch = self._to_device(batch)
+                nb = len(batch["clip"])
+                rows = self._rank_rows(nb)
+                batch = self._to_device(batch, rows)
                 if self.augment:
-                    batch = self._augment(batch)
+                    pid, pc = self.shard
+                    batch = self._augment(batch, rows + pid * nb, nb * pc)
                 metrics = self.train_step(state, batch, reg=reg)
                 n += 1
         last = {k: float(v) for k, v in metrics.items()}
@@ -525,6 +584,11 @@ class VQEpisodeRunner:
             last = batch
         if last is None:
             return
+        dp = getattr(self, "dp", None)
+        if dp is not None and self.shard[1] == 1:
+            last = {k: np.asarray(v)[shard_rows(len(last["clip"]), dp.rank,
+                                                dp.world)]
+                    for k, v in last.items()}
         batch = self._to_device(last)
         model = self.model
         was = model.training
@@ -534,9 +598,14 @@ class VQEpisodeRunner:
         named = list(model.named_parameters()) + list(stats.items())
         preds = torch.func.functional_call(model, stats,
                                            (batch["clip"], batch["query"]))
-        loss = vq_losses(preds, {k: batch[k] for k in GT_KEYS})[0]
-        got = iter(torch.autograd.grad(
-            loss, [p for _, p in named if p.requires_grad]))
+        loss = vq_losses(preds, {k: batch[k] for k in GT_KEYS}, dp=dp)[0]
+        got = torch.autograd.grad(loss, [p for _, p in named
+                                         if p.requires_grad])
+        if dp is not None:
+            from vilco_tpu_torch.cl.regularizers import all_reduce_tree
+
+            got = all_reduce_tree(list(got), dp)
+        got = iter(got)
         model.train(was)
         f = torch.square if self.method == "ewc" else torch.abs
         imp = {n: (f(next(got).float()) if p.requires_grad
@@ -611,11 +680,12 @@ class VQEpisodeRunner:
             log.info("vq task %d eval: tAP25=%.3f stAP25=%.3f succ=%.1f",
                      j, eval_stats["avg_tAP25"], eval_stats["avg_stAP25"],
                      eval_stats["avg_success"])
-            save_checkpoint(
-                os.path.join(self.workdir, f"vq_task_{j:03d}.ckpt"),
-                {"params": self.params_numpy(), "task": j},
-                arrays_format=self.ckpt_format,
-            )
+            if self.writes:
+                save_checkpoint(
+                    os.path.join(self.workdir, f"vq_task_{j:03d}.ckpt"),
+                    {"params": self.params_numpy(), "task": j},
+                    arrays_format=self.ckpt_format,
+                )
             results["tasks"].append(
                 {"task": j, "train": train_stats, "eval": eval_stats}
             )

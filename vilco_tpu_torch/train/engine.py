@@ -13,6 +13,19 @@ gradient accumulation over micro-batches; and the eval step
     -> global-norm clip at CLIP_GRAD_L2NORM -> FusedAdamW
     -> loss-normaliser EMA -> the adapter EMA
 
+Data parallelism (`dp`, parallel/mesh.py::DataParallel): each rank holds
+its rows of every micro-batch and the step computes JAX's global-batch
+function: #positives is all-reduced before the normaliser's update, the
+distillation and SSL means divide by global counts, the SSL bank is
+written with every rank's rows in global row order (so every rank keeps
+the same bank), the prompt pool's vote is global, the dropout draws take
+the global micro-batch's shape (each rank its rows), and after the
+micro-batches ONE all-reduce (SUM) of the optimizer's flat gradient
+buffer adds the ranks' partial gradients up, before the division by K,
+the EWC/MAS penalty and the clip. No DistributedDataParallel: it averages
+per-rank losses, a different function here. The collectives run on the
+compute stream after each backward.
+
 What the flagships share is fixed here: radius center sampling at 1.5,
 loss weight 1, clip 1.0. What they differ in comes from the config's
 `train_cfg` (core/config.py::TrainCfg): label smoothing (NLQ 0.1), the
@@ -35,6 +48,7 @@ from vilco_tpu_torch.core.config import CLCfg, Config, TrainCfg
 from vilco_tpu_torch.core.marks import mark
 from vilco_tpu_torch.ops.assign import label_points
 from vilco_tpu_torch.ops.losses import ctr_diou_loss_1d, sigmoid_focal_loss
+from vilco_tpu_torch.parallel.mesh import RowDraw
 from vilco_tpu_torch.train.optim import FusedAdamW
 
 CENTER_SAMPLE_RADIUS = 1.5
@@ -127,7 +141,8 @@ def init_train_state(model: torch.nn.Module, cfg: Config,
 def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
                    cl: CLBatchExtras, loss_normalizer: torch.Tensor,
                    tc: TrainCfg, n_known: int = 0, ssl_factor: float = 0.0,
-                   cl_method: str = "naive", dist_factor: float = 0.01):
+                   cl_method: str = "naive", dist_factor: float = 0.01,
+                   dp=None):
     """Focal classification loss against the targets smoothed over the
     seen classes plus one, and Distance-IoU regression loss on the
     positives, with the Gaussian weights on the positives where
@@ -139,7 +154,14 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
     `cl_method` is "bic", else iCaRL's); the narration-SSL loss x
     `ssl_factor` where the outputs hold narration features and `cl` a
     memory bank. The EWC/MAS penalty is the step's (it reads the
-    parameters). Returns (loss, metrics, new normaliser)."""
+    parameters). Returns (loss, metrics, new normaliser).
+
+    With `dp` (a data-parallel rank's place) the batch is the rank's rows
+    of the global one: #positives (and so the normaliser) is the global
+    count, the means divide by global counts, and the loss and its terms
+    are this rank's share: the ranks' shares sum to the global values.
+    The SSL branch leaves the gathered narration features and valid flags
+    in outputs["narration_all"] for the step's bank write."""
     cls_logits = outputs["cls_logits"]            # (B, P, C) f32
     valid = outputs["fpn_mask"]                   # (B, P)
     class_mask_f = cl.class_mask.float()
@@ -148,6 +170,8 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
                        outputs["gaussians"], CENTER_SAMPLE_RADIUS)
     pos_mask = tgt.pos_mask & valid
     num_pos = pos_mask.float().sum()
+    if dp is not None:
+        num_pos = dp.sum(num_pos)
     norm = 0.9 * loss_normalizer + 0.1 * torch.clamp(num_pos, min=1.0)
 
     n_seen = class_mask_f.sum()
@@ -181,14 +205,19 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
     if cl.prev_logits is not None and n_known > 0:
         dist = distill_loss(cls_logits, cl.prev_logits, valid,
                             outputs["level_lengths"], n_known, cl_method,
-                            dist_factor)
+                            dist_factor,
+                            None if dp is None else dp.rows(len(valid))[0])
         final = final + dist
         metrics["dist_loss"] = dist
     if "narration_feat" in outputs and cl.memory_bank is not None:
+        nf, nvalid = outputs["narration_feat"], outputs["narration_valid"]
+        every = None
+        if dp is not None:
+            every = (dp.gather(nf.detach()), dp.gather(nvalid))
+            outputs["narration_all"] = every
         ssl = narration_ssl_loss(
-            outputs["narration_feat"], outputs["video_feat"],
-            outputs["narration_valid"], cl.memory_bank, cl.memory_ptr,
-            tc.temperature) * ssl_factor
+            nf, outputs["video_feat"], nvalid, cl.memory_bank,
+            cl.memory_ptr, tc.temperature, every) * ssl_factor
         final = final + ssl
         metrics["ssl_loss"] = ssl
     metrics["final_loss"] = final
@@ -196,13 +225,16 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
 
 
 def distill_loss(cls_logits, prev, valid, lens, n_known: int,
-                 cl_method: str, dist_factor: float):
+                 cl_method: str, dist_factor: float,
+                 n_rows: Optional[int] = None):
     """The distillation term (vilco_tpu/train/engine.py:178-203) over the
     first `n_known` classes against the targets `prev` (probabilities):
     BiC's softmax-T cross-entropy at T = BIC_T x dist_factor x n_known / C,
     or iCaRL's BCE-with-logits summed over the classes x dist_factor. Per
     clip, each level's mean over its valid points (`lens` the levels'
-    lengths), summed over the levels; then the mean over the batch."""
+    lengths), summed over the levels; then the mean over the batch (over
+    `n_rows` rows where given: a data-parallel rank's share of the global
+    mean)."""
     x = cls_logits[..., :n_known]
     t = prev[..., :n_known].to(x.dtype)
     if cl_method == "bic":
@@ -217,7 +249,10 @@ def distill_loss(cls_logits, prev, valid, lens, n_known: int,
     sums = torch.stack([a.sum(1) for a in torch.split(per_pt * vf, lens, 1)],
                        1)
     counts = torch.stack([a.sum(1) for a in torch.split(vf, lens, 1)], 1)
-    return factor * (sums / torch.clamp(counts, min=1.0)).sum(-1).mean()
+    per_clip = (sums / torch.clamp(counts, min=1.0)).sum(-1)
+    if n_rows is None:
+        return factor * per_clip.mean()
+    return factor * per_clip.sum() / n_rows
 
 
 def snapshot_targets(cls_logits: torch.Tensor, cl_method: str,
@@ -265,20 +300,26 @@ def ring_update(bank, ptr, feats, valid):
 
 
 def narration_ssl_loss(nf, vf, narration_valid, bank, ptr,
-                       temperature: float):
+                       temperature: float, every=None):
     """The narration-SSL InfoNCE (vilco_tpu/train/engine.py::
     narration_ssl_loss), the JAX package's quirk kept: the bank is first
     written with the batch's detached narration features, so each valid
     row meets its own narration among the negatives; text-to-video and
-    video-to-text cross-entropies averaged, over the valid rows."""
+    video-to-text cross-entropies averaged, over the valid rows. `every`,
+    (narration features, valid) of the global batch under data
+    parallelism: the bank is written with them and the mean is over the
+    global batch's valid rows (this rank's share of it)."""
     nvalid = narration_valid.to(nf.dtype)
-    neg_bank, _ = ring_update(bank, ptr, nf.detach(), narration_valid)
+    all_nf, all_valid = every if every is not None else (nf.detach(),
+                                                         narration_valid)
+    neg_bank, _ = ring_update(bank, ptr, all_nf, all_valid)
     pos = (nf * vf).sum(-1, keepdim=True)
     lt = torch.cat([pos, nf @ neg_bank.T], 1) / temperature
     lv = torch.cat([pos, vf @ neg_bank.T], 1) / temperature
     ce = lambda lg: -torch.log_softmax(lg, -1)[:, 0]
     per_row = 0.5 * (ce(lt) + ce(lv))
-    return (per_row * nvalid).sum() / torch.clamp(nvalid.sum(), min=1.0)
+    return (per_row * nvalid).sum() / torch.clamp(
+        all_valid.to(nf.dtype).sum(), min=1.0)
 
 
 def global_norm_clip(grad_flat: torch.Tensor):
@@ -301,7 +342,7 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
                     compute_dtype: Optional[torch.dtype] = None,
                     cl_cfg: Optional[CLCfg] = None, n_known: int = 0,
                     ema_decay: float = EMA_DECAY,
-                    accumulation_steps: int = 1) -> Callable:
+                    accumulation_steps: int = 1, dp=None) -> Callable:
     """step(state, batch, cl, marks=None) -> metrics (0-d tensors, no
     host sync). `batch` holds tensors on the model's device: the text's
     `text` and `text_mask`, and for the CL method's extras `narration`,
@@ -327,7 +368,13 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
     dropouts from state.generator (off: the deterministic step of the
     parity checks). `marks`, if a list, receives (phase, CUDA event or
     host time) at the forward / backward / optimizer boundaries (per
-    micro-batch for the first two)."""
+    micro-batch for the first two).
+
+    `dp` (parallel/mesh.py::DataParallel; None: one process): `batch` is
+    this rank's rows of the global batch, its share of every micro-batch
+    (parallel/mesh.py::shard_rows), and the step is the global batch's
+    (module docstring); the metrics are the global batch's, the same on
+    every rank."""
     cl_cfg = cl_cfg or CLCfg()
     if cl_cfg.name not in CL_METHODS:
         raise NotImplementedError(f"cl method {cl_cfg.name!r}: the port "
@@ -338,18 +385,21 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
     def micro_loss(state, mb, mcl, norm, marks):
         model = state.model
         nar = (lambda k: mb.get(k)) if use_ssl else (lambda k: None)
+        rng = state.generator if regularize else None
+        if rng is not None and dp is not None:
+            rng = RowDraw(rng, *dp.rows(len(mb["feats"])))
         out = model(mb["feats"], mb["mask"], mb.get("text"),
                     mb.get("text_mask"), nar("narration"),
                     nar("narration_mask"), nar("narration_valid"),
                     mb.get("prompt_mask") if use_prompt else None,
-                    rng=state.generator if regularize else None,
-                    compute_dtype=compute_dtype)
+                    rng=rng, compute_dtype=compute_dtype,
+                    **({} if dp is None else {"dp": dp}))
         if mcl.bias_alpha is not None:
             out["cls_logits"] = (out["cls_logits"] * mcl.bias_alpha
                                  + mcl.bias_beta)
         loss, metrics, norm = compute_losses(
             out, mb, points, mcl, norm, tc, n_known, cl_cfg.ssl_factor,
-            cl_cfg.name, cl_cfg.dist_factor)
+            cl_cfg.name, cl_cfg.dist_factor, dp)
         mark(marks, "forward", points.device)
         loss.backward()
         mark(marks, "backward", points.device)
@@ -376,11 +426,17 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
             if (use_ssl and cl.memory_bank is not None
                     and "narration_feat" in out):
                 cl.memory_bank, cl.memory_ptr = ring_update(
-                    cl.memory_bank, cl.memory_ptr,
-                    out["narration_feat"].detach(), out["narration_valid"])
+                    cl.memory_bank, cl.memory_ptr, *out.get(
+                        "narration_all", (out["narration_feat"].detach(),
+                                          out["narration_valid"])))
         metrics = mets[0] if K == 1 else {
             n: torch.stack([mt[n].detach() for mt in mets]).mean()
             for n in mets[0]}
+        if dp is not None:
+            # the ranks' partial gradients and loss terms add up to the
+            # global batch's; #positives is global already
+            dp.all_reduce_(state.opt.grad_flat)
+            metrics = global_metrics(metrics, dp)
         if K > 1:
             state.opt.grad_flat.div_(K)
         if cl.penalty is not None:
@@ -397,6 +453,19 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor], dp,
+                   replicated=("num_pos",)) -> Dict[str, torch.Tensor]:
+    """The ranks' shares of each loss term summed (one all-reduce of the
+    stacked values); the `replicated` ones, global on every rank already,
+    kept."""
+    names = [n for n in metrics if n not in replicated]
+    if not names:
+        return dict(metrics)
+    total = dp.sum(torch.stack([metrics[n].detach().float()
+                                for n in names]))
+    return {**metrics, **{n: total[i] for i, n in enumerate(names)}}
 
 
 def make_eval_step(model: torch.nn.Module, ensemble_adapters: bool = False,

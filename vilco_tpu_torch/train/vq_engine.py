@@ -17,6 +17,16 @@ launch of kernels/adamw.py (which equals optax's chain expression for
 expression at f32 state); on the CPU each leaf goes through its plain
 version.
 
+Data parallelism (`dp`, parallel/mesh.py::DataParallel): each rank holds
+its rows of every micro-batch, and the step is the global batch's: HNM
+pairs the rank's clips with every query of the global micro-batch
+(models/clip_matcher.py), the positives sit at (i, i) by GLOBAL index, the
+loss's #positives, its no-positive fallback and its occupancy denominator
+are the global batch's, the head's dropout draws the global pair list's
+masks, and after the micro-batches one all-reduce (SUM) of the trainable
+leaves' flat gradient buffer comes before the division by K, the penalty
+and the clip.
+
 Batch (tensors on the model's device): clip (B, T, H, W, 3) frames, query
 (B, H, W, 3), clip_bbox
 (B, T, 4) normalized xyxy, clip_with_bbox (B, T) 1 where the frame holds
@@ -41,20 +51,24 @@ from vilco_tpu_torch.kernels.adamw import (
     adamw_update_plain,
 )
 from vilco_tpu_torch.ops.anchors import assign_anchor_labels, giou
+from vilco_tpu_torch.parallel.mesh import RowDraw
+from vilco_tpu_torch.train.engine import global_metrics
 from vilco_tpu_torch.train.optim import flat_buffers
 
 GT_KEYS = ("clip_bbox", "clip_with_bbox", "before_query")
 
 
-def replicate_for_hnm(gts: Dict[str, torch.Tensor],
-                      b: int) -> Dict[str, torch.Tensor]:
+def replicate_for_hnm(gts: Dict[str, torch.Tensor], b: int,
+                      dp=None) -> Dict[str, torch.Tensor]:
     """(clip i, query j) pairs, clip index slowest: the diagonal keeps its
     targets, every other pair becomes a pure negative (no box, all frames
-    before the query, a 1e-4 box)."""
+    before the query, a 1e-4 box). Under `dp` the rank's b clips with the
+    global batch's queries, the diagonal by global index."""
     dev = next(iter(gts.values())).device
-    i_idx = torch.arange(b, device=dev).repeat_interleave(b)   # clip
-    j_idx = torch.arange(b, device=dev).repeat(b)              # query
-    diag = (i_idx == j_idx)[:, None]
+    bq, first = (b, 0) if dp is None else dp.rows(b)
+    i_idx = torch.arange(b, device=dev).repeat_interleave(bq)  # clip
+    j_idx = torch.arange(bq, device=dev).repeat(b)             # query
+    diag = (i_idx + first == j_idx)[:, None]
     out = {}
     for k, v in gts.items():
         if k == "query":
@@ -87,11 +101,13 @@ def vq_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0):
 def vq_losses(preds: dict, gts: dict, positive_threshold: float = 0.2,
               positive_topk: int = 5, weight_center: float = 1.0,
               weight_hw: float = 1.0, weight_giou: float = 0.3,
-              weight_prob: float = 100.0):
+              weight_prob: float = 100.0, dp=None):
     """(total, metrics, top): L1 on centers and half extents and GIoU over
     the positive anchors, the focal occupancy loss over the anchors of the
     frames before the query; a batch with no positive gets one at the
-    first anchor of the first frame."""
+    first anchor of the first frame. Under `dp` the batch is the rank's
+    rows of the global one: the counts are global (the fallback positive
+    on rank 0's first row), and the loss terms are this rank's shares."""
     pred_prob = preds["prob"]                               # (B, T, N)
     gt_bbox = gts["clip_bbox"].float()                      # (B, T, 4)
     gt_prob = gts["clip_with_bbox"].float()
@@ -103,10 +119,13 @@ def vq_losses(preds: dict, gts: dict, positive_threshold: float = 0.2,
                                   positive_threshold, positive_topk)
     positive = assign & (gt_prob[..., None] > 0)
     fake = torch.zeros_like(positive)
-    fake[0, 0, 0] = True
-    positive = torch.where(positive.any(), positive, fake)
+    count = lambda x: x if dp is None else dp.sum(x)
+    if dp is None or dp.rank == 0:
+        fake[0, 0, 0] = True
+    positive = torch.where(count(positive.sum()) > 0, positive, fake)
     pos_f = positive.float()
-    num_pos = torch.clamp(pos_f.sum(), min=1.0)
+    n_pos = count(pos_f.sum())
+    num_pos = torch.clamp(n_pos, min=1.0)
 
     def l1(p, g):
         return ((p - g[..., None, :]).abs() * pos_f[..., None]).sum() / (
@@ -118,7 +137,7 @@ def vq_losses(preds: dict, gts: dict, positive_threshold: float = 0.2,
     loss_giou = ((1.0 - giou_v) * pos_f).sum() / num_pos
     bq = before_query[..., None].expand_as(pred_prob)
     fl = vq_focal_loss(pred_prob, pos_f)
-    loss_prob = (fl * bq).sum() / torch.clamp(bq.sum(), min=1.0)
+    loss_prob = (fl * bq).sum() / torch.clamp(count(bq.sum()), min=1.0)
     total = (weight_center * loss_center + weight_hw * loss_hw
              + weight_giou * loss_giou + weight_prob * loss_prob)
 
@@ -129,7 +148,7 @@ def vq_losses(preds: dict, gts: dict, positive_threshold: float = 0.2,
            "prob": torch.gather(pred_prob, 2, top_idx[..., None])[..., 0]}
     metrics = {"loss_center": loss_center, "loss_hw": loss_hw,
                "loss_giou": loss_giou, "loss_prob": loss_prob,
-               "final_loss": total, "num_pos": pos_f.sum(),
+               "final_loss": total, "num_pos": n_pos,
                "mean_iou": (iou_v * pos_f).sum() / num_pos}
     return total, metrics, top
 
@@ -240,8 +259,8 @@ def init_vq_train_state(model: torch.nn.Module, cfg: VQConfig,
                         .manual_seed(seed))
 
 
-def make_vq_train_step(cfg: VQConfig, *,
-                       deterministic: bool = False) -> Callable:
+def make_vq_train_step(cfg: VQConfig, *, deterministic: bool = False,
+                       dp=None) -> Callable:
     """step(state, batch, marks=None, reg=None) -> metrics (0-d tensors, no
     host sync), on frames, with HNM where cfg.use_hnm; `deterministic`
     turns the head's dropout off (the parity checks). `reg`, a RegPenalty
@@ -254,7 +273,10 @@ def make_vq_train_step(cfg: VQConfig, *,
     backwards add up and are divided by K before one update, and the
     metrics are the micro-batches' means. `marks`, if a list, receives
     (phase, CUDA event or host time) at the forward / backward / optimizer
-    boundaries (per micro-batch for the first two)."""
+    boundaries (per micro-batch for the first two). `dp`: a data-parallel
+    rank's place; `batch` then holds its rows of every micro-batch
+    (parallel/mesh.py::shard_rows) and the step is the global batch's
+    (module docstring), its metrics the same on every rank."""
     hnm, K = cfg.use_hnm, cfg.accumulation_steps
 
     def step(state: VQTrainState, batch: dict, marks: Optional[list] = None,
@@ -273,19 +295,26 @@ def make_vq_train_step(cfg: VQConfig, *,
         for k in range(K):
             mb = batch if K == 1 else {n: v[k * m:(k + 1) * m]
                                        for n, v in batch.items()}
-            preds = model(mb["clip"], mb["query"], hnm=hnm,
-                          rng=None if deterministic else state.generator)
+            rng = None if deterministic else state.generator
+            kw = {}
+            if dp is not None:
+                kw = {"dp": dp}
+                rng = rng if rng is None else RowDraw(rng, *dp.rows(m))
+            preds = model(mb["clip"], mb["query"], hnm=hnm, rng=rng, **kw)
             gts = {n: mb[n] for n in GT_KEYS}
             if hnm:
-                gts = replicate_for_hnm(gts, m)
+                gts = replicate_for_hnm(gts, m, dp)
             loss, met, _ = vq_losses(preds, gts, cfg.positive_threshold,
-                                     cfg.positive_topk)
+                                     cfg.positive_topk, dp=dp)
             mark(marks, "forward", dev)
             loss.backward()
             mark(marks, "backward", dev)
             mets.append({n: v.detach() for n, v in met.items()})
         metrics = mets[0] if K == 1 else {
             n: torch.stack([mt[n] for mt in mets]).mean() for n in mets[0]}
+        if dp is not None:
+            dp.all_reduce_(state.opt.grad_flat)
+            metrics = global_metrics(metrics, dp)
         if K > 1:
             state.opt.grad_flat.div_(K)
         if reg is not None:
