@@ -12,6 +12,8 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --vq-episode
     python3 chip_smoke.py --vq-reference
     python3 chip_smoke.py --dp
+    python3 chip_smoke.py --optim
+    python3 chip_smoke.py --guard-ladder
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
@@ -22,7 +24,9 @@ f32 steps card against CPU (cl_parity, vq_cl_parity: below, after the
 phases); the seventh only the MQ CL episode (10f); the eighth only the
 NLQ CL episode (15''); the ninth only the VQ CL episode (20'); the tenth
 only the reference-geometry phase (20''); the eleventh only the
-data-parallel phase (27).
+data-parallel phase (27); the twelfth only the optimizer forms of JAX's
+opt section (optim: below, after the phases); the thirteenth only the
+guard-ladder twin at seeds 0-3 (guard_ladder: below).
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -95,7 +99,9 @@ fallback):
                    forward at batch 16, the backward at batch 2 (query
                    slices in dk/dv, called twice for equal bits), SDPA
                    beside; K3 at T=208 forward and backward; AdamW over its
-                   560 leaves; bf16 and f32
+                   560 leaves, and its ADAMW_VARIANTS there (m bf16 with v
+                   f32, both f32, bf16 gradients with the compute copy
+                   out), each bit for bit; bf16 and f32
  10b. mq_yaml_parity   phase 4 on the yaml model (the adapters' zero fc2
                    redrawn): cls_logits, offsets, reduce_sim,
                    narration_feat and video_feat, with the TF32 control
@@ -306,6 +312,20 @@ line with the kernels, and as the last line {"ok": true, "device": {...}}.
 1 and the naive step at accumulation 2 over batch 2, f32, card vs CPU as
 phase 8; BiC's stage 2; MAS's importance) and vq_cl_parity (phase 18 at
 batch 4 in 2 micro-batches with an EWC penalty over every leaf).
+
+--optim: each form of JAX's opt section that train_cl's flags set
+(OPTIM_FORMS: the default beside --mu-dtype/--nu-dtype float32,
+--factored, --params-bf16, and SGD with a multistep schedule) takes
+OPTIM_STEPS steps of the MQ yaml at full width, batch 1, on the card and
+on the CPU in the plain versions
+(f32, TF32 off; the compute copy in bf16 on both sides), held to each
+other (optim_check), then OPTIM_STEPS + 1 bf16 steps at the loader's batch
+on the card, timed beside the yaml episode's ms/step of PR 17-18, K4's
+launches counted; then one --params-bf16 step of the NLQ yaml the same way.
+
+--guard-ladder: vilco_tpu_torch/tools/guard_ladder.py at seeds 0-3 on the
+card, the four runs side by side: every row (7 methods a seed), then each
+method's mean and range of final_avg_mAP and of BwF_R1@0.5 over the seeds.
 """
 
 from __future__ import annotations
@@ -319,6 +339,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -995,24 +1016,41 @@ TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 XL_GRADS = ("dq", "dk", "dv", "dr", "d_r_w_bias", "d_r_r_bias")
 
 
-def point_transformer_leaves(cfg, dev, cl=None):
+def point_transformer_leaves(cfg, dev, cl=None, names=False):
     """(label, leaves, decay flags) of the model of `cfg` (a ModelConfig)
     with the CL extras of `cl`, decay as the MQ/NLQ optimizer's mask
-    (train/optim.py::decays)."""
+    (train/optim.py::decays); with `names`, (names, leaves, decay
+    flags)."""
     from vilco_tpu_torch.models.point_transformer import PointTransformer
     from vilco_tpu_torch.train.optim import decays
 
     model = PointTransformer(cfg, generator=torch.Generator().manual_seed(
         SEED), device=dev, cl=cl)
     named = list(model.named_parameters())
-    return (cfg.variant.upper(), [p.data for _, p in named],
+    return ([n for n, _ in named] if names else cfg.variant.upper(),
+            [p.data for _, p in named],
             [decays(n, p.dim()) for n, p in named])
 
 
-def check_adamw(chk, label, ps, decays, mdt, wd=None):
-    """K4 over the f32 leaves `ps` in one launch, moments in `mdt`, weight
-    decay `wd` (the kernel's default if None), bit-exact against the plain
-    version leaf by leaf; PyTorch's fused AdamW timed beside it."""
+# K4's variants beyond the default (bf16 moments, f32 gradients): the
+# moments' storage dtypes, and bf16 gradients with the compute copy out on
+# the leaves of train/optim.py::param_computes (opt.param_compute_dtype)
+ADAMW_VARIANTS = {
+    "adamw_mu_bf16_nu_f32": (torch.bfloat16, torch.float32, False),
+    "adamw_f32": (torch.float32, torch.float32, False),
+    "adamw_bf16_grads_copy": (torch.bfloat16, torch.bfloat16, True),
+}
+
+
+def check_adamw(chk, label, ps, decays, mdt, wd=None, vdt=None,
+                compute=None, key="adamw"):
+    """K4 over the f32 leaves `ps` in one launch, m in `mdt` and v in `vdt`
+    (`mdt` if None), weight decay `wd` (the kernel's default if None),
+    bit-exact against the plain version leaf by leaf; where `compute` (a
+    flag per leaf) is set, the leaf's gradient is bf16 and the kernel also
+    writes its bf16 compute copy, held bit for bit to the plain p' rounded
+    to bf16. PyTorch's fused AdamW timed beside it where it computes the
+    same function (f32 moments; at the default, bf16 moments, as before)."""
     from vilco_tpu_torch.kernels.adamw import (
         B1,
         B2,
@@ -1023,25 +1061,40 @@ def check_adamw(chk, label, ps, decays, mdt, wd=None):
         adamw_update_plain,
     )
 
+    vdt = mdt if vdt is None else vdt
+    compute = compute or [False] * len(ps)
     kw = {} if wd is None else {"wd": wd}
-    gr = [torch.randn_like(p) * 1e-3 for p in ps]
+    gr = [(torch.randn_like(p) * 1e-3).to(torch.bfloat16 if c else p.dtype)
+          for p, c in zip(ps, compute)]
     ms = [(torch.randn_like(p) * 1e-3).to(mdt) for p in ps]
-    vs = [(torch.randn_like(p) * 1e-3).square().to(mdt) for p in ps]
+    vs = [(torch.randn_like(p) * 1e-3).square().to(vdt) for p in ps]
     coef = torch.tensor([1e-4, 0.271, 0.002997, 0.75], device=ps[0].device)
     want = [adamw_update_plain(p, g, m_, v_, d, *coef, **kw)
             for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)]
     got = [t.clone() for t in ps], [t.clone() for t in ms], \
         [t.clone() for t in vs]
-    table = LeafTable(got[0], gr, got[1], got[2], decays)
+    copies = [torch.zeros_like(p, dtype=torch.bfloat16) if c else None
+              for p, c in zip(ps, compute)]
+    table = LeafTable(got[0], gr, got[1], got[2], decays, copies)
     adamw_update_multi(table, coef, **kw)
+    names, outs, refs = ["p", "m", "v"], list(got), [list(x)
+                                                     for x in zip(*want)]
+    if any(compute):
+        names.append("copy")
+        outs.append([c for c in copies if c is not None])
+        refs.append([w[0].to(torch.bfloat16) for w, c in zip(want, compute)
+                     if c])
     n = sum(p.numel() for p in ps)
-    el = torch.empty((), dtype=mdt).element_size()
+    el = lambda dt: torch.empty((), dtype=dt).element_size()
+    nbytes = sum(p.numel() * (8 + g.element_size() + 2 * el(mdt)
+                              + 2 * el(vdt) + (2 if c else 0))
+                 for p, g, c in zip(ps, gr, compute))
     # the library: PyTorch's fused AdamW over copies of the same leaves, one
     # call per weight-decay group as AdamW(fused=True) steps them; its
     # moments are f32 (it takes one dtype for all its lists) and it rounds
     # b1 m otherwise (ROADMAP §3), so it is timed and not compared
-    lib = [[t.clone() for t in ps], gr, [t.float() for t in ms],
-           [t.float() for t in vs]]
+    lib = [[t.clone() for t in ps], [g.float() for g in gr],
+           [t.float() for t in ms], [t.float() for t in vs]]
     steps = [torch.ones((), device=ps[0].device) for _ in ps]
     groups = [(idx, decay) for idx, decay in (
         ([i for i, d in enumerate(decays) if d],
@@ -1055,17 +1108,34 @@ def check_adamw(chk, label, ps, decays, mdt, wd=None):
                 [steps[i] for i in idx], lr=1e-4, beta1=B1, beta2=B2,
                 weight_decay=decay, eps=EPS, amsgrad=False, maximize=False)
 
-    chk.report("adamw", f"adamw_update_multi {label} {len(ps)} leaves {n} "
-               f"params, {str(mdt)[6:]} moments (library: "
-               "torch._fused_adamw_, f32 moments)", torch.float32,
-               output_errors(("p", "m", "v"), list(got),
-                             [list(x) for x in zip(*want)], 0.0),
+    same = key == "adamw" or (mdt == vdt == torch.float32
+                               and not any(compute))
+    lib_name = "torch._fused_adamw_, f32 moments" if same else "none"
+    chk.report(key, f"adamw_update_multi {label} {len(ps)} leaves {n} "
+               f"params, m {str(mdt)[6:]}, v {str(vdt)[6:]}, "
+               f"{sum(compute)} leaves with bf16 grads and the copy "
+               f"(library: {lib_name})",
+               torch.float32, output_errors(names, outs, refs, 0.0),
                lambda: adamw_update_multi(table, coef, **kw),
                lambda: [adamw_update_plain(p, g, m_, v_, d, *coef, **kw)
                         for p, g, m_, v_, d in zip(ps, gr, ms, vs, decays)],
-               (16 * n, (12 + 4 * el) * n), library, is_top=True, reps=5)
-    del gr, ms, vs, got, want, table, lib
+               (16 * n, nbytes), library if same else None, is_top=True,
+               reps=5)
+    del gr, ms, vs, got, want, table, lib, copies, outs, refs
     torch.cuda.empty_cache()
+
+
+def check_adamw_variants(chk, label, model_leaves):
+    """K4's ADAMW_VARIANTS over the leaves of a PointTransformer (names,
+    data, decay flags from point_transformer_leaves(..., names=True))."""
+    from vilco_tpu_torch.train.optim import param_computes
+
+    names, ps, decays = model_leaves
+    for key, (mdt, vdt, pc) in ADAMW_VARIANTS.items():
+        compute = ([param_computes(n, p.dim()) for n, p in zip(names, ps)]
+                   if pc else None)
+        check_adamw(chk, label, ps, decays, mdt, vdt=vdt, compute=compute,
+                    key=key)
 
 
 def phase_train_kernels(dev):
@@ -1516,7 +1586,7 @@ def phase_train_parity(dev, tag="train_parity", full=None, task=None,
         ema0 = {n: e.cpu().clone()
                 for n, e in (st.adapter_ema or {}).items()}
         if plain:
-            st.opt._table = None        # AdamW through its plain version
+            st.opt.kernel = False       # AdamW through its plain version
         if reg is not None:
             from vilco_tpu_torch.cl.regularizers import RegPenalty
 
@@ -2439,7 +2509,7 @@ def phase_yaml_kernels(dev):
     rng = np.random.default_rng(SEED + 10)
     chk = KernelChecks("mq_yaml_kernels", (
         "attn_text", "attn_cross", "attn_bwd_text", "attn_bwd_cross", "dw",
-        "dw_bwd", "adamw"))
+        "dw_bwd", "adamw", *ADAMW_VARIANTS))
     bf16 = torch.bfloat16
 
     def randn(*shape, dtype, scale=1.0):
@@ -2534,6 +2604,8 @@ def phase_yaml_kernels(dev):
         torch.cuda.empty_cache()
     check_adamw(chk, *point_transformer_leaves(cfg, dev, full.cl_cfg),
                 torch.bfloat16)
+    check_adamw_variants(chk, "MQ yaml", point_transformer_leaves(
+        cfg, dev, full.cl_cfg, names=True))
     if not chk.ok:
         fail("a kernel disagrees with its plain version at the yaml shapes")
     return chk.errs, chk.top
@@ -5142,6 +5214,253 @@ def impl_config(full, impl: str):
         full.model, attention_impl=impl))
 
 
+# --optim: the optimizer forms of JAX's opt section (train_cl's --mu-dtype/
+# --nu-dtype float32, --factored, --params-bf16, and SGD with a multistep
+# schedule) beside the default, each OPTIM_STEPS steps of the MQ yaml at
+# full width; the lr at its peak from the first step (warmup off), SGD's
+# milestone at step 2
+OPTIM_FORMS = {
+    "default": {},      # bf16 moments, AdamW, no copy: the forms' baseline
+    "f32_moments": dict(mu_dtype="float32", nu_dtype="float32"),
+    "factored": dict(second_moment="factored"),
+    "params_bf16": dict(param_compute_dtype="bfloat16"),
+    "sgd_multistep": dict(type="sgd", schedule_type="multistep",
+                          schedule_steps=(2,), nu_dtype="float32"),
+}
+OPTIM_STEPS = 3
+OPTIM_PR17_MS = "343.307-344.213"   # the yaml episode's ms/step, PR 17-18
+# the compute copy's first step runs in bf16 on both sides, whose matmuls
+# part (tests/test_torch_port_optim.py's limits): the loss 2e-3, the grad
+# norm 5e-2 relative, each leaf's median parameter error 0.25 of the lr
+OPTIM_BF16_LOSS, OPTIM_BF16_NORM, OPTIM_BF16_STEP = 2e-3, 5e-2, 0.25
+# the factored form's first update is g / sqrt(g^2 + 1e-30) = +-1 for every
+# gradient, with no floor like AdamW's eps: an element of roundoff-level
+# gradient goes either way (2 lr apart), so its first step is held as the
+# bf16 form's, each leaf's median error within this share of the lr
+# (1.418e-03 read in 21B, H100 80GB HBM3, 700.00 W)
+OPTIM_FACTORED_STEP = 0.05
+
+
+def optim_steps(cfg, task, batches, device, dtype, timed=False):
+    """OPTIM_STEPS train steps of `cfg` (its opt section picks the
+    optimizer) on `device` with activations in `dtype`, from SEED's model
+    (adapters redrawn), one batch a step: the losses, the grad norms, the
+    parameters after the last step (on the CPU), the compute copies where
+    the optimizer keeps them, and with `timed` the ms of each step after
+    the first (synchronised host clock) and K4's launches."""
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train.engine import (
+        batch_to,
+        init_train_state,
+        make_train_step,
+    )
+
+    m = cfg.model
+    cl_model, flags, cl, prompt_mask = cl_step_setup(
+        cfg, task, len(batches[0]["feats"]), device)
+    model = PointTransformer(m, torch.Generator().manual_seed(SEED),
+                             device="cpu", cl=cl_model)
+    redraw_adapters(model)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # JAX's nu_dtype warning
+        st = init_train_state(model, cfg, steps_per_epoch=1, seed=SEED,
+                              device=device)
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range)).to(device)
+    step = make_train_step(pts, cfg.train_cfg, regularize=False,
+                           compute_dtype=dtype, **flags)
+    losses, norms, ms, after = [], [], [], []
+    adamw_update_multi.launches = 0
+    for i, b in enumerate(batches):
+        b = dict(b)
+        if prompt_mask is not None:
+            b["prompt_mask"] = prompt_mask
+        b = batch_to(b, device)
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(st, b, cl)
+        if timed:
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(met["final_loss"].item())
+        norms.append(met["grad_norm"].item())
+        if not timed:
+            after.append({n: p.detach().cpu().clone() for n, p in
+                          model.named_parameters()})
+    res = dict(losses=losses, norms=norms, ms=ms, after=after,
+               launches=adamw_update_multi.launches,
+               params={n: p.detach().cpu() for n, p in
+                       model.named_parameters()},
+               copies=None if st.opt.copies is None else {
+                   n: c.detach().cpu() for n, c in st.opt.copies.items()},
+               lrs=[float(st.opt.sched(k)) for k in range(len(batches))])
+    del model, st
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return res
+
+
+def optim_check(tag, card, ref, bf16: bool, factored: bool = False):
+    """The card's steps against the CPU's: (what failed, or None). The gate
+    is the first step, as phase 8's: its loss and grad norm (f32 1e-5
+    relative; bf16 OPTIM_BF16_LOSS, OPTIM_BF16_NORM) and the parameters it
+    updates (f32: PARAM_RTOL of each leaf's largest value, floored at 1e-4
+    of the tree's largest; bf16 and the factored form: each leaf's median
+    error within OPTIM_BF16_STEP, OPTIM_FACTORED_STEP of the lr). The later steps are printed: an update
+    that AdamW normalises moves a parameter by up to lr whatever the size
+    of its gradient, so roundoff-level gradients part the two runs by
+    ~lr an element from the first update on, and each later forward
+    differs by that much (the first step's gaps are the check's). With the
+    compute copy, every copy equal to its master rounded to bf16."""
+    gap = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    loss, norm = gap(card["losses"], ref["losses"]), gap(card["norms"],
+                                                         ref["norms"])
+    lrs = card["lrs"]
+    med = lambda k: max(
+        (float((card["after"][k][n] - w).abs().median())
+         / max(sum(lrs[:k + 1]), 1e-30), n)
+        for n, w in ref["after"][k].items())
+    meds = [med(k) for k in range(len(lrs))]
+    errs = leaf_errors(card["after"][0], ref["after"][0], 1e-4)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    say(f"[{tag}] card vs CPU by step, loss " + ", ".join(
+        f"{x:.3e}" for x in loss) + "; grad norm " + ", ".join(
+        f"{x:.3e}" for x in norm) + "; the worst leaf's median parameter "
+        "error in units of the summed lr " + ", ".join(
+        f"{x:.3e} ({n})" for x, n in meds) + f"; after step 1 the worst "
+        f"leaf {worst[1]:.3e} of its largest value ({worst[0]})")
+    if bf16:
+        bad = [n for n, c in card["copies"].items()
+               if not torch.equal(c, card["params"][n].to(torch.bfloat16))]
+        if bad:
+            return f"compute copies differ from their masters: {bad[:3]}"
+        if loss[0] > OPTIM_BF16_LOSS or norm[0] > OPTIM_BF16_NORM \
+                or meds[0][0] > OPTIM_BF16_STEP:
+            return (f"first step out of tolerance ({OPTIM_BF16_LOSS:g}, "
+                    f"{OPTIM_BF16_NORM:g}, {OPTIM_BF16_STEP:g})")
+        return None
+    if factored:
+        if max(loss[0], norm[0]) > 1e-5 or meds[0][0] > OPTIM_FACTORED_STEP:
+            return ("first step out of tolerance (1e-5, "
+                    f"{OPTIM_FACTORED_STEP:g} lr)")
+        return None
+    if max(loss[0], norm[0]) > 1e-5 or worst[1] > PARAM_RTOL:
+        return f"first step out of tolerance (1e-5, {PARAM_RTOL:g})"
+    return None
+
+
+def phase_optim(dev):
+    """Each OPTIM_FORMS form of the optimizer: OPTIM_STEPS steps of the MQ
+    yaml at full width on the card against the same steps on the CPU in the
+    plain versions (batch 1, f32 with TF32 off; the compute copy in bf16 on
+    both sides), then OPTIM_STEPS bf16 steps at the loader's batch on the
+    card, timed; then one --params-bf16 step of the NLQ yaml, card against
+    CPU and timed."""
+    from vilco_tpu_torch.core.config import mq_yaml_config, \
+        nlq_flagship_config
+    from vilco_tpu_torch.data.synthetic import make_batch
+
+    failed = []
+    for name, cfg, task, forms in (
+            ("mq_yaml", mq_yaml_config(), YAML_TASK, OPTIM_FORMS),
+            ("nlq", nlq_flagship_config(), None,
+             {"params_bf16": OPTIM_FORMS["params_bf16"]})):
+        steps = OPTIM_STEPS if name == "mq_yaml" else 1
+        for form, over in forms.items():
+            tag = f"optim_{name}_{form}"
+            f = dataclasses.replace(cfg, opt=dataclasses.replace(
+                cfg.opt, warmup=False, **over))
+            bf16 = f.opt.param_compute_dtype == "bfloat16"
+            dt = torch.bfloat16 if bf16 else torch.float32
+            rng = np.random.default_rng(SEED + 30)
+            batches = [make_batch(rng, 1, f) for _ in range(steps)]
+            for b in batches:
+                if "narration_valid" in b:
+                    b["narration_valid"][:] = True
+            t0 = time.perf_counter()
+            ref = optim_steps(f, task, batches, "cpu", dt)
+            cpu_s = time.perf_counter() - t0
+            card = optim_steps(f, task, batches, dev, dt)
+            why = optim_check(tag, card, ref, bf16,
+                              f.opt.second_moment == "factored"
+                              and f.opt.type == "adamw")
+            if why:
+                failed.append(f"{tag}: {why}")
+            rng = np.random.default_rng(SEED + 31)
+            timed = optim_steps(
+                f, task, [make_batch(rng, f.batch_size, f)
+                          for _ in range(steps + 1)], dev, torch.bfloat16,
+                timed=True)
+            if timed["launches"] != (steps + 1 if f.opt.type == "adamw"
+                                     and f.opt.second_moment == "full"
+                                     else 0):
+                failed.append(f"{tag}: K4 launched {timed['launches']} "
+                              f"times in {steps + 1} steps")
+            say(f"[{tag}] {steps} steps, CPU {cpu_s:.1f} s; bf16 steps at "
+                f"batch {f.batch_size}: "
+                + ", ".join(f"{x:.3f}" for x in timed["ms"])
+                + f" ms/step after the first (K4 launches "
+                f"{timed['launches']}; the MQ yaml episode's step with its "
+                f"loader, PR 17-18: {OPTIM_PR17_MS} ms); losses "
+                + ", ".join(f"{x:.4f}" for x in timed["losses"]))
+            if not all(np.isfinite(timed["losses"] + card["losses"])):
+                failed.append(f"{tag}: non-finite loss")
+    if failed:
+        fail("; ".join(failed))
+
+
+def phase_guard_ladder(seeds=(0, 1, 2, 3)):
+    """The guard-ladder twin (vilco_tpu_torch/tools/guard_ladder.py) on the
+    card, one process per seed, all at once: each row as it comes, then
+    each method's mean and range of final quality (final_avg_mAP) and of
+    BwF (BwF_R1@0.5) over the seeds."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="guard_ladder_")
+    procs = {s: subprocess.Popen(
+        [sys.executable, "-m", "vilco_tpu_torch.tools.guard_ladder",
+         os.path.join(out, f"seed{s}.jsonl"), "--seed", str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s in seeds}
+    rows = {}
+    try:
+        for s, p in procs.items():
+            log = p.communicate(timeout=GUARD_LADDER_TIMEOUT_S)[0]
+            if p.returncode != 0:
+                fail(f"guard_ladder seed {s}: exit {p.returncode}: "
+                     f"{log[-2000:]}")
+            rows[s] = [json.loads(ln) for ln in log.splitlines()
+                       if ln.startswith("{")]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    for s in seeds:
+        for r in rows[s]:
+            say(f"[guard_ladder] seed {s}: {json.dumps(r)}")
+            if "error" in r:
+                fail(f"guard_ladder seed {s} {r['method']}: {r['error']}")
+    methods = [r["method"] for r in rows[seeds[0]]]
+    for m in methods:
+        got = [next(r for r in rows[s] if r["method"] == m) for s in seeds]
+        for key in ("final_avg_mAP", "BwF_R1@0.5"):
+            v = np.asarray([g[key] for g in got], np.float64)
+            say(f"[guard_ladder] {m} {key} over seeds {list(seeds)}: mean "
+                f"{v.mean():.6f}, range {v.min():.6f} to {v.max():.6f}")
+    if len(methods) != 7 or any(len(rows[s]) != 7 for s in seeds):
+        fail("guard_ladder: not 7 rows for every seed")
+
+
+GUARD_LADDER_TIMEOUT_S = 1500
+
+
 def attention_ablations(dev, mq):
     """The attention ablations: K1n and K1f against their plain versions,
     the VQ attention probe (P2), then the MQ flagship `mq` under each
@@ -6060,7 +6379,8 @@ def main():
          train_launches["dwconv_bwd_cuda"]),
         ("adamw_update_multi", "vilco_tpu_torch/csrc/adamw.cu",
          "vilco_tpu/kernels/adamw.py:97", terrs["adamw"] + nerrs["adamw"]
-         + verrs["adamw"] + yerrs["adamw"], ttop["adamw"],
+         + verrs["adamw"] + yerrs["adamw"]
+         + sum((yerrs[k] for k in ADAMW_VARIANTS), []), ttop["adamw"],
          train_launches["adamw_update_multi"]),
         ("banded_attention_blc", "vilco_tpu_torch/csrc/banded_attention.cu",
          "vilco_tpu/kernels/banded_attention.py:153", nerrs["band_fwd"],
@@ -6143,6 +6463,9 @@ def main():
             entry["nlq"] = ntop["adamw"]   # VQ's and the yaml model's leaves
             entry["vq"] = vtop["adamw"]
             entry["mq_yaml"] = ytop["adamw"]
+            # the moments' dtypes, bf16 gradients with the compute copy,
+            # at the yaml model's leaves (ADAMW_VARIANTS)
+            entry["variants"] = {k: ytop[k] for k in ADAMW_VARIANTS}
         if fn in ("fused_attention_blc", "attention_bwd_cuda"):
             part = "attn" if fn == "fused_attention_blc" else "attn_bwd"
             entry["mq_yaml_text"] = ytop[f"{part}_text"]   # Tk = 208
@@ -6182,7 +6505,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
                          ["--vq-train"], ["--mq-yaml"], ["--cl-methods"],
                          ["--mq-episode"], ["--nlq-episode"],
-                         ["--vq-episode"], ["--vq-reference"], ["--dp"]):
+                         ["--vq-episode"], ["--vq-reference"], ["--dp"],
+                         ["--optim"], ["--guard-ladder"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6209,6 +6533,10 @@ if __name__ == "__main__":
         if sys.argv[1] == "--dp":
             check_xl_row0(dev)
             phase_dp(dev)
+        if sys.argv[1] == "--optim":
+            phase_optim(dev)
+        if sys.argv[1] == "--guard-ladder":
+            phase_guard_ladder()
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.kernels.attention as j_attn
 from vilco_tpu_torch.core.config import (
     flagship_config,

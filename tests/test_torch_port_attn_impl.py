@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.kernels.attention as j_attn
 import vilco_tpu.models.backbone as j_backbone
 from __graft_entry__ import _flagship_cfg

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from vilco_tpu.kernels.banded_attention import banded_attention_fused
 from vilco_tpu.ops.attention import banded_attention as j_banded
 from vilco_tpu_torch.kernels.banded_attention import banded_attention_blc

@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.kernels.banded_attention as j_band
 from vilco_tpu.ops.attention import banded_attention as j_banded
 from vilco_tpu_torch.kernels.banded_attention import (

@@ -44,6 +44,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.models.layers as j_layers
 from tests.test_torch_port_train import _jcfg, _points, _port_model, _rel
 from tests.test_torch_port_vq import (

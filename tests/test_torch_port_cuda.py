@@ -559,6 +559,38 @@ def test_adamw_kernel_matches_plain_on_card(cuda, mdt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mdt,vdt", [(torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+def test_adamw_kernel_variants_match_plain_on_card(cuda, mdt, vdt):
+    """m and v in their own dtypes, bf16 gradients on every other leaf
+    (JAX's bf16 clip rounding) and their bf16 compute copies: bit for bit
+    against the plain version, the copy against p' rounded to bf16."""
+    rng = np.random.default_rng(2)
+    sizes = [1, 37, 4096, 5000, 70000]
+    f = lambda n: torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32)).to(cuda)
+    bf = [i % 2 == 1 for i in range(len(sizes))]
+    ps = [f(n) for n in sizes]
+    gs = [f(n).to(torch.bfloat16 if b else torch.float32)
+          for n, b in zip(sizes, bf)]
+    ms = [f(n).to(mdt) for n in sizes]
+    vs = [f(n).abs().to(vdt) for n in sizes]
+    copies = [torch.zeros_like(p, dtype=torch.bfloat16) if b else None
+              for p, b in zip(ps, bf)]
+    decays = [i % 2 == 0 for i in range(len(sizes))]
+    coef = torch.tensor([1e-3, 0.271, 0.002997, 0.75], device=cuda)
+    want = [adamw_update_plain(p, g, m, v, d, *coef)
+            for p, g, m, v, d in zip(ps, gs, ms, vs, decays)]
+    adamw_update_multi(LeafTable(ps, gs, ms, vs, decays, copies), coef)
+    torch.cuda.synchronize()
+    for got, ref, c in zip(zip(ps, ms, vs), want, copies):
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        if c is not None:
+            assert torch.equal(c, ref[0].to(torch.bfloat16))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n_frames,fr,w,H,D", [

@@ -24,6 +24,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.kernels.dwconv as j_dw
 from vilco_tpu_torch.kernels.dwconv import (
     BWD_BLOCKS,

@@ -52,6 +52,7 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from vilco_tpu.cl import episode as j_episode
 from vilco_tpu.cl import stream as j_stream
 from vilco_tpu.core import checkpoint as j_ckpt
@@ -527,9 +528,9 @@ def test_load_config_reads_yaml_and_json(tmp_path):
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("opt", "mu_dtype", "float32"), ("opt", "nu_dtype", "float32"),
-    ("opt", "second_moment", "factored"),
-    ("opt", "param_compute_dtype", "bfloat16"),
+    ("opt", "no_such_field", 1), ("opt", "fused_apply_pc", True),
+    ("train_cfg", "clip_grad_l2norm", 2.0),
+    ("test_cfg", "nms_method", "hard"),
     ("model", "fpn_type", "fpn"), ("model", "no_such_field", 1),
     (None, "ckpt_format", "orbax")])
 def test_config_from_dict_refuses_what_the_port_cannot_run(section, field,

@@ -20,6 +20,7 @@ import json
 import numpy as np
 import pytest
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_torch_port_episode import (
     CHAIN_ATOL,
     check_eval,
@@ -175,12 +176,16 @@ def test_dp_flags_run(argv, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--task", "vq", "--params-bf16"], "bf16"),
-    (["--factored"], "factored"), (["--mu-dtype", "float32"], "bf16"),
-    (["--nu-dtype", "float32"], "bf16"), (["--params-bf16"], "bf16"),
+    (["--params-bf16", "--dp", "2"], "--dp"),
+    (["--params-bf16", "--distributed"], "--distributed"),
+    (["--mu-dtype", "float16"], "invalid choice"),
+    (["--nu-dtype", "float16"], "invalid choice"),
     (["--ckpt-format", "orbax"], "orbax")])
 def test_refused_flags_exit_with_a_message(argv, msg, capsys, tmp_path):
-    """The JAX CLI's flags the port cannot honour exit non-zero and say
-    why."""
+    """The flags and combinations the port cannot honour exit non-zero and
+    say why: JAX's refusal of --params-bf16 for VQ, the compute copy under
+    data parallelism (its bf16 all-reduce is not ported), a moment dtype
+    other than bfloat16 and float32, orbax."""
     with pytest.raises(SystemExit) as e:
         train_cl.main(["--synthetic", "--workdir", str(tmp_path), *argv,
                        *CPU])

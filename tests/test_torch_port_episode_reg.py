@@ -15,6 +15,7 @@ import pytest
 
 import jax
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_torch_port_episode import (
     PARAM_RTOL,
     ROUNDOFF_GRAD,

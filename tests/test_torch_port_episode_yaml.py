@@ -14,6 +14,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_torch_port_episode import (
     _rel,
     check_eval_chain,

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.kernels.attention as j_attn
 from vilco_tpu_torch.kernels import _build
 from vilco_tpu_torch.kernels import attention as t_attn

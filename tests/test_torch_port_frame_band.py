@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from vilco_tpu.kernels import frame_band as j_fb
 from vilco_tpu.kernels import mlp as j_mlp
 from vilco_tpu_torch.kernels.frame_band import (

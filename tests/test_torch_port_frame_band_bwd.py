@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from vilco_tpu.kernels import frame_band as j_fb
 from vilco_tpu_torch.kernels import _build
 from vilco_tpu_torch.kernels import frame_band as fb

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from __graft_entry__ import _flagship_cfg
 from vilco_tpu.models import layers as j_layers
 from vilco_tpu.models.point_transformer import PointTransformer as JPT
@@ -109,13 +110,16 @@ def test_flagship_config_matches_jax(tiny):
     assert tc.clip_grad_l2norm == t_engine.CLIP_GRAD_L2NORM
     assert tc.droppath == ref.model.droppath
     assert ref.model.xl_dropout == t_layers.XL_DROPOUT
+    # the opt section reads into the port's OptCfg field for field
+    popt = port.opt
     assert (opt.type, opt.weight_decay) == ("adamw", t_optim.WEIGHT_DECAY)
-    assert (opt.warmup, opt.schedule_type, opt.eta_min) == (
-        True, "cosine", t_optim.ETA_MIN)
-    assert (opt.mu_dtype, opt.nu_dtype) == ("bfloat16", "bfloat16")
-    assert t_optim.MOMENT_DTYPE == torch.bfloat16
+    assert (popt.type, popt.weight_decay) == (opt.type, opt.weight_decay)
+    assert (popt.warmup, popt.schedule_type, popt.eta_min) == (
+        opt.warmup, opt.schedule_type, opt.eta_min) == (True, "cosine", 1e-8)
+    assert (popt.mu_dtype, popt.nu_dtype) == (opt.mu_dtype, opt.nu_dtype) \
+        == ("bfloat16", "bfloat16")
     assert opt.fused_apply and opt.accumulation_steps == 1
-    assert opt.param_compute_dtype == "float32"
+    assert popt.param_compute_dtype == opt.param_compute_dtype == "float32"
     assert (j_optim.FusedAdamW.B1, j_optim.FusedAdamW.B2,
             j_optim.FusedAdamW.EPS) == (t_optim.B1, t_optim.B2, 1e-8)
     assert j_optim._SMALL_LEAF_ELEMS == t_optim.SMALL_LEAF_ELEMS

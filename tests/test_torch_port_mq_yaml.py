@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_torch_port_model import assert_port_config_equals
 from tests.test_torch_port_train import _rel
 from vilco_tpu.cl import prompt as j_prompt

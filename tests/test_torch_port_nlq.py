@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_torch_port_model import _jax_decode, assert_port_config_equals
 from tests.test_torch_port_train import _rel
 from vilco_tpu.core.config import load_config
@@ -100,8 +101,11 @@ def test_nlq_config_matches_jax(tiny):
     assert tc.clip_grad_l2norm == t_engine.CLIP_GRAD_L2NORM
     assert (opt.type, opt.weight_decay, opt.warmup, opt.schedule_type,
             opt.eta_min) == ("adamw", t_optim.WEIGHT_DECAY, True, "cosine",
-                             t_optim.ETA_MIN)
+                             1e-8)
     assert (opt.mu_dtype, opt.nu_dtype) == ("bfloat16", "bfloat16")
+    assert all(getattr(port.opt, k) == getattr(opt, k) for k in (
+        "type", "weight_decay", "warmup", "schedule_type", "eta_min",
+        "mu_dtype", "nu_dtype", "second_moment", "param_compute_dtype"))
     assert (t.nms_method, t.multiclass_nms) == ("soft", True)
     if not tiny:
         assert ref.dataset.input_txt_dim == port.model.n_txt_in

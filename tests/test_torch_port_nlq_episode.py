@@ -35,6 +35,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_torch_port_episode import (
     CHAIN_ATOL,
     EVAL_ATOL,

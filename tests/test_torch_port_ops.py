@@ -8,6 +8,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from vilco_tpu.ops import activations as j_act
 from vilco_tpu.ops import attention as j_att
 from vilco_tpu.ops import masked as j_masked

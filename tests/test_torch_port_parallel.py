@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_torch_port_mq_yaml import _jax_yaml_shapes
 from tests.test_torch_port_nlq import _jax_flagship_shapes
 from tests.test_torch_port_vq import _flagship_shapes
@@ -34,6 +35,7 @@ from vilco_tpu_torch.parallel.launch import spawn_ranks
 from vilco_tpu_torch.parallel.seq import seq_channel_layernorm
 
 SPAWN_TIMEOUT_S = 120
+LR = 1e-4            # the distributed episode's (the DP step tests')
 RANKS = "tests.test_torch_port_parallel_ranks"    # the ranks' targets
 CPU = ["--device", "cpu"]
 
@@ -329,23 +331,85 @@ def test_train_cl_dp_asks_for_cards_that_exist(tmp_path, capsys):
             in capsys.readouterr().err)
 
 
-@pytest.mark.parametrize("task", ["mq", "vq"])
-def test_train_cl_distributed_two_ranks(task, tmp_path):
+def _numbers(x) -> np.ndarray:
+    """The numbers of a results tree (dicts by key, lists), in order."""
+    if isinstance(x, dict):
+        return np.concatenate([_numbers(x[k]) for k in sorted(x)] + [[]])
+    if isinstance(x, (list, tuple)):
+        return np.concatenate([_numbers(v) for v in x] + [[]])
+    return np.asarray([float(x)])
+
+
+class ConcatShards:
+    """The train loader of one process on the concatenated shards: each
+    step the batches of `num_shards` sharded loaders, in shard order (the
+    host-major global batch of --distributed)."""
+
+    def __init__(self, loaders):
+        self.loaders = loaders
+
+    def __len__(self):
+        return len(self.loaders[0])
+
+    def set_epoch(self, epoch):
+        for ld in self.loaders:
+            ld.set_epoch(epoch)
+
+    def __iter__(self):
+        for parts in zip(*self.loaders):
+            batch = {k: np.concatenate([b[k] for b, _ in parts])
+                     for k in parts[0][0]}
+            meta = {k: sum((list(m[k]) for _, m in parts), [])
+                    for k in parts[0][1]}
+            yield batch, meta
+
+
+@pytest.mark.parametrize("task,accum", [
+    pytest.param("mq", 1, id="mq"), pytest.param("vq", 1, id="vq"),
+    pytest.param("mq", 2, id="mq_accum2")])
+def test_train_cl_distributed_two_ranks(task, accum, tmp_path, monkeypatch):
     """`train_cl --distributed` as torchrun launches it, two ranks on the
     CPU (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): each
     trains on its shard (VQ: its slice of the global window batch), DP is
     switched on with JAX's warning, each rank writes its own workdir (rank
-    1 under rank1/), and both end with the same results."""
+    1 under rank1/), and both end with the same results. MQ, at 1 and 2
+    micro-batches a step: the ranks equal one process that trains on the
+    concatenated shards (micro-batch k JAX's global rows [k b/K, (k+1)
+    b/K)) at lr 1e-4, at the DP step tests' limits: the final metrics 1e-5
+    relative, the parameters 1e-6 for each step the episode takes (those
+    tests' limit for their steps; the episode's roundoff grows with its
+    steps: 1.6e-6 after 4 and after 12, against 1.8e-4 when micro-batch k
+    is the ranks' local micro-batches k), ZERO_GRAD's leaves 2 x the
+    summed lr."""
     import json
     import os
     import socket
     import subprocess
     import sys
 
+    from tests.test_torch_port_parallel_steps import (
+        PARAM_ATOL,
+        RTOL,
+        _check_params,
+        one_thread,
+    )
+    from vilco_tpu_torch.bin import train_cl
+    from vilco_tpu_torch.cl import episode
+    from vilco_tpu_torch.core.checkpoint import load_checkpoint, params_of
+    from vilco_tpu_torch.data.synthetic import tiny_config
+
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     wd = tmp_path / "w"
+    args = ["--synthetic", "--task", task, "--epochs", "1", "--num-tasks",
+            "2", *CPU]
+    if task == "mq":
+        cfg = tmp_path / "config.json"
+        cfg.write_text(json.dumps(tiny_config(
+            opt={"learning_rate": LR, "accumulation_steps": accum})
+            .to_dict()))
+        args += ["--config", str(cfg)]
     procs = []
     for r in range(2):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE="2",
@@ -353,8 +417,7 @@ def test_train_cl_distributed_two_ranks(task, tmp_path):
                    MASTER_PORT=str(port), OMP_NUM_THREADS="2")
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "vilco_tpu_torch.bin.train_cl",
-             "--distributed", "--synthetic", "--task", task, "--epochs",
-             "1", "--num-tasks", "2", "--workdir", str(wd), *CPU],
+             "--distributed", "--workdir", str(wd), *args],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     try:
@@ -367,3 +430,28 @@ def test_train_cl_distributed_two_ranks(task, tmp_path):
     finals = [json.loads((d / "results.json").read_text())["final"]
               for d in (wd, wd / "rank1")]
     assert finals[0] == finals[1]
+    if task != "mq":
+        return
+    real = episode.BatchIterator
+
+    def loader(data, cfg, bs, is_training=False, **kw):
+        if not is_training:
+            return real(data, cfg, bs, is_training=False, **kw)
+        kw.pop("shard_id"), kw.pop("num_shards")
+        return ConcatShards([real(data, cfg, bs, is_training=True,
+                                  shard_id=r, num_shards=2, **kw)
+                             for r in range(2)])
+
+    monkeypatch.setattr(episode, "BatchIterator", loader)
+    one = tmp_path / "one"
+    with one_thread():
+        r1 = train_cl.main(["--workdir", str(one), *args])
+    a, b = _numbers(finals[0]), _numbers(r1["final"])
+    assert len(a) == len(b) and np.all(np.abs(a - b) <= RTOL * np.abs(b))
+    steps = sum(t["train"]["steps"] for t in r1["tasks"])
+    got = params_of(load_checkpoint(str(wd / "task_001.ckpt")))
+    want = params_of(load_checkpoint(str(one / "task_001.ckpt")))
+    _check_params({n: t.numpy() for n, t in got.items()},
+                  {n: t.numpy().astype(np.float64)
+                   for n, t in want.items()},
+                  PARAM_ATOL * steps, LR * steps)

@@ -12,6 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.models.layers as j_layers
 from tests.test_torch_port_mq_yaml import _bank
 from tests.test_torch_port_parallel_steps import (

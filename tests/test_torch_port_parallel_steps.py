@@ -45,6 +45,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.models.layers as j_layers
 from tests.test_torch_port_cl_methods import _reg_list
 from tests.test_torch_port_mq_yaml import _bank, _batch, _jax_tiny

@@ -25,6 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from __graft_entry__ import _flagship_cfg
 from vilco_tpu.models import torch_import as j_import
 from vilco_tpu.models.clip_matcher import ClipMatcher as JClipMatcher

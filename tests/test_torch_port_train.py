@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.models.layers as j_layers
 from __graft_entry__ import _flagship_cfg
 from vilco_tpu.data.synthetic import make_batch as j_make_batch

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.kernels.attention as j_attn
 import vilco_tpu.kernels.dwconv as j_dw
 import vilco_tpu.kernels.xl_attention as j_xl

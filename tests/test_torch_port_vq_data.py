@@ -21,6 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_vq_frames import FRAME_SIZE, _write_dataset
 from vilco_tpu.data import vq_augment as j_aug
 from vilco_tpu.data import vq_frames as j_frames

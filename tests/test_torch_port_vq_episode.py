@@ -45,6 +45,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from tests.test_torch_port_episode import PERTURB, _leaves_equal, _rel
 from vilco_tpu.bin import train_cl as j_train_cl
 from vilco_tpu.bin import vq_infer as j_vq_infer

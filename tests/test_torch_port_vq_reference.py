@@ -33,6 +33,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 from vilco_tpu.cl import regularizers as j_regs
 from vilco_tpu.core import checkpoint as j_ckpt
 from vilco_tpu.core.config import VQCfg

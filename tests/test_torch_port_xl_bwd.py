@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.kernels.xl_attention as j_xl
 from vilco_tpu_torch.kernels.xl_attention import (
     xl_bwd_plain,

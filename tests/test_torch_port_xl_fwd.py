@@ -26,6 +26,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.kernels.xl_attention as j_xl
 from vilco_tpu_torch.kernels.xl_attention import (
     LOG2E,

@@ -51,15 +51,6 @@ import sys
 # times out after parallel/mesh.py's COLLECTIVE_TIMEOUT_S)
 RUN_TIMEOUT_S = None
 
-# flags of the JAX CLI that the port refuses, each with why
-REFUSED = {
-    "factored": "--factored: the factored second moment is not ported "
-                "(FusedAdamW keeps the full one)",
-    "params_bf16": "--params-bf16: a persistent bf16 parameter copy is not "
-                   "ported (the port casts its f32 masters on use)",
-}
-
-
 def synthetic_mq_runner(cfg, workdir: str, device="cuda",
                         videos_per_class=(6, 2), persist_config=True,
                         writes=True):
@@ -130,6 +121,14 @@ def apply_overrides(cfg, args):
     opt = cfg.opt
     if args.accum_steps:
         opt = rep(opt, accumulation_steps=args.accum_steps)
+    if args.factored:
+        opt = rep(opt, second_moment="factored")
+    if args.mu_dtype:
+        opt = rep(opt, mu_dtype=args.mu_dtype)
+    if args.nu_dtype:
+        opt = rep(opt, nu_dtype=args.nu_dtype)
+    if args.params_bf16:
+        opt = rep(opt, param_compute_dtype="bfloat16")
     if args.epochs:
         opt = rep(opt, epochs=args.epochs)
     model = cfg.model
@@ -212,15 +211,28 @@ def parse(p, argv):
                    help="run under torchrun: join its process group, shard "
                         "the train data per rank (global batch = batch "
                         "size x world), DP over the ranks")
-    # the JAX CLI's flags that the port refuses
+    # the optimizer's forms (MQ and NLQ; the VQ runner has its own)
     p.add_argument("--factored", action="store_true",
-                   help=REFUSED["factored"])
-    p.add_argument("--params-bf16", action="store_true",
-                   help=REFUSED["params_bf16"])
+                   help="Adafactor-style factored second moment "
+                        "(opt.second_moment factored)")
     p.add_argument("--mu-dtype", choices=["bfloat16", "float32"],
-                   default=None, help="bfloat16 only (FusedAdamW)")
+                   default=None,
+                   help="Adam first-moment dtype (default: config; the "
+                        "shipped default is bfloat16; float32 restores "
+                        "exact reference AdamW state precision)")
     p.add_argument("--nu-dtype", choices=["bfloat16", "float32"],
-                   default=None, help="bfloat16 only (FusedAdamW)")
+                   default=None,
+                   help="Adam second-moment storage dtype (default: "
+                        "config, bfloat16; float32 restores exact "
+                        "reference AdamW state precision)")
+    p.add_argument("--params-bf16", action="store_true",
+                   help="persistent bf16 compute copy of the matmul "
+                        "kernels + bf16 grads over an f32 AdamW master "
+                        "(forward numerics identical). Needs "
+                        "model.compute_dtype=bfloat16 (the flagship "
+                        "default; pass --compute-dtype bfloat16 on the "
+                        "synthetic tiny config); not with --dp or "
+                        "--distributed")
     p.add_argument("--ckpt-format", choices=["npz", "orbax"], default=None,
                    help="npz only (orbax needs JAX)")
     # real-data VQ sources (data/vq_frames.py)
@@ -255,13 +267,9 @@ def parse(p, argv):
     p.add_argument("--nlq-text-dir", default=None,
                    help="dir of {query_id}.npz token features")
     args = p.parse_args(argv)
-    for flag, why in REFUSED.items():
-        if getattr(args, flag):
-            p.error(why)
-    for flag in ("mu_dtype", "nu_dtype"):
-        if getattr(args, flag) == "float32":
-            p.error(f"--{flag.replace('_', '-')} float32: FusedAdamW keeps "
-                    "bf16 moments (train/optim.py::MOMENT_DTYPE)")
+    if args.params_bf16 and (args.dp or args.distributed):
+        p.error("--params-bf16 with --dp or --distributed: the bf16 "
+                "gradients' all-reduce is not ported")
     if args.ckpt_format == "orbax":
         p.error("--ckpt-format orbax: orbax needs JAX; the port writes npz")
     if args.tensorboard:
@@ -364,6 +372,10 @@ def run(p, args, dp=None, shard=(0, 1)):
     cfg = apply_overrides(cfg, args)
     writes = dp is None or shard[1] > 1 or dp.rank == 0
     if task == "vq":
+        if args.params_bf16:
+            p.error("--params-bf16 covers the point-transformer engine "
+                    "(mq/nlq); the VQ runner's optimizer does not consume "
+                    "it")
         return train_vq(p, args, cfg, dp, shard, writes)
     if task == "nlq":
         if args.joint:

@@ -5,8 +5,10 @@ eval steps, decode and soft-NMS:
   for task j:
     merge rehearsal memory into the task's train set
     (iCaRL/BiC) snapshot pre-task logits for distillation
-    train epochs (a fresh FusedAdamW and schedule per task), keeping the
-      best epoch's parameters when opt.track_best
+    train epochs (a fresh optimizer of cfg.opt and its schedule per task,
+      train/optim.py::make_optimizer, with the bf16 compute copy made
+      from the task's starting parameters where opt.param_compute_dtype
+      asks), keeping the best epoch's parameters when opt.track_best
     (BiC) stage 2: the task's bias pair on its held-out 10%
     evaluate every seen task cumulatively: ANET mAP, R@k, BwF
     update rehearsal memory (random exemplars, per-class quota)
@@ -15,7 +17,7 @@ eval steps, decode and soft-NMS:
     checkpoint {params, memory bank, cl-state} as task_{j:03d}.ckpt
 
 The methods keep the JAX names and order. The parameters live in the
-model, and every train_task's FusedAdamW keeps them as views of its flat
+model, and every train_task's optimizer keeps them as views of its flat
 buffer (train/optim.py::flat_buffers): restoring a best epoch, a resume,
 `--init-from` and the head reset copy values into them, never rebind
 them. The loss normaliser is carried across tasks and through the
@@ -28,9 +30,12 @@ the CPU): no card raises, and nothing falls back to the CPU.
 Data parallelism (`enable_data_parallel`, vilco_tpu/cl/episode.py:
 213-267): the train steps and the EWC/MAS importance run over the ranks
 at the global batch's semantics (train/engine.py), each rank on its rows
-of every micro-batch: its slice of the whole batch (`--dp`: every rank
-loads the same global batch) or its own loader shard (`--distributed`:
-`shard`, the global batch the ranks' batches in rank order). Eval, the
+of every micro-batch (parallel/mesh.py::shard_rows): its slice of the
+whole batch (`--dp`: every rank loads the same global batch) or, with its
+own loader shard (`--distributed`: `shard`), its slice of the global
+batch, the ranks' batches in rank order (host-major, as JAX's), gathered
+from the ranks by one collective a step where K > 1 (at K = 1 the rank's
+shard is its slice already). Eval, the
 distillation snapshots, BiC's stage 2, iCaRL's means and the rehearsal
 memory run whole on every rank, as JAX's replicated, host-unsharded
 loaders do. The ranks start from rank 0's parameters.
@@ -91,7 +96,7 @@ from vilco_tpu_torch.train.engine import (
     make_train_step,
     snapshot_targets,
 )
-from vilco_tpu_torch.train.optim import FusedAdamW
+from vilco_tpu_torch.train.optim import make_optimizer
 
 log = logging.getLogger("vilco.episode")
 
@@ -241,22 +246,27 @@ class EpisodeRunner:
         return self
 
     def _train_rows(self, batch: dict) -> dict:
-        """This rank's rows of a train batch (all of them when the loader
-        is sharded or without data parallelism)."""
-        if self.dp is None or self._loader_sharded:
+        """This rank's rows of a train batch (all of them without data
+        parallelism): `shard_rows` of the global batch, which under a
+        sharded loader with K > 1 micro-batches is first gathered from the
+        ranks (host-major), so that micro-batch k holds JAX's global rows
+        [k b/K, (k+1) b/K)."""
+        if self.dp is None:
             return batch
-        return shard_batch(batch, self.dp.rank, self.dp.world,
-                           max(self.cfg.opt.accumulation_steps, 1))
+        K = max(self.cfg.opt.accumulation_steps, 1)
+        if self._loader_sharded:
+            if K == 1:
+                return batch
+            batch = {k: self.dp.gather(v) for k, v in batch.items()}
+        return shard_batch(batch, self.dp.rank, self.dp.world, K)
 
     def _to_device(self, batch, is_training: bool = False
                    ) -> Dict[str, torch.Tensor]:
         """The batch on the device: a train batch's rows of this rank
         (`_train_rows`), an eval batch whole."""
-        batch = {k: v for k, v in batch.items() if k != "video_idx"}
-        if is_training:
-            batch = self._train_rows(batch)
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        batch = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                 for k, v in batch.items() if k != "video_idx"}
+        return self._train_rows(batch) if is_training else batch
 
     # ------------------------------------------------------------------
     def snapshot_logits(self, videos, n_known: int = 0
@@ -341,8 +351,9 @@ class EpisodeRunner:
         prev_logits_map = (self.snapshot_logits(videos, n_known=n_known)
                            if use_distill else None)
         # a fresh optimizer and schedule: the parameters become views of
-        # its flat buffer, their values kept
-        opt = FusedAdamW(self.model, steps_per_epoch, cfg.opt)
+        # its flat buffer, their values kept (and the compute copy, where
+        # the config keeps one, is made from them)
+        opt = make_optimizer(cfg.opt, self.model, steps_per_epoch)
         step = make_train_step(
             self.points, cfg.train_cfg, compute_dtype=self.compute_dtype,
             cl_cfg=dataclasses.replace(cfg.cl_cfg, name=self.method),

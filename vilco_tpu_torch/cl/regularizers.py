@@ -198,12 +198,29 @@ class RegPenalty:
             const *= lam
         return cls(fisher, optpar, mask, lam, const)
 
-    def apply(self, theta: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    def apply(self, theta: torch.Tensor, grad: torch.Tensor, copy=None,
+              bf16_grads: bool = False) -> torch.Tensor:
         """Add the penalty's gradient to `grad` in place and return its value
         (0-d f32); theta, grad: (N,) f32, the optimizer's param_flat and
-        grad_flat."""
+        grad_flat. `copy`, an optimizer with a bf16 compute copy: theta
+        takes the copy's values on its leaves (JAX's penalty reads the
+        forward's parameters), and with `bf16_grads` their share of the
+        gradient is rounded to bf16 and added to the copy's bf16 gradients
+        (`pc_grad_flat`), the sum rounded to bf16."""
         t = theta.double()
+        on_copy = None
+        if copy is not None:
+            on_copy = copy.copy_mask
+            t = torch.where(on_copy, copy.pc_flat.double(), t)
         u = torch.addcmul(self.neg_b, self.a, t)          # A theta - B
-        grad.add_(u, alpha=2.0 * self.lam)
+        if on_copy is not None and bf16_grads:
+            g2 = (2.0 * self.lam) * u
+            gb = copy.pc_grad_flat
+            gb.copy_(torch.where(on_copy, gb.float()
+                                 + g2.to(torch.bfloat16).float(),
+                                 gb.float()).to(torch.bfloat16))
+            grad.add_(torch.where(on_copy, torch.zeros_like(g2), g2))
+        else:
+            grad.add_(u, alpha=2.0 * self.lam)
         val = torch.dot(t, u) + torch.dot(t, self.neg_b) + self.c
         return (val * self.lam).float()

@@ -7,19 +7,20 @@ JAX's `dataset`, `loader` and `vq` sections whole (VQConfig with what JAX's
 VQ runner fixes beside them). `ModelConfig` holds only what differs between
 the flagships and their tiny twins (variant, widths, depths, heads, window,
 classes, lengths, regression ranges, drop-path), with the dataset dims
-already propagated (what `Config.derived()` does there); `TrainCfg`,
-`OptCfg` and `TestCfg` hold the `train_cfg`, `opt` and `test_cfg` values
-the two differ in, and `CLCfg` the `cl_cfg` fields the MQ yaml's CL method
-reads. What every config shares is fixed in the module that reads it: the
-identity neck and the channel LayerNorms of the embedding, neck and heads,
-the absolute position encoding, the MQ variant's XL stage of one layer
+already propagated (what `Config.derived()` does there); `TrainCfg` and
+`TestCfg` hold the `train_cfg` and `test_cfg` values the two differ in,
+`OptCfg` every `opt` field that JAX's optimizer reads, and `CLCfg` the
+`cl_cfg` fields the MQ yaml's CL method reads. What every config shares
+is fixed in the module that reads it: the identity neck and the channel
+LayerNorms of the embedding, neck and heads, the absolute position
+encoding, the MQ variant's XL stage of one layer
 (`use_xl` says whether there is one) and the branch levels without text
 cross-attention (models/backbone.py), 3-tap
 convs and 3-layer heads (models/point_transformer.py), the 0.8 channel
 blend (models/layers.py), stride-2 branch blocks (`fpn_strides`),
 multiclass soft-NMS (ops/nms.py), radius center sampling, loss weight 1 and
-clip 1.0 (train/engine.py), AdamW's betas, decay and eta_min
-(train/optim.py); `_FIXED` lists them by their JAX names, and
+clip 1.0 (train/engine.py), AdamW's betas (train/optim.py); `_FIXED`
+lists them by their JAX names, and
 `config_from_dict` refuses a config that sets another value.
 """
 
@@ -160,14 +161,37 @@ class CLCfg:
 
 @dataclass(frozen=True)
 class OptCfg:
-    """`accumulation_steps` K: one optimizer step takes K micro-batches of
+    """JAX's `opt` section (vilco_tpu/core/config.py::OptCfg), every field
+    its optimizer reads, at JAX's defaults (train/optim.py::
+    make_optimizer): `type` adamw or sgd (with `momentum`); the decayed
+    leaves' `weight_decay`; the schedule (`warmup`, `warmup_epochs`,
+    `schedule_type` cosine to `eta_min` or multistep at `schedule_steps`
+    epochs after the warmup by `schedule_gamma`); the AdamW moments'
+    storage dtypes `mu_dtype` and `nu_dtype` (bfloat16 or float32);
+    `second_moment` full or factored (Adafactor's row and column
+    statistics); `param_compute_dtype` bfloat16 for a persistent bf16
+    copy of the trunk's kernels.
+
+    `accumulation_steps` K: one optimizer step takes K micro-batches of
     the batch's rows, in order (train/engine.py::make_train_step). The
     episode trains `total_epochs` a task; with `track_best` it evaluates
     every epoch from int(total_epochs x eval_start_ratio) on and restores
     the first epoch with the best `best_metric`."""
+    type: str = "adamw"
+    momentum: float = 0.9
+    weight_decay: float = 0.05
     learning_rate: float = 1e-4
     epochs: int = 10
+    warmup: bool = True
     warmup_epochs: int = 5
+    schedule_type: str = "cosine"
+    schedule_steps: Tuple[int, ...] = ()
+    schedule_gamma: float = 0.1
+    eta_min: float = 1e-8
+    mu_dtype: str = "bfloat16"
+    nu_dtype: str = "bfloat16"
+    second_moment: str = "full"
+    param_compute_dtype: str = "float32"
     accumulation_steps: int = 1
     early_stop_epochs: int = 0
     track_best: bool = False
@@ -542,28 +566,6 @@ _FIXED = {
     ("train_cfg", "t_c_alpha"): 0.8,
     ("test_cfg", "nms_method"): "soft",
     ("test_cfg", "multiclass_nms"): True,
-    ("opt", "type"): "adamw",
-    ("opt", "weight_decay"): 0.05,
-    ("opt", "warmup"): True,
-    ("opt", "schedule_type"): "cosine",
-    ("opt", "schedule_steps"): (),
-    ("opt", "eta_min"): 1e-8,
-    ("opt", "mu_dtype"): "bfloat16",
-    ("opt", "nu_dtype"): "bfloat16",
-    ("opt", "second_moment"): "full",
-    ("opt", "param_compute_dtype"): "float32",
-}
-# why the port refuses the fixed fields it cannot honour, by field
-_UNSUPPORTED = {
-    ("opt", "mu_dtype"): "FusedAdamW keeps bf16 moments "
-                         "(train/optim.py::MOMENT_DTYPE)",
-    ("opt", "nu_dtype"): "FusedAdamW keeps bf16 moments "
-                         "(train/optim.py::MOMENT_DTYPE)",
-    ("opt", "second_moment"): "the port's AdamW keeps the full second "
-                              "moment; the factored one is not ported",
-    ("opt", "param_compute_dtype"): "the port casts its f32 masters on "
-                                    "use; a persistent bf16 copy is not "
-                                    "ported",
 }
 # JAX fields no path of the port reads: the knobs of JAX's own kernels and
 # optimizer forms (the same math), the hard-NMS threshold, the model EMA
@@ -575,8 +577,7 @@ _IGNORED = {
     ("model", "xl_mem_len"),
     ("train_cfg", "dropout"), ("train_cfg", "droppath"),
     ("test_cfg", "iou_threshold"),
-    ("opt", "momentum"), ("opt", "schedule_gamma"), ("opt", "flatten"),
-    ("opt", "fused_apply"), ("opt", "ema_decay"),
+    ("opt", "flatten"), ("opt", "fused_apply"), ("opt", "ema_decay"),
     ("cl_cfg", "random_order"), ("cl_cfg", "type_sampling"),
 }
 _IGNORED_TOP = ("train_split", "val_split", "output_folder")
@@ -614,10 +615,9 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
             where = f"{sec}.{key}"
             if (sec, key) in _FIXED:
                 if _freeze(v) != _FIXED[(sec, key)]:
-                    why = _UNSUPPORTED.get(
-                        (sec, key), "the port fixes it in its modules")
                     raise ValueError(f"{where}={v!r}: the port runs only "
-                                     f"{_FIXED[(sec, key)]!r} ({why})")
+                                     f"{_FIXED[(sec, key)]!r} (the port "
+                                     "fixes it in its modules)")
             elif key not in names and (sec, key) not in _IGNORED:
                 raise ValueError(f"{where}: not a field of the port's "
                                  f"config")

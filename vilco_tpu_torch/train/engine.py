@@ -10,8 +10,19 @@ gradient accumulation over micro-batches; and the eval step
         -> compute_losses -> backward (the gradients add up)
         -> the SSL memory bank's ring write
     -> the gradients / K -> + the EWC/MAS penalty's gradient
-    -> global-norm clip at CLIP_GRAD_L2NORM -> FusedAdamW
+    -> global-norm clip at CLIP_GRAD_L2NORM -> the optimizer of cfg.opt
+       (train/optim.py::make_optimizer)
     -> loss-normaliser EMA -> the adapter EMA
+
+With the optimizer's bf16 compute copy (opt.param_compute_dtype bfloat16,
+vilco_tpu/train/engine.py:395-400, :466-481) the forward reads the copy of
+the trunk's kernels in place of their f32 masters and their gradients land
+in bf16: with one micro-batch the clip norm sums their squares in f32 (f64
+here) beside the other leaves' and K4 applies the clip factor to them in
+bf16, as JAX's `g * scale.astype(g.dtype)`; with K micro-batches they add
+up in the f32 gradient buffer, as JAX's accumulation does. The EWC/MAS
+penalty reads the copy's values for those leaves and adds its gradient to
+theirs in bf16. The update rewrites the copy.
 
 Data parallelism (`dp`, parallel/mesh.py::DataParallel): each rank holds
 its rows of every micro-batch and the step computes JAX's global-batch
@@ -49,7 +60,7 @@ from vilco_tpu_torch.core.marks import mark
 from vilco_tpu_torch.ops.assign import label_points
 from vilco_tpu_torch.ops.losses import ctr_diou_loss_1d, sigmoid_focal_loss
 from vilco_tpu_torch.parallel.mesh import RowDraw
-from vilco_tpu_torch.train.optim import FusedAdamW
+from vilco_tpu_torch.train.optim import FlatOptimizer, make_optimizer
 
 CENTER_SAMPLE_RADIUS = 1.5
 CLIP_GRAD_L2NORM = 1.0
@@ -81,12 +92,14 @@ class CLBatchExtras:
 
 @dataclass
 class TrainState:
-    """`model` holds the f32 master parameters and `opt` the AdamW state;
+    """`model` holds the f32 master parameters and `opt` the optimizer
+    (train/optim.py: FusedAdamW, or the chain of the factored and SGD
+    forms);
     `generator` (on the model's device) draws drop-path, dropout and the
     XL kernel's dropout seed; `adapter_ema` maps each time-adapter
     parameter's name to its EMA (None without adapters)."""
     model: torch.nn.Module
-    opt: FusedAdamW
+    opt: FlatOptimizer
     loss_normalizer: torch.Tensor
     generator: torch.Generator
     step: int = 0
@@ -123,14 +136,15 @@ def init_train_state(model: torch.nn.Module, cfg: Config,
                      steps_per_epoch: int, seed: int = 0,
                      device="cuda") -> TrainState:
     """Place `model` on `device` (the card unless the caller asks for the
-    CPU; no card raises) and start AdamW (the schedule of `cfg.opt`), the
+    CPU; no card raises) and start the optimizer of `cfg.opt`
+    (make_optimizer, with its compute copy where the config asks), the
     loss normaliser at `cfg.train_cfg.init_loss_norm` and, with
     `cfg.cl_cfg.use_adapt`, the adapter EMA at the adapters' values."""
     device = torch.device(device)
     model.to(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return TrainState(model=model,
-                      opt=FusedAdamW(model, steps_per_epoch, cfg.opt),
+                      opt=make_optimizer(cfg.opt, model, steps_per_epoch),
                       loss_normalizer=torch.tensor(
                           cfg.train_cfg.init_loss_norm, device=device),
                       generator=gen,
@@ -322,13 +336,17 @@ def narration_ssl_loss(nf, vf, narration_valid, bank, ptr,
         all_valid.to(nf.dtype).sum(), min=1.0)
 
 
-def global_norm_clip(grad_flat: torch.Tensor):
+def global_norm_clip(grad_flat: torch.Tensor,
+                     extra: Optional[torch.Tensor] = None):
     """(global L2 norm of the gradients, clip factor min(1, clip / (norm +
     1e-9))), both 0-d f32 tensors on the gradients' device; `grad_flat`
-    holds every gradient (FusedAdamW's buffer). The sum of squares runs in
+    holds every gradient (the optimizer's buffer), `extra` the compute
+    copy's bf16 ones where they are kept apart. The sum of squares runs in
     f64: one f32 reduction over the whole buffer drifts ~2e-5 from optax's
     per-leaf sums."""
-    gnorm = torch.linalg.vector_norm(grad_flat, dtype=torch.float64).float()
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float64)
+             for g in (grad_flat, extra) if g is not None]
+    gnorm = torch.linalg.vector_norm(torch.stack(norms)).float()
     return gnorm, torch.clamp(CLIP_GRAD_L2NORM / (gnorm + 1e-9), max=1.0)
 
 
@@ -388,12 +406,15 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
         rng = state.generator if regularize else None
         if rng is not None and dp is not None:
             rng = RowDraw(rng, *dp.rows(len(mb["feats"])))
-        out = model(mb["feats"], mb["mask"], mb.get("text"),
-                    mb.get("text_mask"), nar("narration"),
-                    nar("narration_mask"), nar("narration_valid"),
-                    mb.get("prompt_mask") if use_prompt else None,
-                    rng=rng, compute_dtype=compute_dtype,
-                    **({} if dp is None else {"dp": dp}))
+        args = (mb["feats"], mb["mask"], mb.get("text"),
+                mb.get("text_mask"), nar("narration"),
+                nar("narration_mask"), nar("narration_valid"),
+                mb.get("prompt_mask") if use_prompt else None)
+        kw = dict(rng=rng, compute_dtype=compute_dtype,
+                  **({} if dp is None else {"dp": dp}))
+        copies = state.opt.copies
+        out = (model(*args, **kw) if copies is None else
+               torch.func.functional_call(model, copies, args, kw))
         if mcl.bias_alpha is not None:
             out["cls_logits"] = (out["cls_logits"] * mcl.bias_alpha
                                  + mcl.bias_beta)
@@ -412,6 +433,17 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
             raise ValueError(f"batch size {b} not divisible by "
                              f"accumulation_steps {K}")
         m = b // K
+        copies = state.opt.copies
+        if copies is not None:
+            if compute_dtype != torch.bfloat16:
+                raise ValueError(
+                    "param_compute_dtype=bfloat16 needs model.compute_dtype="
+                    "bfloat16: with f32 activations the kernels are "
+                    "consumed at f32, so a stored bf16 copy would change "
+                    "the forward")
+            if dp is not None:
+                raise ValueError("param_compute_dtype=bfloat16 under data "
+                                 "parallelism is not ported")
         state.model.train()
         mark(marks, "start", points.device)
         state.opt.zero_grad()
@@ -422,6 +454,8 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
             mcl = cl if K == 1 or cl.prev_logits is None else \
                 dataclasses.replace(cl, prev_logits=cl.prev_logits[rows])
             out, met, norm = micro_loss(state, mb, mcl, norm, marks)
+            if copies is not None and K > 1:
+                state.opt.fold_compute_grads()
             mets.append(met)
             if (use_ssl and cl.memory_bank is not None
                     and "narration_feat" in out):
@@ -439,11 +473,15 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
             metrics = global_metrics(metrics, dp)
         if K > 1:
             state.opt.grad_flat.div_(K)
+        bf16_grads = copies is not None and K == 1
         if cl.penalty is not None:
-            metrics["reg_penalty"] = cl.penalty.apply(state.opt.param_flat,
-                                                      state.opt.grad_flat)
-        gnorm, gscale = global_norm_clip(state.opt.grad_flat)
-        state.opt.step(gscale)
+            metrics["reg_penalty"] = cl.penalty.apply(
+                state.opt.param_flat, state.opt.grad_flat,
+                state.opt if copies is not None else None, bf16_grads)
+        gnorm, gscale = global_norm_clip(
+            state.opt.grad_flat,
+            state.opt.pc_grad_flat if bf16_grads else None)
+        state.opt.step(gscale, bf16_grads)
         if state.adapter_ema is not None:
             update_adapter_ema(state.adapter_ema, state.model, ema_decay)
         mark(marks, "optimizer", points.device)
