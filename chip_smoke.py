@@ -14,6 +14,7 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --dp
     python3 chip_smoke.py --optim
     python3 chip_smoke.py --guard-ladder
+    python3 chip_smoke.py --multi-step
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
@@ -26,7 +27,8 @@ NLQ CL episode (15''); the ninth only the VQ CL episode (20'); the tenth
 only the reference-geometry phase (20''); the eleventh only the
 data-parallel phase (27); the twelfth only the optimizer forms of JAX's
 opt section (optim: below, after the phases); the thirteenth only the
-guard-ladder twin at seeds 0-3 (guard_ladder: below).
+guard-ladder twin at seeds 0-3 (guard_ladder: below); the fourteenth the
+multi_step phase (28) and its longer runs (below).
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -210,12 +212,13 @@ fallback):
                    and f32) beside SDPA;
                    AdamW with f32 moments over the VQ optimizer's 113
                    trainable leaves (bit-exact)
- 17. vq_parity     vq_flagship_config() at batch 1, 30 frames, f32, the
+ 17. vq_parity     vq_flagship_config() at batch 1, 30 frames, f32 (the
+                   frozen ViT cut to 1 of its 12 blocks), the
                    card against the CPU on the box deltas and the logits
                    (output convs redrawn at a normal scale), with a TF32
                    control
  18. vq_train_parity  one VQ HNM step at batch 2 x 30 frames in f32 (the
-                   frozen ViT cut to 4 of its 12 blocks), the
+                   frozen ViT cut to 1 of its 12 blocks), the
                    card against the CPU as phase 8, every trainable leaf's
                    gradient; the position table's held to its summation
                    scale (its gradient sums the pairs' gradients at its
@@ -303,8 +306,35 @@ fallback):
                    parameters bitwise equal after each, every kernel of
                    the path launched, step ms and the gradient
                    all-reduce's ms and bytes; seq_banded_attention over
-                   the 2 ranks at NLQ's T 2560 against K5; a 1-rank NCCL
-                   group through init_distributed (dp_nccl)
+                   the 2 ranks at NLQ's T 2560 against K5; NLQ's
+                   --params-bf16 step (the compute copy's bf16 gradients
+                   all-reduced in bf16) on the 2 ranks, bitwise equal
+                   after each of its steps; a 1-rank NCCL group through
+                   init_distributed (dp_nccl), its bf16 all-reduce native
+                   and the --params-bf16 step through it bitwise equal to
+                   the groupless one
+ 28. multi_step    train/engine.py::make_multi_train_step, K = 4: the MQ
+                   yaml step (batch 2, CL task 1, dropout and drop-path on)
+                   and the NLQ step (batch 4, EWC at lambda 3000 over 2
+                   tasks), bf16, cudnn.deterministic on, TF32 off: one
+                   state through 3 calls of the captured graph (the first
+                   runs step 1 eagerly on the capture stream, captures and
+                   replays 3), its clone through the same 12 steps eagerly,
+                   bitwise equal after every call (parameters, moments,
+                   normaliser, bank and pointer, adapter EMA, generator,
+                   last metrics); then one replay (a multi step of K = 1
+                   on the same state) and one eager step, each profiled:
+                   the port's kernels in the replay as the model's
+                   structure and the eager Python counters give them;
+                   each class of kernels (launch_class) as many in the
+                   replay as in the eager step, whose trace is taken again
+                   until it holds every launch call's device record (if
+                   none does, more in the replay by at most the records
+                   it lacks, never fewer); ms/step graph and eager (host
+                   clock), device ms and idle share, the capture's seconds
+                   and the graph pool's bytes; then K3-bwd at both steps' stem
+                   shapes, pairs of calls on two streams at once, each
+                   bitwise equal to a lone call, and its queued ms
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
 
@@ -326,6 +356,11 @@ launches counted; then one --params-bf16 step of the NLQ yaml the same way.
 --guard-ladder: vilco_tpu_torch/tools/guard_ladder.py at seeds 0-3 on the
 card, the four runs side by side: every row (7 methods a seed), then each
 method's mean and range of final_avg_mAP and of BwF_R1@0.5 over the seeds.
+
+--multi-step: phase 28, then every other optimizer form of OPTIM_FORMS
+(f32 moments, factored, --params-bf16, SGD with a multistep schedule)
+under the graph against eager on the MQ yaml step at K = 4, and K = 16
+over 5 calls (3 timed) for the MQ yaml and NLQ steps.
 """
 
 from __future__ import annotations
@@ -406,32 +441,58 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 # traces taken of one call before a trace with no device time fails: the
 # profiler has been seen to drop every device record of a trace of kernels
-# that ran and checked out (about once in a default run)
-TRACE_TRIES = 3
+# that ran and checked out (4 to 6 times in a default run on an H100 80GB
+# HBM3 at 700 W, at vq_kernels' K6-bwd split by pass, and 3 times in a
+# row there once)
+TRACE_TRIES = 6
 
 
-def device_rows(fn, label: str):
-    """Run `fn` under torch.profiler (CPU and CUDA activities) until a trace
-    holds device time, at most TRACE_TRIES times: (fn's result, host ms of
-    the profiled call, [(device ms, launches, kernel name)])."""
+# the CUDA API calls (cuda* and the lower-level cu*) that each put one
+# record on the device (a kernel, a copy or a memset)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                "cuLaunchKernel", "cudaMemcpy", "cudaMemset", "cuMemcpy",
+                "cuMemset")
+
+
+def trace_once(fn, cpu: bool = True):
+    """Run `fn` once under torch.profiler (CPU and CUDA activities; without
+    `cpu` the CUDA activity alone, which costs the host less): (fn's
+    result, host ms of the profiled call, [(device ms, launches, kernel
+    name)], the launch calls (LAUNCH_CALLS) the trace holds, of them those
+    whose device record it lacks (matched by correlation id))."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(TRACE_TRIES):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            if (e.device_type != torch.autograd.DeviceType.CUDA
-                    or getattr(e, "is_user_annotation", False)):
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            rows.append(((e.self_cuda_time_total if us is None else us)
-                         / 1e3, e.count, e.key))
+        host_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        rows.append(((e.self_cuda_time_total if us is None else us)
+                     / 1e3, e.count, e.key))
+    on_device, calls = set(), []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            on_device.add(e.id)
+        elif e.name.startswith(LAUNCH_CALLS) and "HostFunc" not in e.name:
+            calls.append(e.id)
+    return out, host_ms, rows, (len(calls),
+                                sum(c not in on_device for c in calls))
+
+
+def device_rows(fn, label: str, cpu: bool = True):
+    """trace_once(fn, cpu) until a trace holds device time, at most
+    TRACE_TRIES times: (fn's result, host ms of the profiled call,
+    [(device ms, launches, kernel name)])."""
+    for _ in range(TRACE_TRIES):
+        out, host_ms, rows, _ = trace_once(fn, cpu)
         if sum(r[0] for r in rows) > 0:
             return out, host_ms, rows
         say(f"[profiler] a trace of {label} held no device time; taking it "
@@ -694,18 +755,25 @@ def mq_parity_inputs(cfg):
     return x, ragged_mask(rng, 2, cfg.max_seq_len, "cpu")[:1]
 
 
+# (T, input_dim) -> (the generator, the host arrays it has drawn): the
+# serving phases that share the MQ flagship's requests draw them once
+MQ_REQUEST_DRAWS = {}
+
+
 def mq_requests(cfg, dev, n: int = 7):
     """`n` MQ serving requests at batch 16 on the card: bf16 features and
-    masks with lengths drawn from [T/2, T]."""
-    rng = np.random.default_rng(SEED + 2)
-    T, requests = cfg.max_seq_len, []
-    for _ in range(n):
+    masks with lengths drawn from [T/2, T], from SEED + 2 (the first `n`
+    of one sequence of draws, kept on the host in MQ_REQUEST_DRAWS)."""
+    T = cfg.max_seq_len
+    rng, drawn = MQ_REQUEST_DRAWS.setdefault(
+        (T, cfg.input_dim), (np.random.default_rng(SEED + 2), []))
+    while len(drawn) < n:
         feats = rng.standard_normal((B_SERVE, T, cfg.input_dim))
         lens = rng.integers(T // 2, T + 1, size=B_SERVE)
-        mask = np.arange(T)[None, :] < lens[:, None]
-        requests.append((torch.from_numpy(feats.astype(np.float32)).to(
-            dev, torch.bfloat16), torch.from_numpy(mask).to(dev)))
-    return requests
+        drawn.append((feats.astype(np.float32),
+                      np.arange(T)[None, :] < lens[:, None]))
+    return [(torch.from_numpy(f).to(dev, torch.bfloat16),
+             torch.from_numpy(mask).to(dev)) for f, mask in drawn[:n]]
 
 
 SERVE_KEYS = ("feats", "mask", "text", "text_mask")
@@ -4038,14 +4106,16 @@ def redraw_heads(model, seed: int):
 
 
 def phase_vq_parity(dev):
-    """vq_flagship_config() at batch 1 with 30 frames in f32: the card with
-    its kernels against the CPU with the plain versions, on the deltas and
-    the logits, and a TF32 control that must read above the limit (the
-    MQ/NLQ limit holds: f32 reads ~5e-6 here, TF32 ~1.5e-3)."""
+    """vq_flagship_config() at batch 1 with 30 frames in f32, its frozen ViT
+    cut to VQ_PARITY_VIT_DEPTH blocks: the card with its kernels against
+    the CPU with the plain versions, on the deltas and the logits, and a
+    TF32 control that must read above the limit (the MQ/NLQ limit holds:
+    f32 reads ~5e-6 here, TF32 ~1.5e-3)."""
     from vilco_tpu_torch.core.config import vq_flagship_config
     from vilco_tpu_torch.models.clip_matcher import ClipMatcher
 
-    cfg = vq_flagship_config()
+    cfg = dataclasses.replace(vq_flagship_config(),
+                              vit_depth=VQ_PARITY_VIT_DEPTH)
     model = ClipMatcher(cfg, generator=torch.Generator().manual_seed(SEED),
                         device="cpu", compute_dtype=torch.float32).eval()
     redraw_heads(model, SEED + 13)
@@ -4095,11 +4165,13 @@ def phase_vq_parity(dev):
 
 
 VQ_PARITY_BATCH = 2    # 4 HNM pairs: every clip also against a foreign query
-# the train-step parity's frozen ViT cut from 12 blocks to 4, to keep the
-# default run under 900 s with the dp phase: its CPU forward over 60 frames
-# was most of the phase's ~60 s CPU step, and no gradient flows through it;
-# vq_parity holds the full-depth ViT's forward
-VQ_PARITY_VIT_DEPTH = 4
+# the parities' frozen ViT cut from 12 blocks to 1, to keep the default
+# run near 900 s: its CPU forward over 60 frames was most of the train
+# parity's ~60 s CPU step at 12 blocks (37.3 s at 4), over 31 frames ~20
+# of vq_parity's 31.9 s (12.3 s at 4); the blocks are alike, the card
+# runs all 12 in vq_serve, and vq_reference holds a full-depth ViT's f32
+# forward (ViT-B/16) against the CPU
+VQ_PARITY_VIT_DEPTH = 1
 VQ_REG_LAMBDA = 3000.0  # the --cl-methods VQ step's penalty weight (NLQ's)
 VQ_PE_LEAF = "pe_3d"
 # Activation gradients, unlike a weight's gradient not a sum over every
@@ -5562,15 +5634,18 @@ DP_SEQ_RTOL = 1e-4        # the halo-exchange band (plain f32) against K5
 DP_VQ_ROUNDOFF = 10
 DP_VQ_PARAM_LR = 0.05
 DP_TEMPLATES = {}         # the models drawn from SEED, by kind, on the CPU
+DP_PC = {"param_compute_dtype": "bfloat16"}   # train_cl --params-bf16
 
 
 def dp_point_case(dp, dev, cfg, task, B, accum, reg_k=0, tf32=False,
                   dtype=None, regularize=False, steps=1, seed=DP_SEED,
-                  counters=(), parity=False):
+                  counters=(), parity=False, opt=None):
     """Train steps of the MQ yaml or NLQ flagship `cfg` at global batch B
     (accumulation `accum`) from SEED's weights (adapters redrawn): under
     `dp` on the rank's rows, else the whole batch in this process. With
-    `reg_k`, the EWC penalty of reg_k synthetic tasks at cfg's lambda.
+    `reg_k`, the EWC penalty of reg_k synthetic tasks at cfg's lambda;
+    `opt`, OptCfg overrides (the compute copy: its bf16 parameters are
+    checked beside the masters, and returned with `parity`).
     Returns losses, step ms, the flat gradient and parameter buffers (on
     the card, with `parity`), the launches of `counters` over the steps
     (counted from 0), the all-reduce's ms and bytes, and the replicated
@@ -5595,6 +5670,9 @@ def dp_point_case(dp, dev, cfg, task, B, accum, reg_k=0, tf32=False,
 
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
+    if opt:
+        cfg = dataclasses.replace(cfg, opt=dataclasses.replace(cfg.opt,
+                                                               **opt))
     m = cfg.model
     cl_model, flags, cl, prompt_mask = cl_step_setup(cfg, task, B, dev)
     key = (m.variant, cl_model is not None)
@@ -5639,8 +5717,9 @@ def dp_point_case(dp, dev, cfg, task, B, accum, reg_k=0, tf32=False,
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["loss"].append(met["final_loss"].item())
         if dp is not None and steps > 1:
-            assert_replicated([st.opt.param_flat], dp,
-                              f"parameters after step {i + 1}")
+            assert_replicated([st.opt.param_flat] + (
+                [] if st.opt.copies is None else [st.opt.pc_flat]), dp,
+                f"parameters after step {i + 1}")
             out["replicated"].append(True)
     out["launches"] = {c.__name__: c.launches for c in counters}
     out["gnorm"] = met["grad_norm"].item()
@@ -5648,8 +5727,11 @@ def dp_point_case(dp, dev, cfg, task, B, accum, reg_k=0, tf32=False,
         out["flat"] = (st.opt.grad_flat.clone(), st.opt.param_flat.clone(),
                        list(zip(st.opt.names, st.opt.flat_offsets,
                                 [p.numel() for p in st.opt.params])))
+        if getattr(st.opt, "copies", None) is not None:
+            out["pc"] = st.opt.pc_flat.clone()
     if dp is not None:
         out["allreduce"] = dp.timed
+        out["allreduce_bf16"] = dp.timed_bf16
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     del st, model
@@ -5664,6 +5746,7 @@ def timed_dp(dp):
 
     class Timed(DataParallel):
         timed = []
+        timed_bf16 = []
 
         def all_reduce_(self, t):
             torch.cuda.synchronize()
@@ -5674,8 +5757,17 @@ def timed_dp(dp):
                                t.numel() * t.element_size()))
             return t
 
+        def all_reduce_bf16_(self, t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().all_reduce_bf16_(t)
+            torch.cuda.synchronize()
+            self.timed_bf16.append(((time.perf_counter() - t0) * 1e3,
+                                    t.numel() * t.element_size()))
+            return t
+
     out = Timed(dp.rank, dp.world, dp.group)
-    out.timed = []
+    out.timed, out.timed_bf16 = [], []
     return out
 
 
@@ -5756,8 +5848,11 @@ def dp_vq_case(dp, dev, B, dtype, tf32=False, deterministic=True, steps=1,
         out["flat"] = (st.opt.grad_flat.clone(), st.opt.param_flat.clone(),
                        list(zip(st.opt.names, st.opt.flat_offsets,
                                 [p.numel() for p in st.opt.params])))
+        if getattr(st.opt, "copies", None) is not None:
+            out["pc"] = st.opt.pc_flat.clone()
     if dp is not None:
         out["allreduce"] = dp.timed
+        out["allreduce_bf16"] = dp.timed_bf16
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     del st, model
@@ -5941,6 +6036,10 @@ def dp_rank(dp, dev, plan):
         res["nlq"] = dp_parity(dp, point)
         res["nlq_bf16"] = point(dp, dtype=bf16, regularize=True,
                                 steps=DP_BF16_STEPS, counters=ks["nlq"])
+        # train_cl --params-bf16: the compute copy's gradients summed in
+        # bf16 over the ranks
+        res["nlq_pc"] = point(dp, dtype=bf16, regularize=True,
+                              steps=DP_BF16_STEPS, opt=DP_PC)
         res["t_nlq"] = time.perf_counter() - t0
     if "vq" in plan:
         from vilco_tpu_torch.core.config import vq_flagship_config
@@ -5994,6 +6093,16 @@ def phase_dp_nccl(dev):
         cfg = nlq_flagship_config()
         run = lambda d: dp_point_case(d, dev, cfg, None, 2, 1, parity=True)
         gaps = dp_flat_gaps(run(dp), run(None))
+        # the compute copy's bf16 sum, natively: one rank's sum is itself
+        t = torch.randn(4099, device=dev).to(torch.bfloat16)
+        u = dp.all_reduce_bf16_(t.clone())
+        native = u.dtype == torch.bfloat16 and torch.equal(u, t)
+        with deterministic_algorithms(False):
+            pc = [dp_point_case(d, dev, cfg, None, 2, 1, parity=True,
+                                dtype=torch.bfloat16, opt=DP_PC)
+                  for d in (dp, None)]
+        pc_same = all(torch.equal(pc[0][k][j], pc[1][k][j])
+                      for k, j in (("flat", 1), ("pc", slice(None))))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -6009,9 +6118,15 @@ def phase_dp_nccl(dev):
         f"it: loss {gaps['loss']:.3e}, grads {gaps['grads'][0]:.3e} "
         f"({gaps['grads'][1]}), params {gaps['params'][0]:.3e} "
         f"({gaps['params'][1]}) (limits 1e-5, {GRAD_RTOL:g}, "
-        f"{PARAM_RTOL:g}); {time.perf_counter() - t0:.1f} s")
+        f"{PARAM_RTOL:g}); the bf16 all-reduce "
+        f"{'native and exact' if native else 'WRONG'}; the --params-bf16 "
+        f"NLQ step (bf16, cudnn.deterministic) through the group against "
+        f"the groupless one: masters and copy "
+        f"{'bitwise equal' if pc_same else 'DIFFER'}; "
+        f"{time.perf_counter() - t0:.1f} s")
     if not ok or gaps["loss"] > DP_LOSS_RTOL \
-            or gaps["grads"][0] > GRAD_RTOL or gaps["params"][0] > PARAM_RTOL:
+            or gaps["grads"][0] > GRAD_RTOL or gaps["params"][0] > PARAM_RTOL \
+            or not native or not pc_same:
         fail("dp_nccl: the 1-rank NCCL group's collectives or step")
 
 
@@ -6125,6 +6240,25 @@ def phase_dp(dev) -> dict:
             fail(f"{tag}: kernels not launched on the DP path: {dead}")
         for n, k in b["launches"].items():
             launches[n] = launches.get(n, 0) + k
+    pc = [r["nlq_pc"] for r in (r0, r1)]
+    ar = pc[0]["allreduce_bf16"]
+    bms = statistics.median(t for t, _ in ar) if ar else 0.0
+    bbytes = ar[0][1] if ar else 0
+    say(f"[dp_nlq_pc] --params-bf16 (the compute copy), bf16, "
+        f"{DP_BF16_STEPS} steps on 2 ranks: losses "
+        + ", ".join(f"{x:.5f}" for x in pc[0]["loss"])
+        + f" (rank 1 the same: {pc[0]['loss'] == pc[1]['loss']}); the "
+        f"masters and the copy bitwise equal on both ranks after every step "
+        f"({len(pc[0]['replicated'])} checks); the copy's gradients "
+        f"all-reduced in bf16 {len(pc[0]['allreduce_bf16'])} times, "
+        f"{bbytes / 1e6:.1f} MB of bf16 each (Gloo: summed in f32, rounded "
+        f"once), {bms:.1f} ms at the median; step ms a rank "
+        + ", ".join(f"{x:.1f}" for x in pc[0]["ms"]))
+    if len(pc[0]["replicated"]) != DP_BF16_STEPS \
+            or len(pc[0]["allreduce_bf16"]) != DP_BF16_STEPS \
+            or pc[0]["loss"] != pc[1]["loss"] \
+            or not all(np.isfinite(pc[0]["loss"])):
+        fail("dp_nlq_pc: the --params-bf16 steps on 2 ranks")
     s = r0["seq"]
     B, T, H, D, w = s["shape"]
     say(f"[dp_seq] seq_banded_attention over 2 ranks (plain f32, halo "
@@ -6141,6 +6275,501 @@ def phase_dp(dev) -> dict:
         f"{r0['peak_gb']:.1f} / {r1['peak_gb']:.1f} GiB a rank")
     phase_dp_nccl(dev)
     return launches
+
+
+# ---- make_multi_train_step: K steps as one captured CUDA graph -------------
+
+MULTI_K = 4              # steps a call in the default run (JAX's scan_steps)
+MULTI_CALLS = 3          # calls a case: capture, timed, profiled
+MULTI_LONG_K = 16        # --multi-step: K of the timed cases
+MULTI_LONG_CALLS = 5     # --multi-step: their calls (3 timed)
+MULTI_REG_TASKS = 2      # the NLQ case's stacked EWC tasks
+MULTI_STREAM_REPS = 20   # K3-bwd pairs on two streams a shape
+# profiled pairs of a replay and an eager step a case: an eager step's
+# trace lacked no device record in a fresh process, but the same 60 of
+# ~8,900 in every one of 6 pairs at the end of a default run (H100 80GB
+# HBM3, 700 W), so a second pair is the last
+LAUNCH_TRIES = 2
+# each wrapper's kernel that one call launches exactly once, by the
+# profiler's name (K1-bwd and K2-bwd share the delta pass; each has its
+# own dq pass)
+CALL_KERNELS = {
+    "fused_attention_blc": ("attention_blc_tc_kernel",
+                            "attention_blc_simt_kernel"),
+    "attention_bwd_cuda": ("attention_blc_dq_tc_kernel",
+                           "attention_blc_dq_simt_kernel"),
+    "xl_rel_attention": ("xl_fwd_tc_kernel", "xl_rel_attention_simt_kernel"),
+    "xl_bwd_cuda": ("xl_bwd_dq_tc_kernel", "xl_bwd_dq_simt_kernel"),
+    "fused_dwconv_qkv": ("dwconv_qkv_fwd_kernel",),
+    "dwconv_bwd_cuda": ("dwconv_qkv_bwd_kernel",),
+    "adamw_update_multi": ("adamw_kernel",),
+    "banded_attention_blc": ("banded_fwd_kernel",),
+    "banded_bwd_cuda": ("banded_bwd_kernel",),
+}
+# the profiler's names of copies and memsets (a graph runs the step's
+# device-to-device copies and memsets as kernels of the lower-case names)
+# and of fills: the replays' own work (the batch's row, the staged
+# scalars, the generator's seed and offset) lands among them
+COPY_NAMES = ("Memcpy", "memcpy")
+SET_NAMES = ("Memset", "memset")
+FILL = "FillFunctor"
+
+
+LIBRARY_NAMES = ("gemm", "xmma", "cudnn", "nvjet", "cutlass", "cublas")
+
+
+def launch_class(name: str) -> str:
+    """The class a kernel's launches are counted in: the copies, the
+    memsets and the fills each one class; cuBLAS's and cuDNN's kernels one,
+    and ATen's elementwise, reduction and indexing kernels one each (which
+    tile, vector width or unrolling a call takes follows its pointers'
+    alignment, so an eager step and a replay of the same work may name
+    them apart); the port's and every other kernel by its own name."""
+    low = name.lower()
+    if name.startswith(COPY_NAMES):
+        return "copies"
+    if name.startswith(SET_NAMES):
+        return "memsets"
+    if FILL in name:
+        return "fills"
+    if any(x in low for x in LIBRARY_NAMES):
+        return "cuBLAS and cuDNN"
+    if name.startswith("at::native::"):
+        for family in ("elementwise", "reduce", "index", "gather",
+                       "scatter"):
+            if family in low:
+                return f"ATen {family}"
+    return kernel_base(name)
+
+
+def launch_classes(names: dict) -> dict:
+    """{launch_class: launches} of {kernel name: launches}."""
+    out = {}
+    for n, c in names.items():
+        k = launch_class(n)
+        out[k] = out.get(k, 0) + c
+    return out
+
+
+def kernel_base(key: str) -> str:
+    """A profiler kernel name without namespaces and template arguments."""
+    return short_name(key).split("<")[0].split("::")[-1]
+
+
+def wrapper_counts(rows, tries: int = 1) -> dict:
+    """The port's wrapper calls in a trace, by CALL_KERNELS (per try)."""
+    out = {}
+    for _, n, key in rows:
+        for w, names in CALL_KERNELS.items():
+            if kernel_base(key) in names:
+                out[w] = out.get(w, 0) + n // tries
+    return out
+
+
+def state_tensors(st, cl) -> dict:
+    """Every tensor a train step writes: the optimizer's buffers (flat
+    parameters, staged scalars, moments or traces, the compute copy), the
+    loss normaliser, the adapter EMA, the SSL bank and pointer, and the
+    generator's state."""
+    opt = st.opt
+    out = {"param_flat": opt.param_flat, "scalars": opt.scalars,
+           "loss_normalizer": st.loss_normalizer,
+           "generator": st.generator.get_state()}
+    for name in ("mu_flat", "nu_flat", "pc_flat"):
+        if getattr(opt, name, None) is not None:
+            out[name] = getattr(opt, name)
+    for name in ("mu_big", "nu_big", "trace"):
+        for i, t in enumerate(getattr(opt, name, ())):
+            out[f"{name}[{i}]"] = t
+    for i, v in enumerate(getattr(opt, "v", ())):
+        for j, t in enumerate(v if isinstance(v, tuple) else (v,)):
+            out[f"v[{i}][{j}]"] = t
+    for n, e in (st.adapter_ema or {}).items():
+        out["ema:" + n] = e
+    if cl.memory_bank is not None:
+        out["bank"], out["ptr"] = cl.memory_bank, cl.memory_ptr
+    return out
+
+
+def same_bits(tag, what, a, b) -> None:
+    """Graph (a) and eager (b): (state, cl, last metrics) bitwise equal."""
+    (sa, ca, ma), (sb, cb, mb) = a, b
+    ta, tb = state_tensors(sa, ca), state_tensors(sb, cb)
+    diff = [n for n in ta if not torch.equal(ta[n], tb[n])]
+    diff += [f"metric {k}" for k in ma if not torch.equal(ma[k], mb[k])]
+    if (sa.step, sa.opt.count) != (sb.step, sb.opt.count) \
+            or ma.keys() != mb.keys():
+        diff.append("step counts or metric names")
+    say(f"[{tag}] {what}: graph and eager after {sa.step} steps "
+        + ("bitwise equal in all " f"{len(ta) + len(ma)} tensors "
+           "(parameters, moments, normaliser, bank and pointer, adapter "
+           "EMA, generator, last metrics)" if not diff else
+           f"DIFFER in {len(diff)}: {diff[:6]}"))
+    if diff:
+        fail(f"{tag}: the graph's replays are not the eager steps' bits")
+
+
+def multi_structure(cfg) -> dict:
+    """The port's wrapper calls in one train step of the MQ yaml or NLQ
+    flagship `cfg`, from the model's structure (yaml_calls, k3_calls,
+    k5_calls): one backward call per forward call, one AdamW launch (none
+    for the chains)."""
+    if cfg.model.variant == "nlq":
+        k5 = sum(n for _, n in k5_calls(cfg.model))
+        k3 = sum(n for *_, n in k3_calls(cfg))
+        want = {"banded_attention_blc": k5, "banded_bwd_cuda": k5,
+                "fused_dwconv_qkv": k3, "dwconv_bwd_cuda": k3}
+    else:
+        k1, k3 = yaml_calls(cfg)
+        k1, k3 = sum(n for *_, n in k1), sum(n for *_, n in k3)
+        want = {"fused_attention_blc": k1, "attention_bwd_cuda": k1,
+                "xl_rel_attention": 1, "xl_bwd_cuda": 1,
+                "fused_dwconv_qkv": k3, "dwconv_bwd_cuda": k3}
+    fused = cfg.opt.type == "adamw" and cfg.opt.second_moment == "full"
+    return {**want, "adamw_update_multi": int(fused)}
+
+
+def multi_kernels(cfg):
+    """The wrappers of the step of `cfg` (their Python launch counters)."""
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.banded_attention import (
+        banded_attention_blc,
+        banded_bwd_cuda,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+    )
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
+
+    own = ((banded_attention_blc, banded_bwd_cuda)
+           if cfg.model.variant == "nlq" else (xl_rel_attention, xl_bwd_cuda))
+    return (fused_attention_blc, attention_bwd_cuda, fused_dwconv_qkv,
+            dwconv_bwd_cuda, adamw_update_multi, *own)
+
+
+def multi_case(dev, tag, cfg, task, K, opt=None, reg_k=0,
+               calls=MULTI_CALLS, seed=SEED + 41):
+    """make_multi_train_step(K) of the MQ yaml or NLQ flagship `cfg` at full
+    width, bf16 with f32 masters, dropout and drop-path on, as CL task
+    `task` (None: cfg's method over every class; `reg_k` stacked EWC tasks
+    at cfg's lambda), under `opt` (OptCfg overrides), cudnn.deterministic
+    on and TF32 off: one state runs `calls` calls of the multi step over
+    K fixed batches (the first: step 1 eagerly on the capture stream, the
+    capture, K - 1 replays), its clone the same steps eagerly through
+    make_train_step; after every call both must hold the same bits
+    (same_bits). The middle calls are timed by the host clock (synced
+    after the K steps); the last is profiled on both sides: the device
+    ms, the idle share, every kernel's launches (graph against eager),
+    and the port's wrappers by their kernels' names against the model's
+    structure (multi_structure) and the eager steps' Python counters.
+    Returns a summary."""
+    from vilco_tpu_torch.cl.regularizers import RegPenalty
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train.engine import (
+        init_train_state,
+        make_multi_train_step,
+        make_train_step,
+    )
+
+    if opt:
+        cfg = dataclasses.replace(cfg, opt=dataclasses.replace(cfg.opt,
+                                                               **opt))
+    m, B = cfg.model, cfg.batch_size
+    kernels = multi_kernels(cfg)
+    t_setup = time.perf_counter()
+    cl_model, flags, cl_a, prompt_mask = cl_step_setup(cfg, task, B, dev)
+    model_a = PointTransformer(m, torch.Generator().manual_seed(SEED),
+                               device="cpu", cl=cl_model)
+    model_b = copy.deepcopy(model_a)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # JAX's nu_dtype warning
+        st_a, st_b = (init_train_state(x, cfg, steps_per_epoch=1, seed=SEED,
+                                       device=dev)
+                      for x in (model_a, model_b))
+    clone = lambda t: None if t is None else t.clone()
+    cl_b = dataclasses.replace(cl_a, memory_bank=clone(cl_a.memory_bank),
+                               memory_ptr=clone(cl_a.memory_ptr))
+    if reg_k:
+        pen = RegPenalty.for_optimizer(
+            synthetic_reg_tasks(model_a, reg_k, seed), st_a.opt,
+            cfg.cl_cfg.reg_lambda)
+        cl_a.penalty = cl_b.penalty = pen
+        flags = dict(flags, cl_cfg=cfg.cl_cfg)
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
+    kw = dict(regularize=True, compute_dtype=torch.bfloat16, **flags)
+    multi = make_multi_train_step(pts, cfg.train_cfg, K, **kw)
+    step = make_train_step(pts, cfg.train_cfg, **kw)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(K):
+        b = make_batch(rng, B, cfg)
+        if prompt_mask is not None:
+            b["prompt_mask"] = prompt_mask
+        batches.append(b)
+    stacked = {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(dev)
+               for k in batches[0]}
+    done = {"graph": 0, "eager": 0}      # steps each side has taken
+
+    def graph():
+        done["graph"] += K
+        return st_a, cl_a, multi(st_a, stacked, cl_a)
+
+    def eager(n=K):
+        for _ in range(n):
+            i = done["eager"] % K
+            done["eager"] += 1
+            met = step(st_b, {k: v[i] for k, v in stacked.items()}, cl_b)
+        return st_b, cl_b, met
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / K
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        return out, {k.__name__: k.launches for k in kernels}
+
+    names = lambda rows: {short_name(key): c for _, c, key in rows}
+    # the replays' own work is copies and fills (the batch's row, the
+    # staged scalars, the generator's seed and offset) and the last
+    # metrics' copies: these classes are printed, the others held
+    work = ("copies", "memsets", "fills")
+
+    def profiled(one):
+        """One replay of `one` (a multi step of K = 1 on the same state)
+        and the eager side's next step, each in a trace of its own (a trace
+        of K steps has lost records to the profiler's buffers), taken again
+        until the eager step's trace has every launch call's device record
+        and both hold device time, at most LAUNCH_TRIES times; the sides
+        then take the same number of steps. Returns the last pair of
+        traces and the eager trace's (launch calls, calls whose device
+        record it lacks)."""
+        def replay():
+            i = done["graph"] % K
+            done["graph"] += 1
+            return st_a, cl_a, one(st_a, {k: v[i:i + 1]
+                                          for k, v in stacked.items()}, cl_a)
+
+        if not one.capture:          # its first call: step 1 and capture
+            replay()
+        for attempt in range(LAUNCH_TRIES):
+            a, g_host, g_rows, _ = trace_once(replay, cpu=False)
+            b, e_host, e_rows, traced = trace_once(lambda: eager(1),
+                                                   cpu=False)
+            while done["graph"] != done["eager"]:
+                if done["graph"] < done["eager"]:
+                    a = replay()
+                else:
+                    b = eager(1)
+            if traced[1] == 0 and g_rows and e_rows:
+                break
+            say(f"[{tag}] trace {attempt + 1}: the eager step's trace lacks "
+                f"the device records of {traced[1]} of its {traced[0]} launch "
+                f"calls ({len(g_rows)} and {len(e_rows)} kernel names "
+                "traced): taking both again")
+        return a, b, (g_host, g_rows), (e_host, e_rows), traced
+
+    setup_s = time.perf_counter() - t_setup
+    ms = {"graph": [], "eager": []}
+    wall = {}
+    t_run = time.perf_counter()
+    with deterministic_algorithms(False):
+        (a, first_ms), captured = counted(lambda: timed(graph))
+        (b, eager_first), eager_py = counted(lambda: timed(eager))
+        same_bits(tag, "call 1 (step 1 eager on the capture stream, the "
+                  f"capture, {K - 1} replays)", a, b)
+        wall["call 1"] = time.perf_counter() - t_run
+        for c in range(calls - 2):
+            (a, t), replay_py = counted(lambda: timed(graph))
+            ms["graph"].append(t)
+            b, t = timed(eager)
+            ms["eager"].append(t)
+            same_bits(tag, f"call {c + 2} ({K} replays, timed)", a, b)
+        wall["timed"] = time.perf_counter() - t_run - wall["call 1"]
+        cap = dict(multi.capture)
+        del multi                 # its graph and pool
+        torch.cuda.empty_cache()
+        one = make_multi_train_step(pts, cfg.train_cfg, 1, **kw)
+        a, b, (g_host, g_rows), (e_host, e_rows), traced = profiled(one)
+        same_bits(tag, f"after the profiled replay and step, {K} and on "
+                  "(a multi step of K = 1 on the same state)", a, b)
+        wall["profiled"] = time.perf_counter() - t_run - wall["call 1"] \
+            - wall["timed"]
+    g_dev = sum(r[0] for r in g_rows)
+    e_dev = sum(r[0] for r in e_rows)
+    out = dict(graph_ms=ms["graph"], eager_ms=ms["eager"],
+               first_ms=first_ms, eager_first=eager_first,
+               graph_dev=g_dev, eager_dev=e_dev,
+               graph_idle=1 - g_dev / g_host, eager_idle=1 - e_dev / e_host,
+               capture_s=cap["seconds"], pool_gb=cap["pool_bytes"] / 2 ** 30,
+               warm_gb=cap["warm_bytes"] / 2 ** 30, setup_s=setup_s)
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    say(f"[{tag}] {m.variant.upper()} {'yaml ' if task else ''}flagship, "
+        f"batch {B}, bf16, K {K}, opt {opt or 'as configured'}"
+        f"{f', EWC over {reg_k} tasks' if reg_k else ''}: graph "
+        f"{fmt(ms['graph'])} ms/step, eager {fmt(ms['eager'])} ms/step "
+        f"(host clock, synced after the {K} steps); call 1 {first_ms:.3f} "
+        f"ms/step with the capture, eager {eager_first:.3f}; device "
+        f"{out['graph_dev']:.3f} ms a replay, {out['eager_dev']:.3f} an "
+        f"eager step; idle share {out['graph_idle']:.3f} replayed, "
+        f"{out['eager_idle']:.3f} eager (one of each profiled); capture "
+        f"{cap['seconds']:.3f} s (step 1 included), the graph's pool "
+        f"{out['pool_gb']:.3f} GiB reserved ({out['warm_gb']:.3f} GiB by "
+        f"step 1); wall s: set-up {setup_s:.1f}, "
+        + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    want = multi_structure(cfg)
+    check_launches(tag, eager_py, want, K, "step")
+    g_count, e_count = wrapper_counts(g_rows), wrapper_counts(e_rows)
+    for n, k in eager_py.items():
+        if K * g_count.get(n, 0) != k:
+            fail(f"{tag}: {n}: {g_count.get(n, 0)} launches in a replay by "
+                 f"the profiler, {k} in {K} eager steps by the Python "
+                 "counters")
+    gn, en = names(g_rows), names(e_rows)
+    gc, ec = launch_classes(gn), launch_classes(en)
+    differ = {n: (gc.get(n, 0), ec.get(n, 0)) for n in set(gc) | set(ec)
+              if n not in work and gc.get(n, 0) != ec.get(n, 0)}
+    named = {n: (gn.get(n, 0), en.get(n, 0)) for n in set(gn) | set(en)
+             if launch_class(n) not in work and gn.get(n, 0) != en.get(n, 0)}
+    lost = traced[1]
+    # with every device record of the eager step traced, each class must
+    # match; else a class may read more in the replay by at most the
+    # records the eager trace measurably lacks, never fewer
+    surplus = sum(g - e for g, e in differ.values() if g > e)
+    bad = differ if not lost else {
+        n: v for n, v in differ.items() if v[0] < v[1]}
+    if lost and surplus > lost:
+        bad = differ
+    say(f"[{tag}] launches by the profiler, a replay against an eager "
+        f"step: {sum(gn.values())} and {sum(en.values())} kernels and "
+        f"copies; the eager trace's {traced[0]} launch calls, "
+        f"{lost} of them without their device record; the port's wrappers "
+        "in the replay "
+        + ", ".join(f"{n} {g_count.get(n, 0)}" for n in eager_py)
+        + f" (the eager step's trace: "
+        + ", ".join(str(e_count.get(n, 0)) for n in eager_py)
+        + f"); the wrappers' Python counters over call 1 "
+        f"{captured} (step 1 eager and the capture), over {K} timed "
+        f"replays {replay_py if calls > 2 else 'not run'}; copies, memsets "
+        f"and fills (the replay's staging among them) "
+        + ", ".join(f"{n} {gc.get(n, 0)} vs {ec.get(n, 0)}" for n in work)
+        + f"; the {len(set(gc) - set(work))} other classes "
+        + (f"apart (the replay's first): {differ}" if differ else "equal, "
+           + ", ".join(f"{n} {gc[n]}" for n in sorted(gc) if n.startswith(
+               ("ATen", "cuBLAS"))))
+        + f"; kernel names apart within a class: {len(named)}"
+        + (f" (first {sorted(named.items())[:3]})" if named else ""))
+    if bad:
+        fail(f"{tag}: a replay's launches differ from an eager step's in "
+             f"{sorted(bad)}, the eager trace lacking {lost} device records "
+             f"(the replay's surplus {surplus})")
+    out["launches"] = dict(g_count)
+    del st_a, st_b, model_a, model_b, one, cl_a, cl_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_k3_two_streams(dev, reps: int = MULTI_STREAM_REPS) -> None:
+    """K3-bwd's tickets belong to the call: at the MQ and NLQ steps' stem
+    shapes (bf16, stride 1), pairs of calls launched on two streams at once
+    (each queued behind a device sleep, so that they start together) must
+    each give the bits of a lone call; then the lone call's time, queued,
+    beside its bound (the per-call memset of the tickets included)."""
+    from vilco_tpu_torch.core.config import mq_yaml_config, \
+        nlq_flagship_config
+    from vilco_tpu_torch.kernels.dwconv import dwconv_bwd_cuda, plan
+
+    rng = np.random.default_rng(SEED + 43)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for cfg in (mq_yaml_config(), nlq_flagship_config()):
+        m, B = cfg.model, cfg.batch_size
+        T, C = m.max_seq_len, m.embd_dim
+        r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        x, w, gs = r(B, T, C), r(3, 3, C) * 0.3, [r(B, T, C) for _ in range(3)]
+        lone = dwconv_bwd_cuda(x, w, *gs, 1)
+        torch.cuda.synchronize()
+        bad = 0
+        for _ in range(reps):
+            outs = []
+            for s in streams:
+                s.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(s):
+                    torch.cuda._sleep(2_000_000)
+                    outs.append(dwconv_bwd_cuda(x, w, *gs, 1))
+            torch.cuda.synchronize()
+            bad += sum(not (torch.equal(o[0], lone[0])
+                            and torch.equal(o[1], lone[1])) for o in outs)
+        p = plan(B, T, C, 1, "bwd")
+        ms = queued_ms(lambda: dwconv_bwd_cuda(x, w, *gs, 1))
+        bms, by = bound(*dwconv_work(B, T, C, 1, torch.bfloat16, True),
+                        torch.bfloat16)
+        say(f"[k3_streams] {m.variant.upper()} step shape B={B} T={T} C={C} "
+            f"(grid {p.blocks} blocks, {p.groups} tickets a call): {reps} "
+            f"pairs of calls on two streams at once, {2 * reps - bad} of "
+            f"{2 * reps} bitwise equal to a lone call; the call queued "
+            f"{ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if bad:
+            fail(f"k3_streams: {bad} concurrent K3 backward calls differ "
+                 "from a lone call")
+    del x, w, gs, lone, outs
+    torch.cuda.empty_cache()
+
+
+def phase_multi_step(dev) -> dict:
+    """multi_step: make_multi_train_step at K = MULTI_K for the MQ yaml step
+    (batch 2, CL task YAML_TASK: L2P, SSL, the adapter EMA, dropout 0.1)
+    and the NLQ step (batch 4, EWC at lambda 3000 over MULTI_REG_TASKS
+    tasks), graph against eager bitwise after every call (multi_case);
+    then K3-bwd on two streams (check_k3_two_streams). Returns each
+    case's launches of the port's wrappers in one profiled replay."""
+    from vilco_tpu_torch.core.config import mq_yaml_config, \
+        nlq_flagship_config
+
+    yaml = multi_case(dev, "multi_step_mq_yaml", mq_yaml_config(),
+                      YAML_TASK, MULTI_K)
+    nlq = multi_case(dev, "multi_step_nlq", nlq_flagship_config(), None,
+                     MULTI_K, reg_k=MULTI_REG_TASKS)
+    check_k3_two_streams(dev)
+    return {"mq_yaml": yaml["launches"], "nlq": nlq["launches"]}
+
+
+def phase_multi_step_long(dev) -> None:
+    """--multi-step: every optimizer form of OPTIM_FORMS but the default
+    under the graph against eager (the MQ yaml step, K = MULTI_K), then
+    K = MULTI_LONG_K over MULTI_LONG_CALLS calls for the MQ yaml and NLQ
+    steps."""
+    from vilco_tpu_torch.core.config import mq_yaml_config, \
+        nlq_flagship_config
+
+    yaml = mq_yaml_config()
+    for form, opt in OPTIM_FORMS.items():
+        if opt:
+            multi_case(dev, f"multi_step_{form}", yaml, YAML_TASK, MULTI_K,
+                       opt=opt)
+    multi_case(dev, "multi_step_k16_mq_yaml", yaml, YAML_TASK, MULTI_LONG_K,
+               calls=MULTI_LONG_CALLS)
+    multi_case(dev, "multi_step_k16_nlq", nlq_flagship_config(), None,
+               MULTI_LONG_K, reg_k=MULTI_REG_TASKS, calls=MULTI_LONG_CALLS)
 
 
 def kernel_kind(name: str) -> str:
@@ -6226,6 +6855,25 @@ def mq_training(dev, mq):
                            dwconv_bwd_cuda, adamw_update_multi),
         SEED + 5, normalised_must_fall=True)
     return terrs, ttop, launches
+
+
+def clock_phases() -> None:
+    """Make each phase function of this module (and main's groups of them)
+    print its wall seconds after every call, nested calls included, as
+    `[time]   name tag: s` (tag: the call's first str argument): the
+    breakdown under main's `[time]` lines."""
+    g = globals()
+    for name in [n for n in g if n.startswith("phase_") or n in (
+            "mq_training", "mq_yaml", "attention_ablations")]:
+        def run(*args, _fn=g[name], **kw):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            tag = next((f" {a}" for a in args if isinstance(a, str)), "")
+            say(f"[time]   {_fn.__name__}{tag}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            return out
+
+        g[name] = run
 
 
 def main():
@@ -6346,6 +6994,10 @@ def main():
     # with EWC, VQ with HNM; the sequence-parallel band), the NCCL group
     dp_launches = phase_dp(dev)
     took("dp")
+    # make_multi_train_step: the MQ yaml and NLQ steps as one captured CUDA
+    # graph, replays against eager steps bitwise; K3-bwd on two streams
+    multi_launches = phase_multi_step(dev)
+    took("multi_step")
 
     rows = [
         # name, source, replaces, errors, timing, launches (MQ path; the
@@ -6459,6 +7111,10 @@ def main():
             entry["also_replaces"] = also[fn]
         if fn in dp_launches:
             entry["launches_dp"] = dp_launches[fn]
+        per_replay = {case: n[fn] for case, n in multi_launches.items()
+                      if n.get(fn)}
+        if per_replay:      # by the profiler, in one replay of the graph
+            entry["launches_multi_step_per_replay"] = per_replay
         if fn == "adamw_update_multi":     # the same kernel over NLQ's,
             entry["nlq"] = ntop["adamw"]   # VQ's and the yaml model's leaves
             entry["vq"] = vtop["adamw"]
@@ -6502,11 +7158,12 @@ def main():
 
 
 if __name__ == "__main__":
+    clock_phases()
     if sys.argv[1:2] in (["--vq-train-parity"], ["--mq-train"],
                          ["--vq-train"], ["--mq-yaml"], ["--cl-methods"],
                          ["--mq-episode"], ["--nlq-episode"],
                          ["--vq-episode"], ["--vq-reference"], ["--dp"],
-                         ["--optim"], ["--guard-ladder"]):
+                         ["--optim"], ["--guard-ladder"], ["--multi-step"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6537,6 +7194,9 @@ if __name__ == "__main__":
             phase_optim(dev)
         if sys.argv[1] == "--guard-ladder":
             phase_guard_ladder()
+        if sys.argv[1] == "--multi-step":
+            phase_multi_step(dev)
+            phase_multi_step_long(dev)
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

@@ -17,8 +17,10 @@ at the edges of its tiles and band chunks (T 1 to 1024, D 32 to 128),
 its lse, two calls bitwise equal, K2-bwd from its output; K3's row walk
 (forward and its one backward launch) at T 1 to 129, odd T, one and two
 channel columns a block and every walk length, dx and dw bitwise equal
-over two calls; K1 forward and backward over the MQ yaml model's prompted
-text keys (208, Tq 512 down to 2) and K3 at its text stem (T=208). Marked
+over two calls, each call's own tickets, calls on two streams at once;
+K1 forward and backward over the MQ yaml model's prompted text keys (208,
+Tq 512 down to 2) and K3 at its text stem (T=208); make_multi_train_step's
+captured graph against eager steps, bitwise, at the MQ yaml's twin. Marked
 `gpu`: skips where there is no card. Imports no JAX, so that it runs on a
 machine with only PyTorch:
 
@@ -512,11 +514,20 @@ def test_dwconv_walk_on_card(cuda, dtype, C, T):
 def test_dwconv_every_walk_length_on_card(cuda, monkeypatch, dtype, rows):
     """Each number of rows a walker may take, forced through the plan, at
     a shape of several row blocks and channel groups (B 3, T 301, C 96):
-    forward and backward against the plain version at both strides, the
-    backward's tickets back at 0 after it."""
+    forward and backward against the plain version at both strides, each
+    backward's own tickets (zeroed by its call) at row_blocks after it:
+    every block of every channel group took one."""
     plan = dwconv.plan
     monkeypatch.setattr(dwconv, "plan", lambda B, T, C, s, kernel:
                         plan(B, T, C, s, kernel, rows))
+    scratch, calls = dwconv._scratch, []
+
+    def keep(p, device):
+        out = scratch(p, device)
+        calls.append((p, out[1]))
+        return out
+
+    monkeypatch.setattr(dwconv, "_scratch", keep)
     rng = np.random.default_rng(rows)
     rn = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
@@ -529,7 +540,10 @@ def test_dwconv_every_walk_length_on_card(cuda, monkeypatch, dtype, rows):
         _close(_grads(lambda a, b: fused_dwconv_qkv(a, b, s), (x, w), gs),
                _grads(lambda a, b: fused_dwconv_qkv_plain(a, b, s), (x, w),
                       gs), TRAIN_TOL[dtype], f"backward rows {rows} s {s}")
-        assert not dwconv._tickets(x.device, 1).any()
+    assert len(calls) == 2
+    for p, tickets in calls:
+        assert tickets.numel() == p.groups
+        assert (tickets == p.row_blocks).all(), (p, tickets)
     torch.cuda.synchronize()
 
 
@@ -848,3 +862,104 @@ def test_attention_impls_never_take_the_plain_path_on_card(cuda,
     with pytest.raises(ValueError):
         attn.probe_variant(*(wide.reshape(1, 128, 160),) * 3, m1, 1, True,
                            False)
+
+
+def _state_bits(st, cl):
+    opt = st.opt
+    ts = [opt.param_flat, opt.scalars, opt.mu_flat, opt.nu_flat,
+          *opt.mu_big, *opt.nu_big, st.loss_normalizer, cl.memory_bank,
+          cl.memory_ptr, *st.adapter_ema.values()]
+    return ts + [st.generator.get_state()]
+
+
+@pytest.mark.gpu
+def test_multi_step_graph_replays_eager_steps_bitwise(cuda):
+    """make_multi_train_step on the card at the MQ yaml's tiny twin as CL
+    task 1 (L2P, narration SSL, the adapter EMA), dropout, drop-path and
+    the XL kernel's dropout at 0.1, bf16, cudnn.deterministic on: two
+    calls of K = 3 (step 1 eagerly on the capture stream, the capture and
+    2 replays; then 3 replays) against 6 eager steps of a clone, every
+    buffer the step writes and the last metrics bitwise equal after each
+    call; the wrappers' Python counters count the captured kernels once;
+    the captured multi step refuses another state."""
+    import copy
+    import dataclasses
+
+    from vilco_tpu_torch.core.config import mq_yaml_config
+    from vilco_tpu_torch.data.synthetic import make_batch, task_extras
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train import engine
+
+    cfg = mq_yaml_config(tiny=True)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dropout=0.1, droppath=0.1, xl_dropout=0.1))
+    m, K = cfg.model, 3
+    ex = task_extras(cfg, 1, 2)
+    model = PointTransformer(m, torch.Generator().manual_seed(0),
+                             device="cpu", cl=cfg.cl_cfg)
+    states = [engine.init_train_state(x, cfg, 1, seed=3, device=cuda)
+              for x in (model, copy.deepcopy(model))]
+    bank, ptr = engine.init_memory_bank(cfg, cuda)
+    cls = [engine.CLBatchExtras(torch.from_numpy(ex["class_mask"]).to(cuda),
+                                bank.clone(), ptr.clone()) for _ in range(2)]
+    pts = torch.from_numpy(generate_points(
+        level_lengths(m), m.fpn_strides, m.regression_range)).to(cuda)
+    kw = dict(regularize=True, compute_dtype=torch.bfloat16,
+              cl_cfg=cfg.cl_cfg, n_known=ex["n_known"])
+    multi = engine.make_multi_train_step(pts, cfg.train_cfg, K, **kw)
+    step = engine.make_train_step(pts, cfg.train_cfg, **kw)
+    rng = np.random.default_rng(1)
+    bs = [dict(make_batch(rng, 2, cfg), prompt_mask=ex["prompt_mask"])
+          for _ in range(K)]
+    stacked = {k: torch.from_numpy(np.stack([b[k] for b in bs])).to(cuda)
+               for k in bs[0]}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for call in range(2):
+            n = fused_dwconv_qkv.launches
+            got = multi(states[0], stacked, cls[0])
+            assert fused_dwconv_qkv.launches - n == (2 * 5 if call == 0
+                                                     else 0)
+            for i in range(K):
+                want = step(states[1], {k: v[i] for k, v in stacked.items()},
+                            cls[1])
+            torch.cuda.synchronize()
+            assert states[0].step == states[1].step == K * (call + 1)
+            assert got.keys() == want.keys()
+            assert all(torch.equal(got[k], want[k]) for k in got), call
+            for i, (a, b) in enumerate(zip(_state_bits(states[0], cls[0]),
+                                           _state_bits(states[1], cls[1]))):
+                assert torch.equal(a, b), (call, i)
+        assert multi.capture["seconds"] > 0
+        with pytest.raises(ValueError, match="new multi step"):
+            multi(states[1], stacked, cls[1])
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+@pytest.mark.gpu
+def test_dwconv_backward_on_two_streams_at_once(cuda):
+    """K3-bwd's tickets belong to each call: calls launched on two streams
+    together (each behind a device sleep) give a lone call's bits."""
+    rng = np.random.default_rng(4)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda, torch.bfloat16)
+    B, T, C = 2, 1024, 256
+    x, w, gs = rn(B, T, C), rn(3, 3, C) * 0.3, [rn(B, T, C) for _ in range(3)]
+    lone = dwconv_bwd_cuda(x, w, *gs, 1)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for _ in range(8):
+        outs = []
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(1_000_000)
+                outs.append(dwconv_bwd_cuda(x, w, *gs, 1))
+        torch.cuda.synchronize()
+        for dx, dw in outs:
+            assert torch.equal(dx, lone[0]) and torch.equal(dw, lone[1])

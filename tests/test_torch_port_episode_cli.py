@@ -144,18 +144,24 @@ def test_yaml_method_workdir_evaluates_with_the_single_forward(tmp_path):
                                              ev["per_task"]))
 
 
+PARAMS_BF16 = ["--params-bf16", "--compute-dtype", "bfloat16"]
+
+
 @pytest.mark.parametrize("argv", [["--task", "nlq", "--dp", "2"],
-                                  ["--dp", "2"], ["--distributed"]])
+                                  ["--dp", "2"], ["--distributed"],
+                                  [*PARAMS_BF16, "--dp", "2"],
+                                  [*PARAMS_BF16, "--distributed"]])
 def test_dp_flags_run(argv, tmp_path, monkeypatch):
     """The JAX CLI's data-parallel flags run the episode: --dp 2 as two
     Gloo processes on the CPU (MQ and NLQ), --distributed at world size 1
     from a torchrun-style environment (its process group joined and left
-    again)."""
+    again); each also with --params-bf16, whose compute copy's bf16
+    gradients are all-reduced in bf16."""
     import socket
 
     import torch.distributed as dist
 
-    if argv == ["--distributed"]:
+    if "--distributed" in argv:
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
@@ -176,16 +182,13 @@ def test_dp_flags_run(argv, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--task", "vq", "--params-bf16"], "bf16"),
-    (["--params-bf16", "--dp", "2"], "--dp"),
-    (["--params-bf16", "--distributed"], "--distributed"),
     (["--mu-dtype", "float16"], "invalid choice"),
     (["--nu-dtype", "float16"], "invalid choice"),
     (["--ckpt-format", "orbax"], "orbax")])
 def test_refused_flags_exit_with_a_message(argv, msg, capsys, tmp_path):
     """The flags and combinations the port cannot honour exit non-zero and
-    say why: JAX's refusal of --params-bf16 for VQ, the compute copy under
-    data parallelism (its bf16 all-reduce is not ported), a moment dtype
-    other than bfloat16 and float32, orbax."""
+    say why: JAX's refusal of --params-bf16 for VQ, a moment dtype other
+    than bfloat16 and float32, orbax."""
     with pytest.raises(SystemExit) as e:
         train_cl.main(["--synthetic", "--workdir", str(tmp_path), *argv,
                        *CPU])

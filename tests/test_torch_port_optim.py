@@ -217,7 +217,9 @@ def test_optimizer_forms_match_jax(form):
                 opt.copies[n].grad.copy_(tg[n])
             else:
                 p.grad.copy_(tg[n])
-        opt.step(torch.tensor(0.7), bf16_grads=pc)
+        opt.stage()
+        opt.update(torch.tensor(0.7), bf16_grads=pc)
+        opt.count += 1
     want = params_from_jax(jax.tree.map(np.asarray, jparams))
     start = params_from_jax(params)
     for n, p in model.named_parameters():

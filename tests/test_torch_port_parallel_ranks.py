@@ -66,8 +66,9 @@ def _build_point(spec, device):
     bank = c.get("bank")
     cl = CLBatchExtras(
         class_mask=torch.as_tensor(np.asarray(c["class_mask"])).to(device),
-        memory_bank=None if bank is None else torch.as_tensor(
-            np.asarray(bank)).to(device),
+        # copies: the steps advance the bank in place
+        memory_bank=None if bank is None else torch.tensor(
+            np.asarray(bank), device=device),
         memory_ptr=None if bank is None else torch.tensor(
             int(c.get("ptr", 0)), dtype=torch.int64, device=device))
     if c.get("reg"):
@@ -131,6 +132,9 @@ def train_steps(spec: dict, device, dp=None) -> dict:
     out["params"] = {n: p.detach().float().cpu().numpy()
                      for n, p in model.state_dict().items()}
     out["digest"] = digest(opt.param_flat)
+    if getattr(opt, "copies", None) is not None:
+        out["copies"] = {n: c.detach().float().cpu().numpy()
+                         for n, c in opt.copies.items()}
     if draws is not None:
         out["draws"] = draws.stop()
     if spec["kind"] == "point":

@@ -18,7 +18,17 @@ tests/test_torch_port_parallel_cl.py.)
   - VQ with HNM, global batch 4 (16 pairs, 8 a rank), f32, against the
     JAX step in f64: the loss terms at 1e-5, the trainable parameters at
     VQ_PARAM_ATOL (why: there), and the gradients against the port's
-    one-process step at GRAD_RTOL.
+    one-process step at GRAD_RTOL;
+  - train_cl --params-bf16 (the optimizer's bf16 compute copy) at the CLI's
+    tiny MQ config in bf16, global batch 4: the copy's bf16 gradients
+    all-reduced in bf16 (parallel/mesh.py::DataParallel.all_reduce_bf16_:
+    Gloo sums in f32 and rounds once, for 2 ranks the bf16 sum), against
+    JAX's step on a 2-device CPU mesh (the batch sharded over "data", the
+    state replicated; XLA sums the copy's gradients), two steps at the
+    limits of tests/test_torch_port_optim.py's bf16 lockstep (loss 2e-3,
+    grad norm 5e-2 relative, each leaf's median error 0.25 of the summed
+    lr, every element within 2 x the summed lr), each copy its master
+    rounded to bf16, the ranks bitwise equal.
 
 A leaf whose exact gradient is 0 or a cancelling sum near roundoff
 (ZERO_GRAD, SHIFT_GRAD) takes AdamW steps of up to lr from a few bits of
@@ -48,11 +58,14 @@ import torch
 from tests._torch_threads import torch_one_thread  # noqa: F401
 import vilco_tpu.models.layers as j_layers
 from tests.test_torch_port_cl_methods import _reg_list
+from tests.test_torch_port_episode import ROUNDOFF_GRAD
 from tests.test_torch_port_mq_yaml import _bank, _batch, _jax_tiny
 from tests.test_torch_port_train import _jcfg, _rel
 from tests.test_torch_port_vq import _f64, _jax_model, _np64
 from vilco_tpu.data.synthetic import make_batch as j_make_batch
+from vilco_tpu.data.synthetic import tiny_config as j_tiny
 from vilco_tpu.models.point_transformer import PointTransformer as JPT
+from vilco_tpu.parallel import mesh as j_mesh
 from vilco_tpu.tasks.nlq import nlq_tiny_config
 from vilco_tpu.train import engine as j_engine
 from vilco_tpu.train import optim as j_optim
@@ -64,6 +77,7 @@ from vilco_tpu_torch.core.config import (
     vq_flagship_config,
 )
 from vilco_tpu_torch.data.synthetic import make_vq_batch, task_extras
+from vilco_tpu_torch.data.synthetic import tiny_config
 from vilco_tpu_torch.models.convert import params_from_jax, reg_tasks_from_jax
 from vilco_tpu_torch.models.point_transformer import level_lengths
 from vilco_tpu_torch.ops.assign import generate_points
@@ -102,7 +116,11 @@ SHIFT_GRAD = ZERO_GRAD + ("adapter.fc2.bias",)
 # this file's cases (the MQ yaml method's and NLQ's are in
 # tests/test_torch_port_parallel_cl.py, so that the two files run side by
 # side)
-CASES = ("graft", "vq", "graft_dropout", "vq_dropout")
+CASES = ("graft", "vq", "graft_dropout", "vq_dropout", "params_bf16")
+# the compute copy: tests/test_torch_port_optim.py's bf16 lockstep limits
+BF16_LOSS_RTOL, BF16_NORM_RTOL, BF16_STEP_FRAC = 2e-3, 5e-2, 0.25
+PARAMS_BF16 = dict(opt={"param_compute_dtype": "bfloat16"},
+                   model={"compute_dtype": "bfloat16"})
 
 
 @contextlib.contextmanager
@@ -231,7 +249,22 @@ def _vq(dropout=False):
     return spec, (cfg, params)
 
 
+def _params_bf16():
+    jcfg = j_tiny(**PARAMS_BF16)
+    jcfg = jcfg.updated(opt=jcfg.opt.updated(learning_rate=LR))
+    rng = np.random.default_rng(8)
+    batches = [j_make_batch(rng, 4, jcfg) for _ in range(2)]
+    jmodel, params = _point_params(jcfg, batches[0], ("feats", "mask"), 13)
+    cfg = _with_lr(tiny_config(**PARAMS_BF16), LR)
+    spec = dict(kind="point", cfg=cfg, params=_numpy(params),
+                batches=batches, spe=SPE, dtype="bfloat16",
+                cl=dict(class_mask=np.ones(cfg.model.num_classes, bool)),
+                step=dict(regularize=False))
+    return spec, (jcfg, jmodel, params)
+
+
 BUILD = {"graft": _graft, "yaml": _yaml, "nlq": _nlq, "vq": _vq,
+         "params_bf16": _params_bf16,
          "graft_dropout": lambda: _graft(dropout=True),
          "vq_dropout": lambda: _vq(dropout=True)}
 
@@ -379,6 +412,54 @@ def test_vq_hnm_dp_step_matches_jax(cases, ranks):
 
 def params_of(tree):
     return _numpy(tree)
+
+
+def test_params_bf16_dp_step_matches_jax_on_a_2_device_mesh(cases, ranks):
+    """train_cl --params-bf16 --dp 2: 2 Gloo ranks with the compute copy
+    against JAX's step on a 2-device mesh (module docstring)."""
+    spec, (jcfg, jmodel, params) = cases["params_bf16"]
+    res = ranks["params_bf16"]
+    _check_ranks_equal(res)
+    for n in res[0]["copies"]:
+        np.testing.assert_array_equal(res[0]["copies"][n],
+                                      res[1]["copies"][n], n)
+    tx, _ = j_optim.make_optimizer(jcfg.opt, params, steps_per_epoch=SPE)
+    jparams = jax.tree.map(jnp.asarray, params)
+    state = j_engine.TrainState(
+        step=jnp.zeros((), jnp.int32), params=jparams,
+        opt_state=tx.init(jparams),
+        loss_normalizer=jnp.asarray(jcfg.train_cfg.init_loss_norm,
+                                    jnp.float32),
+        rng=jax.random.PRNGKey(1),
+        params_c=j_optim.make_compute_copy(jparams))
+    step = j_engine.make_train_step(jmodel, tx,
+                                    jnp.asarray(_points(jcfg.model)), jcfg)
+    jcl = j_engine.CLBatchExtras(
+        class_mask=jnp.ones((jcfg.model.num_classes,), bool))
+    mesh = j_mesh.make_mesh(2, model_parallel=1)
+    jm = []
+    with mesh:
+        state = jax.device_put(state, j_mesh.replicated(state, mesh))
+        for b in spec["batches"]:
+            state, m, _ = step(state, j_mesh.shard_batch(
+                {k: jnp.asarray(v) for k, v in b.items()}, mesh), jcl)
+            jm.append({k: float(v) for k, v in m.items()})
+    for tm, m in zip(res[0]["metrics"], jm):
+        assert _rel(tm["final_loss"], m["final_loss"]) <= BF16_LOSS_RTOL
+        assert _rel(tm["grad_norm"], m["grad_norm"]) <= BF16_NORM_RTOL
+    want = _numpy(state.params)
+    lr_sum = _lr_sum(len(spec["batches"]))
+    got = res[0]["params"]
+    for n, w in want.items():
+        err = np.abs(np.asarray(got[n], np.float64) - w)
+        assert err.max() <= 2 * lr_sum, n
+        if not n.endswith(ROUNDOFF_GRAD):
+            assert np.median(err) <= BF16_STEP_FRAC * lr_sum, n
+    assert res[0]["copies"]
+    for n, c in res[0]["copies"].items():
+        np.testing.assert_array_equal(
+            c, torch.from_numpy(got[n]).to(torch.bfloat16).float().numpy(),
+            n)
 
 
 # ---- against the port's one-process step, with dropout ---------------------------

@@ -267,9 +267,6 @@ def parse(p, argv):
     p.add_argument("--nlq-text-dir", default=None,
                    help="dir of {query_id}.npz token features")
     args = p.parse_args(argv)
-    if args.params_bf16 and (args.dp or args.distributed):
-        p.error("--params-bf16 with --dp or --distributed: the bf16 "
-                "gradients' all-reduce is not ported")
     if args.ckpt_format == "orbax":
         p.error("--ckpt-format orbax: orbax needs JAX; the port writes npz")
     if args.tensorboard:

@@ -412,10 +412,6 @@ class EpisodeRunner:
                     memory_ptr=self.memory_ptr if use_ssl else None,
                     prev_logits=prev, penalty=penalty, **bias)
                 metrics = step(state, batch, cl)
-                if use_ssl:
-                    # the step replaces the bank and the pointer
-                    self.memory_bank, self.memory_ptr = (cl.memory_bank,
-                                                         cl.memory_ptr)
                 n_steps += 1
             last_metrics = {k: float(v) for k, v in metrics.items()}
             log.info("task %d epoch %d: %s", j, epoch,
@@ -673,8 +669,9 @@ class EpisodeRunner:
             "params": self.params_numpy(),
             "task": j,
             "n_known": n_known,
+            # a copy: the steps advance the bank in place
             "memory_bank": (None if self.memory_bank is None
-                            else self.memory_bank.cpu().numpy()),
+                            else self.memory_bank.cpu().numpy().copy()),
             "memory_ptr": int(self.memory_ptr),
             "reg_list": [(numpy(imp), numpy(opt))
                          for imp, opt in self.reg_list],
@@ -695,7 +692,7 @@ class EpisodeRunner:
         tree = load_checkpoint(ckpts[-1])
         self.set_params(params_of(tree))
         if tree.get("memory_bank") is not None:
-            self.memory_bank = torch.as_tensor(
+            self.memory_bank = torch.tensor(
                 np.asarray(tree["memory_bank"]), dtype=torch.float32,
                 device=self.device)
             self.memory_ptr = torch.tensor(int(tree.get("memory_ptr", 0)),

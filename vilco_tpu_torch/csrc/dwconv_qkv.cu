@@ -40,8 +40,8 @@
 // registers, so an SM holds BWD_BLOCKS blocks); a block adds its walkers in
 // a fixed order (a butterfly of shuffles within a warp, then warp by warp
 // through shared memory) into one f32 partial; the last block of each
-// channel group to finish, found by a ticket counter that it sets back to 0,
-// adds the group's partials (slices of row blocks, eight 16-byte loads in
+// channel group to finish, found by a ticket counter (the call's own,
+// zeroed by the wrapper with the partials' scratch), adds the group's partials (slices of row blocks, eight 16-byte loads in
 // flight a thread, then the slices in order) and stores dw in w's dtype.
 // The wrapper takes the shortest walk whose grid fits in one wave, so every
 // block runs at once and the partials are few. No floating-point atomics:
@@ -359,7 +359,6 @@ dwconv_qkv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const float f[CH] = {s.x, s.y, s.z, s.w};
     store_row(dw + gc + cq, e, C, f);
   }
-  if (threadIdx.x == 0) tickets[g] = 0;
 }
 
 template <typename T, int S>
@@ -428,8 +427,8 @@ extern "C" int dwconv_qkv_fwd(const void* x, const void* w, void* q, void* k,
 
 // Backward, one launch. x/dx (B, T_in, C), w/dw (3, 3, C), dq/dk/dv
 // (B, T_out, C) in dtype; partial (row_blocks, 9, C) f32 scratch; tickets
-// (C / 4 / vx) int32, all 0, and 0 again when the kernel ends (one stream at
-// a time); all contiguous and 16-byte aligned, C a multiple of
+// (C / 4 / vx) int32, all 0, this call's own (the kernel leaves each at
+// row_blocks); all contiguous and 16-byte aligned, C a multiple of
 // 16 / sizeof(element).
 extern "C" int dwconv_qkv_bwd(const void* x, const void* w, const void* dq,
                               const void* dk, const void* dv, void* dx,

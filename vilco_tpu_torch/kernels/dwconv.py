@@ -22,6 +22,7 @@ backward); a CUDA tensor launches the kernels or raises.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -306,18 +307,19 @@ def dwconv_fwd_cuda(x, w, stride: int):
     return q, k, v
 
 
-# The backward's ticket counters, one int32 per channel group and device:
-# 0 before a launch, and set back to 0 by the last block of each group, so
-# they are zeroed once here and never again (calls on one stream at a time).
-_TICKETS: dict = {}
-
-
-def _tickets(device, n: int) -> torch.Tensor:
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = _TICKETS[device] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                           device=device)
-    return t
+def _scratch(p: Plan, device) -> tuple:
+    """The backward's scratch, owned by the call: the dw partials (f32,
+    p.partial_shape) and after them one int32 ticket per channel group,
+    in one allocation. The tickets are zeroed here, each call (a memset
+    node in a captured CUDA graph), so calls on several streams at once,
+    or a graph's replays beside eager calls, share no counter. The last
+    block of each group leaves its ticket at row_blocks."""
+    n = math.prod(p.partial_shape)
+    buf = torch.empty(n + -(-p.groups // 4) * 4, dtype=torch.float32,
+                      device=device)
+    tickets = buf[n:].view(torch.int32)[:p.groups]
+    tickets.zero_()
+    return buf[:n].view(p.partial_shape), tickets
 
 
 def dwconv_bwd_cuda(x, w, dq, dk, dv, stride: int):
@@ -331,12 +333,11 @@ def dwconv_bwd_cuda(x, w, dq, dk, dv, stride: int):
         raise ValueError("output gradients must match the forward outputs "
                          "and be 16-byte aligned")
     dx, dw = torch.empty_like(x), torch.empty_like(w)
-    partial = torch.empty(p.partial_shape, dtype=torch.float32,
-                          device=x.device)
+    partial, tickets = _scratch(p, x.device)
     fn = _build.bind("dwconv_qkv", "dwconv_qkv_bwd", 9, 9)
     err = fn(x.data_ptr(), w.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-             _tickets(x.device, p.groups).data_ptr(), B, T, p.T_out, C,
+             tickets.data_ptr(), B, T, p.T_out, C,
              stride, p.rows, p.vx, p.row_blocks, _build.dtype_code(x),
              _build.stream_of(x))
     _build.check(err, "dwconv_qkv_bwd")

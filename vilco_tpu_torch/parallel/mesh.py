@@ -10,7 +10,9 @@ train/vq_engine.py, cl/prompt.py, models/clip_matcher.py):
 
   - the loss normalisers (#positives) are all-reduced before use, so every
     rank divides its partial sums by the global count, and the gradient's
-    all-reduce (SUM) adds the partials up to the global loss's gradient;
+    all-reduce (SUM) adds the partials up to the global loss's gradient
+    (the optimizer's bf16 compute copy's gradients in bf16:
+    `DataParallel.all_reduce_bf16_`);
   - batch means divide by the global row count;
   - row-coupled inputs (the SSL memory bank's write, HNM's queries) are
     gathered in global row order by `DataParallel.gather`: an all-reduce
@@ -201,6 +203,25 @@ class DataParallel:
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """In-place SUM over the ranks."""
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def all_reduce_bf16_(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place SUM over the ranks of a bf16 tensor, as JAX's DP step
+        sums the compute copy's bf16 gradients. NCCL sums bf16 natively.
+        Gloo has no bf16 sum: the values are summed in f32 (each rank's
+        share exact in f32) and the sum rounded to bf16 once. For two ranks
+        both equal the correctly rounded bf16 sum: an f32 sum of two bf16
+        values is exact unless their exponents lie 17 or more apart, and
+        then it stays within 2^-16 of the larger one's magnitude, far from
+        any bf16 rounding boundary. For more ranks NCCL rounds
+        after each addition, in its ring's order, and Gloo's single
+        rounding may differ from it by those roundings."""
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"all_reduce_bf16_ takes bf16, got {t.dtype}")
+        if dist.get_backend(self.group) == "nccl":
+            return self.all_reduce_(t)
+        wide = self.all_reduce_(t.float())
+        t.copy_(wide)
         return t
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:

@@ -33,9 +33,14 @@ the same bank), the prompt pool's vote is global, the dropout draws take
 the global micro-batch's shape (each rank its rows), and after the
 micro-batches ONE all-reduce (SUM) of the optimizer's flat gradient
 buffer adds the ranks' partial gradients up, before the division by K,
-the EWC/MAS penalty and the clip. No DistributedDataParallel: it averages
-per-rank losses, a different function here. The collectives run on the
-compute stream after each backward.
+the EWC/MAS penalty and the clip; the compute copy's bf16 gradients (one
+micro-batch) have an all-reduce of their own, in bf16, as JAX sums them.
+No DistributedDataParallel: it averages per-rank losses, a different
+function here. The collectives run on the compute stream after each
+backward.
+
+`make_multi_train_step` runs K steps in one call: on the card one
+captured CUDA graph of the step, replayed over pre-staged batches.
 
 What the flagships share is fixed here: radius center sampling at 1.5,
 loss weight 1, clip 1.0. What they differ in comes from the config's
@@ -49,6 +54,7 @@ size and the distillation weight; from its `opt`: the accumulation steps.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -76,7 +82,8 @@ AL_NEG = -1e7            # the AL loss's logit at invalid points, unseen classes
 class CLBatchExtras:
     """Per-step CL inputs. `memory_bank` (M, E) f32 and `memory_ptr` (0-d
     int64), the narration-SSL negatives and the next row to write, are
-    advanced in place by a step with SSL on. `prev_logits` (B, P, C) f32:
+    advanced in place by a step with SSL on (the tensors are written, not
+    replaced). `prev_logits` (B, P, C) f32:
     the distillation targets, probabilities (`snapshot_targets`);
     `penalty`: the EWC/MAS penalty of the stacked tasks' fisher and optpar
     (cl/regularizers.py::RegPenalty); `bias_alpha`, `bias_beta` (C,) f32:
@@ -97,7 +104,8 @@ class TrainState:
     forms);
     `generator` (on the model's device) draws drop-path, dropout and the
     XL kernel's dropout seed; `adapter_ema` maps each time-adapter
-    parameter's name to its EMA (None without adapters)."""
+    parameter's name to its EMA (None without adapters). A step writes
+    `loss_normalizer` (0-d f32) in place."""
     model: torch.nn.Module
     opt: FlatOptimizer
     loss_normalizer: torch.Tensor
@@ -382,7 +390,12 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
     one AdamW update; the metrics are the micro-batches' means.
 
     After the update, with `state.adapter_ema` the step moves the EMA
-    toward the updated adapters at `ema_decay`. regularize: drop-path and
+    toward the updated adapters at `ema_decay`. The step writes in place:
+    the parameters, the optimizer's buffers, `state.loss_normalizer`, the
+    adapter EMA, and `cl.memory_bank` / `cl.memory_ptr` (with SSL on).
+    `step.body` is the step without the host's part (staging the
+    optimizer's scalars before it, the counts after it), the function a
+    CUDA graph captures (make_multi_train_step). regularize: drop-path and
     dropouts from state.generator (off: the deterministic step of the
     parity checks). `marks`, if a list, receives (phase, CUDA event or
     host time) at the forward / backward / optimizer boundaries (per
@@ -392,7 +405,9 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
     this rank's rows of the global batch, its share of every micro-batch
     (parallel/mesh.py::shard_rows), and the step is the global batch's
     (module docstring); the metrics are the global batch's, the same on
-    every rank."""
+    every rank. With the optimizer's compute copy and one micro-batch its
+    bf16 gradients are all-reduced in bf16 (DataParallel.all_reduce_bf16_),
+    the other gradients in f32."""
     cl_cfg = cl_cfg or CLCfg()
     if cl_cfg.name not in CL_METHODS:
         raise NotImplementedError(f"cl method {cl_cfg.name!r}: the port "
@@ -426,24 +441,23 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
         mark(marks, "backward", points.device)
         return out, metrics, norm
 
-    def step(state: TrainState, batch: dict, cl: CLBatchExtras,
+    def body(state: TrainState, batch: dict, cl: CLBatchExtras,
              marks: Optional[list] = None):
+        """The step's device work, reading the optimizer's staged scalars
+        and writing the state, the bank and the pointer in place: what a
+        CUDA graph captures (make_multi_train_step)."""
         b = batch["feats"].shape[0]
         if b % K:
             raise ValueError(f"batch size {b} not divisible by "
                              f"accumulation_steps {K}")
         m = b // K
         copies = state.opt.copies
-        if copies is not None:
-            if compute_dtype != torch.bfloat16:
-                raise ValueError(
-                    "param_compute_dtype=bfloat16 needs model.compute_dtype="
-                    "bfloat16: with f32 activations the kernels are "
-                    "consumed at f32, so a stored bf16 copy would change "
-                    "the forward")
-            if dp is not None:
-                raise ValueError("param_compute_dtype=bfloat16 under data "
-                                 "parallelism is not ported")
+        if copies is not None and compute_dtype != torch.bfloat16:
+            raise ValueError(
+                "param_compute_dtype=bfloat16 needs model.compute_dtype="
+                "bfloat16: with f32 activations the kernels are "
+                "consumed at f32, so a stored bf16 copy would change "
+                "the forward")
         state.model.train()
         mark(marks, "start", points.device)
         state.opt.zero_grad()
@@ -459,21 +473,27 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
             mets.append(met)
             if (use_ssl and cl.memory_bank is not None
                     and "narration_feat" in out):
-                cl.memory_bank, cl.memory_ptr = ring_update(
+                bank, ptr = ring_update(
                     cl.memory_bank, cl.memory_ptr, *out.get(
                         "narration_all", (out["narration_feat"].detach(),
                                           out["narration_valid"])))
+                cl.memory_bank.copy_(bank)
+                cl.memory_ptr.copy_(ptr)
         metrics = mets[0] if K == 1 else {
             n: torch.stack([mt[n].detach() for mt in mets]).mean()
             for n in mets[0]}
+        bf16_grads = copies is not None and K == 1
         if dp is not None:
             # the ranks' partial gradients and loss terms add up to the
-            # global batch's; #positives is global already
+            # global batch's; #positives is global already. The copy's
+            # bf16 gradients (one micro-batch) are summed in bf16, as
+            # JAX's DP step sums them
             dp.all_reduce_(state.opt.grad_flat)
+            if bf16_grads:
+                dp.all_reduce_bf16_(state.opt.pc_grad_flat)
             metrics = global_metrics(metrics, dp)
         if K > 1:
             state.opt.grad_flat.div_(K)
-        bf16_grads = copies is not None and K == 1
         if cl.penalty is not None:
             metrics["reg_penalty"] = cl.penalty.apply(
                 state.opt.param_flat, state.opt.grad_flat,
@@ -481,16 +501,179 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
         gnorm, gscale = global_norm_clip(
             state.opt.grad_flat,
             state.opt.pc_grad_flat if bf16_grads else None)
-        state.opt.step(gscale, bf16_grads)
+        state.opt.update(gscale, bf16_grads)
         if state.adapter_ema is not None:
             update_adapter_ema(state.adapter_ema, state.model, ema_decay)
         mark(marks, "optimizer", points.device)
         metrics["grad_norm"] = gnorm
-        state.loss_normalizer = norm.detach()
-        state.step += 1
+        state.loss_normalizer.copy_(norm.detach())
         return {k: v.detach() for k, v in metrics.items()}
 
+    def step(state: TrainState, batch: dict, cl: CLBatchExtras,
+             marks: Optional[list] = None):
+        state.opt.stage()
+        metrics = body(state, batch, cl, marks)
+        state.opt.count += 1
+        state.step += 1
+        return metrics
+
+    step.body = body
     return step
+
+
+def make_multi_train_step(points: torch.Tensor, tc: TrainCfg,
+                          scan_steps: int, **flags) -> Callable:
+    """K = `scan_steps` train steps in one call (vilco_tpu/train/engine.py::
+    make_multi_train_step, JAX's `lax.scan` of the step in one jit):
+    multi(state, batches, cl) -> the last step's metrics. `flags` are
+    make_train_step's; `batches` holds each key of the step's batch stacked
+    on a leading axis of length K. The steps run in order on batch rows 0..
+    K-1, the memory bank and its pointer carried from step to step (in
+    place, as each step writes them). `cl.prev_logits` (per-batch
+    distillation targets) is refused, as JAX's scanned path refuses it.
+
+    On CPU tensors the K steps run eagerly. On the card the step is
+    captured once as a torch.cuda.CUDAGraph and replayed, each replay
+    after the batch's row is copied into the graph's own batch buffers
+    and the optimizer's scalars staged (`FlatOptimizer.stage`); it never
+    runs eagerly instead, and a capture that fails raises. The first call
+    runs step 1 eagerly on the capture's stream, which builds and binds
+    the kernels and warms the libraries, then captures and replays the
+    other K - 1: no step is added. A later call whose state, optimizer, CL
+    tensors or batch shapes differ from the captured ones raises: a new
+    state needs a new multi step. The
+    generator is registered with the graph, so each replay advances its
+    offset as an eager step does. The wrappers' Python launch counters
+    count a captured kernel once, at capture (a profiler counts the
+    replays' launches). `dp` cannot be captured: Gloo's collectives run
+    on the host, and capturing NCCL's is not ported; it raises on the
+    card. `multi.capture` holds the last capture's seconds and the bytes
+    the graph's memory pool reserved."""
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
+    step = make_train_step(points, tc, **flags)
+    dp = flags.get("dp")
+    graph = _StepGraph()
+
+    def multi(state: TrainState, batches: Dict[str, torch.Tensor],
+              cl: CLBatchExtras):
+        if cl.prev_logits is not None:
+            raise ValueError(
+                "cl.prev_logits: CL extras with per-batch payloads "
+                "(distillation targets) are not supported in the scanned "
+                "path; run make_train_step per batch")
+        lead = {k: v.shape[0] for k, v in batches.items()}
+        if set(lead.values()) != {scan_steps}:
+            raise ValueError(f"batches must be stacked {scan_steps} deep "
+                             f"on their leading axis, got {lead}")
+        dev = batches["feats"].device
+        if dev.type == "cpu":
+            for i in range(scan_steps):
+                metrics = step(state, {k: v[i] for k, v in batches.items()},
+                               cl)
+            return metrics
+        if dp is not None:
+            import torch.distributed as dist
+
+            backend = (dist.get_backend(dp.group) if dist.is_initialized()
+                       else "no process group")
+            raise ValueError(
+                f"make_multi_train_step on the card with dp ({backend}): "
+                "a CUDA graph cannot capture Gloo's collectives, which run "
+                "on the host, and capturing NCCL's is not ported")
+        if dev.type != "cuda":
+            raise ValueError(f"batches on {dev}: the CPU or a CUDA device")
+        return graph.run(step, state, batches, cl, scan_steps)
+
+    multi.capture = graph.info
+    return multi
+
+
+class _StepGraph:
+    """The captured step of make_multi_train_step on the card: the graph,
+    its own batch buffers (one row of the stacked batches), the static
+    metrics it writes, and the key of what it captured."""
+
+    def __init__(self):
+        self.graph = None
+        self.key = None
+        self.batch: Dict[str, torch.Tensor] = {}
+        self.metrics: Dict[str, torch.Tensor] = {}
+        self.info: Dict[str, float] = {}
+
+    @staticmethod
+    def _key(state, batches, cl) -> tuple:
+        ptr = lambda t: None if t is None else (t.data_ptr(), t.shape,
+                                                t.dtype)
+        opt = state.opt
+        return (id(state), id(opt), id(state.generator), id(state.model),
+                ptr(opt.param_flat), ptr(opt.grad_flat), ptr(opt.scalars),
+                ptr(state.loss_normalizer),
+                tuple((n, ptr(e)) for n, e in
+                      (state.adapter_ema or {}).items()),
+                ptr(cl.class_mask), ptr(cl.memory_bank), ptr(cl.memory_ptr),
+                ptr(cl.bias_alpha), ptr(cl.bias_beta), id(cl.penalty),
+                tuple((k, v.shape[1:], v.dtype, v.device)
+                      for k, v in batches.items()))
+
+    def _load(self, batches, i: int) -> None:
+        for k, v in batches.items():
+            self.batch[k].copy_(v[i], non_blocking=True)
+
+    def _capture(self, step, state, batches, cl):
+        """Step 1 eagerly on a side stream, then the step's body captured
+        on it. Returns step 1's metrics."""
+        dev = batches["feats"].device
+        torch.cuda.synchronize(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        self.batch = {k: torch.empty_like(v[0]) for k, v in batches.items()}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "torch.cuda.CUDAGraph.register_generator_state is missing: "
+                "this PyTorch cannot replay the step's dropout draws")
+        with torch.cuda.stream(side):
+            self._load(batches, 0)
+            first = step(state, self.batch, cl)
+            torch.cuda.synchronize(dev)
+            warm = torch.cuda.memory_reserved(dev) - reserved
+            # the capture empties the cache too: the pool's bytes are what
+            # the capture reserves beyond the emptied cache
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_reserved(dev)
+            graph.register_generator_state(state.generator)
+            with torch.cuda.graph(graph, stream=side):
+                metrics = step.body(state, self.batch, cl)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.graph, self.metrics = graph, metrics
+        self.key = self._key(state, batches, cl)
+        self.info.update(seconds=time.perf_counter() - t0, warm_bytes=warm,
+                         pool_bytes=torch.cuda.memory_reserved(dev) - base)
+        return first
+
+    def run(self, step, state, batches, cl, K: int):
+        first = 0
+        if self.graph is None:
+            metrics = self._capture(step, state, batches, cl)
+            first = 1
+        elif self._key(state, batches, cl) != self.key:
+            raise ValueError(
+                "make_multi_train_step: the state, its optimizer, the CL "
+                "tensors or the batch shapes differ from the ones the graph "
+                "captured; make a new multi step for a new state")
+        for i in range(first, K):
+            self._load(batches, i)
+            state.opt.stage()
+            self.graph.replay()
+            state.opt.count += 1
+            state.step += 1
+        if first == K:
+            return metrics
+        return {k: v.clone() for k, v in self.metrics.items()}
 
 
 def global_metrics(metrics: Dict[str, torch.Tensor], dp,

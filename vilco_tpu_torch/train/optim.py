@@ -26,6 +26,14 @@ slices of the flat buffers; on the CPU each big leaf and the packed small
 leaves go through the kernel's plain version, as the JAX step's jnp path
 does. The chains run as plain PyTorch ops, leaf by leaf, on either device:
 JAX computes them outside any Pallas kernel.
+
+Every form reads the schedule's values of the coming step (the learning
+rate, AdamW's bias corrections, Adafactor's decay rate) from `scalars`, a
+persistent buffer on the parameters' device that `stage` fills from the
+host before the update; `update` itself is device work only, so a CUDA
+graph that captured it reads each replay's values from the buffer
+(train/engine.py::make_multi_train_step). `step` is stage, update and the
+count.
 """
 
 from __future__ import annotations
@@ -240,9 +248,12 @@ class FlatOptimizer:
     parameters and their gradients in two persistent f32 buffers
     (`param_flat`, `grad_flat`, flat_buffers: each parameter's data and
     .grad a view of them at its `flat_offsets` entry; `zero_grad` clears
-    the gradients). `copies` is None but for FusedAdamW's compute copy."""
+    the gradients). `copies` is None but for FusedAdamW's compute copy.
+    `scalars` (N_SCALARS f32 on the parameters' device) holds the coming
+    step's `coefficients`, written by `stage`."""
 
     copies: Optional[Dict[str, torch.nn.Parameter]] = None
+    N_SCALARS = 3
 
     def __init__(self, model: torch.nn.Module, steps_per_epoch: int,
                  opt: OptCfg):
@@ -255,13 +266,41 @@ class FlatOptimizer:
         self.count = 0
         self.flat_offsets, self.param_flat, self.grad_flat = flat_buffers(
             self.params)
+        self.scalars = torch.zeros(self.N_SCALARS,
+                                   device=self.param_flat.device)
 
     def zero_grad(self) -> None:
         self.grad_flat.zero_()
 
+    def coefficients(self) -> Tuple[np.float32, ...]:
+        """The schedule's values of the coming step (step `count`) as f32
+        scalars, in the order `update` reads them from `scalars`."""
+        raise NotImplementedError
+
+    def stage(self) -> None:
+        """Write the coming step's coefficients into the first entries of
+        `scalars`: on the card an asynchronous copy from a fresh pinned
+        buffer (no host sync, and the buffer outlives the copy), on the CPU
+        a plain copy."""
+        host = torch.tensor(np.asarray(self.coefficients(), np.float32))
+        dst = self.scalars[:host.numel()]
+        if dst.is_cuda:
+            dst.copy_(host.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(host)
+
+    def update(self, gscale: torch.Tensor, bf16_grads: bool = False
+               ) -> None:
+        """One update from the gradients, each multiplied by the clip
+        factor `gscale` (a 0-d f32 tensor on the parameters' device),
+        reading the schedule's values from `scalars`: device work only,
+        capturable in a CUDA graph. The caller stages before and counts
+        after (train/engine.py::make_train_step)."""
+        raise NotImplementedError
+
 
 class FusedAdamW(FlatOptimizer):
-    """AdamW over `model.named_parameters()`, updated in place by `step`.
+    """AdamW over `model.named_parameters()`, updated in place by `update`.
     State: `count` (steps taken), `mu_big`/`nu_big` (one moment tensor per
     big leaf), `mu_flat`/`nu_flat` (the small leaves' moments, packed in
     parameter order), in opt.mu_dtype and opt.nu_dtype.
@@ -274,6 +313,8 @@ class FusedAdamW(FlatOptimizer):
     (torch.func.functional_call), their gradients land in bf16, and the
     update rewrites the copies from the new masters. Checkpoints, eval and
     the adapter EMA read the masters."""
+
+    N_SCALARS = 4     # lr, bc1, bc2 and the clip factor: K4's coef
 
     def __init__(self, model: torch.nn.Module, steps_per_epoch: int,
                  opt: OptCfg):
@@ -366,7 +407,8 @@ class FusedAdamW(FlatOptimizer):
         return mu, nu
 
     def coefficients(self):
-        """(lr, bc1, bc2) of the coming step as f32 scalars."""
+        """(lr, bc1, bc2) of the coming step as f32 scalars (the update
+        writes the clip factor into scalars[3])."""
         c = np.float32(self.count + 1)
         return (self.sched(self.count), np.float32(1) - np.float32(B1) ** c,
                 np.float32(1) - np.float32(B2) ** c)
@@ -384,23 +426,18 @@ class FusedAdamW(FlatOptimizer):
         return self._tables[bf16_grads]
 
     @torch.no_grad()
-    def step(self, gscale: torch.Tensor, bf16_grads: bool = False) -> None:
-        """One update from the gradients, each multiplied by the clip factor
-        `gscale` (a 0-d f32 tensor on the parameters' device) inside the
-        update (kernels/adamw.py::scale_grad). `bf16_grads`: the masked
-        leaves' gradients are the copies' (one micro-batch), else the
-        masters' (after fold_compute_grads)."""
-        lr, bc1, bc2 = self.coefficients()
+    def update(self, gscale: torch.Tensor, bf16_grads: bool = False) -> None:
+        """The clip factor multiplies each gradient inside the update
+        (kernels/adamw.py::scale_grad). `bf16_grads`: the masked leaves'
+        gradients are the copies' (one micro-batch), else the masters'
+        (after fold_compute_grads)."""
+        self.scalars[3:].copy_(gscale.reshape(1))
         if self.kernel:
-            dev = self.grad_flat.device
-            host = torch.tensor([lr, bc1, bc2], dtype=torch.float32,
-                                pin_memory=True)
-            coef = torch.cat([host.to(dev, non_blocking=True),
-                              gscale.reshape(1).float()])
-            adamw_update_multi(self.table(bf16_grads), coef, wd=self.wd)
+            adamw_update_multi(self.table(bf16_grads), self.scalars,
+                               wd=self.wd)
         else:
-            self._step_plain(lr, bc1, bc2, gscale, self.grads(bf16_grads))
-        self.count += 1
+            lr, bc1, bc2, g = self.scalars.unbind()
+            self._step_plain(lr, bc1, bc2, g, self.grads(bf16_grads))
 
     def _step_plain(self, lr, bc1, bc2, gscale, grads):
         cp = self.copies or {}
@@ -463,6 +500,10 @@ class ChainOptimizer(FlatOptimizer):
         else:
             self.momentum = opt.momentum
             tdt = torch.float32
+        dev = self.param_flat.device
+        self._mom = torch.tensor(self.momentum, dtype=torch.float32,
+                                 device=dev)
+        self._wd = torch.tensor(self.wd, dtype=torch.float32, device=dev)
         self.trace = [torch.zeros_like(p, dtype=tdt) for p in self.params]
         self.axes = [factored_axes(n, p.shape) if self.factored else None
                      for n, p in zip(self.names, self.params)]
@@ -474,17 +515,20 @@ class ChainOptimizer(FlatOptimizer):
                 self.v.append(z if ax is None else (z.mean(ax[1]),
                                                     z.mean(ax[0])))
 
+    def coefficients(self):
+        """(lr, the factored form's decay rate 1 - (t + 1)^-0.8 and one
+        minus it) of the coming step as f32 scalars (SGD: the rates 0)."""
+        lr = np.float32(self.sched(self.count))
+        if not self.factored:
+            return lr, np.float32(0), np.float32(0)
+        t = np.float32(self.count + 1)
+        rate = np.float32(1.0) - t ** np.float32(-FACTORED_DECAY_RATE)
+        return lr, rate, np.float32(1.0) - rate
+
     @torch.no_grad()
-    def step(self, gscale: torch.Tensor, bf16_grads: bool = False) -> None:
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32,
-                                     device=self.param_flat.device)
-        lr = f32(float(self.sched(self.count)))
-        if self.factored:
-            t = np.float32(self.count + 1)
-            rate = np.float32(1.0) - t ** np.float32(-FACTORED_DECAY_RATE)
-            rate, one_minus = f32(float(rate)), f32(float(np.float32(1.0)
-                                                          - rate))
-        mom, wd = f32(self.momentum), f32(self.wd)
+    def update(self, gscale: torch.Tensor, bf16_grads: bool = False) -> None:
+        lr, rate, one_minus = self.scalars.unbind()
+        mom, wd = self._mom, self._wd
         for i, p in enumerate(self.params):
             g = scale_grad(p.grad, gscale)
             u = self._factored(i, g, rate, one_minus) if self.factored else g
@@ -494,7 +538,6 @@ class ChainOptimizer(FlatOptimizer):
             if self.decay[i]:
                 new_tr = new_tr + wd * p.data
             p.data.copy_(p.data + (-lr) * new_tr)
-        self.count += 1
 
     def _factored(self, i, g, rate, one_minus):
         sq = g * g + FACTORED_EPSILON
