@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's MQ, NLQ and VQ serving and training paths
-once on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's MQ, NLQ and VQ serving and training paths,
+its feature extractors and its serving export once on one NVIDIA H100.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mq-train
@@ -15,6 +15,8 @@ once on one NVIDIA H100.
     python3 chip_smoke.py --optim
     python3 chip_smoke.py --guard-ladder
     python3 chip_smoke.py --multi-step
+    python3 chip_smoke.py --extractors
+    python3 chip_smoke.py --export
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
@@ -28,7 +30,9 @@ only the reference-geometry phase (20''); the eleventh only the
 data-parallel phase (27); the twelfth only the optimizer forms of JAX's
 opt section (optim: below, after the phases); the thirteenth only the
 guard-ladder twin at seeds 0-3 (guard_ladder: below); the fourteenth the
-multi_step phase (28) and its longer runs (below).
+multi_step phase (28) and its longer runs (below); the fifteenth only the
+extractors phase (29); the sixteenth the export phase (30) with the MQ
+yaml model and a VQ window beside the NLQ flagship.
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -335,6 +339,34 @@ fallback):
                    and the graph pool's bytes; then K3-bwd at both steps' stem
                    shapes, pairs of calls on two streams at once, each
                    bitwise equal to a lone call, and its queued ms
+ 29. extractors    the feature extractors' towers at their published
+                   widths, f32, weights from SEED (extractors/): CLIP
+                   ViT-B/32 vision (768 wide, 12 layers of 12 heads, MLP
+                   3072, 224-square frames: 50 tokens) on 64 frames, the
+                   CLIP ViT-B text tower (512 wide, 12 x 8 heads, MLP
+                   2048, 77 tokens) on 64 texts, RoBERTa-base (768, 12 x
+                   12 heads, MLP 3072, 514 positions, 128 tokens) on 32
+                   texts, the first text of each empty; each through its
+                   extractor's entry point (extract_frames, extract; the
+                   hash tokenizer) with K1's launches counted from 0 (12 a
+                   vision and a RoBERTa batch, 0 a CLIP text batch: its
+                   attention is causal, plain torch); each tower's forward
+                   against the same tower with K1's plain version on the
+                   card (CLIP text: against the CPU), max relative error
+                   beside PARITY_RTOL; ms a batch and items/s (entry point,
+                   host clock; the forward, CUDA events); K1 at the two
+                   shapes (64 x 50 and 32 x 128 tokens, 12 x 64, f32)
+                   against its plain version, SDPA and the bound beside,
+                   and the towers' attention with an empty text against
+                   HF's finfo.min form (the mean of v)
+ 30. export        bin/export_model.py: the NLQ flagship's forward in f32
+                   (batch 4, T 2560, text 32 x 512) exported on the card
+                   inside kernels.plain_math(), saved as .pt2, loaded and
+                   run: export, save and load seconds, no kernel launched
+                   by the program, its outputs against the eager forward
+                   (K1, K3, K5 launched) within PARITY_RTOL; with --export
+                   also the MQ yaml model and a VQ window (30 frames at
+                   448, batch 1, the output convs redrawn)
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
 
@@ -1480,8 +1512,8 @@ def rel_by_leaf(got: dict, want: dict, floor_frac: float):
 def plain_versions():
     """The models' kernel wrappers swapped for their plain versions, where
     each model module imported them (MQ and NLQ blocks, the VQ ClipMatcher
-    and ViT): a comparison only, which launches none of the port's
-    kernels."""
+    and ViT, the extractors' towers): a comparison only, which launches
+    none of the port's kernels."""
     from vilco_tpu_torch.kernels.attention import fused_attention_blc_plain
     from vilco_tpu_torch.kernels.banded_attention import (
         banded_attention_blc_plain,
@@ -1489,6 +1521,7 @@ def plain_versions():
     from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv_plain
     from vilco_tpu_torch.kernels.frame_band import frame_band_attention_plain
     from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention_plain
+    from vilco_tpu_torch.extractors import encoders
     from vilco_tpu_torch.models import clip_matcher, layers, vit
 
     swap = {"fused_attention_blc": fused_attention_blc_plain,
@@ -1496,7 +1529,8 @@ def plain_versions():
             "fused_dwconv_qkv": fused_dwconv_qkv_plain,
             "xl_rel_attention": xl_rel_attention_plain,
             "frame_band_attention": frame_band_attention_plain}
-    saved = [(mod, n, getattr(mod, n)) for mod in (layers, clip_matcher, vit)
+    saved = [(mod, n, getattr(mod, n))
+             for mod in (layers, clip_matcher, vit, encoders)
              for n in swap if hasattr(mod, n)]
     for mod, n, _ in saved:
         setattr(mod, n, swap[n])
@@ -6772,6 +6806,327 @@ def phase_multi_step_long(dev) -> None:
                MULTI_LONG_K, reg_k=MULTI_REG_TASKS, calls=MULTI_LONG_CALLS)
 
 
+# the extractors phase (29): the towers' batches at their published widths
+EXTRACT_FRAMES = 64        # CLIP image frames a batch
+EXTRACT_CLIP_TEXTS = 64    # CLIP text queries a batch, 77 tokens
+EXTRACT_ROBERTA_TEXTS = 32  # RoBERTa queries a batch, 128 tokens
+EXTRACT_WORDS = ("where", "is", "the", "red", "cup", "did", "i", "put",
+                 "knife", "on", "table", "kitchen", "open", "fridge", "door")
+
+
+def extractor_texts(rng, n: int, max_length: int) -> list:
+    """n queries of 1 to max_length + 8 words (the longest cut at
+    max_length), the first one empty."""
+    lens = rng.integers(1, max_length + 9, size=n)
+    lens[0] = 0
+    return [" ".join(rng.choice(EXTRACT_WORDS, k)) for k in lens]
+
+
+def rel_err(tag: str, got, ref) -> float:
+    """max |got - ref| / max |ref|, after a shape and finiteness check."""
+    got, ref = got.float(), ref.float().to(got.device)
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{tag}: shape {tuple(got.shape)} against {tuple(ref.shape)} "
+             "or non-finite values")
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)
+            ).item()
+
+
+def entry_ms(fn, reps: int = 3) -> float:
+    """The host ms of one call of fn, synced, median of reps."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def extractor_k1(dev, chk, key, B, T, H, D, mask) -> None:
+    """K1 at an extractor tower's shape in f32 against its plain version,
+    SDPA on the rows with a valid key and the bound beside."""
+    from vilco_tpu_torch.kernels.attention import (
+        fused_attention_blc,
+        fused_attention_blc_plain,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    q, k, v = (torch.randn((B, T, H * D), generator=gen).to(dev)
+               for _ in range(3))
+    sdpa, sel = sdpa_on_valid_rows(mask)
+    heads = [sel(x.view(B, T, H, D)) for x in (q, k, v)]
+    label = f"fused_attention_blc B={B} T={T} H={H} D={D}"
+    chk.report(key, label, torch.float32,
+               output_errors(("out",), [fused_attention_blc(q, k, v, mask,
+                                                            H)],
+                             [fused_attention_blc_plain(q, k, v, mask, H)],
+                             FWD_TOL[torch.float32]),
+               lambda: fused_attention_blc(q, k, v, mask, H),
+               lambda: fused_attention_blc_plain(q, k, v, mask, H),
+               attention_work(T, mask, H * D, torch.float32,
+                              backward=False),
+               lambda: sdpa(*heads), is_top=True)
+
+
+def phase_extractors(dev) -> dict:
+    """extractors (29): the three towers at their published widths through
+    their extractors, K1's launches, each tower against its reference on
+    the card, the entry points' and forwards' ms, K1 at both shapes.
+    Returns the kernel checks' errors and timings and the launches."""
+    from vilco_tpu_torch.extractors import encoders as E
+    from vilco_tpu_torch.extractors.clip_image import ClipImageExtractor
+    from vilco_tpu_torch.extractors.clip_text import (
+        ClipTextExtractor,
+        RobertaTokenExtractor,
+    )
+    from vilco_tpu_torch.extractors.tokenizers import hash_tokenize
+    from vilco_tpu_torch.kernels.attention import fused_attention_blc
+
+    rng = np.random.default_rng(SEED + 40)
+    gen = lambda: torch.Generator().manual_seed(SEED)
+    vis = ClipImageExtractor(image_size=224, batch_size=EXTRACT_FRAMES,
+                             device=dev)
+    vis.model = E.CLIPVisionTower(E.CLIPVisionCfg(), dev, gen()).eval()
+    ctext = ClipTextExtractor(max_length=77, batch_size=EXTRACT_CLIP_TEXTS,
+                              device=dev)
+    ctext.model = E.CLIPTextTower(E.CLIPTextCfg(), dev, gen()).eval()
+    rob = RobertaTokenExtractor(max_length=128,
+                                batch_size=EXTRACT_ROBERTA_TEXTS, device=dev)
+    rob.model = E.RobertaTower(E.roberta_base(), dev, gen()).eval()
+    frames = rng.random((EXTRACT_FRAMES, 224, 224, 3), dtype=np.float32)
+    texts = {"clip_text": extractor_texts(rng, EXTRACT_CLIP_TEXTS, 77),
+             "roberta": extractor_texts(rng, EXTRACT_ROBERTA_TEXTS, 128)}
+
+    def tower_inputs(tag, ex):
+        if tag == "clip_vision":
+            return (torch.from_numpy(frames).to(dev).permute(0, 3, 1, 2)
+                    .contiguous(),)
+        ids, mask = hash_tokenize(texts[tag], ex.max_length)
+        return (torch.from_numpy(ids).long().to(dev),
+                torch.from_numpy(mask).to(dev))
+
+    cases = (("clip_vision", vis, lambda: vis.extract_frames(frames),
+              EXTRACT_FRAMES),
+             ("clip_text", ctext, lambda: ctext.extract(texts["clip_text"]),
+              EXTRACT_CLIP_TEXTS),
+             ("roberta", rob, lambda: rob.extract(texts["roberta"]),
+              EXTRACT_ROBERTA_TEXTS))
+    launches, masks = {}, {}
+    for tag, ex, entry, B in cases:
+        model = ex.model
+        cfg = model.cfg
+        # K1 in every layer's attention but CLIP text's, which is causal
+        want = 0 if tag == "clip_text" else cfg.num_hidden_layers
+        fused_attention_blc.launches = 0
+        feats = entry()
+        torch.cuda.synchronize()
+        launches[tag] = fused_attention_blc.launches
+        if launches[tag] != want:
+            fail(f"extractors: {tag}: K1 launched {launches[tag]} times in "
+                 f"a batch, {want} expected")
+        if tag == "clip_vision":
+            shapes_ok = feats.shape == (B, cfg.hidden_size)
+        else:
+            lens = [max(1, min(len(t.split()), ex.max_length))
+                    for t in texts[tag]]
+            shapes_ok = [f.shape for f in feats] == [
+                (n, cfg.hidden_size) for n in lens]
+        if not shapes_ok or not all(np.isfinite(f).all() for f in feats):
+            fail(f"extractors: {tag}: features of the wrong shape or not "
+                 "finite")
+        inputs = tower_inputs(tag, ex)
+        if tag != "clip_vision":
+            masks[tag] = inputs[1].bool()
+        with torch.no_grad():
+            out = model(*inputs)
+            if tag == "clip_text":
+                ref_what = "the CPU"
+                ref = copy.deepcopy(model).cpu()(*(x.cpu() for x in inputs))
+            else:
+                ref_what = "K1's plain version on the card"
+                with plain_versions():
+                    ref = model(*inputs)
+                    plain_ms = median_ms(lambda: model(*inputs), reps=5)
+            worst = max(rel_err(f"extractors: {tag}", out[k], ref[k])
+                        for k in ("last_hidden_state", "pooler_output"))
+            fwd_ms = median_ms(lambda: model(*inputs), reps=10)
+        ent_ms = entry_ms(entry)
+        say(f"[extractors] {tag} at its published width ({cfg.hidden_size} "
+            f"wide, {cfg.num_hidden_layers} layers of "
+            f"{cfg.num_attention_heads} heads), batch {B}, f32: "
+            f"last_hidden_state and pooler_output against {ref_what}: max "
+            f"rel err {worst:.3e} (tol {PARITY_RTOL:g}); K1 "
+            f"{launches[tag]} launches a batch")
+        say(f"[extractors] {tag}: entry point {ent_ms:.3f} ms a batch "
+            f"({B / ent_ms * 1e3:.1f} items/s, host clock), forward "
+            f"{fwd_ms:.3f} ms ({B / fwd_ms * 1e3:.1f} items/s, events)"
+            + ("" if tag == "clip_text" else
+               f", with K1's plain version {plain_ms:.3f} ms"))
+        if worst > PARITY_RTOL:
+            fail(f"extractors: {tag} out of tolerance against {ref_what}")
+        del out, ref
+        torch.cuda.empty_cache()
+
+    # K1 at the vision tower's and RoBERTa's shapes; the empty text as HF
+    # answers it (the mean of v) through the towers' attention
+    chk = KernelChecks("extractors", ("vit", "roberta"))
+    n_tok = (224 // 32) ** 2 + 1
+    extractor_k1(dev, chk, "vit", EXTRACT_FRAMES, n_tok, 12, 64,
+                 torch.ones((EXTRACT_FRAMES, n_tok), dtype=torch.bool,
+                            device=dev))
+    m = masks["roberta"].contiguous()
+    extractor_k1(dev, chk, "roberta", EXTRACT_ROBERTA_TEXTS, 128, 12, 64, m)
+    g = torch.Generator().manual_seed(SEED + 42)
+    q, k, v = (torch.randn((EXTRACT_ROBERTA_TEXTS, 128, 768),
+                           generator=g).to(dev) for _ in range(3))
+    fused_attention_blc.launches = 0
+    got = E.attention_k1(q, k, v, m, 12)
+    hf = E.attention_plain(q, k, v, m[:, None, None, :], 12)
+    rows = output_errors(("out",), [got], [hf], FWD_TOL[torch.float32])
+    empty = ~m.any(1)
+    mean_ok = torch.allclose(got[empty], v[empty].mean(1, keepdim=True)
+                             .expand(-1, 128, -1), rtol=0, atol=1e-6)
+    say(f"[extractors] RoBERTa attention with {int(empty.sum())} empty "
+        f"text(s) through K1 ({fused_attention_blc.launches} launch) against "
+        f"HF's finfo.min form: max_abs_err {rows[0][1]:.3e} (limit "
+        f"{rows[0][2]:.3e}); the empty row the mean of v: {mean_ok}")
+    if rows[0][1] > rows[0][2] or not mean_ok or not chk.ok:
+        fail("extractors: K1 or the empty text out of tolerance")
+    return {"errs": chk.errs["vit"] + chk.errs["roberta"] + [rows[0][1]],
+            "top": chk.top, "launches": launches}
+
+
+def export_case(dev, tag, make, inputs, kernels, tmp) -> None:
+    """One export (30): `make()` -> (the eager module, its exported
+    program); the program saved to and loaded from `tmp`, run on `inputs`
+    with no kernel launched, against the eager module, which launches each
+    of `kernels`."""
+    from vilco_tpu_torch.bin.export_model import load_exported
+
+    t0 = time.perf_counter()
+    eager, ep = make()
+    t1 = time.perf_counter()
+    path = os.path.join(tmp, f"{tag}.pt2")
+    torch.export.save(ep, path)
+    t2 = time.perf_counter()
+    prog = load_exported(path)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    say(f"[export] {tag}: export {t1 - t0:.2f} s, save {t2 - t1:.2f} s "
+        f"({os.path.getsize(path) / 1e6:.1f} MB), load {t3 - t2:.2f} s")
+    counted = port_wrappers()
+    for f in counted:
+        f.launches = 0
+    with torch.no_grad():
+        got = prog(*inputs)
+        torch.cuda.synchronize()
+        in_prog = {f.__name__: f.launches for f in counted if f.launches}
+        want = eager(*inputs)
+        torch.cuda.synchronize()
+        in_eager = {f.__name__: f.launches for f in counted}
+        prog_ms = median_ms(lambda: prog(*inputs), reps=5)
+        eager_ms = median_ms(lambda: eager(*inputs), reps=5)
+    if in_prog:
+        fail(f"export: {tag}: the exported program launched {in_prog}")
+    missing = [f.__name__ for f in kernels if not in_eager[f.__name__]]
+    if missing:
+        fail(f"export: {tag}: the eager forward launched none of {missing}")
+    worst = 0.0
+    for key in want:
+        rel = rel_err(f"export: {tag}", got[key], want[key])
+        worst = max(worst, rel)
+        say(f"[export] {tag}: {key} {tuple(want[key].shape)}, the loaded "
+            f"program (plain math on the card) against the eager forward "
+            f"(kernels): max rel err {rel:.3e} (tol {PARITY_RTOL:g})")
+    say(f"[export] {tag}: program {prog_ms:.3f} ms, eager {eager_ms:.3f} ms "
+        f"a call (events); eager launches "
+        + ", ".join(f"{k} {v}" for k, v in in_eager.items() if v))
+    if worst > PARITY_RTOL:
+        fail(f"export: {tag}: the loaded program out of tolerance")
+    del prog, ep, eager
+    torch.cuda.empty_cache()
+
+
+def port_wrappers():
+    """Every forward kernel wrapper of the port, each with its count."""
+    from vilco_tpu_torch.kernels.attention import (
+        flash_attention,
+        fused_attention,
+        fused_attention_blc,
+        probe_variant,
+    )
+    from vilco_tpu_torch.kernels.banded_attention import banded_attention_blc
+    from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv
+    from vilco_tpu_torch.kernels.frame_band import frame_band_attention
+    from vilco_tpu_torch.kernels.mlp import fused_mlp
+    from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention
+
+    return (fused_attention_blc, fused_attention, flash_attention,
+            probe_variant, xl_rel_attention, fused_dwconv_qkv,
+            banded_attention_blc, frame_band_attention, fused_mlp)
+
+
+def phase_export(dev, full: bool = False) -> None:
+    """export (30): the NLQ flagship's forward through bin/export_model.py
+    on the card in f32 (export_case); with `full` (--export) the MQ yaml
+    model and a VQ window of vq_flagship_config() too."""
+    import tempfile
+
+    from vilco_tpu_torch.bin.export_model import (
+        PointForward,
+        VQForward,
+        export_forward,
+        export_vq_forward,
+    )
+    from vilco_tpu_torch.core.config import mq_yaml_config, \
+        nlq_flagship_config, vq_flagship_config
+    from vilco_tpu_torch.kernels.attention import fused_attention_blc
+    from vilco_tpu_torch.kernels.banded_attention import banded_attention_blc
+    from vilco_tpu_torch.kernels.dwconv import fused_dwconv_qkv
+    from vilco_tpu_torch.kernels.frame_band import frame_band_attention
+    from vilco_tpu_torch.kernels.xl_attention import xl_rel_attention
+    from vilco_tpu_torch.models.clip_matcher import ClipMatcher
+    from vilco_tpu_torch.models.point_transformer import PointTransformer
+
+    rng = np.random.default_rng(SEED + 43)
+    gen = lambda: torch.Generator().manual_seed(SEED)
+
+    def point(cfg):
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="float32"))
+
+        def make():
+            model = PointTransformer(cfg.model, generator=gen(), device=dev,
+                                     cl=cfg.cl_cfg).eval()
+            redraw_adapters(model)
+            return (PointForward(model, torch.float32),
+                    export_forward(cfg, model, dev))
+        return make, nlq_inputs(rng, cfg.batch_size, cfg, dev, torch.float32)
+
+    def vq():
+        cfg = vq_flagship_config()
+        model = ClipMatcher(cfg, generator=gen(), device=dev,
+                            compute_dtype=torch.float32).eval()
+        redraw_heads(model, SEED)
+        return VQForward(model), export_vq_forward(model, 1, dev)
+
+    S, T = vq_flagship_config().clip_size, vq_flagship_config().num_frames
+    cases = [("nlq", *point(nlq_flagship_config()),
+              (fused_attention_blc, fused_dwconv_qkv, banded_attention_blc))]
+    if full:
+        cases += [
+            ("mq_yaml", *point(mq_yaml_config()),
+             (fused_attention_blc, fused_dwconv_qkv, xl_rel_attention)),
+            ("vq", vq, [torch.from_numpy(rng.random(shape, dtype=np.float32))
+                        .to(dev) for shape in ((1, T, S, S, 3), (1, S, S, 3))],
+             (fused_attention_blc, frame_band_attention))]
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        for tag, make, inputs, kernels in cases:
+            export_case(dev, tag, make, inputs, kernels, tmp)
+
+
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
                                "dwconv_qkv", "adamw_kernel", "banded_",
@@ -6998,6 +7353,11 @@ def main():
     # graph, replays against eager steps bitwise; K3-bwd on two streams
     multi_launches = phase_multi_step(dev)
     took("multi_step")
+    # the feature extractors' towers at their published widths (K1 in the
+    # vision tower and RoBERTa), then the NLQ forward's serving export
+    ext = phase_extractors(dev)
+    phase_export(dev)
+    took("extractors and export")
 
     rows = [
         # name, source, replaces, errors, timing, launches (MQ path; the
@@ -7006,7 +7366,7 @@ def main():
          "vilco_tpu/kernels/attention.py:359", errs["attn"]
          + nerrs["attn"] + verrs["attn"] + verrs["attn_cq"]
          + yerrs["attn_text"] + yerrs["attn_cross"] + rerrs["attn"]
-         + rerrs["attn_cq"], top["attn"],
+         + rerrs["attn_cq"] + ext["errs"], top["attn"],
          serve_launches["fused_attention_blc"]),
         ("attention_bwd_cuda", "vilco_tpu_torch/csrc/attention_blc_bwd.cu",
          "vilco_tpu/kernels/attention.py:383",
@@ -7135,6 +7495,11 @@ def main():
             entry["nlq_cross"] = ntop["attn"]
             entry["vq_reference_vit"] = rtop["attn"]      # ViT-B/16, 785
             entry["vq_reference_cq_corr"] = rtop["attn_cq"]
+            # the extractors: K1 a batch of each tower, and its times at
+            # the vision tower's and RoBERTa's shapes (f32)
+            entry["launches_extractors"] = ext["launches"]
+            entry["extractor_clip_vision"] = ext["top"]["vit"]
+            entry["extractor_roberta"] = ext["top"]["roberta"]
         if fn == "attention_bwd_cuda":     # the VQ decoder; NLQ's video-
             entry["vq_cq_corr"] = vtop["attn_bwd"]   # to-text cross-attention
             entry["nlq_cross"] = ntop["attn_bwd"]
@@ -7163,7 +7528,8 @@ if __name__ == "__main__":
                          ["--vq-train"], ["--mq-yaml"], ["--cl-methods"],
                          ["--mq-episode"], ["--nlq-episode"],
                          ["--vq-episode"], ["--vq-reference"], ["--dp"],
-                         ["--optim"], ["--guard-ladder"], ["--multi-step"]):
+                         ["--optim"], ["--guard-ladder"], ["--multi-step"],
+                         ["--extractors"], ["--export"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -7197,6 +7563,10 @@ if __name__ == "__main__":
         if sys.argv[1] == "--multi-step":
             phase_multi_step(dev)
             phase_multi_step_long(dev)
+        if sys.argv[1] == "--extractors":
+            phase_extractors(dev)
+        if sys.argv[1] == "--export":
+            phase_export(dev, full=True)
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

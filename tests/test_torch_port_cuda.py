@@ -20,7 +20,10 @@ channel columns a block and every walk length, dx and dw bitwise equal
 over two calls, each call's own tickets, calls on two streams at once;
 K1 forward and backward over the MQ yaml model's prompted text keys (208,
 Tq 512 down to 2) and K3 at its text stem (T=208); make_multi_train_step's
-captured graph against eager steps, bitwise, at the MQ yaml's twin. Marked
+captured graph against eager steps, bitwise, at the MQ yaml's twin; K1 in
+f32 at the extractors' two shapes, the towers' answer for an empty text
+(the mean of v) and the serving export on the card (no kernel in the
+program, the eager forward matched). Marked
 `gpu`: skips where there is no card. Imports no JAX, so that it runs on a
 machine with only PyTorch:
 
@@ -963,3 +966,103 @@ def test_dwconv_backward_on_two_streams_at_once(cuda):
         torch.cuda.synchronize()
         for dx, dw in outs:
             assert torch.equal(dx, lone[0]) and torch.equal(dw, lone[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,empty", [(64, 50, False), (32, 128, True)])
+def test_k1_f32_at_extractor_shapes_on_card(cuda, B, T, empty):
+    """K1 in f32 at the CLIP vision tower's shape (64 frames of 50 tokens,
+    every key valid) and RoBERTa-base's (32 texts of 128 tokens, ragged,
+    one empty), 12 heads of 64, against its plain version (FWD_TOL)."""
+    rng = np.random.default_rng(B + T)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    q, k, v = rn(B, T, 768), rn(B, T, 768), rn(B, T, 768)
+    m = (_mask(rng, B, T, cuda) if empty
+         else torch.ones((B, T), dtype=torch.bool, device=cuda))
+    n = fused_attention_blc.launches
+    out = fused_attention_blc(q, k, v, m, 12)
+    assert fused_attention_blc.launches == n + 1
+    want = fused_attention_blc_plain(q, k, v, m, 12)
+    tol = FWD_TOL[torch.float32] * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(out, want, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_empty_text_gives_the_mean_of_v_on_card(cuda):
+    """The towers' attention through K1 (0 on a fully masked row) gives
+    HF's answer for a text with no token, the mean of v over every key,
+    and HF's finfo.min form elsewhere."""
+    from vilco_tpu_torch.extractors.encoders import (
+        attention_k1,
+        attention_plain,
+    )
+
+    rng = np.random.default_rng(9)
+    rn = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    q, k, v = rn(4, 128, 768), rn(4, 128, 768), rn(4, 128, 768)
+    m = _mask(rng, 4, 128, cuda)
+    n = fused_attention_blc.launches
+    out = attention_k1(q, k, v, m, 12)
+    assert fused_attention_blc.launches == n + 1
+    torch.testing.assert_close(out[-1], v[-1].mean(0).expand(128, 768),
+                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(
+        out, attention_plain(q, k, v, m[:, None, None, :], 12),
+        atol=FWD_TOL[torch.float32] * 5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_exported_program_on_card_holds_no_kernel(cuda, tmp_path,
+                                                  monkeypatch):
+    """bin/export_model.py on the card: the program's calls are all ATen
+    operators, it launches none of the port's kernels, and it matches the
+    eager forward, which launches them (f32, the tiny MQ and NLQ twins;
+    TF32 off, as the plain K3 is a cuDNN conv)."""
+    import operator
+
+    from vilco_tpu_torch.bin.export_model import (
+        PointForward,
+        export_forward,
+        load_exported,
+    )
+    from vilco_tpu_torch.data.synthetic import tiny_config
+    from vilco_tpu_torch.models.point_transformer import PointTransformer
+    from vilco_tpu_torch.tasks.nlq import nlq_tiny_config
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for cfg, kernel in ((tiny_config(), fused_dwconv_qkv),
+                        (nlq_tiny_config(), banded.banded_attention_blc)):
+        model = PointTransformer(cfg.model, device=cuda, cl=cfg.cl_cfg).eval()
+        ep = export_forward(cfg, model, cuda)
+        other = {str(n.target) for n in ep.graph.nodes
+                 if n.op == "call_function"
+                 and n.target is not operator.getitem
+                 and getattr(n.target, "namespace", None) != "aten"}
+        assert not other, other
+        torch.export.save(ep, str(tmp_path / "m.pt2"))
+        prog = load_exported(str(tmp_path / "m.pt2"))
+        rng = np.random.default_rng(3)
+        B, T, C = cfg.batch_size, cfg.model.max_seq_len, cfg.model.input_dim
+        xs = [torch.from_numpy(rng.standard_normal((B, T, C)).astype(
+                  np.float32)).to(cuda),
+              torch.from_numpy(np.arange(T)[None] < rng.integers(
+                  T // 2, T + 1, (B, 1))).to(cuda)]
+        if cfg.dataset.use_text:
+            L = cfg.max_text_len
+            text = rng.standard_normal((B, L, cfg.model.n_txt_in))
+            xs += [torch.from_numpy(text.astype(np.float32)).to(cuda),
+                   torch.ones((B, L), dtype=torch.bool, device=cuda)]
+        n_k1, n_k = fused_attention_blc.launches, kernel.launches
+        with torch.no_grad():
+            got = prog(*xs)
+            assert (fused_attention_blc.launches, kernel.launches) == (n_k1,
+                                                                       n_k)
+            want = PointForward(model, torch.float32)(*xs)
+        assert kernel.launches > n_k
+        for key in ("cls_logits", "offsets"):
+            scale = want[key].abs().max().item()
+            torch.testing.assert_close(got[key], want[key], rtol=0,
+                                       atol=2e-5 * scale)

@@ -51,15 +51,16 @@ probe's two switches, `bound_shift` (the row max replaced by |q_scaled| *
 max_j |k_j|) and `mxu_sum` (the row sum of the bf16-rounded e as a product
 with ones), compile-time options of the K1 kernel.
 
-A CPU tensor takes the plain version (autograd through it gives the
-backward); a CUDA tensor launches the kernels or raises.
+A CPU tensor (any, in `plain_math()`) takes the plain version (autograd
+through it gives the backward); a CUDA tensor launches the kernels or
+raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vilco_tpu_torch.kernels import _build
+from vilco_tpu_torch.kernels import _build, takes_plain
 from vilco_tpu_torch.ops.attention import NEG_INF, masked_attention
 from vilco_tpu_torch.ops.masked import wide
 
@@ -419,7 +420,7 @@ def fused_attention_blc(q, k, v, kv_mask, num_heads: int):
     with D <= 128. Returns (B, Tq, C); invalid query rows are not zeroed.
     Differentiable in q, k, v."""
     _check(q, k, v, kv_mask, num_heads)
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return fused_attention_blc_plain(q, k, v, kv_mask, num_heads)
     _check_cuda(q, k, v, kv_mask, q.shape[2] // num_heads)
     if _wants_grad(q, k, v):
@@ -459,7 +460,7 @@ def fused_attention(q, k, v, kv_mask):
     _check_heads(q, k, v, kv_mask)
     if min(q.shape[1], k.shape[1]) < KERNEL_MIN_T:
         return _heads_via_blc(q, k, v, kv_mask)
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return fused_attention_plain(q, k, v, kv_mask)
     fold = lambda x: x.permute(2, 0, 1, 3).contiguous()
     qf, kf, vf = fold(q), fold(k), fold(v)
@@ -518,7 +519,7 @@ def flash_attention(q, k, v, kv_mask):
                          f"{q.shape[1]} != Tk {k.shape[1]}")
     if q.shape[1] < KERNEL_MIN_T:
         return _heads_via_blc(q, k, v, kv_mask)
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return flash_attention_plain(q, k, v, kv_mask)
     _check_cuda(q, k, v, kv_mask, q.shape[3])
     if _wants_grad(q, k, v):
@@ -534,7 +535,7 @@ def probe_variant(q, k, v, kv_mask, num_heads: int, bound_shift: bool,
     """P2: K1's forward on channels-last q/k/v with the probe's switches
     (both off: K1 itself). Forward only."""
     _check(q, k, v, kv_mask, num_heads)
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return probe_variant_plain(q, k, v, kv_mask, num_heads, bound_shift,
                                    mxu_sum)
     _check_cuda(q, k, v, kv_mask, q.shape[2] // num_heads)

@@ -13,11 +13,11 @@ and ds from shared memory, with no atomics and nothing accumulated over the
 full T. Every T and window >= 1 is taken on the card: no length threshold
 and no block-alignment fallback.
 
-A CPU tensor takes `banded_attention_blc_plain` (autograd through it gives
-the backward); a CUDA tensor launches the kernels or raises.
-`banded_lse_plain` and `banded_attention_bwd_plain` are the forward's lse
-and the backward's passes in plain PyTorch, which the tests and
-chip_smoke.py hold the kernels to.
+A CPU tensor (any, in `plain_math()`) takes `banded_attention_blc_plain`
+(autograd through it gives the backward); a CUDA tensor launches the
+kernels or raises. `banded_lse_plain` and `banded_attention_bwd_plain` are
+the forward's lse and the backward's passes in plain PyTorch, which the
+tests and chip_smoke.py hold the kernels to.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vilco_tpu_torch.kernels import _build
+from vilco_tpu_torch.kernels import _build, takes_plain
 from vilco_tpu_torch.ops.attention import NEG_INF, banded_attention
 
 
@@ -190,7 +190,7 @@ def banded_attention_blc(q, k, v, kv_mask, num_heads: int, window: int):
     i + window]. Returns (B, T, C) with invalid query rows zeroed.
     Differentiable in q, k, v."""
     _check(q, k, v, kv_mask, num_heads, window)
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return banded_attention_blc_plain(q, k, v, kv_mask, num_heads, window)
     _check_cuda(q, k, v, kv_mask, num_heads)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

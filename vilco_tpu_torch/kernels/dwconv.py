@@ -16,8 +16,9 @@ partials from it, and `walk_fwd_plain` / `walk_bwd_plain` are the walk in
 plain PyTorch in the kernels' order of summation. The mask multiply stays
 with the caller (MaskedMHCA), as in the JAX model.
 
-A CPU tensor takes `fused_dwconv_qkv_plain` (autograd through it gives the
-backward); a CUDA tensor launches the kernels or raises.
+A CPU tensor (any, in `plain_math()`) takes `fused_dwconv_qkv_plain`
+(autograd through it gives the backward); a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from vilco_tpu_torch.kernels import _build
+from vilco_tpu_torch.kernels import _build, takes_plain
 from vilco_tpu_torch.ops.masked import wide
 
 CH = 4                   # channels a thread owns (csrc/dwconv_qkv.cu)
@@ -272,7 +273,7 @@ def fused_dwconv_qkv(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return fused_dwconv_qkv_plain(x, w, stride)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"x on {x.device} and w on {w.device}: both must "

@@ -25,15 +25,16 @@ is the same passes in plain PyTorch. Every n_frames >= 1, fr >= 1, w >= 0
 and head dim <= 128 is taken on the card (the JAX version gave shapes whose
 band covers the clip, or whose C is no multiple of 128, to XLA).
 
-A CPU tensor takes `frame_band_attention_plain` (autograd through it gives
-the backward); a CUDA tensor launches the kernels or raises.
+A CPU tensor (any, in `plain_math()`) takes `frame_band_attention_plain`
+(autograd through it gives the backward); a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vilco_tpu_torch.kernels import _build
+from vilco_tpu_torch.kernels import _build, takes_plain
 
 NEG_INF = -1e9
 LOG2E = 1.4426950408889634
@@ -267,7 +268,7 @@ def frame_band_attention(q, k, v, num_heads: int, fr: int, w: int):
     token i attends every token of the frames within +-w of frame i // fr.
     Returns (B, L, C). Differentiable in q, k, v."""
     _check(q, k, v, num_heads, fr, w)
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return frame_band_attention_plain(q, k, v, num_heads, fr, w)
     _check_cuda(q, k, v, num_heads)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -12,8 +12,8 @@ call rounds them. Its backward recomputes through the plain form (the JAX
 custom_vjp does the same: the VQ ViT is frozen, so no gradient flows there
 on the flagship path).
 
-A CPU tensor takes `fused_mlp_plain`; a CUDA tensor launches the kernels or
-raises.
+A CPU tensor (any, in `plain_math()`) takes `fused_mlp_plain`; a CUDA
+tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vilco_tpu_torch.kernels import _build
+from vilco_tpu_torch.kernels import _build, takes_plain
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2):
@@ -90,7 +90,7 @@ def fused_mlp(x, w1, b1, w2, b2):
     (H,), w2 (H, C), b2 (C,) (the JAX layout). Differentiable."""
     lead, c = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, c)
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return fused_mlp_plain(x2, w1, b1, w2, b2).reshape(*lead, c)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, w1, b1, w2, b2)):

@@ -38,15 +38,16 @@ a band row that the passes read and write through shared memory.
 bfloat16 runs every product on the tensor cores (mma.sync); float32 runs
 SIMT.
 
-A CPU tensor takes `xl_rel_attention_plain` (autograd through it gives the
-backward); a CUDA tensor launches the kernels or raises.
+A CPU tensor (any, in `plain_math()`) takes `xl_rel_attention_plain`
+(autograd through it gives the backward); a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vilco_tpu_torch.kernels import _build
+from vilco_tpu_torch.kernels import _build, takes_plain
 
 NEG_INF = -1e9
 LOG2E = 1.4426950408889634
@@ -343,7 +344,7 @@ def xl_rel_attention(q, k, v, r, r_w_bias, r_r_bias, mask, seed=0,
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     args = (q, k, v, r, r_w_bias, r_r_bias, mask)
-    if q.device.type == "cpu":
+    if takes_plain(q):
         return xl_rel_attention_plain(*args, seed=int(seed), rate=rate,
                                       row0=row0)
     if q.device.type != "cuda" or any(t.device != q.device for t in args):
