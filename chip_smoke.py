@@ -17,6 +17,7 @@ its feature extractors and its serving export once on one NVIDIA H100.
     python3 chip_smoke.py --multi-step
     python3 chip_smoke.py --extractors
     python3 chip_smoke.py --export
+    python3 chip_smoke.py --model-options
 
 The second form builds the kernels and runs only the MQ training phases
 (7-10); the third only the VQ kernels, the VQ train-step parity and the VQ
@@ -32,7 +33,8 @@ opt section (optim: below, after the phases); the thirteenth only the
 guard-ladder twin at seeds 0-3 (guard_ladder: below); the fourteenth the
 multi_step phase (28) and its longer runs (below); the fifteenth only the
 extractors phase (29); the sixteenth the export phase (30) with the MQ
-yaml model and a VQ window beside the NLQ flagship.
+yaml model and a VQ window beside the NLQ flagship; the seventeenth
+the model_options phase (31) with every variant of MODEL_OPTIONS.
 
 Phases, one or more lines each (any failure exits non-zero at once, no CPU
 fallback):
@@ -367,6 +369,18 @@ fallback):
                    (K1, K3, K5 launched) within PARITY_RTOL; with --export
                    also the MQ yaml model and a VQ window (30 frames at
                    448, batch 1, the output convs redrawn)
+ 31. model_options the options of JAX's config on the graft flagship at
+                   full width (MODEL_OPTIONS; the default run opts_graft:
+                   FPN1D from level 1, 2 XL layers, 4 head layers of 5
+                   taps, 5-tap embedding, no center sampling, loss weight
+                   2, no clip, hard class-agnostic NMS; --model-options
+                   also opts_s4, scale_factor 4 to a one-row level, and
+                   opts_conv, the conv backbone): f32 forward and
+                   gradients with the kernels against kernels.plain_math()
+                   on the card within PARITY_RTOL, K1's rows and K3's
+                   (T, stride) against the structure; 2 bf16 requests of
+                   batch 16 and 2 bf16 train steps at batch 2, ms of the
+                   second, launch counts against the structure
 Every timing line carries the card's name and power limit. Then one JSON
 line with the kernels, and as the last line {"ok": true, "device": {...}}.
 
@@ -401,6 +415,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -856,7 +871,9 @@ def phase_serve(dev, tag: str, full, requests, kernels, cl=None):
             pre_nms_topk=t.pre_nms_topk, pre_nms_thresh=t.pre_nms_thresh,
             duration_thresh=t.duration_thresh, max_seg_num=t.max_seg_num,
             min_score=t.min_score, nms_sigma=t.nms_sigma,
-            voting_thresh=t.voting_thresh)
+            voting_thresh=t.voting_thresh,
+            use_soft_nms=t.nms_method == "soft",
+            iou_threshold=t.iou_threshold, multiclass=t.multiclass_nms)
 
     splits = []
 
@@ -2552,15 +2569,13 @@ def yaml_calls(full):
     (Tq, Tk, count): the text stem at the prompted text length, the video
     stem, each branch block's strided self-attention, and the branch
     blocks' cross-attention to the text; then K3's (T, stride, count)."""
-    from vilco_tpu_torch.models.backbone import CROSS_MODAL_SKIP_LEVELS
-
     m, c = full.model, full.cl_cfg
     T0, n_stem, nb = m.max_seq_len, m.backbone_arch[1], m.num_branch_layers
     L = full.max_text_len + c.topk * c.length
     k1 = ([(L, L, n_stem), (T0, T0, n_stem)]
           + [(T0 >> (i + 1), T0 >> (i + 1), 1) for i in range(nb)]
           + [(T0 >> (i + 1), L, 1) for i in range(nb)
-             if i not in CROSS_MODAL_SKIP_LEVELS])
+             if i not in m.cross_modal_skip_levels])
     k3 = [(L, 1, n_stem), (T0, 1, n_stem)] + [(T0 >> i, 2, 1)
                                                for i in range(nb)]
     return k1, k3
@@ -7127,6 +7142,405 @@ def phase_export(dev, full: bool = False) -> None:
             export_case(dev, tag, make, inputs, kernels, tmp)
 
 
+# ---- the model and post-processing options of JAX's config ---------------
+
+# variants of the graft flagship at its full width (E 1024, H 16, T 1024,
+# 110 classes, input 4096), random weights from SEED: the config sections'
+# fields each variant sets (core/config.py)
+MODEL_OPTIONS = {
+    "opts_graft": {
+        "model": dict(use_xl=True, xl_layers=2, fpn_type="fpn",
+                      fpn_start_level=1, head_kernel_size=5,
+                      head_num_layers=4, embd_kernel_size=5,
+                      # one range a level the heads read: levels 1-9
+                      regression_range=((0, 8), (4, 16), (8, 32), (16, 64),
+                                        (32, 128), (64, 256), (128, 512),
+                                        (256, 1024), (512, 10000))),
+        "train_cfg": dict(center_sample="none", loss_weight=2.0,
+                          clip_grad_l2norm=-1.0),
+        "test_cfg": dict(nms_method="hard", multiclass_nms=False)},
+    "opts_s4": {
+        # levels 1024, 256, 64, 16, 4, 1
+        "model": dict(backbone_arch=(2, 2, 5), scale_factor=4,
+                      use_abs_pe=False, embd_with_ln=False, use_xl=True,
+                      regression_range=((0, 4), (4, 16), (16, 64),
+                                        (64, 256), (256, 1024),
+                                        (1024, 10000)))},
+    "opts_conv": {"model": dict(backbone_type="conv")},
+}
+OPTIONS_DEFAULT = ("opts_graft",)    # the default run's; --model-options all
+
+
+def model_options_config(name: str):
+    """The graft flagship's Config with MODEL_OPTIONS[name] set."""
+    from vilco_tpu_torch.core.config import flagship_config
+
+    full, over = flagship_config(), MODEL_OPTIONS[name]
+    return dataclasses.replace(full, **{
+        sec: dataclasses.replace(getattr(full, sec), **kw)
+        for sec, kw in over.items()})
+
+
+def option_calls(m):
+    """One forward's kernel calls by the model's structure (models/
+    backbone.py, layers.py::MaskedMHCA): K1's query rows a call (each
+    MaskedMHCA), K2's calls (the XL layers), K3's (T in, stride) calls:
+    every block of stride 1 or 2, at any T; the conv backbone has none of
+    them."""
+    if m.backbone_type == "conv":
+        return [], 0, []
+    T, s = m.max_seq_len, m.scale_factor
+    blocks = [(T, 1)] * (m.backbone_arch[1] + (0 if m.use_xl else 1))
+    for _ in range(m.num_branch_layers):
+        blocks.append((T, s))
+        T = -(-T // s)
+    k1 = [-(-t // st) for t, st in blocks]
+    k3 = [(t, st) for t, st in blocks if st in (1, 2)]
+    return k1, (m.xl_layers if m.use_xl else 0), k3
+
+
+class CallRecorder:
+    """Record K1's query rows and K3's (T, stride) at each launch while
+    active: wraps the K1 wrapper as models/layers.py imported it and K3's
+    launcher in kernels/dwconv.py (the wrappers' own counters still
+    count)."""
+
+    def __init__(self):
+        self.k1, self.k3 = [], []
+
+    def __enter__(self):
+        import vilco_tpu_torch.kernels.dwconv as dw
+        import vilco_tpu_torch.models.layers as layers
+
+        self.saved = (layers.fused_attention_blc, dw.dwconv_fwd_cuda)
+        attn, fwd = self.saved
+
+        def attn_rec(q, *a, **kw):
+            self.k1.append(q.shape[1])
+            return attn(q, *a, **kw)
+
+        def fwd_rec(x, w, stride):
+            self.k3.append((x.shape[1], stride))
+            return fwd(x, w, stride)
+
+        layers.fused_attention_blc, dw.dwconv_fwd_cuda = attn_rec, fwd_rec
+        return self
+
+    def __exit__(self, *exc):
+        import vilco_tpu_torch.kernels.dwconv as dw
+        import vilco_tpu_torch.models.layers as layers
+
+        layers.fused_attention_blc, dw.dwconv_fwd_cuda = self.saved
+
+
+def options_kernels():
+    """The wrappers the options' serve and train paths can launch."""
+    from vilco_tpu_torch.kernels.adamw import adamw_update_multi
+    from vilco_tpu_torch.kernels.attention import (
+        attention_bwd_cuda,
+        fused_attention_blc,
+    )
+    from vilco_tpu_torch.kernels.dwconv import (
+        dwconv_bwd_cuda,
+        fused_dwconv_qkv,
+    )
+    from vilco_tpu_torch.kernels.xl_attention import (
+        xl_bwd_cuda,
+        xl_rel_attention,
+    )
+
+    return (fused_attention_blc, attention_bwd_cuda, xl_rel_attention,
+            xl_bwd_cuda, fused_dwconv_qkv, dwconv_bwd_cuda,
+            adamw_update_multi)
+
+
+def options_grads(model, batch, pts, tc):
+    """(loss, {leaf: gradient}) of one training-mode forward and backward
+    in the model's and pts' dtype with the regularisers off (no rng), at
+    normaliser 100."""
+    from vilco_tpu_torch.train.engine import CLBatchExtras, compute_losses
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(batch["feats"], batch["mask"])
+    cl = CLBatchExtras(torch.ones(model.cfg.num_classes, dtype=torch.bool,
+                                  device=pts.device))
+    loss = compute_losses(out, batch, pts, cl, torch.tensor(
+        100.0, dtype=pts.dtype, device=pts.device), tc)[0]
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def phase_model_options(dev, names=OPTIONS_DEFAULT) -> dict:
+    """Each variant of MODEL_OPTIONS at the graft flagship's full width:
+    the f32 forward (batch 1) and one f32 forward and backward (batch 2,
+    regularisers off, cudnn.deterministic) with the kernels against the
+    same on the card inside kernels.plain_math(), the outputs and the loss
+    held to PARITY_RTOL, each gradient leaf to GRAD_RTOL (floored at 1e-4
+    of the largest: phase_train_parity's limit for the kernels' gap), its
+    gap against the largest gradient printed beside, a TF32 control that
+    must read above GRAD_RTOL, and the f64 witness (the same on the card
+    in f64 through the plain versions: the kernels' gap to it against the
+    largest gradient within max(PARITY_RTOL, twice the plain versions'),
+    TF32's above); K1's query rows and K3's (T, stride) calls of the
+    forward against the model's structure (option_calls: K2 once a layer,
+    K1 at a one-row level at scale_factor 4, no K3s2 at stride 3 or 4);
+    then, the counts set to 0 just before each, 2
+    requests of batch 16 in bf16 (forward, decode and the config's NMS),
+    the second timed, and 2 bf16 train steps at batch 2 (f32 masters,
+    regularisers on), the second timed, each launch count against the
+    structure. Returns {name: {"serve": launches, "train": launches}}."""
+    from vilco_tpu_torch import kernels as kmod
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.ops.decode import decode_and_nms_batch
+    from vilco_tpu_torch.train.engine import (
+        batch_to,
+        init_train_state,
+        make_train_step,
+    )
+
+    wrappers = options_kernels()
+    by_name = {k.__name__: k for k in wrappers}
+    result = {}
+    for name in names:
+        full = model_options_config(name)
+        m, t = full.model, full.test_cfg
+        k1, n_xl, k3 = option_calls(m)
+        want = {"fused_attention_blc": len(k1), "xl_rel_attention": n_xl,
+                "fused_dwconv_qkv": len(k3)}
+        pts = torch.from_numpy(generate_points(
+            level_lengths(m), m.fpn_strides, m.regression_range)).to(dev)
+        say(f"[{name}] {m.backbone_type} arch {m.backbone_arch} scale "
+            f"{m.scale_factor}, fpn {m.fpn_type} from level "
+            f"{m.fpn_start_level}, xl {m.xl_layers if m.use_xl else 0}, "
+            f"head {m.head_num_layers} x {m.head_kernel_size} taps, embd "
+            f"{m.embd_kernel_size} taps (LN {m.embd_with_ln}), abs PE "
+            f"{m.use_abs_pe}; levels {level_lengths(m)}; train "
+            f"{full.train_cfg.center_sample} sampling, loss weight "
+            f"{full.train_cfg.loss_weight:g}, clip "
+            f"{full.train_cfg.clip_grad_l2norm:g}; NMS {t.nms_method}, "
+            f"multiclass {t.multiclass_nms}")
+
+        # f32: the kernels against their plain versions on the card
+        model = PointTransformer(
+            m, generator=torch.Generator().manual_seed(SEED), device=dev)
+        x, mask = (a.to(dev) for a in mq_parity_inputs(m))
+        for k in wrappers:
+            k.launches = 0
+        with torch.no_grad(), CallRecorder() as rec:
+            out = model.eval()(x, mask)
+        with torch.no_grad(), kmod.plain_math():
+            ref = model(x, mask)
+        fwd = {k: by_name[k].launches for k in want}
+        errs = {key: ((out[key] - ref[key]).abs().max()
+                      / ref[key].abs().max().clamp(min=1e-30)).item()
+                for key in ("cls_logits", "offsets")}
+        say(f"[{name}] f32 forward, kernels vs plain on the card: max rel "
+            f"err cls_logits {errs['cls_logits']:.3e}, offsets "
+            f"{errs['offsets']:.3e} (tol {PARITY_RTOL:g}); launches {fwd}")
+        say(f"[{name}] K1 query rows {rec.k1}; K3 (T, stride) {rec.k3}")
+        if max(errs.values()) > PARITY_RTOL or not all(
+                torch.isfinite(out[k]).all() for k in errs):
+            fail(f"{name}: f32 forward kernels vs plain out of tolerance")
+        if sorted(rec.k1) != sorted(k1) or rec.k3 != k3 or fwd != want:
+            fail(f"{name}: the forward's launches {fwd}, K1 rows {rec.k1},"
+                 f" K3 calls {rec.k3}; the structure gives {want}, {k1}, "
+                 f"{k3}")
+        if any(st > 2 for _, st in rec.k3):
+            fail(f"{name}: K3 launched at a stride above 2")
+        batch = batch_to(make_batch(np.random.default_rng(SEED + 3),
+                                    B_TRAIN, full), dev)
+        # cuDNN's default weight-gradient algorithms sum in an order of
+        # their own call by call: the two passes run in its deterministic
+        # mode, and the spread of two plain passes outside it is printed
+        # beside (the libraries' share of any gap)
+        with deterministic_algorithms(False):
+            loss_k, g_k = options_grads(model, batch, pts, full.train_cfg)
+            with kmod.plain_math():
+                loss_p, g_p = options_grads(model, batch, pts,
+                                            full.train_cfg)
+            # control: the kernels with TF32 allowed in the GEMMs and convs
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                g_t = options_grads(model, batch, pts, full.train_cfg)[1]
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+        with kmod.plain_math():
+            spread = [options_grads(model, batch, pts, full.train_cfg)[1]
+                      for _ in range(2)]
+        top = max(g.abs().max().item() for g in g_p.values())
+        gap = lambda a, b: {n: (a[n] - b[n]).abs().max().item() / top
+                            for n in b}
+        gaps, noise = gap(g_k, g_p), gap(*spread)
+        worst = sorted(gaps, key=gaps.get, reverse=True)[:3]
+        lerr = abs(loss_k - loss_p) / abs(loss_p)
+        leaf, leaves = rel_by_leaf(g_k, g_p, 1e-4)
+        ctrl, ctrl_leaves = rel_by_leaf(g_t, g_p, 1e-4)
+        del spread
+        # a gradient sums the forward's roundoff over every row with
+        # cancellation: the kernels' own gap is held per leaf at
+        # phase_train_parity's limit for it (GRAD_RTOL); the gap against
+        # the largest gradient is printed beside the forward's PARITY_RTOL
+        say(f"[{name}] f32 gradients, kernels vs plain on the card "
+            f"(cudnn.deterministic), {len(g_p)} leaves: per leaf (floored "
+            f"at 1e-4 of the largest) {leaf:.3e} (tol {GRAD_RTOL:g}; "
+            f"{leaves}); max |diff| / max |gradient| {gaps[worst[0]]:.3e} "
+            f"(beside {PARITY_RTOL:g}; "
+            + ", ".join(f"{n} {gaps[n]:.3e}" for n in worst)
+            + f"); loss {loss_k:.6f} vs {loss_p:.6f} (rel {lerr:.3e}, tol "
+            f"{PARITY_RTOL:g}); two plain passes with cuDNN's default "
+            f"algorithms differ by {max(noise.values()):.3e} at "
+            f"{max(noise, key=noise.get)}; control, TF32 allowed: per leaf "
+            f"{ctrl:.3e} ({ctrl_leaves}) [{CARD}]")
+        if set(g_k) != set(g_p) or leaf > GRAD_RTOL \
+                or lerr > PARITY_RTOL or not math.isfinite(loss_k):
+            fail(f"{name}: f32 gradients kernels vs plain out of tolerance")
+        if ctrl <= GRAD_RTOL:
+            fail(f"{name}: the gradients' check does not see TF32: limit "
+                 "too loose")
+        # the witness: the same forward and backward in f64 on the card
+        # through the plain versions. Each f32 run's gap to it, against
+        # the largest gradient: the kernels' within the forward's limit,
+        # or within twice the plain versions' own where those read above
+        # it (roundoff of the same order); TF32 above that limit
+        model.double()
+        b64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in batch.items()}
+        t0 = time.perf_counter()
+        with deterministic_algorithms(False), kmod.plain_math():
+            loss_64, g_64 = options_grads(model, b64, pts.double(),
+                                          full.train_cfg)
+        secs = time.perf_counter() - t0
+        top64 = max(g.abs().max().item() for g in g_64.values())
+        wl = worst[0]
+        vs64, at64, where = {}, {}, {}
+        for label, g in (("kernels", g_k), ("plain", g_p), ("TF32", g_t)):
+            d = {n: (g[n].double() - w).abs().max().item()
+                 for n, w in g_64.items()}
+            where[label] = max(d, key=d.get)
+            vs64[label] = d[where[label]] / top64
+            at64[label] = ((g[wl].double() - g_64[wl]).abs().max()
+                           / g_64[wl].abs().max()).item()
+        lim64 = max(PARITY_RTOL, 2 * vs64["plain"])
+        say(f"[{name}] f64 witness (plain versions on the card, {secs:.1f}"
+            f" s, loss {loss_64:.9f}): max |diff| / max |gradient| "
+            + ", ".join(f"{k} {v:.3e} at {where[k]}"
+                        for k, v in vs64.items())
+            + f" (limit {lim64:.3e}: the kernels below, TF32 above); at "
+            f"{wl}, the kernels' worst leaf against plain, relative to "
+            "the leaf: " + ", ".join(f"{k} {v:.3e}" for k, v in at64.items())
+            + f" [{CARD}]")
+        if vs64["kernels"] > lim64:
+            fail(f"{name}: the kernels' f32 gradients out of tolerance of "
+                 "the f64 witness")
+        if vs64["TF32"] <= lim64:
+            fail(f"{name}: the f64 witness's limit does not see TF32")
+        del model, g_k, g_p, g_t, g_64, b64
+        torch.cuda.empty_cache()
+
+        # serving: 2 bf16 requests of batch 16, the config's NMS
+        model = PointTransformer(
+            m, generator=torch.Generator().manual_seed(SEED),
+            device=dev).eval().to(torch.bfloat16)
+        class_mask = torch.ones(m.num_classes, dtype=torch.bool, device=dev)
+        for k in wrappers:
+            k.launches = 0
+        ms = []
+        with torch.no_grad():
+            for req in mq_requests(m, dev, 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = model(*req)
+                det = decode_and_nms_batch(
+                    pts, o["cls_logits"], o["offsets"], o["fpn_mask"],
+                    class_mask, num_classes=m.num_classes,
+                    pre_nms_topk=t.pre_nms_topk,
+                    pre_nms_thresh=t.pre_nms_thresh,
+                    duration_thresh=t.duration_thresh,
+                    max_seg_num=t.max_seg_num, min_score=t.min_score,
+                    nms_sigma=t.nms_sigma, voting_thresh=t.voting_thresh,
+                    use_soft_nms=t.nms_method == "soft",
+                    iou_threshold=t.iou_threshold,
+                    multiclass=t.multiclass_nms)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        serve = {k.__name__: k.launches for k in wrappers}
+        s_ = torch.where(det.valid, det.scores, -1.0)
+        if not (torch.isfinite(det.segs).all() and torch.isfinite(
+                det.scores).all()) or (s_[:, 1:] > s_[:, :-1]).any() \
+                or det.segs.shape != (B_SERVE, t.max_seg_num, 2):
+            fail(f"{name}: detections non-finite, unsorted or misshapen")
+        say(f"[{name}] serve batch {B_SERVE} bf16: {ms[1]:.3f} ms/request "
+            f"(the second of 2; forward + decode + {t.nms_method} NMS); "
+            f"valid detections a clip {det.valid.sum(1).float().mean():.2f};"
+            f" launches in the 2 requests {serve}")
+        for k, n in want.items():
+            if serve[k] != 2 * n:
+                fail(f"{name}: {k} launched {serve[k]} times in 2 requests,"
+                     f" {n} a request expected")
+        del model
+        torch.cuda.empty_cache()
+
+        # training: 2 bf16 steps at batch 2, f32 masters, regularisers on
+        model = PointTransformer(
+            m, generator=torch.Generator().manual_seed(SEED), device=dev)
+        st = init_train_state(model, full, steps_per_epoch=1, seed=SEED,
+                              device=dev)
+        step = make_train_step(pts, full.train_cfg, regularize=True,
+                               compute_dtype=torch.bfloat16)
+        from vilco_tpu_torch.train.engine import CLBatchExtras
+
+        cl = CLBatchExtras(torch.ones(m.num_classes, dtype=torch.bool,
+                                      device=dev))
+        for k in wrappers:
+            k.launches = 0
+        ms, mets = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mets.append(step(st, batch, cl))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        train = {k.__name__: k.launches for k in wrappers}
+        losses = [mt["final_loss"].item() for mt in mets]
+        clip = full.train_cfg.clip_grad_l2norm > 0
+        say(f"[{name}] train batch {B_TRAIN} bf16 (f32 masters): "
+            f"{ms[1]:.3f} ms/step (the second of 2); losses {losses}; "
+            f"grad_norm {'on' if clip else 'off (clip off)'}; launches in "
+            f"the 2 steps {train}")
+        if not all(math.isfinite(v) for v in losses) or (
+                ("grad_norm" in mets[0]) != clip):
+            fail(f"{name}: a loss is not finite or grad_norm disagrees "
+                 "with the clip")
+        need = ["adamw_update_multi"] + [
+            k for k, b in (("fused_attention_blc", k1),
+                           ("attention_bwd_cuda", k1),
+                           ("xl_rel_attention", n_xl),
+                           ("xl_bwd_cuda", n_xl),
+                           ("fused_dwconv_qkv", k3),
+                           ("dwconv_bwd_cuda", k3)) if b]
+        if any(train[k] < 1 for k in need):
+            fail(f"{name}: a kernel of the train path was never launched: "
+                 f"{ {k: train[k] for k in need} }")
+        for k in ("xl_rel_attention", "xl_bwd_cuda"):
+            if n_xl and train[k] != 2 * n_xl:
+                fail(f"{name}: {k} launched {train[k]} times in 2 steps, "
+                     f"{n_xl} a step expected")
+        del model, st
+        torch.cuda.empty_cache()
+        result[name] = {"serve": serve, "train": train}
+    return result
+
+
 def kernel_kind(name: str) -> str:
     if any(k in name for k in ("attention_blc", "xl_rel_attention",
                                "dwconv_qkv", "adamw_kernel", "banded_",
@@ -7358,6 +7772,11 @@ def main():
     ext = phase_extractors(dev)
     phase_export(dev)
     took("extractors and export")
+    # the model and post-processing options of JAX's config at the graft
+    # flagship's width: FPN1D, two XL layers, fpn_start_level, the head and
+    # embedding options, hard class-agnostic NMS, the train options
+    opts = phase_model_options(dev)
+    took("model options")
 
     rows = [
         # name, source, replaces, errors, timing, launches (MQ path; the
@@ -7471,6 +7890,10 @@ def main():
             entry["also_replaces"] = also[fn]
         if fn in dp_launches:
             entry["launches_dp"] = dp_launches[fn]
+        for case, n in opts.items():
+            for part in ("serve", "train"):
+                if n[part].get(fn):
+                    entry[f"launches_{case}_{part}"] = n[part][fn]
         per_replay = {case: n[fn] for case, n in multi_launches.items()
                       if n.get(fn)}
         if per_replay:      # by the profiler, in one replay of the graph
@@ -7529,7 +7952,8 @@ if __name__ == "__main__":
                          ["--mq-episode"], ["--nlq-episode"],
                          ["--vq-episode"], ["--vq-reference"], ["--dp"],
                          ["--optim"], ["--guard-ladder"], ["--multi-step"],
-                         ["--extractors"], ["--export"]):
+                         ["--extractors"], ["--export"],
+                         ["--model-options"]):
         phase_device()
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -7567,6 +7991,8 @@ if __name__ == "__main__":
             phase_extractors(dev)
         if sys.argv[1] == "--export":
             phase_export(dev, full=True)
+        if sys.argv[1] == "--model-options":
+            phase_model_options(dev, tuple(MODEL_OPTIONS))
         if sys.argv[1] == "--vq-train":
             phase_vq_kernels(dev)
             phase_vq_train_parity(dev)

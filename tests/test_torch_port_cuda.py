@@ -876,7 +876,8 @@ def _state_bits(st, cl):
 
 
 @pytest.mark.gpu
-def test_multi_step_graph_replays_eager_steps_bitwise(cuda):
+@pytest.mark.parametrize("clip", [1.0, -1.0], ids=["clip", "no_clip"])
+def test_multi_step_graph_replays_eager_steps_bitwise(cuda, clip):
     """make_multi_train_step on the card at the MQ yaml's tiny twin as CL
     task 1 (L2P, narration SSL, the adapter EMA), dropout, drop-path and
     the XL kernel's dropout at 0.1, bf16, cudnn.deterministic on: two
@@ -884,7 +885,9 @@ def test_multi_step_graph_replays_eager_steps_bitwise(cuda):
     2 replays; then 3 replays) against 6 eager steps of a clone, every
     buffer the step writes and the last metrics bitwise equal after each
     call; the wrappers' Python counters count the captured kernels once;
-    the captured multi step refuses another state."""
+    the captured multi step refuses another state. With the clip off
+    (clip_grad_l2norm <= 0, decided when the step is built) the graph
+    holds the unclipped update and the metrics have no grad_norm."""
     import copy
     import dataclasses
 
@@ -899,7 +902,8 @@ def test_multi_step_graph_replays_eager_steps_bitwise(cuda):
 
     cfg = mq_yaml_config(tiny=True)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, dropout=0.1, droppath=0.1, xl_dropout=0.1))
+        cfg.model, dropout=0.1, droppath=0.1, xl_dropout=0.1),
+        train_cfg=dataclasses.replace(cfg.train_cfg, clip_grad_l2norm=clip))
     m, K = cfg.model, 3
     ex = task_extras(cfg, 1, 2)
     model = PointTransformer(m, torch.Generator().manual_seed(0),
@@ -934,6 +938,7 @@ def test_multi_step_graph_replays_eager_steps_bitwise(cuda):
             torch.cuda.synchronize()
             assert states[0].step == states[1].step == K * (call + 1)
             assert got.keys() == want.keys()
+            assert ("grad_norm" in got) == (clip > 0)
             assert all(torch.equal(got[k], want[k]) for k in got), call
             for i, (a, b) in enumerate(zip(_state_bits(states[0], cls[0]),
                                            _state_bits(states[1], cls[1]))):
@@ -1066,3 +1071,138 @@ def test_exported_program_on_card_holds_no_kernel(cuda, tmp_path,
             scale = want[key].abs().max().item()
             torch.testing.assert_close(got[key], want[key], rtol=0,
                                        atol=2e-5 * scale)
+
+
+# the model options (scale_factor 4 levels 1024 down to 1, stacked XL, the
+# stride-3 and stride-4 blocks): K1 at the stride-4 pyramid's lengths,
+# 16 heads of 64, the last a level of one row
+OPTION_K1_T = [256, 64, 16, 4, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ftol,btol", [(torch.float32, 1e-4, 1e-4),
+                                             (torch.bfloat16, 1e-2, 2e-2)])
+@pytest.mark.parametrize("T", OPTION_K1_T)
+def test_k1_at_scale_factor_4_levels_on_card(cuda, dtype, ftol, btol, T):
+    """K1 forward and backward at scale_factor 4's level lengths (batch 2,
+    a ragged mask: at one row the second row's only key is valid) against
+    autograd through the plain version, at the limits above."""
+    B, H, D = 2, 16, 64
+    q, k, v, g, _ = _k1_inputs(np.random.default_rng(T), cuda, dtype, B, T,
+                               T, H, D)
+    m = torch.ones((B, T), dtype=torch.bool, device=cuda)
+    m[1, max(1, T // 2):] = False
+    with torch.no_grad():
+        out = fused_attention_blc(q, k, v, m, H)
+    _close([out], [fused_attention_blc_plain(q, k, v, m, H)], ftol,
+           "K1 forward")
+    _close(_grads(lambda *a: fused_attention_blc(*a, m, H), (q, k, v), g),
+           _grads(lambda *a: fused_attention_blc_plain(*a, m, H), (q, k, v),
+                  g), btol, "K1 backward")
+    torch.cuda.synchronize()
+
+
+def _option_model(cuda, **model):
+    from dataclasses import replace
+
+    from vilco_tpu_torch.data.synthetic import tiny_config
+    from vilco_tpu_torch.models.point_transformer import PointTransformer
+
+    cfg = tiny_config()
+    m = replace(cfg.model, **model)
+    return PointTransformer(m, device=cuda).to(torch.float32), m
+
+
+@pytest.mark.gpu
+def test_stacked_xl_matches_plain_on_card(cuda, monkeypatch):
+    """The tiny model with two XL layers in f32: its forward and every
+    parameter gradient with the kernels against the same inside
+    kernels.plain_math(), 1e-4 of the largest; K2 and K2-bwd launched
+    twice a forward and a backward (rate 0 in eval and with no rng)."""
+    from vilco_tpu_torch import kernels
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model, m = _option_model(cuda, use_xl=True, xl_layers=2, xl_d_inner=64)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, m.max_seq_len, m.input_dim)).astype(np.float32)).to(cuda)
+    mask = torch.ones((2, m.max_seq_len), dtype=torch.bool, device=cuda)
+    mask[1, 40:] = False
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        out = model(x, mask)
+        (out["cls_logits"].square().mean() + out["offsets"].mean()).backward()
+        return [out["cls_logits"].detach()] + [
+            p.grad.detach().clone() for p in model.parameters()
+            if p.grad is not None]
+
+    n_f, n_b = xl_rel_attention.launches, xl_bwd_cuda.launches
+    got = run()
+    assert (xl_rel_attention.launches - n_f, xl_bwd_cuda.launches - n_b) \
+        == (2, 2)
+    with kernels.plain_math():
+        want = run()
+    top = max(w.abs().max().item() for w in want[1:])
+    for a, b in zip(got[1:], want[1:]):
+        assert (a - b).abs().max().item() <= 1e-4 * top
+    _close(got[:1], want[:1], 1e-4, "stacked XL forward")
+
+
+@pytest.mark.gpu
+def test_stride_2_odd_pairs_launch_k3s2_on_card(cuda, monkeypatch):
+    """T = 60: the stride-2 branch blocks take 60, 30 and 15 rows, where
+    JAX's Pallas conv gives way to its MaskedConvs (T not a multiple of
+    4). The port launches K3s2 at every one of them, K3 at the stem
+    blocks, and the f32 forward (TF32 off) equals the plain one within
+    1e-4."""
+    import vilco_tpu_torch.kernels.dwconv as dw
+    from vilco_tpu_torch import kernels
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model, m = _option_model(cuda, max_seq_len=60)
+    calls, fwd = [], dw.dwconv_fwd_cuda
+
+    def record(x, w, stride):
+        calls.append((x.shape[1], stride))
+        return fwd(x, w, stride)
+
+    monkeypatch.setattr(dw, "dwconv_fwd_cuda", record)
+    x = torch.randn(2, 60, m.input_dim, device=cuda)
+    mask = torch.ones((2, 60), dtype=torch.bool, device=cuda)
+    mask[1, 41:] = False
+    with torch.no_grad():
+        out = model.eval()(x, mask)
+        with kernels.plain_math():
+            ref = model(x, mask)
+    stems = m.backbone_arch[1] + (0 if m.use_xl else 1)
+    branch = [(-(-60 // 2 ** i), 2) for i in range(m.num_branch_layers)]
+    assert calls == [(60, 1)] * stems + branch
+    assert [t for t, _ in branch][:3] == [60, 30, 15]
+    _close([out["cls_logits"], out["offsets"]],
+           [ref["cls_logits"], ref["offsets"]], 1e-4, "odd pairs forward")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [3, 4])
+def test_strides_above_2_launch_no_k3_on_card(cuda, monkeypatch, scale):
+    """A branch block of stride 3 or 4 runs JAX's masked depthwise convs
+    (s + 1 taps), not K3s2: K3 launches for the stem blocks only, and the
+    f32 forward (TF32 off) equals the plain one within 1e-4."""
+    from vilco_tpu_torch import kernels
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model, m = _option_model(cuda, scale_factor=scale)
+    x = torch.randn(2, m.max_seq_len, m.input_dim, device=cuda)
+    mask = torch.ones((2, m.max_seq_len), dtype=torch.bool, device=cuda)
+    n = fused_dwconv_qkv.launches
+    with torch.no_grad():
+        out = model.eval()(x, mask)
+        assert fused_dwconv_qkv.launches - n == m.backbone_arch[1] + (
+            0 if m.use_xl else 1)
+        with kernels.plain_math():
+            ref = model(x, mask)
+    _close([out["cls_logits"]], [ref["cls_logits"]], 1e-4, "stride forward")

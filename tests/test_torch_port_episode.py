@@ -529,10 +529,7 @@ def test_load_config_reads_yaml_and_json(tmp_path):
 
 @pytest.mark.parametrize("section,field,value", [
     ("opt", "no_such_field", 1), ("opt", "fused_apply_pc", True),
-    ("train_cfg", "clip_grad_l2norm", 2.0),
-    ("test_cfg", "nms_method", "hard"),
-    ("model", "fpn_type", "fpn"), ("model", "no_such_field", 1),
-    (None, "ckpt_format", "orbax")])
+    ("model", "no_such_field", 1), (None, "ckpt_format", "orbax")])
 def test_config_from_dict_refuses_what_the_port_cannot_run(section, field,
                                                            value):
     """A field the port cannot honour raises a ValueError naming it."""
@@ -543,6 +540,58 @@ def test_config_from_dict_refuses_what_the_port_cannot_run(section, field,
         d[section][field] = value
     with pytest.raises(ValueError, match=field):
         t_config.config_from_dict(d)
+
+
+@pytest.mark.parametrize("section,field,value", [
+    ("train_cfg", "clip_grad_l2norm", 2.0),
+    ("test_cfg", "nms_method", "hard"),
+    ("model", "fpn_type", "fpn")])
+def test_config_from_dict_carries_what_the_port_runs(section, field, value,
+                                                     monkeypatch):
+    """Fields the port once refused: the config carries the value and the
+    model or the step reads it (the clip: a train step clips at 2.0; hard
+    NMS: the runner's decode runs hard NMS; FPN1D: the model's neck)."""
+    from vilco_tpu_torch.data.synthetic import make_batch
+    from vilco_tpu_torch.models.point_transformer import (
+        PointTransformer,
+        level_lengths,
+    )
+    from vilco_tpu_torch.ops.assign import generate_points
+    from vilco_tpu_torch.train import engine as t_engine
+
+    d = j_tiny().to_dict()
+    d[section][field] = value
+    cfg = t_config.config_from_dict(d)
+    assert getattr(getattr(cfg, section), field) == value
+    assert cfg.to_dict()[section][field] == value
+    calls = {}
+    if section == "model":
+        model = PointTransformer(cfg.model, device="cpu")
+        assert type(model.neck).__name__ == "FPN1D"
+    elif section == "test_cfg":
+        monkeypatch.setattr(t_episode, "decode_and_nms_batch",
+                            lambda *a, **kw: calls.update(kw))
+        runner = type("Runner", (), {"cfg": cfg, "points": None,
+                                     "num_classes": 3})()
+        t_episode.EpisodeRunner._decode_batch(
+            runner, {"cls_logits": None, "offsets": None, "fpn_mask": None},
+            None)
+        assert calls["use_soft_nms"] is False
+    else:
+        clip = t_engine.global_norm_clip
+        monkeypatch.setattr(t_engine, "global_norm_clip", lambda *a, **kw: (
+            calls.update(kw), clip(*a, **kw))[1])
+        m = cfg.model
+        pts = torch.from_numpy(generate_points(
+            level_lengths(m), m.fpn_strides, m.regression_range))
+        state = t_engine.init_train_state(
+            PointTransformer(m, device="cpu"), cfg, 1, device="cpu")
+        batch = t_engine.batch_to(make_batch(np.random.default_rng(0), 2,
+                                             cfg), "cpu")
+        met = t_engine.make_train_step(pts, cfg.train_cfg)(
+            state, batch, t_engine.CLBatchExtras(
+                torch.ones(m.num_classes, dtype=torch.bool)))
+        assert calls["clip"] == 2.0 and torch.isfinite(met["grad_norm"])
 
 
 # ----------------------------------------------------------- checkpoints

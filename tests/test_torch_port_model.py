@@ -28,10 +28,13 @@ from vilco_tpu.models.point_transformer import PointTransformer as JPT
 from vilco_tpu.ops import decode as j_decode
 from vilco_tpu.ops import nms as j_nms
 from vilco_tpu.train import optim as j_optim
-from vilco_tpu_torch.core.config import ModelConfig, TestCfg, flagship_config
-from vilco_tpu_torch.models import backbone as t_backbone
+from vilco_tpu_torch.core.config import (
+    ModelConfig,
+    TestCfg,
+    TrainCfg,
+    flagship_config,
+)
 from vilco_tpu_torch.models import layers as t_layers
-from vilco_tpu_torch.models import point_transformer as t_pt
 from vilco_tpu_torch.models.convert import load_jax_params, params_from_jax
 from vilco_tpu_torch.models.point_transformer import (
     PointTransformer,
@@ -39,7 +42,6 @@ from vilco_tpu_torch.models.point_transformer import (
 )
 from vilco_tpu_torch.ops.assign import generate_points
 from vilco_tpu_torch.ops.decode import decode_and_nms_batch
-from vilco_tpu_torch.train import engine as t_engine
 from vilco_tpu_torch.train import optim as t_optim
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -62,17 +64,18 @@ def _port_cfg(jcfg) -> ModelConfig:
                           for f in dataclasses.fields(ModelConfig)})
 
 
-# what every MQ config shares, fixed in the port's modules, not its config
+# what every MQ flagship config shares: the port's config defaults
+_DEFAULT = ModelConfig()
 FIXED_MODEL = dict(
     variant="mq", backbone_type="convTransformer", fpn_type="identity",
     scale_factor=2, n_mha_win_size=-1, use_cross_modal=False,
     embd_with_ln=True, fpn_with_ln=True, head_with_ln=True, use_abs_pe=True,
     fpn_start_level=0, use_xl=True, xl_layers=1,
-    xl_d_inner=t_backbone.XL_D_INNER,
-    embd_kernel_size=t_backbone.EMBD_KERNEL_SIZE,
-    head_kernel_size=t_pt.HEAD_KERNEL_SIZE,
-    head_num_layers=t_pt.HEAD_NUM_LAYERS,
-    t_c_alpha=t_layers.T_C_ALPHA, droppath=0.1)
+    xl_d_inner=_DEFAULT.xl_d_inner,
+    embd_kernel_size=_DEFAULT.embd_kernel_size,
+    head_kernel_size=_DEFAULT.head_kernel_size,
+    head_num_layers=_DEFAULT.head_num_layers,
+    t_c_alpha=_DEFAULT.t_c_alpha, droppath=0.1)
 FIXED_TEST = dict(nms_method="soft", multiclass_nms=True)
 
 
@@ -100,14 +103,15 @@ def test_flagship_config_matches_jax(tiny):
         assert getattr(ref.test_cfg, name) == v, name
     assert port.model.fpn_strides == ref.model.fpn_strides
     assert port.model.num_branch_layers == ref.model.num_branch_layers
-    # the training constants fixed in train/engine.py, train/optim.py and
-    # models/layers.py
+    # the training constants: the port's train_cfg defaults, and those
+    # fixed in train/optim.py and models/layers.py
     tc, opt = ref.train_cfg, ref.opt
+    ptc = TrainCfg()
     assert (tc.center_sample, tc.center_sample_radius) == (
-        "radius", t_engine.CENTER_SAMPLE_RADIUS)
+        "radius", ptc.center_sample_radius)
     assert tc.al_loss_weight == 0.0 and tc.dropout == 0.0
-    assert tc.loss_weight == t_engine.LOSS_WEIGHT
-    assert tc.clip_grad_l2norm == t_engine.CLIP_GRAD_L2NORM
+    assert tc.loss_weight == ptc.loss_weight
+    assert tc.clip_grad_l2norm == ptc.clip_grad_l2norm
     assert tc.droppath == ref.model.droppath
     assert ref.model.xl_dropout == t_layers.XL_DROPOUT
     # the opt section reads into the port's OptCfg field for field

@@ -48,7 +48,6 @@ from vilco_tpu.train import optim as j_optim
 from vilco_tpu_torch.cl.prompt import PromptPool
 from vilco_tpu_torch.core.config import CLCfg, mq_yaml_config
 from vilco_tpu_torch.data.synthetic import make_batch, task_extras
-from vilco_tpu_torch.models import backbone as t_backbone
 from vilco_tpu_torch.models import layers as t_layers
 from vilco_tpu_torch.models.convert import (
     adapter_ema_from_jax,
@@ -142,7 +141,7 @@ def test_mq_yaml_config_matches_jax(tiny):
     m = ref.model
     assert m.use_cross_modal and m.use_xl
     assert tuple(m.cross_modal_skip_levels) == \
-        t_backbone.CROSS_MODAL_SKIP_LEVELS
+        port.model.cross_modal_skip_levels == (1, 2)
     assert m.dropout == ref.train_cfg.dropout
     assert ref.cl_cfg.embed_dim == m.n_txt_in
     if not tiny:

@@ -35,11 +35,13 @@ from vilco_tpu.ops import nms as j_nms
 from vilco_tpu.tasks.nlq import nlq_tiny_config
 from vilco_tpu.train import engine as j_engine
 from vilco_tpu.train import optim as j_optim
-from vilco_tpu_torch.core.config import nlq_flagship_config
+from vilco_tpu_torch.core.config import (
+    ModelConfig,
+    TrainCfg,
+    nlq_flagship_config,
+)
 from vilco_tpu_torch.data.synthetic import make_batch
-from vilco_tpu_torch.models import backbone as t_backbone
 from vilco_tpu_torch.models import layers as t_layers
-from vilco_tpu_torch.models import point_transformer as t_pt
 from vilco_tpu_torch.models.convert import (
     adam_state_from_jax,
     load_jax_params,
@@ -90,15 +92,15 @@ def test_nlq_config_matches_jax(tiny):
         "identity", 2, 0)
     assert m.embd_with_ln and m.fpn_with_ln and m.head_with_ln
     assert m.use_abs_pe and not m.use_xl
+    d, dtc = ModelConfig(), TrainCfg()
     assert (m.embd_kernel_size, m.head_kernel_size, m.head_num_layers) == (
-        t_backbone.EMBD_KERNEL_SIZE, t_pt.HEAD_KERNEL_SIZE,
-        t_pt.HEAD_NUM_LAYERS)
+        d.embd_kernel_size, d.head_kernel_size, d.head_num_layers)
     tc, opt, t = ref.train_cfg, ref.opt, ref.test_cfg
     assert (tc.center_sample, tc.center_sample_radius) == (
-        "radius", t_engine.CENTER_SAMPLE_RADIUS)
+        "radius", dtc.center_sample_radius)
     assert tc.al_loss_weight == 0.0 and tc.dropout == 0.0
-    assert tc.loss_weight == t_engine.LOSS_WEIGHT
-    assert tc.clip_grad_l2norm == t_engine.CLIP_GRAD_L2NORM
+    assert tc.loss_weight == dtc.loss_weight
+    assert tc.clip_grad_l2norm == dtc.clip_grad_l2norm
     assert (opt.type, opt.weight_decay, opt.warmup, opt.schedule_type,
             opt.eta_min) == ("adamw", t_optim.WEIGHT_DECAY, True, "cosine",
                              1e-8)

@@ -3,7 +3,8 @@
 (vilco_tpu/models/torch_import.py followed by models/convert.py::
 params_from_jax) on the CPU.
 
-For each tiny configuration (MQ with the XL stage on and off, NLQ, the VQ
+For each tiny configuration (MQ with the XL stage on and off, MQ with two
+XL layers and 4-layer heads, NLQ, the VQ
 ClipMatcher in the MAE geometry with frozen BN) a state_dict of the
 reference's names is drawn from a seed at the shapes the port's rules give
 (`reference_shapes`; the BN running variances positive), and goes through
@@ -37,7 +38,7 @@ from vilco_tpu_torch.models.clip_matcher import ClipMatcher
 from vilco_tpu_torch.models.convert import params_from_jax
 from vilco_tpu_torch.models.point_transformer import PointTransformer
 
-CASES = ("mq_xl", "mq", "nlq", "vq_mae")
+CASES = ("mq_xl", "mq_xl2", "mq", "nlq", "vq_mae")
 VQ_TINY = dict(dim=32, clip_size=64, patch_size=8, vit_dim=24, vit_depth=1,
                vit_heads=2, resolution_transformer=2,
                resolution_anchor_feat=4, num_transformer=1,
@@ -49,9 +50,10 @@ def _port_cfg(jcfg) -> ModelConfig:
                           for f in dataclasses.fields(ModelConfig)})
 
 
-def _mq(use_xl: bool):
+def _mq(use_xl: bool, **model):
     cfg = _flagship_cfg(tiny=True)
-    jcfg = cfg.model.updated(use_xl=use_xl, compute_dtype="float32")
+    jcfg = cfg.model.updated(use_xl=use_xl, compute_dtype="float32",
+                             **model)
     B, T = 1, jcfg.max_seq_len
     template = JPT(jcfg, cfg.cl_cfg).init(
         jax.random.PRNGKey(0), jnp.zeros((B, T, jcfg.input_dim)),
@@ -94,6 +96,9 @@ def _vq():
 
 
 BUILD = {"mq_xl": lambda: _mq(True), "mq": lambda: _mq(False), "nlq": _nlq,
+         # two XL layers (backbone.xlnet.layer.{0,1}) and 4-layer heads
+         "mq_xl2": lambda: _mq(True, xl_layers=2, xl_d_inner=96,
+                               head_num_layers=4),
          "vq_mae": _vq}
 
 

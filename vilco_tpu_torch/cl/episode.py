@@ -493,6 +493,11 @@ class EpisodeRunner:
             min_score=t.min_score,
             nms_sigma=t.nms_sigma,
             voting_thresh=t.voting_thresh,
+            # as JAX's runner: any method but "soft", "none" included,
+            # runs hard NMS (vilco_tpu/cl/episode.py:582)
+            use_soft_nms=t.nms_method == "soft",
+            iou_threshold=t.iou_threshold,
+            multiclass=t.multiclass_nms,
         )
 
     def _collect_fpn_feats(self, videos) -> List[torch.Tensor]:

@@ -1,27 +1,26 @@
-"""The subset of vilco_tpu.core.config that the MQ, NLQ and VQ serving and
-training paths and their CL episodes read.
+"""The port's config: the sections of vilco_tpu.core.config that the MQ,
+NLQ and VQ serving and training paths and their CL episodes read.
 
-Plain frozen dataclasses; fields carry their JAX names, and YAML is read
-only inside `load_config`. `DatasetCfg`, `LoaderCfg` and `VQConfig` are
-JAX's `dataset`, `loader` and `vq` sections whole (VQConfig with what JAX's
-VQ runner fixes beside them). `ModelConfig` holds only what differs between
-the flagships and their tiny twins (variant, widths, depths, heads, window,
-classes, lengths, regression ranges, drop-path), with the dataset dims
-already propagated (what `Config.derived()` does there); `TrainCfg` and
-`TestCfg` hold the `train_cfg` and `test_cfg` values the two differ in,
-`OptCfg` every `opt` field that JAX's optimizer reads, and `CLCfg` the
-`cl_cfg` fields the MQ yaml's CL method reads. What every config shares
-is fixed in the module that reads it: the identity neck and the channel
-LayerNorms of the embedding, neck and heads, the absolute position
-encoding, the MQ variant's XL stage of one layer
-(`use_xl` says whether there is one) and the branch levels without text
-cross-attention (models/backbone.py), 3-tap
-convs and 3-layer heads (models/point_transformer.py), the 0.8 channel
-blend (models/layers.py), stride-2 branch blocks (`fpn_strides`),
-multiclass soft-NMS (ops/nms.py), radius center sampling, loss weight 1 and
-clip 1.0 (train/engine.py), AdamW's betas (train/optim.py); `_FIXED`
-lists them by their JAX names, and
-`config_from_dict` refuses a config that sets another value.
+Plain frozen dataclasses; fields carry their JAX names and JAX's defaults,
+and YAML is read only inside `load_config`. `DatasetCfg`, `LoaderCfg` and
+`VQConfig` are JAX's `dataset`, `loader` and `vq` sections whole
+(VQConfig with what JAX's VQ runner fixes beside them). `ModelConfig` is
+JAX's `model` section with the dataset dims already propagated (what
+`Config.derived()` does there): the backbone (`backbone_type`
+convTransformer or conv, `backbone_arch`, `scale_factor`, the embedding's
+kernel, LayerNorm and position encoding, the XL stage's layers and width,
+the text levels `cross_modal_skip_levels`, the channel blend `t_c_alpha`),
+the neck (`fpn_type` identity or fpn, `fpn_with_ln`, `fpn_start_level`)
+and the heads (`head_kernel_size`, `head_num_layers`, `head_with_ln`).
+`TrainCfg` and `TestCfg` are JAX's `train_cfg` and `test_cfg` (center
+sampling, loss weight, the gradient clip; the NMS method, its IoU
+threshold and `multiclass_nms`), `OptCfg` every `opt` field that JAX's
+optimizer reads, and `CLCfg` the `cl_cfg` fields the CL methods read. JAX
+stores three fields it reads nowhere (`use_rel_pe`,
+`max_buffer_len_factor`, `train_cfg.cls_prior_prob`: its head fixes the
+prior at 0.01); the port stores them the same way. `config_from_dict`
+refuses a `model.name` other than point_transformer, `ckpt_format` orbax
+and a field that is not JAX's.
 """
 
 from __future__ import annotations
@@ -38,40 +37,69 @@ COMPUTE_DTYPES = ("bfloat16", "float32")
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """`variant` "mq": backbone_arch (convs, stem, branch), one XL stage;
-    "nlq": (convs, txt_stem, vid_stem, cross_branch, plain_branch), the
-    dual tower. `n_mha_win_size` is the total attention window (the half
-    window w = size // 2), -1 for dense attention. `attention_impl` picks
-    the dense self-attention of the MQ stem and branch blocks: "xla" (K1,
-    the kernel JAX's default runs on a TPU), "flash" (K1f) or
-    "pallas_naive" (K1n). `use_cross_modal` builds the MQ text tower and
-    the branch blocks' text cross-attention (the NLQ dual tower always has
-    its text tower and ignores it); `dropout` is the blocks' proj_drop
-    (train_cfg.dropout, copied by `Config.derived()`). `use_xl`: the MQ
-    variant's long-context stage at branch level 0 is one XL relative
-    attention (dropout `xl_dropout` in training); without it, one more
-    stem block (`pre_branch`), as JAX builds it. `compute_dtype`: the
-    episode's train and eval forwards (models/point_transformer.py)."""
+    """`variant` "mq": backbone_arch (convs, stem, branch), the
+    conv-transformer backbone with its long-context stage, or with
+    `backbone_type` "conv" the pure-conv pyramid (ConvBlocks; no text, no
+    XL); "nlq": (convs, txt_stem, vid_stem, cross_branch, plain_branch), the
+    dual tower. Each branch block downsamples by `scale_factor`.
+    `n_mha_win_size` is the total attention window (the half window w =
+    size // 2), -1 for dense attention. `attention_impl` picks the dense
+    self-attention of the MQ stem and branch blocks: "xla" (K1, the kernel
+    JAX's default runs on a TPU), "flash" (K1f) or "pallas_naive" (K1n).
+    `use_cross_modal` builds the MQ text tower and the text cross-attention
+    of the branch blocks outside `cross_modal_skip_levels` (the NLQ dual
+    tower always has its text tower and ignores it); `dropout` is the
+    blocks' proj_drop (train_cfg.dropout, copied by `Config.derived()`, as
+    are `droppath` and `t_c_alpha`, the stride-1 blocks' blend of temporal
+    and channel attention). `use_xl`: the MQ variant's long-context stage
+    at branch level 0 is `xl_layers` XL relative attention layers of FF
+    width `xl_d_inner` (dropout `xl_dropout` in training); without it, one
+    more stem block (`pre_branch`), as JAX builds it. The embedding convs
+    take `embd_kernel_size` taps, with a channel LayerNorm and no bias
+    (`embd_with_ln`) or a bias and no norm; `use_abs_pe` adds the
+    sinusoid position table. `fpn_type` "identity" (a channel LayerNorm a
+    level with `fpn_with_ln`) or "fpn" (FPN1D, its top level through
+    ACConv); the heads read the neck's levels from `fpn_start_level` on.
+    `use_rel_pe` and `max_buffer_len_factor` are stored and read nowhere,
+    as in JAX. `compute_dtype`: the episode's train and eval forwards
+    (models/point_transformer.py)."""
     variant: str = "mq"
+    backbone_type: str = "convTransformer"
+    fpn_type: str = "identity"
     backbone_arch: Tuple[int, ...] = (2, 2, 9)
+    scale_factor: int = 2
     regression_range: Tuple[Tuple[float, float], ...] = (
         (0, 4), (2, 8), (4, 16), (8, 32), (16, 64), (32, 128),
         (64, 256), (128, 512), (256, 1024), (512, 10000),
     )
     n_head: int = 16
     n_mha_win_size: int = -1
+    embd_kernel_size: int = 3
     embd_dim: int = 1024
+    embd_with_ln: bool = True
     fpn_dim: int = 1024
+    fpn_with_ln: bool = True
+    fpn_start_level: int = 0
     head_dim: int = 1024
+    head_kernel_size: int = 3
+    head_num_layers: int = 3
+    head_with_ln: bool = True
+    max_buffer_len_factor: float = 1.0
+    use_abs_pe: bool = True
+    use_rel_pe: bool = False
     n_txt_in: int = 768
     input_dim: int = 4096
     num_classes: int = 110
     max_seq_len: int = 1024
     droppath: float = 0.1
     dropout: float = 0.0
+    t_c_alpha: float = 0.8
     use_cross_modal: bool = False
+    cross_modal_skip_levels: Tuple[int, ...] = (1, 2)
     attention_impl: str = "xla"
     use_xl: bool = False
+    xl_layers: int = 1
+    xl_d_inner: int = 2048
     xl_dropout: float = 0.1
     compute_dtype: str = "bfloat16"
 
@@ -90,38 +118,64 @@ class ModelConfig:
         return self.backbone_arch[-1]
 
     @property
+    def num_fpn_levels(self) -> int:
+        """The levels the heads read: the pyramid's from fpn_start_level."""
+        return self.num_branch_layers + 1 - self.fpn_start_level
+
+    @property
     def window(self) -> int:
         """Half window of the banded attention, -1 for dense."""
         return self.n_mha_win_size // 2 if self.n_mha_win_size > 1 else -1
 
     @property
     def fpn_strides(self) -> Tuple[int, ...]:
-        return tuple(2 ** i for i in range(self.num_branch_layers + 1))
+        return tuple(self.scale_factor ** i for i in
+                     range(self.fpn_start_level, self.num_branch_layers + 1))
 
 
 @dataclass(frozen=True)
 class TestCfg:
+    """JAX's `test_cfg`. `nms_method` "soft" runs Gaussian soft-NMS; any
+    other value, "none" included, hard NMS at `iou_threshold`, as JAX's
+    episode decodes (`use_soft_nms = nms_method == "soft"`);
+    `multiclass_nms` False runs one class-agnostic NMS with segment voting
+    (ops/nms.py::batched_nms)."""
     __test__ = False  # not a pytest class
 
     pre_nms_thresh: float = 0.001
     pre_nms_topk: int = 2000
+    iou_threshold: float = 0.1
     min_score: float = 0.001
     max_seg_num: int = 200
+    nms_method: str = "soft"
     nms_sigma: float = 0.75
     duration_thresh: float = 0.05
+    multiclass_nms: bool = True
     voting_thresh: float = 0.75
     ext_score_file: str = ""
 
 
 @dataclass(frozen=True)
 class TrainCfg:
-    """MQ weights its losses by the learned per-class Gaussians; NLQ does
-    not, and smooths its labels. `al_loss_weight` weights the
-    label-involved loss (0: off); `temperature` is the narration-SSL
-    InfoNCE's."""
+    """JAX's `train_cfg`. MQ weights its losses by the learned per-class
+    Gaussians; NLQ does not, and smooths its labels. `center_sample`
+    "radius" takes the points within `center_sample_radius` strides of a
+    segment's center, anything else every point inside it;
+    `loss_weight` weights the regression loss (<= 0: 1); `al_loss_weight`
+    the label-involved loss (0: off); `clip_grad_l2norm` is the global
+    gradient norm's clip (<= 0: off); `temperature` is the narration-SSL
+    InfoNCE's. `t_c_alpha` goes to the model (ModelConfig.t_c_alpha);
+    `cls_prior_prob` is stored and read nowhere, as in JAX. JAX's
+    `dropout` and `droppath` live in ModelConfig here."""
+    center_sample: str = "radius"
+    center_sample_radius: float = 1.5
     label_smoothing: float = 0.0
     use_gaussian_weights: bool = True
+    loss_weight: float = 1.0
+    cls_prior_prob: float = 0.01
     init_loss_norm: float = 100.0
+    clip_grad_l2norm: float = 1.0
+    t_c_alpha: float = 0.8
     al_loss_weight: float = 0.0
     temperature: float = 0.07
 
@@ -367,9 +421,8 @@ class Config:
     def to_dict(self) -> Dict[str, Any]:
         """JAX's `Config.to_dict()` layout (the episode's config.json), which
         vilco_tpu's `Config.from_dict` reads: the port's fields under their
-        JAX names, with what the port fixes in its modules (`_FIXED`) and
-        train_cfg's dropout and drop-path, which the model section holds
-        here."""
+        JAX names, `model.name` (`_FIXED`) and train_cfg's dropout and
+        drop-path, which the model section holds here."""
         d = {name: dataclasses.asdict(getattr(self, name))
              for name in _SECTIONS}
         for (sec, name), v in _FIXED.items():
@@ -537,46 +590,17 @@ _SECTIONS = {"model": ModelConfig, "test_cfg": TestCfg,
              "train_cfg": TrainCfg, "opt": OptCfg, "cl_cfg": CLCfg,
              "dataset": DatasetCfg, "loader": LoaderCfg}
 
-# JAX fields whose value the port's modules fix (docstring above): a config
-# that sets another value is refused
-_FIXED = {
-    ("model", "name"): "point_transformer",
-    ("model", "backbone_type"): "convTransformer",
-    ("model", "fpn_type"): "identity",
-    ("model", "scale_factor"): 2,
-    ("model", "embd_kernel_size"): 3,
-    ("model", "embd_with_ln"): True,
-    ("model", "fpn_with_ln"): True,
-    ("model", "fpn_start_level"): 0,
-    ("model", "head_kernel_size"): 3,
-    ("model", "head_num_layers"): 3,
-    ("model", "head_with_ln"): True,
-    ("model", "max_buffer_len_factor"): 1.0,
-    ("model", "use_abs_pe"): True,
-    ("model", "use_rel_pe"): False,
-    ("model", "xl_layers"): 1,
-    ("model", "xl_d_inner"): 2048,
-    ("model", "t_c_alpha"): 0.8,
-    ("model", "cross_modal_skip_levels"): (1, 2),
-    ("train_cfg", "center_sample"): "radius",
-    ("train_cfg", "center_sample_radius"): 1.5,
-    ("train_cfg", "loss_weight"): 1.0,
-    ("train_cfg", "cls_prior_prob"): 0.01,
-    ("train_cfg", "clip_grad_l2norm"): 1.0,
-    ("train_cfg", "t_c_alpha"): 0.8,
-    ("test_cfg", "nms_method"): "soft",
-    ("test_cfg", "multiclass_nms"): True,
-}
+# JAX fields of one value in the port: a config that sets another is
+# refused (the registry's one model)
+_FIXED = {("model", "name"): "point_transformer"}
 # JAX fields no path of the port reads: the knobs of JAX's own kernels and
-# optimizer forms (the same math), the hard-NMS threshold, the model EMA
-# (the episode never starts one), and options the MQ episode ignores in JAX
-# too
+# optimizer forms (the same math), the model EMA (the episode never starts
+# one), and options the MQ episode ignores in JAX too
 _IGNORED = {
     ("model", "fused_xl"), ("model", "remat_xl"),
     ("model", "fused_attention"), ("model", "fused_conv"),
     ("model", "xl_mem_len"),
     ("train_cfg", "dropout"), ("train_cfg", "droppath"),
-    ("test_cfg", "iou_threshold"),
     ("opt", "flatten"), ("opt", "fused_apply"), ("opt", "ema_decay"),
     ("cl_cfg", "random_order"), ("cl_cfg", "type_sampling"),
 }
@@ -602,9 +626,9 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
     episode persists, or a yaml read as it is) -> the port's Config, with
     what JAX's `Config.derived()` does: the dataset's dims, train_cfg's
     dropout and drop-path into the model, cl_cfg.embed_dim to the text
-    dim. A key the port does not know, a fixed field set to another value
-    (`_FIXED`) and `ckpt_format` "orbax" raise a ValueError naming the
-    field."""
+    dim, train_cfg's `t_c_alpha` into the model. A key the port does not
+    know, a `model.name` other than point_transformer (`_FIXED`) and
+    `ckpt_format` "orbax" raise a ValueError naming the field."""
     d = dict(d)
     d_train = dict(d.get("train_cfg") or {})
     kw: Dict[str, Any] = {}
@@ -616,8 +640,7 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
             if (sec, key) in _FIXED:
                 if _freeze(v) != _FIXED[(sec, key)]:
                     raise ValueError(f"{where}={v!r}: the port runs only "
-                                     f"{_FIXED[(sec, key)]!r} (the port "
-                                     "fixes it in its modules)")
+                                     f"{_FIXED[(sec, key)]!r}")
             elif key not in names and (sec, key) not in _IGNORED:
                 raise ValueError(f"{where}: not a field of the port's "
                                  f"config")
@@ -634,13 +657,15 @@ def config_from_dict(d: Mapping[str, Any]) -> Config:
         raise ValueError(f"ckpt_format={top['ckpt_format']!r}: the port "
                          "writes npz checkpoints only (orbax needs JAX)")
     ds = DatasetCfg(**kw["dataset"])
-    # Config.derived(): the dataset's dims and train_cfg's dropout and
-    # drop-path (JAX's defaults 0 and 0.1) go to the model
+    # Config.derived(): the dataset's dims and train_cfg's dropout,
+    # drop-path and t_c_alpha (JAX's defaults 0, 0.1 and 0.8) go to the
+    # model
     model = ModelConfig(**{
         **kw["model"], "input_dim": ds.input_dim,
         "num_classes": ds.num_classes, "max_seq_len": ds.max_seq_len,
         "dropout": d_train.get("dropout", 0.0),
-        "droppath": d_train.get("droppath", 0.1)})
+        "droppath": d_train.get("droppath", 0.1),
+        "t_c_alpha": d_train.get("t_c_alpha", 0.8)})
     cl = CLCfg(**kw["cl_cfg"])
     if cl.embed_dim != model.n_txt_in:
         cl = dataclasses.replace(cl, embed_dim=model.n_txt_in)

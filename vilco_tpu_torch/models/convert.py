@@ -7,7 +7,9 @@ The port names its parameters after the Flax paths
 is a rename of the leaf plus a layout change:
 
   Dense kernel (Cin, Cout)            -> Linear weight (Cout, Cin)
-  MaskedConv kernel (K, Cin/g, Cout)  -> Conv1d weight (Cout, Cin/g, K)
+  MaskedConv and 1-D nn.Conv kernel (K, Cin/g, Cout)
+                                      -> Conv1d weight (Cout, Cin/g, K)
+                                         (models/aux_blocks.py's Conv too)
   nn.Conv kernel (kh, kw, Cin, Cout)  -> Conv2d weight (Cout, Cin, kh, kw)
   nn.ConvTranspose kernel (kh, kw, Cin, Cout), a module named up_<i>
                                       -> ConvTranspose2d weight (Cin, Cout,
@@ -19,7 +21,8 @@ is a rename of the leaf plus a layout change:
   everything else (LayerNormC weight/bias, biases, the XL q/k/v/r/o
   (C, H, D) and r_w/r_r biases, AffineDropPath and Scale `scale`, the
   class Gaussians, the ViT's cls_token and pos_embed, the ClipMatcher's
-  pe_3d, the L2P `prompt` and `prompt_key`, unshifted)
+  pe_3d, the L2P `prompt` and `prompt_key`, PackedDeformConv's
+  `offset_kernel` in JAX's (K, Cin, K), unshifted)
                                       -> kept as it is
 
 The frozen-BN conv blocks' `bn_scale` and `bn_bias` are parameters of the

@@ -21,17 +21,19 @@ and the XL kernel's dropout counts its elements from the rank's first
 global row.
 
   MaskedConv, LayerNormC, Scale, AffineDropPath
-  MaskedMHCA        depthwise q/k/v convs (kernels/dwconv.py) + LN + dense
-                    attention (kernels/attention.py: K1, or K1f / K1n by
-                    `attention_impl`) or, with a window, banded attention
-                    (kernels/banded_attention.py)
+  MaskedMHCA        depthwise q/k/v convs of stride s (kernels/dwconv.py
+                    where JAX runs its fused kernel: s 1 or 2 and T a
+                    multiple of 2s; else three masked depthwise convs of
+                    s + 1 taps) + LN + dense attention (kernels/attention.py:
+                    K1, or K1f / K1n by `attention_impl`) or, with a
+                    window, banded attention (kernels/banded_attention.py)
   MaskedMHA         1x1 projections + dense attention; self- or
                     cross-attention (kernels/attention.py, Tq != Tk)
   ChannelBlock      channel attention + MLP
   TimeAdapter       the CL adapter: an MLP over the time axis, T -> 5T -> T/2
   TransformerBlock  self-attention, the optional time adapter beside it,
                     the optional text cross-attention and the
-                    channel-attention blend
+                    channel-attention blend by `t_c_alpha`
   XLRelAttention    single stream: no mems, no g stream, no segments
 """
 
@@ -61,7 +63,6 @@ from vilco_tpu_torch.ops.masked import (
 )
 from vilco_tpu_torch.parallel.mesh import RowDraw, generator_of, rand_rows
 
-T_C_ALPHA = 0.8  # train_cfg.t_c_alpha: temporal vs channel attention blend
 XL_DROPOUT = 0.1  # model.xl_dropout (the xlnet json's dropout)
 
 
@@ -93,18 +94,19 @@ class Linear(nn.Linear):
 
 
 class MaskedConv(nn.Module):
-    """Masked 1-D conv (stride 1) with symmetric K//2 padding; weight
-    (Cout, Cin, K)."""
+    """Masked 1-D conv with symmetric K//2 padding (ops/masked.py::
+    masked_conv1d); weight (Cout, Cin, K)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 bias: bool = True, bias_init: float = 0.0):
+                 bias: bool = True, bias_init: float = 0.0, stride: int = 1):
         super().__init__()
+        self.stride = stride
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel_size))
         self.bias = (nn.Parameter(torch.full((cout,), float(bias_init)))
                      if bias else None)
 
     def forward(self, x, mask):
-        return masked_conv1d(x, mask, self.weight, self.bias)
+        return masked_conv1d(x, mask, self.weight, self.bias, self.stride)
 
 
 class LayerNormC(nn.Module):
@@ -161,26 +163,26 @@ class _DWKernel(nn.Module):
 
 
 class MaskedMHCA(nn.Module):
-    """Multi-head conv attention: the three depthwise q/k/v convs (stride 1
-    or 2) in one kernel launch, LN, projections, then attention, dispatched
-    as JAX's MaskedMHCA does: with `window` > 0 (the half window) the
-    banded kernel (LocalMaskedMHCA); else by `attention_impl`, "flash" the
-    flash kernel (self-attention: Tq == Tk), "pallas_naive" the head-major
-    one, and otherwise the channels-last dense kernel."""
+    """Multi-head conv attention: the three depthwise q/k/v convs of stride
+    s (3 taps at stride 1, s + 1 taps above), LN, projections, then
+    attention, dispatched as JAX's MaskedMHCA does: with `window` > 0 (the
+    half window) the banded kernel (LocalMaskedMHCA); else by
+    `attention_impl`, "flash" the flash kernel (self-attention: Tq == Tk),
+    "pallas_naive" the head-major one, and otherwise the channels-last
+    dense kernel."""
 
     def __init__(self, n_embd: int, n_head: int, stride: int = 1,
                  window: int = -1, attention_impl: str = "xla",
                  proj_drop: float = 0.0):
         super().__init__()
-        if stride not in (1, 2):
-            raise ValueError(f"stride {stride}: the fused convs take 1 or 2")
         self.n_head, self.stride, self.window = n_head, stride, window
         self.proj_drop = proj_drop
         self.attention_impl = attention_impl
         E = n_embd
-        self.query_conv = _DWKernel(E, 3)
-        self.key_conv = _DWKernel(E, 3)
-        self.value_conv = _DWKernel(E, 3)
+        ks = stride + 1 if stride > 1 else 3
+        self.query_conv = _DWKernel(E, ks)
+        self.key_conv = _DWKernel(E, ks)
+        self.value_conv = _DWKernel(E, ks)
         self.query_norm = LayerNormC(E)
         self.key_norm = LayerNormC(E)
         self.value_norm = LayerNormC(E)
@@ -189,17 +191,35 @@ class MaskedMHCA(nn.Module):
         self.value = Linear(E, E)
         self.proj = Linear(E, E)
 
+    def _convs(self, x, mask):
+        """(q, k, v, q_mask), each conv's output zeroed outside q_mask."""
+        s = self.stride
+        convs = (self.query_conv, self.key_conv, self.value_conv)
+        if s in (1, 2):
+            # K3, or K3s2 at stride 2, at any T (the kernels' rows are
+            # (T - 1) // s + 1). JAX runs its fused conv only where T is a
+            # multiple of 2s (vilco_tpu/models/layers.py:193-194): its
+            # Pallas kernel splits the rows into even and odd halves.
+            w3 = torch.stack([c.weight[:, 0] for c in convs])  # (3, E, 3)
+            w3 = w3.transpose(1, 2).to(x.dtype).contiguous()   # (3, 3, E)
+            q, k, v = fused_dwconv_qkv(x.contiguous(), w3, s)
+            q_mask = mask[:, ::s] if s > 1 else mask
+            mm = q_mask[..., None].to(q.dtype)
+            return q * mm, k * mm, v * mm, q_mask
+        # above stride 2, JAX's three MaskedConvs of s + 1 taps: the
+        # depthwise conv itself, as JAX runs it outside its Pallas kernel
+        E = x.shape[-1]
+        (q, q_mask), (k, _), (v, _) = (
+            masked_conv1d(x, mask, c.weight, None, s, groups=E)
+            for c in convs)
+        return q, k, v, q_mask
+
     def forward(self, x, mask, rng=None):
-        w3 = torch.stack([self.query_conv.weight[:, 0],
-                          self.key_conv.weight[:, 0],
-                          self.value_conv.weight[:, 0]])      # (3, E, 3)
-        w3 = w3.transpose(1, 2).to(x.dtype).contiguous()     # (3, 3, E)
-        q, k, v = fused_dwconv_qkv(x.contiguous(), w3, self.stride)
-        q_mask = mask[:, ::self.stride] if self.stride > 1 else mask
+        q, k, v, q_mask = self._convs(x, mask)
         mm = q_mask[..., None].to(q.dtype)
-        q = self.query_norm(q * mm)
-        k = self.key_norm(k * mm)
-        v = self.value_norm(v * mm)
+        q = self.query_norm(q)
+        k = self.key_norm(k)
+        v = self.value_norm(v)
         q, k, v = self.query(q), self.key(k), self.value(v)
         kv_mask = q_mask.contiguous()
         B, T, E = q.shape
@@ -297,7 +317,8 @@ class TransformerBlock(nn.Module):
     `use_cross_modal` the text cross-attention (LayerNorm ln3 on both
     streams, MaskedMHA, sharing the attention residual's drop-path), MLP,
     and with `use_channel_attn` on stride-1 blocks the channel-attention
-    blend by T_C_ALPHA. `proj_drop` is the dropout after the attention's
+    blend by `t_c_alpha` (train_cfg.t_c_alpha). `proj_drop` is the dropout
+    after the attention's
     and cross-attention's projections and inside the MLP. With `path_drop`
     > 0 both residuals carry AffineDropPath scales, as in JAX; at 0 there
     are none (the reference's nn.Identity)."""
@@ -306,10 +327,12 @@ class TransformerBlock(nn.Module):
                  path_drop: float = 0.0, window: int = -1,
                  use_cross_modal: bool = False,
                  use_channel_attn: bool = True, attention_impl: str = "xla",
-                 proj_drop: float = 0.0, adapter_t_in: int = 0):
+                 proj_drop: float = 0.0, adapter_t_in: int = 0,
+                 t_c_alpha: float = 0.8):
         super().__init__()
         E = n_embd
         self.stride, self.proj_drop = n_ds_stride, proj_drop
+        self.t_c_alpha = t_c_alpha
         self.ln1 = LayerNormC(E)
         self.attn = MaskedMHCA(E, n_head, stride=n_ds_stride, window=window,
                                attention_impl=attention_impl,
@@ -360,7 +383,7 @@ class TransformerBlock(nn.Module):
         out = out + self._residual(self.drop_path_mlp, h * out_mask_f, rng)
         if self.channel_attn is not None:
             out2 = self.channel_attn(ln1, rng)
-            out = T_C_ALPHA * out + (1.0 - T_C_ALPHA) * out2
+            out = self.t_c_alpha * out + (1.0 - self.t_c_alpha) * out2
         return out, out_mask
 
 
@@ -420,7 +443,8 @@ class XLRelAttention(nn.Module):
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Random init from `generator`, with Flax's initializers: He-uniform
-    conv kernels, LeCun-normal dense kernels with zero bias (zero kernels
+    masked-conv kernels, LeCun-normal dense kernels and nn.Conv kernels
+    (a module that sets `lecun_normal`) with zero bias (zero kernels
     where the module says `zero_init`: the time adapters' fc2), N(0,
     0.02) XL projections and biases, U(-b, b) for the own parameters of a
     module that sets `uniform_init = b` (the prompt pool's prompts and
@@ -436,6 +460,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, (MaskedConv, _DWKernel)):
             w = m.weight
             uniform_(w, math.sqrt(6.0 / (w.shape[1] * w.shape[2])))
+        elif getattr(m, "lecun_normal", False):
+            w = m.weight
+            normal_(w, 1.0 / math.sqrt(w.shape[1] * w.shape[2]))
+            m.bias.zero_()
         elif isinstance(m, nn.Linear):
             if getattr(m, "zero_init", False):
                 m.weight.zero_()

@@ -1,14 +1,18 @@
 """Point-transformer meta-arch, MQ and NLQ serving and training paths
 (vilco_tpu/models/point_transformer.py).
 
-backbone (MQ: ConvTransformerBackbone; NLQ: DualTowerBackbone, which takes
-the query text) -> identity neck (per-level LayerNorm) -> shared cls head
-and reg head, each run once over all levels concatenated with zero gaps.
-Returns the same keys as the JAX model's forward: `cls_logits` (B, P, C)
-f32, `offsets` (B, P, 2) f32, `fpn_mask` (B, P), `level_lengths`,
-`fpn_feats`, and `gaussians`: for MQ the six learnable per-class (C,)
-parameters that weight the training losses, for NLQ None (the NLQ model
-has no such parameters).
+backbone (MQ: ConvTransformerBackbone, or ConvBackbone with
+`backbone_type` "conv"; NLQ: DualTowerBackbone, which takes the query
+text) -> neck over every pyramid level (`fpn_type` "identity": a channel
+LayerNorm a level with `fpn_with_ln`; "fpn": FPN1D) -> the levels from
+`fpn_start_level` on -> shared cls head and reg head of `head_num_layers`
+convs of `head_kernel_size` taps (LayerNorm and no bias with
+`head_with_ln`), each run once over all levels concatenated with zero
+gaps of head_kernel_size // 2 rows. Returns the same keys as the JAX
+model's forward: `cls_logits` (B, P, C) f32, `offsets` (B, P, 2) f32,
+`fpn_mask` (B, P), `level_lengths`, `fpn_feats`, and `gaussians`: for MQ
+the six learnable per-class (C,) parameters that weight the training
+losses, for NLQ None (the NLQ model has no such parameters).
 
 The CL extras of `cl` (core/config.py::CLCfg), as the MQ yaml runs them:
 with `prompt_pool` the L2P pool (cl/prompt.py) prepends its prompts to the
@@ -32,7 +36,9 @@ from torch import nn
 
 from vilco_tpu_torch.cl.prompt import PromptPool
 from vilco_tpu_torch.core.config import CLCfg, ModelConfig
+from vilco_tpu_torch.models.aux_blocks import ACConv
 from vilco_tpu_torch.models.backbone import (
+    ConvBackbone,
     ConvTransformerBackbone,
     DualTowerBackbone,
 )
@@ -45,9 +51,7 @@ from vilco_tpu_torch.models.layers import (
 )
 from vilco_tpu_torch.ops.masked import l2_normalize, masked_mean, wide
 
-HEAD_KERNEL_SIZE = 3
-HEAD_NUM_LAYERS = 3
-CLS_PRIOR_PROB = 0.01
+CLS_PRIOR_PROB = 0.01   # JAX's head fixes it; train_cfg's is not read
 CLS_PRIOR_BIAS = -math.log((1 - CLS_PRIOR_PROB) / CLS_PRIOR_PROB)
 # the MQ variant's learnable per-class Gaussians and their first values
 GAUSSIAN_INIT = (("mu", 0.0), ("sigma", 1.0), ("mu_reg_left", -0.5),
@@ -56,16 +60,59 @@ GAUSSIAN_INIT = (("mu", 0.0), ("sigma", 1.0), ("mu_reg_left", -0.5),
 
 
 class FPNIdentity(nn.Module):
-    """Per-level channel LayerNorm."""
+    """Per-level channel LayerNorm, or the levels as they are without
+    `with_ln`."""
 
-    def __init__(self, c: int, n_levels: int):
+    def __init__(self, c: int, n_levels: int, with_ln: bool = True):
         super().__init__()
-        for i in range(n_levels):
+        self.with_ln = with_ln
+        for i in range(n_levels if with_ln else 0):
             self.add_module(f"norm_{i}", LayerNormC(c))
 
-    def forward(self, feats, masks):
+    def forward(self, feats, masks, rng=None):
+        if not self.with_ln:
+            return list(feats), masks
         return [getattr(self, f"norm_{i}")(f)
                 for i, f in enumerate(feats)], masks
+
+
+class FPN1D(nn.Module):
+    """Top-down FPN (vilco_tpu/models/point_transformer.py::FPN1D): a 1x1
+    lateral conv a level (the top level through ACConv instead, whose
+    output keeps the input's width, so fpn_dim must equal embd_dim there),
+    each level plus its upper neighbour repeated twice along time and cut
+    to its length, then a 3-tap conv and a channel LayerNorm
+    (`with_ln`) a level. The repeat is by 2 whatever the stride between
+    levels is, as JAX's (point_transformer.py:84): at scale_factor 3 or 4
+    the upper level falls short and the sum raises, as it does in JAX."""
+
+    def __init__(self, cin: int, out_channel: int, n_levels: int,
+                 with_ln: bool = True):
+        super().__init__()
+        self.n_levels, self.with_ln = n_levels, with_ln
+        for i in range(n_levels - 1):
+            self.add_module(f"lateral_{i}", MaskedConv(cin, out_channel, 1))
+        self.ac_conv = ACConv(cin)
+        for i in range(n_levels):
+            self.add_module(f"fpn_conv_{i}", MaskedConv(out_channel,
+                                                        out_channel, 3))
+            if with_ln:
+                self.add_module(f"fpn_norm_{i}", LayerNormC(out_channel))
+
+    def forward(self, feats, masks, rng=None):
+        top = self.n_levels - 1
+        laterals = [self.ac_conv(f, m, rng)[0] if i == top else
+                    getattr(self, f"lateral_{i}")(f, m)[0]
+                    for i, (f, m) in enumerate(zip(feats, masks))]
+        for i in range(top - 1, -1, -1):
+            up = laterals[i + 1].repeat_interleave(2, dim=1)
+            laterals[i] = laterals[i] + up[:, :laterals[i].shape[1]]
+        outs = []
+        for i, (l, m) in enumerate(zip(laterals, masks)):
+            o, _ = getattr(self, f"fpn_conv_{i}")(l, m)
+            outs.append(getattr(self, f"fpn_norm_{i}")(o) if self.with_ln
+                        else o)
+        return outs, masks
 
 
 def _concat_levels(feats, masks, gap: int):
@@ -95,32 +142,39 @@ def _concat_levels(feats, masks, gap: int):
 
 
 class _Head(nn.Module):
-    """(HEAD_NUM_LAYERS - 1) x [masked conv + LN + ReLU, gaps re-zeroed]
-    over the concatenated levels."""
+    """(num_layers - 1) x [masked conv of kernel_size taps (+ LN) + ReLU,
+    gaps re-zeroed] over the concatenated levels; `last` is the final
+    conv's input width."""
 
-    def __init__(self, cin: int, feat_dim: int):
+    def __init__(self, cin: int, feat_dim: int, num_layers: int,
+                 kernel_size: int, with_ln: bool):
         super().__init__()
-        self.n = HEAD_NUM_LAYERS - 1
+        self.n, self.k, self.with_ln = num_layers - 1, kernel_size, with_ln
         for i in range(self.n):
             self.add_module(f"head_{i}", MaskedConv(
-                cin if i == 0 else feat_dim, feat_dim, HEAD_KERNEL_SIZE,
-                bias=False))
-            self.add_module(f"norm_{i}", LayerNormC(feat_dim))
+                cin if i == 0 else feat_dim, feat_dim, kernel_size,
+                bias=not with_ln))
+            if with_ln:
+                self.add_module(f"norm_{i}", LayerNormC(feat_dim))
+        self.last = feat_dim if self.n else cin
 
     def trunk(self, feats, masks):
-        h, m, keep, slices = _concat_levels(feats, masks,
-                                            HEAD_KERNEL_SIZE // 2)
+        h, m, keep, slices = _concat_levels(feats, masks, self.k // 2)
         kf = keep[..., None].to(h.dtype)
         for i in range(self.n):
             h, _ = getattr(self, f"head_{i}")(h, m)
-            h = torch.relu(getattr(self, f"norm_{i}")(h)) * kf
+            if self.with_ln:
+                h = getattr(self, f"norm_{i}")(h)
+            h = torch.relu(h) * kf
         return h, m, slices
 
 
 class ClsHead(_Head):
-    def __init__(self, cin: int, feat_dim: int, num_classes: int):
-        super().__init__(cin, feat_dim)
-        self.cls = MaskedConv(feat_dim, num_classes, HEAD_KERNEL_SIZE,
+    def __init__(self, cin: int, feat_dim: int, num_classes: int,
+                 num_layers: int = 3, kernel_size: int = 3,
+                 with_ln: bool = True):
+        super().__init__(cin, feat_dim, num_layers, kernel_size, with_ln)
+        self.cls = MaskedConv(self.last, num_classes, kernel_size,
                               bias_init=CLS_PRIOR_BIAS)
 
     def forward(self, feats, masks):
@@ -130,9 +184,11 @@ class ClsHead(_Head):
 
 
 class RegHead(_Head):
-    def __init__(self, cin: int, feat_dim: int, num_levels: int):
-        super().__init__(cin, feat_dim)
-        self.offset = MaskedConv(feat_dim, 2, HEAD_KERNEL_SIZE)
+    def __init__(self, cin: int, feat_dim: int, num_levels: int,
+                 num_layers: int = 3, kernel_size: int = 3,
+                 with_ln: bool = True):
+        super().__init__(cin, feat_dim, num_layers, kernel_size, with_ln)
+        self.offset = MaskedConv(self.last, 2, kernel_size)
         for l in range(num_levels):
             self.add_module(f"scale_{l}", Scale())
 
@@ -163,18 +219,35 @@ class PointTransformer(nn.Module):
         if cfg.variant == "nlq" and (cl.prompt_pool or cl.narration_ssl
                                      or cl.use_adapt):
             raise NotImplementedError("the NLQ model takes no CL extras")
+        if cfg.fpn_type not in ("identity", "fpn"):
+            raise ValueError(f"fpn_type {cfg.fpn_type!r}: 'identity' or "
+                             "'fpn'")
         self.cfg, self.cl = cfg, cl
         n_levels = cfg.num_branch_layers + 1
         self.prompt = (PromptPool(cl.pool_size, cl.length, cl.embed_dim,
                                   cl.topk) if cl.prompt_pool else None)
-        self.backbone = (DualTowerBackbone(cfg) if cfg.variant == "nlq"
-                         else ConvTransformerBackbone(
-                             cfg, cl.adapt_blocks if cl.use_adapt else ()))
+        if cfg.variant == "nlq":
+            self.backbone = DualTowerBackbone(cfg)
+        elif cfg.backbone_type == "conv":
+            self.backbone = ConvBackbone(cfg)
+        else:
+            self.backbone = ConvTransformerBackbone(
+                cfg, cl.adapt_blocks if cl.use_adapt else ())
         self.narration_encoder = (Linear(cl.narration_dim, cfg.embd_dim)
                                   if cl.narration_ssl else None)
-        self.neck = FPNIdentity(cfg.fpn_dim, n_levels)
-        self.cls_head = ClsHead(cfg.fpn_dim, cfg.head_dim, cfg.num_classes)
-        self.reg_head = RegHead(cfg.fpn_dim, cfg.head_dim, n_levels)
+        E = cfg.embd_dim
+        if cfg.fpn_type == "fpn":
+            self.neck = FPN1D(E, cfg.fpn_dim, n_levels, cfg.fpn_with_ln)
+            cin = cfg.fpn_dim
+        else:
+            self.neck = FPNIdentity(E, n_levels, cfg.fpn_with_ln)
+            cin = E
+        head = dict(num_layers=cfg.head_num_layers,
+                    kernel_size=cfg.head_kernel_size,
+                    with_ln=cfg.head_with_ln)
+        self.cls_head = ClsHead(cin, cfg.head_dim, cfg.num_classes, **head)
+        self.reg_head = RegHead(cin, cfg.head_dim, cfg.num_fpn_levels,
+                                **head)
         if cfg.variant == "mq":
             # learnable per-class Gaussians for label weighting in training
             C = cfg.num_classes
@@ -220,7 +293,9 @@ class PointTransformer(nn.Module):
             gaussians = (self.mu, self.sigma, self.mu_reg_left,
                          self.sigma_reg_left, self.mu_reg_right,
                          self.sigma_reg_right)
-        fpn_feats, fpn_masks = self.neck(bb_feats, bb_masks)
+        fpn_feats, fpn_masks = self.neck(bb_feats, bb_masks, rng)
+        lo = self.cfg.fpn_start_level
+        fpn_feats, fpn_masks = fpn_feats[lo:], fpn_masks[lo:]
         if self.narration_encoder is not None and narration is not None:
             nar = self.narration_encoder(wide(narration.to(dt)))
             out["narration_feat"] = l2_normalize(

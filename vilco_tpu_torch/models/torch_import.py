@@ -46,8 +46,6 @@ from typing import Callable, Dict, Mapping, Tuple
 import torch
 from torch import nn
 
-from vilco_tpu_torch.models.point_transformer import HEAD_NUM_LAYERS
-
 Rules = Dict[str, Tuple[str, str]]    # port leaf -> (reference key, reshape)
 
 RESHAPES: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -143,19 +141,43 @@ def xl_rules(ref: str) -> Rules:
     return r
 
 
-def _neck_and_heads(n_levels: int) -> Rules:
+def _embeds(cfg, pairs, n_convs: int) -> Rules:
+    """The conv embeds `pairs` (ours, ref): a bias without the LayerNorm,
+    the norm with it (`embd_with_ln`)."""
     r: Rules = {}
-    for i in range(n_levels):
-        r.update(_channel_ln(f"neck.norm_{i}", f"neck.fpn_norms.{i}"))
+    ln = cfg.embd_with_ln
+    for ours, ref in pairs:
+        for i in range(n_convs):
+            r.update(_masked_conv(f"{ours}_{i}", f"backbone.{ref}.{i}",
+                                  bias=not ln))
+            if ln:
+                r.update(_channel_ln(f"{ours}_norm_{i}",
+                                     f"backbone.{ref}_norm.{i}"))
+    return r
+
+
+def _neck_and_heads(cfg) -> Rules:
+    """The identity neck's LayerNorms over every pyramid level (with
+    `fpn_with_ln`), the heads' `head_num_layers` - 1 convs (a bias without
+    `head_with_ln`, a norm with it) and their last convs, the reg head's
+    scales over the levels it reads (from `fpn_start_level`). FPN1D has no
+    rule, as in JAX: its leaves are left without one and the strict load
+    raises."""
+    r: Rules = {}
+    if cfg.fpn_type == "identity" and cfg.fpn_with_ln:
+        for i in range(cfg.num_branch_layers + 1):
+            r.update(_channel_ln(f"neck.norm_{i}", f"neck.fpn_norms.{i}"))
     for head in ("cls_head", "reg_head"):
-        for i in range(HEAD_NUM_LAYERS - 1):
+        for i in range(cfg.head_num_layers - 1):
             r.update(_masked_conv(f"{head}.head_{i}", f"{head}.head.{i}",
-                                  bias=False))
-            r.update(_channel_ln(f"{head}.norm_{i}", f"{head}.norm.{i}"))
+                                  bias=not cfg.head_with_ln))
+            if cfg.head_with_ln:
+                r.update(_channel_ln(f"{head}.norm_{i}",
+                                     f"{head}.norm.{i}"))
     r.update(_masked_conv("cls_head.cls", "cls_head.cls_head", bias=True))
     r.update(_masked_conv("reg_head.offset", "reg_head.offset_head",
                           bias=True))
-    for i in range(n_levels):
+    for i in range(cfg.num_fpn_levels):
         r[f"reg_head.scale_{i}.scale"] = (f"reg_head.scale.{i}.scale",
                                           "scalar")
     return r
@@ -165,41 +187,47 @@ MQ_GAUSSIANS = ("mu", "sigma", "mu_reg_left", "sigma_reg_left",
                 "mu_reg_right", "sigma_reg_right")
 
 
-def point_transformer_rules(cfg) -> Rules:
-    """The MQ PointTransformer of ModelConfig `cfg` (no CL extras) <- the
-    reference MQ PtTransformer."""
-    from vilco_tpu_torch.models.backbone import CROSS_MODAL_SKIP_LEVELS
-
-    n_convs, n_stem, n_branch = (cfg.backbone_arch[0],
-                                 cfg.backbone_arch[1],
-                                 cfg.backbone_arch[-1])
-    dp = cfg.droppath > 0
+def _transformer_trunk(cfg, n_stem: int, n_branch: int, dp: bool) -> Rules:
+    """The conv-transformer backbone's stems, XL layers (or pre_branch)
+    and branch blocks."""
     bb: Rules = {}
-    embeds = [("embd", "embd")]
-    if cfg.use_cross_modal:
-        embeds.append(("txt_embd", "txt_embd"))
-    for ours, ref in embeds:
-        for i in range(n_convs):
-            bb.update(_masked_conv(f"{ours}_{i}", f"backbone.{ref}.{i}",
-                                   bias=False))
-            bb.update(_channel_ln(f"{ours}_norm_{i}",
-                                  f"backbone.{ref}_norm.{i}"))
     stems = ["stem"] + (["txt_stem"] if cfg.use_cross_modal else [])
     for s in stems:
         for i in range(n_stem):
             bb.update(_prefix(block_rules(f"backbone.{s}.{i}", False, True,
                                           dp), f"{s}_{i}"))
     if cfg.use_xl:
-        bb.update(_prefix(xl_rules("backbone.xlnet.layer.0"), "xl_0"))
+        for i in range(cfg.xl_layers):
+            bb.update(_prefix(xl_rules(f"backbone.xlnet.layer.{i}"),
+                              f"xl_{i}"))
     else:
         bb.update(_prefix(block_rules("backbone.stem.0", False, True, dp),
                           "pre_branch"))
     for i in range(n_branch):
-        cross = cfg.use_cross_modal and i not in CROSS_MODAL_SKIP_LEVELS
+        cross = (cfg.use_cross_modal
+                 and i not in cfg.cross_modal_skip_levels)
         bb.update(_prefix(block_rules(f"backbone.branch.{i}", cross, False,
                                       dp), f"branch_{i}"))
+    return bb
+
+
+def point_transformer_rules(cfg) -> Rules:
+    """The MQ PointTransformer of ModelConfig `cfg` (no CL extras) <- the
+    reference MQ PtTransformer: every XL layer `backbone.xlnet.layer.{i}`,
+    i < xl_layers, as JAX's rules. The conv backbone has no rule, as in
+    JAX."""
+    n_convs, n_stem, n_branch = (cfg.backbone_arch[0],
+                                 cfg.backbone_arch[1],
+                                 cfg.backbone_arch[-1])
+    embeds = [("embd", "embd")]
+    if cfg.use_cross_modal:
+        embeds.append(("txt_embd", "txt_embd"))
+    bb = _embeds(cfg, embeds, n_convs)
+    if cfg.backbone_type != "conv":
+        bb.update(_transformer_trunk(cfg, n_stem, n_branch,
+                                     cfg.droppath > 0))
     r = _prefix(bb, "backbone")
-    r.update(_neck_and_heads(n_branch + 1))
+    r.update(_neck_and_heads(cfg))
     r.update({n: (n, "column") for n in MQ_GAUSSIANS})
     return r
 
@@ -208,22 +236,20 @@ def nlq_point_transformer_rules(cfg) -> Rules:
     """The NLQ PointTransformer (the dual tower) of ModelConfig `cfg` <-
     the reference NLQ PtTransformer: video and text conv embeds, the text
     stem, the video stem with its text cross-attention, the strided
-    branch; no channel attention."""
-    n_convs, n_txt, n_vid = cfg.backbone_arch[:3]
+    branch (the first arch[3] blocks with text cross-attention); no
+    channel attention."""
+    n_convs, n_txt, n_vid, n_cross = cfg.backbone_arch[:4]
     dp = cfg.droppath > 0
-    bb: Rules = {}
-    for s in ("vid_embd", "txt_embd"):
-        for i in range(n_convs):
-            bb.update(_masked_conv(f"{s}_{i}", f"backbone.{s}.{i}",
-                                   bias=False))
-            bb.update(_channel_ln(f"{s}_norm_{i}", f"backbone.{s}_norm.{i}"))
+    bb = _embeds(cfg, [("vid_embd", "vid_embd"), ("txt_embd", "txt_embd")],
+                 n_convs)
     for s, n, cross in (("txt_stem", n_txt, False), ("vid_stem", n_vid, True),
                         ("branch", cfg.num_branch_layers, False)):
         for i in range(n):
-            bb.update(_prefix(block_rules(f"backbone.{s}.{i}", cross, False,
-                                          dp), f"{s}_{i}"))
+            bb.update(_prefix(block_rules(
+                f"backbone.{s}.{i}", cross or (s == "branch" and i < n_cross),
+                False, dp), f"{s}_{i}"))
     r = _prefix(bb, "backbone")
-    r.update(_neck_and_heads(cfg.num_branch_layers + 1))
+    r.update(_neck_and_heads(cfg))
     return r
 
 

@@ -46,11 +46,14 @@ class Targets(NamedTuple):
 
 
 def label_points(points, gt_segments, gt_labels, gt_valid, num_classes: int,
-                 gaussians, center_sample_radius: float = 1.5) -> Targets:
-    """Radius center-sampling assignment with the learned per-class
-    Gaussian weights (vilco_tpu/ops/assign.py::label_points), vectorised
-    over (B, P, N): candidates lie inside the radius-clamped center window
-    with their max regression distance in the level's range; a point takes
+                 gaussians, center_sample_radius: float = 1.5,
+                 center_sample: str = "radius") -> Targets:
+    """Center-sampling assignment with the learned per-class Gaussian
+    weights (vilco_tpu/ops/assign.py::label_points), vectorised over (B, P,
+    N): candidates lie inside the segment's center window, clamped to the
+    segment, of `center_sample_radius` strides each side (`center_sample`
+    "radius"; any other value: inside the segment itself) with their max
+    regression distance in the level's range; a point takes
     the shortest candidate segment, its cls target the multi-hot of the
     segments within 1e-3 of that length. Gradients flow into `gaussians`
     (mu, sigma, mu_l, sigma_l, mu_r, sigma_r, each (C,)); None (the NLQ
@@ -81,10 +84,13 @@ def label_points(points, gt_segments, gt_labels, gt_valid, num_classes: int,
     def g(m, s):
         return normal_distribution(xn, m[lbl][:, None, :], s[lbl][:, None, :])
 
-    center = 0.5 * (seg_l + seg_r)
-    t_min = torch.maximum(center - stride * center_sample_radius, seg_l)
-    t_max = torch.minimum(center + stride * center_sample_radius, seg_r)
-    inside = torch.minimum(t - t_min, t_max - t) > 0
+    if center_sample == "radius":
+        center = 0.5 * (seg_l + seg_r)
+        t_min = torch.maximum(center - stride * center_sample_radius, seg_l)
+        t_max = torch.minimum(center + stride * center_sample_radius, seg_r)
+        inside = torch.minimum(t - t_min, t_max - t) > 0
+    else:
+        inside = torch.minimum(left, right) > 0
     max_reg_dist = torch.maximum(left, right)
     in_range = (max_reg_dist >= reg_lo) & (max_reg_dist <= reg_hi)
     valid = inside & in_range & gt_valid[:, None, :]

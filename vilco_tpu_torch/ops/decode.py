@@ -53,8 +53,11 @@ def decode_and_nms_batch(points, cls_logits, offsets, fpn_mask, class_mask,
                          max_seg_num: int, min_score: float,
                          nms_sigma: float, voting_thresh: float,
                          multiclass: bool = True,
-                         per_class_capacity: int | None = None) -> Detections:
-    """Batched decode + soft-NMS, the eval-path postprocessor."""
+                         per_class_capacity: int | None = None,
+                         use_soft_nms: bool = True,
+                         iou_threshold: float = 0.1) -> Detections:
+    """Batched decode + NMS (soft with `use_soft_nms`, else hard at
+    `iou_threshold`), the eval-path postprocessor."""
     cand = decode_candidates(points, cls_logits, offsets, fpn_mask,
                              class_mask, pre_nms_topk, pre_nms_thresh,
                              duration_thresh)
@@ -64,4 +67,5 @@ def decode_and_nms_batch(points, cls_logits, offsets, fpn_mask, class_mask,
         min_score=min_score, nms_sigma=nms_sigma,
         voting_thresh=voting_thresh, multiclass=multiclass,
         per_class_capacity=per_class_capacity,
+        use_soft_nms=use_soft_nms, iou_threshold=iou_threshold,
     )

@@ -23,13 +23,20 @@ def masked_conv1d(
 ):
     """Conv with symmetric K//2 padding, output multiplied by the
     downsampled mask `mask[:, ::stride]`. Returns (out (B, T', C_out),
-    out_mask (B, T'))."""
+    out_mask (B, T')).
+
+    A depthwise conv of at most 7 taps has JAX's length, ceil(T / stride):
+    JAX sums K shifted slices of the padded input there, which at an even
+    K (a stride-3 MaskedMHCA's 4 taps) stops one row before the conv's
+    floor((T + 2 (K//2) - K) / stride) + 1."""
     k = weight.shape[-1]
     out = F.conv1d(x.transpose(1, 2), weight.to(x.dtype),
                    None if bias is None else bias.to(x.dtype),
                    stride=stride, padding=k // 2, groups=groups)
     out = out.transpose(1, 2)
     out_mask = mask[:, ::stride] if stride > 1 else mask
+    if groups == x.shape[-1] == weight.shape[0] and k <= 7:
+        out = out[:, :out_mask.shape[1]]
     return out * out_mask[..., None].to(out.dtype), out_mask
 
 
@@ -64,7 +71,10 @@ def sinusoid_encoding(n_position: int, d_hid: int) -> np.ndarray:
 def masked_max_pool1d(x: torch.Tensor, mask: torch.Tensor, kernel: int,
                       stride: int):
     """MaxPool1d padded with -inf (kernel//2 each side), then masked by
-    `mask[:, ::stride]`."""
+    `mask[:, ::stride]`. At kernel s + 1 and stride s the pool gives
+    floor((T + 2 (K//2) - K) / s) + 1 rows and the mask ceil(T / s), as in
+    JAX: at an even kernel (s = 3) and T a multiple of s they differ by
+    one and the product raises, as JAX's does."""
     pad = kernel // 2
     xp = F.pad(x.transpose(1, 2), (pad, pad), value=float("-inf"))
     out = F.max_pool1d(xp, kernel, stride).transpose(1, 2)

@@ -1,4 +1,5 @@
-"""1-D soft-NMS, segment voting and multiclass NMS (vilco_tpu/ops/nms.py).
+"""1-D soft- and hard NMS, segment voting and multiclass NMS
+(vilco_tpu/ops/nms.py).
 
 Plain torch, batched: every function takes a leading batch axis that the
 JAX version gets from `vmap`. The greedy pick loop (`lax.fori_loop` there)
@@ -33,11 +34,17 @@ class NMSResult(NamedTuple):
 
 
 def soft_nms_1d(segs, scores, valid, max_out: int, sigma: float = 0.75,
-                min_score: float = 0.001) -> NMSResult:
-    """Greedy Gaussian soft-NMS over the last axis of (..., M) candidates:
-    pick the highest remaining score, decay the rest by exp(-iou^2/sigma),
-    and drop survivors below `min_score`. Picked segments report their
-    decayed-at-pick score."""
+                min_score: float = 0.001, method: str = "gaussian",
+                iou_threshold: float = 0.1) -> NMSResult:
+    """Greedy NMS over the last axis of (..., M) candidates: pick the
+    highest remaining score, then with `method` "gaussian" decay the rest
+    by exp(-iou^2/sigma) and drop survivors below `min_score` (picked
+    segments report their decayed-at-pick score); with "hard" drop the
+    rest at IoU >= `iou_threshold`, keeping their scores, from candidates
+    whose score exceeds `min_score`."""
+    if method not in ("gaussian", "hard"):
+        raise ValueError(f"method {method!r}: 'gaussian' or 'hard'")
+    hard = method == "hard"
     lead = scores.shape[:-1]
     M = scores.shape[-1]
     segs = segs.reshape(-1, M, 2).float()
@@ -45,7 +52,7 @@ def soft_nms_1d(segs, scores, valid, max_out: int, sigma: float = 0.75,
     valid = valid.reshape(-1, M)
     N = cur.shape[0]
     rows = torch.arange(N, device=cur.device)
-    alive = valid & (cur > 0)
+    alive = valid & (cur > min_score if hard else cur > 0)
     out_segs = torch.zeros((N, max_out, 2), device=cur.device)
     out_scores = torch.zeros((N, max_out), device=cur.device)
     out_valid = torch.zeros((N, max_out), dtype=torch.bool,
@@ -57,9 +64,13 @@ def soft_nms_1d(segs, scores, valid, max_out: int, sigma: float = 0.75,
         any_alive = s > NEG / 2
         seg_i = segs[rows, i]
         iou = _iou_1d(seg_i, segs)
-        w = torch.exp(-torch.square(iou) / sigma)
-        new_scores = torch.where(alive, cur * w, cur)
-        new_alive = alive & (new_scores >= min_score)
+        if hard:
+            new_scores = cur
+            new_alive = alive & (iou < iou_threshold)
+        else:
+            w = torch.exp(-torch.square(iou) / sigma)
+            new_scores = torch.where(alive, cur * w, cur)
+            new_alive = alive & (new_scores >= min_score)
         new_alive[rows, i] = False
         keep = any_alive[:, None]
         cur = torch.where(keep, new_scores, cur)
@@ -145,13 +156,19 @@ def _auto_class_cap(num_classes: int, m: int, k_per: int) -> int | None:
 def batched_nms(segs, scores, cls_idx, valid, num_classes: int,
                 max_seg_num: int, min_score: float, nms_sigma: float,
                 voting_thresh: float, multiclass: bool = True,
-                per_class_capacity: int | None = None) -> Detections:
-    """Multiclass soft-NMS (or class-agnostic soft-NMS with segment voting),
-    then a global top `max_seg_num`, over a batch of (B, M) candidates.
-    `per_class_capacity`: None = the automatic bucket size, 0 = the exact
-    full-array path."""
+                per_class_capacity: int | None = None,
+                use_soft_nms: bool = True,
+                iou_threshold: float = 0.1) -> Detections:
+    """Multiclass NMS (or class-agnostic NMS with segment voting), then a
+    global top `max_seg_num`, over a batch of (B, M) candidates: Gaussian
+    soft-NMS with `use_soft_nms`, else hard NMS at `iou_threshold`, on both
+    branches. `per_class_capacity`: None = the automatic bucket size, 0 =
+    the exact full-array path."""
     B, M = scores.shape
     dev = scores.device
+    nms = dict(sigma=nms_sigma, min_score=min_score,
+               method="gaussian" if use_soft_nms else "hard",
+               iou_threshold=iou_threshold)
     if multiclass:
         k_per = max_seg_num
         cap = per_class_capacity
@@ -166,8 +183,7 @@ def batched_nms(segs, scores, cls_idx, valid, num_classes: int,
                                            == classes[None, :, None])
             b_segs = segs[:, None].expand(B, num_classes, M, 2)
             b_scores = scores[:, None].expand(B, num_classes, M)
-        res = soft_nms_1d(b_segs, b_scores, b_valid, max_out=k_per,
-                          sigma=nms_sigma, min_score=min_score)
+        res = soft_nms_1d(b_segs, b_scores, b_valid, max_out=k_per, **nms)
         out_segs = res.segs.reshape(B, -1, 2)
         out_scores = res.scores.reshape(B, -1)
         out_valid = res.valid.reshape(B, -1)
@@ -176,8 +192,7 @@ def batched_nms(segs, scores, cls_idx, valid, num_classes: int,
         out_labels = out_labels.expand(B, -1)
     else:
         out_segs, out_scores, out_valid = soft_nms_1d(
-            segs, scores, valid, max_out=max_seg_num, sigma=nms_sigma,
-            min_score=min_score)
+            segs, scores, valid, max_out=max_seg_num, **nms)
         if voting_thresh > 0:
             out_segs = torch.where(
                 out_valid[..., None],

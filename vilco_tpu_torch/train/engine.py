@@ -10,7 +10,8 @@ gradient accumulation over micro-batches; and the eval step
         -> compute_losses -> backward (the gradients add up)
         -> the SSL memory bank's ring write
     -> the gradients / K -> + the EWC/MAS penalty's gradient
-    -> global-norm clip at CLIP_GRAD_L2NORM -> the optimizer of cfg.opt
+    -> global-norm clip at train_cfg.clip_grad_l2norm (<= 0: none) -> the
+       optimizer of cfg.opt
        (train/optim.py::make_optimizer)
     -> loss-normaliser EMA -> the adapter EMA
 
@@ -42,11 +43,11 @@ backward.
 `make_multi_train_step` runs K steps in one call: on the card one
 captured CUDA graph of the step, replayed over pre-staged batches.
 
-What the flagships share is fixed here: radius center sampling at 1.5,
-loss weight 1, clip 1.0. What they differ in comes from the config's
-`train_cfg` (core/config.py::TrainCfg): label smoothing (NLQ 0.1), the
-Gaussian loss weights (MQ only), the initial loss normaliser (MQ 100, NLQ
-200), the label-involved (AL) loss's weight (the MQ yaml 0.2) and the SSL
+The step reads the config's `train_cfg` (core/config.py::TrainCfg): the
+center sampling (radius 1.5 at JAX's defaults), the regression loss's
+weight and the clip (1 and 1.0), label smoothing (NLQ 0.1), the Gaussian
+loss weights (MQ only), the initial loss normaliser (MQ 100, NLQ 200), the
+label-involved (AL) loss's weight (the MQ yaml 0.2) and the SSL
 temperature; from its `cl_cfg`: the method, the SSL weight, the bank's
 size and the distillation weight; from its `opt`: the accumulation steps.
 """
@@ -68,9 +69,6 @@ from vilco_tpu_torch.ops.losses import ctr_diou_loss_1d, sigmoid_focal_loss
 from vilco_tpu_torch.parallel.mesh import RowDraw
 from vilco_tpu_torch.train.optim import FlatOptimizer, make_optimizer
 
-CENTER_SAMPLE_RADIUS = 1.5
-CLIP_GRAD_L2NORM = 1.0
-LOSS_WEIGHT = 1.0
 PULL_WEIGHT = 0.1        # the L2P pull: final -= 0.1 x reduce_sim
 CL_METHODS = ("naive", "l2p", "ewc", "mas", "icarl", "bic")
 BIC_T = 2.0              # BiC's distillation temperature
@@ -169,7 +167,9 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
     seen classes plus one, and Distance-IoU regression loss on the
     positives, with the Gaussian weights on the positives where
     `tc.use_gaussian_weights`, both over the new normaliser 0.9 old + 0.1
-    max(#positives, 1); the AL loss x tc.al_loss_weight where that is > 0
+    max(#positives, 1), the regression loss x `tc.loss_weight` (1 where
+    that is <= 0); the targets by `tc.center_sample` at
+    `tc.center_sample_radius`; the AL loss x tc.al_loss_weight where that is > 0
     and there is more than one class; minus PULL_WEIGHT x the prompt
     pool's reduce_sim once `n_known` > 0; the distillation against
     `cl.prev_logits` once `n_known` > 0 (`distill_loss`: BiC's where
@@ -189,7 +189,8 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
     class_mask_f = cl.class_mask.float()
     tgt = label_points(points, batch["gt_segments"], batch["gt_labels"],
                        batch["gt_valid"], cls_logits.shape[-1],
-                       outputs["gaussians"], CENTER_SAMPLE_RADIUS)
+                       outputs["gaussians"], tc.center_sample_radius,
+                       tc.center_sample)
     pos_mask = tgt.pos_mask & valid
     num_pos = pos_mask.float().sum()
     if dp is not None:
@@ -212,7 +213,8 @@ def compute_losses(outputs: dict, batch: dict, points: torch.Tensor,
     reg_loss = (reg_l * pos_mask).sum() / norm
     reg_loss = torch.where(num_pos > 0, reg_loss, torch.zeros_like(reg_loss))
 
-    final = cls_loss + reg_loss * LOSS_WEIGHT
+    final = cls_loss + reg_loss * (tc.loss_weight if tc.loss_weight > 0
+                                   else 1.0)
     metrics = {"cls_loss": cls_loss, "reg_loss": reg_loss,
                "num_pos": num_pos}
     if tc.al_loss_weight > 0 and cls_logits.shape[-1] > 1:
@@ -345,7 +347,8 @@ def narration_ssl_loss(nf, vf, narration_valid, bank, ptr,
 
 
 def global_norm_clip(grad_flat: torch.Tensor,
-                     extra: Optional[torch.Tensor] = None):
+                     extra: Optional[torch.Tensor] = None,
+                     clip: float = 1.0):
     """(global L2 norm of the gradients, clip factor min(1, clip / (norm +
     1e-9))), both 0-d f32 tensors on the gradients' device; `grad_flat`
     holds every gradient (the optimizer's buffer), `extra` the compute
@@ -355,7 +358,7 @@ def global_norm_clip(grad_flat: torch.Tensor,
     norms = [torch.linalg.vector_norm(g, dtype=torch.float64)
              for g in (grad_flat, extra) if g is not None]
     gnorm = torch.linalg.vector_norm(torch.stack(norms)).float()
-    return gnorm, torch.clamp(CLIP_GRAD_L2NORM / (gnorm + 1e-9), max=1.0)
+    return gnorm, torch.clamp(clip / (gnorm + 1e-9), max=1.0)
 
 
 def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -414,6 +417,11 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
                                   f"runs {CL_METHODS}")
     use_ssl, use_prompt = cl_cfg.narration_ssl, cl_cfg.prompt_pool
     K = accumulation_steps
+    # the clip is on or off for the step's life: a captured graph
+    # (make_multi_train_step) holds one form; off, K4 scales by 1 (exact)
+    # and the metrics have no grad_norm, as JAX's
+    clip = tc.clip_grad_l2norm if tc.clip_grad_l2norm > 0 else 0.0
+    one = torch.ones((), device=points.device)
 
     def micro_loss(state, mb, mcl, norm, marks):
         model = state.model
@@ -498,14 +506,17 @@ def make_train_step(points: torch.Tensor, tc: TrainCfg, *,
             metrics["reg_penalty"] = cl.penalty.apply(
                 state.opt.param_flat, state.opt.grad_flat,
                 state.opt if copies is not None else None, bf16_grads)
-        gnorm, gscale = global_norm_clip(
-            state.opt.grad_flat,
-            state.opt.pc_grad_flat if bf16_grads else None)
+        if clip:
+            gnorm, gscale = global_norm_clip(
+                state.opt.grad_flat,
+                state.opt.pc_grad_flat if bf16_grads else None, clip=clip)
+            metrics["grad_norm"] = gnorm
+        else:
+            gscale = one
         state.opt.update(gscale, bf16_grads)
         if state.adapter_ema is not None:
             update_adapter_ema(state.adapter_ema, state.model, ema_decay)
         mark(marks, "optimizer", points.device)
-        metrics["grad_norm"] = gnorm
         state.loss_normalizer.copy_(norm.detach())
         return {k: v.detach() for k, v in metrics.items()}
 
